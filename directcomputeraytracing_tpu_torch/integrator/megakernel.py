@@ -1,0 +1,208 @@
+"""Megakernel integrator: the whole path loop over a batch of pixels.
+
+Counterpart of `directcomputeraytracing_tpu.integrator.megakernel`. The
+reference fuses the loop into one jitted program with a `fori_loop` over
+bounces; here the bounce loop is a Python loop over masked tensors.
+Terminated paths are masked out and stop drawing random numbers
+(`_masked_1d` / `_masked_2d`), exactly as in the reference, so both
+packages draw the same per-pixel streams.
+
+Per sample pass: one closest-hit cast for the camera ray, then per bounce
+one any-hit shadow cast (when the scene has lights) and one closest-hit
+extension cast, i.e. (max_bounce + 2) closest and (max_bounce + 1) any-hit
+casts.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from directcomputeraytracing_tpu.core.constants import LIGHT_INDEX_INVALID
+
+from ..accel.traverse import intersect_any, intersect_closest
+from ..bsdf.dispatch import evaluate_bsdf, evaluate_bsdf_pdf, sample_bsdf
+from ..camera.camera import generate_ray
+from ..lights.lights import (
+    evaluate_env,
+    evaluate_light_direct,
+    sample_light_direct,
+)
+from ..rng.xoshiro import (
+    init_rng,
+    next_sample_1d,
+    next_sample_2d,
+    next_sample_3d,
+)
+from ..sampling.montecarlo import dot, power_heuristic
+from .common import RenderConfig, offset_ray_origin, shade_hit
+
+
+def _sel(mask, new, old):
+    if new.dim() > mask.dim():
+        mask = mask.reshape(mask.shape + (1,) * (new.dim() - mask.dim()))
+    return torch.where(mask, new, old)
+
+
+def _masked_1d(rng, active):
+    rng2, u = next_sample_1d(rng)
+    return _sel(active, rng2, rng), u
+
+
+def _masked_2d(rng, active):
+    rng2, u = next_sample_2d(rng)
+    return _sel(active, rng2, rng), u
+
+
+def _mesh_light_camera_eval(scene, light_index, wo, geometry_normal):
+    """A mesh light seen directly by the camera."""
+    idx = torch.clamp(light_index, 0, scene.light_radiance.shape[0] - 1)
+    facing = dot(wo, geometry_normal) > 0.0
+    return torch.where(facing[..., None], scene.light_radiance[idx], 0.0)
+
+
+def _check_supported(cfg: RenderConfig):
+    if cfg.any_hit:
+        raise NotImplementedError(
+            "alpha-tested scenes: ROADMAP queue 1, item 11")
+    if cfg.slab_march > 0.0:
+        raise NotImplementedError(
+            "slab marching (slab_march > 0) needs the work-list kernels: "
+            "ROADMAP queue 1, item 11 and queue 2, items 3-6")
+
+
+class _Carry(NamedTuple):
+    rng: torch.Tensor
+    l: torch.Tensor
+    throughput: torch.Tensor
+    wi: torch.Tensor
+    itx: object
+    active: torch.Tensor
+
+
+def _bounce(scene, luts, cfg, c):
+    """One bounce: NEE with MIS, BSDF sample, extension cast, implicit
+    light hit with MIS."""
+    active, itx, rng = c.active, c.itx, c.rng
+    wo = -c.wi
+    l_acc = c.l
+    if cfg.light_count > 0:
+        rng, u_sel = _masked_1d(rng, active)
+        rng, u_tri = _masked_1d(rng, active)
+        rng, u2 = _masked_2d(rng, active)
+        ls = sample_light_direct(scene, cfg.light_count, cfg.has_env_texture,
+                                 itx.position, u_sel, u_tri, u2)
+        shadow_o = offset_ray_origin(itx.position, itx.geometry_normal, ls.wi)
+        # inactive lanes cast a zero-length ray from far away
+        x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=ls.wi.dtype,
+                              device=ls.wi.device)
+        occluded = intersect_any(
+            scene, torch.where(active[:, None], shadow_o, 2e9),
+            torch.where(active[:, None], ls.wi, x_axis),
+            torch.where(active, ls.distance, 0.0),
+            backend=cfg.traversal_backend, watertight=cfg.watertight)
+        f = evaluate_bsdf(luts, ls.wi, wo, itx, cfg.use_vndf)
+        f_pdf = evaluate_bsdf_pdf(luts, ls.wi, wo, itx, cfg.use_vndf)
+        n_dot_wi = torch.abs(dot(itx.normal, ls.wi))
+        w = torch.where(ls.is_delta, 1.0,
+                        power_heuristic(1, ls.pdf, 1, f_pdf))
+        contrib = (c.throughput * ls.radiance * f
+                   * (n_dot_wi * w / torch.clamp(ls.pdf, min=1e-20))[..., None])
+        ok = (active & ~occluded & (ls.pdf > 0.0)
+              & (ls.radiance > 0.0).any(-1))
+        l_acc = l_acc + _sel(ok, contrib, torch.zeros_like(contrib))
+
+    rng, u_sel_b = _masked_1d(rng, active)
+    rng, u2_b = _masked_2d(rng, active)
+    wi_new, f, f_pdf, is_delta = sample_bsdf(luts, wo, u2_b, u_sel_b, itx,
+                                             cfg.use_vndf)
+    dead = (f == 0.0).all(-1) | (f_pdf == 0.0)
+    n_dot_wi = torch.abs(dot(itx.normal, wi_new))
+    throughput = c.throughput * f * (
+        n_dot_wi / torch.clamp(f_pdf, min=1e-20))[..., None]
+    alive = active & ~dead
+    throughput = _sel(alive, throughput, c.throughput)
+
+    ext_o = offset_ray_origin(itx.position, itx.geometry_normal, wi_new)
+    hit2 = intersect_closest(scene, ext_o, wi_new,
+                             backend=cfg.traversal_backend,
+                             watertight=cfg.watertight)
+    itx2 = shade_hit(scene, ext_o, wi_new, hit2)
+
+    env_idx = cfg.env_light_index if cfg.has_env_light \
+        else LIGHT_INDEX_INVALID
+    light_idx = torch.where(hit2.hit, itx2.light_index, env_idx)
+    rad, l_pdf = evaluate_light_direct(
+        scene, max(cfg.light_count, 1), cfg.has_env_texture, light_idx,
+        itx2.triangle_index, itx2.geometry_normal, wi_new, hit2.t)
+    w = torch.where(is_delta, 1.0, power_heuristic(1, f_pdf, 1, l_pdf))
+    ok = alive & (l_pdf > 0.0)
+    l_acc = l_acc + _sel(ok, throughput * rad * w[..., None],
+                         torch.zeros_like(rad))
+
+    itx_next = type(itx)(*(_sel(alive, new, old)
+                           for new, old in zip(itx2, itx)))
+    itx_next = itx_next._replace(
+        position=_sel(alive & hit2.hit, itx2.position, itx.position))
+    return _Carry(rng=rng, l=l_acc, throughput=throughput,
+                  wi=_sel(alive, wi_new, c.wi), itx=itx_next,
+                  active=alive & hit2.hit)
+
+
+def render_samples(scene, luts, cam, cfg: RenderConfig, pixel_x, pixel_y,
+                   frame_seed):
+    """Trace one sample per pixel for a pixel batch on the pixels' device.
+
+    pixel_x / pixel_y: (R,) int64. Returns (sample_position (R, 2) in-pixel
+    jitter, sample_value (R, 3) radiance).
+    """
+    _check_supported(cfg)
+    rng = init_rng(pixel_x, pixel_y, frame_seed)
+    rng, pixel_sample = next_sample_2d(rng)
+    res = torch.tensor([cfg.width, cfg.height], dtype=torch.float32,
+                       device=pixel_x.device)
+    pix = torch.stack([pixel_x, pixel_y], dim=-1).to(torch.float32)
+    rng, aperture_sample = next_sample_3d(rng)
+    origin, wi = generate_ray(cam, (pixel_sample + pix) / res,
+                              aperture_sample)
+
+    hit = intersect_closest(scene, origin, wi, backend=cfg.traversal_backend,
+                            watertight=cfg.watertight)
+    itx = shade_hit(scene, origin, wi, hit)
+    itx = itx._replace(position=_sel(hit.hit, itx.position, origin))
+
+    l = torch.zeros_like(origin)
+    if cfg.light_visible:
+        cam_light = hit.hit & (itx.light_index != LIGHT_INDEX_INVALID)
+        l = l + _sel(cam_light,
+                     _mesh_light_camera_eval(scene, itx.light_index, -wi,
+                                             itx.geometry_normal),
+                     torch.zeros_like(l))
+        if cfg.has_env_light:
+            l = _sel(~hit.hit, evaluate_env(scene, wi, cfg.env_light_index,
+                                            cfg.has_env_texture), l)
+
+    c = _Carry(rng=rng, l=l, throughput=torch.ones_like(origin), wi=wi,
+               itx=itx, active=hit.hit)
+    for _ in range(cfg.max_bounce + 1):
+        c = _bounce(scene, luts, cfg, c)
+    return pixel_sample, c.l
+
+
+def render_samples_accumulated(scene, luts, cam, cfg: RenderConfig,
+                               pixel_x, pixel_y, base_seed, n_samples):
+    """Sum of n_samples passes with seeds base_seed + k (box-filter
+    accumulation)."""
+    total = torch.zeros((pixel_x.shape[0], 3), dtype=torch.float32,
+                        device=pixel_x.device)
+    for k in range(n_samples):
+        total = total + render_samples(scene, luts, cam, cfg, pixel_x,
+                                       pixel_y, base_seed + k)[1]
+    return total
+
+
+def full_frame_pixels(cfg: RenderConfig, device):
+    """Raster-order (x, y) int64 pixel coordinates of a whole frame."""
+    ys, xs = torch.meshgrid(torch.arange(cfg.height, device=device),
+                            torch.arange(cfg.width, device=device),
+                            indexing="ij")
+    return xs.reshape(-1), ys.reshape(-1)
