@@ -167,11 +167,14 @@ def brute_closest(scene, origin, direction, t_min=0.0, watertight=False):
     t, u, v = (torch.empty(r, **f32) for _ in range(3))
     tri, inst = torch.empty(r, **i32), torch.empty(r, **i32)
     back = torch.empty(r, dtype=torch.bool, device=origin.device)
-    err = kernels().lib.dcrt_brute_closest(
-        tab.data_ptr(), tab.shape[0], origin.data_ptr(), direction.data_ptr(),
-        r, float(t_min), int(watertight), t.data_ptr(), u.data_ptr(),
-        v.data_ptr(), tri.data_ptr(), inst.data_ptr(), back.data_ptr(),
-        torch.cuda.current_stream(origin.device).cuda_stream)
+    lib = kernels().lib
+    with torch.cuda.device(origin.device):   # the launch targets the
+        err = lib.dcrt_brute_closest(        # runtime's current device
+            tab.data_ptr(), tab.shape[0], origin.data_ptr(),
+            direction.data_ptr(), r, float(t_min), int(watertight),
+            t.data_ptr(), u.data_ptr(), v.data_ptr(), tri.data_ptr(),
+            inst.data_ptr(), back.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "brute_closest")
     brute_closest.launches += 1
     return t, u, v, tri, inst, back
@@ -189,10 +192,13 @@ def brute_any(scene, origin, direction, t_max, t_min=0.0, watertight=False):
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device)
     t_max = t_max.expand(r).contiguous()
     occ = torch.empty(r, dtype=torch.bool, device=origin.device)
-    err = kernels().lib.dcrt_brute_any(
-        tab.data_ptr(), tab.shape[0], origin.data_ptr(), direction.data_ptr(),
-        t_max.data_ptr(), r, float(t_min), int(watertight), occ.data_ptr(),
-        torch.cuda.current_stream(origin.device).cuda_stream)
+    lib = kernels().lib
+    with torch.cuda.device(origin.device):
+        err = lib.dcrt_brute_any(
+            tab.data_ptr(), tab.shape[0], origin.data_ptr(),
+            direction.data_ptr(), t_max.data_ptr(), r, float(t_min),
+            int(watertight), occ.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "brute_any")
     brute_any.launches += 1
     return occ

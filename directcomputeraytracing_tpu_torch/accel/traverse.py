@@ -3,7 +3,7 @@
 PyTorch counterpart of the part of `directcomputeraytracing_tpu.accel.
 traverse` that the dense sweep uses: the Moeller and watertight tests,
 `HitInfo`, and `intersect_closest` / `intersect_any` with a port-side
-backend resolver. The port has no stack traversal, so the reference's
+backend check. The port has no stack traversal, so the reference's
 `stack_size` argument is gone.
 
 Backends: "auto" is the dense sweep (`accel.brute`), which launches the
@@ -96,8 +96,9 @@ def ray_triangle_watertight(o, d, t_min, t_max, v0, v1, v2):
     return t, u, v, backface, hit
 
 
-def _resolve_backend(scene, backend):
-    """The port's backend for a cast; see the module docstring."""
+def _check_backend(scene, backend):
+    """Raise unless the cast goes to the dense sweep; see the module
+    docstring."""
     if scene.cluster_bbox.shape[0] > 1 or scene.isup_inst.shape[0] > 1:
         raise NotImplementedError(
             "scene carries cluster / instanced work-list tables: the "
@@ -106,7 +107,6 @@ def _resolve_backend(scene, backend):
         raise NotImplementedError(
             f"traversal backend {backend!r}: the port has only the dense "
             "sweep ('auto'); the stack traversal is ROADMAP queue 1, item 11")
-    return "dense"
 
 
 def _no_alpha(opacity_u):
@@ -121,7 +121,7 @@ def intersect_closest(scene, origin, direction, t_min=0.0, backend="auto",
     from .brute import brute_closest
 
     _no_alpha(opacity_u)
-    _resolve_backend(scene, backend)
+    _check_backend(scene, backend)
     t, u, v, tri, inst, back = brute_closest(scene, origin, direction, t_min,
                                              watertight)
     return HitInfo(t=t, u=u, v=v, triangle=tri, instance=inst, backface=back,
@@ -134,5 +134,5 @@ def intersect_any(scene, origin, direction, t_max, t_min=0.0, backend="auto",
     from .brute import brute_any
 
     _no_alpha(opacity_u)
-    _resolve_backend(scene, backend)
+    _check_backend(scene, backend)
     return brute_any(scene, origin, direction, t_max, t_min, watertight)

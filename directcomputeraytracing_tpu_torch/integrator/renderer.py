@@ -4,8 +4,8 @@ Counterpart of `directcomputeraytracing_tpu.integrator.renderer` for the
 megakernel integrator and the box film. The reference's TPU-only choices
 are gone: square-tile pixel order, bounce-ray sorting, tunnel pacing and
 its 2^18-pixel dispatch budget. What stays is a pixel chunk
-(`chunk_pixels`, default 2^20) that bounds the memory of one pass: a
-1024x1024 frame runs as one chunk, a larger frame as several.
+(`CHUNK_PIXELS`, 2^20) that bounds the memory of one pass: a 1024x1024
+frame runs as one chunk, a larger frame as several.
 
 The wavefront integrator, splatting filters, slab marching and
 alpha-tested scenes raise NotImplementedError (ROADMAP queue 1).
@@ -30,6 +30,9 @@ from .megakernel import (
     render_samples_accumulated,
 )
 
+# pixels per pass chunk, a bound on the device memory of one pass
+CHUNK_PIXELS = 1 << 20
+
 SEED_SAMPLE_COUNT = "sample_count"   # seed = accumulated sample index
 SEED_FIXED = "fixed"                 # pinned seed (deterministic retrace)
 SEED_FRAME_INDEX = "frame_index"     # seed = frame counter that survives
@@ -39,8 +42,7 @@ SEED_FRAME_INDEX = "frame_index"     # seed = frame counter that survives
 class Renderer:
     def __init__(self, scene, camera, width, height, max_bounce=4,
                  luts=None, integrator="megakernel", filter_params=None,
-                 post_params=None, *, device, chunk_pixels=1 << 20,
-                 **cfg_overrides):
+                 post_params=None, *, device, **cfg_overrides):
         self.device = torch.device(device)
         if integrator != "megakernel":
             raise NotImplementedError(
@@ -76,7 +78,6 @@ class Renderer:
             raise NotImplementedError(
                 "splatting reconstruction filters: ROADMAP queue 1, item 9")
         self.post_params = post_params or PostParams()
-        self.chunk_pixels = int(chunk_pixels)
         self.film = create_film(height, width, self.device)
         self.spp = 0
         self.frame_index = 0    # advances per sample pass, survives reset()
@@ -85,12 +86,11 @@ class Renderer:
     @property
     def n_chunks(self):
         """Pixel chunks per sample pass."""
-        return -(-self._px.shape[0] // self.chunk_pixels)
+        return -(-self._px.shape[0] // CHUNK_PIXELS)
 
     def _chunks(self):
-        for i in range(0, self._px.shape[0], self.chunk_pixels):
-            yield (self._px[i:i + self.chunk_pixels],
-                   self._py[i:i + self.chunk_pixels])
+        for i in range(0, self._px.shape[0], CHUNK_PIXELS):
+            yield (self._px[i:i + CHUNK_PIXELS], self._py[i:i + CHUNK_PIXELS])
 
     def reset(self):
         """Restart progressive accumulation; frame_index survives (the

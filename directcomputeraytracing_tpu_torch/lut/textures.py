@@ -46,9 +46,9 @@ def committed_lut_path():
                         "lut", "_bxdf_luts_s0_q1.npz")
 
 
-def load_luts(device, path=None) -> BxDFLuts:
-    """Read a LUT .npz with numpy (default: the committed bake)."""
-    with np.load(path or committed_lut_path()) as data:
+def load_luts(device) -> BxDFLuts:
+    """Read the committed bake with numpy."""
+    with np.load(committed_lut_path()) as data:
         return BxDFLuts(**{k: torch.from_numpy(np.asarray(data[k], np.float32))
                            .to(device) for k in BxDFLuts._fields})
 

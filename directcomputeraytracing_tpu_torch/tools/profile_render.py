@@ -1,0 +1,109 @@
+"""Where the time of a Cornell glossy 1024x1024 render goes, on one GPU.
+
+    python -m directcomputeraytracing_tpu_torch.tools.profile_render
+
+Needs a CUDA device; with none it exits non-zero. Renders
+`cornell_box("area", "glossy")` at 1024x1024, max_bounce 4, through
+`Renderer.render(spp=8)`: the fused 8-sample call that chip_smoke.py's
+16 spp render makes twice. Prints the card's name and power limit, the
+operators with the most device time (a `key_averages()` table), and three
+JSON lines:
+
+- `wall`: ms/spp by the host clock around `render(8)` ending in
+  `torch.cuda.synchronize()`, for three runs after a warm-up of the same
+  call, and the peak device memory;
+- `trace`: one more `render(8)` under `torch.profiler`, per sample pass:
+  device busy ms (the union of the intervals of the device's kernels and
+  copies), device ops launched, and the profiled wall ms. `idle_traced`
+  is the idle share of the profiled run itself; `idle_unprofiled` sets the
+  same busy time against the median unprofiled wall ms. The profiler slows
+  the host and not the kernels, so the second is the nearer estimate;
+- `ops`: device time per PyTorch operator (its kernels' time) as a share
+  of busy time, largest first.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ..integrator.renderer import Renderer
+from ..scene.presets import cornell_box
+
+WIDTH = HEIGHT = 1024
+MAX_BOUNCE = 4
+SPP = 8
+REPS = 3
+
+
+def _timed_render(r):
+    r.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.render(spp=SPP)
+    torch.cuda.synchronize()
+    return 1000.0 * (time.perf_counter() - t0) / SPP
+
+
+def _busy_ms(events):
+    """Length of the union of device-side event intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1000.0, len(spans)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("profile_render: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=120, check=True)
+    print(smi.stdout.strip())
+    r = Renderer(*cornell_box("area", "glossy"), WIDTH, HEIGHT,
+                 max_bounce=MAX_BOUNCE, device=torch.device("cuda"))
+    _timed_render(r)   # warm-up: kernel build, allocator growth
+    torch.cuda.reset_peak_memory_stats()
+    wall = [_timed_render(r) for _ in range(REPS)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    r.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r.render(spp=SPP)
+        torch.cuda.synchronize()
+        traced_ms = 1000.0 * (time.perf_counter() - t0) / SPP
+    busy, n_ops = _busy_ms(prof.events())
+    busy /= SPP
+    ka = prof.key_averages()
+    print(ka.table(sort_by="self_device_time_total", row_limit=25,
+                   max_name_column_width=60))
+    per_op = sorted(((e.self_device_time_total / 1000.0 / SPP, e.key)
+                     for e in ka if e.device_type == DeviceType.CPU
+                     and e.self_device_time_total > 0), reverse=True)
+    median = statistics.median(wall)
+    print("wall", json.dumps(dict(ms_per_spp=wall, median=median,
+                                  peak_mem_gib=peak)))
+    print("trace", json.dumps(dict(
+        busy_ms_per_spp=busy, device_ops_per_spp=n_ops / SPP,
+        traced_wall_ms_per_spp=traced_ms,
+        idle_traced=1.0 - busy / traced_ms,
+        idle_unprofiled=1.0 - busy / median)))
+    print("ops", json.dumps({k: round(ms / busy, 4) for ms, k in per_op[:12]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

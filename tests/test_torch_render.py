@@ -40,6 +40,7 @@ from directcomputeraytracing_tpu_torch.integrator.megakernel import (
     full_frame_pixels,
     render_samples,
 )
+from directcomputeraytracing_tpu_torch.integrator import renderer as renderer_mod
 from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
 from directcomputeraytracing_tpu_torch.scene.presets import cornell_box
 from directcomputeraytracing_tpu_torch.scene.scene import Material
@@ -102,15 +103,17 @@ def test_renderer_matches_reference(seed_mode, spp):
         _assert_pixels_close(ref.render(1, **kw), port.render(1, **kw))
 
 
-def test_renderer_chunks_give_the_same_image():
+def test_renderer_chunks_give_the_same_image(monkeypatch):
     """The pixel chunk only bounds memory: 4 chunks render what 1 does."""
     scene, cam = cornell_box("area", "glossy")
     one = Renderer(scene, cam, W, H, max_bounce=2, device=CPU)
-    four = Renderer(scene, cam, W, H, max_bounce=2, device=CPU,
-                    chunk_pixels=W * H // 4)
-    assert (one.n_chunks, four.n_chunks) == (1, 4)
-    np.testing.assert_array_equal(one.render(3), four.render(3))
-    assert np.array_equal(one.image(), four.image())
+    four = Renderer(scene, cam, W, H, max_bounce=2, device=CPU)
+    assert one.n_chunks == 1
+    one.render(3)
+    monkeypatch.setattr(renderer_mod, "CHUNK_PIXELS", W * H // 4)
+    assert four.n_chunks == 4
+    four.render(3)
+    np.testing.assert_array_equal(one.image(), four.image())
 
 
 def test_zero_spp_image_is_black():
