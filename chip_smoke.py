@@ -7,38 +7,59 @@ Run from the repository root on a machine with one CUDA card and nvcc
 any failure exits non-zero:
 
 1. setup: print the card's name and power limit, build the dense-sweep
-   kernels (csrc/brute_sweep.cu) and print the build time and ptxas report;
-2. kernels against their PyTorch twins on the card, Moeller and
-   watertight, closest and any-hit: (a) the Cornell soup (32 triangles)
-   with 1,048,576 camera rays plus 1,048,576 random rays from inside the
-   box, (b) a seeded 2048-triangle random soup with 1,048,576 random rays;
-   mismatch counts, max errors and kernel/twin times;
+   and work-list kernels (csrc/brute_sweep.cu, csrc/worklist.cu; the two
+   nvcc runs in parallel) and print the build times and ptxas reports;
+2. dense-sweep kernels against their PyTorch twins on the card, Moeller
+   and watertight, closest and any-hit: (a) the Cornell soup (32
+   triangles) with 1,048,576 camera rays plus 1,048,576 random rays from
+   inside the box, (b) a seeded 2048-triangle random soup with 1,048,576
+   random rays; mismatch counts, max errors and kernel/twin times;
+2b. work-list kernels (cull, refine, closest and any-hit sweeps) against
+   their twins on sphere_grid(12, 12) (211,972 triangles), Baldwin-Weber
+   and watertight: 1,048,576 tiled camera rays, 1,048,576 random rays
+   from inside the scene box, 1,048,576 shadow rays towards the lamp with
+   per-ray t_max; mismatch counts, `iters` equality, kernel and twin
+   times at the camera rays (CUDA events), items per block and mean
+   clusters swept per ray;
 3. the main path: Cornell glossy 1024x1024, 16 spp, max_bounce 4 through
    `Renderer.render`, with the kernels' launch counts checked against
    spp * (max_bounce + 2) * chunks (closest) and spp * (max_bounce + 1) *
    chunks (any-hit);
-4. the card's render against the port's CPU render (64x64, 4 spp);
-5. one JSON line per kernel set, then the contract line, last.
+3b. the main path on a clustered scene: sphere_grid(12, 12) 1024x1024,
+   16 spp, max_bounce 4. Closest sweeps plus closest casts with an empty
+   item list must equal spp * (max_bounce + 2) * chunks, any-hit sweeps
+   plus empty any-hit casts spp * (max_bounce + 1) * chunks; one cull per
+   cast, one refine per cast whose hyper cull admitted something; no
+   dense-sweep launch;
+4. the card's render against the port's CPU render, Cornell (64x64,
+   4 spp) and 4b. sphere_grid(3, 3, stacks=12, slices=16) (64x64, 4 spp);
+5. one JSON line listing the six kernels, then the contract line, last.
 
 Tolerances (kernel vs twin): the kernels are built without FMA
 contraction, so they round like the twins; a hit/miss or occlusion
 disagreement is allowed only where the twin's t lies within 1e-5 (1 + t)
 of t_min or t_max, a triangle-id disagreement only between hits within
-that bound of each other (a near-tie), and t, u, v of same-triangle hits
-must agree within 1e-5 (relative to 1 + t for t).
+that bound of each other (a near-tie; for the work list also within
+2^-12 relative, twice the packed argmin's truncation quantum), and t, u,
+v of same-triangle hits must agree within 1e-5 (relative to 1 + t for
+t). Work-list `iters` must be equal.
 """
 
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 TOL = 1e-5
+TIE_WL = 2.0 ** -12
 N_RAYS = 1 << 20
 RENDER = dict(width=1024, height=1024, spp=16, max_bounce=4)
 SMALL = dict(width=64, height=64, spp=4, max_bounce=4)
+GRID = (12, 12)                         # 211,972 world triangles
+SMALL_GRID = ((3, 3), dict(stacks=12, slices=16))
 # CPU vs card render gate. Paths are identical up to float rounding
 # (transcendentals differ by an ulp between torch's CPU and CUDA math);
 # a rare flipped branch changes one path of one pixel, so the gate allows
@@ -92,7 +113,7 @@ def _camera_rays(cam, width, height, device):
 
 
 def compare_kernels(tab, o, d, t_max, t_min, watertight):
-    """Kernel vs twin on one ray set; returns the mismatch report."""
+    """Dense-sweep kernel vs twin on one ray set; the mismatch report."""
     import torch
 
     from directcomputeraytracing_tpu_torch.accel import brute
@@ -103,12 +124,24 @@ def compare_kernels(tab, o, d, t_max, t_min, watertight):
     occ_k = brute.brute_any(scene, o, d, t_max, t_min, watertight)
     occ_w = brute.brute_any_torch(tab, o, d, t_max, t_min, watertight)
     torch.cuda.synchronize()
-    (tk, uk, vk, trik, instk, backk), (tw, uw, vw, triw, instw, backw) = k, w
+    rep = _mismatches(k, w, occ_k, occ_w, o, t_max, t_min, 0.0)
+    rep.update(tris=tab.shape[0], watertight=bool(watertight))
+    return rep
+
+
+def _mismatches(k, w, occ_k, occ_w, o, t_max, t_min, tie_rel):
+    """Mismatch report of kernel (k, occ_k) against twin (w, occ_w)
+    results; tie_rel widens the near-tie bound by tie_rel * |t|."""
+    import torch
+
+    (tk, uk, vk, trik, instk, backk), (tw, uw, vw, triw, instw, backw) = \
+        k[:6], w[:6]
     hk, hw = torch.isfinite(tk), torch.isfinite(tw)
 
     def near(t, bound):
-        """t finite and within TOL (1 + |t|) of bound."""
-        return torch.isfinite(t) & ((t - bound).abs() <= TOL * (1 + t.abs()))
+        """t finite and within TOL (1 + |t|) + tie_rel |t| of bound."""
+        return torch.isfinite(t) & ((t - bound).abs()
+                                    <= TOL * (1 + t.abs()) + tie_rel * t.abs())
 
     hit_miss = hk != hw
     hit_miss_bad = hit_miss & ~near(torch.where(hw, tw, tk), t_min)
@@ -125,8 +158,7 @@ def compare_kernels(tab, o, d, t_max, t_min, watertight):
     # at t_max (or t_min) within the bound
     tm = torch.as_tensor(t_max, device=o.device).expand(o.shape[:1])
     occ_bad = occ_diff & ~(near(tw, tm) | near(tw, t_min))
-    rep = dict(rays=o.shape[0], tris=tab.shape[0],
-               watertight=bool(watertight),
+    rep = dict(rays=o.shape[0],
                hits=int(hw.sum()), occluded=int(occ_w.sum()),
                hit_miss_diff=int(hit_miss.sum()),
                hit_miss_unexplained=int(hit_miss_bad.sum()),
@@ -213,16 +245,213 @@ def phase_kernels(device):
     return reports, times
 
 
-def phase_render(device):
+def _tiled_camera_rays(cam, width, height, device):
+    """Pixel-centre camera rays in the renderer's 32x32 tile order."""
     import torch
 
-    from directcomputeraytracing_tpu_torch.accel import brute
-    from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
-    from directcomputeraytracing_tpu_torch.scene.presets import cornell_box
+    from directcomputeraytracing_tpu_torch.camera.camera import generate_ray
+    from directcomputeraytracing_tpu_torch.integrator.common import (
+        RenderConfig,
+    )
+    from directcomputeraytracing_tpu_torch.integrator.megakernel import (
+        tiled_frame_pixels,
+    )
 
-    scene, cam = cornell_box("area", "glossy")
+    px, py, _ = tiled_frame_pixels(RenderConfig(width=width, height=height),
+                                   device)
+    film = torch.stack([(px + 0.5) / width, (py + 0.5) / height], dim=-1)
+    return generate_ray(cam, film.float(),
+                        torch.zeros(film.shape[0], 3, device=device))
+
+
+def _items_census(tables, od, tm):
+    """Items per block of one cast: mean and max over blocks."""
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+
+    items = wl.phases(tables, od, tm)
+    if items is None:
+        return dict(items=0, items_per_block=0.0, items_per_block_max=0)
+    counts = (items.seg[1:] - items.seg[:-1]).float()
+    return dict(items=int(items.seg[-1]), items_per_block=float(counts.mean()),
+                items_per_block_max=int(counts.max()))
+
+
+def phase_worklist_kernels(device):
+    """Work-list kernels vs twins on sphere_grid(12, 12); kernel and twin
+    times at the camera rays; the item and cluster census."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+    from directcomputeraytracing_tpu_torch.core.types import to_device
+    from directcomputeraytracing_tpu_torch.scene.presets import sphere_grid
+    from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+
+    rng = np.random.default_rng(20261017)
+    scene, cam = sphere_grid(*GRID)
+    t0 = time.perf_counter()
+    arrays, _ = flatten_scene(scene, device)
+    flatten_s = time.perf_counter() - t0
+    tables = wl.scene_tables(arrays)
+    print("worklist scene", json.dumps(dict(
+        world_tris=arrays.world_tris.shape[0],
+        clusters=arrays.cluster_bbox.shape[0], supers=tables.sbox.shape[0],
+        hypers=None if tables.hbox is None else tables.hbox.shape[0],
+        flatten_s=flatten_s)))
+    if tables.hbox is None:
+        raise SystemExit("sphere_grid(12, 12) should use the hyper level")
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    lo, hi = [-18.0, 0.01, -18.0], [18.0, 6.9, 18.0]
+    side = int(np.sqrt(N_RAYS))
+    o_cam, d_cam = _tiled_camera_rays(to_device(cam, device), side, side,
+                                      device)
+    o_in, d_in = _rays_inside(rng, N_RAYS, lo, hi)
+    o_sh = rng.uniform([-9.0, 0.01, -9.0], [9.0, 1.5, 9.0], (N_RAYS, 3))
+    to_lamp = rng.uniform([-2.0, 7.0, -2.0], [2.0, 7.0, 2.0],
+                          (N_RAYS, 3)) - o_sh
+    dist = np.linalg.norm(to_lamp, axis=1)
+    sets = {
+        "camera": (o_cam, d_cam, f32(rng.uniform(0.5, 30.0, N_RAYS))),
+        "random": (f32(o_in), f32(d_in), f32(rng.uniform(0.5, 30.0, N_RAYS))),
+        "shadow": (f32(o_sh), f32(to_lamp / dist[:, None]),
+                   f32(0.999 * dist)),
+    }
+    t_min = 1e-4
+    reports, census = [], {}
+    cull = dict(diff=0, err=0.0, refine_diff=0, refine_err=0.0)
+    for name, (o, d, t_max) in sets.items():
+        od, tm_closest, _ = wl.prep_rays(o, d)
+        _, tm_any, _ = wl.prep_rays(o, d, t_max)
+        census[name] = dict(closest=_items_census(tables, od, tm_closest),
+                            any=_items_census(tables, od, tm_any))
+        for tm in (tm_closest, tm_any):
+            tlo = wl.cull_boxes(tables.hbox, od, tm)
+            tlo_w = wl.cull_boxes_torch(tables.hbox, od, tm)
+            blk, hyp, _ = wl.compact_pairs(tlo_w)
+            ref = wl.refine(tables.hsup, blk, hyp, od, tm)
+            ref_w = wl.refine_torch(tables.hsup, blk, hyp, od, tm)
+            cull["diff"] += int((tlo != tlo_w).sum())
+            cull["err"] = max(cull["err"], float((tlo - tlo_w).abs().max()))
+            cull["refine_diff"] += int((ref != ref_w).sum())
+            cull["refine_err"] = max(cull["refine_err"],
+                                     float((ref - ref_w).abs().max()))
+        for wt in (False, True):
+            t0 = time.perf_counter()
+            k = wl.worklist_closest(arrays, o, d, t_min, wt)
+            occ_k = wl.worklist_any(arrays, o, d, t_max, t_min, wt)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            w = wl.worklist_closest_torch(arrays, o, d, t_min, wt)
+            occ_w = wl.worklist_any_torch(arrays, o, d, t_max, t_min, wt)
+            torch.cuda.synchronize()
+            rep = _mismatches(k, w, occ_k, occ_w, o, t_max, t_min, TIE_WL)
+            rep["iters_diff"] = int((k[6] != w[6]).sum())
+            rep["ok"] = rep["ok"] and rep["iters_diff"] == 0
+            rep.update(case=name, watertight=wt, kernel_casts_s=t1 - t0,
+                       twin_casts_s=time.perf_counter() - t1)
+            if not wt:
+                hit = torch.isfinite(k[0])
+                census[name].update(
+                    iters_per_ray=float(k[6].float().mean()),
+                    iters_per_hit=float(k[6][hit].float().mean()),
+                    hit_fraction=float(hit.float().mean()))
+            reports.append(rep)
+            print("worklist-kernel-vs-twin", json.dumps(rep))
+    print("worklist census", json.dumps(census))
+    print("worklist cull-and-refine-vs-twin", json.dumps(cull))
+
+    # kernel and twin times at the main path's first cast: 1M camera rays
+    o, d, t_max = sets["camera"]
+    od, tm, _ = wl.prep_rays(o, d)
+    _, tm_any, _ = wl.prep_rays(o, d, t_max)
+    texp = wl.scene_exit(tables, od)
+    boxes = tables.hbox
+    blk, hyp, _ = wl.compact_pairs(wl.cull_boxes(boxes, od, tm))
+    items = wl.phases(tables, od, tm)
+    items_any = wl.phases(tables, od, tm_any)
+    times = dict(
+        cull_ms=_timed(lambda: wl.cull_boxes(boxes, od, tm), 20),
+        cull_twin_ms=_timed(lambda: wl.cull_boxes_torch(boxes, od, tm), 2),
+        closest_ms=_timed(lambda: wl.sweep_closest(
+            tables, items, od, texp, t_min, False), 10),
+        closest_twin_ms=_timed(lambda: wl.sweep_closest_torch(
+            tables, items, od, texp, t_min, False), 1),
+        any_ms=_timed(lambda: wl.sweep_any(
+            tables, items_any, od, tm_any, t_min, False), 10),
+        any_twin_ms=_timed(lambda: wl.sweep_any_torch(
+            tables, items_any, od, tm_any, t_min, False), 1),
+        closest_cast_ms=_timed(lambda: wl.worklist_closest(
+            arrays, o, d, t_min), 5),
+        any_cast_ms=_timed(lambda: wl.worklist_any(
+            arrays, o, d, t_max, t_min), 5),
+        refine_items=int(blk.shape[0]),
+        refine_ms=_timed(lambda: wl.refine(tables.hsup, blk, hyp, od, tm),
+                         20),
+        refine_twin_ms=_timed(lambda: wl.refine_torch(
+            tables.hsup, blk, hyp, od, tm), 2))
+    print("worklist timing camera", f"rays={o.shape[0]}", json.dumps(times))
+    bad = [r for r in reports if not r["ok"]]
+    if bad or cull["diff"] or cull["refine_diff"]:
+        raise SystemExit(f"work-list kernel/twin mismatch: {bad} {cull}")
+    return reports, times, cull
+
+
+def _scene(name):
+    from directcomputeraytracing_tpu_torch.scene.presets import (
+        cornell_box,
+        sphere_grid,
+    )
+
+    if name == "cornell":
+        return cornell_box("area", "glossy")
+    if name == "grid":
+        return sphere_grid(*GRID)
+    return sphere_grid(*SMALL_GRID[0], **SMALL_GRID[1])
+
+
+def _launches():
+    from directcomputeraytracing_tpu_torch.accel import brute
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+
+    return dict(brute_closest=brute.brute_closest.launches,
+                brute_any=brute.brute_any.launches, **wl.counters())
+
+
+def _reset_launches():
+    from directcomputeraytracing_tpu_torch.accel import brute
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+
+    brute.brute_closest.launches = brute.brute_any.launches = 0
+    wl.reset_counters()
+
+
+def _expected_launches(name, n_closest, n_any, got):
+    """The counts the main path must show: every cast went through the
+    path's kernels (the dense sweep for Cornell, the work list for the
+    sphere grid) and nothing else launched."""
+    zero = dict.fromkeys(got, 0)
+    if name == "cornell":
+        return dict(zero, brute_closest=n_closest, brute_any=n_any)
+    # work list: a cast with an empty item list launches no sweep (counted
+    # apart); each cast culls once; a cast whose hyper cull admitted
+    # nothing runs no refine (counted apart)
+    return dict(zero, cull_boxes=n_closest + n_any,
+                refine=n_closest + n_any - got["refine_skipped"],
+                refine_skipped=got["refine_skipped"],
+                sweep_closest=n_closest - got["closest_empty"],
+                closest_empty=got["closest_empty"],
+                sweep_any=n_any - got["any_empty"], any_empty=got["any_empty"])
+
+
+def phase_render(device, name):
+    import torch
+
+    from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
+
     p = RENDER
-    r = Renderer(scene, cam, p["width"], p["height"],
+    r = Renderer(*_scene(name), p["width"], p["height"],
                  max_bounce=p["max_bounce"], device=device)
     # warm-up: the timed call itself, so that the allocator's growth for
     # the fused pass falls outside the timed window
@@ -230,19 +459,19 @@ def phase_render(device):
     r.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    brute.brute_closest.launches = 0
-    brute.brute_any.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     img = r.render(spp=p["spp"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(brute_closest=brute.brute_closest.launches,
-                    brute_any=brute.brute_any.launches)
-    expect = dict(
-        brute_closest=p["spp"] * (p["max_bounce"] + 2) * r.n_chunks,
-        brute_any=p["spp"] * (p["max_bounce"] + 1) * r.n_chunks)
+    launches = _launches()
+    expect = _expected_launches(
+        name, p["spp"] * (p["max_bounce"] + 2) * r.n_chunks,
+        p["spp"] * (p["max_bounce"] + 1) * r.n_chunks, launches)
     post = r.postprocessed()
-    stats = dict(shape=list(img.shape), finite=bool(np.isfinite(img).all()),
+    stats = dict(scene=name, world_tris=r.arrays.world_tris.shape[0],
+                 tiled_and_sorted=r._inv is not None,
+                 shape=list(img.shape), finite=bool(np.isfinite(img).all()),
                  mean=float(img.mean()), max=float(img.max()),
                  ms_per_spp=1000.0 * seconds / p["spp"],
                  total_s=seconds, chunks=r.n_chunks,
@@ -254,36 +483,51 @@ def phase_render(device):
     print("render", json.dumps(stats))
     if not (stats["finite"] and stats["post_finite"] and stats["mean"] > 0.0
             and img.shape == (p["height"], p["width"], 3)):
-        raise SystemExit("render output is not a finite, non-black image")
+        raise SystemExit(f"{name} render is not a finite, non-black image")
     if launches != expect:
-        raise SystemExit(f"launch counts {launches} != expected {expect}")
+        raise SystemExit(f"{name} launch counts {launches} != {expect}")
     return stats
 
 
-def phase_cpu_vs_card(device):
+def phase_cpu_vs_card(device, name):
     import torch
 
     from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
-    from directcomputeraytracing_tpu_torch.scene.presets import cornell_box
 
     p = SMALL
     imgs = {}
     for dev in (torch.device("cpu"), device):
-        scene, cam = cornell_box("area", "glossy")
-        r = Renderer(scene, cam, p["width"], p["height"],
+        r = Renderer(*_scene(name), p["width"], p["height"],
                      max_bounce=p["max_bounce"], device=dev)
         imgs[dev.type] = r.render(spp=p["spp"])
     a, b = imgs["cpu"], imgs[device.type]
     rmse = float(np.sqrt(((a - b) ** 2).mean()))
     diverged = float((np.abs(a - b).max(-1) > 1e-3 * (1.0 + np.abs(a).max(-1)))
                      .mean())
-    rep = dict(rmse=rmse, gate_rmse=GATE_RMSE, diverged_pixels=diverged,
+    rep = dict(scene=name, world_tris=r.arrays.world_tris.shape[0],
+               rmse=rmse, gate_rmse=GATE_RMSE, diverged_pixels=diverged,
                gate_diverged=GATE_DIVERGED_FRACTION, mean_cpu=float(a.mean()),
                mean_card=float(b.mean()))
     print("cpu-vs-card", json.dumps(rep))
     if rmse > GATE_RMSE or diverged > GATE_DIVERGED_FRACTION:
-        raise SystemExit("card render differs from the CPU render")
+        raise SystemExit(f"{name}: card render differs from the CPU render")
     return rep
+
+
+def _build_all():
+    """Build both kernel libraries, the two nvcc runs in parallel."""
+    from directcomputeraytracing_tpu_torch.accel import brute
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+
+    with ThreadPoolExecutor(2) as pool:
+        futures = {src: pool.submit(mod.kernels) for src, mod in
+                   (("brute_sweep.cu", brute), ("worklist.cu", wl))}
+    for src, fut in futures.items():
+        built = fut.result()
+        print(f"build: {src} -> {built.path} in {built.seconds:.1f} s")
+        for line in built.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print("ptxas:", line.strip())
 
 
 def main():
@@ -302,33 +546,54 @@ def main():
           "python", sys.version.split()[0])
     device = torch.device("cuda")
 
-    from directcomputeraytracing_tpu_torch.accel import brute
-
-    built = brute.kernels()
-    print(f"build: brute_sweep.cu -> {built.path} in {built.seconds:.1f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("ptxas:", line.strip())
-
+    _build_all()
     reports, times = phase_kernels(device)
-    stats = phase_render(device)
-    phase_cpu_vs_card(device)
+    wl_reports, wl_times, wl_cull = phase_worklist_kernels(device)
+    cornell = phase_render(device, "cornell")
+    grid = phase_render(device, "grid")
+    phase_cpu_vs_card(device, "cornell")
+    phase_cpu_vs_card(device, "small_grid")
     if "jax" in sys.modules:
         raise SystemExit("the port imported jax")
 
-    src = "directcomputeraytracing_tpu_torch/csrc/brute_sweep.cu"
+    brute_src = "directcomputeraytracing_tpu_torch/csrc/brute_sweep.cu"
+    wl_src = "directcomputeraytracing_tpu_torch/csrc/worklist.cu"
+    ref_wl = "directcomputeraytracing_tpu/accel/worklist.py"
     top = times["cornell32_moeller"]   # the main path's scene and test
+    wl_closest_err = max(r["closest_max_abs_err"] for r in wl_reports)
+    wl_any_err = max(r["any_max_abs_err"] for r in wl_reports)
     print(json.dumps({"kernels": [
-        {"name": "brute_closest", "route": "cuda", "source": src,
+        {"name": "brute_closest", "route": "cuda", "source": brute_src,
          "replaces": "directcomputeraytracing_tpu/accel/pallas_brute.py:128",
-         "launches": stats["launches"]["brute_closest"],
+         "launches": cornell["launches"]["brute_closest"],
          "max_abs_err": max(r["closest_max_abs_err"] for r in reports),
          "ms": top["closest_ms"], "plain_ms": top["closest_twin_ms"]},
-        {"name": "brute_any", "route": "cuda", "source": src,
+        {"name": "brute_any", "route": "cuda", "source": brute_src,
          "replaces": "directcomputeraytracing_tpu/accel/pallas_brute.py:179",
-         "launches": stats["launches"]["brute_any"],
+         "launches": cornell["launches"]["brute_any"],
          "max_abs_err": max(r["any_max_abs_err"] for r in reports),
          "ms": top["any_ms"], "plain_ms": top["any_twin_ms"]},
+        {"name": "cull_boxes", "route": "cuda", "source": wl_src,
+         "replaces": f"{ref_wl}:365",
+         "launches": grid["launches"]["cull_boxes"],
+         "max_abs_err": wl_cull["err"],
+         "ms": wl_times["cull_ms"], "plain_ms": wl_times["cull_twin_ms"]},
+        {"name": "refine", "route": "cuda", "source": wl_src,
+         "replaces": f"{ref_wl}:445",
+         "launches": grid["launches"]["refine"],
+         "max_abs_err": wl_cull["refine_err"],
+         "ms": wl_times["refine_ms"], "plain_ms": wl_times["refine_twin_ms"]},
+        {"name": "sweep_closest", "route": "cuda", "source": wl_src,
+         "replaces": f"{ref_wl}:678",
+         "launches": grid["launches"]["sweep_closest"],
+         "max_abs_err": wl_closest_err,
+         "ms": wl_times["closest_ms"],
+         "plain_ms": wl_times["closest_twin_ms"]},
+        {"name": "sweep_any", "route": "cuda", "source": wl_src,
+         "replaces": f"{ref_wl}:866",
+         "launches": grid["launches"]["sweep_any"],
+         "max_abs_err": wl_any_err,
+         "ms": wl_times["any_ms"], "plain_ms": wl_times["any_twin_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

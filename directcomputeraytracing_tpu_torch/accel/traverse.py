@@ -1,16 +1,18 @@
 """Ray-triangle tests and the intersection entry points.
 
 PyTorch counterpart of the part of `directcomputeraytracing_tpu.accel.
-traverse` that the dense sweep uses: the Moeller and watertight tests,
-`HitInfo`, and `intersect_closest` / `intersect_any` with a port-side
-backend check. The port has no stack traversal, so the reference's
-`stack_size` argument is gone.
+traverse` that the port's traversals use: the Moeller and watertight
+tests, `HitInfo`, and `intersect_closest` / `intersect_any` with a
+port-side backend resolution. The port has no stack traversal, so the
+reference's `stack_size` argument is gone.
 
-Backends: "auto" is the dense sweep (`accel.brute`), which launches the
-CUDA kernels for CUDA tensors and runs their PyTorch twins for CPU
-tensors. Scenes with cluster or instanced work-list tables, alpha-tested
-casts and every other backend name raise NotImplementedError naming the
-ROADMAP item that brings them.
+Backend "auto", as the reference resolves it on its accelerator: scenes
+with cluster tables (more than 2048 world triangles) go to the work-list
+traversal (`accel.worklist`), the others to the dense sweep
+(`accel.brute`). Both launch their CUDA kernels for CUDA tensors and run
+their PyTorch twins for CPU tensors. Instanced work-list tables,
+alpha-tested casts and every other backend name raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from typing import NamedTuple
@@ -28,7 +30,7 @@ class HitInfo(NamedTuple):
     instance: torch.Tensor   # (R,) i32
     backface: torch.Tensor   # (R,) bool
     hit: torch.Tensor        # (R,) bool
-    iterations: torch.Tensor  # (R,) i32 traversal steps (0: dense sweep)
+    iterations: torch.Tensor  # (R,) i32 clusters swept (0: dense sweep)
 
 
 def ray_triangle_moeller(o, d, t_min, t_max, v0, v1, v2):
@@ -96,17 +98,19 @@ def ray_triangle_watertight(o, d, t_min, t_max, v0, v1, v2):
     return t, u, v, backface, hit
 
 
-def _check_backend(scene, backend):
-    """Raise unless the cast goes to the dense sweep; see the module
-    docstring."""
-    if scene.cluster_bbox.shape[0] > 1 or scene.isup_inst.shape[0] > 1:
+def _clustered(scene, backend):
+    """True for the work-list traversal, False for the dense sweep; raise
+    for what the port cannot cast yet (see the module docstring)."""
+    if scene.isup_inst.shape[0] > 1:
         raise NotImplementedError(
-            "scene carries cluster / instanced work-list tables: the "
-            "work-list and clustered kernels are ROADMAP queue 2, items 3-9")
+            "scene carries instanced work-list tables: the instanced "
+            "kernels are ROADMAP queue 2, rows 13-14")
     if backend != "auto":
         raise NotImplementedError(
-            f"traversal backend {backend!r}: the port has only the dense "
-            "sweep ('auto'); the stack traversal is ROADMAP queue 1, item 11")
+            f"traversal backend {backend!r}: the port resolves only 'auto' "
+            "(dense sweep or work list); the stack traversal is ROADMAP "
+            "queue 1, item 11, the other kernel backends queue 2")
+    return scene.cluster_bbox.shape[0] > 1
 
 
 def _no_alpha(opacity_u):
@@ -118,21 +122,31 @@ def _no_alpha(opacity_u):
 def intersect_closest(scene, origin, direction, t_min=0.0, backend="auto",
                       watertight=False, opacity_u=None):
     """Closest hit over the scene; origin/direction (R, 3) f32."""
-    from .brute import brute_closest
-
     _no_alpha(opacity_u)
-    _check_backend(scene, backend)
-    t, u, v, tri, inst, back = brute_closest(scene, origin, direction, t_min,
-                                             watertight)
+    if _clustered(scene, backend):
+        from .worklist import worklist_closest
+
+        t, u, v, tri, inst, back, iters = worklist_closest(
+            scene, origin, direction, t_min, watertight)
+    else:
+        from .brute import brute_closest
+
+        t, u, v, tri, inst, back = brute_closest(scene, origin, direction,
+                                                 t_min, watertight)
+        iters = torch.zeros_like(tri)
     return HitInfo(t=t, u=u, v=v, triangle=tri, instance=inst, backface=back,
-                   hit=torch.isfinite(t), iterations=torch.zeros_like(tri))
+                   hit=torch.isfinite(t), iterations=iters)
 
 
 def intersect_any(scene, origin, direction, t_max, t_min=0.0, backend="auto",
                   watertight=False, opacity_u=None):
     """Occlusion: True where a hit lies in [t_min, t_max)."""
+    _no_alpha(opacity_u)
+    if _clustered(scene, backend):
+        from .worklist import worklist_any
+
+        return worklist_any(scene, origin, direction, t_max, t_min,
+                            watertight)
     from .brute import brute_any
 
-    _no_alpha(opacity_u)
-    _check_backend(scene, backend)
     return brute_any(scene, origin, direction, t_max, t_min, watertight)

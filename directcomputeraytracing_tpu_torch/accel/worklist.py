@@ -1,0 +1,724 @@
+"""Work-list traversal of clustered scenes: the CUDA kernels, their twins
+and the glue between them.
+
+Counterpart of `directcomputeraytracing_tpu.accel.worklist` for world-soup
+cluster tables (scenes of 2049 to 2^20 world triangles). A cast runs:
+
+1. `prep_rays`: (R, 3) rays -> (9, Rp) rows [o; d; 1/d] and a per-ray
+   t_max row, padded to a multiple of `RB` with far rays that enter
+   nothing; non-finite or zero-length rays are parked the same way.
+2. The cull. `cull_boxes` (kernel `cull_kernel`, twin `cull_boxes_torch`):
+   for every block of RB rays and every box, the minimum entry distance
+   over the block's rays that enter the box within their t_max (BIG: none
+   does). Scenes above `HIER_MIN` supers cull hyper boxes first, then
+   `refine` (kernel `refine_kernel`, twin `refine_torch`) culls each
+   entered hyper's member supers for its block.
+3. `phases`: the entered (block, super) pairs as an item list sorted by
+   (block, entry distance, super) with per-block segment offsets. Lists
+   are sized from the true count, read back by the host once per level
+   (`torch.nonzero`): one synchronisation per cast, two with the hyper
+   level. There is no capacity and so no overflow fallback.
+4. The sweep. `sweep_closest` / `sweep_any` (kernels `closest_kernel` /
+   `any_kernel`, twins `sweep_closest_torch` / `sweep_any_torch`). Each
+   ray walks its block's items in order. Per item it tests the super's
+   32 child boxes (its fine cull) and sweeps the 16-triangle clusters it
+   entered, nearest first, each with the Baldwin-Weber test (or the
+   watertight one), and stops at the first cluster that starts beyond
+   its current best hit.
+
+The closest hit is a bit-packed argmin: key = (bits(t) & ~_LOWM) |
+(child << 4) | row, the best starts at bits(scene exit) | _LOWM, a
+cluster's candidates must satisfy t < the best key read as a float, and
+a cluster's smallest candidate key replaces the best only if strictly
+smaller. t, u and v are the winner's own; the decode compares the
+truncated t against the truncated scene exit. `iters` is the number of
+clusters the ray swept: the clusters its own fine cull admitted, summed
+over its block's items. (The reference counts clusters swept per block.)
+
+Wrappers launch the kernels of `csrc/worklist.cu` on CUDA tensors and run
+the twins on CPU tensors; any other device raises. `worklist_closest`
+and `worklist_any` are the casts the intersector calls;
+`worklist_closest_torch` and `worklist_any_torch` are the same casts with
+every step in plain PyTorch, on any device.
+
+Counters: `cull_boxes.launches`, `refine.launches`,
+`sweep_closest.launches` and `sweep_any.launches` count CUDA launches;
+`refine.skipped` counts casts whose hyper cull admitted nothing and
+`worklist_closest.empty` / `worklist_any.empty` casts whose item list
+came out empty (no sweep ran), on any device.
+"""
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+from torch.utils.weak import WeakIdKeyDictionary
+
+from .cluster import CLUSTER_SIZE
+from .traverse import ray_triangle_watertight
+
+RB = 1024                    # rays per block: one CUDA block, one 32x32 tile
+SUPER = 32                   # clusters per super
+HIER_MIN = 192               # supers above which the cull goes hyper -> super
+_LOWM = (SUPER << 4) - 1     # packed best-hit low bits: (child << 4) | row
+BIG = 3.0e38
+_FAR = 2.0 * BIG ** 0.5      # parked-ray origin: enters no box
+_INVERTED_BOX = (1.0, 1.0, 1.0, -1.0, -1.0, -1.0, 0.0, 0.0)
+_I32_MAX = 0x7FFFFFFF
+TWIN_RAY_CHUNK = 1 << 20     # rays per chunk of the sweep twins
+TWIN_BOX_CHUNK = 1 << 24     # (block, box, ray) elements per cull-twin chunk
+_BW_META, _RAW_META = 12, 9  # tri|inst|flip columns of the two slab tables
+
+_NVCC_EXTRA = ("-fmad=false",)   # round like the twins (see brute.py)
+_built = None
+_TABLES = WeakIdKeyDictionary()
+
+
+def kernels():
+    """The loaded kernel library (built on first call); `.seconds` and
+    `.log` describe the build."""
+    global _built
+    if _built is None:
+        from ..utils.cuda_build import load_library
+
+        built = load_library("worklist.cu", _NVCC_EXTRA)
+        c_p, c_i, c_f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib = built.lib
+        lib.dcrt_wl_cull.argtypes = [c_p, c_i, c_p, c_p, c_i, c_i, c_p, c_p]
+        lib.dcrt_wl_refine.argtypes = [c_p, c_i, c_p, c_p, c_i, c_p, c_p,
+                                       c_i, c_i, c_p, c_p]
+        lib.dcrt_wl_closest.argtypes = [
+            c_p, c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i, c_i, c_f,
+            c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p]
+        lib.dcrt_wl_any.argtypes = [c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p,
+                                    c_i, c_i, c_f, c_p, c_p]
+        for fn in (lib.dcrt_wl_cull, lib.dcrt_wl_refine, lib.dcrt_wl_closest,
+                   lib.dcrt_wl_any):
+            fn.restype = c_i
+        _built = built
+    return _built
+
+
+# ---------------------------------------------------------------------------
+# per-scene tables (built once per scene, cached on its cluster_bbox)
+# ---------------------------------------------------------------------------
+
+class Tables(NamedTuple):
+    ctab: torch.Tensor       # (Cs*SUPER*16, 13) raw-vertex slabs (watertight)
+    bwtab: torch.Tensor      # (Cs*SUPER*16, 16) Baldwin-Weber slabs
+    cbox3: torch.Tensor      # (Cs, SUPER, 8) child boxes (inverted padding)
+    sbox: torch.Tensor       # (Cs, 8) super boxes
+    hsup: Optional[torch.Tensor]   # (NH, HS, 8) member-super boxes per hyper
+    hbox: Optional[torch.Tensor]   # (NH, 8) hyper boxes
+    bounds: torch.Tensor     # (2, 3) scene box (for the scene exit)
+    config: tuple            # (SUPER, HIER_MIN) the tables were built for
+
+
+def _inverted(n, like):
+    return torch.tensor(_INVERTED_BOX, dtype=like.dtype,
+                        device=like.device).expand(n, 8)
+
+
+def hyper_fanout(cs):
+    """Supers per hyper: 4 to 16, about cs / 64."""
+    return int(min(16, max(4, cs // 64)))
+
+
+def pad_tables(scene):
+    """Cluster tables padded to a SUPER multiple: (ctab, bwtab, cbox3,
+    sbox). Padding clusters have zero rows and inverted boxes, so empty
+    supers stay inverted and are never entered."""
+    ctab, bwtab, cbox = scene.cluster_tris, scene.cluster_bw, \
+        scene.cluster_bbox
+    c = cbox.shape[0]
+    cpad = -(-c // SUPER) * SUPER
+    if cpad != c:
+        rows = (cpad - c) * CLUSTER_SIZE
+        ctab = torch.nn.functional.pad(ctab, (0, 0, 0, rows))
+        bwtab = torch.nn.functional.pad(bwtab, (0, 0, 0, rows))
+        cbox = torch.cat([cbox, _inverted(cpad - c, cbox)])
+    cbox3 = cbox.reshape(cpad // SUPER, SUPER, 8)
+    sbox = torch.cat([cbox3[:, :, 0:3].amin(1), cbox3[:, :, 3:6].amax(1),
+                      torch.zeros_like(cbox3[:, 0, 0:2])], dim=1)
+    return ctab.contiguous(), bwtab.contiguous(), cbox3.contiguous(), sbox
+
+
+def build_hyper(sbox):
+    """Group the (cs, 8) super boxes into the hyper level: (hsup, hbox),
+    or (None, None) at or below HIER_MIN supers."""
+    cs = sbox.shape[0]
+    if cs <= HIER_MIN:
+        return None, None
+    hs = hyper_fanout(cs)
+    nh = -(-cs // hs)
+    sbox_h = torch.cat([sbox, _inverted(nh * hs - cs, sbox)])
+    hsup = sbox_h.reshape(nh, hs, 8)
+    # inverted padding members only loosen the min/max
+    all_pad = (hsup[:, :, 0] == 1.0).all(1)[:, None]
+    hbox = torch.cat([torch.where(all_pad, 1.0, hsup[:, :, 0:3].amin(1)),
+                      torch.where(all_pad, -1.0, hsup[:, :, 3:6].amax(1)),
+                      torch.zeros_like(hsup[:, 0, 0:2])], dim=1)
+    return hsup.contiguous(), hbox
+
+
+def scene_tables(scene):
+    """The work-list tables of `scene`, built on first use and kept for
+    as long as the scene's cluster_bbox tensor lives."""
+    config = (SUPER, HIER_MIN)
+    tab = _TABLES.get(scene.cluster_bbox)
+    if tab is None or tab.config != config:
+        ctab, bwtab, cbox3, sbox = pad_tables(scene)
+        hsup, hbox = build_hyper(sbox)
+        cb = scene.cluster_bbox
+        bounds = torch.stack([cb[:, 0:3].amin(0), cb[:, 3:6].amax(0)])
+        tab = Tables(ctab, bwtab, cbox3, sbox, hsup, hbox, bounds, config)
+        _TABLES[scene.cluster_bbox] = tab
+    return tab
+
+
+# ---------------------------------------------------------------------------
+# ray preparation and the scene exit
+# ---------------------------------------------------------------------------
+
+def prep_rays(origin, direction, t_max=None):
+    """(R, 3) rays [+ t_max, scalar or (R,)] -> (od (9, Rp) [o; d; 1/d],
+    tm (Rp,) per-ray t_max, R), Rp a multiple of RB. Rays with a
+    non-finite component or a zero-length direction are parked at _FAR
+    along +x, where they enter no box; padding rays too, with t_max 0.
+    Without t_max (closest casts) real rays get BIG."""
+    r = origin.shape[0]
+    rp = -(-r // RB) * RB
+    bad = ~(torch.isfinite(origin).all(1) & torch.isfinite(direction).all(1)
+            & ((direction * direction).sum(1) > 0.0))
+    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=origin.dtype,
+                          device=origin.device)
+    o = torch.full((rp, 3), _FAR, dtype=origin.dtype, device=origin.device)
+    d = x_axis.repeat(rp, 1)
+    o[:r] = torch.where(bad[:, None], _FAR, origin)
+    d[:r] = torch.where(bad[:, None], x_axis, direction)
+    inv = 1.0 / torch.where(d.abs() < 1e-30,
+                            torch.where(d >= 0, 1e-30, -1e-30), d)
+    od = torch.cat([o, d, inv], dim=1).T.contiguous()
+    tm = torch.zeros(rp, dtype=origin.dtype, device=origin.device)
+    tm[:r] = BIG if t_max is None else torch.as_tensor(
+        t_max, dtype=origin.dtype, device=origin.device).expand(r)
+    return od, tm, r
+
+
+def _slab(b0, b1, o, inv, t_lo, t_hi):
+    a = (b0 - o) * inv
+    b = (b1 - o) * inv
+    return torch.maximum(t_lo, torch.minimum(a, b)), \
+        torch.minimum(t_hi, torch.maximum(a, b))
+
+
+def scene_exit(tables, od):
+    """(Rp,) distance at which each ray leaves the scene box, padded past
+    the packed-argmin truncation quantum (0 + pad for a ray that misses
+    the box). Best hits start here, so miss rays stop early."""
+    t_lo = torch.full_like(od[0], -BIG)
+    t_hi = torch.full_like(od[0], BIG)
+    for ax in range(3):
+        t_lo, t_hi = _slab(tables.bounds[0, ax], tables.bounds[1, ax],
+                           od[ax], od[6 + ax], t_lo, t_hi)
+    tex = torch.where((t_hi >= t_lo) & (t_hi >= 0.0), t_hi, 0.0)
+    return tex * 1.001 + 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the cull: kernels rows 7 (cull_boxes) and 8 (refine), twins
+# ---------------------------------------------------------------------------
+
+def _entry_min(boxes, od_b, tm_b):
+    """boxes (B or 1, n, 8), rays od_b (9, B, RB), tm_b (B, RB) -> (B, n)
+    minimum over each block's rays of the clamped entry distance, BIG
+    where no ray enters within its t_max."""
+    t_lo = t_hi = None
+    for ax in range(3):
+        o = od_b[ax][:, None, :]
+        inv = od_b[6 + ax][:, None, :]
+        b0, b1 = boxes[:, :, ax, None], boxes[:, :, 3 + ax, None]
+        if t_lo is None:
+            t_lo = torch.full(torch.broadcast_shapes(b0.shape, o.shape),
+                              -BIG, dtype=od_b.dtype, device=od_b.device)
+            t_hi = torch.full_like(t_lo, BIG)
+        t_lo, t_hi = _slab(b0, b1, o, inv, t_lo, t_hi)
+    enter = (t_hi >= t_lo) & (t_hi >= 0.0) & (t_lo <= tm_b[:, None, :])
+    return torch.where(enter, torch.clamp_min(t_lo, 0.0), BIG).amin(2)
+
+
+def _blocks(od, tm):
+    nb = od.shape[1] // RB
+    return od.reshape(9, nb, RB), tm.reshape(nb, RB)
+
+
+def cull_boxes_torch(boxes, od, tm):
+    """Twin of `cull_kernel`: (n, 8) boxes against every RB-ray block ->
+    (nb, n) minimum entry distance (BIG: no ray of the block enters)."""
+    od_b, tm_b = _blocks(od, tm)
+    n = boxes.shape[0]
+    step = max(1, TWIN_BOX_CHUNK // max(n * RB, 1))
+    return torch.cat([_entry_min(boxes[None], od_b[:, i:i + step],
+                                 tm_b[i:i + step])
+                      for i in range(0, od_b.shape[1], step)])
+
+
+def refine_torch(hsup, blk, hyp, od, tm):
+    """Twin of `refine_kernel`: per (block, hyper) item the (hs,) minimum
+    entry distance of the hyper's member supers -> (n_items, hs)."""
+    od_b, tm_b = _blocks(od, tm)
+    step = max(1, TWIN_BOX_CHUNK // (hsup.shape[1] * RB))
+    return torch.cat([
+        _entry_min(hsup[hyp[i:i + step]], od_b[:, blk[i:i + step]],
+                   tm_b[blk[i:i + step]])
+        for i in range(0, blk.shape[0], step)])
+
+
+def _check_f32(name, x, shape=None):
+    if x.dtype != torch.float32 or not x.is_contiguous() or (
+            shape is not None and tuple(x.shape) != tuple(shape)):
+        raise ValueError(f"{name}: need a contiguous float32 tensor"
+                         f"{'' if shape is None else f' of shape {shape}'},"
+                         f" got {tuple(x.shape)} {x.dtype}")
+
+
+def _on_cuda(*xs):
+    dev = xs[0].device
+    for x in xs:
+        if x.device != dev:
+            raise ValueError(f"tensors on {x.device} and {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no work-list traversal for device {dev}")
+    if dev.type == "cuda" and (RB > 1024 or RB % 32):
+        raise ValueError(f"RB={RB}: a CUDA block holds whole warps, at most "
+                         "1024 rays")
+    return dev.type == "cuda"
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def cull_boxes(boxes, od, tm):
+    """(n, 8) boxes x (9, Rp) rays -> (nb, n): kernel on CUDA tensors,
+    twin on CPU tensors."""
+    rp = od.shape[1]
+    _check_f32("boxes", boxes, (boxes.shape[0], 8))
+    _check_f32("od", od, (9, rp))
+    _check_f32("tm", tm, (rp,))
+    if not _on_cuda(boxes, od, tm):
+        return cull_boxes_torch(boxes, od, tm)
+    out = torch.empty((rp // RB, boxes.shape[0]), dtype=torch.float32,
+                      device=od.device)
+    with torch.cuda.device(od.device):
+        err = kernels().lib.dcrt_wl_cull(
+            boxes.data_ptr(), boxes.shape[0], od.data_ptr(), tm.data_ptr(),
+            rp, RB, out.data_ptr(), _stream(od))
+    _raise_on(err, "cull_boxes")
+    cull_boxes.launches += 1
+    return out
+
+
+def refine(hsup, blk, hyp, od, tm):
+    """(block, hyper) items -> (n_items, hs) member-super entries: kernel
+    on CUDA tensors, twin on CPU tensors."""
+    rp = od.shape[1]
+    _check_f32("hsup", hsup)
+    _check_f32("od", od, (9, rp))
+    _check_f32("tm", tm, (rp,))
+    if not _on_cuda(hsup, blk, hyp, od, tm):
+        return refine_torch(hsup, blk, hyp, od, tm)
+    hs = hsup.shape[1]
+    if hs > 32:
+        raise ValueError(f"refine: {hs} members per hyper, at most 32")
+    blk32, hyp32 = blk.to(torch.int32), hyp.to(torch.int32)
+    out = torch.empty((blk.shape[0], hs), dtype=torch.float32,
+                      device=od.device)
+    with torch.cuda.device(od.device):
+        err = kernels().lib.dcrt_wl_refine(
+            hsup.data_ptr(), hs, blk32.data_ptr(), hyp32.data_ptr(),
+            blk.shape[0], od.data_ptr(), tm.data_ptr(), rp, RB,
+            out.data_ptr(), _stream(od))
+    _raise_on(err, "refine")
+    refine.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# items: compaction, ordering, per-block segments
+# ---------------------------------------------------------------------------
+
+class Items(NamedTuple):
+    seg: torch.Tensor        # (nb + 1,) i32 item offsets per block
+    sup: torch.Tensor        # (n,) i32 super ids, per block front to back
+    t_ent: torch.Tensor      # (n,) f32 item entry distance
+    block_any: torch.Tensor  # (nb,) bool: the block has an item
+
+
+def compact_pairs(tlo):
+    """(nb, n) cull grid -> entered (block, box, t_ent) in row-major
+    order. Reads the count back to the host."""
+    blk, idx = torch.nonzero(tlo < BIG, as_tuple=True)
+    return blk, idx, tlo[blk, idx]
+
+
+def expand_level(tlo_child, blk, hyp, hs, cs):
+    """Refined (n_items, hs) member entries -> (block, super, t_ent) of
+    the entered supers (super id = hyper * hs + member, < cs)."""
+    ids = hyp[:, None] * hs + torch.arange(hs, device=hyp.device)
+    it, m = torch.nonzero((tlo_child < BIG) & (ids < cs), as_tuple=True)
+    return blk[it], ids[it, m], tlo_child[it, m]
+
+
+def finish_items(blk, sup, t_ent, nb, cs):
+    """Sort the items by (block, t_ent, super) and build the per-block
+    segment offsets. t_ent >= 0, so its bits order like its values (the
+    sign bit is masked for -0.0); the super breaks ties."""
+    sb = max(1, (cs - 1).bit_length())
+    if nb >= 1 << (32 - sb):
+        raise ValueError(f"{nb} ray blocks overflow the item sort key")
+    tb = t_ent.contiguous().view(torch.int32).to(torch.int64) & _I32_MAX
+    key = (blk.to(torch.int64) << (31 + sb)) | (tb << sb) | sup
+    order = torch.argsort(key)
+    counts = torch.zeros(nb, dtype=torch.int64, device=blk.device) \
+        .index_add_(0, blk, torch.ones_like(blk))  # bincount would sync
+    seg = torch.zeros(nb + 1, dtype=torch.int32, device=blk.device)
+    seg[1:] = torch.cumsum(counts, 0)
+    return Items(seg, sup[order].to(torch.int32).contiguous(),
+                 t_ent[order].contiguous(), counts > 0)
+
+
+def phases(tables, od, tm, plain=False):
+    """The cull: per-block front-to-back super items (Items), or None when
+    no block enters anything. plain=True runs the twins on any device."""
+    nb = od.shape[1] // RB
+    cull = cull_boxes_torch if plain else cull_boxes
+    cs = tables.sbox.shape[0]
+    if tables.hbox is None:
+        blk, sup, t = compact_pairs(cull(tables.sbox, od, tm))
+    else:
+        blk_h, hyp, _ = compact_pairs(cull(tables.hbox, od, tm))
+        if blk_h.numel() == 0:
+            if not plain:
+                refine.skipped += 1
+            return None
+        tlo_s = (refine_torch if plain else refine)(tables.hsup, blk_h, hyp,
+                                                    od, tm)
+        blk, sup, t = expand_level(tlo_s, blk_h, hyp, tables.hsup.shape[1],
+                                   cs)
+    if blk.numel() == 0:
+        return None
+    return finish_items(blk, sup, t, nb, cs)
+
+
+# ---------------------------------------------------------------------------
+# the sweep: kernels rows 9 (closest) and 10 (any), twins
+# ---------------------------------------------------------------------------
+
+def bw_rows(tab, o, d, t_min, t_max):
+    """Baldwin-Weber test of rays o, d (A, 1, 3) against rows tab
+    (A, S, 16); t_max (A, 1). Returns (t, u, v, back, ok), each (A, S).
+    den = n.d is the Moeller determinant negated."""
+    def c(i):
+        return tab[..., i]
+
+    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    den = c(0) * dx + c(1) * dy + c(2) * dz
+    den_ok = den.abs() >= 1e-10
+    inv_den = 1.0 / torch.where(den_ok, den, 1.0)
+    t = (c(3) - (c(0) * ox + c(1) * oy + c(2) * oz)) * inv_den
+    hx, hy, hz = ox + t * dx, oy + t * dy, oz + t * dz
+    u = c(4) * hx + c(5) * hy + c(6) * hz + c(7)
+    v = c(8) * hx + c(9) * hy + c(10) * hz + c(11)
+    ok = (den_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+          & (t >= t_min) & (t < t_max))
+    return t, u, v, den < 1e-10, ok
+
+
+def _tri_rows(tab, o, d, t_min, t_max, watertight):
+    if watertight:
+        return ray_triangle_watertight(o, d, t_min, t_max, tab[..., 0:3],
+                                       tab[..., 3:6], tab[..., 6:9])
+    return bw_rows(tab, o, d, t_min, t_max)
+
+
+def _fine_cull(cbox, od_r, cap, t_min):
+    """Per-ray slab test of the item's SUPER child boxes cbox (A, SUPER, 8)
+    for rays od_r (9, A): enter where the ray crosses the box in front of
+    t_min and enters it before cap (A,). Returns (enter, clamped entry)."""
+    t_lo = torch.full(cbox.shape[:2], -BIG, dtype=cbox.dtype,
+                      device=cbox.device)
+    t_hi = torch.full_like(t_lo, BIG)
+    for ax in range(3):
+        t_lo, t_hi = _slab(cbox[:, :, ax], cbox[:, :, 3 + ax],
+                           od_r[ax][:, None], od_r[6 + ax][:, None],
+                           t_lo, t_hi)
+    enter = ((t_hi >= t_lo) & (t_hi >= 0.0) & (t_lo < cap[:, None])
+             & (t_hi >= t_min))
+    return enter, torch.clamp_min(t_lo, 0.0)
+
+
+def _ray_steps(items, lo, hi):
+    """For rays [lo, hi): per step k, the rays whose block has a k-th
+    item and that item's index: yields (rays, item)."""
+    blk_lo, blk_hi = lo // RB, hi // RB
+    seg = items.seg.long()
+    counts = (seg[1:] - seg[:-1])[blk_lo:blk_hi]
+    n_steps = int(counts.max()) if counts.numel() else 0
+    lane = torch.arange(RB, device=seg.device)
+    for k in range(n_steps):
+        blocks = torch.nonzero(counts > k)[:, 0] + blk_lo
+        rays = (blocks[:, None] * RB + lane).reshape(-1)
+        yield rays, seg[blocks].repeat_interleave(RB) + k
+
+
+def _float_bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _bits_float(x):
+    return x.contiguous().view(torch.float32)
+
+
+def sweep_closest_torch(tables, items, od, texp, t_min, watertight):
+    """Twin of `closest_kernel`. Returns the per-ray sweep state (packed
+    best i32, t, u, v, tri i32, inst i32, back bool, iters i32), each
+    (Rp,): see the module docstring for the rules it follows."""
+    rp = od.shape[1]
+    dev = od.device
+    tab = tables.ctab if watertight else tables.bwtab
+    mc = _RAW_META if watertight else _BW_META
+    best = _float_bits(texp) | _LOWM
+    bt, bu, bv = texp.clone(), torch.zeros_like(texp), torch.zeros_like(texp)
+    brow = torch.full((rp,), -1, dtype=torch.int64, device=dev)
+    bback = torch.zeros(rp, dtype=torch.bool, device=dev)
+    iters = torch.zeros(rp, dtype=torch.int32, device=dev)
+    lane16 = torch.arange(CLUSTER_SIZE, device=dev)
+    for lo in range(0, rp, TWIN_RAY_CHUNK):
+        for rays, item in _ray_steps(items, lo, min(rp, lo + TWIN_RAY_CHUNK)):
+            sup = items.sup[item].long()
+            enter, tl = _fine_cull(tables.cbox3[sup], od[:, rays],
+                                   _bits_float(best[rays]), t_min)
+            while rays.numel():
+                m, child = torch.where(enter, tl, float("inf")).min(1)
+                go = m < _bits_float(best[rays])
+                idx = torch.nonzero(go)[:, 0]
+                rays, child, sup = rays[idx], child[idx], sup[idx]
+                enter, tl = enter[idx], tl[idx]
+                if not rays.numel():
+                    break
+                enter[torch.arange(rays.numel(), device=dev), child] = False
+                iters[rays] += 1
+                rows = ((sup * SUPER + child) * CLUSTER_SIZE)[:, None] + lane16
+                o = od[0:3, rays].T[:, None, :]
+                d = od[3:6, rays].T[:, None, :]
+                best_r = best[rays]
+                t, u, v, back, ok = _tri_rows(
+                    tab[rows], o, d, t_min, _bits_float(best_r)[:, None],
+                    watertight)
+                key = (_float_bits(t) & ~_LOWM) | (
+                    (child[:, None] << 4) + lane16).to(torch.int32)
+                cand, j = torch.where(ok, key, _I32_MAX).min(1)
+                win = torch.nonzero(cand < best_r)[:, 0]
+                w, jw = rays[win], j[win]
+                best[w] = cand[win]
+                bt[w] = t[win, jw]
+                bu[w] = u[win, jw]
+                bv[w] = v[win, jw]
+                bback[w] = back[win, jw]
+                brow[w] = rows[win, jw]
+    found = brow >= 0
+    meta = tab[brow.clamp_min(0), mc:mc + 3]
+    tri = torch.where(found, meta[:, 0], 0.0).to(torch.int32)
+    inst = torch.where(found, meta[:, 1], 0.0).to(torch.int32)
+    back = found & (bback ^ (meta[:, 2] > 0.5))
+    return best, bt, bu, bv, tri, inst, back, iters
+
+
+def sweep_any_torch(tables, items, od, tm, t_min, watertight):
+    """Twin of `any_kernel`: (Rp,) bool, a hit in [t_min, t_max) within a
+    cluster the ray's fine cull admits (box entered before t_max). Which
+    order the clusters are visited in cannot change the answer."""
+    rp = od.shape[1]
+    tab = tables.ctab if watertight else tables.bwtab
+    occ = torch.zeros(rp, dtype=torch.bool, device=od.device)
+    lane16 = torch.arange(CLUSTER_SIZE, device=od.device)
+    for lo in range(0, rp, TWIN_RAY_CHUNK):
+        for rays, item in _ray_steps(items, lo, min(rp, lo + TWIN_RAY_CHUNK)):
+            live = torch.nonzero(~occ[rays])[:, 0]
+            rays, sup = rays[live], items.sup[item[live]].long()
+            enter, _ = _fine_cull(tables.cbox3[sup], od[:, rays], tm[rays],
+                                  t_min)
+            for p in torch.split(torch.nonzero(enter), TWIN_RAY_CHUNK // 4):
+                ray, child = rays[p[:, 0]], p[:, 1]
+                rows = ((sup[p[:, 0]] * SUPER + child)
+                        * CLUSTER_SIZE)[:, None] + lane16
+                ok = _tri_rows(tab[rows], od[0:3, ray].T[:, None, :],
+                               od[3:6, ray].T[:, None, :], t_min,
+                               tm[ray][:, None], watertight)[4]
+                occ[ray[ok.any(1)]] = True
+    return occ
+
+
+def sweep_closest(tables, items, od, texp, t_min, watertight):
+    """The closest sweep: kernel on CUDA tensors, twin on CPU tensors."""
+    rp = od.shape[1]
+    if not _on_cuda(od, texp, items.seg):
+        return sweep_closest_torch(tables, items, od, texp, t_min, watertight)
+    f32 = dict(dtype=torch.float32, device=od.device)
+    i32 = dict(dtype=torch.int32, device=od.device)
+    best, tri, inst, iters = (torch.empty(rp, **i32) for _ in range(4))
+    t, u, v = (torch.empty(rp, **f32) for _ in range(3))
+    back = torch.empty(rp, dtype=torch.bool, device=od.device)
+    tab = tables.ctab if watertight else tables.bwtab
+    with torch.cuda.device(od.device):
+        err = kernels().lib.dcrt_wl_closest(
+            items.seg.data_ptr(), items.sup.data_ptr(),
+            items.t_ent.data_ptr(), rp // RB, tables.cbox3.data_ptr(),
+            tab.data_ptr(), int(watertight), od.data_ptr(), texp.data_ptr(),
+            rp, RB, float(t_min), best.data_ptr(), t.data_ptr(),
+            u.data_ptr(), v.data_ptr(), tri.data_ptr(), inst.data_ptr(),
+            back.data_ptr(), iters.data_ptr(), _stream(od))
+    _raise_on(err, "sweep_closest")
+    sweep_closest.launches += 1
+    return best, t, u, v, tri, inst, back, iters
+
+
+def sweep_any(tables, items, od, tm, t_min, watertight):
+    """The occlusion sweep: kernel on CUDA tensors, twin on CPU tensors."""
+    rp = od.shape[1]
+    if not _on_cuda(od, tm, items.seg):
+        return sweep_any_torch(tables, items, od, tm, t_min, watertight)
+    occ = torch.empty(rp, dtype=torch.bool, device=od.device)
+    tab = tables.ctab if watertight else tables.bwtab
+    with torch.cuda.device(od.device):
+        err = kernels().lib.dcrt_wl_any(
+            items.seg.data_ptr(), items.sup.data_ptr(), rp // RB,
+            tables.cbox3.data_ptr(), tab.data_ptr(), int(watertight),
+            od.data_ptr(), tm.data_ptr(), rp, RB, float(t_min),
+            occ.data_ptr(), _stream(od))
+    _raise_on(err, "sweep_any")
+    sweep_any.launches += 1
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# the casts
+# ---------------------------------------------------------------------------
+
+def decode_closest(state, texp, block_any, r):
+    """Sweep state -> (t, +inf on miss; u; v; tri i32; inst i32; back;
+    iters i32) for the first r rays. A best whose truncated t is not
+    below the truncated scene exit is a miss; so is every ray of a block
+    without items."""
+    best, t, u, v, tri, inst, back, iters = (x[:r] for x in state)
+    keep = block_any.repeat_interleave(RB)[:r]
+    t_dec = _bits_float(best & ~_LOWM)
+    texp_trunc = _bits_float(_float_bits(texp[:r]) & ~_LOWM)
+    hit = keep & (t_dec < texp_trunc)
+    return (torch.where(hit, t, float("inf")),
+            torch.where(hit, u.clamp(0.0, 1.0), 0.0),
+            torch.where(hit, v.clamp(0.0, 1.0), 0.0),
+            torch.where(hit, tri, 0), torch.where(hit, inst, 0),
+            back & hit, torch.where(keep, iters, 0))
+
+
+def _miss(origin):
+    r = origin.shape[0]
+    zf = torch.zeros(r, dtype=torch.float32, device=origin.device)
+    zi = torch.zeros(r, dtype=torch.int32, device=origin.device)
+    return (torch.full_like(zf, float("inf")), zf, zf.clone(), zi,
+            zi.clone(), torch.zeros(r, dtype=torch.bool,
+                                    device=origin.device), zi.clone())
+
+
+def _check_rays(origin, direction):
+    for name, x in (("origin", origin), ("direction", direction)):
+        if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3:
+            raise ValueError(f"{name}: need an (R, 3) float32 tensor, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    if direction.shape[0] != origin.shape[0]:
+        raise ValueError("origin and direction ray counts differ")
+
+
+def _closest_cast(scene, origin, direction, t_min, watertight, plain):
+    _check_rays(origin, direction)
+    tables = scene_tables(scene)
+    od, tm, r = prep_rays(origin, direction)
+    items = phases(tables, od, tm, plain) if r else None
+    if items is None:
+        return _miss(origin), True
+    texp = scene_exit(tables, od)
+    sweep = sweep_closest_torch if plain else sweep_closest
+    state = sweep(tables, items, od, texp, t_min, watertight)
+    return decode_closest(state, texp, items.block_any, r), False
+
+
+def _any_cast(scene, origin, direction, t_max, t_min, watertight, plain):
+    _check_rays(origin, direction)
+    tables = scene_tables(scene)
+    od, tm, r = prep_rays(origin, direction, t_max)
+    items = phases(tables, od, tm, plain) if r else None
+    if items is None:
+        return torch.zeros(r, dtype=torch.bool, device=origin.device), True
+    sweep = sweep_any_torch if plain else sweep_any
+    occ = sweep(tables, items, od, tm, t_min, watertight)
+    return (occ & items.block_any.repeat_interleave(RB))[:r], False
+
+
+def worklist_closest(scene, origin, direction, t_min=0.0, watertight=False):
+    """Closest hit over a clustered scene: (t, +inf on miss; u; v; tri
+    i32; inst i32; back bool; iters i32). Kernels on CUDA tensors."""
+    out, empty = _closest_cast(scene, origin, direction, t_min, watertight,
+                               plain=False)
+    worklist_closest.empty += int(empty)
+    return out
+
+
+def worklist_any(scene, origin, direction, t_max, t_min=0.0,
+                 watertight=False):
+    """Occlusion over a clustered scene: (R,) bool, a hit in [t_min,
+    t_max) per ray. Kernels on CUDA tensors."""
+    occ, empty = _any_cast(scene, origin, direction, t_max, t_min,
+                           watertight, plain=False)
+    worklist_any.empty += int(empty)
+    return occ
+
+
+def worklist_closest_torch(scene, origin, direction, t_min=0.0,
+                           watertight=False):
+    """`worklist_closest` with every step in plain PyTorch (any device)."""
+    return _closest_cast(scene, origin, direction, t_min, watertight,
+                         plain=True)[0]
+
+
+def worklist_any_torch(scene, origin, direction, t_max, t_min=0.0,
+                       watertight=False):
+    """`worklist_any` with every step in plain PyTorch (any device)."""
+    return _any_cast(scene, origin, direction, t_max, t_min, watertight,
+                     plain=True)[0]
+
+
+def counters():
+    """Launch and cast counters (see the module docstring)."""
+    return dict(cull_boxes=cull_boxes.launches, refine=refine.launches,
+                refine_skipped=refine.skipped,
+                sweep_closest=sweep_closest.launches,
+                sweep_any=sweep_any.launches,
+                closest_empty=worklist_closest.empty,
+                any_empty=worklist_any.empty)
+
+
+def reset_counters():
+    cull_boxes.launches = refine.launches = refine.skipped = 0
+    sweep_closest.launches = sweep_any.launches = 0
+    worklist_closest.empty = worklist_any.empty = 0
+
+
+reset_counters()

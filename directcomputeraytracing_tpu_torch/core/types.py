@@ -2,7 +2,7 @@
 
 PyTorch counterparts of `directcomputeraytracing_tpu.core.types`, with the
 reference's field names. `SceneTensors` holds only the scene fields the
-megakernel path over the dense sweep reads. Integer fields are int64:
+megakernel path reads, over the dense sweep or the work-list traversal. Integer fields are int64:
 the reference's uint32 fields use bit 31 (`LIGHT_INDEX_INVALID`,
 `INSTANCE_MATERIAL_OVERRIDE_NONE`), which int32 cannot hold. Float
 fields are float32 throughout.
@@ -21,6 +21,9 @@ class SceneTensors(NamedTuple):
     triangles: torch.Tensor         # (T, 3) i64 vertex indices, leaf order
     world_tris: torch.Tensor        # (B, 9) f32 world-space v0|v1|v2
     world_tri_meta: torch.Tensor    # (B, 3) f32 [tri id, inst id, flip]
+    cluster_tris: torch.Tensor      # (C*16, 13) f32 v0|v1|v2|tri|inst|
+                                    #   flip|soup row, per 16-tri cluster
+    cluster_bw: torch.Tensor        # (C*16, 16) f32 Baldwin-Weber rows
     cluster_bbox: torch.Tensor      # (C, 8) f32; C > 1 = clustered scene
     isup_inst: torch.Tensor         # (NS,) i64; NS > 1 = instanced tables
     vtx_table: torch.Tensor         # (V, 12) f32 pos|nrm|tan|uv|pad

@@ -1,0 +1,413 @@
+// Work-list traversal of clustered scenes, for Hopper (sm_90a).
+//
+// Replaces four TPU kernels of directcomputeraytracing_tpu/accel/
+// worklist.py and keeps their contracts (accel/worklist.py in the port
+// holds the glue and the PyTorch twins):
+//   cull_kernel    <- _cull_super_kernel (:365, launched by _cull_super
+//                     :370): min entry distance over a block's rays, per
+//                     (block, box), BIG where no ray enters within t_max;
+//   refine_kernel  <- _refine_kernel (:445, launched by _refine_items
+//                     :479): the same per (block, hyper) item over the
+//                     hyper's member supers;
+//   closest_kernel <- _wl_closest_kernel (:678, launched by _closest_impl
+//                     :1750): closest hit, a bit-packed argmin;
+//   any_kernel     <- _wl_any_kernel (:866, launched by _any_impl :1916):
+//                     occlusion within a per-ray t_max.
+// Rays are the (9, Rp) rows [o; d; 1/d] of prep_rays, Rp a multiple of
+// the block size RB (one thread per ray, one block per RB rays).
+//
+// What bounds them. The culls: FP32 ALU, ~20 operations per (ray, box),
+// and one block-wide min per box (warp shuffles, then 32 partials in
+// shared memory, so one barrier per 32 boxes). The sweeps: FP32 ALU in
+// the per-ray fine cull (32 slab tests per item) and the triangle tests,
+// and the latency of reading 64-byte triangle rows from L2; rays of one
+// warp that pick different clusters diverge. At 1024 threads a block may
+// hold 64 registers a thread.
+//
+// Design. The TPU grid walked (block, super) items in order and carried
+// the best hit across them in the output block and a termination bound in
+// an SMEM scalar. Here one CUDA block owns one ray block and loops over
+// its own item segment, front to back; each thread keeps its ray's packed
+// best hit in registers. A block-wide vote (__syncthreads_or) skips an
+// item once no ray's best lies beyond its entry distance. The item's 32
+// child boxes (1 KB) are staged in shared memory; each thread tests them
+// against its own ray and its current best (the fine cull) and sweeps the
+// entered clusters nearest first, stopping at the first that starts
+// beyond its best. The packed key is (bits(t) & ~kLowM) | (child << 4) |
+// row: a candidate needs t < the best key read as a float, and a
+// cluster's smallest key replaces the best only if strictly smaller, as
+// in the reference. Built with -fmad=false: kernels and twins agree bit
+// for bit.
+
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+
+#include "ray_tri.cuh"
+
+namespace {
+
+using dcrt::Hit;
+using dcrt::kBig;
+using dcrt::Ray;
+using dcrt::Watertight;
+
+constexpr int kSuper = 32;                 // clusters per super
+constexpr int kCluster = 16;               // triangles per cluster
+constexpr int kLowM = (kSuper << 4) - 1;   // packed-key id bits
+constexpr int kBoxChunk = 32;              // boxes per block-wide min pass
+
+struct RayInv {
+  Ray r;
+  float ix, iy, iz;
+};
+
+__device__ __forceinline__ RayInv load_od(const float* od, int rp, int i) {
+  const size_t n = static_cast<size_t>(rp);
+  RayInv q;
+  q.r = Ray{od[i], od[n + i], od[2 * n + i], od[3 * n + i], od[4 * n + i],
+            od[5 * n + i]};
+  q.ix = od[6 * n + i];
+  q.iy = od[7 * n + i];
+  q.iz = od[8 * n + i];
+  return q;
+}
+
+// Slab test of the ray against box [b0, b1]: entry t_lo, exit t_hi.
+__device__ __forceinline__ void slab(const RayInv& q, float b0x, float b0y,
+                                     float b0z, float b1x, float b1y,
+                                     float b1z, float& t_lo, float& t_hi) {
+  t_lo = -kBig;
+  t_hi = kBig;
+  float a = (b0x - q.r.ox) * q.ix, b = (b1x - q.r.ox) * q.ix;
+  t_lo = fmaxf(t_lo, fminf(a, b));
+  t_hi = fminf(t_hi, fmaxf(a, b));
+  a = (b0y - q.r.oy) * q.iy;
+  b = (b1y - q.r.oy) * q.iy;
+  t_lo = fmaxf(t_lo, fminf(a, b));
+  t_hi = fminf(t_hi, fmaxf(a, b));
+  a = (b0z - q.r.oz) * q.iz;
+  b = (b1z - q.r.oz) * q.iz;
+  t_lo = fmaxf(t_lo, fminf(a, b));
+  t_hi = fminf(t_hi, fmaxf(a, b));
+}
+
+// out[j] = min over the block's rays of the clamped entry distance into
+// boxes[j] (8 floats each), j < n <= kBoxChunk; kBig where no ray enters
+// within its t_max. A min is order-free, so this equals the twin exactly.
+__device__ void block_entry_min(const RayInv& q, float tm, const float* boxes,
+                                int n, float* out) {
+  __shared__ float part[32][kBoxChunk + 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = 0; j < n; ++j) {
+    const float* b = boxes + 8 * j;
+    float t_lo, t_hi;
+    slab(q, b[0], b[1], b[2], b[3], b[4], b[5], t_lo, t_hi);
+    float v = (t_hi >= t_lo && t_hi >= 0.f && t_lo <= tm) ? fmaxf(t_lo, 0.f)
+                                                           : kBig;
+    for (int off = 16; off > 0; off >>= 1)
+      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    if (lane == 0) part[warp][j] = v;
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < n) {
+    float m = part[0][threadIdx.x];
+    for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w)
+      m = fminf(m, part[w][threadIdx.x]);
+    out[threadIdx.x] = m;
+  }
+}
+
+__global__ void __launch_bounds__(1024)
+cull_kernel(const float* __restrict__ boxes, int n_boxes,
+            const float* __restrict__ od, const float* __restrict__ tm,
+            int rp, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j0 = blockIdx.y * kBoxChunk;
+  block_entry_min(load_od(od, rp, i), tm[i], boxes + 8 * j0,
+                  min(kBoxChunk, n_boxes - j0),
+                  out + static_cast<size_t>(blockIdx.x) * n_boxes + j0);
+}
+
+__global__ void __launch_bounds__(1024)
+refine_kernel(const float* __restrict__ hsup, int hs,
+              const int* __restrict__ item_blk,
+              const int* __restrict__ item_hyp,
+              const float* __restrict__ od, const float* __restrict__ tm,
+              int rp, float* __restrict__ out) {
+  const int item = blockIdx.x;
+  const int i = item_blk[item] * blockDim.x + threadIdx.x;
+  block_entry_min(load_od(od, rp, i), tm[i],
+                  hsup + static_cast<size_t>(item_hyp[item]) * hs * 8, hs,
+                  out + static_cast<size_t>(item) * hs);
+}
+
+// Baldwin-Weber on the (C*16, 16) rows [n | c0 | r1 | c1 | r2 | c2 | meta |
+// row]: the twin is accel/worklist.py:bw_rows.
+struct BaldwinWeber {
+  static constexpr int kCols = 16, kMeta = 12;
+  struct Pre {};
+  __device__ static Pre prepare(const Ray&) { return Pre{}; }
+
+  __device__ static bool test(const Ray& r, const Pre&,
+                              const float* __restrict__ tab, int row,
+                              float t_min, float t_max, Hit& h) {
+    const float4* p = reinterpret_cast<const float4*>(tab) + 4 * row;
+    const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
+    const float den = a.x * r.dx + a.y * r.dy + a.z * r.dz;
+    const bool den_ok = fabsf(den) >= 1e-10f;
+    const float inv_den = 1.0f / (den_ok ? den : 1.0f);
+    const float t = (a.w - (a.x * r.ox + a.y * r.oy + a.z * r.oz)) * inv_den;
+    const float hx = r.ox + t * r.dx, hy = r.oy + t * r.dy,
+                hz = r.oz + t * r.dz;
+    const float u = b.x * hx + b.y * hy + b.z * hz + b.w;
+    const float v = c.x * hx + c.y * hy + c.z * hz + c.w;
+    h = Hit{t, u, v, den < 1e-10f};
+    return den_ok && u >= 0.f && v >= 0.f && u + v <= 1.f && t >= t_min &&
+           t < t_max;
+  }
+};
+
+// Watertight on the raw (C*16, 13) rows [v0 v1 v2 | meta | row].
+struct RawWatertight {
+  static constexpr int kCols = 13, kMeta = 9;
+  using Pre = Watertight::Pre;
+  __device__ static Pre prepare(const Ray& r) {
+    return Watertight::prepare(r);
+  }
+
+  __device__ static bool test(const Ray& r, const Pre& p,
+                              const float* __restrict__ tab, int row,
+                              float t_min, float t_max, Hit& h) {
+    const float* q = tab + static_cast<size_t>(row) * kCols;
+    float v[12];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) v[k] = __ldg(q + k);
+    v[9] = v[10] = v[11] = 0.f;
+    float4 g[3];
+    Watertight::stage(v, g);
+    return Watertight::test(r, p, g[0], g[1], g[2], t_min, t_max, h);
+  }
+};
+
+// Stage the item's 32 child boxes (2 float4 each) into shared memory.
+__device__ __forceinline__ void stage_boxes(const float* cbox, int sup,
+                                            float4* boxes) {
+  if (threadIdx.x < 2 * kSuper)
+    boxes[threadIdx.x] = __ldg(reinterpret_cast<const float4*>(cbox) +
+                               static_cast<size_t>(sup) * 2 * kSuper +
+                               threadIdx.x);
+}
+
+// Fine cull: does the ray cross child box c in front of t_min and enter
+// it before cap? t_lo is its entry distance.
+__device__ __forceinline__ bool child_enter(const RayInv& q,
+                                            const float4* boxes, int c,
+                                            float cap, float t_min,
+                                            float& t_lo) {
+  const float4 lo = boxes[2 * c], hi = boxes[2 * c + 1];
+  float t_hi;
+  slab(q, lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, t_lo, t_hi);
+  return t_hi >= t_lo && t_hi >= 0.f && t_lo < cap && t_hi >= t_min;
+}
+
+template <class Tri>
+__global__ void __launch_bounds__(1024)
+closest_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
+               const float* __restrict__ item_t,
+               const float* __restrict__ cbox, const float* __restrict__ tab,
+               const float* __restrict__ od, const float* __restrict__ texp,
+               int rp, float t_min, int* __restrict__ out_best,
+               float* __restrict__ out_t, float* __restrict__ out_u,
+               float* __restrict__ out_v, int* __restrict__ out_tri,
+               int* __restrict__ out_inst,
+               unsigned char* __restrict__ out_back,
+               int* __restrict__ out_iters) {
+  __shared__ float4 boxes[2 * kSuper];
+  const int b = blockIdx.x;
+  const int i = b * blockDim.x + threadIdx.x;
+  const RayInv q = load_od(od, rp, i);
+  const typename Tri::Pre pre = Tri::prepare(q.r);
+  const float t_exit = texp[i];
+  int best = __float_as_int(t_exit) | kLowM;
+  float bt = t_exit, bu = 0.f, bv = 0.f;
+  bool bback = false;
+  int brow = -1, iters = 0;
+  const int k1 = seg[b + 1];
+  for (int k = seg[b]; k < k1; ++k) {
+    // skip an item that starts beyond every ray's best (the vote is also
+    // the barrier before the boxes are restaged)
+    if (!__syncthreads_or(__int_as_float(best) > item_t[k])) continue;
+    const int sup = item_sup[k];
+    stage_boxes(cbox, sup, boxes);
+    __syncthreads();
+    float tl[kSuper];
+    unsigned mask = 0u;
+    const float cap = __int_as_float(best);
+#pragma unroll
+    for (int c = 0; c < kSuper; ++c) {
+      float t_lo;
+      if (child_enter(q, boxes, c, cap, t_min, t_lo)) mask |= 1u << c;
+      tl[c] = fmaxf(t_lo, 0.f);
+    }
+    while (mask) {
+      // nearest remaining cluster, lowest child on a tie
+      float m = INFINITY;
+      int cs = 0;
+#pragma unroll
+      for (int c = 0; c < kSuper; ++c) {
+        if (((mask >> c) & 1u) && tl[c] < m) {
+          m = tl[c];
+          cs = c;
+        }
+      }
+      if (!(m < __int_as_float(best))) break;
+      mask &= ~(1u << cs);
+      ++iters;
+      const int base = (sup * kSuper + cs) * kCluster;
+      const float t_max = __int_as_float(best);
+      int cand = INT_MAX, crow = -1;
+      Hit hc{0.f, 0.f, 0.f, false};
+      for (int r = 0; r < kCluster; ++r) {
+        Hit h;
+        if (Tri::test(q.r, pre, tab, base + r, t_min, t_max, h)) {
+          const int key = (__float_as_int(h.t) & ~kLowM) | ((cs << 4) | r);
+          if (key < cand) {
+            cand = key;
+            hc = h;
+            crow = base + r;
+          }
+        }
+      }
+      if (cand < best) {
+        best = cand;
+        bt = hc.t;
+        bu = hc.u;
+        bv = hc.v;
+        bback = hc.back;
+        brow = crow;
+      }
+    }
+  }
+  float tri = 0.f, inst = 0.f, flip = 0.f;
+  if (brow >= 0) {
+    const float* meta = tab + static_cast<size_t>(brow) * Tri::kCols +
+                        Tri::kMeta;
+    tri = meta[0];
+    inst = meta[1];
+    flip = meta[2];
+  }
+  out_best[i] = best;
+  out_t[i] = bt;
+  out_u[i] = bu;
+  out_v[i] = bv;
+  out_tri[i] = static_cast<int>(tri);
+  out_inst[i] = static_cast<int>(inst);
+  out_back[i] = brow >= 0 && (bback != (flip > 0.5f));
+  out_iters[i] = iters;
+}
+
+template <class Tri>
+__global__ void __launch_bounds__(1024)
+any_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
+           const float* __restrict__ cbox, const float* __restrict__ tab,
+           const float* __restrict__ od, const float* __restrict__ tm,
+           int rp, float t_min, unsigned char* __restrict__ out_occ) {
+  __shared__ float4 boxes[2 * kSuper];
+  const int b = blockIdx.x;
+  const int i = b * blockDim.x + threadIdx.x;
+  const RayInv q = load_od(od, rp, i);
+  const typename Tri::Pre pre = Tri::prepare(q.r);
+  const float t_max = tm[i];
+  bool occ = false;
+  const int k1 = seg[b + 1];
+  for (int k = seg[b]; k < k1; ++k) {
+    // stop once every ray of the block is occluded (also the barrier
+    // before the boxes are restaged)
+    if (__syncthreads_and(occ)) break;
+    const int sup = item_sup[k];
+    stage_boxes(cbox, sup, boxes);
+    __syncthreads();
+    for (int c = 0; c < kSuper && !occ; ++c) {
+      float t_lo;
+      if (!child_enter(q, boxes, c, t_max, t_min, t_lo)) continue;
+      const int base = (sup * kSuper + c) * kCluster;
+      for (int r = 0; r < kCluster; ++r) {
+        Hit h;
+        if (Tri::test(q.r, pre, tab, base + r, t_min, t_max, h)) {
+          occ = true;
+          break;
+        }
+      }
+    }
+  }
+  out_occ[i] = occ;
+}
+
+}  // namespace
+
+// C interface (ctypes). Pointers are device pointers; `stream` is a
+// cudaStream_t; `rb` is the block size (rays per block, a multiple of 32,
+// at most 1024) and divides `rp`. Each returns cudaGetLastError() after
+// the launch.
+
+extern "C" int dcrt_wl_cull(const float* boxes, int n_boxes, const float* od,
+                            const float* tm, int rp, int rb, float* out,
+                            void* stream) {
+  if (rp > 0 && n_boxes > 0) {
+    const dim3 grid(rp / rb, (n_boxes + kBoxChunk - 1) / kBoxChunk);
+    cull_kernel<<<grid, rb, 0, static_cast<cudaStream_t>(stream)>>>(
+        boxes, n_boxes, od, tm, rp, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dcrt_wl_refine(const float* hsup, int hs, const int* item_blk,
+                              const int* item_hyp, int n_items,
+                              const float* od, const float* tm, int rp,
+                              int rb, float* out, void* stream) {
+  if (n_items > 0) {
+    refine_kernel<<<n_items, rb, 0, static_cast<cudaStream_t>(stream)>>>(
+        hsup, hs, item_blk, item_hyp, od, tm, rp, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dcrt_wl_closest(const int* seg, const int* item_sup,
+                               const float* item_t, int nb, const float* cbox,
+                               const float* tab, int watertight,
+                               const float* od, const float* texp, int rp,
+                               int rb, float t_min, int* best, float* t,
+                               float* u, float* v, int* tri, int* inst,
+                               unsigned char* back, int* iters,
+                               void* stream) {
+  if (nb > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (watertight)
+      closest_kernel<RawWatertight><<<nb, rb, 0, s>>>(
+          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, best, t, u,
+          v, tri, inst, back, iters);
+    else
+      closest_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
+          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, best, t, u,
+          v, tri, inst, back, iters);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dcrt_wl_any(const int* seg, const int* item_sup, int nb,
+                           const float* cbox, const float* tab,
+                           int watertight, const float* od, const float* tm,
+                           int rp, int rb, float t_min, unsigned char* occ,
+                           void* stream) {
+  if (nb > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (watertight)
+      any_kernel<RawWatertight><<<nb, rb, 0, s>>>(seg, item_sup, cbox, tab,
+                                                  od, tm, rp, t_min, occ);
+    else
+      any_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(seg, item_sup, cbox, tab, od,
+                                                 tm, rp, t_min, occ);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

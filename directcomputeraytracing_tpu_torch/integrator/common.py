@@ -1,9 +1,10 @@
-"""Shared integrator pieces: render config, ray-origin offset, hit shading.
+"""Shared integrator pieces: render config, ray-origin offset, hit shading,
+the bounce-ray sort key.
 
 Counterpart of `directcomputeraytracing_tpu.integrator.common`. The
-reference's `RenderConfig` also carries TPU-only knobs (ray sorting, slab
-marching, pool-cast backends); the port's mirror holds the fields its
-megakernel reads and validates the rest of what it cannot do yet.
+reference's `RenderConfig` also carries knobs for slab marching and the
+pool-cast backends; the port's mirror holds the fields its megakernel
+reads and validates the rest of what it cannot do yet.
 """
 
 from dataclasses import dataclass
@@ -37,7 +38,7 @@ class RenderConfig:
     has_env_texture: bool = False
     light_visible: bool = True          # env/mesh lights seen by camera
     use_vndf: bool = True
-    traversal_backend: str = "auto"     # the port has the dense sweep only
+    traversal_backend: str = "auto"     # dense sweep or work list, by size
     filter_type: str = "box"            # film reconstruction filter
     filter_radius: float = 0.5
     any_hit: bool = False               # alpha-tested transparency
@@ -168,3 +169,19 @@ def shade_hit(scene, origin, direction, hit):
         light_index=scene.instance_light_indices[inst],
         triangle_index=hit.triangle,
     )
+
+
+def ray_sort_key(origin, direction, scene_lo, scene_inv_extent):
+    """Coherence sort key for bounce rays (the reference's `oct_morton12`
+    scheme): 3 direction-octant bits above a 12-bit Morton code of the
+    origin's cell in a 16^3 grid over the scene box. (R,) int64."""
+    oct_ = ((direction[:, 0] >= 0).long()
+            | ((direction[:, 1] >= 0).long() << 1)
+            | ((direction[:, 2] >= 0).long() << 2))
+    q = torch.clamp((origin - scene_lo) * scene_inv_extent, 0.0, 0.999)
+    cell = (q * 16).long()
+    m = torch.zeros_like(oct_)
+    for b in range(4):
+        for ax in range(3):
+            m = m | (((cell[:, ax] >> b) & 1) << (3 * b + ax))
+    return (oct_ << 12) | m

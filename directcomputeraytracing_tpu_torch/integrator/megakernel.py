@@ -10,7 +10,11 @@ packages draw the same per-pixel streams.
 Per sample pass: one closest-hit cast for the camera ray, then per bounce
 one any-hit shadow cast (when the scene has lights) and one closest-hit
 extension cast, i.e. (max_bounce + 2) closest and (max_bounce + 1) any-hit
-casts.
+casts. On scenes with cluster tables each extension cast runs in
+coherence-sorted order and its hits are scattered back (the reference's
+`sort_bounce_rays` branch, which its renderer turns on for such scenes on
+its accelerator), so that a block of the work-list traversal holds rays
+of like origin and direction.
 """
 
 from typing import NamedTuple
@@ -19,7 +23,7 @@ import torch
 
 from directcomputeraytracing_tpu.core.constants import LIGHT_INDEX_INVALID
 
-from ..accel.traverse import intersect_any, intersect_closest
+from ..accel.traverse import HitInfo, intersect_any, intersect_closest
 from ..bsdf.dispatch import evaluate_bsdf, evaluate_bsdf_pdf, sample_bsdf
 from ..camera.camera import generate_ray
 from ..lights.lights import (
@@ -34,7 +38,7 @@ from ..rng.xoshiro import (
     next_sample_3d,
 )
 from ..sampling.montecarlo import dot, power_heuristic
-from .common import RenderConfig, offset_ray_origin, shade_hit
+from .common import RenderConfig, offset_ray_origin, ray_sort_key, shade_hit
 
 
 def _sel(mask, new, old):
@@ -77,6 +81,28 @@ class _Carry(NamedTuple):
     wi: torch.Tensor
     itx: object
     active: torch.Tensor
+
+
+def _sorted_closest(scene, cfg, origin, direction, alive):
+    """Extension cast in `ray_sort_key` order, hits returned in lane order.
+    Dead lanes sort last and are parked far away, so they enter nothing.
+    The key's grid spans the scene box of the work-list tables (the
+    reference uses its TLAS root box, the same box up to rounding)."""
+    from ..accel.worklist import scene_tables
+
+    lo, hi = scene_tables(scene).bounds
+    key = ray_sort_key(origin, direction, lo,
+                       1.0 / torch.clamp_min(hi - lo, 1e-6))
+    order = torch.argsort(torch.where(alive, key, 0xFFFFFFFF), stable=True)
+    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=direction.dtype,
+                          device=direction.device)
+    hit = intersect_closest(
+        scene, torch.where(alive[:, None], origin, 2e9)[order],
+        torch.where(alive[:, None], direction, x_axis)[order],
+        backend=cfg.traversal_backend, watertight=cfg.watertight)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    return HitInfo(*(x[inv] for x in hit))
 
 
 def _bounce(scene, luts, cfg, c):
@@ -123,9 +149,12 @@ def _bounce(scene, luts, cfg, c):
     throughput = _sel(alive, throughput, c.throughput)
 
     ext_o = offset_ray_origin(itx.position, itx.geometry_normal, wi_new)
-    hit2 = intersect_closest(scene, ext_o, wi_new,
-                             backend=cfg.traversal_backend,
-                             watertight=cfg.watertight)
+    if scene.cluster_bbox.shape[0] > 1:
+        hit2 = _sorted_closest(scene, cfg, ext_o, wi_new, alive)
+    else:
+        hit2 = intersect_closest(scene, ext_o, wi_new,
+                                 backend=cfg.traversal_backend,
+                                 watertight=cfg.watertight)
     itx2 = shade_hit(scene, ext_o, wi_new, hit2)
 
     env_idx = cfg.env_light_index if cfg.has_env_light \
@@ -206,3 +235,18 @@ def full_frame_pixels(cfg: RenderConfig, device):
                             torch.arange(cfg.width, device=device),
                             indexing="ij")
     return xs.reshape(-1), ys.reshape(-1)
+
+
+def tiled_frame_pixels(cfg: RenderConfig, device, tile_h=32, tile_w=32):
+    """Tile-major (x, y) int64 pixel coordinates and the inverse
+    permutation: values[inv] puts tile-order results in raster order.
+    Square 32x32 tiles make each 1024-ray block of the work-list
+    traversal one tile, the most compact frustum; edge tiles are clipped."""
+    h, w = cfg.height, cfg.width
+    order = torch.cat([
+        (torch.arange(ty, min(ty + tile_h, h))[:, None] * w
+         + torch.arange(tx, min(tx + tile_w, w))[None, :]).reshape(-1)
+        for ty in range(0, h, tile_h) for tx in range(0, w, tile_w)])
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(h * w)
+    return (order % w).to(device), (order // w).to(device), inv.to(device)

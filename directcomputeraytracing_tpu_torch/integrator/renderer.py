@@ -1,11 +1,15 @@
 """Progressive renderer: scene + camera + config -> image, on one device.
 
 Counterpart of `directcomputeraytracing_tpu.integrator.renderer` for the
-megakernel integrator and the box film. The reference's TPU-only choices
-are gone: square-tile pixel order, bounce-ray sorting, tunnel pacing and
-its 2^18-pixel dispatch budget. What stays is a pixel chunk
-(`CHUNK_PIXELS`, 2^20) that bounds the memory of one pass: a 1024x1024
-frame runs as one chunk, a larger frame as several.
+megakernel integrator and the box film. A pixel chunk (`CHUNK_PIXELS`,
+2^20) bounds the memory of one pass: a 1024x1024 frame runs as one chunk,
+a larger frame as several. Scenes with cluster tables trace in 32x32
+pixel tiles and sort their bounce rays, as the reference does on its
+accelerator: a 1024-ray block of the work-list traversal is then one
+tile, a compact frustum with a short item list. Values are scattered
+back to raster order before the film; the per-pixel random streams make
+the image independent of the order. The reference's tunnel pacing and
+its 2^18-pixel dispatch budget are gone.
 
 The wavefront integrator, splatting filters, slab marching and
 alpha-tested scenes raise NotImplementedError (ROADMAP queue 1).
@@ -28,6 +32,7 @@ from .megakernel import (
     full_frame_pixels,
     render_samples,
     render_samples_accumulated,
+    tiled_frame_pixels,
 )
 
 # pixels per pass chunk, a bound on the device memory of one pass
@@ -81,7 +86,12 @@ class Renderer:
         self.film = create_film(height, width, self.device)
         self.spp = 0
         self.frame_index = 0    # advances per sample pass, survives reset()
-        self._px, self._py = full_frame_pixels(self.cfg, self.device)
+        if self.arrays.cluster_bbox.shape[0] > 1:
+            self._px, self._py, self._inv = tiled_frame_pixels(self.cfg,
+                                                               self.device)
+        else:
+            self._px, self._py = full_frame_pixels(self.cfg, self.device)
+            self._inv = None
 
     @property
     def n_chunks(self):
@@ -98,12 +108,16 @@ class Renderer:
         self.film = create_film(self.cfg.height, self.cfg.width, self.device)
         self.spp = 0
 
+    def _raster(self, values):
+        """Per-pixel values in the trace order -> raster order."""
+        return values if self._inv is None else values[self._inv]
+
     def render_sample(self, frame_seed):
         """Trace one sample per pixel and accumulate it into the film."""
-        values = torch.cat([
+        values = self._raster(torch.cat([
             render_samples(self.arrays, self.luts, self.camera, self.cfg,
                            px, py, frame_seed)[1]
-            for px, py in self._chunks()])
+            for px, py in self._chunks()]))
         self.film = accumulate_box(self.film, values, self.cfg.height,
                                    self.cfg.width)
         self.spp += 1
@@ -121,11 +135,11 @@ class Renderer:
         remaining = spp
         while remaining > 0:
             if can_fuse and remaining >= fuse:
-                total = torch.cat([
+                total = self._raster(torch.cat([
                     render_samples_accumulated(
                         self.arrays, self.luts, self.camera, self.cfg, px, py,
                         self.spp, fuse)
-                    for px, py in self._chunks()])
+                    for px, py in self._chunks()]))
                 self.film = accumulate_box(self.film, total, self.cfg.height,
                                            self.cfg.width, float(fuse))
                 self.spp += fuse

@@ -1,9 +1,9 @@
-"""Procedural Cornell box scenes.
+"""Procedural scenes: the Cornell box and the sphere grid.
 
-Counterpart of `cornell_box` in `directcomputeraytracing_tpu.scene.presets`,
-with the same geometry, materials, lights and camera: LHS coordinates,
-front faces wound clockwise (geometry normal = cross(v0v2, v0v1)), camera
-looking along +z.
+Counterparts of `cornell_box`, `uv_sphere` and `sphere_grid` in
+`directcomputeraytracing_tpu.scene.presets`, with the same geometry,
+materials, lights and camera: LHS coordinates, front faces wound
+clockwise (geometry normal = cross(v0v2, v0v1)), camera looking along +z.
 """
 
 import numpy as np
@@ -117,4 +117,77 @@ def cornell_box(light="area", material_set="diffuse"):
     cam = CameraParams.create(
         transform=look_at_transform((0.0, 1.0, -3.6), (0.0, 1.0, 0.0)),
         fov_x=np.deg2rad(38.0), aperture_radius=0.0, focal_distance=3.6)
+    return scene, cam
+
+
+def uv_sphere(stacks=16, slices=24):
+    """Lat-long unit sphere; front faces outward under the LHS
+    cross(v0v2, v0v1) convention. Returns (positions, indices)."""
+    verts = []
+    for i in range(stacks + 1):
+        th = np.pi * i / stacks
+        for j in range(slices + 1):
+            ph = 2.0 * np.pi * j / slices
+            verts.append((np.sin(th) * np.cos(ph), np.cos(th),
+                          np.sin(th) * np.sin(ph)))
+    verts = np.asarray(verts, np.float32)
+    idx = []
+    for i in range(stacks):
+        for j in range(slices):
+            a = i * (slices + 1) + j
+            b = a + slices + 1
+            if i > 0:
+                idx.append([a, b, a + 1])
+            if i < stacks - 1:
+                idx.append([a + 1, b, b + 1])
+    return verts, np.asarray(idx, np.int64)
+
+
+def sphere_grid(nx=5, nz=5, stacks=24, slices=32, light="area"):
+    """nx * nz instanced spheres (seeded radii, grey and rough-metal
+    alternating) on a ground quad under a quad lamp. sphere_grid(12, 12)
+    has 211,972 world triangles: the work-list traversal's scene.
+    Returns (Scene, CameraParams on the CPU)."""
+    sv, si = uv_sphere(stacks, slices)
+    sphere = Mesh(positions=sv, indices=si,
+                  material_ids=np.zeros(len(si), np.int64), name="sphere")
+
+    ext = max(nx, nz) * 1.5
+    gp, gi = _quad([-ext, 0, -ext], [ext, 0, -ext], [ext, 0, ext],
+                   [-ext, 0, ext])
+    ground = Mesh(positions=gp, indices=gi,
+                  material_ids=np.zeros(len(gi), np.int64), name="ground")
+
+    mats = [Material(albedo=(0.6, 0.6, 0.6), name="grey"),
+            Material(albedo=(3.9, 2.45, 2.14), ior=(0.143, 0.375, 1.44),
+                     mtype=MATERIAL_TYPE_CONDUCTOR, k=(3.983, 2.386, 1.603),
+                     roughness=0.3, name="metal")]
+    meshes = [sphere, ground]
+    instances = [Instance(mesh=1, name="ground")]
+    rng = np.random.default_rng(11)
+    for ix in range(nx):
+        for iz in range(nz):
+            r = 0.35 + 0.2 * rng.random()
+            t = np.zeros((4, 3), np.float32)
+            t[0, 0] = t[1, 1] = t[2, 2] = r
+            t[3] = ((ix - (nx - 1) / 2) * 1.5, r,
+                    (iz - (nz - 1) / 2) * 1.5)
+            instances.append(Instance(
+                mesh=0, transform=t,
+                material_override=1 if (ix + iz) % 2 else 0,
+                name=f"sphere_{ix}_{iz}"))
+
+    lp, li = _quad([-2.0, 7.0, -2.0], [-2.0, 7.0, 2.0], [2.0, 7.0, 2.0],
+                   [2.0, 7.0, -2.0])
+    lamp = Mesh(positions=lp, indices=li,
+                material_ids=np.zeros(len(li), np.int64), name="lamp")
+    meshes.append(lamp)
+    instances.append(Instance(mesh=2, is_emitter=True,
+                              radiance=(20.0, 18.0, 15.0), name="lamp"))
+
+    scene = Scene(meshes=meshes, instances=instances, materials=mats)
+    cam = CameraParams.create(
+        transform=look_at_transform((0.0, 4.5, -1.9 * max(nx, nz)),
+                                    (0.0, 0.5, 0.0)),
+        fov_x=np.deg2rad(50.0), focal_distance=10.0)
     return scene, cam

@@ -1,13 +1,15 @@
 """Host-side scene model and its flattening to device tensors.
 
 Numpy counterpart of `directcomputeraytracing_tpu.scene.scene` for scenes
-the dense sweep carries (at most `DENSE_MAX_TRIS` world triangles): one
-SAH BLAS per mesh orders each mesh's triangles into leaf order (the
-reference's numpy builder, `directcomputeraytracing_tpu.accel.build`),
-instances expand into a world-space triangle soup, and materials, lights
-and textures pack into the tables `SceneTensors` names. The port has no
-stack traversal, so no TLAS is built. Larger scenes need the cluster and
-work-list tables, which the port does not build yet.
+of at most `SOUP_MAX_TRIS` world triangles: one SAH BLAS per mesh orders
+each mesh's triangles into leaf order (the reference's numpy SAH build,
+`directcomputeraytracing_tpu.accel.build`), instances expand into a
+world-space triangle soup, and materials, lights and textures pack into
+the tables `SceneTensors` names. Above `DENSE_MAX_TRIS` the soup is also
+clustered for the work-list traversal (`accel.cluster`). The port has no
+stack traversal, so no TLAS is built. Larger scenes need the instanced
+work-list tables, and clustered scenes with alpha the opaque/masked
+split; neither is built yet.
 """
 
 from dataclasses import dataclass, field
@@ -33,11 +35,15 @@ from directcomputeraytracing_tpu.core.constants import (
     MATERIAL_TYPE_DIFFUSE,
 )
 
+from ..accel.cluster import CLUSTER_SIZE, baldwin_table, build_clusters
 from ..core.types import SceneTensors
 
 # Largest world-triangle soup the dense sweep takes; the reference builds
 # cluster tables above this (scene/scene.py:398).
 DENSE_MAX_TRIS = 2048
+# Largest soup the reference expands; above it, it builds the instanced
+# work-list tables instead (scene/scene.py:338, :451).
+SOUP_MAX_TRIS = 1 << 20
 
 
 @dataclass
@@ -242,11 +248,16 @@ def flatten_scene(scene: Scene, device):
         scene.materials = [Material()]
     total_world_tris = sum(scene.meshes[i.mesh].indices.shape[0]
                            for i in scene.instances)
-    if total_world_tris > DENSE_MAX_TRIS:
+    if total_world_tris > SOUP_MAX_TRIS:
         raise NotImplementedError(
             f"{total_world_tris} world triangles: scenes above "
-            f"{DENSE_MAX_TRIS} need the cluster and work-list tables "
-            "(ROADMAP queue 1, items 12 and 15)")
+            f"{SOUP_MAX_TRIS} need the instanced work-list tables and "
+            "kernels (ROADMAP queue 2, rows 13-14)")
+    any_non_opaque = any(m.non_opaque for m in scene.materials)
+    if any_non_opaque and total_world_tris > DENSE_MAX_TRIS:
+        raise NotImplementedError(
+            "alpha-tested clustered scenes need the opaque/masked cluster "
+            "split (ROADMAP queue 1, item 11)")
 
     # per-mesh BLAS leaf order; triangle ids are global, mesh by mesh
     mesh_tris, mesh_matids = [], []
@@ -286,7 +297,16 @@ def flatten_scene(scene: Scene, device):
         meta[:, 2] = 1.0 if np.linalg.det(a.astype(np.float64)) < 0 else 0.0
         world_meta.append(meta)
 
-    any_non_opaque = any(m.non_opaque for m in scene.materials)
+    world_tris = np.concatenate(world_tris)
+    world_meta = np.concatenate(world_meta)
+    if world_tris.shape[0] > DENSE_MAX_TRIS:
+        cluster_tris, cluster_bbox = build_clusters(world_tris, world_meta)
+        cluster_bw = baldwin_table(cluster_tris)
+    else:
+        cluster_tris = np.zeros((CLUSTER_SIZE, 13), np.float32)
+        cluster_bw = np.zeros((CLUSTER_SIZE, 16), np.float32)
+        cluster_bbox = np.zeros((1, 8), np.float32)
+
     atlas, sizes = _texture_atlas(scene.textures)
     env = (scene.env_texture if scene.env_texture is not None
            else np.ones((1, 1, 3), np.float32))
@@ -307,9 +327,11 @@ def flatten_scene(scene: Scene, device):
     arrays = SceneTensors(
         vtx_position=t(all_pos, np.float32),
         triangles=t(triangles),
-        world_tris=t(np.concatenate(world_tris)),
-        world_tri_meta=t(np.concatenate(world_meta)),
-        cluster_bbox=t(np.zeros((1, 8), np.float32)),
+        world_tris=t(world_tris),
+        world_tri_meta=t(world_meta),
+        cluster_tris=t(cluster_tris),
+        cluster_bw=t(cluster_bw),
+        cluster_bbox=t(cluster_bbox),
         isup_inst=t(np.zeros(1, np.int64)),
         vtx_table=t(vtx_table, np.float32),
         mat_table=t(mat_table),

@@ -1,12 +1,14 @@
-"""Where the time of a Cornell glossy 1024x1024 render goes, on one GPU.
+"""Where the time of a 1024x1024 render goes, on one GPU.
 
-    python -m directcomputeraytracing_tpu_torch.tools.profile_render
+    python -m directcomputeraytracing_tpu_torch.tools.profile_render [scene]
 
-Needs a CUDA device; with none it exits non-zero. Renders
-`cornell_box("area", "glossy")` at 1024x1024, max_bounce 4, through
+scene: `cornell` (default, `cornell_box("area", "glossy")`, the dense
+sweep) or `sphere_grid` (`sphere_grid(12, 12)`, 211,972 triangles, the
+work-list traversal). Needs a CUDA device; with none it exits non-zero.
+Renders the scene at 1024x1024, max_bounce 4, through
 `Renderer.render(spp=8)`: the fused 8-sample call that chip_smoke.py's
 16 spp render makes twice. Prints the card's name and power limit, the
-operators with the most device time (a `key_averages()` table), and three
+operators with the most device time (a `key_averages()` table), and four
 JSON lines:
 
 - `wall`: ms/spp by the host clock around `render(8)` ending in
@@ -19,7 +21,10 @@ JSON lines:
   same busy time against the median unprofiled wall ms. The profiler slows
   the host and not the kernels, so the second is the nearer estimate;
 - `ops`: device time per PyTorch operator (its kernels' time) as a share
-  of busy time, largest first.
+  of busy time, largest first;
+- `port_kernels`: device ms per sample pass of each of the port's own
+  kernels (launched through ctypes, so no PyTorch operator holds them),
+  and their share of busy time.
 """
 
 import json
@@ -33,12 +38,27 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..integrator.renderer import Renderer
-from ..scene.presets import cornell_box
+from ..scene.presets import cornell_box, sphere_grid
 
 WIDTH = HEIGHT = 1024
 MAX_BOUNCE = 4
 SPP = 8
 REPS = 3
+SCENES = {"cornell": lambda: cornell_box("area", "glossy"),
+          "sphere_grid": lambda: sphere_grid(12, 12)}
+# the port's kernels, told apart by entry point and template argument in
+# the demangled names the profiler reports
+PORT_KERNELS = {
+    "worklist.cu cull_kernel": ("cull_kernel",),
+    "worklist.cu refine_kernel": ("refine_kernel",),
+    "worklist.cu closest_kernel": ("closest_kernel", "BaldwinWeber",
+                                   "RawWatertight"),
+    "worklist.cu any_kernel": ("any_kernel", "BaldwinWeber", "RawWatertight"),
+    "brute_sweep.cu closest_kernel": ("closest_kernel", "Moeller",
+                                      "dcrt::Watertight"),
+    "brute_sweep.cu any_kernel": ("any_kernel", "Moeller",
+                                  "dcrt::Watertight"),
+}
 
 
 def _timed_render(r):
@@ -62,7 +82,27 @@ def _busy_ms(events):
     return busy / 1000.0, len(spans)
 
 
-def main():
+def _port_kernel_ms(events):
+    """Device ms of each of the port's kernels over the traced run."""
+    out = {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for key, (entry, *args) in PORT_KERNELS.items():
+            if entry in e.name and (not args
+                                    or any(a in e.name for a in args)):
+                out[key] = out.get(key, 0.0) + (
+                    e.time_range.end - e.time_range.start) / 1000.0
+    return out
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    scene = argv[0] if argv else "cornell"
+    if scene not in SCENES:
+        print(f"profile_render: scene is one of {sorted(SCENES)}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("profile_render: no CUDA device", file=sys.stderr)
         return 1
@@ -70,8 +110,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=120, check=True)
     print(smi.stdout.strip())
-    r = Renderer(*cornell_box("area", "glossy"), WIDTH, HEIGHT,
-                 max_bounce=MAX_BOUNCE, device=torch.device("cuda"))
+    r = Renderer(*SCENES[scene](), WIDTH, HEIGHT, max_bounce=MAX_BOUNCE,
+                 device=torch.device("cuda"))
     _timed_render(r)   # warm-up: kernel build, allocator growth
     torch.cuda.reset_peak_memory_stats()
     wall = [_timed_render(r) for _ in range(REPS)]
@@ -87,6 +127,7 @@ def main():
         traced_ms = 1000.0 * (time.perf_counter() - t0) / SPP
     busy, n_ops = _busy_ms(prof.events())
     busy /= SPP
+    own = {k: ms / SPP for k, ms in _port_kernel_ms(prof.events()).items()}
     ka = prof.key_averages()
     print(ka.table(sort_by="self_device_time_total", row_limit=25,
                    max_name_column_width=60))
@@ -102,6 +143,9 @@ def main():
         idle_traced=1.0 - busy / traced_ms,
         idle_unprofiled=1.0 - busy / median)))
     print("ops", json.dumps({k: round(ms / busy, 4) for ms, k in per_op[:12]}))
+    print("port_kernels", json.dumps(dict(
+        scene=scene, ms_per_spp=own,
+        share_of_busy=sum(own.values()) / busy)))
     return 0
 
 

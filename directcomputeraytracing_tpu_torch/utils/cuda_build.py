@@ -4,12 +4,14 @@ Route: `nvcc` compiles one `.cu` file with a plain C interface into a
 `.so` under the package's `_build/` directory (git-ignored), and `ctypes`
 loads it. Nothing here runs at import time; a kernel module calls
 `load_library` on its first launch. The library's file name carries a
-hash of the source and the flags, so an edited source rebuilds, and the
+hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so
+an edited source or header rebuilds, and the
 build writes to a temporary name and renames it, so concurrent first
 uses never load a half-written file.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -47,8 +49,10 @@ def load_library(source_name, extra_flags=()):
     set) and load it with ctypes."""
     src = os.path.join(CSRC, source_name)
     flags = NVCC_FLAGS + tuple(extra_flags)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source_name)[0]
     out = os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
     seconds, log = 0.0, ""

@@ -153,7 +153,10 @@ def test_unported_paths_raise(case):
     o, d, _ = (torch.from_numpy(x) for x in _rays(8))
     scene, kw, err = scene_with_tables(soup), {}, NotImplementedError
     if case == "clustered":
-        scene = scene_with_tables(soup, clusters=4)
+        # cluster tables beside instanced ones: the instanced kernels
+        # (ROADMAP queue 2, rows 13-14) are not ported yet
+        scene, kw = scene_with_tables(soup, clusters=4, supers=4), dict(
+            watertight=True)
     elif case == "instanced":
         scene = scene_with_tables(soup, supers=4)
     elif case == "backend":

@@ -29,10 +29,14 @@ from directcomputeraytracing_tpu_torch.lut.textures import (
     load_luts,
     placeholder_luts,
 )
-from directcomputeraytracing_tpu_torch.scene.presets import cornell_box
+from directcomputeraytracing_tpu_torch.scene.presets import (
+    cornell_box,
+    sphere_grid,
+)
 from directcomputeraytracing_tpu_torch.scene.scene import (
-    DENSE_MAX_TRIS,
+    SOUP_MAX_TRIS,
     Instance,
+    Material,
     Mesh,
     Scene,
     flatten_scene,
@@ -89,13 +93,37 @@ def test_committed_luts_load():
 
 
 def test_flatten_refuses_clustered_sizes():
-    n = DENSE_MAX_TRIS + 1
+    """A clustered scene (2049 to 2^20 world triangles) flattens exactly as
+    the reference does, cluster tables included; above 2^20 (the
+    instanced tables) and with alpha the port refuses."""
+    from directcomputeraytracing_tpu.scene.presets import (
+        sphere_grid as ref_grid,
+    )
+
+    ref_scene, ref_camera = ref_grid(3, 3, stacks=12, slices=16)
+    want, _, want_cam = from_reference(ref_flatten(ref_scene)[0],
+                                       ref_placeholder_luts(), ref_camera,
+                                       "cpu")
+    scene, camera = sphere_grid(3, 3, stacks=12, slices=16)
+    got, meta = flatten_scene(scene, "cpu")
+    assert got.cluster_bbox.shape[0] > 1
+    for f in SceneTensors._fields:
+        x, y = getattr(want, f), getattr(got, f)
+        assert x.dtype == y.dtype and x.shape == y.shape, f
+        assert torch.equal(x, y), f
+    for f in CameraParams._fields:
+        assert torch.equal(getattr(want_cam, f), getattr(camera, f)), f
+
     rs = np.random.default_rng(0)
-    pos = rs.random((3 * n, 3), dtype=np.float32)
-    mesh = Mesh(positions=pos, indices=np.arange(3 * n).reshape(n, 3))
-    with pytest.raises(NotImplementedError, match="work-list"):
-        flatten_scene(Scene(meshes=[mesh], instances=[Instance(mesh=0)]),
-                      "cpu")
+    n = 1024
+    mesh = Mesh(positions=rs.random((3 * n, 3), dtype=np.float32),
+                indices=np.arange(3 * n).reshape(n, 3))
+    many = [Instance(mesh=0)] * (SOUP_MAX_TRIS // n + 1)
+    with pytest.raises(NotImplementedError, match="rows 13-14"):
+        flatten_scene(Scene(meshes=[mesh], instances=many), "cpu")
+    scene.materials.append(Material(opacity=0.5))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        flatten_scene(scene, "cpu")
 
 
 def test_port_runs_without_jax():
@@ -124,3 +152,29 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.split() == ["ok", "32", "1"]
+
+
+def test_sphere_grid_renders_without_jax():
+    """A clustered scene renders through the work-list twins with jax
+    blocked: the port builds its cluster tables itself."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None          # any `import jax` now fails
+        import numpy as np, torch
+        from directcomputeraytracing_tpu_torch import Renderer
+        from directcomputeraytracing_tpu_torch.scene.presets import (
+            sphere_grid)
+        r = Renderer(*sphere_grid(3, 3, stacks=12, slices=16), 16, 16,
+                     max_bounce=2, device=torch.device("cpu"))
+        img = r.render(spp=1)
+        assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+        assert img.mean() > 0
+        assert not [k for k, m in sys.modules.items()
+                    if k.startswith("jax") and m is not None]
+        print("ok", r.arrays.cluster_bbox.shape[0], r._inv is not None)
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split() == ["ok", "256", "True"]
