@@ -25,15 +25,35 @@ any failure exits non-zero:
    `Renderer.render`, with the kernels' launch counts checked against
    spp * (max_bounce + 2) * chunks (closest) and spp * (max_bounce + 1) *
    chunks (any-hit);
+2c. grouped work-list kernels (closest and any-hit) against their twins
+   and against the per-ray sweeps on the three 1M-ray sets of 2b plus the
+   random set sorted by `ray_sort_key` (like a permuted pool) and a
+   pool-sized (2^18) sorted set, Baldwin-Weber and watertight: mismatch
+   counts of every field, `iters` equality against the twin; the twins
+   run on the first 2^18 rays of the incoherent sets, where a 1M-ray
+   twin cast would take minutes, and on the whole camera set; CUDA-event
+   times of grouped and per-ray kernels, clusters swept per ray;
 3b. the main path on a clustered scene: sphere_grid(12, 12) 1024x1024,
    16 spp, max_bounce 4. Closest sweeps plus closest casts with an empty
    item list must equal spp * (max_bounce + 2) * chunks, any-hit sweeps
    plus empty any-hit casts spp * (max_bounce + 1) * chunks; one cull per
    cast, one refine per cast whose hyper cull admitted something; no
    dense-sweep launch;
+3c. the wavefront path: sphere_grid(12, 12) at 1920x1080, max_bounce 4,
+   `Renderer(..., integrator="wavefront").render(8)` (one fused pool pass
+   of 8 samples) after a warm-up; ms/spp, peak memory, `LAST_STATS`; the
+   bundle sweeps launch 0 times, grouped sweeps plus empty casts equal
+   the pool casts `LAST_STATS` counted, one cull per cast; then the same
+   pass without slab marching (slab_march=0.0) and with it again, in the
+   order off, off, on (with the render: on, off, off, on), its image held
+   to the render's (RMSE <= 1e-3); then one timed pass with a 2^20-path
+   pool;
+3d. the wavefront against the megakernel on the card (sphere_grid(12,
+   12), 256x256, 4 spp, same seeds): RMSE <= 1e-3;
 4. the card's render against the port's CPU render, Cornell (64x64,
-   4 spp) and 4b. sphere_grid(3, 3, stacks=12, slices=16) (64x64, 4 spp);
-5. one JSON line listing the six kernels, then the contract line, last.
+   4 spp), 4b. sphere_grid(3, 3, stacks=12, slices=16) (64x64, 4 spp)
+   and 4c. the same small grid through the wavefront;
+5. one JSON line listing the eight kernels, then the contract line, last.
 
 Tolerances (kernel vs twin): the kernels are built without FMA
 contraction, so they round like the twins; a hit/miss or occlusion
@@ -42,7 +62,20 @@ of t_min or t_max, a triangle-id disagreement only between hits within
 that bound of each other (a near-tie; for the work list also within
 2^-12 relative, twice the packed argmin's truncation quantum), and t, u,
 v of same-triangle hits must agree within 1e-5 (relative to 1 + t for
-t). Work-list `iters` must be equal.
+t). Work-list `iters` must be equal. The grouped kernels must equal their
+twins in every field, and the per-ray sweeps in every hit field. The
+grouped any-hit sweep's plain version is the per-ray twin
+`sweep_any_torch`, whose answer the grouped walk must give (its
+`plain_ms` in the kernels line times that twin).
+
+Bounds (`bound_ms` of the kernels line): the larger of the counted
+floating-point operations at 67 TFLOP/s and the bytes read and written
+once at 3.35 TB/s (the H100 SXM's published float32 and memory rates),
+from this run's inputs: a Moeller test 45 operations, a Baldwin-Weber
+test 31, a slab test of a ray and a box 20; the work-list sweeps count
+the fine cull of every item of the ray's block and 16 triangle tests per
+cluster the per-ray walk swept (the any-hit sweeps only the fine cull, a
+lower bound); tables count once, whole.
 """
 
 import json
@@ -66,6 +99,15 @@ SMALL_GRID = ((3, 3), dict(stacks=12, slices=16))
 # a few diverged pixels but not a systematic difference.
 GATE_RMSE = 0.02
 GATE_DIVERGED_FRACTION = 0.01
+WAVEFRONT = dict(width=1920, height=1080, spp=8, max_bounce=4)
+POOL_BIG = 1 << 20
+TWIN_SUBSET = 1 << 18                   # rays of a twin cast on big sets
+POOL_RAYS = 1 << 18                     # the default pool at 1080p x 8 spp
+MK_VS_WF = dict(width=256, height=256, spp=4, max_bounce=4)
+GATE_WF_RMSE = 1e-3
+PEAK_FLOPS = 67e12                      # H100 SXM float32, no tensor cores
+PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
+FLOPS_MOELLER, FLOPS_BW, FLOPS_SLAB = 45, 31, 20
 
 
 def _timed(fn, reps):
@@ -81,6 +123,13 @@ def _timed(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _bound(flops, nbytes):
+    """(bound_ms, bound_by) of work of `flops` operations moving `nbytes`."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def _rays_inside(rng, n, lo, hi):
@@ -395,7 +444,173 @@ def phase_worklist_kernels(device):
     bad = [r for r in reports if not r["ok"]]
     if bad or cull["diff"] or cull["refine_diff"]:
         raise SystemExit(f"work-list kernel/twin mismatch: {bad} {cull}")
-    return reports, times, cull
+    rp = od.shape[1]
+    iters = wl.sweep_closest(tables, items, od, texp, t_min, False)[7]
+    hs = tables.hsup.shape[1]
+    table_bytes = 4 * (tables.cbox3.numel() + tables.bwtab.numel())
+    n_items, n_items_any = int(items.seg[-1]), int(items_any.seg[-1])
+    fine = FLOPS_SLAB * wl.RB * wl.SUPER
+    work = dict(
+        cull=_bound(FLOPS_SLAB * rp * boxes.shape[0],
+                    40 * rp + 32 * boxes.shape[0]
+                    + 4 * boxes.shape[0] * rp // wl.RB),
+        refine=_bound(FLOPS_SLAB * blk.shape[0] * wl.RB * hs,
+                      40 * rp + 4 * tables.hsup.numel()
+                      + (8 + 4 * hs) * blk.shape[0]),
+        sweep_closest=_bound(fine * n_items
+                             + 16 * FLOPS_BW * int(iters.long().sum()),
+                             69 * rp + 12 * n_items + table_bytes),
+        sweep_any=_bound(fine * n_items_any,
+                         41 * rp + 8 * n_items_any + table_bytes))
+    print("worklist bounds camera", json.dumps(work))
+    return reports, times, cull, work
+
+
+def _sweep_diffs(a, b, fields):
+    """Per-field count of rays whose sweep state differs (bits)."""
+    names = ("best", "t", "u", "v", "tri", "inst", "back", "iters")
+    return {names[i]: int((a[i] != b[i]).sum()) for i in fields}
+
+
+def _sorted_rays(tables, o, d):
+    """Rays in `ray_sort_key` order, as the wavefront sorts its pool."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.integrator.common import (
+        ray_sort_key,
+    )
+
+    lo, hi = tables.bounds
+    key = ray_sort_key(o, d, lo, 1.0 / (hi - lo).clamp_min(1e-6))
+    order = torch.argsort(key, stable=True)
+    return o[order].contiguous(), d[order].contiguous()
+
+
+def phase_grouped_kernels(device):
+    """Grouped kernels against their twins and the per-ray sweeps on the
+    sphere grid; grouped vs per-ray kernel times; clusters per ray."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+    from directcomputeraytracing_tpu_torch.core.types import to_device
+    from directcomputeraytracing_tpu_torch.scene.presets import sphere_grid
+    from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+
+    rng = np.random.default_rng(20261018)
+    scene, cam = sphere_grid(*GRID)
+    arrays, _ = flatten_scene(scene, device)
+    tables = wl.scene_tables(arrays)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    lo, hi = [-18.0, 0.01, -18.0], [18.0, 6.9, 18.0]
+    side = int(np.sqrt(N_RAYS))
+    o_cam, d_cam = _tiled_camera_rays(to_device(cam, device), side, side,
+                                      device)
+    o_in, d_in = (f32(x) for x in _rays_inside(rng, N_RAYS, lo, hi))
+    o_sh = rng.uniform([-9.0, 0.01, -9.0], [9.0, 1.5, 9.0], (N_RAYS, 3))
+    to_lamp = rng.uniform([-2.0, 7.0, -2.0], [2.0, 7.0, 2.0],
+                          (N_RAYS, 3)) - o_sh
+    dist = np.linalg.norm(to_lamp, axis=1)
+    o_pool, d_pool = (f32(x) for x in _rays_inside(rng, POOL_RAYS, lo, hi))
+    sets = {
+        "camera": (o_cam, d_cam, f32(rng.uniform(0.5, 30.0, N_RAYS))),
+        "random": (o_in, d_in, f32(rng.uniform(0.5, 30.0, N_RAYS))),
+        "shadow": (f32(o_sh), f32(to_lamp / dist[:, None]),
+                   f32(0.999 * dist)),
+        "random_sorted": (*_sorted_rays(tables, o_in, d_in),
+                          f32(rng.uniform(0.5, 30.0, N_RAYS))),
+        "pool_sorted": (*_sorted_rays(tables, o_pool, d_pool),
+                        f32(rng.uniform(0.5, 30.0, POOL_RAYS))),
+    }
+    t_min = 1e-4
+    reports, timing, errs = [], {}, dict(closest=0.0, any=0.0)
+
+    def prepared(o, d, t_max):
+        od, tm_c, _ = wl.prep_rays(o, d)
+        _, tm_a, _ = wl.prep_rays(o, d, t_max)
+        return (od, tm_c, tm_a, wl.scene_exit(tables, od),
+                wl.phases(tables, od, tm_c), wl.phases(tables, od, tm_a))
+
+    for name, (o, d, t_max) in sets.items():
+        full = prepared(o, d, t_max)
+        n_twin = o.shape[0] if name in ("camera", "pool_sorted") \
+            else TWIN_SUBSET
+        sub = prepared(o[:n_twin], d[:n_twin], t_max[:n_twin])
+        for wt in (False, True):
+            od, tm_c, tm_a, texp, it_c, it_a = full
+            g = wl.sweep_closest_grouped(tables, it_c, od, texp, t_min, wt)
+            p = wl.sweep_closest(tables, it_c, od, texp, t_min, wt)
+            ga = wl.sweep_any_grouped(tables, it_a, od, tm_a, t_min, wt)
+            pa = wl.sweep_any(tables, it_a, od, tm_a, t_min, wt)
+            od_s, _, tm_as, texp_s, it_cs, it_as = sub
+            t0 = time.perf_counter()
+            gs = wl.sweep_closest_grouped(tables, it_cs, od_s, texp_s, t_min,
+                                          wt)
+            gw = wl.sweep_closest_grouped_torch(tables, it_cs, od_s, texp_s,
+                                                t_min, wt)
+            gas = wl.sweep_any_grouped(tables, it_as, od_s, tm_as, t_min, wt)
+            gaw = wl.sweep_any_torch(tables, it_as, od_s, tm_as, t_min, wt)
+            torch.cuda.synchronize()
+            rep = dict(case=name, watertight=wt, rays=o.shape[0],
+                       twin_rays=n_twin,
+                       twin_s=time.perf_counter() - t0,
+                       vs_twin=_sweep_diffs(gs, gw, range(8)),
+                       vs_twin_occ=int((gas != gaw).sum()),
+                       vs_per_ray=_sweep_diffs(g, p, range(7)),
+                       vs_per_ray_occ=int((ga != pa).sum()),
+                       iters_per_ray=float(p[7].float().mean()),
+                       grouped_iters_per_ray=float(g[7].float().mean()),
+                       hits=int(torch.isfinite(wl.decode_closest(
+                           g, texp, it_c.block_any, o.shape[0])[0]).sum()),
+                       occluded=int(ga.sum()))
+            rep["ok"] = (not any(rep["vs_twin"].values())
+                         and not any(rep["vs_per_ray"].values())
+                         and rep["vs_twin_occ"] == 0
+                         and rep["vs_per_ray_occ"] == 0)
+            errs["closest"] = max(errs["closest"], *(
+                float((a.float() - b.float()).abs().max())
+                for a, b in zip(gs[1:4], gw[1:4])))
+            errs["any"] = max(errs["any"], float((gas != gaw).float().max()))
+            reports.append(rep)
+            print("grouped-kernel", json.dumps(rep))
+        od, tm_c, tm_a, texp, it_c, it_a = full
+        timing[name] = dict(
+            rays=o.shape[0],
+            items_per_block=float(it_c.seg[-1]) / (od.shape[1] // wl.RB),
+            closest_ms=_timed(lambda: wl.sweep_closest(
+                tables, it_c, od, texp, t_min, False), 5),
+            closest_grouped_ms=_timed(lambda: wl.sweep_closest_grouped(
+                tables, it_c, od, texp, t_min, False), 5),
+            any_ms=_timed(lambda: wl.sweep_any(
+                tables, it_a, od, tm_a, t_min, False), 5),
+            any_grouped_ms=_timed(lambda: wl.sweep_any_grouped(
+                tables, it_a, od, tm_a, t_min, False), 5))
+        print("grouped-timing", name, json.dumps(timing[name]))
+    # the main path's shape: a sorted pool of 2^18 rays
+    od, tm_c, tm_a, texp, it_c, it_a = prepared(*sets["pool_sorted"])
+    rp = od.shape[1]
+    iters = wl.sweep_closest(tables, it_c, od, texp, t_min, False)[7]
+    table_bytes = 4 * (tables.cbox3.numel() + tables.bwtab.numel())
+    fine = FLOPS_SLAB * wl.RB * wl.SUPER
+    n_c, n_a = int(it_c.seg[-1]), int(it_a.seg[-1])
+    pool = dict(
+        closest_twin_ms=_timed(lambda: wl.sweep_closest_grouped_torch(
+            tables, it_c, od, texp, t_min, False), 1),
+        any_twin_ms=_timed(lambda: wl.sweep_any_torch(
+            tables, it_a, od, tm_a, t_min, False), 1),
+        closest_bound=_bound(fine * n_c + 16 * FLOPS_BW
+                             * int(iters.long().sum()),
+                             69 * rp + 12 * n_c + table_bytes),
+        any_bound=_bound(fine * n_a, 41 * rp + 8 * n_a + table_bytes))
+    pool.update(closest_ms=timing["pool_sorted"]["closest_grouped_ms"],
+                any_ms=timing["pool_sorted"]["any_grouped_ms"])
+    print("grouped-pool", json.dumps(pool))
+    bad = [r for r in reports if not r["ok"]]
+    if bad:
+        raise SystemExit(f"grouped kernel mismatch: {bad}")
+    return reports, timing, errs, pool
 
 
 def _scene(name):
@@ -489,7 +704,130 @@ def phase_render(device, name):
     return stats
 
 
-def phase_cpu_vs_card(device, name):
+def _expected_wavefront_launches(stats, got):
+    """Every pool cast of the wavefront went through the grouped sweep
+    (or found no item): no bundle sweep, no dense sweep, one cull per
+    cast."""
+    n_closest = sum(stats["closest_casts_per_phase"])
+    n_any = sum(stats["any_casts_per_phase"])
+    return dict(dict.fromkeys(got, 0), cull_boxes=n_closest + n_any,
+                refine=n_closest + n_any - got["refine_skipped"],
+                refine_skipped=got["refine_skipped"],
+                sweep_closest_grouped=n_closest - got["closest_empty"],
+                closest_empty=got["closest_empty"],
+                sweep_any_grouped=n_any - got["any_empty"],
+                any_empty=got["any_empty"])
+
+
+def phase_wavefront(device):
+    """The wavefront path at 1920x1080 on the sphere grid."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.integrator import wavefront as wf
+    from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
+
+    p = WAVEFRONT
+    r = Renderer(*_scene("grid"), p["width"], p["height"],
+                 max_bounce=p["max_bounce"], integrator="wavefront",
+                 device=device)
+    t0 = time.perf_counter()
+    r.render(spp=p["spp"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    r.reset()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    img = r.render(spp=p["spp"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    stats = dict(wf.LAST_STATS)
+    expect = _expected_wavefront_launches(stats, launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    slabs = _slab_ab(r, img, seconds)
+    # one timed pass of the same 8 samples through a 2^20-path pool
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wf.render_samples_wavefront(r.arrays, r.luts, r.camera, r.cfg, r._px,
+                                r._py, 100, pool_size=POOL_BIG,
+                                spp_batch=p["spp"])
+    torch.cuda.synchronize()
+    big = dict(pool_size=POOL_BIG, seconds=time.perf_counter() - t0,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               stats=dict(wf.LAST_STATS))
+    big["ms_per_spp"] = 1000.0 * big["seconds"] / p["spp"]
+    rep = dict(scene="grid", integrator="wavefront",
+               world_tris=r.arrays.world_tris.shape[0],
+               shape=list(img.shape), finite=bool(np.isfinite(img).all()),
+               mean=float(img.mean()), max=float(img.max()),
+               ms_per_spp=1000.0 * seconds / p["spp"], total_s=seconds,
+               warmup_s=warm_s, peak_mem_gib=peak, last_stats=stats,
+               launches=launches, expected_launches=expect,
+               slab_ab=slabs, pool_2_20=big)
+    print("wavefront", json.dumps(rep))
+    if not (rep["finite"] and rep["mean"] > 0.0
+            and img.shape == (p["height"], p["width"], 3)):
+        raise SystemExit("wavefront render is not a finite, non-black image")
+    if launches != expect:
+        raise SystemExit(f"wavefront launch counts {launches} != {expect}")
+    if not slabs["rmse_off_vs_on"] <= GATE_WF_RMSE:
+        raise SystemExit("the wavefront without slabs differs from the "
+                         "slab-marched render")
+    return rep
+
+
+def _slab_ab(r, img, on_s):
+    """The render's pool pass (seed 0, 8 samples) without slab marching,
+    twice, then with it once more: ms/spp in the order on (the render),
+    off, off, on, the no-slab pass's stats and its image's RMSE against
+    the render's."""
+    from dataclasses import replace
+
+    import torch
+
+    from directcomputeraytracing_tpu_torch.integrator import wavefront as wf
+
+    p = WAVEFRONT
+    out = dict(order=["on", "off", "off", "on"],
+               ms_per_spp=[1000.0 * on_s / p["spp"]])
+    for march in (0.0, 0.0, None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, val = wf.render_samples_wavefront(
+            r.arrays, r.luts, r.camera, replace(r.cfg, slab_march=march),
+            r._px, r._py, 0, spp_batch=p["spp"])
+        torch.cuda.synchronize()
+        out["ms_per_spp"].append(1000.0 * (time.perf_counter() - t0)
+                                 / p["spp"])
+        if march == 0.0:
+            off, out["off_stats"] = val, dict(wf.LAST_STATS)
+    got = (r._raster(off) / p["spp"]).reshape(img.shape).cpu().numpy()
+    out["rmse_off_vs_on"] = float(np.sqrt(((got - img) ** 2).mean()))
+    return out
+
+
+def phase_wavefront_vs_megakernel(device):
+    from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
+
+    p = MK_VS_WF
+    imgs = {}
+    for integ in ("megakernel", "wavefront"):
+        r = Renderer(*_scene("grid"), p["width"], p["height"],
+                     max_bounce=p["max_bounce"], integrator=integ,
+                     device=device)
+        imgs[integ] = r.render(spp=p["spp"])
+    a, b = imgs["megakernel"], imgs["wavefront"]
+    rep = dict(scene="grid", rmse=float(np.sqrt(((a - b) ** 2).mean())),
+               max_abs=float(np.abs(a - b).max()), gate_rmse=GATE_WF_RMSE,
+               mean_megakernel=float(a.mean()), mean_wavefront=float(b.mean()))
+    print("wavefront-vs-megakernel", json.dumps(rep))
+    if not (rep["rmse"] <= GATE_WF_RMSE and b.mean() > 0):
+        raise SystemExit("wavefront differs from the megakernel on the card")
+    return rep
+
+
+def phase_cpu_vs_card(device, name, integrator="megakernel"):
     import torch
 
     from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
@@ -498,13 +836,15 @@ def phase_cpu_vs_card(device, name):
     imgs = {}
     for dev in (torch.device("cpu"), device):
         r = Renderer(*_scene(name), p["width"], p["height"],
-                     max_bounce=p["max_bounce"], device=dev)
+                     max_bounce=p["max_bounce"], integrator=integrator,
+                     device=dev)
         imgs[dev.type] = r.render(spp=p["spp"])
     a, b = imgs["cpu"], imgs[device.type]
     rmse = float(np.sqrt(((a - b) ** 2).mean()))
     diverged = float((np.abs(a - b).max(-1) > 1e-3 * (1.0 + np.abs(a).max(-1)))
                      .mean())
-    rep = dict(scene=name, world_tris=r.arrays.world_tris.shape[0],
+    rep = dict(scene=name, integrator=integrator,
+               world_tris=r.arrays.world_tris.shape[0],
                rmse=rmse, gate_rmse=GATE_RMSE, diverged_pixels=diverged,
                gate_diverged=GATE_DIVERGED_FRACTION, mean_cpu=float(a.mean()),
                mean_card=float(b.mean()))
@@ -546,54 +886,84 @@ def main():
           "python", sys.version.split()[0])
     device = torch.device("cuda")
 
-    _build_all()
-    reports, times = phase_kernels(device)
-    wl_reports, wl_times, wl_cull = phase_worklist_kernels(device)
-    cornell = phase_render(device, "cornell")
-    grid = phase_render(device, "grid")
-    phase_cpu_vs_card(device, "cornell")
-    phase_cpu_vs_card(device, "small_grid")
+    t_start = time.perf_counter()
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    phase("1 build", _build_all)
+    reports, times = phase("2 dense kernels", phase_kernels, device)
+    wl_reports, wl_times, wl_cull, wl_work = phase(
+        "2b work-list kernels", phase_worklist_kernels, device)
+    _, _, g_errs, g_pool = phase("2c grouped kernels",
+                                 phase_grouped_kernels, device)
+    cornell = phase("3 Cornell render", phase_render, device, "cornell")
+    grid = phase("3b sphere-grid render", phase_render, device, "grid")
+    wave = phase("3c wavefront render", phase_wavefront, device)
+    phase("3d wavefront vs megakernel", phase_wavefront_vs_megakernel,
+          device)
+    phase("4 Cornell card vs CPU", phase_cpu_vs_card, device, "cornell")
+    phase("4b small grid card vs CPU", phase_cpu_vs_card, device,
+          "small_grid")
+    phase("4c small grid wavefront card vs CPU", phase_cpu_vs_card, device,
+          "small_grid", "wavefront")
     if "jax" in sys.modules:
         raise SystemExit("the port imported jax")
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     brute_src = "directcomputeraytracing_tpu_torch/csrc/brute_sweep.cu"
     wl_src = "directcomputeraytracing_tpu_torch/csrc/worklist.cu"
     ref_wl = "directcomputeraytracing_tpu/accel/worklist.py"
     top = times["cornell32_moeller"]   # the main path's scene and test
+    n, tris = N_RAYS, 32
+    brute_closest_bound = _bound(FLOPS_MOELLER * n * tris,
+                                 45 * n + 48 * tris)
+    brute_any_bound = _bound(FLOPS_MOELLER * n * tris, 29 * n + 48 * tris)
     wl_closest_err = max(r["closest_max_abs_err"] for r in wl_reports)
     wl_any_err = max(r["any_max_abs_err"] for r in wl_reports)
+
+    def row(name, src, replaces, launches, err, ms, plain_ms, bound):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "brute_closest", "route": "cuda", "source": brute_src,
-         "replaces": "directcomputeraytracing_tpu/accel/pallas_brute.py:128",
-         "launches": cornell["launches"]["brute_closest"],
-         "max_abs_err": max(r["closest_max_abs_err"] for r in reports),
-         "ms": top["closest_ms"], "plain_ms": top["closest_twin_ms"]},
-        {"name": "brute_any", "route": "cuda", "source": brute_src,
-         "replaces": "directcomputeraytracing_tpu/accel/pallas_brute.py:179",
-         "launches": cornell["launches"]["brute_any"],
-         "max_abs_err": max(r["any_max_abs_err"] for r in reports),
-         "ms": top["any_ms"], "plain_ms": top["any_twin_ms"]},
-        {"name": "cull_boxes", "route": "cuda", "source": wl_src,
-         "replaces": f"{ref_wl}:365",
-         "launches": grid["launches"]["cull_boxes"],
-         "max_abs_err": wl_cull["err"],
-         "ms": wl_times["cull_ms"], "plain_ms": wl_times["cull_twin_ms"]},
-        {"name": "refine", "route": "cuda", "source": wl_src,
-         "replaces": f"{ref_wl}:445",
-         "launches": grid["launches"]["refine"],
-         "max_abs_err": wl_cull["refine_err"],
-         "ms": wl_times["refine_ms"], "plain_ms": wl_times["refine_twin_ms"]},
-        {"name": "sweep_closest", "route": "cuda", "source": wl_src,
-         "replaces": f"{ref_wl}:678",
-         "launches": grid["launches"]["sweep_closest"],
-         "max_abs_err": wl_closest_err,
-         "ms": wl_times["closest_ms"],
-         "plain_ms": wl_times["closest_twin_ms"]},
-        {"name": "sweep_any", "route": "cuda", "source": wl_src,
-         "replaces": f"{ref_wl}:866",
-         "launches": grid["launches"]["sweep_any"],
-         "max_abs_err": wl_any_err,
-         "ms": wl_times["any_ms"], "plain_ms": wl_times["any_twin_ms"]},
+        row("brute_closest", brute_src,
+            "directcomputeraytracing_tpu/accel/pallas_brute.py:128",
+            cornell["launches"]["brute_closest"],
+            max(r["closest_max_abs_err"] for r in reports),
+            top["closest_ms"], top["closest_twin_ms"], brute_closest_bound),
+        row("brute_any", brute_src,
+            "directcomputeraytracing_tpu/accel/pallas_brute.py:179",
+            cornell["launches"]["brute_any"],
+            max(r["any_max_abs_err"] for r in reports),
+            top["any_ms"], top["any_twin_ms"], brute_any_bound),
+        row("cull_boxes", wl_src, f"{ref_wl}:365",
+            grid["launches"]["cull_boxes"], wl_cull["err"],
+            wl_times["cull_ms"], wl_times["cull_twin_ms"], wl_work["cull"]),
+        row("refine", wl_src, f"{ref_wl}:445", grid["launches"]["refine"],
+            wl_cull["refine_err"], wl_times["refine_ms"],
+            wl_times["refine_twin_ms"], wl_work["refine"]),
+        row("sweep_closest", wl_src, f"{ref_wl}:678",
+            grid["launches"]["sweep_closest"], wl_closest_err,
+            wl_times["closest_ms"], wl_times["closest_twin_ms"],
+            wl_work["sweep_closest"]),
+        row("sweep_any", wl_src, f"{ref_wl}:866",
+            grid["launches"]["sweep_any"], wl_any_err, wl_times["any_ms"],
+            wl_times["any_twin_ms"], wl_work["sweep_any"]),
+        row("sweep_closest_grouped", wl_src, f"{ref_wl}:1000",
+            wave["launches"]["sweep_closest_grouped"], g_errs["closest"],
+            g_pool["closest_ms"], g_pool["closest_twin_ms"],
+            g_pool["closest_bound"]),
+        row("sweep_any_grouped", wl_src, f"{ref_wl}:1113",
+            wave["launches"]["sweep_any_grouped"], g_errs["any"],
+            g_pool["any_ms"], g_pool["any_twin_ms"], g_pool["any_bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,13 @@ reference's `stack_size` argument is gone.
 Backend "auto", as the reference resolves it on its accelerator: scenes
 with cluster tables (more than 2048 world triangles) go to the work-list
 traversal (`accel.worklist`), the others to the dense sweep
-(`accel.brute`). Both launch their CUDA kernels for CUDA tensors and run
-their PyTorch twins for CPU tensors. Instanced work-list tables,
-alpha-tested casts and every other backend name raise
-NotImplementedError naming the ROADMAP item that brings them.
+(`accel.brute`). The reference's names "pallas_wl" and "pallas_wlg" pick
+the work list's bundle sweep and its grouped sweep on such scenes. All
+launch their CUDA kernels for CUDA tensors and run their PyTorch twins
+for CPU tensors. `intersect_closest_slab` marches a closest cast in
+distance windows. Instanced work-list tables, alpha-tested casts and
+every other backend name raise NotImplementedError naming the ROADMAP
+item that brings them.
 """
 
 from typing import NamedTuple
@@ -98,19 +101,30 @@ def ray_triangle_watertight(o, d, t_min, t_max, v0, v1, v2):
     return t, u, v, backface, hit
 
 
-def _clustered(scene, backend):
-    """True for the work-list traversal, False for the dense sweep; raise
-    for what the port cannot cast yet (see the module docstring)."""
+_WORKLIST_BACKENDS = {"pallas_wl": False, "pallas_wlg": True}
+
+
+def _resolve_backend(scene, backend):
+    """"dense" (the dense sweep), "wl" (the work list's bundle sweep) or
+    "wlg" (its grouped sweep); raise for what the port cannot cast yet
+    (see the module docstring)."""
     if scene.isup_inst.shape[0] > 1:
         raise NotImplementedError(
             "scene carries instanced work-list tables: the instanced "
             "kernels are ROADMAP queue 2, rows 13-14")
-    if backend != "auto":
+    clustered = scene.cluster_bbox.shape[0] > 1
+    if backend == "auto":
+        return "wl" if clustered else "dense"
+    if backend not in _WORKLIST_BACKENDS:
         raise NotImplementedError(
-            f"traversal backend {backend!r}: the port resolves only 'auto' "
-            "(dense sweep or work list); the stack traversal is ROADMAP "
-            "queue 1, item 11, the other kernel backends queue 2")
-    return scene.cluster_bbox.shape[0] > 1
+            f"traversal backend {backend!r}: the port resolves 'auto' (dense "
+            "sweep or work list), 'pallas_wl' and 'pallas_wlg'; the stack "
+            "traversal is ROADMAP queue 1, item 11, the other kernel "
+            "backends queue 2")
+    if not clustered:
+        raise ValueError(f"traversal backend {backend!r} needs a scene with "
+                         "cluster tables (more than 2048 world triangles)")
+    return "wlg" if _WORKLIST_BACKENDS[backend] else "wl"
 
 
 def _no_alpha(opacity_u):
@@ -120,14 +134,19 @@ def _no_alpha(opacity_u):
 
 
 def intersect_closest(scene, origin, direction, t_min=0.0, backend="auto",
-                      watertight=False, opacity_u=None):
-    """Closest hit over the scene; origin/direction (R, 3) f32."""
+                      watertight=False, opacity_u=None, t_cap=None):
+    """Closest hit over the scene; origin/direction (R, 3) f32. t_cap
+    (scalar or (R,)) caps the work list's window (see
+    `worklist.worklist_closest`); the dense sweep searches the whole ray,
+    as the reference's non-work-list backends do."""
     _no_alpha(opacity_u)
-    if _clustered(scene, backend):
+    kind = _resolve_backend(scene, backend)
+    if kind != "dense":
         from .worklist import worklist_closest
 
         t, u, v, tri, inst, back, iters = worklist_closest(
-            scene, origin, direction, t_min, watertight)
+            scene, origin, direction, t_min, watertight,
+            grouped=kind == "wlg", t_cap=t_cap)
     else:
         from .brute import brute_closest
 
@@ -138,15 +157,110 @@ def intersect_closest(scene, origin, direction, t_min=0.0, backend="auto",
                    hit=torch.isfinite(t), iterations=iters)
 
 
+def _safe_inv(d):
+    """1/d with exact zeros nudged so 0 * inv stays finite."""
+    return 1.0 / torch.where(d.abs() < 1e-30,
+                             torch.where(d >= 0.0, 1e-30, -1e-30), d)
+
+
+# each slab phase's window is this many times wider than the one before
+SLAB_GROW = 5.0
+# slab phases of a marched cast, the last one unbounded
+SLAB_PHASES = 2
+
+
+class SlabStats:
+    """What `intersect_closest_slab` did: `casts` per phase (a phase with
+    no unresolved ray casts nothing), `recast` rays per later phase and
+    `host_reads` (device values the host waited for: the unresolved
+    count and the phase floor)."""
+
+    def __init__(self, phases):
+        self.casts = [0] * phases
+        self.recast = [0] * (phases - 1)
+        self.host_reads = 0
+
+
+def intersect_closest_slab(scene, origin, direction, t_cap, backend="auto",
+                           watertight=False, live=None,
+                           phases=SLAB_PHASES, stats=None):
+    """Distance-slab closest hit in `phases` geometric windows (reference
+    `accel.traverse.intersect_closest_slab`). Phase 1 caps each ray at its
+    scene-box entry + t_cap. Each later phase re-casts the still
+    unresolved rays (no hit strictly below the previous cap, and the ray
+    leaves the box beyond it) with a window SLAB_GROW-x wider, the last one
+    unbounded, floored at the least previous cap of those rays. The
+    reference keeps all R lanes and parks the resolved ones; here the
+    unresolved rays are gathered (`torch.nonzero`, order kept) and only
+    they are cast. Exact against one full cast up to packed-argmin ties
+    at the window boundaries. live masks lanes whose phase-1 result is
+    final regardless. Each later phase reads two device values on the
+    host (counted in `stats.host_reads`): the unresolved count and the
+    floor, which the kernels take as a float. The scene box is the work
+    list's table bounds (the reference uses its TLAS root box)."""
+    if int(phases) < 2:
+        raise ValueError("slab marching needs a final unbounded phase")
+    from .worklist import scene_tables
+
+    stats = stats if stats is not None else SlabStats(int(phases))
+    lo, hi = scene_tables(scene).bounds
+    t_en = torch.full(origin.shape[:1], -float("inf"), device=origin.device)
+    t_ex = torch.full(origin.shape[:1], float("inf"), device=origin.device)
+    for ax in range(3):
+        inv = _safe_inv(direction[:, ax])
+        a = (lo[ax] - origin[:, ax]) * inv
+        b = (hi[ax] - origin[:, ax]) * inv
+        t_en = torch.maximum(t_en, torch.minimum(a, b))
+        t_ex = torch.minimum(t_ex, torch.maximum(a, b))
+    entry = torch.where((t_ex >= t_en) & (t_ex >= 0.0),
+                        torch.clamp_min(t_en, 0.0), 0.0)
+    caps = entry + t_cap
+    hit = intersect_closest(scene, origin, direction, backend=backend,
+                            watertight=watertight, t_cap=caps)
+    stats.casts[0] += 1
+    # a capped miss is final when the ray leaves the scene box before the
+    # cap: the cast's window was the whole ray
+    need = torch.where(hit.hit, hit.t >= caps, t_ex > caps)
+    if live is not None:
+        need = need & live
+    hit = list(hit)
+    floor_prev = caps
+    for k in range(1, int(phases)):
+        last = k == int(phases) - 1
+        cap_k = None if last else entry + t_cap * (SLAB_GROW ** k)
+        idx = torch.nonzero(need)[:, 0]
+        stats.host_reads += 1
+        if not idx.numel():
+            break
+        floor_k = float(floor_prev[idx].min())
+        stats.host_reads += 1
+        stats.casts[k] += 1
+        stats.recast[k - 1] += idx.numel()
+        hit_k = intersect_closest(
+            scene, origin[idx], direction[idx], t_min=floor_k,
+            backend=backend, watertight=watertight,
+            t_cap=None if cap_k is None else cap_k[idx])
+        iters = hit[7]
+        for j, x in enumerate(hit_k):
+            hit[j] = hit[j].index_put((idx,), x)
+        hit[7] = iters.index_put((idx,), iters[idx] + hit_k.iterations)
+        if not last:
+            need = need.index_put((idx,), torch.where(
+                hit_k.hit, hit_k.t >= cap_k[idx], t_ex[idx] > cap_k[idx]))
+            floor_prev = cap_k
+    return HitInfo(*hit)
+
+
 def intersect_any(scene, origin, direction, t_max, t_min=0.0, backend="auto",
                   watertight=False, opacity_u=None):
     """Occlusion: True where a hit lies in [t_min, t_max)."""
     _no_alpha(opacity_u)
-    if _clustered(scene, backend):
+    kind = _resolve_backend(scene, backend)
+    if kind != "dense":
         from .worklist import worklist_any
 
         return worklist_any(scene, origin, direction, t_max, t_min,
-                            watertight)
+                            watertight, grouped=kind == "wlg")
     from .brute import brute_any
 
     return brute_any(scene, origin, direction, t_max, t_min, watertight)

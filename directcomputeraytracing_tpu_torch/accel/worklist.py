@@ -27,22 +27,47 @@ cluster tables (scenes of 2049 to 2^20 world triangles). A cast runs:
    its current best hit.
 
 The closest hit is a bit-packed argmin: key = (bits(t) & ~_LOWM) |
-(child << 4) | row, the best starts at bits(scene exit) | _LOWM, a
-cluster's candidates must satisfy t < the best key read as a float, and
-a cluster's smallest candidate key replaces the best only if strictly
-smaller. t, u and v are the winner's own; the decode compares the
-truncated t against the truncated scene exit. `iters` is the number of
-clusters the ray swept: the clusters its own fine cull admitted, summed
-over its block's items. (The reference counts clusters swept per block.)
+(child << 4) | row, the best starts at bits(scene exit) | _LOWM, and a
+cluster's smallest candidate key replaces the best only if strictly
+smaller. The candidate window is the best's whole truncation quantum
+(`_window`): t < the float after (best | _LOWM). The reference takes
+t < the best read as a float, which makes a near-tie (two hits with the
+same truncated t) depend on the order clusters are visited in; with the
+whole quantum the result is the least key over the hits swept, so the
+per-ray and grouped walks give the same hit bit for bit. The fine cull,
+the nearest-first stop and the block vote use the same window. t, u and
+v are the winner's own; the decode compares the truncated t against the
+truncated scene exit. `iters` is the number of clusters the ray swept:
+the clusters its own fine cull admitted, summed over its block's items.
+(The reference counts clusters swept per block.)
+
+5. The grouped sweep. `sweep_closest_grouped` / `sweep_any_grouped`
+   (kernels `closest_grouped_kernel` / `any_grouped_kernel`) take the
+   same inputs and return the same outputs, but walk each item per group
+   of GL = 32 rays (one warp; the reference's groups are 128 lanes): the
+   group pops its two nearest clusters per step and every ray of the
+   group tests them, masked by its own fine cull. `iters` is then the
+   number of clusters the ray's group swept in the items the ray entered
+   something in. The closest twin `sweep_closest_grouped_torch` replays
+   the group walk so that `iters` matches. The any-hit twin is
+   `sweep_any_torch`: the grouped walk tests, for every ray not yet
+   occluded, every cluster its own fine cull entered (a group stops only
+   when all its rays are occluded), so its answer is the per-ray walk's.
+
+`worklist_closest` also takes a window cap, t_cap (scalar or per ray):
+the scene exit and the cull's t_max shrink to t_cap * 1.001 + 1e-3.
 
 Wrappers launch the kernels of `csrc/worklist.cu` on CUDA tensors and run
 the twins on CPU tensors; any other device raises. `worklist_closest`
 and `worklist_any` are the casts the intersector calls;
 `worklist_closest_torch` and `worklist_any_torch` are the same casts with
-every step in plain PyTorch, on any device.
+every step in plain PyTorch, on any device. All four take grouped=True
+for the grouped sweep.
 
 Counters: `cull_boxes.launches`, `refine.launches`,
-`sweep_closest.launches` and `sweep_any.launches` count CUDA launches;
+`sweep_closest.launches`, `sweep_any.launches`,
+`sweep_closest_grouped.launches` and `sweep_any_grouped.launches` count
+CUDA launches;
 `refine.skipped` counts casts whose hyper cull admitted nothing and
 `worklist_closest.empty` / `worklist_any.empty` casts whose item list
 came out empty (no sweep ran), on any device.
@@ -58,9 +83,11 @@ from .cluster import CLUSTER_SIZE
 from .traverse import ray_triangle_watertight
 
 RB = 1024                    # rays per block: one CUDA block, one 32x32 tile
+GL = 32                      # rays per group of the grouped sweep: one warp
 SUPER = 32                   # clusters per super
 HIER_MIN = 192               # supers above which the cull goes hyper -> super
 _LOWM = (SUPER << 4) - 1     # packed best-hit low bits: (child << 4) | row
+_KEYM = 63                   # group pick-key low bits: the child id
 BIG = 3.0e38
 _FAR = 2.0 * BIG ** 0.5      # parked-ray origin: enters no box
 _INVERTED_BOX = (1.0, 1.0, 1.0, -1.0, -1.0, -1.0, 0.0, 0.0)
@@ -92,8 +119,11 @@ def kernels():
             c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p]
         lib.dcrt_wl_any.argtypes = [c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p,
                                     c_i, c_i, c_f, c_p, c_p]
+        lib.dcrt_wl_closest_grouped.argtypes = lib.dcrt_wl_closest.argtypes
+        lib.dcrt_wl_any_grouped.argtypes = lib.dcrt_wl_any.argtypes
         for fn in (lib.dcrt_wl_cull, lib.dcrt_wl_refine, lib.dcrt_wl_closest,
-                   lib.dcrt_wl_any):
+                   lib.dcrt_wl_any, lib.dcrt_wl_closest_grouped,
+                   lib.dcrt_wl_any_grouped):
             fn.restype = c_i
         _built = built
     return _built
@@ -486,6 +516,70 @@ def _bits_float(x):
     return x.contiguous().view(torch.float32)
 
 
+def _window(best):
+    """The candidate window of packed bests: t < the float after
+    (best | _LOWM), every t whose truncated bits do not exceed the
+    best's (see the module docstring)."""
+    return _bits_float((best | _LOWM) + 1)
+
+
+def _voted(items, rays, item, best):
+    """The closest kernels' block vote: keep the blocks of (rays, item)
+    where some ray's best lies beyond the item's entry distance. Without
+    a t_cap the vote never drops an item a ray would enter; with one, a
+    ray may enter a child box between its capped t_max and its best, and
+    the twins skip what the kernels skip."""
+    keep = (_window(best[rays]).view(-1, RB)
+            > items.t_ent[item.view(-1, RB)[:, 0:1]]).any(1)
+    keep = keep.repeat_interleave(RB)
+    return rays[keep], item[keep]
+
+
+class _Best:
+    """The per-ray state of a closest twin: packed best, the winner's t,
+    u, v, back flag and table row, and `iters`."""
+
+    def __init__(self, texp):
+        rp, dev = texp.shape[0], texp.device
+        self.best = _float_bits(texp) | _LOWM
+        self.t, self.u, self.v = (texp.clone(), torch.zeros_like(texp),
+                                  torch.zeros_like(texp))
+        self.row = torch.full((rp,), -1, dtype=torch.int64, device=dev)
+        self.back = torch.zeros(rp, dtype=torch.bool, device=dev)
+        self.iters = torch.zeros(rp, dtype=torch.int32, device=dev)
+
+    def sweep(self, tab, rays, child, rows, colmask, od, t_min, watertight):
+        """Test rays (n,) against their table rows (n, k) (child (n, k) of
+        each row; colmask (n, k) the rows the ray may take) with t_max =
+        the ray's best; the smallest candidate key replaces the best if
+        strictly smaller."""
+        lane = (rows % CLUSTER_SIZE)
+        best_r = self.best[rays]
+        t, u, v, back, ok = _tri_rows(
+            tab[rows], od[0:3, rays].T[:, None, :], od[3:6, rays].T[:, None, :],
+            t_min, _window(best_r)[:, None], watertight)
+        key = (_float_bits(t) & ~_LOWM) | ((child << 4) + lane).to(torch.int32)
+        cand, j = torch.where(ok & colmask, key, _I32_MAX).min(1)
+        win = torch.nonzero(cand < best_r)[:, 0]
+        w, jw = rays[win], j[win]
+        self.best[w] = cand[win]
+        self.t[w] = t[win, jw]
+        self.u[w] = u[win, jw]
+        self.v[w] = v[win, jw]
+        self.back[w] = back[win, jw]
+        self.row[w] = rows[win, jw]
+
+    def state(self, tab, watertight):
+        """(packed best i32, t, u, v, tri i32, inst i32, back, iters i32)."""
+        mc = _RAW_META if watertight else _BW_META
+        found = self.row >= 0
+        meta = tab[self.row.clamp_min(0), mc:mc + 3]
+        tri = torch.where(found, meta[:, 0], 0.0).to(torch.int32)
+        inst = torch.where(found, meta[:, 1], 0.0).to(torch.int32)
+        back = found & (self.back ^ (meta[:, 2] > 0.5))
+        return self.best, self.t, self.u, self.v, tri, inst, back, self.iters
+
+
 def sweep_closest_torch(tables, items, od, texp, t_min, watertight):
     """Twin of `closest_kernel`. Returns the per-ray sweep state (packed
     best i32, t, u, v, tri i32, inst i32, back bool, iters i32), each
@@ -493,52 +587,29 @@ def sweep_closest_torch(tables, items, od, texp, t_min, watertight):
     rp = od.shape[1]
     dev = od.device
     tab = tables.ctab if watertight else tables.bwtab
-    mc = _RAW_META if watertight else _BW_META
-    best = _float_bits(texp) | _LOWM
-    bt, bu, bv = texp.clone(), torch.zeros_like(texp), torch.zeros_like(texp)
-    brow = torch.full((rp,), -1, dtype=torch.int64, device=dev)
-    bback = torch.zeros(rp, dtype=torch.bool, device=dev)
-    iters = torch.zeros(rp, dtype=torch.int32, device=dev)
+    st = _Best(texp)
     lane16 = torch.arange(CLUSTER_SIZE, device=dev)
     for lo in range(0, rp, TWIN_RAY_CHUNK):
         for rays, item in _ray_steps(items, lo, min(rp, lo + TWIN_RAY_CHUNK)):
+            rays, item = _voted(items, rays, item, st.best)
             sup = items.sup[item].long()
             enter, tl = _fine_cull(tables.cbox3[sup], od[:, rays],
-                                   _bits_float(best[rays]), t_min)
+                                   _window(st.best[rays]), t_min)
             while rays.numel():
                 m, child = torch.where(enter, tl, float("inf")).min(1)
-                go = m < _bits_float(best[rays])
+                go = m < _window(st.best[rays])
                 idx = torch.nonzero(go)[:, 0]
                 rays, child, sup = rays[idx], child[idx], sup[idx]
                 enter, tl = enter[idx], tl[idx]
                 if not rays.numel():
                     break
                 enter[torch.arange(rays.numel(), device=dev), child] = False
-                iters[rays] += 1
+                st.iters[rays] += 1
                 rows = ((sup * SUPER + child) * CLUSTER_SIZE)[:, None] + lane16
-                o = od[0:3, rays].T[:, None, :]
-                d = od[3:6, rays].T[:, None, :]
-                best_r = best[rays]
-                t, u, v, back, ok = _tri_rows(
-                    tab[rows], o, d, t_min, _bits_float(best_r)[:, None],
-                    watertight)
-                key = (_float_bits(t) & ~_LOWM) | (
-                    (child[:, None] << 4) + lane16).to(torch.int32)
-                cand, j = torch.where(ok, key, _I32_MAX).min(1)
-                win = torch.nonzero(cand < best_r)[:, 0]
-                w, jw = rays[win], j[win]
-                best[w] = cand[win]
-                bt[w] = t[win, jw]
-                bu[w] = u[win, jw]
-                bv[w] = v[win, jw]
-                bback[w] = back[win, jw]
-                brow[w] = rows[win, jw]
-    found = brow >= 0
-    meta = tab[brow.clamp_min(0), mc:mc + 3]
-    tri = torch.where(found, meta[:, 0], 0.0).to(torch.int32)
-    inst = torch.where(found, meta[:, 1], 0.0).to(torch.int32)
-    back = found & (bback ^ (meta[:, 2] > 0.5))
-    return best, bt, bu, bv, tri, inst, back, iters
+                st.sweep(tab, rays, child[:, None].expand_as(rows), rows,
+                         torch.ones_like(rows, dtype=torch.bool), od, t_min,
+                         watertight)
+    return st.state(tab, watertight)
 
 
 def sweep_any_torch(tables, items, od, tm, t_min, watertight):
@@ -566,11 +637,78 @@ def sweep_any_torch(tables, items, od, tm, t_min, watertight):
     return occ
 
 
-def sweep_closest(tables, items, od, texp, t_min, watertight):
-    """The closest sweep: kernel on CUDA tensors, twin on CPU tensors."""
+def sweep_closest_grouped_torch(tables, items, od, texp, t_min, watertight):
+    """Twin of `closest_grouped_kernel`: the same per-ray sweep state as
+    `sweep_closest_torch`, computed by the grouped walk. Each group of GL
+    consecutive rays (one warp) takes, per item, one pick key per child:
+    (bits(t_g) & ~_KEYM) | child, t_g the least clamped entry distance of
+    the group's rays that entered the child in their own fine cull (sign
+    bit masked, so -0.0 sorts as 0). Each step pops the group's two
+    nearest keys and stops the group once the nearest starts beyond every
+    ray's window ((key & ~_KEYM) > (largest best | _LOWM)). A ray tests a
+    popped cluster only if its own fine cull entered it; both clusters of
+    a step are tested against the ray's window before the step and the
+    smallest candidate key wins, strictly. `iters` adds the clusters of
+    each step to every ray of the group that entered something in the
+    item."""
     rp = od.shape[1]
-    if not _on_cuda(od, texp, items.seg):
-        return sweep_closest_torch(tables, items, od, texp, t_min, watertight)
+    dev = od.device
+    tab = tables.ctab if watertight else tables.bwtab
+    st = _Best(texp)
+    big = int(_float_bits(torch.tensor([BIG], dtype=torch.float32))[0])
+    child_id = torch.arange(SUPER, dtype=torch.int32, device=dev)
+    lane16 = torch.arange(CLUSTER_SIZE, device=dev)
+    lanes = torch.arange(GL, device=dev)
+    for lo in range(0, rp, TWIN_RAY_CHUNK):
+        for rays, item in _ray_steps(items, lo, min(rp, lo + TWIN_RAY_CHUNK)):
+            rays, item = _voted(items, rays, item, st.best)
+            if not rays.numel():
+                continue
+            sup = items.sup[item].long()
+            enter, tl = _fine_cull(tables.cbox3[sup], od[:, rays],
+                                   _window(st.best[rays]), t_min)
+            nw = rays.numel() // GL
+            enter = enter.view(nw, GL, SUPER)
+            t_g = (_float_bits(torch.where(enter.view(-1, SUPER), tl, BIG))
+                   & _I32_MAX).view(nw, GL, SUPER).amin(1)
+            keys = torch.where(t_g < big, (t_g & ~_KEYM) | child_id, _I32_MAX)
+            member = enter.any(2)
+            rays_w, sup_w = rays.view(nw, GL), sup.view(nw, GL)[:, 0]
+            w = torch.arange(nw, device=dev)
+            while w.numel():
+                kw = keys[w]
+                step = torch.arange(w.numel(), device=dev)
+                k1, c1 = kw.min(1)
+                kw[step, c1] = _I32_MAX
+                k2, c2 = kw.min(1)
+                kw[step, c2] = _I32_MAX
+                keys[w] = kw
+                bound = st.best[rays_w[w]].amax(1) | _LOWM
+                go = torch.nonzero((k1 < _I32_MAX)
+                                   & ((k1 & ~_KEYM) <= bound))[:, 0]
+                w, c1, c2, has2 = w[go], c1[go], c2[go], (k2 < _I32_MAX)[go]
+                if not w.numel():
+                    break
+                st.iters[rays_w[w]] += torch.where(
+                    member[w], 1 + has2[:, None].int(), 0).int()
+                e1 = enter[w[:, None], lanes, c1[:, None]]
+                e2 = enter[w[:, None], lanes, c2[:, None]] & has2[:, None]
+                pick = torch.nonzero((e1 | e2).reshape(-1))[:, 0]
+                g = pick // GL
+                child = torch.cat([c1[g, None].expand(-1, CLUSTER_SIZE),
+                                   c2[g, None].expand(-1, CLUSTER_SIZE)], 1)
+                rows = ((sup_w[w[g], None] * SUPER + child) * CLUSTER_SIZE
+                        + lane16.repeat(2))
+                colmask = torch.cat([
+                    e1.reshape(-1)[pick, None].expand(-1, CLUSTER_SIZE),
+                    e2.reshape(-1)[pick, None].expand(-1, CLUSTER_SIZE)], 1)
+                st.sweep(tab, rays_w[w].reshape(-1)[pick], child, rows,
+                         colmask, od, t_min, watertight)
+    return st.state(tab, watertight)
+
+
+def _launch_closest(fn, tables, items, od, texp, t_min, watertight):
+    rp = od.shape[1]
     f32 = dict(dtype=torch.float32, device=od.device)
     i32 = dict(dtype=torch.int32, device=od.device)
     best, tri, inst, iters = (torch.empty(rp, **i32) for _ in range(4))
@@ -578,34 +716,83 @@ def sweep_closest(tables, items, od, texp, t_min, watertight):
     back = torch.empty(rp, dtype=torch.bool, device=od.device)
     tab = tables.ctab if watertight else tables.bwtab
     with torch.cuda.device(od.device):
-        err = kernels().lib.dcrt_wl_closest(
-            items.seg.data_ptr(), items.sup.data_ptr(),
-            items.t_ent.data_ptr(), rp // RB, tables.cbox3.data_ptr(),
-            tab.data_ptr(), int(watertight), od.data_ptr(), texp.data_ptr(),
-            rp, RB, float(t_min), best.data_ptr(), t.data_ptr(),
-            u.data_ptr(), v.data_ptr(), tri.data_ptr(), inst.data_ptr(),
-            back.data_ptr(), iters.data_ptr(), _stream(od))
+        err = fn(items.seg.data_ptr(), items.sup.data_ptr(),
+                 items.t_ent.data_ptr(), rp // RB, tables.cbox3.data_ptr(),
+                 tab.data_ptr(), int(watertight), od.data_ptr(),
+                 texp.data_ptr(), rp, RB, float(t_min), best.data_ptr(),
+                 t.data_ptr(), u.data_ptr(), v.data_ptr(), tri.data_ptr(),
+                 inst.data_ptr(), back.data_ptr(), iters.data_ptr(),
+                 _stream(od))
+    return err, (best, t, u, v, tri, inst, back, iters)
+
+
+def _launch_any(fn, tables, items, od, tm, t_min, watertight):
+    rp = od.shape[1]
+    occ = torch.empty(rp, dtype=torch.bool, device=od.device)
+    tab = tables.ctab if watertight else tables.bwtab
+    with torch.cuda.device(od.device):
+        err = fn(items.seg.data_ptr(), items.sup.data_ptr(), rp // RB,
+                 tables.cbox3.data_ptr(), tab.data_ptr(), int(watertight),
+                 od.data_ptr(), tm.data_ptr(), rp, RB, float(t_min),
+                 occ.data_ptr(), _stream(od))
+    return err, occ
+
+
+def sweep_closest(tables, items, od, texp, t_min, watertight):
+    """The closest sweep: kernel on CUDA tensors, twin on CPU tensors."""
+    if not _on_cuda(od, texp, items.seg):
+        return sweep_closest_torch(tables, items, od, texp, t_min, watertight)
+    err, out = _launch_closest(kernels().lib.dcrt_wl_closest, tables, items,
+                               od, texp, t_min, watertight)
     _raise_on(err, "sweep_closest")
     sweep_closest.launches += 1
-    return best, t, u, v, tri, inst, back, iters
+    return out
 
 
 def sweep_any(tables, items, od, tm, t_min, watertight):
     """The occlusion sweep: kernel on CUDA tensors, twin on CPU tensors."""
-    rp = od.shape[1]
     if not _on_cuda(od, tm, items.seg):
         return sweep_any_torch(tables, items, od, tm, t_min, watertight)
-    occ = torch.empty(rp, dtype=torch.bool, device=od.device)
-    tab = tables.ctab if watertight else tables.bwtab
-    with torch.cuda.device(od.device):
-        err = kernels().lib.dcrt_wl_any(
-            items.seg.data_ptr(), items.sup.data_ptr(), rp // RB,
-            tables.cbox3.data_ptr(), tab.data_ptr(), int(watertight),
-            od.data_ptr(), tm.data_ptr(), rp, RB, float(t_min),
-            occ.data_ptr(), _stream(od))
+    err, occ = _launch_any(kernels().lib.dcrt_wl_any, tables, items, od, tm,
+                           t_min, watertight)
     _raise_on(err, "sweep_any")
     sweep_any.launches += 1
     return occ
+
+
+def sweep_closest_grouped(tables, items, od, texp, t_min, watertight):
+    """The grouped closest sweep: kernel on CUDA tensors, twin on CPU
+    tensors. Same inputs and outputs as `sweep_closest`; the same hit."""
+    if not _on_cuda(od, texp, items.seg):
+        return sweep_closest_grouped_torch(tables, items, od, texp, t_min,
+                                           watertight)
+    err, out = _launch_closest(kernels().lib.dcrt_wl_closest_grouped, tables,
+                               items, od, texp, t_min, watertight)
+    _raise_on(err, "sweep_closest_grouped")
+    sweep_closest_grouped.launches += 1
+    return out
+
+
+def sweep_any_grouped(tables, items, od, tm, t_min, watertight):
+    """The grouped occlusion sweep: kernel on CUDA tensors, twin on CPU
+    tensors (`sweep_any_torch`, see 5. above). Same inputs and output as
+    `sweep_any`."""
+    if not _on_cuda(od, tm, items.seg):
+        return sweep_any_torch(tables, items, od, tm, t_min, watertight)
+    err, occ = _launch_any(kernels().lib.dcrt_wl_any_grouped, tables, items,
+                           od, tm, t_min, watertight)
+    _raise_on(err, "sweep_any_grouped")
+    sweep_any_grouped.launches += 1
+    return occ
+
+
+_CLOSEST_SWEEPS = {(False, False): sweep_closest,
+                   (False, True): sweep_closest_grouped,
+                   (True, False): sweep_closest_torch,
+                   (True, True): sweep_closest_grouped_torch}
+_ANY_SWEEPS = {(False, False): sweep_any, (False, True): sweep_any_grouped,
+               (True, False): sweep_any_torch,
+               (True, True): sweep_any_torch}
 
 
 # ---------------------------------------------------------------------------
@@ -647,62 +834,88 @@ def _check_rays(origin, direction):
         raise ValueError("origin and direction ray counts differ")
 
 
-def _closest_cast(scene, origin, direction, t_min, watertight, plain):
+def _cap(t_cap, texp, r):
+    """t_cap, scalar or (R,), as the window cap t_cap * 1.001 + 1e-3 (past
+    the argmin's truncation quantum, like the scene exit) over the Rp
+    padded rays; padding rays get 1e-3."""
+    cap = torch.as_tensor(t_cap, dtype=torch.float32, device=texp.device)
+    cap = cap * 1.001 + 1e-3
+    if cap.dim() == 1:
+        if cap.shape[0] != r:
+            raise ValueError(f"t_cap: need a scalar or ({r},), got "
+                             f"{tuple(cap.shape)}")
+        cap = torch.nn.functional.pad(cap, (0, texp.shape[0] - r),
+                                      value=1e-3)
+    return cap
+
+
+def _closest_cast(scene, origin, direction, t_min, watertight, plain,
+                  grouped, t_cap):
     _check_rays(origin, direction)
     tables = scene_tables(scene)
     od, tm, r = prep_rays(origin, direction)
+    texp = scene_exit(tables, od)
+    if t_cap is not None:
+        cap = _cap(t_cap, texp, r)
+        texp, tm = torch.minimum(texp, cap), torch.minimum(tm, cap)
     items = phases(tables, od, tm, plain) if r else None
     if items is None:
         return _miss(origin), True
-    texp = scene_exit(tables, od)
-    sweep = sweep_closest_torch if plain else sweep_closest
-    state = sweep(tables, items, od, texp, t_min, watertight)
+    state = _CLOSEST_SWEEPS[plain, grouped](tables, items, od, texp, t_min,
+                                            watertight)
     return decode_closest(state, texp, items.block_any, r), False
 
 
-def _any_cast(scene, origin, direction, t_max, t_min, watertight, plain):
+def _any_cast(scene, origin, direction, t_max, t_min, watertight, plain,
+              grouped):
     _check_rays(origin, direction)
     tables = scene_tables(scene)
     od, tm, r = prep_rays(origin, direction, t_max)
     items = phases(tables, od, tm, plain) if r else None
     if items is None:
         return torch.zeros(r, dtype=torch.bool, device=origin.device), True
-    sweep = sweep_any_torch if plain else sweep_any
-    occ = sweep(tables, items, od, tm, t_min, watertight)
+    occ = _ANY_SWEEPS[plain, grouped](tables, items, od, tm, t_min,
+                                      watertight)
     return (occ & items.block_any.repeat_interleave(RB))[:r], False
 
 
-def worklist_closest(scene, origin, direction, t_min=0.0, watertight=False):
+def worklist_closest(scene, origin, direction, t_min=0.0, watertight=False,
+                     grouped=False, t_cap=None):
     """Closest hit over a clustered scene: (t, +inf on miss; u; v; tri
-    i32; inst i32; back bool; iters i32). Kernels on CUDA tensors."""
+    i32; inst i32; back bool; iters i32). Kernels on CUDA tensors; the
+    grouped sweep with grouped=True. t_cap (scalar or (R,), a float or a
+    tensor) caps the window: a hit below t_cap is the closest hit, a miss
+    means no hit below t_cap; a hit within the truncation quantum above
+    t_cap may be reported."""
     out, empty = _closest_cast(scene, origin, direction, t_min, watertight,
-                               plain=False)
+                               False, grouped, t_cap)
     worklist_closest.empty += int(empty)
     return out
 
 
 def worklist_any(scene, origin, direction, t_max, t_min=0.0,
-                 watertight=False):
+                 watertight=False, grouped=False):
     """Occlusion over a clustered scene: (R,) bool, a hit in [t_min,
-    t_max) per ray. Kernels on CUDA tensors."""
+    t_max) per ray. Kernels on CUDA tensors; the grouped sweep with
+    grouped=True."""
     occ, empty = _any_cast(scene, origin, direction, t_max, t_min,
-                           watertight, plain=False)
+                           watertight, False, grouped)
     worklist_any.empty += int(empty)
     return occ
 
 
 def worklist_closest_torch(scene, origin, direction, t_min=0.0,
-                           watertight=False):
+                           watertight=False, grouped=False, t_cap=None):
     """`worklist_closest` with every step in plain PyTorch (any device)."""
-    return _closest_cast(scene, origin, direction, t_min, watertight,
-                         plain=True)[0]
+    return _closest_cast(scene, origin, direction, t_min, watertight, True,
+                         grouped, t_cap)[0]
 
 
 def worklist_any_torch(scene, origin, direction, t_max, t_min=0.0,
-                       watertight=False):
+                       watertight=False, grouped=False):
     """`worklist_any` with every step in plain PyTorch (any device)."""
     return _any_cast(scene, origin, direction, t_max, t_min, watertight,
-                     plain=True)[0]
+                     True, grouped)[0]
 
 
 def counters():
@@ -711,6 +924,8 @@ def counters():
                 refine_skipped=refine.skipped,
                 sweep_closest=sweep_closest.launches,
                 sweep_any=sweep_any.launches,
+                sweep_closest_grouped=sweep_closest_grouped.launches,
+                sweep_any_grouped=sweep_any_grouped.launches,
                 closest_empty=worklist_closest.empty,
                 any_empty=worklist_any.empty)
 
@@ -718,6 +933,7 @@ def counters():
 def reset_counters():
     cull_boxes.launches = refine.launches = refine.skipped = 0
     sweep_closest.launches = sweep_any.launches = 0
+    sweep_closest_grouped.launches = sweep_any_grouped.launches = 0
     worklist_closest.empty = worklist_any.empty = 0
 
 

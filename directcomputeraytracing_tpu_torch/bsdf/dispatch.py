@@ -17,7 +17,7 @@ hemisphere flip (wo below the shading normal) are handled here.
 
 import torch
 
-from directcomputeraytracing_tpu.core.constants import (
+from ..core.constants import (
     ALPHA_THRESHOLD,
     INTERNAL_SCATTERING_MODE_IGNORE,
     INTERNAL_SCATTERING_MODE_MULTIPLE,
@@ -27,7 +27,6 @@ from directcomputeraytracing_tpu.core.constants import (
     MATERIAL_TYPE_PLASTIC,
     MATERIAL_TYPE_THIN_DIELECTRIC,
 )
-
 from ..lut.textures import (
     sample_brdf_dielectric_energy,
     sample_brdf_dielectric_energy_avg,

@@ -1,6 +1,6 @@
 // Work-list traversal of clustered scenes, for Hopper (sm_90a).
 //
-// Replaces four TPU kernels of directcomputeraytracing_tpu/accel/
+// Replaces six TPU kernels of directcomputeraytracing_tpu/accel/
 // worklist.py and keeps their contracts (accel/worklist.py in the port
 // holds the glue and the PyTorch twins):
 //   cull_kernel    <- _cull_super_kernel (:365, launched by _cull_super
@@ -12,7 +12,10 @@
 //   closest_kernel <- _wl_closest_kernel (:678, launched by _closest_impl
 //                     :1750): closest hit, a bit-packed argmin;
 //   any_kernel     <- _wl_any_kernel (:866, launched by _any_impl :1916):
-//                     occlusion within a per-ray t_max.
+//                     occlusion within a per-ray t_max;
+//   closest_grouped_kernel <- _wlg_closest_kernel (:1000): the closest hit
+//                     by a per-warp cluster walk (see its section below);
+//   any_grouped_kernel     <- _wlg_any_kernel (:1113): occlusion, the same.
 // Rays are the (9, Rp) rows [o; d; 1/d] of prep_rays, Rp a multiple of
 // the block size RB (one thread per ray, one block per RB rays).
 //
@@ -33,11 +36,12 @@
 // child boxes (1 KB) are staged in shared memory; each thread tests them
 // against its own ray and its current best (the fine cull) and sweeps the
 // entered clusters nearest first, stopping at the first that starts
-// beyond its best. The packed key is (bits(t) & ~kLowM) | (child << 4) |
-// row: a candidate needs t < the best key read as a float, and a
-// cluster's smallest key replaces the best only if strictly smaller, as
-// in the reference. Built with -fmad=false: kernels and twins agree bit
-// for bit.
+// beyond its window. The packed key is (bits(t) & ~kLowM) | (child << 4)
+// | row, as in the reference, and a cluster's smallest key replaces the
+// best only if strictly smaller; a candidate needs t inside the best's
+// whole truncation quantum (window(), where the reference takes t < the
+// best read as a float), so the result does not depend on the visiting
+// order. Built with -fmad=false: kernels and twins agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -211,6 +215,15 @@ __device__ __forceinline__ bool child_enter(const RayInv& q,
   return t_hi >= t_lo && t_hi >= 0.f && t_lo < cap && t_hi >= t_min;
 }
 
+// The candidate window of a packed best: every t whose truncated bits
+// do not exceed the best's, i.e. t < the float after (best | kLowM). With
+// the strict key replacement this makes the result the least key over all
+// hits the walk sweeps, whatever order it sweeps them in; a cluster or
+// item entered at or beyond the window cannot hold a better key.
+__device__ __forceinline__ float window(int best) {
+  return __int_as_float((best | kLowM) + 1);
+}
+
 template <class Tri>
 __global__ void __launch_bounds__(1024)
 closest_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
@@ -237,13 +250,13 @@ closest_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
   for (int k = seg[b]; k < k1; ++k) {
     // skip an item that starts beyond every ray's best (the vote is also
     // the barrier before the boxes are restaged)
-    if (!__syncthreads_or(__int_as_float(best) > item_t[k])) continue;
+    if (!__syncthreads_or(window(best) > item_t[k])) continue;
     const int sup = item_sup[k];
     stage_boxes(cbox, sup, boxes);
     __syncthreads();
     float tl[kSuper];
     unsigned mask = 0u;
-    const float cap = __int_as_float(best);
+    const float cap = window(best);
 #pragma unroll
     for (int c = 0; c < kSuper; ++c) {
       float t_lo;
@@ -261,11 +274,11 @@ closest_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
           cs = c;
         }
       }
-      if (!(m < __int_as_float(best))) break;
+      if (!(m < window(best))) break;
       mask &= ~(1u << cs);
       ++iters;
       const int base = (sup * kSuper + cs) * kCluster;
-      const float t_max = __int_as_float(best);
+      const float t_max = window(best);
       int cand = INT_MAX, crow = -1;
       Hit hc{0.f, 0.f, 0.f, false};
       for (int r = 0; r < kCluster; ++r) {
@@ -344,6 +357,197 @@ any_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
   out_occ[i] = occ;
 }
 
+// ---------------------------------------------------------------------------
+// Grouped sweeps <- _wlg_closest_kernel (:1000) and _wlg_any_kernel (:1113)
+// (launched by _closest_impl :1750 and _any_impl :1916 with grouped=True).
+//
+// The TPU kernels gave each 128-lane group its own front-to-back cluster
+// list; here the group is one warp (GL = 32). Per item, each lane runs its
+// fine cull of the 32 child boxes against its own best (closest) or t_max
+// (any-hit; an occluded lane enters nothing). A warp-wide min per child
+// gives the warp's pick key for that child, held by lane `child`:
+// (bits(t_g) & ~kKeyM) | child, INT_MAX where no lane entered it. Each
+// step pops the two nearest keys with two __reduce_min_sync; every lane
+// then sweeps the same cluster pair (uniform triangle loads), masked by
+// its own fine cull. The closest walk stops once the nearest key, its low
+// kKeyM bits cleared, starts beyond every lane's window (the group bound);
+// the any-hit walk once every lane is occluded. Both clusters of a step
+// are tested against the lane's window before the step, and the smallest
+// candidate key replaces the best only if strictly smaller: the same hit
+// as closest_kernel's, bit for bit. No per-thread cluster order or entry
+// distances are kept, which is what spills in closest_kernel. `iters`
+// adds the step's clusters (1 or 2) for every lane that entered something
+// in the item.
+// ---------------------------------------------------------------------------
+
+constexpr int kKeyM = 63;   // pick-key low bits: the child id
+constexpr unsigned kFull = 0xffffffffu;
+
+// The warp's pick keys for the staged item; returns the lane's mask of
+// entered children. `cap` is the lane's fine-cull ceiling.
+__device__ __forceinline__ unsigned group_keys(const RayInv& q,
+                                               const float4* boxes,
+                                               float cap, float t_min,
+                                               int& key) {
+  const int lane = threadIdx.x & 31;
+  const int big = __float_as_int(kBig);
+  unsigned mask = 0u;
+  key = INT_MAX;
+  for (int c = 0; c < kSuper; ++c) {
+    float t_lo;
+    const bool e = child_enter(q, boxes, c, cap, t_min, t_lo);
+    if (e) mask |= 1u << c;
+    // entry distances are >= 0 (the sign bit is masked for -0.0), so
+    // their bits order like their values
+    const int m = __reduce_min_sync(
+        kFull, e ? __float_as_int(fmaxf(t_lo, 0.f)) & INT_MAX : big);
+    if (lane == c && m < big) key = (m & ~kKeyM) | c;
+  }
+  return mask;
+}
+
+// Pop the warp's nearest key; INT_MAX when none is left.
+__device__ __forceinline__ int pop_key(int& key) {
+  const int k = __reduce_min_sync(kFull, key);
+  if (k != INT_MAX && (threadIdx.x & 31) == (k & kKeyM)) key = INT_MAX;
+  return k;
+}
+
+template <class Tri>
+__global__ void __launch_bounds__(1024)
+closest_grouped_kernel(const int* __restrict__ seg,
+                       const int* __restrict__ item_sup,
+                       const float* __restrict__ item_t,
+                       const float* __restrict__ cbox,
+                       const float* __restrict__ tab,
+                       const float* __restrict__ od,
+                       const float* __restrict__ texp, int rp, float t_min,
+                       int* __restrict__ out_best, float* __restrict__ out_t,
+                       float* __restrict__ out_u, float* __restrict__ out_v,
+                       int* __restrict__ out_tri, int* __restrict__ out_inst,
+                       unsigned char* __restrict__ out_back,
+                       int* __restrict__ out_iters) {
+  __shared__ float4 boxes[2 * kSuper];
+  const int b = blockIdx.x;
+  const int i = b * blockDim.x + threadIdx.x;
+  const RayInv q = load_od(od, rp, i);
+  const typename Tri::Pre pre = Tri::prepare(q.r);
+  const float t_exit = texp[i];
+  int best = __float_as_int(t_exit) | kLowM;
+  float bt = t_exit, bu = 0.f, bv = 0.f;
+  bool bback = false;
+  int brow = -1, iters = 0;
+  const int k1 = seg[b + 1];
+  for (int k = seg[b]; k < k1; ++k) {
+    // the block vote of closest_kernel (also the barrier before restaging)
+    if (!__syncthreads_or(window(best) > item_t[k])) continue;
+    const int sup = item_sup[k];
+    stage_boxes(cbox, sup, boxes);
+    __syncthreads();
+    int key;
+    const unsigned mask = group_keys(q, boxes, window(best), t_min, key);
+    for (;;) {
+      const int p1 = pop_key(key);
+      const int p2 = p1 == INT_MAX ? INT_MAX : pop_key(key);
+      // stop once the nearest cluster starts beyond every lane's window
+      const int bound = __reduce_max_sync(kFull, best) | kLowM;
+      if (p1 == INT_MAX || !((p1 & ~kKeyM) <= bound)) break;
+      const int c1 = p1 & kKeyM, c2 = p2 & kKeyM;
+      const bool has2 = p2 != INT_MAX;
+      if (mask) iters += has2 ? 2 : 1;
+      const float t_max = window(best);
+      int cand = INT_MAX, crow = -1;
+      Hit hc{0.f, 0.f, 0.f, false};
+      for (int s = 0; s < 2; ++s) {
+        const int c = s ? c2 : c1;
+        if ((s && !has2) || !((mask >> c) & 1u)) continue;
+        const int base = (sup * kSuper + c) * kCluster;
+        for (int r = 0; r < kCluster; ++r) {
+          Hit h;
+          if (Tri::test(q.r, pre, tab, base + r, t_min, t_max, h)) {
+            const int key_h = (__float_as_int(h.t) & ~kLowM) | ((c << 4) | r);
+            if (key_h < cand) {
+              cand = key_h;
+              hc = h;
+              crow = base + r;
+            }
+          }
+        }
+      }
+      if (cand < best) {
+        best = cand;
+        bt = hc.t;
+        bu = hc.u;
+        bv = hc.v;
+        bback = hc.back;
+        brow = crow;
+      }
+    }
+  }
+  float tri = 0.f, inst = 0.f, flip = 0.f;
+  if (brow >= 0) {
+    const float* meta = tab + static_cast<size_t>(brow) * Tri::kCols +
+                        Tri::kMeta;
+    tri = meta[0];
+    inst = meta[1];
+    flip = meta[2];
+  }
+  out_best[i] = best;
+  out_t[i] = bt;
+  out_u[i] = bu;
+  out_v[i] = bv;
+  out_tri[i] = static_cast<int>(tri);
+  out_inst[i] = static_cast<int>(inst);
+  out_back[i] = brow >= 0 && (bback != (flip > 0.5f));
+  out_iters[i] = iters;
+}
+
+template <class Tri>
+__global__ void __launch_bounds__(1024)
+any_grouped_kernel(const int* __restrict__ seg,
+                   const int* __restrict__ item_sup,
+                   const float* __restrict__ cbox,
+                   const float* __restrict__ tab,
+                   const float* __restrict__ od, const float* __restrict__ tm,
+                   int rp, float t_min, unsigned char* __restrict__ out_occ) {
+  __shared__ float4 boxes[2 * kSuper];
+  const int b = blockIdx.x;
+  const int i = b * blockDim.x + threadIdx.x;
+  const RayInv q = load_od(od, rp, i);
+  const typename Tri::Pre pre = Tri::prepare(q.r);
+  const float t_max = tm[i];
+  bool occ = false;
+  const int k1 = seg[b + 1];
+  for (int k = seg[b]; k < k1; ++k) {
+    if (__syncthreads_and(occ)) break;
+    const int sup = item_sup[k];
+    stage_boxes(cbox, sup, boxes);
+    __syncthreads();
+    int key;
+    const unsigned mask = group_keys(q, boxes, occ ? -kBig : t_max, t_min,
+                                     key);
+    for (;;) {
+      const int p1 = pop_key(key);
+      const int p2 = p1 == INT_MAX ? INT_MAX : pop_key(key);
+      if (p1 == INT_MAX || __all_sync(kFull, occ)) break;
+      const int c1 = p1 & kKeyM, c2 = p2 & kKeyM;
+      for (int s = 0; s < 2 && !occ; ++s) {
+        const int c = s ? c2 : c1;
+        if ((s && p2 == INT_MAX) || !((mask >> c) & 1u)) continue;
+        const int base = (sup * kSuper + c) * kCluster;
+        for (int r = 0; r < kCluster; ++r) {
+          Hit h;
+          if (Tri::test(q.r, pre, tab, base + r, t_min, t_max, h)) {
+            occ = true;
+            break;
+          }
+        }
+      }
+    }
+  }
+  out_occ[i] = occ;
+}
+
 }  // namespace
 
 // C interface (ctypes). Pointers are device pointers; `stream` is a
@@ -408,6 +612,44 @@ extern "C" int dcrt_wl_any(const int* seg, const int* item_sup, int nb,
     else
       any_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(seg, item_sup, cbox, tab, od,
                                                  tm, rp, t_min, occ);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dcrt_wl_closest_grouped(
+    const int* seg, const int* item_sup, const float* item_t, int nb,
+    const float* cbox, const float* tab, int watertight, const float* od,
+    const float* texp, int rp, int rb, float t_min, int* best, float* t,
+    float* u, float* v, int* tri, int* inst, unsigned char* back, int* iters,
+    void* stream) {
+  if (nb > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (watertight)
+      closest_grouped_kernel<RawWatertight><<<nb, rb, 0, s>>>(
+          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, best, t, u,
+          v, tri, inst, back, iters);
+    else
+      closest_grouped_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
+          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, best, t, u,
+          v, tri, inst, back, iters);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dcrt_wl_any_grouped(const int* seg, const int* item_sup,
+                                   int nb, const float* cbox,
+                                   const float* tab, int watertight,
+                                   const float* od, const float* tm, int rp,
+                                   int rb, float t_min, unsigned char* occ,
+                                   void* stream) {
+  if (nb > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (watertight)
+      any_grouped_kernel<RawWatertight><<<nb, rb, 0, s>>>(
+          seg, item_sup, cbox, tab, od, tm, rp, t_min, occ);
+    else
+      any_grouped_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
+          seg, item_sup, cbox, tab, od, tm, rp, t_min, occ);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,17 +1,17 @@
 """Shared integrator pieces: render config, ray-origin offset, hit shading,
-the bounce-ray sort key.
+the bounce-ray sort key and order, parked rays.
 
-Counterpart of `directcomputeraytracing_tpu.integrator.common`. The
-reference's `RenderConfig` also carries knobs for slab marching and the
-pool-cast backends; the port's mirror holds the fields its megakernel
-reads and validates the rest of what it cannot do yet.
+Counterpart of `directcomputeraytracing_tpu.integrator.common`, with the
+wavefront's pool-cast settings: `pool_cast_backend`, `pool_slab_march`
+and `slab_depth`. "Auto" is `None` in the port's `RenderConfig`.
 """
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
-from directcomputeraytracing_tpu.core.constants import (
+from ..core.constants import (
     INSTANCE_MATERIAL_OVERRIDE_NONE,
     MATERIAL_FLAG_INTERNAL_SCATTERING_MASK,
     MATERIAL_FLAG_INTERNAL_SCATTERING_SHIFT,
@@ -20,7 +20,6 @@ from directcomputeraytracing_tpu.core.constants import (
     MATERIAL_FLAG_ROUGHNESS_TEXTURE,
     MATERIAL_FLAG_TYPE_MASK,
 )
-
 from ..core.types import Intersection, transform_point, transform_vector
 from ..sampling.montecarlo import cross, dot, norm, normalize
 
@@ -43,11 +42,59 @@ class RenderConfig:
     filter_radius: float = 0.5
     any_hit: bool = False               # alpha-tested transparency
     watertight: bool = False            # PBRT watertight triangle test
-    slab_march: float = 0.0             # distance-slab casting (0 = off)
+    slab_march: Optional[float] = None  # distance-slab casting: phase 1
+                                        # capped at this fraction of the
+                                        # scene diagonal; 0 = off, None =
+                                        # the integrator's default (off in
+                                        # the megakernel, POOL_SLAB_DEFAULT
+                                        # for the wavefront's pool casts)
 
     @property
     def has_env_light(self):
         return self.env_light_index >= 0
+
+
+def pool_cast_backend(cfg, scene):
+    """The wavefront pool casts' backend: for "auto" on scenes with cluster
+    tables the grouped work-list sweep ("pallas_wlg"), as the reference
+    resolves it on its accelerator, else cfg.traversal_backend (the dense
+    sweep for "auto"). The port keeps that choice so that the grouped
+    kernels run on this path, not for speed: on the H100 the grouped sweep
+    takes 1.15-1.4x the per-ray sweep's time on every ray set measured,
+    pool-like sorted sets included, and returns the same hits (PERF.md)."""
+    if cfg.traversal_backend == "auto" and scene.cluster_bbox.shape[0] > 1:
+        return "pallas_wlg"
+    return cfg.traversal_backend
+
+
+# The reference's default phase-1 window of the pool casts, a fraction of
+# the scene diagonal (its integrator/common.py). The reference chose it on
+# its accelerator, where it kept mid-drain pool casts inside the grouped
+# sweep's fixed item capacity; the port's item lists have no capacity,
+# and whether slabs pay here is measured by chip_smoke.py (PERF.md).
+POOL_SLAB_DEFAULT = 0.03
+
+
+def pool_slab_march(scene, cfg, backend):
+    """The pool casts' phase-1 window as a fraction of the scene diagonal,
+    0.0 for no slabs: cfg.slab_march, or POOL_SLAB_DEFAULT for None. Slab
+    marching runs only on the work list: the dense sweep ignores t_cap, so
+    a second phase would repeat the cast."""
+    from ..accel.traverse import _resolve_backend
+
+    march = POOL_SLAB_DEFAULT if cfg.slab_march is None else cfg.slab_march
+    if march <= 0.0 or _resolve_backend(scene, backend) == "dense":
+        return 0.0
+    return float(march)
+
+
+def slab_depth(scene, march):
+    """Phase-1 cap: march of the scene diagonal, as a float (one host
+    read). The scene box is the work list's table bounds."""
+    from ..accel.worklist import scene_tables
+
+    lo, hi = scene_tables(scene).bounds
+    return march * float(torch.linalg.vector_norm(hi - lo))
 
 
 def offset_ray_origin(p, n, d):
@@ -185,3 +232,24 @@ def ray_sort_key(origin, direction, scene_lo, scene_inv_extent):
         for ax in range(3):
             m = m | (((cell[:, ax] >> b) & 1) << (3 * b + ax))
     return (oct_ << 12) | m
+
+
+def sort_order(scene, origin, direction, alive):
+    """Lane order of the rays' `ray_sort_key`, dead lanes last (stable).
+    The key's grid spans the work-list tables' scene box (the reference
+    uses its TLAS root box, the same box up to rounding)."""
+    from ..accel.worklist import scene_tables
+
+    lo, hi = scene_tables(scene).bounds
+    key = ray_sort_key(origin, direction, lo,
+                       1.0 / torch.clamp_min(hi - lo, 1e-6))
+    return torch.argsort(torch.where(alive, key, 0xFFFFFFFF), stable=True)
+
+
+def park_rays(mask, origin, direction):
+    """Lanes outside mask cast a far ray along +x that enters nothing
+    (stale rays would widen their blocks' work-list items)."""
+    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=direction.dtype,
+                          device=direction.device)
+    return (torch.where(mask[:, None], origin, 2e9),
+            torch.where(mask[:, None], direction, x_axis))

@@ -21,11 +21,10 @@ from typing import NamedTuple
 
 import torch
 
-from directcomputeraytracing_tpu.core.constants import LIGHT_INDEX_INVALID
-
 from ..accel.traverse import HitInfo, intersect_any, intersect_closest
 from ..bsdf.dispatch import evaluate_bsdf, evaluate_bsdf_pdf, sample_bsdf
 from ..camera.camera import generate_ray
+from ..core.constants import LIGHT_INDEX_INVALID
 from ..lights.lights import (
     evaluate_env,
     evaluate_light_direct,
@@ -38,7 +37,13 @@ from ..rng.xoshiro import (
     next_sample_3d,
 )
 from ..sampling.montecarlo import dot, power_heuristic
-from .common import RenderConfig, offset_ray_origin, ray_sort_key, shade_hit
+from .common import (
+    RenderConfig,
+    offset_ray_origin,
+    park_rays,
+    shade_hit,
+    sort_order,
+)
 
 
 def _sel(mask, new, old):
@@ -68,7 +73,7 @@ def _check_supported(cfg: RenderConfig):
     if cfg.any_hit:
         raise NotImplementedError(
             "alpha-tested scenes: ROADMAP queue 1, item 11")
-    if cfg.slab_march > 0.0:
+    if cfg.slab_march:
         raise NotImplementedError(
             "slab marching (slab_march > 0) needs the work-list kernels: "
             "ROADMAP queue 1, item 11 and queue 2, items 3-6")
@@ -85,21 +90,12 @@ class _Carry(NamedTuple):
 
 def _sorted_closest(scene, cfg, origin, direction, alive):
     """Extension cast in `ray_sort_key` order, hits returned in lane order.
-    Dead lanes sort last and are parked far away, so they enter nothing.
-    The key's grid spans the scene box of the work-list tables (the
-    reference uses its TLAS root box, the same box up to rounding)."""
-    from ..accel.worklist import scene_tables
-
-    lo, hi = scene_tables(scene).bounds
-    key = ray_sort_key(origin, direction, lo,
-                       1.0 / torch.clamp_min(hi - lo, 1e-6))
-    order = torch.argsort(torch.where(alive, key, 0xFFFFFFFF), stable=True)
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=direction.dtype,
-                          device=direction.device)
-    hit = intersect_closest(
-        scene, torch.where(alive[:, None], origin, 2e9)[order],
-        torch.where(alive[:, None], direction, x_axis)[order],
-        backend=cfg.traversal_backend, watertight=cfg.watertight)
+    Dead lanes sort last and are parked, so they enter nothing."""
+    order = sort_order(scene, origin, direction, alive)
+    o, d = park_rays(alive, origin, direction)
+    hit = intersect_closest(scene, o[order], d[order],
+                            backend=cfg.traversal_backend,
+                            watertight=cfg.watertight)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.shape[0], device=order.device)
     return HitInfo(*(x[inv] for x in hit))
@@ -118,12 +114,9 @@ def _bounce(scene, luts, cfg, c):
         ls = sample_light_direct(scene, cfg.light_count, cfg.has_env_texture,
                                  itx.position, u_sel, u_tri, u2)
         shadow_o = offset_ray_origin(itx.position, itx.geometry_normal, ls.wi)
-        # inactive lanes cast a zero-length ray from far away
-        x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=ls.wi.dtype,
-                              device=ls.wi.device)
+        # inactive lanes cast a zero-length parked ray
         occluded = intersect_any(
-            scene, torch.where(active[:, None], shadow_o, 2e9),
-            torch.where(active[:, None], ls.wi, x_axis),
+            scene, *park_rays(active, shadow_o, ls.wi),
             torch.where(active, ls.distance, 0.0),
             backend=cfg.traversal_backend, watertight=cfg.watertight)
         f = evaluate_bsdf(luts, ls.wi, wo, itx, cfg.use_vndf)

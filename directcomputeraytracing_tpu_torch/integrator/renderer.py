@@ -1,27 +1,29 @@
 """Progressive renderer: scene + camera + config -> image, on one device.
 
 Counterpart of `directcomputeraytracing_tpu.integrator.renderer` for the
-megakernel integrator and the box film. A pixel chunk (`CHUNK_PIXELS`,
-2^20) bounds the memory of one pass: a 1024x1024 frame runs as one chunk,
-a larger frame as several. Scenes with cluster tables trace in 32x32
-pixel tiles and sort their bounce rays, as the reference does on its
-accelerator: a 1024-ray block of the work-list traversal is then one
-tile, a compact frustum with a short item list. Values are scattered
-back to raster order before the film; the per-pixel random streams make
-the image independent of the order. The reference's tunnel pacing and
-its 2^18-pixel dispatch budget are gone.
+megakernel and wavefront integrators and the box film. For the
+megakernel a pixel chunk (`CHUNK_PIXELS`, 2^20) bounds the memory of one
+pass: a 1024x1024 frame runs as one chunk, a larger frame as several.
+The wavefront runs the whole frame through one path pool, whose size
+bounds its memory, and fuses progressive samples into one pool pass
+(`spp_batch`). Scenes with cluster tables trace in 32x32 pixel tiles and
+sort their bounce rays, as the reference does on its accelerator: a
+1024-ray block of the work-list traversal is then one tile, a compact
+frustum with a short item list. Values are scattered back to raster
+order before the film; the per-pixel random streams make the image
+independent of the order. The reference's tunnel pacing and its
+2^18-pixel dispatch budget are gone.
 
-The wavefront integrator, splatting filters, slab marching and
-alpha-tested scenes raise NotImplementedError (ROADMAP queue 1).
+Splatting filters, slab marching in the megakernel and alpha-tested
+scenes raise NotImplementedError (ROADMAP queue 1).
 """
 
 import torch
 
-from directcomputeraytracing_tpu.core.constants import (
+from ..core.constants import (
     LIGHT_INDEX_INVALID,
     MATERIAL_TYPE_DIFFUSE,
 )
-
 from ..core.types import to_device
 from ..film.film import accumulate_box, create_film, resolve
 from ..lut.textures import load_luts, placeholder_luts
@@ -34,6 +36,7 @@ from .megakernel import (
     render_samples_accumulated,
     tiled_frame_pixels,
 )
+from .wavefront import render_samples_wavefront
 
 # pixels per pass chunk, a bound on the device memory of one pass
 CHUNK_PIXELS = 1 << 20
@@ -49,10 +52,10 @@ class Renderer:
                  luts=None, integrator="megakernel", filter_params=None,
                  post_params=None, *, device, **cfg_overrides):
         self.device = torch.device(device)
-        if integrator != "megakernel":
-            raise NotImplementedError(
-                f"integrator {integrator!r}: the wavefront integrator is "
-                "ROADMAP queue 1, item 13")
+        if integrator not in ("megakernel", "wavefront"):
+            raise ValueError(f"integrator {integrator!r}: 'megakernel' or "
+                             "'wavefront'")
+        self.integrator = integrator
         if filter_params is not None and (filter_params.kind != "box"
                                           or filter_params.radius > 0.5):
             raise NotImplementedError(
@@ -112,12 +115,22 @@ class Renderer:
         """Per-pixel values in the trace order -> raster order."""
         return values if self._inv is None else values[self._inv]
 
+    def _wavefront(self, frame_seed, spp_batch=1):
+        """The whole frame through one path pool: (R, 3) summed values in
+        the trace order."""
+        return render_samples_wavefront(
+            self.arrays, self.luts, self.camera, self.cfg, self._px,
+            self._py, frame_seed, spp_batch=spp_batch)[1]
+
     def render_sample(self, frame_seed):
         """Trace one sample per pixel and accumulate it into the film."""
-        values = self._raster(torch.cat([
-            render_samples(self.arrays, self.luts, self.camera, self.cfg,
-                           px, py, frame_seed)[1]
-            for px, py in self._chunks()]))
+        if self.integrator == "wavefront":
+            values = self._raster(self._wavefront(frame_seed))
+        else:
+            values = self._raster(torch.cat([
+                render_samples(self.arrays, self.luts, self.camera, self.cfg,
+                               px, py, frame_seed)[1]
+                for px, py in self._chunks()]))
         self.film = accumulate_box(self.film, values, self.cfg.height,
                                    self.cfg.width)
         self.spp += 1
@@ -128,18 +141,22 @@ class Renderer:
         """Accumulate spp samples and return image(). With progressive
         seeds, passes are summed in groups of samples_per_dispatch
         (default min(spp, 8)) before they reach the film, as the
-        reference's fused dispatches do."""
+        reference's fused dispatches do; the wavefront traces such a
+        group in one pool pass (spp_batch)."""
         fuse = (samples_per_dispatch if samples_per_dispatch is not None
                 else min(spp, 8))
         can_fuse = seed_mode == SEED_SAMPLE_COUNT and fuse > 1
         remaining = spp
         while remaining > 0:
             if can_fuse and remaining >= fuse:
-                total = self._raster(torch.cat([
-                    render_samples_accumulated(
-                        self.arrays, self.luts, self.camera, self.cfg, px, py,
-                        self.spp, fuse)
-                    for px, py in self._chunks()]))
+                if self.integrator == "wavefront":
+                    total = self._raster(self._wavefront(self.spp, fuse))
+                else:
+                    total = self._raster(torch.cat([
+                        render_samples_accumulated(
+                            self.arrays, self.luts, self.camera, self.cfg,
+                            px, py, self.spp, fuse)
+                        for px, py in self._chunks()]))
                 self.film = accumulate_box(self.film, total, self.cfg.height,
                                            self.cfg.width, float(fuse))
                 self.spp += fuse

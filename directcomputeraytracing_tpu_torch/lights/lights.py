@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from directcomputeraytracing_tpu.core.constants import (
+from ..core.constants import (
     LIGHT_FLAGS_DIRECTIONAL,
     LIGHT_FLAGS_ENVIRONMENT,
     LIGHT_FLAGS_MESH,
@@ -20,7 +20,6 @@ from directcomputeraytracing_tpu.core.constants import (
     LIGHT_INDEX_INVALID,
     SHADOW_EPSILON,
 )
-
 from ..core.types import transform_point
 from ..sampling.montecarlo import (
     PI,

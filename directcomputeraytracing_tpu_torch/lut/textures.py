@@ -38,12 +38,9 @@ _SHAPES = {"brdf": (32, 32), "brdf_avg": (32,),
 
 
 def committed_lut_path():
-    """The reference's committed bake (seed 0, quality 1), which its
-    `bake_luts_cached()` loads by default."""
-    import directcomputeraytracing_tpu   # lazy package: imports no jax
-
-    return os.path.join(os.path.dirname(directcomputeraytracing_tpu.__file__),
-                        "lut", "_bxdf_luts_s0_q1.npz")
+    """The port's copy of the reference's committed bake (seed 0, quality
+    1), which its `bake_luts_cached()` loads by default."""
+    return os.path.join(os.path.dirname(__file__), "_bxdf_luts_s0_q1.npz")
 
 
 def load_luts(device) -> BxDFLuts:

@@ -59,9 +59,13 @@ def splitmix64_next(state):
 
 def init_rng(pixel_x, pixel_y, frame_seed):
     """Per-pixel state (..., 4) int64 from integer pixel coordinates and a
-    scalar frame seed (taken modulo 2^32, like the reference's uint32)."""
+    frame seed, a scalar or an integer tensor of one seed per pixel (taken
+    modulo 2^32, like the reference's uint32)."""
     lo = morton_interleave_32(pixel_x, pixel_y)
-    hi = torch.full_like(lo, int(frame_seed) & M32)
+    if torch.is_tensor(frame_seed):
+        hi = (frame_seed.long() & M32).expand_as(lo)
+    else:
+        hi = torch.full_like(lo, int(frame_seed) & M32)
     sm, s0 = splitmix64_next((lo, hi))
     _, s1 = splitmix64_next(sm)
     return torch.stack([s0[0], s0[1], s1[0], s1[1]], dim=-1)

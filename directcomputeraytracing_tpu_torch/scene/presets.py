@@ -8,13 +8,12 @@ clockwise (geometry normal = cross(v0v2, v0v1)), camera looking along +z.
 
 import numpy as np
 
-from directcomputeraytracing_tpu.core.constants import (
+from ..camera.camera import look_at_transform
+from ..core.constants import (
     MATERIAL_TYPE_CONDUCTOR,
     MATERIAL_TYPE_DIELECTRIC,
     MATERIAL_TYPE_PLASTIC,
 )
-
-from ..camera.camera import look_at_transform
 from ..core.types import CameraParams
 from .scene import Instance, Material, Mesh, PunctualLight, Scene
 

@@ -18,8 +18,8 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from directcomputeraytracing_tpu.accel.build import build_bvh
-from directcomputeraytracing_tpu.core.constants import (
+from ..accel.build import build_bvh
+from ..core.constants import (
     INSTANCE_MATERIAL_OVERRIDE_NONE,
     INTERNAL_SCATTERING_MODE_IGNORE,
     LIGHT_FLAGS_DIRECTIONAL,

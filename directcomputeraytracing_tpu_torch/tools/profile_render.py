@@ -1,13 +1,16 @@
-"""Where the time of a 1024x1024 render goes, on one GPU.
+"""Where the time of a render goes, on one GPU.
 
-    python -m directcomputeraytracing_tpu_torch.tools.profile_render [scene]
+    python -m directcomputeraytracing_tpu_torch.tools.profile_render [case]
 
-scene: `cornell` (default, `cornell_box("area", "glossy")`, the dense
-sweep) or `sphere_grid` (`sphere_grid(12, 12)`, 211,972 triangles, the
-work-list traversal). Needs a CUDA device; with none it exits non-zero.
-Renders the scene at 1024x1024, max_bounce 4, through
+case: `cornell` (default, `cornell_box("area", "glossy")`, the dense
+sweep, 1024x1024), `sphere_grid` (`sphere_grid(12, 12)`, 211,972
+triangles, the work-list traversal, 1024x1024), both through the
+megakernel, or `wavefront` (`sphere_grid(12, 12)` at 1920x1080 through
+the wavefront integrator and its grouped pool casts). Needs a CUDA
+device; with none it exits non-zero. Renders at max_bounce 4 through
 `Renderer.render(spp=8)`: the fused 8-sample call that chip_smoke.py's
-16 spp render makes twice. Prints the card's name and power limit, the
+renders make (one pool pass of 8 samples for the wavefront). Prints the
+card's name and power limit, the
 operators with the most device time (a `key_averages()` table), and four
 JSON lines:
 
@@ -24,7 +27,9 @@ JSON lines:
   of busy time, largest first;
 - `port_kernels`: device ms per sample pass of each of the port's own
   kernels (launched through ctypes, so no PyTorch operator holds them),
-  and their share of busy time.
+  and their share of busy time;
+- `wavefront_stats` (the wavefront case): `LAST_STATS` of the traced
+  pass (iterations, casts per slab phase, host reads).
 """
 
 import json
@@ -40,12 +45,16 @@ from torch.profiler import ProfilerActivity, profile
 from ..integrator.renderer import Renderer
 from ..scene.presets import cornell_box, sphere_grid
 
-WIDTH = HEIGHT = 1024
 MAX_BOUNCE = 4
 SPP = 8
 REPS = 3
-SCENES = {"cornell": lambda: cornell_box("area", "glossy"),
-          "sphere_grid": lambda: sphere_grid(12, 12)}
+# case: (scene, width, height, integrator)
+CASES = {"cornell": (lambda: cornell_box("area", "glossy"), 1024, 1024,
+                     "megakernel"),
+         "sphere_grid": (lambda: sphere_grid(12, 12), 1024, 1024,
+                         "megakernel"),
+         "wavefront": (lambda: sphere_grid(12, 12), 1920, 1080,
+                       "wavefront")}
 # the port's kernels, told apart by entry point and template argument in
 # the demangled names the profiler reports
 PORT_KERNELS = {
@@ -54,6 +63,8 @@ PORT_KERNELS = {
     "worklist.cu closest_kernel": ("closest_kernel", "BaldwinWeber",
                                    "RawWatertight"),
     "worklist.cu any_kernel": ("any_kernel", "BaldwinWeber", "RawWatertight"),
+    "worklist.cu closest_grouped_kernel": ("closest_grouped_kernel",),
+    "worklist.cu any_grouped_kernel": ("any_grouped_kernel",),
     "brute_sweep.cu closest_kernel": ("closest_kernel", "Moeller",
                                       "dcrt::Watertight"),
     "brute_sweep.cu any_kernel": ("any_kernel", "Moeller",
@@ -98,9 +109,9 @@ def _port_kernel_ms(events):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    scene = argv[0] if argv else "cornell"
-    if scene not in SCENES:
-        print(f"profile_render: scene is one of {sorted(SCENES)}",
+    case = argv[0] if argv else "cornell"
+    if case not in CASES:
+        print(f"profile_render: case is one of {sorted(CASES)}",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -110,8 +121,9 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=120, check=True)
     print(smi.stdout.strip())
-    r = Renderer(*SCENES[scene](), WIDTH, HEIGHT, max_bounce=MAX_BOUNCE,
-                 device=torch.device("cuda"))
+    make, width, height, integrator = CASES[case]
+    r = Renderer(*make(), width, height, max_bounce=MAX_BOUNCE,
+                 integrator=integrator, device=torch.device("cuda"))
     _timed_render(r)   # warm-up: kernel build, allocator growth
     torch.cuda.reset_peak_memory_stats()
     wall = [_timed_render(r) for _ in range(REPS)]
@@ -144,8 +156,12 @@ def main(argv=None):
         idle_unprofiled=1.0 - busy / median)))
     print("ops", json.dumps({k: round(ms / busy, 4) for ms, k in per_op[:12]}))
     print("port_kernels", json.dumps(dict(
-        scene=scene, ms_per_spp=own,
+        case=case, ms_per_spp=own,
         share_of_busy=sum(own.values()) / busy)))
+    if integrator == "wavefront":
+        from ..integrator.wavefront import LAST_STATS
+
+        print("wavefront_stats", json.dumps(LAST_STATS))
     return 0
 
 

@@ -47,6 +47,16 @@ T_RTOL = 1e-4
 TIE = 2.0 ** -12
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread per process keeps
+    parallel pytest workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def port_scene():
     arrays, _ = flatten_scene(sphere_grid(*GRID, **GRID_KW)[0], "cpu")
