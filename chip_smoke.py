@@ -21,10 +21,6 @@ any failure exits non-zero:
    per-ray t_max; mismatch counts, `iters` equality, kernel and twin
    times at the camera rays (CUDA events), items per block and mean
    clusters swept per ray;
-3. the main path: Cornell glossy 1024x1024, 16 spp, max_bounce 4 through
-   `Renderer.render`, with the kernels' launch counts checked against
-   spp * (max_bounce + 2) * chunks (closest) and spp * (max_bounce + 1) *
-   chunks (any-hit);
 2c. grouped work-list kernels (closest and any-hit) against their twins
    and against the per-ray sweeps on the three 1M-ray sets of 2b plus the
    random set sorted by `ray_sort_key` (like a permuted pool) and a
@@ -33,6 +29,30 @@ any failure exits non-zero:
    run on the first 2^18 rays of the incoherent sets, where a 1M-ray
    twin cast would take minutes, and on the whole camera set; CUDA-event
    times of grouped and per-ray kernels, clusters swept per ray;
+2d. instanced work-list kernels (closest and any-hit sweeps) against their
+   twins on sphere_grid(27, 27) (1,073,092 world triangles from 1,476
+   local ones, in the instanced tables), Baldwin-Weber and watertight:
+   1,048,576 tiled camera rays, 1,048,576 shadow rays towards the lamp,
+   1,048,576 random rays from inside the box sorted by `ray_sort_key`,
+   and a pool-sized (2^18) sorted set. The twins run on 64 blocks spread
+   over each set (65,536 rays; a 1M-ray twin cast takes minutes), where
+   kernel and twin must agree in every field of the sweep state and the
+   kernels' item lists must equal the twins'; CUDA-event times, bounds
+   and the census (items per block, clusters swept per ray) on the whole
+   sets, beside the soup's census of 2b;
+2e. instanced against soup: sphere_grid(12, 12) flattened twice, as the
+   world soup and forced onto the instanced tables (SOUP_MAX_TRIS
+   lowered): on 1,048,576 camera rays, watertight and Baldwin-Weber,
+   equal hit masks, t within rtol 3e-5, triangle and instance ids equal
+   except at near-ties (2^-12), but for rays the two roundings of the
+   geometry part: watertight, a nearer hit within 1e-4 (barycentric) of
+   an edge; Baldwin-Weber, a crack of that test, where the nearer hit is
+   the watertight one (counted and listed); then both rendered at
+   256x256, 4 spp, within the CPU-vs-card gates;
+3. the main path: Cornell glossy 1024x1024, 16 spp, max_bounce 4 through
+   `Renderer.render`, with the kernels' launch counts checked against
+   spp * (max_bounce + 2) * chunks (closest) and spp * (max_bounce + 1) *
+   chunks (any-hit);
 3b. the main path on a clustered scene: sphere_grid(12, 12) 1024x1024,
    16 spp, max_bounce 4. Closest sweeps plus closest casts with an empty
    item list must equal spp * (max_bounce + 2) * chunks, any-hit sweeps
@@ -50,10 +70,17 @@ any failure exits non-zero:
    pool;
 3d. the wavefront against the megakernel on the card (sphere_grid(12,
    12), 256x256, 4 spp, same seeds): RMSE <= 1e-3;
+3e. the main path on the instanced scene: sphere_grid(27, 27) 1024x1024,
+   16 spp, max_bounce 4, after a warm-up; the launch rule of 3b with the
+   instanced sweeps, and no soup, grouped or dense sweep;
+3f. the wavefront on the instanced scene: 1920x1080, 4 spp, max_bounce
+   4, default pool and slab marching, after a warm-up; the rule of 3c
+   with the instanced sweeps;
 4. the card's render against the port's CPU render, Cornell (64x64,
-   4 spp), 4b. sphere_grid(3, 3, stacks=12, slices=16) (64x64, 4 spp)
-   and 4c. the same small grid through the wavefront;
-5. one JSON line listing the eight kernels, then the contract line, last.
+   4 spp), 4b. sphere_grid(3, 3, stacks=12, slices=16) (64x64, 4 spp),
+   4c. the same small grid through the wavefront and 4d. the same small
+   grid forced onto the instanced tables (megakernel);
+5. one JSON line listing the ten kernels, then the contract line, last.
 
 Tolerances (kernel vs twin): the kernels are built without FMA
 contraction, so they round like the twins; a hit/miss or occlusion
@@ -66,7 +93,8 @@ t). Work-list `iters` must be equal. The grouped kernels must equal their
 twins in every field, and the per-ray sweeps in every hit field. The
 grouped any-hit sweep's plain version is the per-ray twin
 `sweep_any_torch`, whose answer the grouped walk must give (its
-`plain_ms` in the kernels line times that twin).
+`plain_ms` in the kernels line times that twin). The instanced kernels
+must equal their twins in every field, `iters` included.
 
 Bounds (`bound_ms` of the kernels line): the larger of the counted
 floating-point operations at 67 TFLOP/s and the bytes read and written
@@ -75,7 +103,8 @@ from this run's inputs: a Moeller test 45 operations, a Baldwin-Weber
 test 31, a slab test of a ray and a box 20; the work-list sweeps count
 the fine cull of every item of the ray's block and 16 triangle tests per
 cluster the per-ray walk swept (the any-hit sweeps only the fine cull, a
-lower bound); tables count once, whole.
+lower bound; the instanced sweeps leave out the move of the ray to
+instance space, also a lower bound); tables count once, whole.
 """
 
 import json
@@ -83,6 +112,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 
@@ -105,16 +135,25 @@ TWIN_SUBSET = 1 << 18                   # rays of a twin cast on big sets
 POOL_RAYS = 1 << 18                     # the default pool at 1080p x 8 spp
 MK_VS_WF = dict(width=256, height=256, spp=4, max_bounce=4)
 GATE_WF_RMSE = 1e-3
+INST_GRID = (27, 27)                    # 1,073,092 world triangles, instanced
+INST_TWIN_BLOCKS = 64                   # ray blocks of an instanced twin cast
+INST_WAVEFRONT = dict(width=1920, height=1080, spp=4, max_bounce=4)
+FORCED_SOUP_MAX = 2048                  # SOUP_MAX_TRIS that forces instancing
+INST_VS_SOUP = dict(width=256, height=256, spp=4, max_bounce=4)
+T_RTOL_INST = 3e-5
+EDGE_TOL = 1e-4                         # barycentric margin of an edge hit
 PEAK_FLOPS = 67e12                      # H100 SXM float32, no tensor cores
 PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
 FLOPS_MOELLER, FLOPS_BW, FLOPS_SLAB = 45, 31, 20
 
 
-def _timed(fn, reps):
-    """Mean ms of fn() over reps launches after one warm-up (CUDA events)."""
+def _timed(fn, reps, warm=True):
+    """Mean ms of fn() over reps launches, after one warm-up launch unless
+    warm is False (CUDA events)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -463,7 +502,7 @@ def phase_worklist_kernels(device):
         sweep_any=_bound(fine * n_items_any,
                          41 * rp + 8 * n_items_any + table_bytes))
     print("worklist bounds camera", json.dumps(work))
-    return reports, times, cull, work
+    return reports, times, cull, work, census
 
 
 def _sweep_diffs(a, b, fields):
@@ -613,17 +652,321 @@ def phase_grouped_kernels(device):
     return reports, timing, errs, pool
 
 
+def _spread_blocks(n_rays, n_blocks, device):
+    """Indices of the rays of n_blocks RB-ray blocks spread evenly over
+    n_rays rays."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+
+    nb = n_rays // wl.RB
+    blocks = torch.arange(0, nb, max(1, nb // n_blocks),
+                          device=device)[:n_blocks]
+    return (blocks[:, None] * wl.RB
+            + torch.arange(wl.RB, device=device)).reshape(-1)
+
+
+def _inst_bounds(tables, it_c, it_a, iters, rp, watertight):
+    """(closest, any) bounds of the instanced sweeps on one ray set: the
+    work-list sweeps' count (module docstring); the tables are the world
+    child boxes, the local slab, the per-super ids and the instance rows."""
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+
+    tab = tables.ctab if watertight else tables.bwtab
+    table_bytes = 4 * (tables.cbox3.numel() + tab.numel()
+                       + tables.inst_rows.numel() + 2 * tables.sbox.shape[0])
+    fine = FLOPS_SLAB * tables.cbox3.shape[1]
+    n_c, n_a = int(it_c.seg[-1]), int(it_a.seg[-1])
+    test = FLOPS_MOELLER if watertight else FLOPS_BW
+    return (_bound(fine * wl.RB * n_c + 16 * test * int(iters.long().sum()),
+                   69 * rp + 12 * n_c + table_bytes),
+            _bound(fine * wl.RB * n_a, 41 * rp + 8 * n_a + table_bytes))
+
+
+def phase_instanced_kernels(device, soup_census):
+    """Instanced kernels against their twins on sphere_grid(27, 27); kernel
+    times, bounds and the census on four ray sets; the kernels line's rows
+    at the camera rays."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+    from directcomputeraytracing_tpu_torch.core.types import to_device
+    from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+
+    rng = np.random.default_rng(20261019)
+    scene, cam = _scene("inst_grid")
+    t0 = time.perf_counter()
+    arrays, _ = flatten_scene(scene, device)
+    flatten_s = time.perf_counter() - t0
+    tables = wl.scene_tables(arrays)
+    print("instanced scene", json.dumps(dict(
+        world_tris=_world_tris(scene), local_tris=arrays.triangles.shape[0],
+        instances=arrays.inst_rows.shape[0],
+        local_clusters=arrays.icl_slab.shape[0] // 16,
+        supers=tables.sbox.shape[0],
+        hypers=None if tables.hbox is None else tables.hbox.shape[0],
+        flatten_s=flatten_s)))
+    if tables.inst_rows is None or tables.hbox is None:
+        raise SystemExit("sphere_grid(27, 27) should use the instanced "
+                         "tables and the hyper level")
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    lo, hi = [-21.0, 0.01, -21.0], [21.0, 6.9, 21.0]
+    side = int(np.sqrt(N_RAYS))
+    o_cam, d_cam = _tiled_camera_rays(to_device(cam, device), side, side,
+                                      device)
+    o_sh = rng.uniform([-20.0, 0.01, -20.0], [20.0, 1.5, 20.0], (N_RAYS, 3))
+    to_lamp = rng.uniform([-2.0, 7.0, -2.0], [2.0, 7.0, 2.0],
+                          (N_RAYS, 3)) - o_sh
+    dist = np.linalg.norm(to_lamp, axis=1)
+    o_in, d_in = (f32(x) for x in _rays_inside(rng, N_RAYS, lo, hi))
+    o_pool, d_pool = (f32(x) for x in _rays_inside(rng, POOL_RAYS, lo, hi))
+    sets = {
+        "camera": (o_cam, d_cam, f32(rng.uniform(0.5, 30.0, N_RAYS))),
+        "shadow": (f32(o_sh), f32(to_lamp / dist[:, None]),
+                   f32(0.999 * dist)),
+        "random_sorted": (*_sorted_rays(tables, o_in, d_in),
+                          f32(rng.uniform(0.5, 30.0, N_RAYS))),
+        "pool_sorted": (*_sorted_rays(tables, o_pool, d_pool),
+                        f32(rng.uniform(0.5, 30.0, POOL_RAYS))),
+    }
+    t_min = 1e-4
+    reports, census, errs = [], {}, dict(closest=0.0, any=0.0)
+
+    def prepared(o, d, t_max, plain=False):
+        od, tm_c, _ = wl.prep_rays(o, d)
+        _, tm_a, _ = wl.prep_rays(o, d, t_max)
+        return (od, tm_c, tm_a, wl.scene_exit(tables, od),
+                wl.phases(tables, od, tm_c, plain),
+                wl.phases(tables, od, tm_a, plain))
+
+    for name, (o, d, t_max) in sets.items():
+        od, tm_c, tm_a, texp, it_c, it_a = prepared(o, d, t_max)
+        idx = _spread_blocks(o.shape[0], INST_TWIN_BLOCKS, device)
+        od_s, _, tm_as, texp_s, it_cs, it_as = prepared(o[idx], d[idx],
+                                                        t_max[idx])
+        plain = prepared(o[idx], d[idx], t_max[idx], plain=True)
+        items_equal = all(torch.equal(a, b) for it, it_w in
+                          ((it_cs, plain[4]), (it_as, plain[5]))
+                          for a, b in zip(it, it_w))
+        nb, r = od.shape[1] // wl.RB, o.shape[0]
+        counts = (it_c.seg[1:] - it_c.seg[:-1]).float()
+        census[name] = dict(items_per_block=float(counts.mean()),
+                            items_per_block_max=int(counts.max()),
+                            any_items_per_block=int(it_a.seg[-1]) / nb)
+        for wt in (False, True):
+            k = wl.sweep_closest_inst(tables, it_c, od, texp, t_min, wt)
+            ks = wl.sweep_closest_inst(tables, it_cs, od_s, texp_s, t_min, wt)
+            kas = wl.sweep_any_inst(tables, it_as, od_s, tm_as, t_min, wt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w = wl.sweep_closest_inst_torch(tables, it_cs, od_s, texp_s,
+                                            t_min, wt)
+            wa = wl.sweep_any_inst_torch(tables, it_as, od_s, tm_as, t_min,
+                                         wt)
+            torch.cuda.synchronize()
+            twin_s = time.perf_counter() - t0
+            hit = torch.isfinite(wl.decode_closest(k, texp, it_c.block_any,
+                                                   r)[0])
+            iters = k[7][:r]
+            timing = dict(
+                closest_ms=_timed(lambda: wl.sweep_closest_inst(
+                    tables, it_c, od, texp, t_min, wt), 3),
+                any_ms=_timed(lambda: wl.sweep_any_inst(
+                    tables, it_a, od, tm_a, t_min, wt), 3))
+            bc, ba = _inst_bounds(tables, it_c, it_a, iters, od.shape[1], wt)
+            rep = dict(case=name, watertight=wt, rays=r,
+                       twin_rays=int(idx.numel()), twin_s=twin_s,
+                       items_equal=items_equal,
+                       vs_twin=_sweep_diffs(ks, w, range(8)),
+                       vs_twin_occ=int((kas != wa).sum()),
+                       hits=int(hit.sum()),
+                       twin_occluded=int(wa.sum()),
+                       iters_per_ray=float(iters.float().mean()),
+                       iters_per_hit=float(iters[hit].float().mean()),
+                       **timing, closest_bound=bc, any_bound=ba,
+                       closest_share=bc[0] / timing["closest_ms"],
+                       any_share=ba[0] / timing["any_ms"])
+            rep["ok"] = (items_equal and not any(rep["vs_twin"].values())
+                         and rep["vs_twin_occ"] == 0)
+            errs["closest"] = max(errs["closest"], *(
+                float((a.float() - b.float()).abs().max())
+                for a, b in zip(ks[1:4], w[1:4])))
+            errs["any"] = max(errs["any"], float((kas != wa).float().max()))
+            if not wt:
+                census[name].update(iters_per_ray=rep["iters_per_ray"],
+                                    iters_per_hit=rep["iters_per_hit"],
+                                    hit_fraction=float(hit.float().mean()))
+            reports.append(rep)
+            print("instanced-kernel", json.dumps(rep))
+    print("instanced census", json.dumps(dict(
+        instanced_27x27=census, soup_12x12=soup_census)))
+    bad = [r for r in reports if not r["ok"]]
+    if bad:
+        raise SystemExit(f"instanced kernel/twin mismatch: {bad}")
+
+    # the kernels line's rows: the main path's first cast, 1M camera rays,
+    # Baldwin-Weber; the twins timed once each on the whole set
+    o, d, t_max = sets["camera"]
+    od, tm_c, tm_a, texp, it_c, it_a = prepared(o, d, t_max)
+    cam_rep = next(r for r in reports
+                   if r["case"] == "camera" and not r["watertight"])
+    row = dict(
+        closest_ms=cam_rep["closest_ms"], any_ms=cam_rep["any_ms"],
+        closest_bound=cam_rep["closest_bound"],
+        any_bound=cam_rep["any_bound"],
+        closest_twin_ms=_timed(lambda: wl.sweep_closest_inst_torch(
+            tables, it_c, od, texp, t_min, False), 1, warm=False),
+        any_twin_ms=_timed(lambda: wl.sweep_any_inst_torch(
+            tables, it_a, od, tm_a, t_min, False), 1, warm=False))
+    print("instanced-row", json.dumps(row))
+    return reports, errs, row
+
+
+@contextmanager
+def _forced_instanced():
+    """Flatten scenes onto the instanced tables from FORCED_SOUP_MAX world
+    triangles up, as the tests force them."""
+    from directcomputeraytracing_tpu_torch.scene import scene as scene_mod
+
+    old = scene_mod.SOUP_MAX_TRIS
+    scene_mod.SOUP_MAX_TRIS = FORCED_SOUP_MAX
+    try:
+        yield
+    finally:
+        scene_mod.SOUP_MAX_TRIS = old
+
+
+def _casts_diff(a, b):
+    """Rays where closest hits a and b disagree beyond the gate: hit mask,
+    t beyond rtol T_RTOL_INST, or triangle or instance ids apart from a
+    near-tie (t within 2^-12 relative)."""
+    both = a.hit & b.hit
+    dt = (a.t - b.t).abs()
+    ids = (a.triangle != b.triangle) | (a.instance != b.instance)
+    return (a.hit != b.hit) | (both & ((dt > T_RTOL_INST * a.t.abs())
+                                       | (ids & (dt > TIE_WL * a.t.abs()))))
+
+
+def phase_instanced_vs_soup(device):
+    """sphere_grid(12, 12) as the world soup and forced onto the instanced
+    tables: the same geometry through two kernel families, which round it
+    apart (world vertices against a ray moved to mesh space). With the
+    watertight test a ray may disagree only where its nearer hit lies
+    within EDGE_TOL (barycentric) of its triangle's edge: at a silhouette
+    one cast grazes the triangle and the other passes and hits something
+    behind. The Baldwin-Weber test is not watertight: a ray may disagree
+    only where one cast went through the crack between two triangles,
+    i.e. its nearer hit is the watertight soup cast's (t within 2^-12).
+    Such rays are counted and listed; any other disagreement fails."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel.traverse import (
+        intersect_closest,
+    )
+    from directcomputeraytracing_tpu_torch.core.types import to_device
+    from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+
+    scene, cam = _scene("grid")
+    soup, _ = flatten_scene(scene, device)
+    with _forced_instanced():
+        inst, _ = flatten_scene(_scene("grid")[0], device)
+    if inst.isup_inst.shape[0] <= 1 or soup.cluster_bbox.shape[0] <= 1:
+        raise SystemExit("sphere_grid(12, 12): expected soup clusters and "
+                         "forced instanced tables")
+    side = int(np.sqrt(N_RAYS))
+    o, d = _tiled_camera_rays(to_device(cam, device), side, side, device)
+    rep = dict(rays=o.shape[0], edge_tol=EDGE_TOL)
+    t_wt = None
+    for wt in (True, False):
+        a = intersect_closest(soup, o, d, watertight=wt)
+        b = intersect_closest(inst, o, d, watertight=wt)
+        both = a.hit & b.hit
+        same = both & (a.triangle == b.triangle) & (a.instance == b.instance)
+        bad = _casts_diff(a, b)
+        near_a = a.t <= b.t
+        u, v = torch.where(near_a, a.u, b.u), torch.where(near_a, a.v, b.v)
+        if wt:
+            t_wt = a.t
+            why = torch.minimum(torch.minimum(u, v), 1.0 - u - v) <= EDGE_TOL
+        else:
+            why = torch.isfinite(t_wt) & (
+                (torch.minimum(a.t, b.t) - t_wt).abs() <= TIE_WL * t_wt)
+        rays = torch.nonzero(bad)[:, 0][:20]
+        rep["watertight" if wt else "baldwin_weber"] = dict(
+            hits=int(a.hit.sum()), hit_diff=int((a.hit != b.hit).sum()),
+            id_diff=int((both & ~same).sum()), outside_gate=int(bad.sum()),
+            explained=int((bad & why).sum()),
+            unexplained=int((bad & ~why).sum()),
+            max_rel_dt_same_triangle=float(torch.where(
+                same, (a.t - b.t).abs() / a.t.abs(), 0.0).max()),
+            back_agree=float((a.backface == b.backface)[same].float()
+                             .mean()),
+            outside=[dict(ray=int(i), t=[float(a.t[i]), float(b.t[i])],
+                          tri=[int(a.triangle[i]), int(b.triangle[i])],
+                          inst=[int(a.instance[i]), int(b.instance[i])],
+                          uv=[float(u[i]), float(v[i])]) for i in rays])
+    imgs = {name: _renderer(name, INST_VS_SOUP, device)[0].render(
+        spp=INST_VS_SOUP["spp"]) for name in ("grid", "grid_forced")}
+    x, y = imgs["grid"], imgs["grid_forced"]
+    rep.update(render=_image_diff(x, y), mean_soup=float(x.mean()),
+               mean_instanced=float(y.mean()))
+    print("instanced-vs-soup", json.dumps(rep))
+    if (rep["watertight"]["unexplained"] or rep["baldwin_weber"]["unexplained"]
+            or not _image_ok(rep["render"]) or not y.mean() > 0):
+        raise SystemExit(f"instanced casts differ from the soup's: {rep}")
+    return rep
+
+
+def _image_diff(a, b):
+    """RMSE and diverged-pixel share of two images (the CPU-vs-card
+    gate's measure)."""
+    return dict(rmse=float(np.sqrt(((a - b) ** 2).mean())),
+                diverged_pixels=float(
+                    (np.abs(a - b).max(-1) > 1e-3 * (1.0 + np.abs(a).max(-1)))
+                    .mean()),
+                gate_rmse=GATE_RMSE, gate_diverged=GATE_DIVERGED_FRACTION)
+
+
+def _image_ok(diff):
+    return (diff["rmse"] <= GATE_RMSE
+            and diff["diverged_pixels"] <= GATE_DIVERGED_FRACTION)
+
+
+def _world_tris(scene):
+    return sum(scene.meshes[i.mesh].indices.shape[0] for i in scene.instances)
+
+
 def _scene(name):
+    """A scene of the run by name; a name ending in `_forced` is the same
+    scene, which `_renderer` flattens onto the instanced tables."""
     from directcomputeraytracing_tpu_torch.scene.presets import (
         cornell_box,
         sphere_grid,
     )
 
+    name = name.removesuffix("_forced")
     if name == "cornell":
         return cornell_box("area", "glossy")
     if name == "grid":
         return sphere_grid(*GRID)
+    if name == "inst_grid":
+        return sphere_grid(*INST_GRID)
     return sphere_grid(*SMALL_GRID[0], **SMALL_GRID[1])
+
+
+def _renderer(name, p, device, integrator="megakernel"):
+    """(Renderer of scene `name` at p's size, its world triangle count)."""
+    from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
+
+    scene, cam = _scene(name)
+    with _forced_instanced() if name.endswith("_forced") else nullcontext():
+        r = Renderer(scene, cam, p["width"], p["height"],
+                     max_bounce=p["max_bounce"], integrator=integrator,
+                     device=device)
+    return r, _world_tris(scene)
 
 
 def _launches():
@@ -642,32 +985,32 @@ def _reset_launches():
     wl.reset_counters()
 
 
-def _expected_launches(name, n_closest, n_any, got):
+def _expected_launches(arrays, n_closest, n_any, got, sweeps=""):
     """The counts the main path must show: every cast went through the
-    path's kernels (the dense sweep for Cornell, the work list for the
-    sphere grid) and nothing else launched."""
+    path's kernels (the dense sweep for Cornell, the work list's sweeps
+    `sweep_closest{sweeps}` and `sweep_any{sweeps}` for the sphere grids,
+    the instanced ones on instanced tables) and nothing else launched."""
     zero = dict.fromkeys(got, 0)
-    if name == "cornell":
+    if arrays.cluster_bbox.shape[0] <= 1 and arrays.isup_inst.shape[0] <= 1:
         return dict(zero, brute_closest=n_closest, brute_any=n_any)
+    if arrays.isup_inst.shape[0] > 1:
+        sweeps = "_inst"
     # work list: a cast with an empty item list launches no sweep (counted
     # apart); each cast culls once; a cast whose hyper cull admitted
     # nothing runs no refine (counted apart)
     return dict(zero, cull_boxes=n_closest + n_any,
                 refine=n_closest + n_any - got["refine_skipped"],
                 refine_skipped=got["refine_skipped"],
-                sweep_closest=n_closest - got["closest_empty"],
-                closest_empty=got["closest_empty"],
-                sweep_any=n_any - got["any_empty"], any_empty=got["any_empty"])
+                closest_empty=got["closest_empty"], any_empty=got["any_empty"],
+                **{"sweep_closest" + sweeps: n_closest - got["closest_empty"],
+                   "sweep_any" + sweeps: n_any - got["any_empty"]})
 
 
 def phase_render(device, name):
     import torch
 
-    from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
-
     p = RENDER
-    r = Renderer(*_scene(name), p["width"], p["height"],
-                 max_bounce=p["max_bounce"], device=device)
+    r, world_tris = _renderer(name, p, device)
     # warm-up: the timed call itself, so that the allocator's growth for
     # the fused pass falls outside the timed window
     r.render(spp=p["spp"])
@@ -681,10 +1024,11 @@ def phase_render(device, name):
     seconds = time.perf_counter() - t0
     launches = _launches()
     expect = _expected_launches(
-        name, p["spp"] * (p["max_bounce"] + 2) * r.n_chunks,
+        r.arrays, p["spp"] * (p["max_bounce"] + 2) * r.n_chunks,
         p["spp"] * (p["max_bounce"] + 1) * r.n_chunks, launches)
     post = r.postprocessed()
-    stats = dict(scene=name, world_tris=r.arrays.world_tris.shape[0],
+    stats = dict(scene=name, world_tris=world_tris,
+                 instanced=r.arrays.isup_inst.shape[0] > 1,
                  tiled_and_sorted=r._inv is not None,
                  shape=list(img.shape), finite=bool(np.isfinite(img).all()),
                  mean=float(img.mean()), max=float(img.max()),
@@ -704,19 +1048,13 @@ def phase_render(device, name):
     return stats
 
 
-def _expected_wavefront_launches(stats, got):
-    """Every pool cast of the wavefront went through the grouped sweep
-    (or found no item): no bundle sweep, no dense sweep, one cull per
-    cast."""
-    n_closest = sum(stats["closest_casts_per_phase"])
-    n_any = sum(stats["any_casts_per_phase"])
-    return dict(dict.fromkeys(got, 0), cull_boxes=n_closest + n_any,
-                refine=n_closest + n_any - got["refine_skipped"],
-                refine_skipped=got["refine_skipped"],
-                sweep_closest_grouped=n_closest - got["closest_empty"],
-                closest_empty=got["closest_empty"],
-                sweep_any_grouped=n_any - got["any_empty"],
-                any_empty=got["any_empty"])
+def _expected_wavefront_launches(arrays, stats, got):
+    """Every pool cast of the wavefront went through the grouped sweep,
+    or on instanced tables the instanced one (or found no item): no other
+    sweep, one cull per cast."""
+    return _expected_launches(arrays, sum(stats["closest_casts_per_phase"]),
+                              sum(stats["any_casts_per_phase"]), got,
+                              "_grouped")
 
 
 def phase_wavefront(device):
@@ -743,7 +1081,7 @@ def phase_wavefront(device):
     seconds = time.perf_counter() - t0
     launches = _launches()
     stats = dict(wf.LAST_STATS)
-    expect = _expected_wavefront_launches(stats, launches)
+    expect = _expected_wavefront_launches(r.arrays, stats, launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     slabs = _slab_ab(r, img, seconds)
     # one timed pass of the same 8 samples through a 2^20-path pool
@@ -827,29 +1165,64 @@ def phase_wavefront_vs_megakernel(device):
     return rep
 
 
-def phase_cpu_vs_card(device, name, integrator="megakernel"):
+def phase_wavefront_instanced(device):
+    """The wavefront at 1920x1080 on the instanced sphere grid, default
+    pool and slab marching."""
     import torch
 
-    from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
+    from directcomputeraytracing_tpu_torch.integrator import wavefront as wf
+
+    p = INST_WAVEFRONT
+    r, world_tris = _renderer("inst_grid", p, device, "wavefront")
+    t0 = time.perf_counter()
+    r.render(spp=p["spp"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    r.reset()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    img = r.render(spp=p["spp"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    stats = dict(wf.LAST_STATS)
+    expect = _expected_wavefront_launches(r.arrays, stats, launches)
+    rep = dict(scene="inst_grid", integrator="wavefront",
+               world_tris=world_tris,
+               instanced=r.arrays.isup_inst.shape[0] > 1,
+               shape=list(img.shape), finite=bool(np.isfinite(img).all()),
+               mean=float(img.mean()), max=float(img.max()),
+               ms_per_spp=1000.0 * seconds / p["spp"], total_s=seconds,
+               warmup_s=warm_s,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               last_stats=stats, launches=launches, expected_launches=expect)
+    print("wavefront-instanced", json.dumps(rep))
+    if not (rep["finite"] and rep["mean"] > 0.0 and rep["instanced"]
+            and img.shape == (p["height"], p["width"], 3)):
+        raise SystemExit("instanced wavefront render is not a finite, "
+                         "non-black image")
+    if launches != expect:
+        raise SystemExit(f"instanced wavefront launch counts {launches} != "
+                         f"{expect}")
+    return rep
+
+
+def phase_cpu_vs_card(device, name, integrator="megakernel"):
+    import torch
 
     p = SMALL
     imgs = {}
     for dev in (torch.device("cpu"), device):
-        r = Renderer(*_scene(name), p["width"], p["height"],
-                     max_bounce=p["max_bounce"], integrator=integrator,
-                     device=dev)
+        r, world_tris = _renderer(name, p, dev, integrator)
         imgs[dev.type] = r.render(spp=p["spp"])
     a, b = imgs["cpu"], imgs[device.type]
-    rmse = float(np.sqrt(((a - b) ** 2).mean()))
-    diverged = float((np.abs(a - b).max(-1) > 1e-3 * (1.0 + np.abs(a).max(-1)))
-                     .mean())
-    rep = dict(scene=name, integrator=integrator,
-               world_tris=r.arrays.world_tris.shape[0],
-               rmse=rmse, gate_rmse=GATE_RMSE, diverged_pixels=diverged,
-               gate_diverged=GATE_DIVERGED_FRACTION, mean_cpu=float(a.mean()),
+    rep = dict(scene=name, integrator=integrator, world_tris=world_tris,
+               instanced=r.arrays.isup_inst.shape[0] > 1,
+               **_image_diff(a, b), mean_cpu=float(a.mean()),
                mean_card=float(b.mean()))
     print("cpu-vs-card", json.dumps(rep))
-    if rmse > GATE_RMSE or diverged > GATE_DIVERGED_FRACTION:
+    if not _image_ok(rep):
         raise SystemExit(f"{name}: card render differs from the CPU render")
     return rep
 
@@ -896,20 +1269,31 @@ def main():
 
     phase("1 build", _build_all)
     reports, times = phase("2 dense kernels", phase_kernels, device)
-    wl_reports, wl_times, wl_cull, wl_work = phase(
+    wl_reports, wl_times, wl_cull, wl_work, wl_census = phase(
         "2b work-list kernels", phase_worklist_kernels, device)
     _, _, g_errs, g_pool = phase("2c grouped kernels",
                                  phase_grouped_kernels, device)
+    _, inst_errs, inst_row = phase(
+        "2d instanced kernels", phase_instanced_kernels, device, wl_census)
+    phase("2e instanced vs soup", phase_instanced_vs_soup, device)
     cornell = phase("3 Cornell render", phase_render, device, "cornell")
     grid = phase("3b sphere-grid render", phase_render, device, "grid")
     wave = phase("3c wavefront render", phase_wavefront, device)
     phase("3d wavefront vs megakernel", phase_wavefront_vs_megakernel,
           device)
+    inst = phase("3e instanced render", phase_render, device, "inst_grid")
+    if not inst["instanced"]:
+        raise SystemExit("sphere_grid(27, 27) did not flatten instanced")
+    phase("3f instanced wavefront render", phase_wavefront_instanced, device)
     phase("4 Cornell card vs CPU", phase_cpu_vs_card, device, "cornell")
     phase("4b small grid card vs CPU", phase_cpu_vs_card, device,
           "small_grid")
     phase("4c small grid wavefront card vs CPU", phase_cpu_vs_card, device,
           "small_grid", "wavefront")
+    small_inst = phase("4d small instanced grid card vs CPU",
+                       phase_cpu_vs_card, device, "small_grid_forced")
+    if not small_inst["instanced"]:
+        raise SystemExit("the forced small grid did not flatten instanced")
     if "jax" in sys.modules:
         raise SystemExit("the port imported jax")
     print(f"chip_smoke: all phases passed in "
@@ -964,6 +1348,14 @@ def main():
         row("sweep_any_grouped", wl_src, f"{ref_wl}:1113",
             wave["launches"]["sweep_any_grouped"], g_errs["any"],
             g_pool["any_ms"], g_pool["any_twin_ms"], g_pool["any_bound"]),
+        row("sweep_closest_inst", wl_src, f"{ref_wl}:1208",
+            inst["launches"]["sweep_closest_inst"], inst_errs["closest"],
+            inst_row["closest_ms"], inst_row["closest_twin_ms"],
+            inst_row["closest_bound"]),
+        row("sweep_any_inst", wl_src, f"{ref_wl}:1349",
+            inst["launches"]["sweep_any_inst"], inst_errs["any"],
+            inst_row["any_ms"], inst_row["any_twin_ms"],
+            inst_row["any_bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

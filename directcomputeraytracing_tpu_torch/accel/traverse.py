@@ -7,15 +7,17 @@ port-side backend resolution. The port has no stack traversal, so the
 reference's `stack_size` argument is gone.
 
 Backend "auto", as the reference resolves it on its accelerator: scenes
-with cluster tables (more than 2048 world triangles) go to the work-list
-traversal (`accel.worklist`), the others to the dense sweep
-(`accel.brute`). The reference's names "pallas_wl" and "pallas_wlg" pick
-the work list's bundle sweep and its grouped sweep on such scenes. All
-launch their CUDA kernels for CUDA tensors and run their PyTorch twins
-for CPU tensors. `intersect_closest_slab` marches a closest cast in
-distance windows. Instanced work-list tables, alpha-tested casts and
-every other backend name raise NotImplementedError naming the ROADMAP
-item that brings them.
+with work-list tables (world-soup clusters above 2048 world triangles,
+or the instanced tables above 2^20) go to the work-list traversal
+(`accel.worklist`), the others to the dense sweep (`accel.brute`). The
+reference's names "pallas_wl" and "pallas_wlg" pick the work list's
+bundle sweep and its grouped sweep on clustered scenes; on instanced
+scenes all three names take the instanced per-ray sweep, as the
+reference downgrades "pallas_wlg" there. All launch their CUDA kernels
+for CUDA tensors and run their PyTorch twins for CPU tensors.
+`intersect_closest_slab` marches a closest cast in distance windows.
+Alpha-tested casts and every other backend name raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from typing import NamedTuple
@@ -105,22 +107,22 @@ _WORKLIST_BACKENDS = {"pallas_wl": False, "pallas_wlg": True}
 
 
 def _resolve_backend(scene, backend):
-    """"dense" (the dense sweep), "wl" (the work list's bundle sweep) or
-    "wlg" (its grouped sweep); raise for what the port cannot cast yet
-    (see the module docstring)."""
-    if scene.isup_inst.shape[0] > 1:
-        raise NotImplementedError(
-            "scene carries instanced work-list tables: the instanced "
-            "kernels are ROADMAP queue 2, rows 13-14")
+    """"dense" (the dense sweep), "wl" (the work list's bundle sweep, the
+    instanced sweep on instanced scenes) or "wlg" (its grouped sweep);
+    raise for what the port cannot cast yet (see the module
+    docstring)."""
+    instanced = scene.isup_inst.shape[0] > 1
     clustered = scene.cluster_bbox.shape[0] > 1
     if backend == "auto":
-        return "wl" if clustered else "dense"
+        return "wl" if clustered or instanced else "dense"
     if backend not in _WORKLIST_BACKENDS:
         raise NotImplementedError(
             f"traversal backend {backend!r}: the port resolves 'auto' (dense "
             "sweep or work list), 'pallas_wl' and 'pallas_wlg'; the stack "
             "traversal is ROADMAP queue 1, item 11, the other kernel "
             "backends queue 2")
+    if instanced:
+        return "wl"
     if not clustered:
         raise ValueError(f"traversal backend {backend!r} needs a scene with "
                          "cluster tables (more than 2048 world triangles)")

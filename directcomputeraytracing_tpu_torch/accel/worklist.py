@@ -2,7 +2,8 @@
 and the glue between them.
 
 Counterpart of `directcomputeraytracing_tpu.accel.worklist` for world-soup
-cluster tables (scenes of 2049 to 2^20 world triangles). A cast runs:
+cluster tables (scenes of 2049 to 2^20 world triangles) and the instanced
+tables of larger scenes (`scene_tables`). A cast runs:
 
 1. `prep_rays`: (R, 3) rays -> (9, Rp) rows [o; d; 1/d] and a per-ray
    t_max row, padded to a multiple of `RB` with far rays that enter
@@ -54,6 +55,24 @@ the clusters its own fine cull admitted, summed over its block's items.
    occluded, every cluster its own fine cull entered (a group stops only
    when all its rays are occluded), so its answer is the per-ray walk's.
 
+6. The instanced sweeps. `sweep_closest_inst` / `sweep_any_inst`
+   (kernels `closest_inst_kernel` / `any_inst_kernel`, twins
+   `sweep_closest_inst_torch` / `sweep_any_inst_torch`, the per-ray
+   walks of 4. above) sweep instanced tables: the mesh-local clusters
+   are stored once per mesh, a super is an (instance, local super) pair
+   with world-space child boxes. The cull, the items and the fine cull
+   run in world space, as on the soup; each swept cluster is tested
+   with the ray moved to the item's instance space (`local_rays`, the
+   direction not normalised, so t and the packed keys stay the world
+   ray's). The hit's instance is the item's. Its back-face flag is the
+   mesh-local test's: a mirroring instance turns the world normal and
+   its soup rows carry a flip that turns it back, so the local flag is
+   the soup's and the reference stack walker's. (The reference's
+   instanced kernel XORs the flip in as well, `worklist.py:1323`, and so
+   inverts the flag on mirrored instances against its own soup and
+   stack walker.) Casts on instanced tables take these sweeps whatever
+   `grouped` says, as the reference's do.
+
 `worklist_closest` also takes a window cap, t_cap (scalar or per ray):
 the scene exit and the cull's t_max shrink to t_cap * 1.001 + 1e-3.
 
@@ -66,8 +85,9 @@ for the grouped sweep.
 
 Counters: `cull_boxes.launches`, `refine.launches`,
 `sweep_closest.launches`, `sweep_any.launches`,
-`sweep_closest_grouped.launches` and `sweep_any_grouped.launches` count
-CUDA launches;
+`sweep_closest_grouped.launches`, `sweep_any_grouped.launches`,
+`sweep_closest_inst.launches` and `sweep_any_inst.launches` count CUDA
+launches;
 `refine.skipped` counts casts whose hyper cull admitted nothing and
 `worklist_closest.empty` / `worklist_any.empty` casts whose item list
 came out empty (no sweep ran), on any device.
@@ -114,23 +134,29 @@ def kernels():
         lib.dcrt_wl_cull.argtypes = [c_p, c_i, c_p, c_p, c_i, c_i, c_p, c_p]
         lib.dcrt_wl_refine.argtypes = [c_p, c_i, c_p, c_p, c_i, c_p, c_p,
                                        c_i, c_i, c_p, c_p]
-        lib.dcrt_wl_closest.argtypes = [
-            c_p, c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i, c_i, c_f,
-            c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p]
-        lib.dcrt_wl_any.argtypes = [c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p,
-                                    c_i, c_i, c_f, c_p, c_p]
-        lib.dcrt_wl_closest_grouped.argtypes = lib.dcrt_wl_closest.argtypes
-        lib.dcrt_wl_any_grouped.argtypes = lib.dcrt_wl_any.argtypes
+        closest = [c_p, c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i, c_i, c_f,
+                   c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p]
+        any_ = [c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i, c_i, c_f, c_p,
+                c_p]
+        lib.dcrt_wl_closest.argtypes = closest
+        lib.dcrt_wl_any.argtypes = any_
+        lib.dcrt_wl_closest_grouped.argtypes = closest
+        lib.dcrt_wl_any_grouped.argtypes = any_
+        # the instanced sweeps add three table pointers after the slab's
+        lib.dcrt_wl_closest_inst.argtypes = closest[:6] + [c_p] * 3 \
+            + closest[6:]
+        lib.dcrt_wl_any_inst.argtypes = any_[:5] + [c_p] * 3 + any_[5:]
         for fn in (lib.dcrt_wl_cull, lib.dcrt_wl_refine, lib.dcrt_wl_closest,
                    lib.dcrt_wl_any, lib.dcrt_wl_closest_grouped,
-                   lib.dcrt_wl_any_grouped):
+                   lib.dcrt_wl_any_grouped, lib.dcrt_wl_closest_inst,
+                   lib.dcrt_wl_any_inst):
             fn.restype = c_i
         _built = built
     return _built
 
 
 # ---------------------------------------------------------------------------
-# per-scene tables (built once per scene, cached on its cluster_bbox)
+# per-scene tables (built once per scene, cached on its table tensor)
 # ---------------------------------------------------------------------------
 
 class Tables(NamedTuple):
@@ -142,6 +168,12 @@ class Tables(NamedTuple):
     hbox: Optional[torch.Tensor]   # (NH, 8) hyper boxes
     bounds: torch.Tensor     # (2, 3) scene box (for the scene exit)
     config: tuple            # (SUPER, HIER_MIN) the tables were built for
+    # instanced tables only (None on the world soup's): the slabs are
+    # mesh-local, Cs counts (instance, super) pairs, and super s sweeps
+    # local super isup_local[s] in the space of instance isup_inst[s]
+    isup_local: Optional[torch.Tensor] = None   # (Cs,) i32
+    isup_inst: Optional[torch.Tensor] = None    # (Cs,) i32
+    inst_rows: Optional[torch.Tensor] = None    # (I, 16) f32 world->local
 
 
 def _inverted(n, like):
@@ -191,18 +223,38 @@ def build_hyper(sbox):
     return hsup.contiguous(), hbox
 
 
+def instanced(scene):
+    """True when the scene carries the instanced work-list tables."""
+    return scene.isup_inst.shape[0] > 1
+
+
+def _box_bounds(boxes):
+    """(2, 3) min and max over (n, 8) boxes, inverted padding included."""
+    return torch.stack([boxes[:, 0:3].amin(0), boxes[:, 3:6].amax(0)])
+
+
 def scene_tables(scene):
-    """The work-list tables of `scene`, built on first use and kept for
-    as long as the scene's cluster_bbox tensor lives."""
+    """The work-list tables of `scene`, built on first use and kept for as
+    long as the scene's table tensor lives (isup_sbox for the instanced
+    tables, which win where a scene has both, else cluster_bbox)."""
     config = (SUPER, HIER_MIN)
-    tab = _TABLES.get(scene.cluster_bbox)
+    key = scene.isup_sbox if instanced(scene) else scene.cluster_bbox
+    tab = _TABLES.get(key)
     if tab is None or tab.config != config:
-        ctab, bwtab, cbox3, sbox = pad_tables(scene)
-        hsup, hbox = build_hyper(sbox)
-        cb = scene.cluster_bbox
-        bounds = torch.stack([cb[:, 0:3].amin(0), cb[:, 3:6].amax(0)])
-        tab = Tables(ctab, bwtab, cbox3, sbox, hsup, hbox, bounds, config)
-        _TABLES[scene.cluster_bbox] = tab
+        if instanced(scene):
+            sbox = scene.isup_sbox.contiguous()
+            tab = Tables(scene.icl_slab.contiguous(),
+                         scene.icl_bw.contiguous(),
+                         scene.isup_cbox.contiguous(), sbox,
+                         *build_hyper(sbox), _box_bounds(sbox), config,
+                         scene.isup_local.to(torch.int32).contiguous(),
+                         scene.isup_inst.to(torch.int32).contiguous(),
+                         scene.inst_rows.contiguous())
+        else:
+            ctab, bwtab, cbox3, sbox = pad_tables(scene)
+            tab = Tables(ctab, bwtab, cbox3, sbox, *build_hyper(sbox),
+                         _box_bounds(scene.cluster_bbox), config)
+        _TABLES[key] = tab
     return tab
 
 
@@ -537,7 +589,8 @@ def _voted(items, rays, item, best):
 
 class _Best:
     """The per-ray state of a closest twin: packed best, the winner's t,
-    u, v, back flag and table row, and `iters`."""
+    u, v, back flag, table row and (instanced tables) instance, and
+    `iters`."""
 
     def __init__(self, texp):
         rp, dev = texp.shape[0], texp.device
@@ -545,19 +598,22 @@ class _Best:
         self.t, self.u, self.v = (texp.clone(), torch.zeros_like(texp),
                                   torch.zeros_like(texp))
         self.row = torch.full((rp,), -1, dtype=torch.int64, device=dev)
+        self.inst = torch.zeros(rp, dtype=torch.int64, device=dev)
         self.back = torch.zeros(rp, dtype=torch.bool, device=dev)
         self.iters = torch.zeros(rp, dtype=torch.int32, device=dev)
 
-    def sweep(self, tab, rays, child, rows, colmask, od, t_min, watertight):
-        """Test rays (n,) against their table rows (n, k) (child (n, k) of
-        each row; colmask (n, k) the rows the ray may take) with t_max =
-        the ray's best; the smallest candidate key replaces the best if
-        strictly smaller."""
+    def sweep(self, tab, rays, child, rows, colmask, o, d, t_min, watertight,
+              inst=None):
+        """Test rays (n,), o and d (n, 3), against their table rows (n, k)
+        (child (n, k) of each row; colmask (n, k) the rows the ray may
+        take) with t_max = the ray's best; the smallest candidate key
+        replaces the best if strictly smaller. inst (n,): the instance
+        of each ray's item, on instanced tables."""
         lane = (rows % CLUSTER_SIZE)
         best_r = self.best[rays]
-        t, u, v, back, ok = _tri_rows(
-            tab[rows], od[0:3, rays].T[:, None, :], od[3:6, rays].T[:, None, :],
-            t_min, _window(best_r)[:, None], watertight)
+        t, u, v, back, ok = _tri_rows(tab[rows], o[:, None, :], d[:, None, :],
+                                      t_min, _window(best_r)[:, None],
+                                      watertight)
         key = (_float_bits(t) & ~_LOWM) | ((child << 4) + lane).to(torch.int32)
         cand, j = torch.where(ok & colmask, key, _I32_MAX).min(1)
         win = torch.nonzero(cand < best_r)[:, 0]
@@ -568,22 +624,61 @@ class _Best:
         self.v[w] = v[win, jw]
         self.back[w] = back[win, jw]
         self.row[w] = rows[win, jw]
+        if inst is not None:
+            self.inst[w] = inst[win]
 
-    def state(self, tab, watertight):
-        """(packed best i32, t, u, v, tri i32, inst i32, back, iters i32)."""
+    def state(self, tab, watertight, instanced=False):
+        """(packed best i32, t, u, v, tri i32, inst i32, back, iters i32).
+        The soup's slab rows hold tri, instance and flip. On instanced
+        tables the instance is the winning item's and the back flag is
+        the mesh-local test's as it is: see the module docstring."""
         mc = _RAW_META if watertight else _BW_META
         found = self.row >= 0
         meta = tab[self.row.clamp_min(0), mc:mc + 3]
         tri = torch.where(found, meta[:, 0], 0.0).to(torch.int32)
-        inst = torch.where(found, meta[:, 1], 0.0).to(torch.int32)
-        back = found & (self.back ^ (meta[:, 2] > 0.5))
+        if instanced:
+            inst = torch.where(found, self.inst, 0).to(torch.int32)
+            back = found & self.back
+        else:
+            inst = torch.where(found, meta[:, 1], 0.0).to(torch.int32)
+            back = found & (self.back ^ (meta[:, 2] > 0.5))
         return self.best, self.t, self.u, self.v, tri, inst, back, self.iters
 
 
+def local_rays(rows, o, d):
+    """World rays o, d (n, 3) in the space of instances whose (n, 16)
+    inst_rows hold the inverse transform M: [o, 1] @ M and d @ M, term
+    by term in the kernels' order (the reference's `_local_rays`). The
+    direction is not normalised, so t stays the world ray's parameter
+    and packed keys compare across instances."""
+    def xf(v, ax):
+        return v[:, 0] * rows[:, ax] + v[:, 1] * rows[:, 3 + ax] \
+            + v[:, 2] * rows[:, 6 + ax]
+
+    return (torch.stack([xf(o, ax) + rows[:, 9 + ax] for ax in range(3)], 1),
+            torch.stack([xf(d, ax) for ax in range(3)], 1))
+
+
+def _item_rays(tables, sup, od, rays):
+    """Per (ray, item) pair: the super whose slab rows it sweeps, its ray
+    (o, d (n, 3)) and its item's instance. World-soup tables: the item's
+    super, the world ray, no instance. Instanced tables: the mesh-local
+    super and the ray in its instance's space."""
+    o, d = od[0:3, rays].T, od[3:6, rays].T
+    if tables.inst_rows is None:
+        return sup, o, d, None
+    ins = tables.isup_inst[sup].long()
+    o, d = local_rays(tables.inst_rows[ins], o, d)
+    return tables.isup_local[sup].long(), o, d, ins
+
+
 def sweep_closest_torch(tables, items, od, texp, t_min, watertight):
-    """Twin of `closest_kernel`. Returns the per-ray sweep state (packed
-    best i32, t, u, v, tri i32, inst i32, back bool, iters i32), each
-    (Rp,): see the module docstring for the rules it follows."""
+    """Twin of `closest_kernel` and, on instanced tables, of
+    `closest_inst_kernel` (the fine cull in world space, each swept
+    cluster tested with the ray in its item's instance space). Returns
+    the per-ray sweep state (packed best i32, t, u, v, tri i32, inst i32,
+    back bool, iters i32), each (Rp,): see the module docstring for the
+    rules it follows."""
     rp = od.shape[1]
     dev = od.device
     tab = tables.ctab if watertight else tables.bwtab
@@ -595,27 +690,32 @@ def sweep_closest_torch(tables, items, od, texp, t_min, watertight):
             sup = items.sup[item].long()
             enter, tl = _fine_cull(tables.cbox3[sup], od[:, rays],
                                    _window(st.best[rays]), t_min)
+            slab, o, d, ins = _item_rays(tables, sup, od, rays)
             while rays.numel():
                 m, child = torch.where(enter, tl, float("inf")).min(1)
                 go = m < _window(st.best[rays])
                 idx = torch.nonzero(go)[:, 0]
-                rays, child, sup = rays[idx], child[idx], sup[idx]
+                rays, child, slab, o, d = (rays[idx], child[idx], slab[idx],
+                                           o[idx], d[idx])
                 enter, tl = enter[idx], tl[idx]
+                ins = None if ins is None else ins[idx]
                 if not rays.numel():
                     break
                 enter[torch.arange(rays.numel(), device=dev), child] = False
                 st.iters[rays] += 1
-                rows = ((sup * SUPER + child) * CLUSTER_SIZE)[:, None] + lane16
+                rows = ((slab * SUPER + child) * CLUSTER_SIZE)[:, None] \
+                    + lane16
                 st.sweep(tab, rays, child[:, None].expand_as(rows), rows,
-                         torch.ones_like(rows, dtype=torch.bool), od, t_min,
-                         watertight)
-    return st.state(tab, watertight)
+                         torch.ones_like(rows, dtype=torch.bool), o, d, t_min,
+                         watertight, ins)
+    return st.state(tab, watertight, tables.inst_rows is not None)
 
 
 def sweep_any_torch(tables, items, od, tm, t_min, watertight):
-    """Twin of `any_kernel`: (Rp,) bool, a hit in [t_min, t_max) within a
-    cluster the ray's fine cull admits (box entered before t_max). Which
-    order the clusters are visited in cannot change the answer."""
+    """Twin of `any_kernel` and, on instanced tables, of `any_inst_kernel`:
+    (Rp,) bool, a hit in [t_min, t_max) within a cluster the ray's fine
+    cull admits (box entered before t_max). Which order the clusters are
+    visited in cannot change the answer."""
     rp = od.shape[1]
     tab = tables.ctab if watertight else tables.bwtab
     occ = torch.zeros(rp, dtype=torch.bool, device=od.device)
@@ -626,15 +726,21 @@ def sweep_any_torch(tables, items, od, tm, t_min, watertight):
             rays, sup = rays[live], items.sup[item[live]].long()
             enter, _ = _fine_cull(tables.cbox3[sup], od[:, rays], tm[rays],
                                   t_min)
+            slab, o, d, _ = _item_rays(tables, sup, od, rays)
             for p in torch.split(torch.nonzero(enter), TWIN_RAY_CHUNK // 4):
-                ray, child = rays[p[:, 0]], p[:, 1]
-                rows = ((sup[p[:, 0]] * SUPER + child)
-                        * CLUSTER_SIZE)[:, None] + lane16
-                ok = _tri_rows(tab[rows], od[0:3, ray].T[:, None, :],
-                               od[3:6, ray].T[:, None, :], t_min,
-                               tm[ray][:, None], watertight)[4]
-                occ[ray[ok.any(1)]] = True
+                j, child = p[:, 0], p[:, 1]
+                rows = ((slab[j] * SUPER + child) * CLUSTER_SIZE)[:, None] \
+                    + lane16
+                ok = _tri_rows(tab[rows], o[j][:, None, :], d[j][:, None, :],
+                               t_min, tm[rays[j]][:, None], watertight)[4]
+                occ[rays[j][ok.any(1)]] = True
     return occ
+
+
+# the instanced kernels' twins: the per-ray walks above, which move each
+# item's rays to its instance's space on instanced tables
+sweep_closest_inst_torch = sweep_closest_torch
+sweep_any_inst_torch = sweep_any_torch
 
 
 def sweep_closest_grouped_torch(tables, items, od, texp, t_min, watertight):
@@ -702,8 +808,9 @@ def sweep_closest_grouped_torch(tables, items, od, texp, t_min, watertight):
                 colmask = torch.cat([
                     e1.reshape(-1)[pick, None].expand(-1, CLUSTER_SIZE),
                     e2.reshape(-1)[pick, None].expand(-1, CLUSTER_SIZE)], 1)
-                st.sweep(tab, rays_w[w].reshape(-1)[pick], child, rows,
-                         colmask, od, t_min, watertight)
+                r = rays_w[w].reshape(-1)[pick]
+                st.sweep(tab, r, child, rows, colmask, od[0:3, r].T,
+                         od[3:6, r].T, t_min, watertight)
     return st.state(tab, watertight)
 
 
@@ -714,28 +821,42 @@ def _launch_closest(fn, tables, items, od, texp, t_min, watertight):
     best, tri, inst, iters = (torch.empty(rp, **i32) for _ in range(4))
     t, u, v = (torch.empty(rp, **f32) for _ in range(3))
     back = torch.empty(rp, dtype=torch.bool, device=od.device)
-    tab = tables.ctab if watertight else tables.bwtab
     with torch.cuda.device(od.device):
         err = fn(items.seg.data_ptr(), items.sup.data_ptr(),
-                 items.t_ent.data_ptr(), rp // RB, tables.cbox3.data_ptr(),
-                 tab.data_ptr(), int(watertight), od.data_ptr(),
-                 texp.data_ptr(), rp, RB, float(t_min), best.data_ptr(),
-                 t.data_ptr(), u.data_ptr(), v.data_ptr(), tri.data_ptr(),
-                 inst.data_ptr(), back.data_ptr(), iters.data_ptr(),
-                 _stream(od))
+                 items.t_ent.data_ptr(), rp // RB,
+                 *_table_ptrs(tables, watertight, fn), int(watertight),
+                 od.data_ptr(), texp.data_ptr(), rp, RB, float(t_min),
+                 best.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(),
+                 tri.data_ptr(), inst.data_ptr(), back.data_ptr(),
+                 iters.data_ptr(), _stream(od))
     return err, (best, t, u, v, tri, inst, back, iters)
 
 
 def _launch_any(fn, tables, items, od, tm, t_min, watertight):
     rp = od.shape[1]
     occ = torch.empty(rp, dtype=torch.bool, device=od.device)
-    tab = tables.ctab if watertight else tables.bwtab
     with torch.cuda.device(od.device):
         err = fn(items.seg.data_ptr(), items.sup.data_ptr(), rp // RB,
-                 tables.cbox3.data_ptr(), tab.data_ptr(), int(watertight),
+                 *_table_ptrs(tables, watertight, fn), int(watertight),
                  od.data_ptr(), tm.data_ptr(), rp, RB, float(t_min),
                  occ.data_ptr(), _stream(od))
     return err, occ
+
+
+def _table_ptrs(tables, watertight, fn):
+    """The sweep kernel fn's table pointers: child boxes and slab rows,
+    then, for the instanced kernels, the per-super local super and
+    instance and the instance rows. The kind of tables must be fn's."""
+    inst = fn.__name__.endswith("_inst")
+    if inst != (tables.inst_rows is not None):
+        raise ValueError(f"{fn.__name__}: needs "
+                         f"{'instanced' if inst else 'world-soup'} tables")
+    tab = tables.ctab if watertight else tables.bwtab
+    ptrs = [tables.cbox3.data_ptr(), tab.data_ptr()]
+    if inst:
+        ptrs += [tables.isup_local.data_ptr(), tables.isup_inst.data_ptr(),
+                 tables.inst_rows.data_ptr()]
+    return ptrs
 
 
 def sweep_closest(tables, items, od, texp, t_min, watertight):
@@ -786,13 +907,52 @@ def sweep_any_grouped(tables, items, od, tm, t_min, watertight):
     return occ
 
 
-_CLOSEST_SWEEPS = {(False, False): sweep_closest,
-                   (False, True): sweep_closest_grouped,
-                   (True, False): sweep_closest_torch,
-                   (True, True): sweep_closest_grouped_torch}
-_ANY_SWEEPS = {(False, False): sweep_any, (False, True): sweep_any_grouped,
-               (True, False): sweep_any_torch,
-               (True, True): sweep_any_torch}
+def sweep_closest_inst(tables, items, od, texp, t_min, watertight):
+    """The instanced closest sweep: kernel on CUDA tensors, twin on CPU
+    tensors. Same inputs and outputs as `sweep_closest`, on instanced
+    tables."""
+    if not _on_cuda(od, texp, items.seg):
+        return sweep_closest_inst_torch(tables, items, od, texp, t_min,
+                                        watertight)
+    err, out = _launch_closest(kernels().lib.dcrt_wl_closest_inst, tables,
+                               items, od, texp, t_min, watertight)
+    _raise_on(err, "sweep_closest_inst")
+    sweep_closest_inst.launches += 1
+    return out
+
+
+def sweep_any_inst(tables, items, od, tm, t_min, watertight):
+    """The instanced occlusion sweep: kernel on CUDA tensors, twin on CPU
+    tensors. Same inputs and output as `sweep_any`, on instanced
+    tables."""
+    if not _on_cuda(od, tm, items.seg):
+        return sweep_any_inst_torch(tables, items, od, tm, t_min, watertight)
+    err, occ = _launch_any(kernels().lib.dcrt_wl_any_inst, tables, items, od,
+                           tm, t_min, watertight)
+    _raise_on(err, "sweep_any_inst")
+    sweep_any_inst.launches += 1
+    return occ
+
+
+# sweeps by (instanced tables, plain, grouped); instanced casts take the
+# per-ray walk whatever `grouped` says, as the reference's do
+_CLOSEST_SWEEPS = {(False, False, False): sweep_closest,
+                   (False, False, True): sweep_closest_grouped,
+                   (False, True, False): sweep_closest_torch,
+                   (False, True, True): sweep_closest_grouped_torch,
+                   (True, False, False): sweep_closest_inst,
+                   (True, True, False): sweep_closest_inst_torch}
+_ANY_SWEEPS = {(False, False, False): sweep_any,
+               (False, False, True): sweep_any_grouped,
+               (False, True, False): sweep_any_torch,
+               (False, True, True): sweep_any_torch,
+               (True, False, False): sweep_any_inst,
+               (True, True, False): sweep_any_inst_torch}
+
+
+def _sweep_of(sweeps, tables, plain, grouped):
+    inst = tables.inst_rows is not None
+    return sweeps[inst, plain, grouped and not inst]
 
 
 # ---------------------------------------------------------------------------
@@ -861,8 +1021,8 @@ def _closest_cast(scene, origin, direction, t_min, watertight, plain,
     items = phases(tables, od, tm, plain) if r else None
     if items is None:
         return _miss(origin), True
-    state = _CLOSEST_SWEEPS[plain, grouped](tables, items, od, texp, t_min,
-                                            watertight)
+    state = _sweep_of(_CLOSEST_SWEEPS, tables, plain, grouped)(
+        tables, items, od, texp, t_min, watertight)
     return decode_closest(state, texp, items.block_any, r), False
 
 
@@ -874,16 +1034,18 @@ def _any_cast(scene, origin, direction, t_max, t_min, watertight, plain,
     items = phases(tables, od, tm, plain) if r else None
     if items is None:
         return torch.zeros(r, dtype=torch.bool, device=origin.device), True
-    occ = _ANY_SWEEPS[plain, grouped](tables, items, od, tm, t_min,
-                                      watertight)
+    occ = _sweep_of(_ANY_SWEEPS, tables, plain, grouped)(
+        tables, items, od, tm, t_min, watertight)
     return (occ & items.block_any.repeat_interleave(RB))[:r], False
 
 
 def worklist_closest(scene, origin, direction, t_min=0.0, watertight=False,
                      grouped=False, t_cap=None):
-    """Closest hit over a clustered scene: (t, +inf on miss; u; v; tri
-    i32; inst i32; back bool; iters i32). Kernels on CUDA tensors; the
-    grouped sweep with grouped=True. t_cap (scalar or (R,), a float or a
+    """Closest hit over a scene with work-list tables (world-soup clusters
+    or instanced): (t, +inf on miss; u; v; tri i32; inst i32; back bool;
+    iters i32). Kernels on CUDA tensors; the grouped sweep with
+    grouped=True on world-soup tables (instanced tables take the per-ray
+    sweep). t_cap (scalar or (R,), a float or a
     tensor) caps the window: a hit below t_cap is the closest hit, a miss
     means no hit below t_cap; a hit within the truncation quantum above
     t_cap may be reported."""
@@ -895,9 +1057,9 @@ def worklist_closest(scene, origin, direction, t_min=0.0, watertight=False,
 
 def worklist_any(scene, origin, direction, t_max, t_min=0.0,
                  watertight=False, grouped=False):
-    """Occlusion over a clustered scene: (R,) bool, a hit in [t_min,
-    t_max) per ray. Kernels on CUDA tensors; the grouped sweep with
-    grouped=True."""
+    """Occlusion over a scene with work-list tables: (R,) bool, a hit in
+    [t_min, t_max) per ray. Kernels on CUDA tensors; the grouped sweep
+    with grouped=True on world-soup tables."""
     occ, empty = _any_cast(scene, origin, direction, t_max, t_min,
                            watertight, False, grouped)
     worklist_any.empty += int(empty)
@@ -926,6 +1088,8 @@ def counters():
                 sweep_any=sweep_any.launches,
                 sweep_closest_grouped=sweep_closest_grouped.launches,
                 sweep_any_grouped=sweep_any_grouped.launches,
+                sweep_closest_inst=sweep_closest_inst.launches,
+                sweep_any_inst=sweep_any_inst.launches,
                 closest_empty=worklist_closest.empty,
                 any_empty=worklist_any.empty)
 
@@ -934,6 +1098,7 @@ def reset_counters():
     cull_boxes.launches = refine.launches = refine.skipped = 0
     sweep_closest.launches = sweep_any.launches = 0
     sweep_closest_grouped.launches = sweep_any_grouped.launches = 0
+    sweep_closest_inst.launches = sweep_any_inst.launches = 0
     worklist_closest.empty = worklist_any.empty = 0
 
 

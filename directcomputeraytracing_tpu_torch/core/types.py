@@ -2,7 +2,8 @@
 
 PyTorch counterparts of `directcomputeraytracing_tpu.core.types`, with the
 reference's field names. `SceneTensors` holds only the scene fields the
-megakernel path reads, over the dense sweep or the work-list traversal. Integer fields are int64:
+integrators read, over the dense sweep or the work-list traversal of the
+world soup or of the instanced tables. Integer fields are int64:
 the reference's uint32 fields use bit 31 (`LIGHT_INDEX_INVALID`,
 `INSTANCE_MATERIAL_OVERRIDE_NONE`), which int32 cannot hold. Float
 fields are float32 throughout.
@@ -25,7 +26,15 @@ class SceneTensors(NamedTuple):
                                     #   flip|soup row, per 16-tri cluster
     cluster_bw: torch.Tensor        # (C*16, 16) f32 Baldwin-Weber rows
     cluster_bbox: torch.Tensor      # (C, 8) f32; C > 1 = clustered scene
+    icl_slab: torch.Tensor          # (CL*16, 13) f32 mesh-local v0|v1|v2|
+                                    #   tri|0|0|row, per 16-tri cluster
+    icl_bw: torch.Tensor            # (CL*16, 16) f32 Baldwin-Weber rows
+    isup_cbox: torch.Tensor         # (NS, 32, 8) f32 world cluster boxes
+    isup_sbox: torch.Tensor         # (NS, 8) f32 world super boxes
+    isup_local: torch.Tensor        # (NS,) i64 local super of each
     isup_inst: torch.Tensor         # (NS,) i64; NS > 1 = instanced tables
+    inst_rows: torch.Tensor         # (I, 16) f32 world->local 3x3 | t |
+                                    #   det < 0 | 0 0 0
     vtx_table: torch.Tensor         # (V, 12) f32 pos|nrm|tan|uv|pad
     mat_table: torch.Tensor         # (M, 16) f32 albedo|ior|rough|tiling|
                                     #   opacity|flags|albedo_tex|opacity_tex
@@ -123,6 +132,17 @@ def transform_point(p, m):
 def transform_vector(v, m):
     return (v[..., 0:1] * m[..., 0, :] + v[..., 1:2] * m[..., 1, :]
             + v[..., 2:3] * m[..., 2, :])
+
+
+def invert_rigid_affine43(m):
+    """Inverse of a (4, 3) row-vector affine transform, in float64 on the
+    host, returned as float32."""
+    m = np.asarray(m, np.float64)
+    inv_a = np.linalg.inv(m[:3, :])
+    out = np.zeros((4, 3), np.float32)
+    out[:3, :] = inv_a.astype(np.float32)
+    out[3, :] = (-m[3, :] @ inv_a).astype(np.float32)
+    return out
 
 
 def transform_point44(p, m):

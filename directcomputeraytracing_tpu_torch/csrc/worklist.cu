@@ -1,6 +1,6 @@
 // Work-list traversal of clustered scenes, for Hopper (sm_90a).
 //
-// Replaces six TPU kernels of directcomputeraytracing_tpu/accel/
+// Replaces eight TPU kernels of directcomputeraytracing_tpu/accel/
 // worklist.py and keeps their contracts (accel/worklist.py in the port
 // holds the glue and the PyTorch twins):
 //   cull_kernel    <- _cull_super_kernel (:365, launched by _cull_super
@@ -15,7 +15,11 @@
 //                     occlusion within a per-ray t_max;
 //   closest_grouped_kernel <- _wlg_closest_kernel (:1000): the closest hit
 //                     by a per-warp cluster walk (see its section below);
-//   any_grouped_kernel     <- _wlg_any_kernel (:1113): occlusion, the same.
+//   any_grouped_kernel     <- _wlg_any_kernel (:1113): occlusion, the same;
+//   closest_inst_kernel    <- _wl_closest_inst_kernel (:1208): closest_kernel
+//                     on instanced tables (see its section below);
+//   any_inst_kernel        <- _wl_any_inst_kernel (:1349): any_kernel, the
+//                     same.
 // Rays are the (9, Rp) rows [o; d; 1/d] of prep_rays, Rp a multiple of
 // the block size RB (one thread per ray, one block per RB rays).
 //
@@ -548,6 +552,211 @@ any_grouped_kernel(const int* __restrict__ seg,
   out_occ[i] = occ;
 }
 
+// ---------------------------------------------------------------------------
+// Instanced sweeps <- _wl_closest_inst_kernel (:1208) and _wl_any_inst_kernel
+// (:1349) (launched by _closest_impl :1722 and _any_impl :1889 on scenes
+// with instanced tables).
+//
+// The tables share each mesh's triangles: the slab rows are mesh-local,
+// stored once, and a super is an (instance, local super) pair with world
+// child boxes (isup_cbox). Items, the block vote and the per-ray fine cull
+// are closest_kernel's and any_kernel's, in world space with the world ray,
+// so entry distances compare across items. The item's super gives its
+// local super (isup_local) and its instance (isup_inst); the instance's
+// world->local transform (12 floats of its inst_rows row) is staged beside
+// the child boxes, and the ray is moved to local space once per item that
+// its fine cull entered (to_local, the reference's _local_rays: the
+// direction is not normalised, so t stays the world ray's parameter and
+// the packed keys compare across instances; Tri::prepare runs on the local
+// ray, since the watertight permutation follows the direction). The rows
+// swept are (loc * kSuper + c) * kCluster + r. The closest kernel keeps the
+// winning item's instance: the hit's instance is it, tri is the slab row's
+// global id, and the back-face flag is the local test's as it is (a
+// mirroring instance turns the world normal, and the soup's flip column
+// turns it back; the reference's kernel XORs the flip in again, :1323).
+//
+// What bounds them: as closest_kernel and any_kernel, FP32 ALU in the fine
+// cull (32 ray-box tests of ~20 operations per item) and in the triangle
+// tests (31 operations Baldwin-Weber, ~45 watertight, 16 per swept
+// cluster), plus 27 operations per entered item for the local ray, and
+// the latency of reading triangle rows from L2. Instanced supers are many
+// and overlap, so a block walks more items than on the soup (the TPU's
+// census: 44.3 clusters swept per ray against 8.0). The design keeps
+// closest_kernel's answer to that, per-ray skipping of clusters and items
+// beyond the ray's own best; a faster walk is later work. Built with
+// -fmad=false, so the local ray rounds as in the twin.
+// ---------------------------------------------------------------------------
+
+// [o, 1] @ M and d @ M for the (4, 3) world->local transform M in
+// m[0..11], term by term in the twin's order.
+__device__ __forceinline__ Ray to_local(const Ray& r, const float* m) {
+  Ray l;
+  l.ox = r.ox * m[0] + r.oy * m[3] + r.oz * m[6] + m[9];
+  l.oy = r.ox * m[1] + r.oy * m[4] + r.oz * m[7] + m[10];
+  l.oz = r.ox * m[2] + r.oy * m[5] + r.oz * m[8] + m[11];
+  l.dx = r.dx * m[0] + r.dy * m[3] + r.dz * m[6];
+  l.dy = r.dx * m[1] + r.dy * m[4] + r.dz * m[7];
+  l.dz = r.dx * m[2] + r.dy * m[5] + r.dz * m[8];
+  return l;
+}
+
+constexpr int kInstCols = 16;   // inst_rows: 3x3 | t | flip | 0 0 0
+constexpr int kInstXf = 12;     // the columns of the transform
+
+// Stage the item's child boxes and its instance's transform.
+__device__ __forceinline__ void stage_inst_item(const float* cbox,
+                                                const float* inst_rows,
+                                                int sup, int ins,
+                                                float4* boxes, float* row) {
+  stage_boxes(cbox, sup, boxes);
+  if (threadIdx.x < kInstXf)
+    row[threadIdx.x] = __ldg(inst_rows + static_cast<size_t>(ins) *
+                                             kInstCols + threadIdx.x);
+}
+
+template <class Tri>
+__global__ void __launch_bounds__(1024)
+closest_inst_kernel(const int* __restrict__ seg,
+                    const int* __restrict__ item_sup,
+                    const float* __restrict__ item_t,
+                    const float* __restrict__ cbox,
+                    const float* __restrict__ tab,
+                    const int* __restrict__ isup_local,
+                    const int* __restrict__ isup_inst,
+                    const float* __restrict__ inst_rows,
+                    const float* __restrict__ od,
+                    const float* __restrict__ texp, int rp, float t_min,
+                    int* __restrict__ out_best, float* __restrict__ out_t,
+                    float* __restrict__ out_u, float* __restrict__ out_v,
+                    int* __restrict__ out_tri, int* __restrict__ out_inst,
+                    unsigned char* __restrict__ out_back,
+                    int* __restrict__ out_iters) {
+  __shared__ float4 boxes[2 * kSuper];
+  __shared__ float row[kInstXf];
+  const int b = blockIdx.x;
+  const int i = b * blockDim.x + threadIdx.x;
+  const RayInv q = load_od(od, rp, i);
+  const float t_exit = texp[i];
+  int best = __float_as_int(t_exit) | kLowM;
+  float bt = t_exit, bu = 0.f, bv = 0.f;
+  bool bback = false;
+  int brow = -1, binst = 0, iters = 0;
+  const int k1 = seg[b + 1];
+  for (int k = seg[b]; k < k1; ++k) {
+    // the block vote of closest_kernel (also the barrier before restaging)
+    if (!__syncthreads_or(window(best) > item_t[k])) continue;
+    const int sup = item_sup[k];
+    const int loc = isup_local[sup], ins = isup_inst[sup];
+    stage_inst_item(cbox, inst_rows, sup, ins, boxes, row);
+    __syncthreads();
+    float tl[kSuper];
+    unsigned mask = 0u;
+    const float cap = window(best);
+#pragma unroll
+    for (int c = 0; c < kSuper; ++c) {
+      float t_lo;
+      if (child_enter(q, boxes, c, cap, t_min, t_lo)) mask |= 1u << c;
+      tl[c] = fmaxf(t_lo, 0.f);
+    }
+    if (!mask) continue;
+    const Ray rl = to_local(q.r, row);
+    const typename Tri::Pre pre = Tri::prepare(rl);
+    while (mask) {
+      // nearest remaining cluster, lowest child on a tie
+      float m = INFINITY;
+      int cs = 0;
+#pragma unroll
+      for (int c = 0; c < kSuper; ++c) {
+        if (((mask >> c) & 1u) && tl[c] < m) {
+          m = tl[c];
+          cs = c;
+        }
+      }
+      if (!(m < window(best))) break;
+      mask &= ~(1u << cs);
+      ++iters;
+      const int base = (loc * kSuper + cs) * kCluster;
+      const float t_max = window(best);
+      int cand = INT_MAX, crow = -1;
+      Hit hc{0.f, 0.f, 0.f, false};
+      for (int r = 0; r < kCluster; ++r) {
+        Hit h;
+        if (Tri::test(rl, pre, tab, base + r, t_min, t_max, h)) {
+          const int key = (__float_as_int(h.t) & ~kLowM) | ((cs << 4) | r);
+          if (key < cand) {
+            cand = key;
+            hc = h;
+            crow = base + r;
+          }
+        }
+      }
+      if (cand < best) {
+        best = cand;
+        bt = hc.t;
+        bu = hc.u;
+        bv = hc.v;
+        bback = hc.back;
+        brow = crow;
+        binst = ins;
+      }
+    }
+  }
+  const float tri =
+      brow >= 0 ? tab[static_cast<size_t>(brow) * Tri::kCols + Tri::kMeta]
+                : 0.f;
+  out_best[i] = best;
+  out_t[i] = bt;
+  out_u[i] = bu;
+  out_v[i] = bv;
+  out_tri[i] = static_cast<int>(tri);
+  out_inst[i] = brow >= 0 ? binst : 0;
+  out_back[i] = brow >= 0 && bback;
+  out_iters[i] = iters;
+}
+
+template <class Tri>
+__global__ void __launch_bounds__(1024)
+any_inst_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
+                const float* __restrict__ cbox, const float* __restrict__ tab,
+                const int* __restrict__ isup_local,
+                const int* __restrict__ isup_inst,
+                const float* __restrict__ inst_rows,
+                const float* __restrict__ od, const float* __restrict__ tm,
+                int rp, float t_min, unsigned char* __restrict__ out_occ) {
+  __shared__ float4 boxes[2 * kSuper];
+  __shared__ float row[kInstXf];
+  const int b = blockIdx.x;
+  const int i = b * blockDim.x + threadIdx.x;
+  const RayInv q = load_od(od, rp, i);
+  const float t_max = tm[i];
+  bool occ = false;
+  const int k1 = seg[b + 1];
+  for (int k = seg[b]; k < k1; ++k) {
+    // any_kernel's stop (also the barrier before restaging)
+    if (__syncthreads_and(occ)) break;
+    const int sup = item_sup[k];
+    const int loc = isup_local[sup];
+    stage_inst_item(cbox, inst_rows, sup, isup_inst[sup], boxes, row);
+    __syncthreads();
+    if (occ) continue;
+    const Ray rl = to_local(q.r, row);
+    const typename Tri::Pre pre = Tri::prepare(rl);
+    for (int c = 0; c < kSuper && !occ; ++c) {
+      float t_lo;
+      if (!child_enter(q, boxes, c, t_max, t_min, t_lo)) continue;
+      const int base = (loc * kSuper + c) * kCluster;
+      for (int r = 0; r < kCluster; ++r) {
+        Hit h;
+        if (Tri::test(rl, pre, tab, base + r, t_min, t_max, h)) {
+          occ = true;
+          break;
+        }
+      }
+    }
+  }
+  out_occ[i] = occ;
+}
+
 }  // namespace
 
 // C interface (ctypes). Pointers are device pointers; `stream` is a
@@ -650,6 +859,51 @@ extern "C" int dcrt_wl_any_grouped(const int* seg, const int* item_sup,
     else
       any_grouped_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
           seg, item_sup, cbox, tab, od, tm, rp, t_min, occ);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instanced sweeps take dcrt_wl_closest's and dcrt_wl_any's arguments
+// with three more after the slab: the (NS,) local super and instance of
+// each super and the (I, 16) instance rows.
+extern "C" int dcrt_wl_closest_inst(
+    const int* seg, const int* item_sup, const float* item_t, int nb,
+    const float* cbox, const float* tab, const int* isup_local,
+    const int* isup_inst, const float* inst_rows, int watertight,
+    const float* od, const float* texp, int rp, int rb, float t_min,
+    int* best, float* t, float* u, float* v, int* tri, int* inst,
+    unsigned char* back, int* iters, void* stream) {
+  if (nb > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (watertight)
+      closest_inst_kernel<RawWatertight><<<nb, rb, 0, s>>>(
+          seg, item_sup, item_t, cbox, tab, isup_local, isup_inst, inst_rows,
+          od, texp, rp, t_min, best, t, u, v, tri, inst, back, iters);
+    else
+      closest_inst_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
+          seg, item_sup, item_t, cbox, tab, isup_local, isup_inst, inst_rows,
+          od, texp, rp, t_min, best, t, u, v, tri, inst, back, iters);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dcrt_wl_any_inst(const int* seg, const int* item_sup, int nb,
+                                const float* cbox, const float* tab,
+                                const int* isup_local, const int* isup_inst,
+                                const float* inst_rows, int watertight,
+                                const float* od, const float* tm, int rp,
+                                int rb, float t_min, unsigned char* occ,
+                                void* stream) {
+  if (nb > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (watertight)
+      any_inst_kernel<RawWatertight><<<nb, rb, 0, s>>>(
+          seg, item_sup, cbox, tab, isup_local, isup_inst, inst_rows, od, tm,
+          rp, t_min, occ);
+    else
+      any_inst_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
+          seg, item_sup, cbox, tab, isup_local, isup_inst, inst_rows, od, tm,
+          rp, t_min, occ);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,14 +54,24 @@ class RenderConfig:
         return self.env_light_index >= 0
 
 
+def has_worklist_tables(scene):
+    """True when the scene casts through the work list: it has world-soup
+    cluster tables or instanced tables. Such scenes trace in 32x32 tiles
+    and sort their bounce rays and pool lanes."""
+    return scene.cluster_bbox.shape[0] > 1 or scene.isup_inst.shape[0] > 1
+
+
 def pool_cast_backend(cfg, scene):
-    """The wavefront pool casts' backend: for "auto" on scenes with cluster
-    tables the grouped work-list sweep ("pallas_wlg"), as the reference
-    resolves it on its accelerator, else cfg.traversal_backend (the dense
-    sweep for "auto"). The port keeps that choice so that the grouped
-    kernels run on this path, not for speed: on the H100 the grouped sweep
-    takes 1.15-1.4x the per-ray sweep's time on every ray set measured,
-    pool-like sorted sets included, and returns the same hits (PERF.md)."""
+    """The wavefront pool casts' backend: for "auto" on scenes with
+    world-soup cluster tables the grouped work-list sweep ("pallas_wlg"),
+    as the reference resolves it on its accelerator, else
+    cfg.traversal_backend ("auto": the dense sweep, or on instanced scenes
+    the per-ray instanced sweep, which the reference's "pallas_wlg"
+    downgrades to as well). The port keeps the grouped choice so that the
+    grouped kernels run on this path, not for speed: on the H100 the
+    grouped sweep takes 1.15-1.4x the per-ray sweep's time on every ray
+    set measured, pool-like sorted sets included, and returns the same
+    hits (PERF.md)."""
     if cfg.traversal_backend == "auto" and scene.cluster_bbox.shape[0] > 1:
         return "pallas_wlg"
     return cfg.traversal_backend

@@ -10,11 +10,12 @@ packages draw the same per-pixel streams.
 Per sample pass: one closest-hit cast for the camera ray, then per bounce
 one any-hit shadow cast (when the scene has lights) and one closest-hit
 extension cast, i.e. (max_bounce + 2) closest and (max_bounce + 1) any-hit
-casts. On scenes with cluster tables each extension cast runs in
-coherence-sorted order and its hits are scattered back (the reference's
-`sort_bounce_rays` branch, which its renderer turns on for such scenes on
-its accelerator), so that a block of the work-list traversal holds rays
-of like origin and direction.
+casts. On scenes with work-list tables (`has_worklist_tables`) each
+extension cast runs in coherence-sorted order and its hits are scattered
+back (the reference's `sort_bounce_rays` branch, which its renderer turns
+on for world-soup cluster tables on its accelerator; the port sorts on
+instanced scenes too), so that a block of the work-list traversal holds
+rays of like origin and direction.
 """
 
 from typing import NamedTuple
@@ -39,6 +40,7 @@ from ..rng.xoshiro import (
 from ..sampling.montecarlo import dot, power_heuristic
 from .common import (
     RenderConfig,
+    has_worklist_tables,
     offset_ray_origin,
     park_rays,
     shade_hit,
@@ -142,7 +144,7 @@ def _bounce(scene, luts, cfg, c):
     throughput = _sel(alive, throughput, c.throughput)
 
     ext_o = offset_ray_origin(itx.position, itx.geometry_normal, wi_new)
-    if scene.cluster_bbox.shape[0] > 1:
+    if has_worklist_tables(scene):
         hit2 = _sorted_closest(scene, cfg, ext_o, wi_new, alive)
     else:
         hit2 = intersect_closest(scene, ext_o, wi_new,

@@ -6,10 +6,12 @@ megakernel a pixel chunk (`CHUNK_PIXELS`, 2^20) bounds the memory of one
 pass: a 1024x1024 frame runs as one chunk, a larger frame as several.
 The wavefront runs the whole frame through one path pool, whose size
 bounds its memory, and fuses progressive samples into one pool pass
-(`spp_batch`). Scenes with cluster tables trace in 32x32 pixel tiles and
-sort their bounce rays, as the reference does on its accelerator: a
-1024-ray block of the work-list traversal is then one tile, a compact
-frustum with a short item list. Values are scattered back to raster
+(`spp_batch`). Scenes with work-list tables (world-soup clusters or
+instanced) trace in 32x32 pixel tiles and sort their bounce rays, as the
+reference does on its accelerator for world-soup tables (it tiles
+instanced scenes but leaves their bounces unsorted): a 1024-ray block of
+the work-list traversal is then one tile, a compact frustum with a short
+item list. Values are scattered back to raster
 order before the film; the per-pixel random streams make the image
 independent of the order. The reference's tunnel pacing and its
 2^18-pixel dispatch budget are gone.
@@ -29,7 +31,7 @@ from ..film.film import accumulate_box, create_film, resolve
 from ..lut.textures import load_luts, placeholder_luts
 from ..post.pipeline import PostParams, post_process
 from ..scene.scene import flatten_scene
-from .common import RenderConfig
+from .common import RenderConfig, has_worklist_tables
 from .megakernel import (
     full_frame_pixels,
     render_samples,
@@ -89,7 +91,7 @@ class Renderer:
         self.film = create_film(height, width, self.device)
         self.spp = 0
         self.frame_index = 0    # advances per sample pass, survives reset()
-        if self.arrays.cluster_bbox.shape[0] > 1:
+        if has_worklist_tables(self.arrays):
             self._px, self._py, self._inv = tiled_frame_pixels(self.cfg,
                                                                self.device)
         else:

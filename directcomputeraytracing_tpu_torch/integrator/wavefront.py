@@ -14,11 +14,12 @@ which also moves the cursor).
 The per-path arithmetic (random-number draw order, NEE with MIS, BSDF
 sampling, light hits) is the megakernel's op for op, and lane seeds are
 pixel based, so at a fixed seed the two integrators give the same
-samples. On scenes with cluster tables the pool is sorted by
+samples. On scenes with work-list tables the pool is sorted by
 `ray_sort_key` once per iteration (the reference's `sort_bounce_rays`,
-which its renderer sets on its accelerator for such scenes) and both
-casts run in that lane order. The pool casts use `pool_cast_backend`,
-the grouped work-list sweep by default, and march distance slabs at
+which its renderer sets on its accelerator for world-soup cluster
+tables; the port sorts instanced scenes too) and both casts run in that
+lane order. The pool casts use `pool_cast_backend` (the grouped
+work-list sweep by default on clustered scenes) and march distance slabs at
 `pool_slab_march` of the scene diagonal (`RenderConfig.slab_march`,
 0.0 for none): the closest cast through
 `accel.traverse.intersect_closest_slab`, the shadow cast in two windows
@@ -61,6 +62,7 @@ from ..rng.xoshiro import (
 from ..sampling.montecarlo import dot, power_heuristic
 from .common import (
     RenderConfig,
+    has_worklist_tables,
     offset_ray_origin,
     park_rays,
     pool_cast_backend,
@@ -216,7 +218,7 @@ class _Frame:
                                    device=dev)
         self.env_idx = (cfg.env_light_index if cfg.has_env_light
                         else LIGHT_INDEX_INVALID)
-        self.sort = scene.cluster_bbox.shape[0] > 1
+        self.sort = has_worklist_tables(scene)
 
 
 def _step(f: _Frame, casts: _Casts, s: PoolState, cursor, n_busy):

@@ -1,15 +1,18 @@
 """Host-side scene model and its flattening to device tensors.
 
-Numpy counterpart of `directcomputeraytracing_tpu.scene.scene` for scenes
-of at most `SOUP_MAX_TRIS` world triangles: one SAH BLAS per mesh orders
-each mesh's triangles into leaf order (the reference's numpy SAH build,
-`directcomputeraytracing_tpu.accel.build`), instances expand into a
-world-space triangle soup, and materials, lights and textures pack into
-the tables `SceneTensors` names. Above `DENSE_MAX_TRIS` the soup is also
-clustered for the work-list traversal (`accel.cluster`). The port has no
-stack traversal, so no TLAS is built. Larger scenes need the instanced
-work-list tables, and clustered scenes with alpha the opaque/masked
-split; neither is built yet.
+Numpy counterpart of `directcomputeraytracing_tpu.scene.scene`: one SAH
+BLAS per mesh orders each mesh's triangles into leaf order (the
+reference's numpy SAH build, `directcomputeraytracing_tpu.accel.build`),
+and materials, lights and textures pack into the tables `SceneTensors`
+names. Scenes of at most `SOUP_MAX_TRIS` world triangles expand their
+instances into a world-space triangle soup, clustered above
+`DENSE_MAX_TRIS` for the work-list traversal (`accel.cluster`). Larger
+scenes keep their triangles mesh-local and get the instanced work-list
+tables instead (the reference's BLAS sharing; a test forces them on a
+small scene by lowering `SOUP_MAX_TRIS`). The port has no stack
+traversal, so no TLAS is built: a larger scene of at most 64 local
+triangles, which the reference sends to its stack walker, raises, and so
+do clustered scenes with alpha (the opaque/masked split is not built).
 """
 
 from dataclasses import dataclass, field
@@ -35,8 +38,15 @@ from ..core.constants import (
     MATERIAL_TYPE_DIFFUSE,
 )
 
-from ..accel.cluster import CLUSTER_SIZE, baldwin_table, build_clusters
-from ..core.types import SceneTensors
+from ..accel.cluster import (
+    CLUSTER_SIZE,
+    SUPER_SIZE,
+    baldwin_table,
+    build_clusters,
+    build_instanced_supers,
+    build_local_clusters,
+)
+from ..core.types import SceneTensors, invert_rigid_affine43
 
 # Largest world-triangle soup the dense sweep takes; the reference builds
 # cluster tables above this (scene/scene.py:398).
@@ -44,6 +54,9 @@ DENSE_MAX_TRIS = 2048
 # Largest soup the reference expands; above it, it builds the instanced
 # work-list tables instead (scene/scene.py:338, :451).
 SOUP_MAX_TRIS = 1 << 20
+# Local triangles (all meshes) up to which a scene above SOUP_MAX_TRIS gets
+# no instanced tables: the reference casts it with its stack walker (:453).
+INSTANCED_MIN_LOCAL_TRIS = 64
 
 
 @dataclass
@@ -240,6 +253,25 @@ def _texture_atlas(textures):
     return atlas, sizes
 
 
+def _world_soup(scene, tri_verts, mesh_tri_offsets):
+    """Each instance's leaf-ordered triangles in world space: (B, 9)
+    v0|v1|v2 and (B, 3) meta [tri id, instance, flip]."""
+    world_tris, world_meta = [], []
+    for ii, inst in enumerate(scene.instances):
+        lo = int(mesh_tri_offsets[inst.mesh])
+        hi = lo + scene.meshes[inst.mesh].indices.shape[0]
+        a = inst.transform[:3]
+        world_tris.append((tri_verts[lo:hi].reshape(-1, 3, 3) @ a
+                           + inst.transform[3]).reshape(-1, 9)
+                          .astype(np.float32))
+        meta = np.empty((hi - lo, 3), np.float32)
+        meta[:, 0] = np.arange(lo, hi, dtype=np.float32)
+        meta[:, 1] = ii
+        meta[:, 2] = 1.0 if np.linalg.det(a.astype(np.float64)) < 0 else 0.0
+        world_meta.append(meta)
+    return np.concatenate(world_tris), np.concatenate(world_meta)
+
+
 def flatten_scene(scene: Scene, device):
     """Compile the host scene into (SceneTensors on `device`, SceneMeta)."""
     if not (scene.meshes and scene.instances):
@@ -248,11 +280,13 @@ def flatten_scene(scene: Scene, device):
         scene.materials = [Material()]
     total_world_tris = sum(scene.meshes[i.mesh].indices.shape[0]
                            for i in scene.instances)
-    if total_world_tris > SOUP_MAX_TRIS:
+    instanced = total_world_tris > SOUP_MAX_TRIS
+    local_tris = sum(m.indices.shape[0] for m in scene.meshes)
+    if instanced and local_tris <= INSTANCED_MIN_LOCAL_TRIS:
         raise NotImplementedError(
-            f"{total_world_tris} world triangles: scenes above "
-            f"{SOUP_MAX_TRIS} need the instanced work-list tables and "
-            "kernels (ROADMAP queue 2, rows 13-14)")
+            f"{total_world_tris} world triangles from {local_tris} local "
+            "ones: the reference casts such scenes with its stack walker "
+            "(ROADMAP queue 1, item 11)")
     any_non_opaque = any(m.non_opaque for m in scene.materials)
     if any_non_opaque and total_world_tris > DENSE_MAX_TRIS:
         raise NotImplementedError(
@@ -281,24 +315,13 @@ def flatten_scene(scene: Scene, device):
     mat_table = _materials(scene.materials)
     n_mat = len(scene.materials)
 
-    # world-space soup: each instance's leaf-ordered triangles transformed
     tri_verts = all_pos[triangles].reshape(-1, 9)
-    world_tris, world_meta = [], []
-    for ii, inst in enumerate(scene.instances):
-        lo = int(mesh_tri_offsets[inst.mesh])
-        hi = lo + scene.meshes[inst.mesh].indices.shape[0]
-        a = inst.transform[:3]
-        world_tris.append((tri_verts[lo:hi].reshape(-1, 3, 3) @ a
-                           + inst.transform[3]).reshape(-1, 9)
-                          .astype(np.float32))
-        meta = np.empty((hi - lo, 3), np.float32)
-        meta[:, 0] = np.arange(lo, hi, dtype=np.float32)
-        meta[:, 1] = ii
-        meta[:, 2] = 1.0 if np.linalg.det(a.astype(np.float64)) < 0 else 0.0
-        world_meta.append(meta)
-
-    world_tris = np.concatenate(world_tris)
-    world_meta = np.concatenate(world_meta)
+    if instanced:
+        world_tris = np.zeros((1, 9), np.float32)
+        world_meta = np.zeros((1, 3), np.float32)
+    else:
+        world_tris, world_meta = _world_soup(scene, tri_verts,
+                                             mesh_tri_offsets)
     if world_tris.shape[0] > DENSE_MAX_TRIS:
         cluster_tris, cluster_bbox = build_clusters(world_tris, world_meta)
         cluster_bw = baldwin_table(cluster_tris)
@@ -306,6 +329,29 @@ def flatten_scene(scene: Scene, device):
         cluster_tris = np.zeros((CLUSTER_SIZE, 13), np.float32)
         cluster_bw = np.zeros((CLUSTER_SIZE, 16), np.float32)
         cluster_bbox = np.zeros((1, 8), np.float32)
+
+    inst_tf = np.stack([i.transform for i in scene.instances])
+    inst_inv = np.stack([invert_rigid_affine43(t) for t in inst_tf])
+    inst_det = np.asarray([np.linalg.det(t[:3].astype(np.float64))
+                           for t in inst_tf])
+    inst_rows = np.concatenate(
+        [inst_inv[:, :3].reshape(-1, 9), inst_inv[:, 3],
+         (inst_det < 0).astype(np.float32)[:, None],
+         np.zeros((len(scene.instances), 3), np.float32)],
+        axis=1).astype(np.float32)
+    if instanced:
+        icl_slab, lbox, mso, msc = build_local_clusters(
+            tri_verts, mesh_tri_offsets,
+            [m.indices.shape[0] for m in scene.meshes])
+        icl_bw = baldwin_table(icl_slab)
+        isup_cbox, isup_sbox, isup_local, isup_inst = build_instanced_supers(
+            lbox, mso, msc, [i.mesh for i in scene.instances], inst_tf)
+    else:
+        icl_slab = np.zeros((CLUSTER_SIZE, 13), np.float32)
+        icl_bw = np.zeros((CLUSTER_SIZE, 16), np.float32)
+        isup_cbox = np.zeros((1, SUPER_SIZE, 8), np.float32)
+        isup_sbox = np.zeros((1, 8), np.float32)
+        isup_local = isup_inst = np.zeros(1, np.int64)
 
     atlas, sizes = _texture_atlas(scene.textures)
     env = (scene.env_texture if scene.env_texture is not None
@@ -332,12 +378,17 @@ def flatten_scene(scene: Scene, device):
         cluster_tris=t(cluster_tris),
         cluster_bw=t(cluster_bw),
         cluster_bbox=t(cluster_bbox),
-        isup_inst=t(np.zeros(1, np.int64)),
+        icl_slab=t(icl_slab),
+        icl_bw=t(icl_bw),
+        isup_cbox=t(isup_cbox),
+        isup_sbox=t(isup_sbox),
+        isup_local=t(isup_local, np.int64),
+        isup_inst=t(isup_inst, np.int64),
+        inst_rows=t(inst_rows),
         vtx_table=t(vtx_table, np.float32),
         mat_table=t(mat_table),
         material_ids=t(material_ids),
-        instance_transforms=t(np.stack([i.transform
-                                        for i in scene.instances])),
+        instance_transforms=t(inst_tf),
         instance_material_overrides=t(overrides),
         instance_light_indices=t(inst_light),
         light_radiance=t(light_cols[0]),

@@ -4,8 +4,10 @@
 
 case: `cornell` (default, `cornell_box("area", "glossy")`, the dense
 sweep, 1024x1024), `sphere_grid` (`sphere_grid(12, 12)`, 211,972
-triangles, the work-list traversal, 1024x1024), both through the
-megakernel, or `wavefront` (`sphere_grid(12, 12)` at 1920x1080 through
+triangles, the work-list traversal, 1024x1024), `instanced`
+(`sphere_grid(27, 27)`, 1,073,092 triangles in the instanced tables,
+the instanced work-list sweeps, 1024x1024), all through the megakernel,
+or `wavefront` (`sphere_grid(12, 12)` at 1920x1080 through
 the wavefront integrator and its grouped pool casts). Needs a CUDA
 device; with none it exits non-zero. Renders at max_bounce 4 through
 `Renderer.render(spp=8)`: the fused 8-sample call that chip_smoke.py's
@@ -53,6 +55,8 @@ CASES = {"cornell": (lambda: cornell_box("area", "glossy"), 1024, 1024,
                      "megakernel"),
          "sphere_grid": (lambda: sphere_grid(12, 12), 1024, 1024,
                          "megakernel"),
+         "instanced": (lambda: sphere_grid(27, 27), 1024, 1024,
+                       "megakernel"),
          "wavefront": (lambda: sphere_grid(12, 12), 1920, 1080,
                        "wavefront")}
 # the port's kernels, told apart by entry point and template argument in
@@ -65,6 +69,8 @@ PORT_KERNELS = {
     "worklist.cu any_kernel": ("any_kernel", "BaldwinWeber", "RawWatertight"),
     "worklist.cu closest_grouped_kernel": ("closest_grouped_kernel",),
     "worklist.cu any_grouped_kernel": ("any_grouped_kernel",),
+    "worklist.cu closest_inst_kernel": ("closest_inst_kernel",),
+    "worklist.cu any_inst_kernel": ("any_inst_kernel",),
     "brute_sweep.cu closest_kernel": ("closest_kernel", "Moeller",
                                       "dcrt::Watertight"),
     "brute_sweep.cu any_kernel": ("any_kernel", "Moeller",

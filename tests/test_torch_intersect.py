@@ -153,12 +153,13 @@ def test_unported_paths_raise(case):
     o, d, _ = (torch.from_numpy(x) for x in _rays(8))
     scene, kw, err = scene_with_tables(soup), {}, NotImplementedError
     if case == "clustered":
-        # cluster tables beside instanced ones: the instanced kernels
-        # (ROADMAP queue 2, rows 13-14) are not ported yet
-        scene, kw = scene_with_tables(soup, clusters=4, supers=4), dict(
-            watertight=True)
+        # the clustered sweep (ROADMAP queue 2, rows 3-5) is not ported
+        scene, kw = scene_with_tables(soup, clusters=4), dict(
+            backend="pallas_cluster", watertight=True)
     elif case == "instanced":
-        scene = scene_with_tables(soup, supers=4)
+        # instanced tables cast through the work list only: the stack
+        # walker (queue 1, item 11) is not ported
+        scene, kw = scene_with_tables(soup, supers=4), dict(backend="jax")
     elif case == "backend":
         kw = dict(backend="jax")
     elif case == "alpha":

@@ -29,16 +29,14 @@ from directcomputeraytracing_tpu_torch.lut.textures import (
     load_luts,
     placeholder_luts,
 )
+from directcomputeraytracing_tpu_torch.scene import scene as port_scene_mod
 from directcomputeraytracing_tpu_torch.scene.presets import (
     cornell_box,
     sphere_grid,
 )
 from directcomputeraytracing_tpu_torch.scene.scene import (
     SOUP_MAX_TRIS,
-    Instance,
     Material,
-    Mesh,
-    Scene,
     flatten_scene,
 )
 
@@ -92,10 +90,12 @@ def test_committed_luts_load():
                                       getattr(got, f).numpy(), err_msg=f)
 
 
-def test_flatten_refuses_clustered_sizes():
+def test_flatten_matches_reference_clustered_and_instanced():
     """A clustered scene (2049 to 2^20 world triangles) flattens exactly as
-    the reference does, cluster tables included; above 2^20 (the
-    instanced tables) and with alpha the port refuses."""
+    the reference does, cluster tables included, and so does a scene above
+    2^20 world triangles, instanced tables included and the world soup a
+    placeholder; with alpha the port refuses a clustered scene."""
+    from directcomputeraytracing_tpu.scene import scene as ref_scene_mod
     from directcomputeraytracing_tpu.scene.presets import (
         sphere_grid as ref_grid,
     )
@@ -116,11 +116,22 @@ def test_flatten_refuses_clustered_sizes():
 
     rs = np.random.default_rng(0)
     n = 1024
-    mesh = Mesh(positions=rs.random((3 * n, 3), dtype=np.float32),
-                indices=np.arange(3 * n).reshape(n, 3))
-    many = [Instance(mesh=0)] * (SOUP_MAX_TRIS // n + 1)
-    with pytest.raises(NotImplementedError, match="rows 13-14"):
-        flatten_scene(Scene(meshes=[mesh], instances=many), "cpu")
+    pos = rs.random((3 * n, 3), dtype=np.float32)
+    idx = np.arange(3 * n).reshape(n, 3)
+    copies = SOUP_MAX_TRIS // n + 1
+
+    def many(mod):
+        return mod.Scene(meshes=[mod.Mesh(positions=pos, indices=idx)],
+                         instances=[mod.Instance(mesh=0)] * copies)
+
+    want = from_reference(ref_flatten(many(ref_scene_mod))[0],
+                          ref_placeholder_luts(), ref_camera, "cpu")[0]
+    got = flatten_scene(many(port_scene_mod), "cpu")[0]
+    assert got.isup_inst.shape[0] > 1 and got.world_tris.shape[0] == 1
+    for f in SceneTensors._fields:
+        x, y = getattr(want, f), getattr(got, f)
+        assert x.dtype == y.dtype and x.shape == y.shape, f
+        assert torch.equal(x, y), f
     scene.materials.append(Material(opacity=0.5))
     with pytest.raises(NotImplementedError, match="item 11"):
         flatten_scene(scene, "cpu")
