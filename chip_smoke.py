@@ -6,9 +6,10 @@ Run from the repository root on a machine with one CUDA card and nvcc
 (CUDA_HOME, PATH or /usr/local/cuda). It imports no jax. Phases, in order;
 any failure exits non-zero:
 
-1. setup: print the card's name and power limit, build the dense-sweep
-   and work-list kernels (csrc/brute_sweep.cu, csrc/worklist.cu; the two
-   nvcc runs in parallel) and print the build times and ptxas reports;
+1. setup: print the card's name and power limit, build the dense-sweep,
+   work-list and clustered kernels (csrc/brute_sweep.cu, csrc/worklist.cu,
+   csrc/clustered.cu; the three nvcc runs in parallel) and print the
+   build times and ptxas reports;
 2. dense-sweep kernels against their PyTorch twins on the card, Moeller
    and watertight, closest and any-hit: (a) the Cornell soup (32
    triangles) with 1,048,576 camera rays plus 1,048,576 random rays from
@@ -49,6 +50,17 @@ any failure exits non-zero:
    an edge; Baldwin-Weber, a crack of that test, where the nearer hit is
    the watertight one (counted and listed); then both rendered at
    256x256, 4 spp, within the CPU-vs-card gates;
+2f. clustered kernels (cull, closest and any-hit sweeps) on
+   sphere_grid(12, 12), Moeller and watertight: 1,048,576 tiled camera
+   rays, 1,048,576 shadow rays towards the lamp, 1,048,576 random rays
+   from inside the box sorted by `ray_sort_key`, and a pool-sized (2^18)
+   sorted set. The cull kernel's masks must equal its twin's on every
+   set, and contain the exact per-ray masks on 64 blocks spread over it;
+   the sweeps must equal their twins in every field on those 64 blocks
+   (a 1M-ray twin cast takes seconds to minutes), and the dense sweep
+   over the world soup on the whole set: hits and t equal, ids equal but
+   at exact-t ties (counted); CUDA-event times, bounds, and the census
+   (clusters and groups entered per block, tests per ray);
 3. the main path: Cornell glossy 1024x1024, 16 spp, max_bounce 4 through
    `Renderer.render`, with the kernels' launch counts checked against
    spp * (max_bounce + 2) * chunks (closest) and spp * (max_bounce + 1) *
@@ -76,11 +88,22 @@ any failure exits non-zero:
 3f. the wavefront on the instanced scene: 1920x1080, 4 spp, max_bounce
    4, default pool and slab marching, after a warm-up; the rule of 3c
    with the instanced sweeps;
+3g. the main path through traversal_backend="pallas_cluster":
+   sphere_grid(12, 12) 1024x1024, max_bounce 4, after a one-sample
+   warm-up; culls, closest sweeps and any-hit sweeps each one per cast
+   (spp * (max_bounce + 2) closest and spp * (max_bounce + 1) any-hit
+   casts), no other kernel launched;
+3h. the wavefront through "pallas_cluster": sphere_grid(12, 12) at
+   1920x1080, max_bounce 4, one pool pass, after a warm-up; ms/spp,
+   `LAST_STATS`, peak memory; launches one per pool cast that
+   `LAST_STATS` counts, and no slab phase;
 4. the card's render against the port's CPU render, Cornell (64x64,
    4 spp), 4b. sphere_grid(3, 3, stacks=12, slices=16) (64x64, 4 spp),
-   4c. the same small grid through the wavefront and 4d. the same small
-   grid forced onto the instanced tables (megakernel);
-5. one JSON line listing the ten kernels, then the contract line, last.
+   4c. the same small grid through the wavefront, 4d. the same small
+   grid forced onto the instanced tables (megakernel) and 4e. the same
+   small grid through "pallas_cluster" (megakernel);
+5. one JSON line listing the thirteen kernels, then the contract line,
+   last.
 
 Tolerances (kernel vs twin): the kernels are built without FMA
 contraction, so they round like the twins; a hit/miss or occlusion
@@ -94,7 +117,8 @@ twins in every field, and the per-ray sweeps in every hit field. The
 grouped any-hit sweep's plain version is the per-ray twin
 `sweep_any_torch`, whose answer the grouped walk must give (its
 `plain_ms` in the kernels line times that twin). The instanced kernels
-must equal their twins in every field, `iters` included.
+must equal their twins in every field, `iters` included, and so must
+the clustered kernels, whose masks are bit-equal to the cull twin's.
 
 Bounds (`bound_ms` of the kernels line): the larger of the counted
 floating-point operations at 67 TFLOP/s and the bytes read and written
@@ -104,7 +128,11 @@ test 31, a slab test of a ray and a box 20; the work-list sweeps count
 the fine cull of every item of the ray's block and 16 triangle tests per
 cluster the per-ray walk swept (the any-hit sweeps only the fine cull, a
 lower bound; the instanced sweeps leave out the move of the ray to
-instance space, also a lower bound); tables count once, whole.
+instance space, also a lower bound); tables count once, whole. The
+clustered cull counts FLOPS_INTERVAL operations per (ray block,
+cluster), its closest sweep one Moeller test per ray and row of every
+cluster the ray's block entered, its any-hit sweep the same for the rays
+that end unoccluded only (they test everything; the others stop early).
 """
 
 import json
@@ -145,6 +173,13 @@ EDGE_TOL = 1e-4                         # barycentric margin of an edge hit
 PEAK_FLOPS = 67e12                      # H100 SXM float32, no tensor cores
 PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
 FLOPS_MOELLER, FLOPS_BW, FLOPS_SLAB = 45, 31, 20
+# the interval cull of one (ray block, cluster) pair: per axis 4 numerator
+# differences, 8 products, 14 min/max over them and 2 into the entry and
+# exit, then 3 for enter
+FLOPS_INTERVAL = 3 * 28 + 3
+CLUSTER_TWIN_BLOCKS = 64                # ray blocks of a clustered twin cast
+CLUSTER_RENDER = dict(width=1024, height=1024, spp=4, max_bounce=4)
+CLUSTER_WAVEFRONT = dict(width=1920, height=1080, spp=2, max_bounce=4)
 
 
 def _timed(fn, reps, warm=True):
@@ -162,6 +197,19 @@ def _timed(fn, reps, warm=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _timed_call(fn):
+    """(fn(), its ms) of one launch, timed with CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _bound(flops, nbytes):
@@ -920,6 +968,233 @@ def phase_instanced_vs_soup(device):
     return rep
 
 
+def _vs_dense(tables, cmask, o, d, k, ka, dense, dense_a):
+    """The clustered cast (k, ka) against the dense sweep over the world
+    soup (dense, dense_a): the same test on the same vertices, so hits, t
+    and the same triangle's u, v, instance and side are equal; the ids
+    differ only where two triangles give the very same t (exact-t ties:
+    the two visit the triangles in other orders). A ray whose hits
+    differ is explained (an edge graze, counted and listed) where the
+    dense hit's cluster was not entered and the ray's own slab test of
+    that cluster's box misses it: the box test and the triangle test
+    round the ray apart at the box's boundary, and the reference's exact
+    masks leave that cluster out as well."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import clustered as cl
+
+    hk, hd = torch.isfinite(k[0]), torch.isfinite(dense[0])
+    both = hk & hd
+    ids = both & ((k[3] != dense[3]) | (k[4] != dense[4]))
+    same = both & ~ids
+    fields = ((k[1] != dense[1]) | (k[2] != dense[2]) | (k[5] != dense[5]))
+    hit_rays = torch.nonzero(hk != hd)[:, 0]
+    listed, explained = [], 0
+    for i in hit_rays[:20].tolist():
+        rows = torch.nonzero((tables.ctab[:, 9] == float(dense[3][i]))
+                             & (tables.ctab[:, 10] == float(dense[4][i])))
+        c = int(rows[0, 0]) // cl.CLUSTER_SIZE if rows.numel() else -1
+        box = tables.cbox[c]
+        inv = cl._safe_inv(d[i])
+        a, b = (box[0:3] - o[i]) * inv, (box[3:6] - o[i]) * inv
+        t_lo = torch.minimum(a, b).max()
+        t_hi = torch.maximum(a, b).min()
+        entered = bool(cmask[i // cl.RAY_BLOCK, c])
+        box_miss = bool((t_hi < t_lo) | (t_hi < 0.0))
+        u, v = float(dense[1][i]), float(dense[2][i])
+        explained += int(not entered and box_miss)
+        listed.append(dict(ray=i, t=[float(k[0][i]), float(dense[0][i])],
+                           tri=int(dense[3][i]), cluster=c,
+                           block_entered=entered, box_t=[float(t_lo),
+                                                         float(t_hi)],
+                           uv=[u, v], margin=min(u, v, 1.0 - u - v)))
+    n_hit = int(hit_rays.numel())
+    return dict(hit_diff=n_hit,
+                hit_diff_unexplained=n_hit - explained,
+                t_diff=int((both & (k[0] != dense[0])).sum()),
+                id_diff=int(ids.sum()),
+                uv_back_diff_same_triangle=int((same & fields).sum()),
+                occ_diff=int((ka != dense_a).sum()), hit_diff_rays=listed)
+
+
+def _cluster_census(cmask, gmask, r):
+    """Clusters and groups entered per ray block, and triangle tests per
+    ray of a closest sweep (every row of every cluster its block
+    entered)."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import clustered as cl
+
+    per_block = cmask.sum(1, dtype=torch.int64)
+    rays = torch.full_like(per_block, cl.RAY_BLOCK)
+    rays[-1] = r - cl.RAY_BLOCK * (per_block.shape[0] - 1)
+    tests = int((per_block * rays).sum()) * cl.CLUSTER_SIZE
+    return dict(clusters_per_block=float(per_block.float().mean()),
+                clusters_per_block_max=int(per_block.max()),
+                clusters=cmask.shape[1],
+                groups_per_block=float(gmask.float().sum(1).mean()),
+                groups=gmask.shape[1], tests_per_ray=tests / r,
+                tests=tests)
+
+
+def _cluster_bounds(tables, cmask, gmask, r, occ):
+    """(cull, closest, any) bounds of one clustered cast of r rays; occ
+    the any-hit result (its unoccluded rays test every entered row)."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import clustered as cl
+
+    nb, cg = cmask.shape
+    masks = nb * (cg + gmask.shape[1])
+    table = 4 * (tables.ctab.numel() + tables.cbox.numel())
+    per_ray = cmask.sum(1, dtype=torch.int64) \
+        .repeat_interleave(cl.RAY_BLOCK)[:r]
+    rows = cl.CLUSTER_SIZE * FLOPS_MOELLER
+    return (_bound(FLOPS_INTERVAL * nb * cg, 24 * r + 32 * cg + masks),
+            _bound(rows * int(per_ray.sum()), 45 * r + masks + table),
+            _bound(rows * int(per_ray[~occ].sum()), 29 * r + masks + table))
+
+
+def phase_clustered_kernels(device):
+    """Clustered kernels against their twins and the dense sweep on
+    sphere_grid(12, 12); CUDA-event times, bounds and the census; the
+    kernels line's rows at the camera rays."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import brute
+    from directcomputeraytracing_tpu_torch.accel import clustered as cl
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+    from directcomputeraytracing_tpu_torch.core.types import to_device
+    from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+
+    rng = np.random.default_rng(20261020)
+    scene, cam = _scene("grid")
+    arrays, _ = flatten_scene(scene, device)
+    tables = cl.pad_cluster_tables(arrays)
+    print("clustered scene", json.dumps(dict(
+        world_tris=arrays.world_tris.shape[0],
+        clusters=tables.cbox.shape[0], groups=tables.n_groups,
+        reach=tables.reach)))
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    lo, hi = [-18.0, 0.01, -18.0], [18.0, 6.9, 18.0]
+    side = int(np.sqrt(N_RAYS))
+    o_cam, d_cam = _tiled_camera_rays(to_device(cam, device), side, side,
+                                      device)
+    o_sh = rng.uniform([-9.0, 0.01, -9.0], [9.0, 1.5, 9.0], (N_RAYS, 3))
+    to_lamp = rng.uniform([-2.0, 7.0, -2.0], [2.0, 7.0, 2.0],
+                          (N_RAYS, 3)) - o_sh
+    dist = np.linalg.norm(to_lamp, axis=1)
+    o_in, d_in = (f32(x) for x in _rays_inside(rng, N_RAYS, lo, hi))
+    o_pool, d_pool = (f32(x) for x in _rays_inside(rng, POOL_RAYS, lo, hi))
+    wtab = wl.scene_tables(arrays)
+    sets = {
+        "camera": (o_cam.contiguous(), d_cam.contiguous(),
+                   f32(rng.uniform(0.5, 30.0, N_RAYS))),
+        "shadow": (f32(o_sh), f32(to_lamp / dist[:, None]),
+                   f32(0.999 * dist)),
+        "random_sorted": (*_sorted_rays(wtab, o_in, d_in),
+                          f32(rng.uniform(0.5, 30.0, N_RAYS))),
+        "pool_sorted": (*_sorted_rays(wtab, o_pool, d_pool),
+                        f32(rng.uniform(0.5, 30.0, POOL_RAYS))),
+    }
+    t_min = 1e-4
+    reports, census, errs = [], {}, dict(cull=0.0, closest=0.0, any=0.0)
+    rows = {}
+    for name, (o, d, t_max) in sets.items():
+        r = o.shape[0]
+        cmask, gmask = cl.cull_masks(tables, o, d)
+        cm_w, gm_w = cl.cull_masks_torch(tables, o, d)
+        cull_diff = int((cmask != cm_w).sum() + (gmask != gm_w).sum())
+        errs["cull"] = max(errs["cull"], float(cull_diff > 0))
+        idx = _spread_blocks(r, CLUSTER_TWIN_BLOCKS, device)
+        blocks = idx[::cl.RAY_BLOCK] // cl.RAY_BLOCK
+        cm_s, gm_s = cmask[blocks].contiguous(), gmask[blocks].contiguous()
+        o_s, d_s, tm_s = o[idx], d[idx], t_max[idx]
+        exact = cl.exact_masks_torch(arrays, o_s, d_s)[0]
+        census[name] = dict(_cluster_census(cmask, gmask, r),
+                            exact_clusters_per_block=float(
+                                exact.float().sum(1).mean()),
+                            spread_clusters_per_block=float(
+                                cm_s.float().sum(1).mean()),
+                            reaching=float(cl.reach_mask(tables, o, d)
+                                           .float().mean()))
+        cull_ms = _timed(lambda: cl.cull_masks(tables, o, d), 5)
+        for wt in (False, True):
+            k = cl.sweep_closest(tables, cmask, gmask, o, d, t_min, wt)
+            ka = cl.sweep_any(tables, cmask, gmask, o, d, t_max, t_min, wt)
+            ks = cl.sweep_closest(tables, cm_s, gm_s, o_s, d_s, t_min, wt)
+            kas = cl.sweep_any(tables, cm_s, gm_s, o_s, d_s, tm_s, t_min, wt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w = cl.sweep_closest_torch(tables, cm_s, gm_s, o_s, d_s, t_min,
+                                       wt)
+            wa = cl.sweep_any_torch(tables, cm_s, gm_s, o_s, d_s, tm_s,
+                                    t_min, wt)
+            torch.cuda.synchronize()
+            twin_s = time.perf_counter() - t0
+            dense, dense_ms = _timed_call(lambda: brute.brute_closest(
+                arrays, o, d, t_min, wt))
+            dense_a, dense_any_ms = _timed_call(lambda: brute.brute_any(
+                arrays, o, d, t_max, t_min, wt))
+            reps = 1 if name == "shadow" else 5
+            timing = dict(
+                cull_ms=cull_ms,
+                closest_ms=_timed(lambda: cl.sweep_closest(
+                    tables, cmask, gmask, o, d, t_min, wt), reps),
+                any_ms=_timed(lambda: cl.sweep_any(
+                    tables, cmask, gmask, o, d, t_max, t_min, wt), reps),
+                dense_closest_ms=dense_ms, dense_any_ms=dense_any_ms)
+            bc, bk, ba = _cluster_bounds(tables, cmask, gmask, r, ka)
+            rep = dict(case=name, watertight=wt, rays=r,
+                       twin_rays=int(idx.numel()), twin_s=twin_s,
+                       cull_diff=cull_diff,
+                       cull_sound=bool((cm_s >= exact).all()),
+                       vs_twin={f: int((a != b).sum()) for f, a, b in zip(
+                           ("t", "u", "v", "tri", "inst", "back"), ks, w)},
+                       vs_twin_occ=int((kas != wa).sum()),
+                       vs_dense=_vs_dense(tables, cmask, o, d, k, ka, dense,
+                                          dense_a),
+                       hits=int(torch.isfinite(k[0]).sum()),
+                       occluded=int(ka.sum()), **timing,
+                       cull_bound=bc, closest_bound=bk, any_bound=ba,
+                       closest_share=bk[0] / timing["closest_ms"],
+                       any_share=ba[0] / timing["any_ms"])
+            vd = rep["vs_dense"]
+            rep["ok"] = (cull_diff == 0 and rep["cull_sound"]
+                         and not any(rep["vs_twin"].values())
+                         and rep["vs_twin_occ"] == 0
+                         and vd["hit_diff_unexplained"] == vd["t_diff"] == 0
+                         and vd["uv_back_diff_same_triangle"] == 0
+                         and vd["occ_diff"] == 0)
+            errs["closest"] = max(errs["closest"], *(
+                float(torch.where(torch.isfinite(a), a - b, 0.0).abs().max())
+                for a, b in zip(ks[:3], w[:3])))
+            errs["any"] = max(errs["any"], float((kas != wa).float().max()))
+            if name == "camera" and not wt:
+                rows = dict(
+                    cull_ms=cull_ms, closest_ms=timing["closest_ms"],
+                    any_ms=timing["any_ms"], cull_bound=bc,
+                    closest_bound=bk, any_bound=ba,
+                    cull_twin_ms=_timed(lambda: cl.cull_masks_torch(
+                        tables, o, d), 1, warm=False),
+                    closest_twin_ms=_timed(lambda: cl.sweep_closest_torch(
+                        tables, cmask, gmask, o, d, t_min), 1, warm=False),
+                    any_twin_ms=_timed(lambda: cl.sweep_any_torch(
+                        tables, cmask, gmask, o, d, t_max, t_min), 1,
+                        warm=False))
+            reports.append(rep)
+            print("clustered-kernel", json.dumps(rep))
+    print("clustered census", json.dumps(census))
+    print("clustered-row", json.dumps(rows))
+    bad = [r for r in reports if not r["ok"]]
+    if bad:
+        raise SystemExit(f"clustered kernel mismatch: {bad}")
+    return reports, errs, rows, census
+
+
 def _image_diff(a, b):
     """RMSE and diverged-pixel share of two images (the CPU-vs-card
     gate's measure)."""
@@ -957,40 +1232,50 @@ def _scene(name):
     return sphere_grid(*SMALL_GRID[0], **SMALL_GRID[1])
 
 
-def _renderer(name, p, device, integrator="megakernel"):
-    """(Renderer of scene `name` at p's size, its world triangle count)."""
+def _renderer(name, p, device, integrator="megakernel", backend="auto"):
+    """(Renderer of scene `name` at p's size through traversal backend
+    `backend`, its world triangle count)."""
     from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
 
     scene, cam = _scene(name)
     with _forced_instanced() if name.endswith("_forced") else nullcontext():
         r = Renderer(scene, cam, p["width"], p["height"],
                      max_bounce=p["max_bounce"], integrator=integrator,
-                     device=device)
+                     device=device, traversal_backend=backend)
     return r, _world_tris(scene)
 
 
 def _launches():
     from directcomputeraytracing_tpu_torch.accel import brute
+    from directcomputeraytracing_tpu_torch.accel import clustered as cl
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
 
     return dict(brute_closest=brute.brute_closest.launches,
-                brute_any=brute.brute_any.launches, **wl.counters())
+                brute_any=brute.brute_any.launches, **wl.counters(),
+                **cl.counters())
 
 
 def _reset_launches():
     from directcomputeraytracing_tpu_torch.accel import brute
+    from directcomputeraytracing_tpu_torch.accel import clustered as cl
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
 
     brute.brute_closest.launches = brute.brute_any.launches = 0
     wl.reset_counters()
+    cl.reset_counters()
 
 
-def _expected_launches(arrays, n_closest, n_any, got, sweeps=""):
+def _expected_launches(arrays, n_closest, n_any, got, sweeps="",
+                       backend="auto"):
     """The counts the main path must show: every cast went through the
     path's kernels (the dense sweep for Cornell, the work list's sweeps
     `sweep_closest{sweeps}` and `sweep_any{sweeps}` for the sphere grids,
-    the instanced ones on instanced tables) and nothing else launched."""
+    the instanced ones on instanced tables, with "pallas_cluster" one
+    cull and one clustered sweep) and nothing else launched."""
     zero = dict.fromkeys(got, 0)
+    if backend == "pallas_cluster":
+        return dict(zero, cluster_cull=n_closest + n_any,
+                    cluster_closest=n_closest, cluster_any=n_any)
     if arrays.cluster_bbox.shape[0] <= 1 and arrays.isup_inst.shape[0] <= 1:
         return dict(zero, brute_closest=n_closest, brute_any=n_any)
     if arrays.isup_inst.shape[0] > 1:
@@ -1006,14 +1291,13 @@ def _expected_launches(arrays, n_closest, n_any, got, sweeps=""):
                    "sweep_any" + sweeps: n_any - got["any_empty"]})
 
 
-def phase_render(device, name):
+def phase_render(device, name, p=RENDER, backend="auto", warm_spp=None):
     import torch
 
-    p = RENDER
-    r, world_tris = _renderer(name, p, device)
-    # warm-up: the timed call itself, so that the allocator's growth for
-    # the fused pass falls outside the timed window
-    r.render(spp=p["spp"])
+    r, world_tris = _renderer(name, p, device, backend=backend)
+    # warm-up: by default the timed call itself, so that the allocator's
+    # growth for the fused pass falls outside the timed window
+    r.render(spp=warm_spp or p["spp"])
     r.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1025,9 +1309,10 @@ def phase_render(device, name):
     launches = _launches()
     expect = _expected_launches(
         r.arrays, p["spp"] * (p["max_bounce"] + 2) * r.n_chunks,
-        p["spp"] * (p["max_bounce"] + 1) * r.n_chunks, launches)
+        p["spp"] * (p["max_bounce"] + 1) * r.n_chunks, launches,
+        backend=backend)
     post = r.postprocessed()
-    stats = dict(scene=name, world_tris=world_tris,
+    stats = dict(scene=name, backend=backend, world_tris=world_tris,
                  instanced=r.arrays.isup_inst.shape[0] > 1,
                  tiled_and_sorted=r._inv is not None,
                  shape=list(img.shape), finite=bool(np.isfinite(img).all()),
@@ -1048,13 +1333,14 @@ def phase_render(device, name):
     return stats
 
 
-def _expected_wavefront_launches(arrays, stats, got):
+def _expected_wavefront_launches(arrays, stats, got, backend="auto"):
     """Every pool cast of the wavefront went through the grouped sweep,
-    or on instanced tables the instanced one (or found no item): no other
-    sweep, one cull per cast."""
+    or on instanced tables the instanced one (or found no item), or with
+    "pallas_cluster" the clustered sweeps: no other sweep, one cull per
+    cast."""
     return _expected_launches(arrays, sum(stats["closest_casts_per_phase"]),
                               sum(stats["any_casts_per_phase"]), got,
-                              "_grouped")
+                              "_grouped", backend)
 
 
 def phase_wavefront(device):
@@ -1165,15 +1451,16 @@ def phase_wavefront_vs_megakernel(device):
     return rep
 
 
-def phase_wavefront_instanced(device):
-    """The wavefront at 1920x1080 on the instanced sphere grid, default
-    pool and slab marching."""
+def phase_wavefront_pass(device, name, p, backend="auto"):
+    """One timed pool pass of the wavefront at p's size after a warm-up
+    pass, default pool: on the instanced sphere grid with its slab
+    marching (3f), or on the soup grid through "pallas_cluster", which
+    marches no slabs (3h)."""
     import torch
 
     from directcomputeraytracing_tpu_torch.integrator import wavefront as wf
 
-    p = INST_WAVEFRONT
-    r, world_tris = _renderer("inst_grid", p, device, "wavefront")
+    r, world_tris = _renderer(name, p, device, "wavefront", backend)
     t0 = time.perf_counter()
     r.render(spp=p["spp"])
     torch.cuda.synchronize()
@@ -1187,8 +1474,9 @@ def phase_wavefront_instanced(device):
     seconds = time.perf_counter() - t0
     launches = _launches()
     stats = dict(wf.LAST_STATS)
-    expect = _expected_wavefront_launches(r.arrays, stats, launches)
-    rep = dict(scene="inst_grid", integrator="wavefront",
+    expect = _expected_wavefront_launches(r.arrays, stats, launches,
+                                          backend)
+    rep = dict(scene=name, integrator="wavefront", backend=backend,
                world_tris=world_tris,
                instanced=r.arrays.isup_inst.shape[0] > 1,
                shape=list(img.shape), finite=bool(np.isfinite(img).all()),
@@ -1197,27 +1485,34 @@ def phase_wavefront_instanced(device):
                warmup_s=warm_s,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                last_stats=stats, launches=launches, expected_launches=expect)
-    print("wavefront-instanced", json.dumps(rep))
-    if not (rep["finite"] and rep["mean"] > 0.0 and rep["instanced"]
+    print(f"wavefront-{name}-{backend}", json.dumps(rep))
+    if not (rep["finite"] and rep["mean"] > 0.0
             and img.shape == (p["height"], p["width"], 3)):
-        raise SystemExit("instanced wavefront render is not a finite, "
+        raise SystemExit(f"{name} wavefront render is not a finite, "
                          "non-black image")
     if launches != expect:
-        raise SystemExit(f"instanced wavefront launch counts {launches} != "
+        raise SystemExit(f"{name} wavefront launch counts {launches} != "
                          f"{expect}")
+    if backend == "pallas_cluster" and (
+            stats["slab_depth"] is not None
+            or any(stats["closest_casts_per_phase"][1:])
+            or any(stats["any_casts_per_phase"][1:])):
+        raise SystemExit(f"{name}: pool casts through {backend} marched "
+                         f"slabs: {stats}")
     return rep
 
 
-def phase_cpu_vs_card(device, name, integrator="megakernel"):
+def phase_cpu_vs_card(device, name, integrator="megakernel", backend="auto"):
     import torch
 
     p = SMALL
     imgs = {}
     for dev in (torch.device("cpu"), device):
-        r, world_tris = _renderer(name, p, dev, integrator)
+        r, world_tris = _renderer(name, p, dev, integrator, backend)
         imgs[dev.type] = r.render(spp=p["spp"])
     a, b = imgs["cpu"], imgs[device.type]
-    rep = dict(scene=name, integrator=integrator, world_tris=world_tris,
+    rep = dict(scene=name, integrator=integrator, backend=backend,
+               world_tris=world_tris,
                instanced=r.arrays.isup_inst.shape[0] > 1,
                **_image_diff(a, b), mean_cpu=float(a.mean()),
                mean_card=float(b.mean()))
@@ -1228,13 +1523,15 @@ def phase_cpu_vs_card(device, name, integrator="megakernel"):
 
 
 def _build_all():
-    """Build both kernel libraries, the two nvcc runs in parallel."""
+    """Build the three kernel libraries, the nvcc runs in parallel."""
     from directcomputeraytracing_tpu_torch.accel import brute
+    from directcomputeraytracing_tpu_torch.accel import clustered as cl
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
 
-    with ThreadPoolExecutor(2) as pool:
-        futures = {src: pool.submit(mod.kernels) for src, mod in
-                   (("brute_sweep.cu", brute), ("worklist.cu", wl))}
+    sources = (("brute_sweep.cu", brute), ("worklist.cu", wl),
+               ("clustered.cu", cl))
+    with ThreadPoolExecutor(len(sources)) as pool:
+        futures = {src: pool.submit(mod.kernels) for src, mod in sources}
     for src, fut in futures.items():
         built = fut.result()
         print(f"build: {src} -> {built.path} in {built.seconds:.1f} s")
@@ -1276,6 +1573,8 @@ def main():
     _, inst_errs, inst_row = phase(
         "2d instanced kernels", phase_instanced_kernels, device, wl_census)
     phase("2e instanced vs soup", phase_instanced_vs_soup, device)
+    _, cl_errs, cl_row, _ = phase("2f clustered kernels",
+                                  phase_clustered_kernels, device)
     cornell = phase("3 Cornell render", phase_render, device, "cornell")
     grid = phase("3b sphere-grid render", phase_render, device, "grid")
     wave = phase("3c wavefront render", phase_wavefront, device)
@@ -1284,7 +1583,12 @@ def main():
     inst = phase("3e instanced render", phase_render, device, "inst_grid")
     if not inst["instanced"]:
         raise SystemExit("sphere_grid(27, 27) did not flatten instanced")
-    phase("3f instanced wavefront render", phase_wavefront_instanced, device)
+    phase("3f instanced wavefront render", phase_wavefront_pass, device,
+          "inst_grid", INST_WAVEFRONT)
+    cl_grid = phase("3g clustered render", phase_render, device, "grid",
+                    CLUSTER_RENDER, "pallas_cluster", 1)
+    phase("3h clustered wavefront render", phase_wavefront_pass, device,
+          "grid", CLUSTER_WAVEFRONT, "pallas_cluster")
     phase("4 Cornell card vs CPU", phase_cpu_vs_card, device, "cornell")
     phase("4b small grid card vs CPU", phase_cpu_vs_card, device,
           "small_grid")
@@ -1294,6 +1598,8 @@ def main():
                        phase_cpu_vs_card, device, "small_grid_forced")
     if not small_inst["instanced"]:
         raise SystemExit("the forced small grid did not flatten instanced")
+    phase("4e small grid clustered card vs CPU", phase_cpu_vs_card, device,
+          "small_grid", "megakernel", "pallas_cluster")
     if "jax" in sys.modules:
         raise SystemExit("the port imported jax")
     print(f"chip_smoke: all phases passed in "
@@ -1301,7 +1607,9 @@ def main():
 
     brute_src = "directcomputeraytracing_tpu_torch/csrc/brute_sweep.cu"
     wl_src = "directcomputeraytracing_tpu_torch/csrc/worklist.cu"
+    cl_src = "directcomputeraytracing_tpu_torch/csrc/clustered.cu"
     ref_wl = "directcomputeraytracing_tpu/accel/worklist.py"
+    ref_brute = "directcomputeraytracing_tpu/accel/pallas_brute.py"
     top = times["cornell32_moeller"]   # the main path's scene and test
     n, tris = N_RAYS, 32
     brute_closest_bound = _bound(FLOPS_MOELLER * n * tris,
@@ -1356,6 +1664,16 @@ def main():
             inst["launches"]["sweep_any_inst"], inst_errs["any"],
             inst_row["any_ms"], inst_row["any_twin_ms"],
             inst_row["any_bound"]),
+        row("cluster_cull", cl_src, f"{ref_brute}:338",
+            cl_grid["launches"]["cluster_cull"], cl_errs["cull"],
+            cl_row["cull_ms"], cl_row["cull_twin_ms"], cl_row["cull_bound"]),
+        row("cluster_closest", cl_src, f"{ref_brute}:425",
+            cl_grid["launches"]["cluster_closest"], cl_errs["closest"],
+            cl_row["closest_ms"], cl_row["closest_twin_ms"],
+            cl_row["closest_bound"]),
+        row("cluster_any", cl_src, f"{ref_brute}:508",
+            cl_grid["launches"]["cluster_any"], cl_errs["any"],
+            cl_row["any_ms"], cl_row["any_twin_ms"], cl_row["any_bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,13 @@ or the instanced tables above 2^20) go to the work-list traversal
 reference's names "pallas_wl" and "pallas_wlg" pick the work list's
 bundle sweep and its grouped sweep on clustered scenes; on instanced
 scenes all three names take the instanced per-ray sweep, as the
-reference downgrades "pallas_wlg" there. All launch their CUDA kernels
-for CUDA tensors and run their PyTorch twins for CPU tensors.
+reference downgrades "pallas_wlg" there. "pallas_cluster" takes the
+clustered cull-and-sweep (`accel.clustered`) on scenes with world-soup
+cluster tables and raises ValueError on others, where the reference's
+tables are placeholders and its clustered kernels return misses; it
+ignores `t_cap` and reports `iterations` 0, as the reference's
+non-work-list backends do. All launch their CUDA kernels for CUDA
+tensors and run their PyTorch twins for CPU tensors.
 `intersect_closest_slab` marches a closest cast in distance windows.
 Alpha-tested casts and every other backend name raise
 NotImplementedError naming the ROADMAP item that brings them.
@@ -23,8 +28,6 @@ NotImplementedError naming the ROADMAP item that brings them.
 from typing import NamedTuple
 
 import torch
-
-from ..sampling.montecarlo import cross, dot
 
 
 class HitInfo(NamedTuple):
@@ -38,49 +41,64 @@ class HitInfo(NamedTuple):
     iterations: torch.Tensor  # (R,) i32 clusters swept (0: dense sweep)
 
 
+def _xyz(x):
+    return x[..., 0], x[..., 1], x[..., 2]
+
+
+def _cross(ax, ay, az, bx, by, bz):
+    """The cross product of component triples."""
+    return ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx
+
+
 def ray_triangle_moeller(o, d, t_min, t_max, v0, v1, v2):
     """Moeller-Trumbore over broadcastable (..., 3) rays and triangles.
-    Returns (t, u, v, backface, hit)."""
-    e1 = v1 - v0
-    e2 = v2 - v0
-    pvec = cross(d, e2)
-    det = dot(e1, pvec)
+    Returns (t, u, v, backface, hit). Computed per component (no stacked
+    (..., 3) temporaries), in the order of the kernels' test."""
+    ox, oy, oz = _xyz(o)
+    dx, dy, dz = _xyz(d)
+    v0x, v0y, v0z = _xyz(v0)
+    e1x, e1y, e1z = (a - b for a, b in zip(_xyz(v1), (v0x, v0y, v0z)))
+    e2x, e2y, e2z = (a - b for a, b in zip(_xyz(v2), (v0x, v0y, v0z)))
+    px, py, pz = _cross(dx, dy, dz, e2x, e2y, e2z)
+    det = e1x * px + e1y * py + e1z * pz
     det_ok = torch.abs(det) >= 1e-10
     inv_det = 1.0 / torch.where(det_ok, det, 1.0)
-    tvec = o - v0
-    u = dot(tvec, pvec) * inv_det
-    qvec = cross(tvec, e1)
-    v = dot(d, qvec) * inv_det
-    t = dot(e2, qvec) * inv_det
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx, qy, qz = _cross(tx, ty, tz, e1x, e1y, e1z)
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
     backface = det > -1e-10
     hit = (det_ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
            & (t >= t_min) & (t < t_max))
     return t, u, v, backface, hit
 
 
-def _pick(vec, k):
-    return torch.where(k == 0, vec[..., 0],
-                       torch.where(k == 1, vec[..., 1], vec[..., 2]))
+def _pick(x, y, z, k):
+    return torch.where(k == 0, x, torch.where(k == 1, y, z))
 
 
 def ray_triangle_watertight(o, d, t_min, t_max, v0, v1, v2):
     """PBRT permute+shear watertight test over broadcastable (..., 3) rays
-    and triangles. Returns (t, u, v, backface, hit)."""
-    ad = torch.abs(d)
-    ax, ay, az = ad[..., 0], ad[..., 1], ad[..., 2]
+    and triangles. Returns (t, u, v, backface, hit). Computed per
+    component, in the order of the kernels' test."""
+    ox, oy, oz = _xyz(o)
+    dx, dy, dz = _xyz(d)
+    ax, ay, az = torch.abs(dx), torch.abs(dy), torch.abs(dz)
     kz = torch.where((ax >= ay) & (ax >= az), 0,
                      torch.where(ay >= az, 1, 2))
     kx = torch.where(kz == 2, 0, kz + 1)
     ky = torch.where(kx == 2, 0, kx + 1)
-    d_z = _pick(d, kz)
+    d_z = _pick(dx, dy, dz, kz)
     inv_z = 1.0 / torch.where(torch.abs(d_z) < 1e-30, 1e-30, d_z)
-    sx = -_pick(d, kx) * inv_z
-    sy = -_pick(d, ky) * inv_z
+    sx = -_pick(dx, dy, dz, kx) * inv_z
+    sy = -_pick(dx, dy, dz, ky) * inv_z
 
     def shear(vtx):
-        p = vtx - o
-        pz = _pick(p, kz)
-        return _pick(p, kx) + sx * pz, _pick(p, ky) + sy * pz, pz
+        vx, vy, vz = _xyz(vtx)
+        q = (vx - ox, vy - oy, vz - oz)
+        pz = _pick(*q, kz)
+        return _pick(*q, kx) + sx * pz, _pick(*q, ky) + sy * pz, pz
 
     p0x, p0y, p0z = shear(v0)
     p1x, p1y, p1z = shear(v1)
@@ -97,8 +115,9 @@ def ray_triangle_watertight(o, d, t_min, t_max, v0, v1, v2):
     u = e1 * inv_det
     v = e2 * inv_det
     backface = torch.sign(inv_z) * det < 0.0
-    c = cross(v1 - v0, v2 - v0)
-    degenerate = dot(c, c) == 0.0
+    cx, cy, cz = _cross(*(a - b for a, b in zip(_xyz(v1), _xyz(v0))),
+                        *(a - b for a, b in zip(_xyz(v2), _xyz(v0))))
+    degenerate = cx * cx + cy * cy + cz * cz == 0.0
     hit = ~mixed & det_ok & ~degenerate & (t >= t_min) & (t < t_max)
     return t, u, v, backface, hit
 
@@ -108,19 +127,25 @@ _WORKLIST_BACKENDS = {"pallas_wl": False, "pallas_wlg": True}
 
 def _resolve_backend(scene, backend):
     """"dense" (the dense sweep), "wl" (the work list's bundle sweep, the
-    instanced sweep on instanced scenes) or "wlg" (its grouped sweep);
-    raise for what the port cannot cast yet (see the module
-    docstring)."""
+    instanced sweep on instanced scenes), "wlg" (its grouped sweep) or
+    "cluster" (the clustered cull-and-sweep); raise for what the port
+    cannot cast yet (see the module docstring)."""
     instanced = scene.isup_inst.shape[0] > 1
     clustered = scene.cluster_bbox.shape[0] > 1
     if backend == "auto":
         return "wl" if clustered or instanced else "dense"
+    if backend == "pallas_cluster":
+        if instanced or not clustered:
+            raise ValueError("traversal backend 'pallas_cluster' needs "
+                             "world-soup cluster tables (2049 to 2^20 "
+                             "world triangles)")
+        return "cluster"
     if backend not in _WORKLIST_BACKENDS:
         raise NotImplementedError(
             f"traversal backend {backend!r}: the port resolves 'auto' (dense "
-            "sweep or work list), 'pallas_wl' and 'pallas_wlg'; the stack "
-            "traversal is ROADMAP queue 1, item 11, the other kernel "
-            "backends queue 2")
+            "sweep or work list), 'pallas_wl', 'pallas_wlg' and "
+            "'pallas_cluster'; the stack traversal is ROADMAP queue 1, item "
+            "11, the other kernel backends queue 2")
     if instanced:
         return "wl"
     if not clustered:
@@ -139,21 +164,23 @@ def intersect_closest(scene, origin, direction, t_min=0.0, backend="auto",
                       watertight=False, opacity_u=None, t_cap=None):
     """Closest hit over the scene; origin/direction (R, 3) f32. t_cap
     (scalar or (R,)) caps the work list's window (see
-    `worklist.worklist_closest`); the dense sweep searches the whole ray,
-    as the reference's non-work-list backends do."""
+    `worklist.worklist_closest`); the dense and clustered sweeps search
+    the whole ray, as the reference's non-work-list backends do."""
     _no_alpha(opacity_u)
     kind = _resolve_backend(scene, backend)
-    if kind != "dense":
+    if kind in ("wl", "wlg"):
         from .worklist import worklist_closest
 
         t, u, v, tri, inst, back, iters = worklist_closest(
             scene, origin, direction, t_min, watertight,
             grouped=kind == "wlg", t_cap=t_cap)
     else:
-        from .brute import brute_closest
-
-        t, u, v, tri, inst, back = brute_closest(scene, origin, direction,
-                                                 t_min, watertight)
+        if kind == "cluster":
+            from .clustered import clustered_closest as cast
+        else:
+            from .brute import brute_closest as cast
+        t, u, v, tri, inst, back = cast(scene, origin, direction, t_min,
+                                        watertight)
         iters = torch.zeros_like(tri)
     return HitInfo(t=t, u=u, v=v, triangle=tri, instance=inst, backface=back,
                    hit=torch.isfinite(t), iterations=iters)
@@ -258,11 +285,13 @@ def intersect_any(scene, origin, direction, t_max, t_min=0.0, backend="auto",
     """Occlusion: True where a hit lies in [t_min, t_max)."""
     _no_alpha(opacity_u)
     kind = _resolve_backend(scene, backend)
-    if kind != "dense":
+    if kind in ("wl", "wlg"):
         from .worklist import worklist_any
 
         return worklist_any(scene, origin, direction, t_max, t_min,
                             watertight, grouped=kind == "wlg")
-    from .brute import brute_any
-
-    return brute_any(scene, origin, direction, t_max, t_min, watertight)
+    if kind == "cluster":
+        from .clustered import clustered_any as cast
+    else:
+        from .brute import brute_any as cast
+    return cast(scene, origin, direction, t_max, t_min, watertight)

@@ -41,18 +41,10 @@ constexpr int kThreads = 256;
 using dcrt::Hit;
 using dcrt::kBig;
 using dcrt::load_ray;
+using dcrt::load_row;
 using dcrt::Moeller;
 using dcrt::Ray;
 using dcrt::Watertight;
-
-// Row k of the table as three float4: (v0 v1.x) (v1.yz v2.xy) (v2.z meta).
-__device__ __forceinline__ void load_row(const float* tab, int k, float r[12]) {
-  const float4* p = reinterpret_cast<const float4*>(tab) + 3 * k;
-  const float4 a = p[0], b = p[1], c = p[2];
-  r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
-  r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
-  r[8] = c.x; r[9] = c.y; r[10] = c.z; r[11] = c.w;
-}
 
 // Stage tile [base, base + n) of the table into shared memory.
 template <class Test>

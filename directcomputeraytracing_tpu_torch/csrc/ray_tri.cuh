@@ -29,6 +29,16 @@ struct Hit {
   bool back;
 };
 
+// Row k of a (B, 12) triangle table [v0 v1 v2 | tri | inst | flip] as
+// three float4: (v0 v1.x) (v1.yz v2.xy) (v2.z meta).
+__device__ __forceinline__ void load_row(const float* tab, int k, float r[12]) {
+  const float4* p = reinterpret_cast<const float4*>(tab) + 3 * k;
+  const float4 a = p[0], b = p[1], c = p[2];
+  r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
+  r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
+  r[8] = c.x; r[9] = c.y; r[10] = c.z; r[11] = c.w;
+}
+
 // Moeller-Trumbore; the tile holds (v0, e1 = v1 - v0, e2 = v2 - v0).
 struct Moeller {
   struct Pre {};

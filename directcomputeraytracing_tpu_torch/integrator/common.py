@@ -37,7 +37,9 @@ class RenderConfig:
     has_env_texture: bool = False
     light_visible: bool = True          # env/mesh lights seen by camera
     use_vndf: bool = True
-    traversal_backend: str = "auto"     # dense sweep or work list, by size
+    traversal_backend: str = "auto"     # dense sweep or work list, by
+                                        # size; "pallas_wl", "pallas_wlg",
+                                        # "pallas_cluster" force a kernel
     filter_type: str = "box"            # film reconstruction filter
     filter_radius: float = 0.5
     any_hit: bool = False               # alpha-tested transparency
@@ -88,12 +90,13 @@ POOL_SLAB_DEFAULT = 0.03
 def pool_slab_march(scene, cfg, backend):
     """The pool casts' phase-1 window as a fraction of the scene diagonal,
     0.0 for no slabs: cfg.slab_march, or POOL_SLAB_DEFAULT for None. Slab
-    marching runs only on the work list: the dense sweep ignores t_cap, so
-    a second phase would repeat the cast."""
+    marching runs only on the work list, as the reference's `slab_enabled`
+    has it: the dense and clustered sweeps ignore t_cap, so a second phase
+    would repeat the cast."""
     from ..accel.traverse import _resolve_backend
 
     march = POOL_SLAB_DEFAULT if cfg.slab_march is None else cfg.slab_march
-    if march <= 0.0 or _resolve_backend(scene, backend) == "dense":
+    if march <= 0.0 or _resolve_backend(scene, backend) not in ("wl", "wlg"):
         return 0.0
     return float(march)
 

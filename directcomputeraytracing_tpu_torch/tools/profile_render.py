@@ -6,9 +6,11 @@ case: `cornell` (default, `cornell_box("area", "glossy")`, the dense
 sweep, 1024x1024), `sphere_grid` (`sphere_grid(12, 12)`, 211,972
 triangles, the work-list traversal, 1024x1024), `instanced`
 (`sphere_grid(27, 27)`, 1,073,092 triangles in the instanced tables,
-the instanced work-list sweeps, 1024x1024), all through the megakernel,
-or `wavefront` (`sphere_grid(12, 12)` at 1920x1080 through
-the wavefront integrator and its grouped pool casts). Needs a CUDA
+the instanced work-list sweeps, 1024x1024), `clustered` (`sphere_grid(12,
+12)` through `traversal_backend="pallas_cluster"`, 1024x1024), all
+through the megakernel, or `wavefront` (`sphere_grid(12, 12)` at
+1920x1080 through the wavefront integrator and its grouped pool casts).
+Needs a CUDA
 device; with none it exits non-zero. Renders at max_bounce 4 through
 `Renderer.render(spp=8)`: the fused 8-sample call that chip_smoke.py's
 renders make (one pool pass of 8 samples for the wavefront). Prints the
@@ -50,18 +52,25 @@ from ..scene.presets import cornell_box, sphere_grid
 MAX_BOUNCE = 4
 SPP = 8
 REPS = 3
-# case: (scene, width, height, integrator)
+# case: (scene, width, height, integrator, traversal backend)
 CASES = {"cornell": (lambda: cornell_box("area", "glossy"), 1024, 1024,
-                     "megakernel"),
+                     "megakernel", "auto"),
          "sphere_grid": (lambda: sphere_grid(12, 12), 1024, 1024,
-                         "megakernel"),
+                         "megakernel", "auto"),
          "instanced": (lambda: sphere_grid(27, 27), 1024, 1024,
-                       "megakernel"),
+                       "megakernel", "auto"),
+         "clustered": (lambda: sphere_grid(12, 12), 1024, 1024,
+                       "megakernel", "pallas_cluster"),
          "wavefront": (lambda: sphere_grid(12, 12), 1920, 1080,
-                       "wavefront")}
-# the port's kernels, told apart by entry point and template argument in
-# the demangled names the profiler reports
+                       "wavefront", "auto")}
+# the port's kernels, told apart by entry point and template or parameter
+# types in the demangled names the profiler reports; a kernel counts under
+# the first key it matches (the clustered sweeps take mask pointers,
+# `unsigned char const*`, which no other closest or any-hit kernel takes)
 PORT_KERNELS = {
+    "clustered.cu cull_kernel": ("cull_kernel", "Reach"),
+    "clustered.cu closest_kernel": ("closest_kernel", "unsigned char const*"),
+    "clustered.cu any_kernel": ("any_kernel", "unsigned char const*"),
     "worklist.cu cull_kernel": ("cull_kernel",),
     "worklist.cu refine_kernel": ("refine_kernel",),
     "worklist.cu closest_kernel": ("closest_kernel", "BaldwinWeber",
@@ -110,6 +119,7 @@ def _port_kernel_ms(events):
                                     or any(a in e.name for a in args)):
                 out[key] = out.get(key, 0.0) + (
                     e.time_range.end - e.time_range.start) / 1000.0
+                break
     return out
 
 
@@ -127,9 +137,10 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=120, check=True)
     print(smi.stdout.strip())
-    make, width, height, integrator = CASES[case]
+    make, width, height, integrator, backend = CASES[case]
     r = Renderer(*make(), width, height, max_bounce=MAX_BOUNCE,
-                 integrator=integrator, device=torch.device("cuda"))
+                 integrator=integrator, device=torch.device("cuda"),
+                 traversal_backend=backend)
     _timed_render(r)   # warm-up: kernel build, allocator growth
     torch.cuda.reset_peak_memory_stats()
     wall = [_timed_render(r) for _ in range(REPS)]

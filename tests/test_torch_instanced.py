@@ -394,11 +394,12 @@ def test_instanced_casts_match_the_soup(scenes, name, watertight):
 
 def test_backends_resolve_to_the_instanced_sweep(scenes):
     """"auto", "pallas_wl" and "pallas_wlg" take the per-ray instanced
-    sweep (grouped=True casts the same); other names still raise."""
+    sweep (grouped=True casts the same); "pallas_cluster" needs the world
+    soup's cluster tables and raises."""
     port = scenes["grid"][0]
     for name in ("auto", "pallas_wl", "pallas_wlg"):
         assert _resolve_backend(port, name) == "wl"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         _resolve_backend(port, "pallas_cluster")
     o, d, t_max = (torch.from_numpy(x) for x in _rays(1500, seed=24))
     plain = wl.worklist_closest_torch(port, o, d)

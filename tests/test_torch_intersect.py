@@ -153,9 +153,9 @@ def test_unported_paths_raise(case):
     o, d, _ = (torch.from_numpy(x) for x in _rays(8))
     scene, kw, err = scene_with_tables(soup), {}, NotImplementedError
     if case == "clustered":
-        # the clustered sweep (ROADMAP queue 2, rows 3-5) is not ported
+        # the pair sweep (ROADMAP queue 2, rows 15-17) is not ported
         scene, kw = scene_with_tables(soup, clusters=4), dict(
-            backend="pallas_cluster", watertight=True)
+            backend="pallas_pair", watertight=True)
     elif case == "instanced":
         # instanced tables cast through the work list only: the stack
         # walker (queue 1, item 11) is not ported
