@@ -7,9 +7,9 @@ Run from the repository root on a machine with one CUDA card and nvcc
 any failure exits non-zero:
 
 1. setup: print the card's name and power limit, build the dense-sweep,
-   work-list and clustered kernels (csrc/brute_sweep.cu, csrc/worklist.cu,
-   csrc/clustered.cu; the three nvcc runs in parallel) and print the
-   build times and ptxas reports;
+   work-list, clustered and pair kernels (csrc/brute_sweep.cu,
+   csrc/worklist.cu, csrc/clustered.cu, csrc/pairsweep.cu; the four nvcc
+   runs in parallel) and print the build times and ptxas reports;
 2. dense-sweep kernels against their PyTorch twins on the card, Moeller
    and watertight, closest and any-hit: (a) the Cornell soup (32
    triangles) with 1,048,576 camera rays plus 1,048,576 random rays from
@@ -61,6 +61,18 @@ any failure exits non-zero:
    over the world soup on the whole set: hits and t equal, ids equal but
    at exact-t ties (counted); CUDA-event times, bounds, and the census
    (clusters and groups entered per block, tests per ray);
+2g. pair kernels (emission, closest and any-hit pair sweeps) against
+   their twins on sphere_grid(12, 12), Baldwin-Weber and watertight:
+   1,048,576 shadow rays towards the lamp, 1,048,576 random rays sorted
+   by `ray_sort_key`, and the pool-sized (2^18) sorted set. The emission
+   grid must equal its twin's on the whole set, the sweeps their twins
+   in every per-pair field on the pairs of 64 spread blocks, and the
+   pair casts `worklist_closest` / `worklist_any` in every hit field on
+   the whole set (`iters` at least the work list's); CUDA-event times of
+   each step (emission, `nonzero`, the pair list, the sweep, the
+   reduction) and of the whole pair, work-list and grouped casts, the
+   peak memory of a pair cast, bounds, and the census (items, cells,
+   pairs per ray, pairs per chunk, clusters swept per pair);
 3. the main path: Cornell glossy 1024x1024, 16 spp, max_bounce 4 through
    `Renderer.render`, with the kernels' launch counts checked against
    spp * (max_bounce + 2) * chunks (closest) and spp * (max_bounce + 1) *
@@ -97,12 +109,26 @@ any failure exits non-zero:
    1920x1080, max_bounce 4, one pool pass, after a warm-up; ms/spp,
    `LAST_STATS`, peak memory; launches one per pool cast that
    `LAST_STATS` counts, and no slab phase;
+3i. the main path through traversal_backend="pallas_pair":
+   sphere_grid(12, 12) 1024x1024, 4 spp, max_bounce 4, after a one-sample
+   warm-up: one cull per cast (one refine where the hyper cull admitted
+   something), one emission per cast with items, one pair sweep per cast
+   with pairs; pair sweeps plus empty casts equal spp * (max_bounce + 2)
+   closest and spp * (max_bounce + 1) any-hit casts; no other sweep;
+3j. the wavefront with pool_backend="pallas_pair": sphere_grid(12, 12) at
+   1920x1080, 4 spp in one pool pass, max_bounce 4, default slabs, after
+   a warm-up: ms/spp, `LAST_STATS`, peak memory, the launch rule of 3i
+   over the pool casts `LAST_STATS` counts (slab phases included), and
+   the image against the grouped sweep's pass at the same seed (timed
+   beside it), RMSE <= 1e-3;
 4. the card's render against the port's CPU render, Cornell (64x64,
    4 spp), 4b. sphere_grid(3, 3, stacks=12, slices=16) (64x64, 4 spp),
    4c. the same small grid through the wavefront, 4d. the same small
-   grid forced onto the instanced tables (megakernel) and 4e. the same
-   small grid through "pallas_cluster" (megakernel);
-5. one JSON line listing the thirteen kernels, then the contract line,
+   grid forced onto the instanced tables (megakernel), 4e. the same
+   small grid through "pallas_cluster" (megakernel), 4f. the same small
+   grid through the wavefront with pool_backend="pallas_pair" and 4g. the
+   same small grid through the megakernel with slab_march=0.03;
+5. one JSON line listing the sixteen kernels, then the contract line,
    last.
 
 Tolerances (kernel vs twin): the kernels are built without FMA
@@ -133,6 +159,13 @@ clustered cull counts FLOPS_INTERVAL operations per (ray block,
 cluster), its closest sweep one Moeller test per ray and row of every
 cluster the ray's block entered, its any-hit sweep the same for the rays
 that end unoccluded only (they test everything; the others stop early).
+The pair emission counts 20 operations a cell against the grid written
+and the rays, caps, items and super boxes read once; the pair closest
+sweep the fine cull of every pair (32 slab tests) and 16 triangle tests
+per cluster its walk swept, the any-hit sweep the fine cull only (a
+lower bound), against the pair list, rays, per-pair outputs and tables
+read or written once. The pair kernels must equal their twins in every
+field.
 """
 
 import json
@@ -180,6 +213,9 @@ FLOPS_INTERVAL = 3 * 28 + 3
 CLUSTER_TWIN_BLOCKS = 64                # ray blocks of a clustered twin cast
 CLUSTER_RENDER = dict(width=1024, height=1024, spp=4, max_bounce=4)
 CLUSTER_WAVEFRONT = dict(width=1920, height=1080, spp=2, max_bounce=4)
+PAIR_TWIN_BLOCKS = 64                   # ray blocks of a pair twin sweep
+PAIR_RENDER = dict(width=1024, height=1024, spp=4, max_bounce=4)
+PAIR_WAVEFRONT = dict(width=1920, height=1080, spp=4, max_bounce=4)
 
 
 def _timed(fn, reps, warm=True):
@@ -1195,6 +1231,213 @@ def phase_clustered_kernels(device):
     return reports, errs, rows, census
 
 
+def _pair_bounds(tables, items, pairs, iters_p, rp, watertight, kind):
+    """(emission, sweep) bounds of one pair cast: the emission 20
+    operations a cell against the grid written and the rays, caps, items
+    and super boxes read once; the closest sweep the fine cull of every
+    pair and 16 triangle tests per cluster its walk swept, the any-hit
+    sweep the fine cull only (a lower bound), against the pair list, the
+    rays, the per-pair outputs and the tables once."""
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+
+    n, p = items.sup.shape[0], pairs.ray.shape[0]
+    cells = n * wl.RB
+    emit = _bound(FLOPS_SLAB * cells,
+                  cells + 40 * rp + 8 * n + 32 * tables.sbox.shape[0])
+    tab = tables.ctab if watertight else tables.bwtab
+    table_bytes = 4 * (tables.cbox3.numel() + tab.numel())
+    fine = FLOPS_SLAB * wl.SUPER * p
+    lists = 4 * p + 12 * pairs.chunk_sup.shape[0]
+    if kind == "closest":
+        test = FLOPS_MOELLER if watertight else FLOPS_BW
+        sweep = _bound(fine + 16 * test * int(iters_p.long().sum()),
+                       lists + 29 * p + 40 * rp + table_bytes)
+    else:
+        sweep = _bound(fine, lists + p + 40 * rp + table_bytes)
+    return emit, sweep
+
+
+def _pair_subset(tables, items, it, lane, idx):
+    """The pair list of the cells whose ray lies in the ray indices idx
+    (whole blocks)."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+
+    blocks = torch.unique(idx // wl.RB)
+    keep = torch.isin(ps.item_blocks(items)[it], blocks)
+    return ps.pair_list(tables, items, it[keep], lane[keep])
+
+
+def phase_pair_kernels(device):
+    """Pair kernels against their twins and the pair casts against the
+    work list on sphere_grid(12, 12); CUDA-event times of every step of a
+    cast beside the work list's and the grouped sweep's; bounds, census
+    and peak memory; the kernels line's rows at the pool-sorted set."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+    from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+
+    rng = np.random.default_rng(20261021)
+    arrays, _ = flatten_scene(_scene("grid")[0], device)
+    tables = wl.scene_tables(arrays)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    lo, hi = [-18.0, 0.01, -18.0], [18.0, 6.9, 18.0]
+    o_sh = rng.uniform([-9.0, 0.01, -9.0], [9.0, 1.5, 9.0], (N_RAYS, 3))
+    to_lamp = rng.uniform([-2.0, 7.0, -2.0], [2.0, 7.0, 2.0],
+                          (N_RAYS, 3)) - o_sh
+    dist = np.linalg.norm(to_lamp, axis=1)
+    o_in, d_in = (f32(x) for x in _rays_inside(rng, N_RAYS, lo, hi))
+    o_pool, d_pool = (f32(x) for x in _rays_inside(rng, POOL_RAYS, lo, hi))
+    sets = {
+        "shadow": (f32(o_sh), f32(to_lamp / dist[:, None]),
+                   f32(0.999 * dist)),
+        "random_sorted": (*_sorted_rays(tables, o_in, d_in),
+                          f32(rng.uniform(0.5, 30.0, N_RAYS))),
+        "pool_sorted": (*_sorted_rays(tables, o_pool, d_pool),
+                        f32(rng.uniform(0.5, 30.0, POOL_RAYS))),
+    }
+    t_min = 1e-4
+    reports, errs, rows = [], dict(emit=0.0, closest=0.0, any=0.0), {}
+    for name, (o, d, t_max) in sets.items():
+        r = o.shape[0]
+        od, tm_c, _ = wl.prep_rays(o, d)
+        _, tm_a, _ = wl.prep_rays(o, d, t_max)
+        texp = wl.scene_exit(tables, od)
+        cap_c = wl._window(wl._float_bits(texp) | wl._LOWM)
+        idx = _spread_blocks(r, PAIR_TWIN_BLOCKS, device)
+        for kind, tm, cap in (("closest", tm_c, cap_c), ("any", tm_a, tm_a)):
+            items = wl.phases(tables, od, tm)
+            grid = ps.emit_pairs(tables, items, od, cap, t_min)
+            twin, emit_twin_ms = _timed_call(lambda: ps.emit_pairs_torch(
+                tables, items, od, cap, t_min))
+            emit_diff = int((grid != twin).sum())
+            del twin
+            emit_ms = _timed(lambda: ps.emit_pairs(tables, items, od, cap,
+                                                   t_min), 3)
+            it, lane = torch.nonzero(grid, as_tuple=True)
+            nonzero_ms = _timed(lambda: torch.nonzero(grid, as_tuple=True),
+                                3)
+            cells = grid.numel()
+            del grid
+            pairs = ps.pair_list(tables, items, it, lane)
+            list_ms = _timed(lambda: ps.pair_list(tables, items, it, lane),
+                             3)
+            sub = _pair_subset(tables, items, it, lane, idx)
+            del it, lane
+            p = pairs.ray.shape[0]
+            counts = pairs.chunk_count[pairs.chunk_count > 0].float()
+            for wt in (False, True):
+                if kind == "closest":
+                    sweep = ps.pair_sweep_closest
+                    twin_fn = ps.pair_sweep_closest_torch
+                    cast = ps.pair_closest
+                    wl_cast = wl.worklist_closest
+                    args = (texp,)
+                else:
+                    sweep, twin_fn = ps.pair_sweep_any, ps.pair_sweep_any_torch
+                    cast, wl_cast, args = ps.pair_any, wl.worklist_any, (tm,)
+                out = sweep(tables, pairs, od, *args, t_min, wt)
+                sweep_ms = _timed(lambda: sweep(tables, pairs, od, *args,
+                                                t_min, wt), 3)
+                ks = sweep(tables, sub, od, *args, t_min, wt)
+                ws = twin_fn(tables, sub, od, *args, t_min, wt)
+                if kind == "closest":
+                    vs_twin = _sweep_diffs(ks, ws, range(8))
+                    errs["closest"] = max(errs["closest"], *(
+                        float((a.float() - b.float()).abs().max())
+                        for a, b in zip(ks[1:4], ws[1:4])))
+                    reduce_ms = _timed(lambda: ps.reduce_closest(
+                        ps._initial_state(texp), out, pairs, texp), 3)
+                    iters_p = out[7]
+                else:
+                    vs_twin = dict(occ=int((ks != ws).sum()))
+                    errs["any"] = max(errs["any"],
+                                      float((ks != ws).float().max()))
+                    hits = torch.zeros(od.shape[1], dtype=torch.int32,
+                                       device=device)
+                    reduce_ms = _timed(lambda: hits.index_add_(
+                        0, pairs.ray.long(), out.to(torch.int32)), 3)
+                    iters_p = None
+                del out
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                if kind == "closest":
+                    pc = cast(arrays, o, d, t_min, wt)
+                    peak = torch.cuda.max_memory_allocated() - base
+                    wc = wl_cast(arrays, o, d, t_min, wt)
+                    cast_ms = _timed(lambda: cast(arrays, o, d, t_min, wt), 3)
+                    wl_ms = _timed(lambda: wl_cast(arrays, o, d, t_min, wt),
+                                   3)
+                    wlg_ms = _timed(lambda: wl_cast(
+                        arrays, o, d, t_min, wt, grouped=True), 3)
+                    vs_wl = {f: int((a != b).sum()) for f, a, b in zip(
+                        ("t", "u", "v", "tri", "inst", "back"), pc, wc)}
+                    extra = dict(
+                        iters_ge_wl=bool((pc[6] >= wc[6]).all()),
+                        hits=int(torch.isfinite(pc[0]).sum()),
+                        iters_per_ray=float(pc[6].float().mean()),
+                        wl_iters_per_ray=float(wc[6].float().mean()),
+                        swept_per_pair=float(iters_p.float().mean()))
+                else:
+                    pc = cast(arrays, o, d, t_max, t_min, wt)
+                    peak = torch.cuda.max_memory_allocated() - base
+                    wc = wl_cast(arrays, o, d, t_max, t_min, wt)
+                    cast_ms = _timed(lambda: cast(arrays, o, d, t_max, t_min,
+                                                  wt), 3)
+                    wl_ms = _timed(lambda: wl_cast(arrays, o, d, t_max, t_min,
+                                                   wt), 3)
+                    wlg_ms = _timed(lambda: wl_cast(
+                        arrays, o, d, t_max, t_min, wt, grouped=True), 3)
+                    vs_wl = dict(occ=int((pc != wc).sum()))
+                    extra = dict(occluded=int(pc.sum()))
+                peak /= 2**30
+                eb, sb = _pair_bounds(tables, items, pairs, iters_p,
+                                      od.shape[1], wt, kind)
+                rep = dict(
+                    case=name, kind=kind, watertight=wt, rays=r,
+                    items=items.sup.shape[0], cells=cells, pairs=p,
+                    pairs_per_ray=p / r,
+                    pairs_per_chunk=float(counts.mean()),
+                    chunks=int(counts.numel()),
+                    twin_pairs=sub.ray.shape[0], emit_diff=emit_diff,
+                    vs_twin=vs_twin, vs_worklist=vs_wl, **extra,
+                    emit_ms=emit_ms, emit_twin_ms=emit_twin_ms,
+                    nonzero_ms=nonzero_ms, list_ms=list_ms,
+                    sweep_ms=sweep_ms, reduce_ms=reduce_ms,
+                    cast_ms=cast_ms, worklist_cast_ms=wl_ms,
+                    grouped_cast_ms=wlg_ms, cast_peak_gib=peak,
+                    emit_bound=eb, sweep_bound=sb,
+                    emit_share=eb[0] / emit_ms, sweep_share=sb[0] / sweep_ms)
+                rep["ok"] = (emit_diff == 0 and not any(vs_twin.values())
+                             and not any(vs_wl.values())
+                             and extra.get("iters_ge_wl", True))
+                reports.append(rep)
+                print("pair-kernel", json.dumps(rep))
+                if name == "pool_sorted" and not wt:
+                    twin_out, twin_ms = _timed_call(lambda: twin_fn(
+                        tables, pairs, od, *args, t_min, wt))
+                    del twin_out
+                    rows[kind] = dict(emit_ms=emit_ms,
+                                      emit_twin_ms=emit_twin_ms,
+                                      emit_bound=eb, sweep_ms=sweep_ms,
+                                      sweep_twin_ms=twin_ms, sweep_bound=sb)
+            errs["emit"] = max(errs["emit"], float(emit_diff > 0))
+            del pairs, sub
+    print("pair-rows", json.dumps(rows))
+    bad = [r for r in reports if not r["ok"]]
+    if bad:
+        raise SystemExit(f"pair kernel mismatch: {bad}")
+    return reports, errs, rows
+
+
 def _image_diff(a, b):
     """RMSE and diverged-pixel share of two images (the CPU-vs-card
     gate's measure)."""
@@ -1232,37 +1475,41 @@ def _scene(name):
     return sphere_grid(*SMALL_GRID[0], **SMALL_GRID[1])
 
 
-def _renderer(name, p, device, integrator="megakernel", backend="auto"):
+def _renderer(name, p, device, integrator="megakernel", backend="auto",
+              **cfg):
     """(Renderer of scene `name` at p's size through traversal backend
-    `backend`, its world triangle count)."""
+    `backend` with RenderConfig fields cfg, its world triangle count)."""
     from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
 
     scene, cam = _scene(name)
     with _forced_instanced() if name.endswith("_forced") else nullcontext():
         r = Renderer(scene, cam, p["width"], p["height"],
                      max_bounce=p["max_bounce"], integrator=integrator,
-                     device=device, traversal_backend=backend)
+                     device=device, traversal_backend=backend, **cfg)
     return r, _world_tris(scene)
 
 
 def _launches():
     from directcomputeraytracing_tpu_torch.accel import brute
     from directcomputeraytracing_tpu_torch.accel import clustered as cl
+    from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
 
     return dict(brute_closest=brute.brute_closest.launches,
                 brute_any=brute.brute_any.launches, **wl.counters(),
-                **cl.counters())
+                **cl.counters(), **ps.counters())
 
 
 def _reset_launches():
     from directcomputeraytracing_tpu_torch.accel import brute
     from directcomputeraytracing_tpu_torch.accel import clustered as cl
+    from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
 
     brute.brute_closest.launches = brute.brute_any.launches = 0
     wl.reset_counters()
     cl.reset_counters()
+    ps.reset_counters()
 
 
 def _expected_launches(arrays, n_closest, n_any, got, sweeps="",
@@ -1271,11 +1518,27 @@ def _expected_launches(arrays, n_closest, n_any, got, sweeps="",
     path's kernels (the dense sweep for Cornell, the work list's sweeps
     `sweep_closest{sweeps}` and `sweep_any{sweeps}` for the sphere grids,
     the instanced ones on instanced tables, with "pallas_cluster" one
-    cull and one clustered sweep) and nothing else launched."""
+    cull and one clustered sweep, with "pallas_pair" the work list's cull
+    and per cast with pairs one emission and one pair sweep) and nothing
+    else launched."""
     zero = dict.fromkeys(got, 0)
     if backend == "pallas_cluster":
         return dict(zero, cluster_cull=n_closest + n_any,
                     cluster_closest=n_closest, cluster_any=n_any)
+    if backend == "pallas_pair":
+        # a cast with items emits; one without items or pairs sweeps
+        # nothing (counted apart; `no_pair`: emitted, no pair)
+        c_empty, a_empty = got["pair_closest_empty"], got["pair_any_empty"]
+        return dict(zero, cull_boxes=n_closest + n_any,
+                    refine=n_closest + n_any - got["refine_skipped"],
+                    refine_skipped=got["refine_skipped"],
+                    pair_emit=(n_closest - c_empty + got["pair_closest_no_pair"]
+                               + n_any - a_empty + got["pair_any_no_pair"]),
+                    pair_closest_empty=c_empty, pair_any_empty=a_empty,
+                    pair_closest_no_pair=got["pair_closest_no_pair"],
+                    pair_any_no_pair=got["pair_any_no_pair"],
+                    pair_sweep_closest=n_closest - c_empty,
+                    pair_sweep_any=n_any - a_empty)
     if arrays.cluster_bbox.shape[0] <= 1 and arrays.isup_inst.shape[0] <= 1:
         return dict(zero, brute_closest=n_closest, brute_any=n_any)
     if arrays.isup_inst.shape[0] > 1:
@@ -1502,16 +1765,79 @@ def phase_wavefront_pass(device, name, p, backend="auto"):
     return rep
 
 
-def phase_cpu_vs_card(device, name, integrator="megakernel", backend="auto"):
+def phase_pair_wavefront(device):
+    """The wavefront through pool_backend="pallas_pair" on the sphere grid
+    at 1920x1080: one timed pool pass after a warm-up, default slabs;
+    every pool cast, slab phases included, is a pair cast; the image
+    against the grouped sweep's pass at the same seed, which is timed
+    beside it."""
+    from dataclasses import replace
+
+    import torch
+
+    from directcomputeraytracing_tpu_torch.integrator import wavefront as wf
+
+    p = PAIR_WAVEFRONT
+    r, world_tris = _renderer("grid", p, device, "wavefront",
+                              pool_backend="pallas_pair")
+    t0 = time.perf_counter()
+    r.render(spp=p["spp"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    r.reset()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    img = r.render(spp=p["spp"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    stats = dict(wf.LAST_STATS)
+    expect = _expected_launches(r.arrays, sum(stats["closest_casts_per_phase"]),
+                                sum(stats["any_casts_per_phase"]), launches,
+                                backend="pallas_pair")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    _, val = wf.render_samples_wavefront(
+        r.arrays, r.luts, r.camera, replace(r.cfg, pool_backend=""), r._px,
+        r._py, 0, spp_batch=p["spp"])
+    torch.cuda.synchronize()
+    grouped_s = time.perf_counter() - t0
+    grouped = dict(wf.LAST_STATS)
+    ref = (r._raster(val) / p["spp"]).reshape(img.shape).cpu().numpy()
+    rep = dict(scene="grid", integrator="wavefront", backend="pallas_pair",
+               world_tris=world_tris, shape=list(img.shape),
+               finite=bool(np.isfinite(img).all()), mean=float(img.mean()),
+               ms_per_spp=1000.0 * seconds / p["spp"], total_s=seconds,
+               warmup_s=warm_s, peak_mem_gib=peak, last_stats=stats,
+               launches=launches, expected_launches=expect,
+               grouped_ms_per_spp=1000.0 * grouped_s / p["spp"],
+               grouped_stats=grouped,
+               rmse_vs_grouped=float(np.sqrt(((img - ref) ** 2).mean())))
+    print("wavefront-grid-pallas_pair", json.dumps(rep))
+    if not (rep["finite"] and rep["mean"] > 0.0
+            and img.shape == (p["height"], p["width"], 3)):
+        raise SystemExit("pair wavefront render is not a finite, non-black "
+                         "image")
+    if stats["pool_backend"] != "pallas_pair" or launches != expect:
+        raise SystemExit(f"pair wavefront launch counts {launches} != "
+                         f"{expect}")
+    if not rep["rmse_vs_grouped"] <= GATE_WF_RMSE:
+        raise SystemExit("the pair wavefront differs from the grouped one")
+    return rep
+
+
+def phase_cpu_vs_card(device, name, integrator="megakernel", backend="auto",
+                      **cfg):
     import torch
 
     p = SMALL
     imgs = {}
     for dev in (torch.device("cpu"), device):
-        r, world_tris = _renderer(name, p, dev, integrator, backend)
+        r, world_tris = _renderer(name, p, dev, integrator, backend, **cfg)
         imgs[dev.type] = r.render(spp=p["spp"])
     a, b = imgs["cpu"], imgs[device.type]
-    rep = dict(scene=name, integrator=integrator, backend=backend,
+    rep = dict(scene=name, integrator=integrator, backend=backend, cfg=cfg,
                world_tris=world_tris,
                instanced=r.arrays.isup_inst.shape[0] > 1,
                **_image_diff(a, b), mean_cpu=float(a.mean()),
@@ -1523,13 +1849,14 @@ def phase_cpu_vs_card(device, name, integrator="megakernel", backend="auto"):
 
 
 def _build_all():
-    """Build the three kernel libraries, the nvcc runs in parallel."""
+    """Build the four kernel libraries, the nvcc runs in parallel."""
     from directcomputeraytracing_tpu_torch.accel import brute
     from directcomputeraytracing_tpu_torch.accel import clustered as cl
+    from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
 
     sources = (("brute_sweep.cu", brute), ("worklist.cu", wl),
-               ("clustered.cu", cl))
+               ("clustered.cu", cl), ("pairsweep.cu", ps))
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = {src: pool.submit(mod.kernels) for src, mod in sources}
     for src, fut in futures.items():
@@ -1558,9 +1885,9 @@ def main():
 
     t_start = time.perf_counter()
 
-    def phase(name, fn, *args):
+    def phase(name, fn, *args, **kw):
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kw)
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
@@ -1575,6 +1902,8 @@ def main():
     phase("2e instanced vs soup", phase_instanced_vs_soup, device)
     _, cl_errs, cl_row, _ = phase("2f clustered kernels",
                                   phase_clustered_kernels, device)
+    _, pair_errs, pair_rows = phase("2g pair kernels", phase_pair_kernels,
+                                    device)
     cornell = phase("3 Cornell render", phase_render, device, "cornell")
     grid = phase("3b sphere-grid render", phase_render, device, "grid")
     wave = phase("3c wavefront render", phase_wavefront, device)
@@ -1589,6 +1918,10 @@ def main():
                     CLUSTER_RENDER, "pallas_cluster", 1)
     phase("3h clustered wavefront render", phase_wavefront_pass, device,
           "grid", CLUSTER_WAVEFRONT, "pallas_cluster")
+    pair_grid = phase("3i pair render", phase_render, device, "grid",
+                      PAIR_RENDER, "pallas_pair", 1)
+    pair_wave = phase("3j pair wavefront render", phase_pair_wavefront,
+                      device)
     phase("4 Cornell card vs CPU", phase_cpu_vs_card, device, "cornell")
     phase("4b small grid card vs CPU", phase_cpu_vs_card, device,
           "small_grid")
@@ -1600,6 +1933,10 @@ def main():
         raise SystemExit("the forced small grid did not flatten instanced")
     phase("4e small grid clustered card vs CPU", phase_cpu_vs_card, device,
           "small_grid", "megakernel", "pallas_cluster")
+    phase("4f small grid pair wavefront card vs CPU", phase_cpu_vs_card,
+          device, "small_grid", "wavefront", pool_backend="pallas_pair")
+    phase("4g small grid slab-marched megakernel card vs CPU",
+          phase_cpu_vs_card, device, "small_grid", slab_march=0.03)
     if "jax" in sys.modules:
         raise SystemExit("the port imported jax")
     print(f"chip_smoke: all phases passed in "
@@ -1608,6 +1945,8 @@ def main():
     brute_src = "directcomputeraytracing_tpu_torch/csrc/brute_sweep.cu"
     wl_src = "directcomputeraytracing_tpu_torch/csrc/worklist.cu"
     cl_src = "directcomputeraytracing_tpu_torch/csrc/clustered.cu"
+    pair_src = "directcomputeraytracing_tpu_torch/csrc/pairsweep.cu"
+    ref_pair = "directcomputeraytracing_tpu/accel/pairsweep.py"
     ref_wl = "directcomputeraytracing_tpu/accel/worklist.py"
     ref_brute = "directcomputeraytracing_tpu/accel/pallas_brute.py"
     top = times["cornell32_moeller"]   # the main path's scene and test
@@ -1674,6 +2013,20 @@ def main():
         row("cluster_any", cl_src, f"{ref_brute}:508",
             cl_grid["launches"]["cluster_any"], cl_errs["any"],
             cl_row["any_ms"], cl_row["any_twin_ms"], cl_row["any_bound"]),
+        row("pair_emit", pair_src, f"{ref_pair}:78",
+            pair_wave["launches"]["pair_emit"], pair_errs["emit"],
+            pair_rows["closest"]["emit_ms"],
+            pair_rows["closest"]["emit_twin_ms"],
+            pair_rows["closest"]["emit_bound"]),
+        row("pair_sweep_closest", pair_src, f"{ref_pair}:274",
+            pair_wave["launches"]["pair_sweep_closest"], pair_errs["closest"],
+            pair_rows["closest"]["sweep_ms"],
+            pair_rows["closest"]["sweep_twin_ms"],
+            pair_rows["closest"]["sweep_bound"]),
+        row("pair_sweep_any", pair_src, f"{ref_pair}:359",
+            pair_wave["launches"]["pair_sweep_any"], pair_errs["any"],
+            pair_rows["any"]["sweep_ms"], pair_rows["any"]["sweep_twin_ms"],
+            pair_rows["any"]["sweep_bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,23 +6,31 @@ tests, `HitInfo`, and `intersect_closest` / `intersect_any` with a
 port-side backend resolution. The port has no stack traversal, so the
 reference's `stack_size` argument is gone.
 
-Backend "auto", as the reference resolves it on its accelerator: scenes
-with work-list tables (world-soup clusters above 2048 world triangles,
-or the instanced tables above 2^20) go to the work-list traversal
-(`accel.worklist`), the others to the dense sweep (`accel.brute`). The
-reference's names "pallas_wl" and "pallas_wlg" pick the work list's
-bundle sweep and its grouped sweep on clustered scenes; on instanced
-scenes all three names take the instanced per-ray sweep, as the
-reference downgrades "pallas_wlg" there. "pallas_cluster" takes the
-clustered cull-and-sweep (`accel.clustered`) on scenes with world-soup
-cluster tables and raises ValueError on others, where the reference's
-tables are placeholders and its clustered kernels return misses; it
-ignores `t_cap` and reports `iterations` 0, as the reference's
-non-work-list backends do. All launch their CUDA kernels for CUDA
-tensors and run their PyTorch twins for CPU tensors.
+Backends (`_resolve_backend`), as the reference resolves them on its
+accelerator:
+- "auto": scenes with work-list tables (world-soup clusters above 2048
+  world triangles, or the instanced tables above 2^20) go to the
+  work-list traversal (`accel.worklist`), the others to the dense sweep
+  (`accel.brute`).
+- "brute" and "pallas": the dense sweep over the world soup, on any scene
+  that has one (dense or clustered); instanced tables have none (the
+  reference's soup is a placeholder there) and raise ValueError.
+- "pallas_wl", "pallas_wlg" and "pallas_pair": the work list's bundle
+  sweep, its grouped sweep and the pair sweep (`accel.pairsweep`) on
+  world-soup cluster tables; on instanced tables all three take the
+  instanced per-ray sweep, as the reference downgrades "pallas_wlg" and
+  "pallas_pair" there; a scene without cluster tables raises ValueError.
+- "pallas_cluster": the clustered cull-and-sweep (`accel.clustered`) on
+  world-soup cluster tables, ValueError on others (the reference's
+  tables are placeholders there and its clustered kernels return misses).
+All launch their CUDA kernels for CUDA tensors and run their PyTorch
+twins for CPU tensors. `t_cap` caps the window of the work-list and pair
+casts; the dense and clustered sweeps ignore it and report `iterations`
+0, as the reference's non-work-list backends do.
 `intersect_closest_slab` marches a closest cast in distance windows.
-Alpha-tested casts and every other backend name raise
-NotImplementedError naming the ROADMAP item that brings them.
+Alpha-tested casts, the stack walker ("jax") and the reference's
+interpret-mode names raise NotImplementedError naming the ROADMAP item
+that brings them (the twins stand in for interpret mode).
 """
 
 from typing import NamedTuple
@@ -122,18 +130,26 @@ def ray_triangle_watertight(o, d, t_min, t_max, v0, v1, v2):
     return t, u, v, backface, hit
 
 
-_WORKLIST_BACKENDS = {"pallas_wl": False, "pallas_wlg": True}
+# backend name -> cast kind on world-soup cluster tables ("wl" on
+# instanced tables)
+_WORKLIST_BACKENDS = {"pallas_wl": "wl", "pallas_wlg": "wlg",
+                      "pallas_pair": "pair"}
 
 
 def _resolve_backend(scene, backend):
     """"dense" (the dense sweep), "wl" (the work list's bundle sweep, the
-    instanced sweep on instanced scenes), "wlg" (its grouped sweep) or
-    "cluster" (the clustered cull-and-sweep); raise for what the port
-    cannot cast yet (see the module docstring)."""
+    instanced sweep on instanced scenes), "wlg" (its grouped sweep),
+    "pair" (the pair sweep) or "cluster" (the clustered cull-and-sweep);
+    raise for what the port cannot cast yet (see the module docstring)."""
     instanced = scene.isup_inst.shape[0] > 1
     clustered = scene.cluster_bbox.shape[0] > 1
     if backend == "auto":
         return "wl" if clustered or instanced else "dense"
+    if backend in ("brute", "pallas"):
+        if instanced:
+            raise ValueError(f"traversal backend {backend!r} sweeps the world "
+                             "soup, which instanced tables do not build")
+        return "dense"
     if backend == "pallas_cluster":
         if instanced or not clustered:
             raise ValueError("traversal backend 'pallas_cluster' needs "
@@ -142,33 +158,38 @@ def _resolve_backend(scene, backend):
         return "cluster"
     if backend not in _WORKLIST_BACKENDS:
         raise NotImplementedError(
-            f"traversal backend {backend!r}: the port resolves 'auto' (dense "
-            "sweep or work list), 'pallas_wl', 'pallas_wlg' and "
-            "'pallas_cluster'; the stack traversal is ROADMAP queue 1, item "
-            "11, the other kernel backends queue 2")
+            f"traversal backend {backend!r}: the port resolves 'auto', "
+            "'brute', 'pallas', 'pallas_wl', 'pallas_wlg', 'pallas_pair' and "
+            "'pallas_cluster'; the stack traversal ('jax') is ROADMAP queue "
+            "1, item 8, and the interpret-mode names have the twins instead")
     if instanced:
         return "wl"
     if not clustered:
         raise ValueError(f"traversal backend {backend!r} needs a scene with "
                          "cluster tables (more than 2048 world triangles)")
-    return "wlg" if _WORKLIST_BACKENDS[backend] else "wl"
+    return _WORKLIST_BACKENDS[backend]
 
 
 def _no_alpha(opacity_u):
     if opacity_u is not None:
         raise NotImplementedError(
-            "alpha-tested casts (opacity_u): ROADMAP queue 1, item 11")
+            "alpha-tested casts (opacity_u): ROADMAP queue 1, item 4")
 
 
 def intersect_closest(scene, origin, direction, t_min=0.0, backend="auto",
                       watertight=False, opacity_u=None, t_cap=None):
     """Closest hit over the scene; origin/direction (R, 3) f32. t_cap
-    (scalar or (R,)) caps the work list's window (see
+    (scalar or (R,)) caps the window of the work-list and pair casts (see
     `worklist.worklist_closest`); the dense and clustered sweeps search
     the whole ray, as the reference's non-work-list backends do."""
     _no_alpha(opacity_u)
     kind = _resolve_backend(scene, backend)
-    if kind in ("wl", "wlg"):
+    if kind == "pair":
+        from .pairsweep import pair_closest
+
+        t, u, v, tri, inst, back, iters = pair_closest(
+            scene, origin, direction, t_min, watertight, t_cap=t_cap)
+    elif kind in ("wl", "wlg"):
         from .worklist import worklist_closest
 
         t, u, v, tri, inst, back, iters = worklist_closest(
@@ -285,6 +306,10 @@ def intersect_any(scene, origin, direction, t_max, t_min=0.0, backend="auto",
     """Occlusion: True where a hit lies in [t_min, t_max)."""
     _no_alpha(opacity_u)
     kind = _resolve_backend(scene, backend)
+    if kind == "pair":
+        from .pairsweep import pair_any
+
+        return pair_any(scene, origin, direction, t_max, t_min, watertight)
     if kind in ("wl", "wlg"):
         from .worklist import worklist_any
 

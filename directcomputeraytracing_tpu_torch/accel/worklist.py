@@ -672,6 +672,49 @@ def _item_rays(tables, sup, od, rays):
     return tables.isup_local[sup].long(), o, d, ins
 
 
+def walk_closest_torch(st, tab, rays, slab, o, d, enter, tl, t_min,
+                       watertight, ins=None):
+    """The twins' nearest-first cluster walk over one item per ray: rays
+    (n,) index the state st; slab (n,) the super whose rows they sweep,
+    o, d (n, 3) their rays, enter and tl (n, SUPER) their fine cull. Each
+    ray sweeps its nearest entered cluster (lowest child on a tie) until
+    the nearest left starts beyond its window; ins (n,): the instance of
+    each ray's item, on instanced tables."""
+    dev = rays.device
+    lane16 = torch.arange(CLUSTER_SIZE, device=dev)
+    while rays.numel():
+        m, child = torch.where(enter, tl, float("inf")).min(1)
+        go = m < _window(st.best[rays])
+        idx = torch.nonzero(go)[:, 0]
+        rays, child, slab, o, d = (rays[idx], child[idx], slab[idx], o[idx],
+                                   d[idx])
+        enter, tl = enter[idx], tl[idx]
+        ins = None if ins is None else ins[idx]
+        if not rays.numel():
+            break
+        enter[torch.arange(rays.numel(), device=dev), child] = False
+        st.iters[rays] += 1
+        rows = ((slab * SUPER + child) * CLUSTER_SIZE)[:, None] + lane16
+        st.sweep(tab, rays, child[:, None].expand_as(rows), rows,
+                 torch.ones_like(rows, dtype=torch.bool), o, d, t_min,
+                 watertight, ins)
+
+
+def walk_any_torch(occ, tab, rays, slab, o, d, enter, tm, t_min, watertight):
+    """The twins' occlusion walk over one item per ray: occ[rays[j]] turns
+    True where ray j (o, d (n, 3)) hits in [t_min, tm[rays[j]]) within a
+    cluster of super slab[j] that its fine cull (enter (n, SUPER))
+    admitted. Which order the clusters are visited in cannot change the
+    answer."""
+    lane16 = torch.arange(CLUSTER_SIZE, device=rays.device)
+    for p in torch.split(torch.nonzero(enter), TWIN_RAY_CHUNK // 4):
+        j, child = p[:, 0], p[:, 1]
+        rows = ((slab[j] * SUPER + child) * CLUSTER_SIZE)[:, None] + lane16
+        ok = _tri_rows(tab[rows], o[j][:, None, :], d[j][:, None, :], t_min,
+                       tm[rays[j]][:, None], watertight)[4]
+        occ[rays[j][ok.any(1)]] = True
+
+
 def sweep_closest_torch(tables, items, od, texp, t_min, watertight):
     """Twin of `closest_kernel` and, on instanced tables, of
     `closest_inst_kernel` (the fine cull in world space, each swept
@@ -680,10 +723,8 @@ def sweep_closest_torch(tables, items, od, texp, t_min, watertight):
     back bool, iters i32), each (Rp,): see the module docstring for the
     rules it follows."""
     rp = od.shape[1]
-    dev = od.device
     tab = tables.ctab if watertight else tables.bwtab
     st = _Best(texp)
-    lane16 = torch.arange(CLUSTER_SIZE, device=dev)
     for lo in range(0, rp, TWIN_RAY_CHUNK):
         for rays, item in _ray_steps(items, lo, min(rp, lo + TWIN_RAY_CHUNK)):
             rays, item = _voted(items, rays, item, st.best)
@@ -691,35 +732,18 @@ def sweep_closest_torch(tables, items, od, texp, t_min, watertight):
             enter, tl = _fine_cull(tables.cbox3[sup], od[:, rays],
                                    _window(st.best[rays]), t_min)
             slab, o, d, ins = _item_rays(tables, sup, od, rays)
-            while rays.numel():
-                m, child = torch.where(enter, tl, float("inf")).min(1)
-                go = m < _window(st.best[rays])
-                idx = torch.nonzero(go)[:, 0]
-                rays, child, slab, o, d = (rays[idx], child[idx], slab[idx],
-                                           o[idx], d[idx])
-                enter, tl = enter[idx], tl[idx]
-                ins = None if ins is None else ins[idx]
-                if not rays.numel():
-                    break
-                enter[torch.arange(rays.numel(), device=dev), child] = False
-                st.iters[rays] += 1
-                rows = ((slab * SUPER + child) * CLUSTER_SIZE)[:, None] \
-                    + lane16
-                st.sweep(tab, rays, child[:, None].expand_as(rows), rows,
-                         torch.ones_like(rows, dtype=torch.bool), o, d, t_min,
-                         watertight, ins)
+            walk_closest_torch(st, tab, rays, slab, o, d, enter, tl, t_min,
+                               watertight, ins)
     return st.state(tab, watertight, tables.inst_rows is not None)
 
 
 def sweep_any_torch(tables, items, od, tm, t_min, watertight):
     """Twin of `any_kernel` and, on instanced tables, of `any_inst_kernel`:
     (Rp,) bool, a hit in [t_min, t_max) within a cluster the ray's fine
-    cull admits (box entered before t_max). Which order the clusters are
-    visited in cannot change the answer."""
+    cull admits (box entered before t_max)."""
     rp = od.shape[1]
     tab = tables.ctab if watertight else tables.bwtab
     occ = torch.zeros(rp, dtype=torch.bool, device=od.device)
-    lane16 = torch.arange(CLUSTER_SIZE, device=od.device)
     for lo in range(0, rp, TWIN_RAY_CHUNK):
         for rays, item in _ray_steps(items, lo, min(rp, lo + TWIN_RAY_CHUNK)):
             live = torch.nonzero(~occ[rays])[:, 0]
@@ -727,13 +751,8 @@ def sweep_any_torch(tables, items, od, tm, t_min, watertight):
             enter, _ = _fine_cull(tables.cbox3[sup], od[:, rays], tm[rays],
                                   t_min)
             slab, o, d, _ = _item_rays(tables, sup, od, rays)
-            for p in torch.split(torch.nonzero(enter), TWIN_RAY_CHUNK // 4):
-                j, child = p[:, 0], p[:, 1]
-                rows = ((slab[j] * SUPER + child) * CLUSTER_SIZE)[:, None] \
-                    + lane16
-                ok = _tri_rows(tab[rows], o[j][:, None, :], d[j][:, None, :],
-                               t_min, tm[rays[j]][:, None], watertight)[4]
-                occ[rays[j][ok.any(1)]] = True
+            walk_any_torch(occ, tab, rays, slab, o, d, enter, tm, t_min,
+                           watertight)
     return occ
 
 

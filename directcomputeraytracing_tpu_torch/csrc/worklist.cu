@@ -46,59 +46,36 @@
 // whole truncation quantum (window(), where the reference takes t < the
 // best read as a float), so the result does not depend on the visiting
 // order. Built with -fmad=false: kernels and twins agree bit for bit.
+// The per-ray walk (fine cull, nearest-first cluster walk, occlusion
+// walk) lives in worklist.cuh, shared with the pair sweep (pairsweep.cu).
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 
-#include "ray_tri.cuh"
+#include "worklist.cuh"
 
 namespace {
 
+using dcrt::BaldwinWeber;
+using dcrt::Best;
+using dcrt::child_enter;
 using dcrt::Hit;
 using dcrt::kBig;
+using dcrt::kCluster;
+using dcrt::kLowM;
+using dcrt::kSuper;
+using dcrt::kSuperRows;
+using dcrt::load_od;
+using dcrt::RawWatertight;
 using dcrt::Ray;
-using dcrt::Watertight;
+using dcrt::RayInv;
+using dcrt::slab;
+using dcrt::stage_boxes;
+using dcrt::start_best;
+using dcrt::window;
 
-constexpr int kSuper = 32;                 // clusters per super
-constexpr int kCluster = 16;               // triangles per cluster
-constexpr int kLowM = (kSuper << 4) - 1;   // packed-key id bits
 constexpr int kBoxChunk = 32;              // boxes per block-wide min pass
-
-struct RayInv {
-  Ray r;
-  float ix, iy, iz;
-};
-
-__device__ __forceinline__ RayInv load_od(const float* od, int rp, int i) {
-  const size_t n = static_cast<size_t>(rp);
-  RayInv q;
-  q.r = Ray{od[i], od[n + i], od[2 * n + i], od[3 * n + i], od[4 * n + i],
-            od[5 * n + i]};
-  q.ix = od[6 * n + i];
-  q.iy = od[7 * n + i];
-  q.iz = od[8 * n + i];
-  return q;
-}
-
-// Slab test of the ray against box [b0, b1]: entry t_lo, exit t_hi.
-__device__ __forceinline__ void slab(const RayInv& q, float b0x, float b0y,
-                                     float b0z, float b1x, float b1y,
-                                     float b1z, float& t_lo, float& t_hi) {
-  t_lo = -kBig;
-  t_hi = kBig;
-  float a = (b0x - q.r.ox) * q.ix, b = (b1x - q.r.ox) * q.ix;
-  t_lo = fmaxf(t_lo, fminf(a, b));
-  t_hi = fminf(t_hi, fmaxf(a, b));
-  a = (b0y - q.r.oy) * q.iy;
-  b = (b1y - q.r.oy) * q.iy;
-  t_lo = fmaxf(t_lo, fminf(a, b));
-  t_hi = fminf(t_hi, fmaxf(a, b));
-  a = (b0z - q.r.oz) * q.iz;
-  b = (b1z - q.r.oz) * q.iz;
-  t_lo = fmaxf(t_lo, fminf(a, b));
-  t_hi = fminf(t_hi, fmaxf(a, b));
-}
 
 // out[j] = min over the block's rays of the clamped entry distance into
 // boxes[j] (8 floats each), j < n <= kBoxChunk; kBig where no ray enters
@@ -150,178 +127,34 @@ refine_kernel(const float* __restrict__ hsup, int hs,
                   out + static_cast<size_t>(item) * hs);
 }
 
-// Baldwin-Weber on the (C*16, 16) rows [n | c0 | r1 | c1 | r2 | c2 | meta |
-// row]: the twin is accel/worklist.py:bw_rows.
-struct BaldwinWeber {
-  static constexpr int kCols = 16, kMeta = 12;
-  struct Pre {};
-  __device__ static Pre prepare(const Ray&) { return Pre{}; }
-
-  __device__ static bool test(const Ray& r, const Pre&,
-                              const float* __restrict__ tab, int row,
-                              float t_min, float t_max, Hit& h) {
-    const float4* p = reinterpret_cast<const float4*>(tab) + 4 * row;
-    const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
-    const float den = a.x * r.dx + a.y * r.dy + a.z * r.dz;
-    const bool den_ok = fabsf(den) >= 1e-10f;
-    const float inv_den = 1.0f / (den_ok ? den : 1.0f);
-    const float t = (a.w - (a.x * r.ox + a.y * r.oy + a.z * r.oz)) * inv_den;
-    const float hx = r.ox + t * r.dx, hy = r.oy + t * r.dy,
-                hz = r.oz + t * r.dz;
-    const float u = b.x * hx + b.y * hy + b.z * hz + b.w;
-    const float v = c.x * hx + c.y * hy + c.z * hz + c.w;
-    h = Hit{t, u, v, den < 1e-10f};
-    return den_ok && u >= 0.f && v >= 0.f && u + v <= 1.f && t >= t_min &&
-           t < t_max;
-  }
-};
-
-// Watertight on the raw (C*16, 13) rows [v0 v1 v2 | meta | row].
-struct RawWatertight {
-  static constexpr int kCols = 13, kMeta = 9;
-  using Pre = Watertight::Pre;
-  __device__ static Pre prepare(const Ray& r) {
-    return Watertight::prepare(r);
-  }
-
-  __device__ static bool test(const Ray& r, const Pre& p,
-                              const float* __restrict__ tab, int row,
-                              float t_min, float t_max, Hit& h) {
-    const float* q = tab + static_cast<size_t>(row) * kCols;
-    float v[12];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) v[k] = __ldg(q + k);
-    v[9] = v[10] = v[11] = 0.f;
-    float4 g[3];
-    Watertight::stage(v, g);
-    return Watertight::test(r, p, g[0], g[1], g[2], t_min, t_max, h);
-  }
-};
-
-// Stage the item's 32 child boxes (2 float4 each) into shared memory.
-__device__ __forceinline__ void stage_boxes(const float* cbox, int sup,
-                                            float4* boxes) {
-  if (threadIdx.x < 2 * kSuper)
-    boxes[threadIdx.x] = __ldg(reinterpret_cast<const float4*>(cbox) +
-                               static_cast<size_t>(sup) * 2 * kSuper +
-                               threadIdx.x);
-}
-
-// Fine cull: does the ray cross child box c in front of t_min and enter
-// it before cap? t_lo is its entry distance.
-__device__ __forceinline__ bool child_enter(const RayInv& q,
-                                            const float4* boxes, int c,
-                                            float cap, float t_min,
-                                            float& t_lo) {
-  const float4 lo = boxes[2 * c], hi = boxes[2 * c + 1];
-  float t_hi;
-  slab(q, lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, t_lo, t_hi);
-  return t_hi >= t_lo && t_hi >= 0.f && t_lo < cap && t_hi >= t_min;
-}
-
-// The candidate window of a packed best: every t whose truncated bits
-// do not exceed the best's, i.e. t < the float after (best | kLowM). With
-// the strict key replacement this makes the result the least key over all
-// hits the walk sweeps, whatever order it sweeps them in; a cluster or
-// item entered at or beyond the window cannot hold a better key.
-__device__ __forceinline__ float window(int best) {
-  return __int_as_float((best | kLowM) + 1);
-}
-
 template <class Tri>
 __global__ void __launch_bounds__(1024)
 closest_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
                const float* __restrict__ item_t,
                const float* __restrict__ cbox, const float* __restrict__ tab,
                const float* __restrict__ od, const float* __restrict__ texp,
-               int rp, float t_min, int* __restrict__ out_best,
-               float* __restrict__ out_t, float* __restrict__ out_u,
-               float* __restrict__ out_v, int* __restrict__ out_tri,
-               int* __restrict__ out_inst,
-               unsigned char* __restrict__ out_back,
-               int* __restrict__ out_iters) {
+               int rp, float t_min, dcrt::ClosestOut out) {
   __shared__ float4 boxes[2 * kSuper];
   const int b = blockIdx.x;
   const int i = b * blockDim.x + threadIdx.x;
   const RayInv q = load_od(od, rp, i);
   const typename Tri::Pre pre = Tri::prepare(q.r);
-  const float t_exit = texp[i];
-  int best = __float_as_int(t_exit) | kLowM;
-  float bt = t_exit, bu = 0.f, bv = 0.f;
-  bool bback = false;
-  int brow = -1, iters = 0;
+  Best s = start_best(texp[i]);
   const int k1 = seg[b + 1];
   for (int k = seg[b]; k < k1; ++k) {
     // skip an item that starts beyond every ray's best (the vote is also
     // the barrier before the boxes are restaged)
-    if (!__syncthreads_or(window(best) > item_t[k])) continue;
+    if (!__syncthreads_or(window(s.best) > item_t[k])) continue;
     const int sup = item_sup[k];
     stage_boxes(cbox, sup, boxes);
     __syncthreads();
     float tl[kSuper];
-    unsigned mask = 0u;
-    const float cap = window(best);
-#pragma unroll
-    for (int c = 0; c < kSuper; ++c) {
-      float t_lo;
-      if (child_enter(q, boxes, c, cap, t_min, t_lo)) mask |= 1u << c;
-      tl[c] = fmaxf(t_lo, 0.f);
-    }
-    while (mask) {
-      // nearest remaining cluster, lowest child on a tie
-      float m = INFINITY;
-      int cs = 0;
-#pragma unroll
-      for (int c = 0; c < kSuper; ++c) {
-        if (((mask >> c) & 1u) && tl[c] < m) {
-          m = tl[c];
-          cs = c;
-        }
-      }
-      if (!(m < window(best))) break;
-      mask &= ~(1u << cs);
-      ++iters;
-      const int base = (sup * kSuper + cs) * kCluster;
-      const float t_max = window(best);
-      int cand = INT_MAX, crow = -1;
-      Hit hc{0.f, 0.f, 0.f, false};
-      for (int r = 0; r < kCluster; ++r) {
-        Hit h;
-        if (Tri::test(q.r, pre, tab, base + r, t_min, t_max, h)) {
-          const int key = (__float_as_int(h.t) & ~kLowM) | ((cs << 4) | r);
-          if (key < cand) {
-            cand = key;
-            hc = h;
-            crow = base + r;
-          }
-        }
-      }
-      if (cand < best) {
-        best = cand;
-        bt = hc.t;
-        bu = hc.u;
-        bv = hc.v;
-        bback = hc.back;
-        brow = crow;
-      }
-    }
+    const unsigned mask = dcrt::fine_cull(q, boxes, window(s.best), t_min,
+                                          tl);
+    dcrt::walk_closest<Tri, true>(q.r, pre, tab, sup * kSuperRows, t_min, tl,
+                                  mask, s);
   }
-  float tri = 0.f, inst = 0.f, flip = 0.f;
-  if (brow >= 0) {
-    const float* meta = tab + static_cast<size_t>(brow) * Tri::kCols +
-                        Tri::kMeta;
-    tri = meta[0];
-    inst = meta[1];
-    flip = meta[2];
-  }
-  out_best[i] = best;
-  out_t[i] = bt;
-  out_u[i] = bu;
-  out_v[i] = bv;
-  out_tri[i] = static_cast<int>(tri);
-  out_inst[i] = static_cast<int>(inst);
-  out_back[i] = brow >= 0 && (bback != (flip > 0.5f));
-  out_iters[i] = iters;
+  dcrt::store_soup<Tri>(out, i, tab, s, s.row);
 }
 
 template <class Tri>
@@ -345,18 +178,9 @@ any_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
     const int sup = item_sup[k];
     stage_boxes(cbox, sup, boxes);
     __syncthreads();
-    for (int c = 0; c < kSuper && !occ; ++c) {
-      float t_lo;
-      if (!child_enter(q, boxes, c, t_max, t_min, t_lo)) continue;
-      const int base = (sup * kSuper + c) * kCluster;
-      for (int r = 0; r < kCluster; ++r) {
-        Hit h;
-        if (Tri::test(q.r, pre, tab, base + r, t_min, t_max, h)) {
-          occ = true;
-          break;
-        }
-      }
-    }
+    if (!occ)
+      occ = dcrt::walk_any<Tri, true>(q, q.r, pre, boxes, tab,
+                                      sup * kSuperRows, t_max, t_min);
   }
   out_occ[i] = occ;
 }
@@ -426,84 +250,45 @@ closest_grouped_kernel(const int* __restrict__ seg,
                        const float* __restrict__ tab,
                        const float* __restrict__ od,
                        const float* __restrict__ texp, int rp, float t_min,
-                       int* __restrict__ out_best, float* __restrict__ out_t,
-                       float* __restrict__ out_u, float* __restrict__ out_v,
-                       int* __restrict__ out_tri, int* __restrict__ out_inst,
-                       unsigned char* __restrict__ out_back,
-                       int* __restrict__ out_iters) {
+                       dcrt::ClosestOut out) {
   __shared__ float4 boxes[2 * kSuper];
   const int b = blockIdx.x;
   const int i = b * blockDim.x + threadIdx.x;
   const RayInv q = load_od(od, rp, i);
   const typename Tri::Pre pre = Tri::prepare(q.r);
-  const float t_exit = texp[i];
-  int best = __float_as_int(t_exit) | kLowM;
-  float bt = t_exit, bu = 0.f, bv = 0.f;
-  bool bback = false;
-  int brow = -1, iters = 0;
+  Best s = start_best(texp[i]);
   const int k1 = seg[b + 1];
   for (int k = seg[b]; k < k1; ++k) {
     // the block vote of closest_kernel (also the barrier before restaging)
-    if (!__syncthreads_or(window(best) > item_t[k])) continue;
+    if (!__syncthreads_or(window(s.best) > item_t[k])) continue;
     const int sup = item_sup[k];
     stage_boxes(cbox, sup, boxes);
     __syncthreads();
     int key;
-    const unsigned mask = group_keys(q, boxes, window(best), t_min, key);
+    const unsigned mask = group_keys(q, boxes, window(s.best), t_min, key);
     for (;;) {
       const int p1 = pop_key(key);
       const int p2 = p1 == INT_MAX ? INT_MAX : pop_key(key);
       // stop once the nearest cluster starts beyond every lane's window
-      const int bound = __reduce_max_sync(kFull, best) | kLowM;
+      const int bound = __reduce_max_sync(kFull, s.best) | kLowM;
       if (p1 == INT_MAX || !((p1 & ~kKeyM) <= bound)) break;
       const int c1 = p1 & kKeyM, c2 = p2 & kKeyM;
       const bool has2 = p2 != INT_MAX;
-      if (mask) iters += has2 ? 2 : 1;
-      const float t_max = window(best);
+      if (mask) s.iters += has2 ? 2 : 1;
+      const float t_max = window(s.best);
       int cand = INT_MAX, crow = -1;
       Hit hc{0.f, 0.f, 0.f, false};
-      for (int s = 0; s < 2; ++s) {
-        const int c = s ? c2 : c1;
-        if ((s && !has2) || !((mask >> c) & 1u)) continue;
-        const int base = (sup * kSuper + c) * kCluster;
-        for (int r = 0; r < kCluster; ++r) {
-          Hit h;
-          if (Tri::test(q.r, pre, tab, base + r, t_min, t_max, h)) {
-            const int key_h = (__float_as_int(h.t) & ~kLowM) | ((c << 4) | r);
-            if (key_h < cand) {
-              cand = key_h;
-              hc = h;
-              crow = base + r;
-            }
-          }
-        }
+      for (int j = 0; j < 2; ++j) {
+        const int c = j ? c2 : c1;
+        if ((j && !has2) || !((mask >> c) & 1u)) continue;
+        dcrt::test_cluster<Tri, true>(q.r, pre, tab,
+                                      (sup * kSuper + c) * kCluster, c, t_min,
+                                      t_max, cand, hc, crow);
       }
-      if (cand < best) {
-        best = cand;
-        bt = hc.t;
-        bu = hc.u;
-        bv = hc.v;
-        bback = hc.back;
-        brow = crow;
-      }
+      s.take(cand, hc, crow);
     }
   }
-  float tri = 0.f, inst = 0.f, flip = 0.f;
-  if (brow >= 0) {
-    const float* meta = tab + static_cast<size_t>(brow) * Tri::kCols +
-                        Tri::kMeta;
-    tri = meta[0];
-    inst = meta[1];
-    flip = meta[2];
-  }
-  out_best[i] = best;
-  out_t[i] = bt;
-  out_u[i] = bu;
-  out_v[i] = bv;
-  out_tri[i] = static_cast<int>(tri);
-  out_inst[i] = static_cast<int>(inst);
-  out_back[i] = brow >= 0 && (bback != (flip > 0.5f));
-  out_iters[i] = iters;
+  dcrt::store_soup<Tri>(out, i, tab, s, s.row);
 }
 
 template <class Tri>
@@ -626,92 +411,37 @@ closest_inst_kernel(const int* __restrict__ seg,
                     const float* __restrict__ inst_rows,
                     const float* __restrict__ od,
                     const float* __restrict__ texp, int rp, float t_min,
-                    int* __restrict__ out_best, float* __restrict__ out_t,
-                    float* __restrict__ out_u, float* __restrict__ out_v,
-                    int* __restrict__ out_tri, int* __restrict__ out_inst,
-                    unsigned char* __restrict__ out_back,
-                    int* __restrict__ out_iters) {
+                    dcrt::ClosestOut out) {
   __shared__ float4 boxes[2 * kSuper];
   __shared__ float row[kInstXf];
   const int b = blockIdx.x;
   const int i = b * blockDim.x + threadIdx.x;
   const RayInv q = load_od(od, rp, i);
-  const float t_exit = texp[i];
-  int best = __float_as_int(t_exit) | kLowM;
-  float bt = t_exit, bu = 0.f, bv = 0.f;
-  bool bback = false;
-  int brow = -1, binst = 0, iters = 0;
+  Best s = start_best(texp[i]);
+  int binst = 0;
   const int k1 = seg[b + 1];
   for (int k = seg[b]; k < k1; ++k) {
     // the block vote of closest_kernel (also the barrier before restaging)
-    if (!__syncthreads_or(window(best) > item_t[k])) continue;
+    if (!__syncthreads_or(window(s.best) > item_t[k])) continue;
     const int sup = item_sup[k];
     const int loc = isup_local[sup], ins = isup_inst[sup];
     stage_inst_item(cbox, inst_rows, sup, ins, boxes, row);
     __syncthreads();
     float tl[kSuper];
-    unsigned mask = 0u;
-    const float cap = window(best);
-#pragma unroll
-    for (int c = 0; c < kSuper; ++c) {
-      float t_lo;
-      if (child_enter(q, boxes, c, cap, t_min, t_lo)) mask |= 1u << c;
-      tl[c] = fmaxf(t_lo, 0.f);
-    }
+    const unsigned mask = dcrt::fine_cull(q, boxes, window(s.best), t_min,
+                                          tl);
     if (!mask) continue;
     const Ray rl = to_local(q.r, row);
     const typename Tri::Pre pre = Tri::prepare(rl);
-    while (mask) {
-      // nearest remaining cluster, lowest child on a tie
-      float m = INFINITY;
-      int cs = 0;
-#pragma unroll
-      for (int c = 0; c < kSuper; ++c) {
-        if (((mask >> c) & 1u) && tl[c] < m) {
-          m = tl[c];
-          cs = c;
-        }
-      }
-      if (!(m < window(best))) break;
-      mask &= ~(1u << cs);
-      ++iters;
-      const int base = (loc * kSuper + cs) * kCluster;
-      const float t_max = window(best);
-      int cand = INT_MAX, crow = -1;
-      Hit hc{0.f, 0.f, 0.f, false};
-      for (int r = 0; r < kCluster; ++r) {
-        Hit h;
-        if (Tri::test(rl, pre, tab, base + r, t_min, t_max, h)) {
-          const int key = (__float_as_int(h.t) & ~kLowM) | ((cs << 4) | r);
-          if (key < cand) {
-            cand = key;
-            hc = h;
-            crow = base + r;
-          }
-        }
-      }
-      if (cand < best) {
-        best = cand;
-        bt = hc.t;
-        bu = hc.u;
-        bv = hc.v;
-        bback = hc.back;
-        brow = crow;
-        binst = ins;
-      }
-    }
+    if (dcrt::walk_closest<Tri, true>(rl, pre, tab, loc * kSuperRows, t_min,
+                                      tl, mask, s))
+      binst = ins;
   }
   const float tri =
-      brow >= 0 ? tab[static_cast<size_t>(brow) * Tri::kCols + Tri::kMeta]
-                : 0.f;
-  out_best[i] = best;
-  out_t[i] = bt;
-  out_u[i] = bu;
-  out_v[i] = bv;
-  out_tri[i] = static_cast<int>(tri);
-  out_inst[i] = brow >= 0 ? binst : 0;
-  out_back[i] = brow >= 0 && bback;
-  out_iters[i] = iters;
+      s.row >= 0 ? tab[static_cast<size_t>(s.row) * Tri::kCols + Tri::kMeta]
+                 : 0.f;
+  out.store(i, s, static_cast<int>(tri), s.row >= 0 ? binst : 0,
+            s.row >= 0 && s.back);
 }
 
 template <class Tri>
@@ -740,19 +470,8 @@ any_inst_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
     __syncthreads();
     if (occ) continue;
     const Ray rl = to_local(q.r, row);
-    const typename Tri::Pre pre = Tri::prepare(rl);
-    for (int c = 0; c < kSuper && !occ; ++c) {
-      float t_lo;
-      if (!child_enter(q, boxes, c, t_max, t_min, t_lo)) continue;
-      const int base = (loc * kSuper + c) * kCluster;
-      for (int r = 0; r < kCluster; ++r) {
-        Hit h;
-        if (Tri::test(rl, pre, tab, base + r, t_min, t_max, h)) {
-          occ = true;
-          break;
-        }
-      }
-    }
+    occ = dcrt::walk_any<Tri, true>(q, rl, Tri::prepare(rl), boxes, tab,
+                                    loc * kSuperRows, t_max, t_min);
   }
   out_occ[i] = occ;
 }
@@ -796,14 +515,13 @@ extern "C" int dcrt_wl_closest(const int* seg, const int* item_sup,
                                void* stream) {
   if (nb > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const dcrt::ClosestOut out{best, t, u, v, tri, inst, back, iters};
     if (watertight)
       closest_kernel<RawWatertight><<<nb, rb, 0, s>>>(
-          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, best, t, u,
-          v, tri, inst, back, iters);
+          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, out);
     else
       closest_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
-          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, best, t, u,
-          v, tri, inst, back, iters);
+          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -833,14 +551,13 @@ extern "C" int dcrt_wl_closest_grouped(
     void* stream) {
   if (nb > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const dcrt::ClosestOut out{best, t, u, v, tri, inst, back, iters};
     if (watertight)
       closest_grouped_kernel<RawWatertight><<<nb, rb, 0, s>>>(
-          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, best, t, u,
-          v, tri, inst, back, iters);
+          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, out);
     else
       closest_grouped_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
-          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, best, t, u,
-          v, tri, inst, back, iters);
+          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -875,14 +592,15 @@ extern "C" int dcrt_wl_closest_inst(
     unsigned char* back, int* iters, void* stream) {
   if (nb > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const dcrt::ClosestOut out{best, t, u, v, tri, inst, back, iters};
     if (watertight)
       closest_inst_kernel<RawWatertight><<<nb, rb, 0, s>>>(
           seg, item_sup, item_t, cbox, tab, isup_local, isup_inst, inst_rows,
-          od, texp, rp, t_min, best, t, u, v, tri, inst, back, iters);
+          od, texp, rp, t_min, out);
     else
       closest_inst_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
           seg, item_sup, item_t, cbox, tab, isup_local, isup_inst, inst_rows,
-          od, texp, rp, t_min, best, t, u, v, tri, inst, back, iters);
+          od, texp, rp, t_min, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

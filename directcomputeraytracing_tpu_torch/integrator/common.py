@@ -2,8 +2,9 @@
 the bounce-ray sort key and order, parked rays.
 
 Counterpart of `directcomputeraytracing_tpu.integrator.common`, with the
-wavefront's pool-cast settings: `pool_cast_backend`, `pool_slab_march`
-and `slab_depth`. "Auto" is `None` in the port's `RenderConfig`.
+casts' slab and backend settings: `marches_slabs`, `pool_cast_backend`,
+`pool_slab_march`, `megakernel_slab_depth` and `slab_depth`. "Auto" is
+`None` for `RenderConfig.slab_march` and "" for `pool_backend`.
 """
 
 from dataclasses import dataclass
@@ -38,8 +39,10 @@ class RenderConfig:
     light_visible: bool = True          # env/mesh lights seen by camera
     use_vndf: bool = True
     traversal_backend: str = "auto"     # dense sweep or work list, by
-                                        # size; "pallas_wl", "pallas_wlg",
-                                        # "pallas_cluster" force a kernel
+                                        # size; "brute" (or "pallas"),
+                                        # "pallas_wl", "pallas_wlg",
+                                        # "pallas_pair", "pallas_cluster"
+                                        # force a kernel
     filter_type: str = "box"            # film reconstruction filter
     filter_radius: float = 0.5
     any_hit: bool = False               # alpha-tested transparency
@@ -50,6 +53,11 @@ class RenderConfig:
                                         # the integrator's default (off in
                                         # the megakernel, POOL_SLAB_DEFAULT
                                         # for the wavefront's pool casts)
+    pool_backend: str = ""              # the wavefront's pool casts'
+                                        # backend, "" = pool_cast_backend's
+                                        # choice; "pallas_pair" sweeps the
+                                        # incoherent pool by (ray, super)
+                                        # pairs
 
     @property
     def has_env_light(self):
@@ -64,16 +72,18 @@ def has_worklist_tables(scene):
 
 
 def pool_cast_backend(cfg, scene):
-    """The wavefront pool casts' backend: for "auto" on scenes with
-    world-soup cluster tables the grouped work-list sweep ("pallas_wlg"),
-    as the reference resolves it on its accelerator, else
-    cfg.traversal_backend ("auto": the dense sweep, or on instanced scenes
-    the per-ray instanced sweep, which the reference's "pallas_wlg"
-    downgrades to as well). The port keeps the grouped choice so that the
-    grouped kernels run on this path, not for speed: on the H100 the
-    grouped sweep takes 1.15-1.4x the per-ray sweep's time on every ray
-    set measured, pool-like sorted sets included, and returns the same
-    hits (PERF.md)."""
+    """The wavefront pool casts' backend: cfg.pool_backend when set; else,
+    for "auto" on scenes with world-soup cluster tables, the grouped
+    work-list sweep ("pallas_wlg"), as the reference resolves it on its
+    accelerator, else cfg.traversal_backend ("auto": the dense sweep, or
+    on instanced scenes the per-ray instanced sweep, which the reference's
+    "pallas_wlg" downgrades to as well). The port keeps the grouped choice
+    so that the grouped kernels run on this path, not for speed: on the
+    H100 the grouped sweep takes 1.15-1.4x the per-ray sweep's time on
+    every ray set measured, pool-like sorted sets included, and returns
+    the same hits (PERF.md)."""
+    if cfg.pool_backend:
+        return cfg.pool_backend
     if cfg.traversal_backend == "auto" and scene.cluster_bbox.shape[0] > 1:
         return "pallas_wlg"
     return cfg.traversal_backend
@@ -83,22 +93,40 @@ def pool_cast_backend(cfg, scene):
 # the scene diagonal (its integrator/common.py). The reference chose it on
 # its accelerator, where it kept mid-drain pool casts inside the grouped
 # sweep's fixed item capacity; the port's item lists have no capacity,
-# and whether slabs pay here is measured by chip_smoke.py (PERF.md).
+# and whether slabs pay here is measured on the card (PERF.md).
 POOL_SLAB_DEFAULT = 0.03
+
+
+def marches_slabs(scene, backend):
+    """True where slab marching runs, as the reference's `slab_enabled`
+    has it: on the work list and the pair sweep, whose casts take t_cap.
+    The dense and clustered sweeps ignore t_cap, so a second phase would
+    repeat the cast. (The pair sweep carries no best across supers; the
+    slab window stands in for it.)"""
+    from ..accel.traverse import _resolve_backend
+
+    return _resolve_backend(scene, backend) in ("wl", "wlg", "pair")
 
 
 def pool_slab_march(scene, cfg, backend):
     """The pool casts' phase-1 window as a fraction of the scene diagonal,
-    0.0 for no slabs: cfg.slab_march, or POOL_SLAB_DEFAULT for None. Slab
-    marching runs only on the work list, as the reference's `slab_enabled`
-    has it: the dense and clustered sweeps ignore t_cap, so a second phase
-    would repeat the cast."""
-    from ..accel.traverse import _resolve_backend
-
+    0.0 for no slabs: cfg.slab_march, or POOL_SLAB_DEFAULT for None, where
+    `marches_slabs`."""
     march = POOL_SLAB_DEFAULT if cfg.slab_march is None else cfg.slab_march
-    if march <= 0.0 or _resolve_backend(scene, backend) not in ("wl", "wlg"):
+    if march <= 0.0 or not marches_slabs(scene, backend):
         return 0.0
     return float(march)
+
+
+def megakernel_slab_depth(scene, cfg):
+    """The megakernel's phase-1 cap, or None: it marches its camera and
+    sorted bounce casts only for cfg.slab_march > 0 where
+    `marches_slabs` (None, the default, is off); elsewhere the field is
+    ignored, as in the reference."""
+    march = cfg.slab_march or 0.0
+    if march <= 0.0 or not marches_slabs(scene, cfg.traversal_backend):
+        return None
+    return slab_depth(scene, march)
 
 
 def slab_depth(scene, march):

@@ -15,14 +15,23 @@ extension cast runs in coherence-sorted order and its hits are scattered
 back (the reference's `sort_bounce_rays` branch, which its renderer turns
 on for world-soup cluster tables on its accelerator; the port sorts on
 instanced scenes too), so that a block of the work-list traversal holds
-rays of like origin and direction.
+rays of like origin and direction. With `RenderConfig.slab_march` > 0 on
+the work list or the pair sweep (`megakernel_slab_depth`) the camera cast
+and the sorted extension casts march distance slabs
+(`intersect_closest_slab`), as the reference's megakernel does; elsewhere
+the field is ignored.
 """
 
 from typing import NamedTuple
 
 import torch
 
-from ..accel.traverse import HitInfo, intersect_any, intersect_closest
+from ..accel.traverse import (
+    HitInfo,
+    intersect_any,
+    intersect_closest,
+    intersect_closest_slab,
+)
 from ..bsdf.dispatch import evaluate_bsdf, evaluate_bsdf_pdf, sample_bsdf
 from ..camera.camera import generate_ray
 from ..core.constants import LIGHT_INDEX_INVALID
@@ -41,6 +50,7 @@ from ..sampling.montecarlo import dot, power_heuristic
 from .common import (
     RenderConfig,
     has_worklist_tables,
+    megakernel_slab_depth,
     offset_ray_origin,
     park_rays,
     shade_hit,
@@ -74,11 +84,7 @@ def _mesh_light_camera_eval(scene, light_index, wo, geometry_normal):
 def _check_supported(cfg: RenderConfig):
     if cfg.any_hit:
         raise NotImplementedError(
-            "alpha-tested scenes: ROADMAP queue 1, item 11")
-    if cfg.slab_march:
-        raise NotImplementedError(
-            "slab marching (slab_march > 0) needs the work-list kernels: "
-            "ROADMAP queue 1, item 11 and queue 2, items 3-6")
+            "alpha-tested scenes: ROADMAP queue 1, item 4")
 
 
 class _Carry(NamedTuple):
@@ -90,22 +96,32 @@ class _Carry(NamedTuple):
     active: torch.Tensor
 
 
-def _sorted_closest(scene, cfg, origin, direction, alive):
+def _closest(scene, cfg, depth, origin, direction, live=None):
+    """A closest cast of the megakernel: slab-marched from phase-1 cap
+    depth (live: the lanes whose result counts), or one cast for None."""
+    if depth is None:
+        return intersect_closest(scene, origin, direction,
+                                 backend=cfg.traversal_backend,
+                                 watertight=cfg.watertight)
+    return intersect_closest_slab(scene, origin, direction, depth,
+                                  backend=cfg.traversal_backend,
+                                  watertight=cfg.watertight, live=live)
+
+
+def _sorted_closest(scene, cfg, depth, origin, direction, alive):
     """Extension cast in `ray_sort_key` order, hits returned in lane order.
     Dead lanes sort last and are parked, so they enter nothing."""
     order = sort_order(scene, origin, direction, alive)
     o, d = park_rays(alive, origin, direction)
-    hit = intersect_closest(scene, o[order], d[order],
-                            backend=cfg.traversal_backend,
-                            watertight=cfg.watertight)
+    hit = _closest(scene, cfg, depth, o[order], d[order], alive[order])
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.shape[0], device=order.device)
     return HitInfo(*(x[inv] for x in hit))
 
 
-def _bounce(scene, luts, cfg, c):
-    """One bounce: NEE with MIS, BSDF sample, extension cast, implicit
-    light hit with MIS."""
+def _bounce(scene, luts, cfg, depth, c):
+    """One bounce: NEE with MIS, BSDF sample, extension cast (slab phase-1
+    cap depth), implicit light hit with MIS."""
     active, itx, rng = c.active, c.itx, c.rng
     wo = -c.wi
     l_acc = c.l
@@ -145,7 +161,7 @@ def _bounce(scene, luts, cfg, c):
 
     ext_o = offset_ray_origin(itx.position, itx.geometry_normal, wi_new)
     if has_worklist_tables(scene):
-        hit2 = _sorted_closest(scene, cfg, ext_o, wi_new, alive)
+        hit2 = _sorted_closest(scene, cfg, depth, ext_o, wi_new, alive)
     else:
         hit2 = intersect_closest(scene, ext_o, wi_new,
                                  backend=cfg.traversal_backend,
@@ -189,8 +205,8 @@ def render_samples(scene, luts, cam, cfg: RenderConfig, pixel_x, pixel_y,
     origin, wi = generate_ray(cam, (pixel_sample + pix) / res,
                               aperture_sample)
 
-    hit = intersect_closest(scene, origin, wi, backend=cfg.traversal_backend,
-                            watertight=cfg.watertight)
+    depth = megakernel_slab_depth(scene, cfg)
+    hit = _closest(scene, cfg, depth, origin, wi)
     itx = shade_hit(scene, origin, wi, hit)
     itx = itx._replace(position=_sel(hit.hit, itx.position, origin))
 
@@ -208,7 +224,7 @@ def render_samples(scene, luts, cam, cfg: RenderConfig, pixel_x, pixel_y,
     c = _Carry(rng=rng, l=l, throughput=torch.ones_like(origin), wi=wi,
                itx=itx, active=hit.hit)
     for _ in range(cfg.max_bounce + 1):
-        c = _bounce(scene, luts, cfg, c)
+        c = _bounce(scene, luts, cfg, depth, c)
     return pixel_sample, c.l
 
 

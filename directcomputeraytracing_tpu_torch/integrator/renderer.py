@@ -16,7 +16,8 @@ order before the film; the per-pixel random streams make the image
 independent of the order. The reference's tunnel pacing and its
 2^18-pixel dispatch budget are gone.
 
-Splatting filters, slab marching in the megakernel and alpha-tested
+`traversal_backend`, `pool_backend` and `slab_march` pass through to the
+integrators in the `RenderConfig`. Splatting filters and alpha-tested
 scenes raise NotImplementedError (ROADMAP queue 1).
 """
 

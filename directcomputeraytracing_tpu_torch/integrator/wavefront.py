@@ -18,8 +18,9 @@ samples. On scenes with work-list tables the pool is sorted by
 `ray_sort_key` once per iteration (the reference's `sort_bounce_rays`,
 which its renderer sets on its accelerator for world-soup cluster
 tables; the port sorts instanced scenes too) and both casts run in that
-lane order. The pool casts use `pool_cast_backend` (the grouped
-work-list sweep by default on clustered scenes) and march distance slabs at
+lane order. The pool casts use `pool_cast_backend` (`RenderConfig.
+pool_backend` when set, e.g. "pallas_pair"; else the grouped work-list
+sweep by default on clustered scenes) and march distance slabs at
 `pool_slab_march` of the scene diagonal (`RenderConfig.slab_march`,
 0.0 for none): the closest cast through
 `accel.traverse.intersect_closest_slab`, the shadow cast in two windows

@@ -7,9 +7,11 @@ sweep, 1024x1024), `sphere_grid` (`sphere_grid(12, 12)`, 211,972
 triangles, the work-list traversal, 1024x1024), `instanced`
 (`sphere_grid(27, 27)`, 1,073,092 triangles in the instanced tables,
 the instanced work-list sweeps, 1024x1024), `clustered` (`sphere_grid(12,
-12)` through `traversal_backend="pallas_cluster"`, 1024x1024), all
-through the megakernel, or `wavefront` (`sphere_grid(12, 12)` at
-1920x1080 through the wavefront integrator and its grouped pool casts).
+12)` through `traversal_backend="pallas_cluster"`, 1024x1024), `pair`
+(`sphere_grid(12, 12)` through `traversal_backend="pallas_pair"`,
+1024x1024), all through the megakernel, or `wavefront` (`sphere_grid(12,
+12)` at 1920x1080 through the wavefront integrator and its grouped pool
+casts) and `pair_wavefront` (the same with `pool_backend="pallas_pair"`).
 Needs a CUDA
 device; with none it exits non-zero. Renders at max_bounce 4 through
 `Renderer.render(spp=8)`: the fused 8-sample call that chip_smoke.py's
@@ -52,22 +54,31 @@ from ..scene.presets import cornell_box, sphere_grid
 MAX_BOUNCE = 4
 SPP = 8
 REPS = 3
-# case: (scene, width, height, integrator, traversal backend)
+# case: (scene, width, height, integrator, traversal backend, pool
+# backend)
 CASES = {"cornell": (lambda: cornell_box("area", "glossy"), 1024, 1024,
-                     "megakernel", "auto"),
+                     "megakernel", "auto", ""),
          "sphere_grid": (lambda: sphere_grid(12, 12), 1024, 1024,
-                         "megakernel", "auto"),
+                         "megakernel", "auto", ""),
          "instanced": (lambda: sphere_grid(27, 27), 1024, 1024,
-                       "megakernel", "auto"),
+                       "megakernel", "auto", ""),
          "clustered": (lambda: sphere_grid(12, 12), 1024, 1024,
-                       "megakernel", "pallas_cluster"),
+                       "megakernel", "pallas_cluster", ""),
+         "pair": (lambda: sphere_grid(12, 12), 1024, 1024, "megakernel",
+                  "pallas_pair", ""),
          "wavefront": (lambda: sphere_grid(12, 12), 1920, 1080,
-                       "wavefront", "auto")}
+                       "wavefront", "auto", ""),
+         "pair_wavefront": (lambda: sphere_grid(12, 12), 1920, 1080,
+                            "wavefront", "auto", "pallas_pair")}
 # the port's kernels, told apart by entry point and template or parameter
 # types in the demangled names the profiler reports; a kernel counts under
 # the first key it matches (the clustered sweeps take mask pointers,
-# `unsigned char const*`, which no other closest or any-hit kernel takes)
+# `unsigned char const*`, which no other closest or any-hit kernel takes;
+# the pair kernels' names hold the work list's as a suffix)
 PORT_KERNELS = {
+    "pairsweep.cu emit_kernel": ("emit_kernel",),
+    "pairsweep.cu pair_closest_kernel": ("pair_closest_kernel",),
+    "pairsweep.cu pair_any_kernel": ("pair_any_kernel",),
     "clustered.cu cull_kernel": ("cull_kernel", "Reach"),
     "clustered.cu closest_kernel": ("closest_kernel", "unsigned char const*"),
     "clustered.cu any_kernel": ("any_kernel", "unsigned char const*"),
@@ -137,10 +148,10 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=120, check=True)
     print(smi.stdout.strip())
-    make, width, height, integrator, backend = CASES[case]
+    make, width, height, integrator, backend, pool = CASES[case]
     r = Renderer(*make(), width, height, max_bounce=MAX_BOUNCE,
                  integrator=integrator, device=torch.device("cuda"),
-                 traversal_backend=backend)
+                 traversal_backend=backend, pool_backend=pool)
     _timed_render(r)   # warm-up: kernel build, allocator growth
     torch.cuda.reset_peak_memory_stats()
     wall = [_timed_render(r) for _ in range(REPS)]

@@ -219,7 +219,8 @@ def test_slab_matches_reference_and_single_cast(port_scene, ref_scene,
 
 def test_backend_names(port_scene):
     """'pallas_wl' is the bundle sweep, 'pallas_wlg' the grouped one; the
-    intersector counts their launches on a card only."""
+    intersector counts their launches on a card only. The stack walker
+    ('jax') is not ported."""
     o, d, t_max = (torch.from_numpy(x) for x in _rays(600, seed=36))
     a = intersect_closest(port_scene, o, d, backend="pallas_wl")
     b = intersect_closest(port_scene, o, d, backend="auto")
@@ -230,7 +231,7 @@ def test_backend_names(port_scene):
                                      backend="pallas_wlg"),
                        intersect_any(port_scene, o, d, t_max))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        intersect_closest(port_scene, o, d, backend="pallas_pair")
+        intersect_closest(port_scene, o, d, backend="jax")
 
 
 @pytest.mark.cuda

@@ -153,12 +153,12 @@ def test_unported_paths_raise(case):
     o, d, _ = (torch.from_numpy(x) for x in _rays(8))
     scene, kw, err = scene_with_tables(soup), {}, NotImplementedError
     if case == "clustered":
-        # the pair sweep (ROADMAP queue 2, rows 15-17) is not ported
+        # clustered scenes have no stack walker either (queue 1, item 8)
         scene, kw = scene_with_tables(soup, clusters=4), dict(
-            backend="pallas_pair", watertight=True)
+            backend="jax", watertight=True)
     elif case == "instanced":
         # instanced tables cast through the work list only: the stack
-        # walker (queue 1, item 11) is not ported
+        # walker (queue 1, item 8) is not ported
         scene, kw = scene_with_tables(soup, supers=4), dict(backend="jax")
     elif case == "backend":
         kw = dict(backend="jax")

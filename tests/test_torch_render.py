@@ -216,9 +216,11 @@ def test_unported_options_raise(case):
     elif case == "filter":
         kw = dict(filter_params=FilterParams(kind="gaussian", radius=1.5))
     elif case == "slab_march":
-        kw = dict(slab_march=0.03)
+        # slab marching runs (or is ignored on a dense scene); the stack
+        # walker it would march through does not
+        kw = dict(slab_march=0.03, traversal_backend="jax")
     elif case == "backend":
-        kw = dict(traversal_backend="pallas")
+        kw = dict(traversal_backend="jax")
     else:
         scene.materials.append(Material(opacity=0.5))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
