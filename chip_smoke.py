@@ -7,9 +7,10 @@ Run from the repository root on a machine with one CUDA card and nvcc
 any failure exits non-zero:
 
 1. setup: print the card's name and power limit, build the dense-sweep,
-   work-list, clustered and pair kernels (csrc/brute_sweep.cu,
-   csrc/worklist.cu, csrc/clustered.cu, csrc/pairsweep.cu; the four nvcc
-   runs in parallel) and print the build times and ptxas reports;
+   work-list, clustered, pair, ray-prep and probe kernels
+   (csrc/brute_sweep.cu, csrc/worklist.cu, csrc/clustered.cu,
+   csrc/pairsweep.cu, csrc/prep.cu, csrc/probes.cu; the six nvcc runs in
+   parallel) and print the build times and ptxas reports;
 2. dense-sweep kernels against their PyTorch twins on the card, Moeller
    and watertight, closest and any-hit: (a) the Cornell soup (32
    triangles) with 1,048,576 camera rays plus 1,048,576 random rays from
@@ -73,6 +74,19 @@ any failure exits non-zero:
    reduction) and of the whole pair, work-list and grouped casts, the
    peak memory of a pair cast, bounds, and the census (items, cells,
    pairs per ray, pairs per chunk, clusters swept per pair);
+2h. the ray-prep kernel against `prep_rays_torch` on the three 1M-ray
+   sets of 2b, the random set in `ray_sort_key` order and a 1M-ray set
+   with NaN, inf, zero, +-1e-31, -0.0 and denormal components injected,
+   each without and with a per-ray t_max: od and tm bit-equal; CUDA-event
+   times of the kernel and the twin's route on the camera rays;
+2i. the probes through the port's tools (`tools/probe_worklist.py`,
+   `tools/prof_prep.py`), their launches counted from 0: the item-list
+   kernel at the reference probe's four capacities (64 blocks, 4096
+   slabs, 1,024 to 262,144 items), equal to its twin, ms and ns per item
+   beside `sweep_closest`'s cost per item on 2b's camera rays; the
+   (2^20, 16) transpose bit-equal to `.T.contiguous()` (the library
+   call, timed) and to its twin, beside the layout routes (the twin's
+   cat-and-transpose prep, the prep kernel, a 36 MB copy);
 3. the main path: Cornell glossy 1024x1024, 16 spp, max_bounce 4 through
    `Renderer.render`, with the kernels' launch counts checked against
    spp * (max_bounce + 2) * chunks (closest) and spp * (max_bounce + 1) *
@@ -121,14 +135,29 @@ any failure exits non-zero:
    over the pool casts `LAST_STATS` counts (slab phases included), and
    the image against the grouped sweep's pass at the same seed (timed
    beside it), RMSE <= 1e-3;
+3k. the alpha-tested main path: `alpha_sphere_grid(12, 12)` (the spheres
+   of override 1 at opacity 0.4: the opaque/masked split, 8,192 clusters
+   a side) 1024x1024, 4 spp, max_bounce 4, after a one-sample warm-up:
+   ms/spp, peak memory, recast passes per cast, and the rule of 3b where
+   every cast is one opaque cast and one recast loop (`alpha_calls`) and
+   every recast pass (`alpha_passes`) one more closest cast: prep
+   launches equal the work-list casts made, recast passes and opaque
+   split casts included;
+3l. the wavefront on the same scene, 1920x1080, 2 spp, one pool pass
+   after a warm-up: `LAST_STATS` and the rule of 3k over the pool casts;
+3m. the textured variant (opacity 1, the dot-grid mask over the
+   spheres' UVs), megakernel 1024x1024, 2 spp: the rule of 3k;
 4. the card's render against the port's CPU render, Cornell (64x64,
    4 spp), 4b. sphere_grid(3, 3, stacks=12, slices=16) (64x64, 4 spp),
    4c. the same small grid through the wavefront, 4d. the same small
    grid forced onto the instanced tables (megakernel), 4e. the same
    small grid through "pallas_cluster" (megakernel), 4f. the same small
-   grid through the wavefront with pool_backend="pallas_pair" and 4g. the
-   same small grid through the megakernel with slab_march=0.03;
-5. one JSON line listing the sixteen kernels, then the contract line,
+   grid through the wavefront with pool_backend="pallas_pair", 4g. the
+   same small grid through the megakernel with slab_march=0.03, 4h. the
+   alpha-tested panel (the dense sweep, megakernel), 4i. the small grid
+   with alpha through the wavefront and 4j. its textured variant
+   (megakernel);
+5. one JSON line listing the nineteen kernels, then the contract line,
    last.
 
 Tolerances (kernel vs twin): the kernels are built without FMA
@@ -165,7 +194,11 @@ sweep the fine cull of every pair (32 slab tests) and 16 triangle tests
 per cluster its walk swept, the any-hit sweep the fine cull only (a
 lower bound), against the pair list, rays, per-pair outputs and tables
 read or written once. The pair kernels must equal their twins in every
-field.
+field. The ray prep counts 24 bytes read a ray and 40 written a padded
+ray (14 operations a ray bound nothing); the item-list probe 23
+operations a (row, lane) of each item against the items, the slab table
+and the rays read once; the transpose 64 bytes read and 64 written a
+row. Prep and probes must equal their twins bit for bit.
 """
 
 import json
@@ -216,6 +249,9 @@ CLUSTER_WAVEFRONT = dict(width=1920, height=1080, spp=2, max_bounce=4)
 PAIR_TWIN_BLOCKS = 64                   # ray blocks of a pair twin sweep
 PAIR_RENDER = dict(width=1024, height=1024, spp=4, max_bounce=4)
 PAIR_WAVEFRONT = dict(width=1920, height=1080, spp=4, max_bounce=4)
+ALPHA_RENDER = dict(width=1024, height=1024, spp=4, max_bounce=4)
+ALPHA_WAVEFRONT = dict(width=1920, height=1080, spp=2, max_bounce=4)
+ALPHA_TEX_RENDER = dict(width=1024, height=1024, spp=2, max_bounce=4)
 
 
 def _timed(fn, reps, warm=True):
@@ -448,6 +484,31 @@ def _items_census(tables, od, tm):
                 items_per_block_max=int(counts.max()))
 
 
+def _grid_ray_sets(rng, cam, device):
+    """The three 1M-ray sets of the sphere grid: tiled camera rays, random
+    rays from inside the scene box and shadow rays towards the lamp, each
+    (o, d, t_max)."""
+    import torch
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    lo, hi = [-18.0, 0.01, -18.0], [18.0, 6.9, 18.0]
+    side = int(np.sqrt(N_RAYS))
+    o_cam, d_cam = _tiled_camera_rays(cam, side, side, device)
+    o_in, d_in = _rays_inside(rng, N_RAYS, lo, hi)
+    o_sh = rng.uniform([-9.0, 0.01, -9.0], [9.0, 1.5, 9.0], (N_RAYS, 3))
+    to_lamp = rng.uniform([-2.0, 7.0, -2.0], [2.0, 7.0, 2.0],
+                          (N_RAYS, 3)) - o_sh
+    dist = np.linalg.norm(to_lamp, axis=1)
+    return {
+        "camera": (o_cam, d_cam, f32(rng.uniform(0.5, 30.0, N_RAYS))),
+        "random": (f32(o_in), f32(d_in), f32(rng.uniform(0.5, 30.0, N_RAYS))),
+        "shadow": (f32(o_sh), f32(to_lamp / dist[:, None]),
+                   f32(0.999 * dist)),
+    }
+
+
 def phase_worklist_kernels(device):
     """Work-list kernels vs twins on sphere_grid(12, 12); kernel and twin
     times at the camera rays; the item and cluster census."""
@@ -472,24 +533,7 @@ def phase_worklist_kernels(device):
     if tables.hbox is None:
         raise SystemExit("sphere_grid(12, 12) should use the hyper level")
 
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
-    lo, hi = [-18.0, 0.01, -18.0], [18.0, 6.9, 18.0]
-    side = int(np.sqrt(N_RAYS))
-    o_cam, d_cam = _tiled_camera_rays(to_device(cam, device), side, side,
-                                      device)
-    o_in, d_in = _rays_inside(rng, N_RAYS, lo, hi)
-    o_sh = rng.uniform([-9.0, 0.01, -9.0], [9.0, 1.5, 9.0], (N_RAYS, 3))
-    to_lamp = rng.uniform([-2.0, 7.0, -2.0], [2.0, 7.0, 2.0],
-                          (N_RAYS, 3)) - o_sh
-    dist = np.linalg.norm(to_lamp, axis=1)
-    sets = {
-        "camera": (o_cam, d_cam, f32(rng.uniform(0.5, 30.0, N_RAYS))),
-        "random": (f32(o_in), f32(d_in), f32(rng.uniform(0.5, 30.0, N_RAYS))),
-        "shadow": (f32(o_sh), f32(to_lamp / dist[:, None]),
-                   f32(0.999 * dist)),
-    }
+    sets = _grid_ray_sets(rng, to_device(cam, device), device)
     t_min = 1e-4
     reports, census = [], {}
     cull = dict(diff=0, err=0.0, refine_diff=0, refine_err=0.0)
@@ -1438,6 +1482,141 @@ def phase_pair_kernels(device):
     return reports, errs, rows
 
 
+def _bit_diff(a, b):
+    """Elements of two float32 tensors whose bits differ."""
+    import torch
+
+    return int((a.contiguous().view(torch.int32)
+                != b.contiguous().view(torch.int32)).sum())
+
+
+def _injected_rays(rng, n, device):
+    """n random rays with NaN and inf origin components, zero, NaN and inf
+    directions, components of +-1e-31, -0.0 and negative denormals
+    injected at random rays, and per-ray t_max."""
+    import torch
+
+    o, d = _rays_inside(rng, n, -5.0, 5.0)
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    for vals, arr in (((np.nan, np.inf, -np.inf), o),
+                      ((0.0, np.nan, np.inf, 1e-31, -1e-31, -0.0, -1e-40),
+                       d)):
+        for v in vals:
+            i = rng.integers(0, n, n // 100)
+            arr[i, rng.integers(0, 3, i.size)] = v
+    d[rng.integers(0, n, n // 100)] = 0.0
+    t_max = rng.uniform(0.1, 30.0, n).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=device) for x in (o, d, t_max))
+
+
+def phase_prep_kernel(device):
+    """Row 6: the prep kernel against `prep_rays_torch` on the grid's
+    three 1M-ray sets of 2b, the random set in `ray_sort_key` order (the
+    pool's) and a 1M-ray set with injected NaN, inf, zero, +-1e-31, -0.0
+    and denormal components; each without t_max (a closest cast) and with
+    its per-ray t_max (a shadow cast). Bit-equal od and tm; CUDA-event
+    times of the kernel and of the twin's route on the camera set; the
+    bound."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+    from directcomputeraytracing_tpu_torch.core.types import to_device
+    from directcomputeraytracing_tpu_torch.scene.presets import sphere_grid
+    from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+
+    rng = np.random.default_rng(20261018)
+    scene, cam = sphere_grid(*GRID)
+    tables = wl.scene_tables(flatten_scene(scene, device)[0])
+    sets = _grid_ray_sets(rng, to_device(cam, device), device)
+    o, d, t_max = sets["random"]
+    sets["random_sorted"] = (*_sorted_rays(tables, o, d), t_max)
+    sets["injected"] = _injected_rays(rng, N_RAYS, device)
+    reports, err = [], 0.0
+    for name, (o, d, t_max) in sets.items():
+        for tm_in in (None, t_max):
+            od, tm, _ = wl.prep_rays(o, d, tm_in)
+            od_w, tm_w, _ = wl.prep_rays_torch(o, d, tm_in)
+            torch.cuda.synchronize()
+            rep = dict(case=name, t_max=tm_in is not None, rays=o.shape[0],
+                       od_bits_diff=_bit_diff(od, od_w),
+                       tm_bits_diff=_bit_diff(tm, tm_w),
+                       parked=int((od_w[0, :o.shape[0]] == wl._FAR).sum()))
+            err = max(err, float((od - od_w).abs().nan_to_num().max()),
+                      float((tm - tm_w).abs().max()))
+            reports.append(rep)
+            print("prep-kernel-vs-twin", json.dumps(rep))
+    if any(r["od_bits_diff"] or r["tm_bits_diff"] for r in reports):
+        raise SystemExit(f"prep kernel/twin mismatch: {reports}")
+    if not next(r for r in reports if r["case"] == "injected")["parked"]:
+        raise SystemExit("the injected set parked no ray")
+    o, d, t_max = sets["camera"]
+    rp = -(-N_RAYS // wl.RB) * wl.RB
+    row = dict(
+        rays=N_RAYS, max_abs_err=err,
+        ms=_timed(lambda: wl.prep_rays(o, d), 50),
+        twin_ms=_timed(lambda: wl.prep_rays_torch(o, d), 20),
+        shadow_ms=_timed(lambda: wl.prep_rays(o, d, t_max), 50),
+        shadow_twin_ms=_timed(lambda: wl.prep_rays_torch(o, d, t_max), 20),
+        # 3 tests, 3 squares and 2 adds, 3 compares and 3 divisions a ray
+        bound=_bound(14 * N_RAYS, 24 * N_RAYS + 40 * rp))
+    print("prep timing camera", json.dumps(row))
+    return row
+
+
+def phase_probes(device, wl_times, wl_census):
+    """Rows 18 and 19 through the port's probe tools: each tool's
+    measurement (its launches counted from 0), then each kernel against
+    its twin: the item-list probe at the reference's four capacities (64
+    blocks, 4096 slabs), equal, beside `sweep_closest`'s cost per item on
+    2b's camera rays; the (2^20, 16) transpose, bit-equal to
+    `.T.contiguous()` and to the twin."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.tools import prof_prep as pp
+    from directcomputeraytracing_tpu_torch.tools import probe_worklist as pw
+
+    pw.item_list.launches = pp.transpose16.launches = 0
+    rows = pw.measure(device)
+    layout = pp.measure(device)
+    launches = dict(item_list=pw.item_list.launches,
+                    transpose16=pp.transpose16.launches)
+    tab, o = (torch.from_numpy(x).to(device) for x in pw.make_inputs())
+    diffs, err = [], 0.0
+    for row in rows:
+        items = torch.from_numpy(pw.make_items(row["capacity"])).to(device)
+        got, want = pw.item_list(items, tab, o), pw.item_list_torch(items,
+                                                                    tab, o)
+        torch.cuda.synchronize()
+        row["diff"] = _bit_diff(got, want)
+        err = max(err, float((got - want).abs().max()))
+        diffs.append(row["diff"])
+    sweep_items = wl_census["camera"]["closest"]["items"]
+    sweep_ns = 1e6 * wl_times["closest_ms"] / max(sweep_items, 1)
+    print("item-list probe", json.dumps(dict(
+        rows=rows, sweep_closest_items=sweep_items,
+        sweep_closest_ns_per_item=sweep_ns)))
+    x = pp.build_table(*(torch.from_numpy(a).to(device)
+                         for a in pp.make_rays()))
+    t, lib, twin = pp.transpose16(x), x.T.contiguous(), pp.transpose16_torch(x)
+    torch.cuda.synchronize()
+    layout.update(diff_vs_library=_bit_diff(t, lib),
+                  diff_vs_twin=_bit_diff(t, twin))
+    print("layout probe", json.dumps(layout), json.dumps(launches))
+    if any(diffs) or layout["diff_vs_library"] or layout["diff_vs_twin"]:
+        raise SystemExit(f"probe kernel/twin mismatch: {rows} {layout}")
+    if not (launches["item_list"] and launches["transpose16"]):
+        raise SystemExit(f"a probe tool launched no kernel: {launches}")
+    cap = rows[-1]["capacity"]
+    r = 64 * pw.RB
+    item = dict(row=rows[-1], max_abs_err=err, launches=launches["item_list"],
+                twin_ms=_timed(lambda: pw.item_list_torch(items, tab, o), 1),
+                bound=_bound(23 * pw.CS * pw.RB * cap,
+                             4 * cap + 4 * tab.numel() + 8 * r))
+    tr = dict(layout=layout, launches=launches["transpose16"],
+              bound=_bound(0, 2 * 64 * pp.R))
+    return item, tr
+
+
 def _image_diff(a, b):
     """RMSE and diverged-pixel share of two images (the CPU-vs-card
     gate's measure)."""
@@ -1461,6 +1640,8 @@ def _scene(name):
     """A scene of the run by name; a name ending in `_forced` is the same
     scene, which `_renderer` flattens onto the instanced tables."""
     from directcomputeraytracing_tpu_torch.scene.presets import (
+        alpha_panel,
+        alpha_sphere_grid,
         cornell_box,
         sphere_grid,
     )
@@ -1468,6 +1649,13 @@ def _scene(name):
     name = name.removesuffix("_forced")
     if name == "cornell":
         return cornell_box("area", "glossy")
+    if name == "alpha_panel":
+        return alpha_panel()
+    if name.startswith("alpha_grid"):
+        return alpha_sphere_grid(*GRID, textured=name.endswith("textured"))
+    if name.startswith("small_alpha_grid"):
+        return alpha_sphere_grid(*SMALL_GRID[0], **SMALL_GRID[1],
+                                 textured=name.endswith("textured"))
     if name == "grid":
         return sphere_grid(*GRID)
     if name == "inst_grid":
@@ -1493,34 +1681,54 @@ def _launches():
     from directcomputeraytracing_tpu_torch.accel import brute
     from directcomputeraytracing_tpu_torch.accel import clustered as cl
     from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
+    from directcomputeraytracing_tpu_torch.accel import traverse as tv
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
 
     return dict(brute_closest=brute.brute_closest.launches,
                 brute_any=brute.brute_any.launches, **wl.counters(),
-                **cl.counters(), **ps.counters())
+                **cl.counters(), **ps.counters(),
+                alpha_calls=tv.alpha_recast.calls,
+                alpha_passes=tv.alpha_recast.passes)
 
 
 def _reset_launches():
     from directcomputeraytracing_tpu_torch.accel import brute
     from directcomputeraytracing_tpu_torch.accel import clustered as cl
     from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
+    from directcomputeraytracing_tpu_torch.accel import traverse as tv
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
 
     brute.brute_closest.launches = brute.brute_any.launches = 0
     wl.reset_counters()
     cl.reset_counters()
     ps.reset_counters()
+    tv.reset_counters()
 
 
 def _expected_launches(arrays, n_closest, n_any, got, sweeps="",
-                       backend="auto"):
+                       backend="auto", alpha=False):
     """The counts the main path must show: every cast went through the
     path's kernels (the dense sweep for Cornell, the work list's sweeps
     `sweep_closest{sweeps}` and `sweep_any{sweeps}` for the sphere grids,
     the instanced ones on instanced tables, with "pallas_cluster" one
     cull and one clustered sweep, with "pallas_pair" the work list's cull
-    and per cast with pairs one emission and one pair sweep) and nothing
-    else launched."""
+    and per cast with pairs one emission and one pair sweep; one ray prep
+    per work-list or pair cast, empty ones included) and nothing else
+    launched. With alpha (an alpha-tested scene on the opaque/masked
+    split) each of the n_closest + n_any casts runs one recast loop
+    (`alpha_calls`) after its opaque cast, and every recast pass
+    (`alpha_passes`) is one more closest cast."""
+    passes = got["alpha_passes"] if alpha else 0
+    expect = _expected_cast_launches(arrays, n_closest + passes, n_any, got,
+                                     sweeps, backend)
+    expect.update(alpha_calls=n_closest + n_any if alpha else 0,
+                  alpha_passes=passes)
+    return expect
+
+
+def _expected_cast_launches(arrays, n_closest, n_any, got, sweeps, backend):
+    """`_expected_launches` for n_closest closest and n_any any-hit casts
+    of one backend."""
     zero = dict.fromkeys(got, 0)
     if backend == "pallas_cluster":
         return dict(zero, cluster_cull=n_closest + n_any,
@@ -1529,7 +1737,8 @@ def _expected_launches(arrays, n_closest, n_any, got, sweeps="",
         # a cast with items emits; one without items or pairs sweeps
         # nothing (counted apart; `no_pair`: emitted, no pair)
         c_empty, a_empty = got["pair_closest_empty"], got["pair_any_empty"]
-        return dict(zero, cull_boxes=n_closest + n_any,
+        return dict(zero, prep_rays=n_closest + n_any,
+                    cull_boxes=n_closest + n_any,
                     refine=n_closest + n_any - got["refine_skipped"],
                     refine_skipped=got["refine_skipped"],
                     pair_emit=(n_closest - c_empty + got["pair_closest_no_pair"]
@@ -1546,7 +1755,8 @@ def _expected_launches(arrays, n_closest, n_any, got, sweeps="",
     # work list: a cast with an empty item list launches no sweep (counted
     # apart); each cast culls once; a cast whose hyper cull admitted
     # nothing runs no refine (counted apart)
-    return dict(zero, cull_boxes=n_closest + n_any,
+    return dict(zero, prep_rays=n_closest + n_any,
+                cull_boxes=n_closest + n_any,
                 refine=n_closest + n_any - got["refine_skipped"],
                 refine_skipped=got["refine_skipped"],
                 closest_empty=got["closest_empty"], any_empty=got["any_empty"],
@@ -1573,7 +1783,7 @@ def phase_render(device, name, p=RENDER, backend="auto", warm_spp=None):
     expect = _expected_launches(
         r.arrays, p["spp"] * (p["max_bounce"] + 2) * r.n_chunks,
         p["spp"] * (p["max_bounce"] + 1) * r.n_chunks, launches,
-        backend=backend)
+        backend=backend, alpha=r.cfg.any_hit)
     post = r.postprocessed()
     stats = dict(scene=name, backend=backend, world_tris=world_tris,
                  instanced=r.arrays.isup_inst.shape[0] > 1,
@@ -1586,7 +1796,8 @@ def phase_render(device, name, p=RENDER, backend="auto", warm_spp=None):
                  post_mean=float(post.mean()), post_min=float(post.min()),
                  post_max=float(post.max()),
                  post_finite=bool(np.isfinite(post).all()),
-                 launches=launches, expected_launches=expect)
+                 launches=launches, expected_launches=expect,
+                 **_alpha_stats(r, launches))
     print("render", json.dumps(stats))
     if not (stats["finite"] and stats["post_finite"] and stats["mean"] > 0.0
             and img.shape == (p["height"], p["width"], 3)):
@@ -1596,14 +1807,28 @@ def phase_render(device, name, p=RENDER, backend="auto", warm_spp=None):
     return stats
 
 
-def _expected_wavefront_launches(arrays, stats, got, backend="auto"):
+def _alpha_stats(r, launches):
+    """Recast passes per alpha-tested cast of a render (empty when the
+    scene has no alpha)."""
+    if not r.cfg.any_hit:
+        return {}
+    calls = launches["alpha_calls"]
+    return dict(alpha=True, alpha_textures=r.cfg.any_hit_texture,
+                recast_calls=calls, recast_passes=launches["alpha_passes"],
+                recast_passes_per_cast=(launches["alpha_passes"]
+                                        / max(calls, 1)),
+                split=r.arrays.mclu_bbox.shape[0] > 1)
+
+
+def _expected_wavefront_launches(arrays, stats, got, backend="auto",
+                                 alpha=False):
     """Every pool cast of the wavefront went through the grouped sweep,
     or on instanced tables the instanced one (or found no item), or with
     "pallas_cluster" the clustered sweeps: no other sweep, one cull per
     cast."""
     return _expected_launches(arrays, sum(stats["closest_casts_per_phase"]),
                               sum(stats["any_casts_per_phase"]), got,
-                              "_grouped", backend)
+                              "_grouped", backend, alpha)
 
 
 def phase_wavefront(device):
@@ -1717,8 +1942,8 @@ def phase_wavefront_vs_megakernel(device):
 def phase_wavefront_pass(device, name, p, backend="auto"):
     """One timed pool pass of the wavefront at p's size after a warm-up
     pass, default pool: on the instanced sphere grid with its slab
-    marching (3f), or on the soup grid through "pallas_cluster", which
-    marches no slabs (3h)."""
+    marching (3f), on the soup grid through "pallas_cluster", which
+    marches no slabs (3h), or on the alpha-tested grid (3l)."""
     import torch
 
     from directcomputeraytracing_tpu_torch.integrator import wavefront as wf
@@ -1738,7 +1963,7 @@ def phase_wavefront_pass(device, name, p, backend="auto"):
     launches = _launches()
     stats = dict(wf.LAST_STATS)
     expect = _expected_wavefront_launches(r.arrays, stats, launches,
-                                          backend)
+                                          backend, r.cfg.any_hit)
     rep = dict(scene=name, integrator="wavefront", backend=backend,
                world_tris=world_tris,
                instanced=r.arrays.isup_inst.shape[0] > 1,
@@ -1747,7 +1972,8 @@ def phase_wavefront_pass(device, name, p, backend="auto"):
                ms_per_spp=1000.0 * seconds / p["spp"], total_s=seconds,
                warmup_s=warm_s,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-               last_stats=stats, launches=launches, expected_launches=expect)
+               last_stats=stats, launches=launches, expected_launches=expect,
+               **_alpha_stats(r, launches))
     print(f"wavefront-{name}-{backend}", json.dumps(rep))
     if not (rep["finite"] and rep["mean"] > 0.0
             and img.shape == (p["height"], p["width"], 3)):
@@ -1849,16 +2075,19 @@ def phase_cpu_vs_card(device, name, integrator="megakernel", backend="auto",
 
 
 def _build_all():
-    """Build the four kernel libraries, the nvcc runs in parallel."""
+    """Build the six kernel libraries, the nvcc runs in parallel."""
     from directcomputeraytracing_tpu_torch.accel import brute
     from directcomputeraytracing_tpu_torch.accel import clustered as cl
     from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
+    from directcomputeraytracing_tpu_torch.tools import probe_worklist as pw
 
-    sources = (("brute_sweep.cu", brute), ("worklist.cu", wl),
-               ("clustered.cu", cl), ("pairsweep.cu", ps))
+    sources = (("brute_sweep.cu", brute.kernels),
+               ("worklist.cu", wl.kernels), ("clustered.cu", cl.kernels),
+               ("pairsweep.cu", ps.kernels), ("prep.cu", wl.prep_kernels),
+               ("probes.cu", pw.kernels))
     with ThreadPoolExecutor(len(sources)) as pool:
-        futures = {src: pool.submit(mod.kernels) for src, mod in sources}
+        futures = {src: pool.submit(fn) for src, fn in sources}
     for src, fut in futures.items():
         built = fut.result()
         print(f"build: {src} -> {built.path} in {built.seconds:.1f} s")
@@ -1904,6 +2133,9 @@ def main():
                                   phase_clustered_kernels, device)
     _, pair_errs, pair_rows = phase("2g pair kernels", phase_pair_kernels,
                                     device)
+    prep = phase("2h prep kernel", phase_prep_kernel, device)
+    probe_item, probe_tr = phase("2i probe kernels", phase_probes, device,
+                                 wl_times, wl_census)
     cornell = phase("3 Cornell render", phase_render, device, "cornell")
     grid = phase("3b sphere-grid render", phase_render, device, "grid")
     wave = phase("3c wavefront render", phase_wavefront, device)
@@ -1922,6 +2154,14 @@ def main():
                       PAIR_RENDER, "pallas_pair", 1)
     pair_wave = phase("3j pair wavefront render", phase_pair_wavefront,
                       device)
+    alpha = phase("3k alpha render", phase_render, device, "alpha_grid",
+                  ALPHA_RENDER, "auto", 1)
+    phase("3l alpha wavefront render", phase_wavefront_pass, device,
+          "alpha_grid", ALPHA_WAVEFRONT)
+    phase("3m textured alpha render", phase_render, device,
+          "alpha_grid_textured", ALPHA_TEX_RENDER, "auto", 1)
+    if not (alpha["split"] and alpha["recast_passes"]):
+        raise SystemExit(f"the alpha render cast no split: {alpha}")
     phase("4 Cornell card vs CPU", phase_cpu_vs_card, device, "cornell")
     phase("4b small grid card vs CPU", phase_cpu_vs_card, device,
           "small_grid")
@@ -1937,6 +2177,12 @@ def main():
           device, "small_grid", "wavefront", pool_backend="pallas_pair")
     phase("4g small grid slab-marched megakernel card vs CPU",
           phase_cpu_vs_card, device, "small_grid", slab_march=0.03)
+    phase("4h alpha panel card vs CPU", phase_cpu_vs_card, device,
+          "alpha_panel")
+    phase("4i small alpha grid wavefront card vs CPU", phase_cpu_vs_card,
+          device, "small_alpha_grid", "wavefront")
+    phase("4j small textured alpha grid card vs CPU", phase_cpu_vs_card,
+          device, "small_alpha_grid_textured")
     if "jax" in sys.modules:
         raise SystemExit("the port imported jax")
     print(f"chip_smoke: all phases passed in "
@@ -1946,6 +2192,7 @@ def main():
     wl_src = "directcomputeraytracing_tpu_torch/csrc/worklist.cu"
     cl_src = "directcomputeraytracing_tpu_torch/csrc/clustered.cu"
     pair_src = "directcomputeraytracing_tpu_torch/csrc/pairsweep.cu"
+    probes_src = "directcomputeraytracing_tpu_torch/csrc/probes.cu"
     ref_pair = "directcomputeraytracing_tpu/accel/pairsweep.py"
     ref_wl = "directcomputeraytracing_tpu/accel/worklist.py"
     ref_brute = "directcomputeraytracing_tpu/accel/pallas_brute.py"
@@ -1957,12 +2204,13 @@ def main():
     wl_closest_err = max(r["closest_max_abs_err"] for r in wl_reports)
     wl_any_err = max(r["any_max_abs_err"] for r in wl_reports)
 
-    def row(name, src, replaces, launches, err, ms, plain_ms, bound):
+    def row(name, src, replaces, launches, err, ms, plain_ms, bound,
+            library_ms=None):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": None}
+                "library_ms": library_ms}
 
     print(json.dumps({"kernels": [
         row("brute_closest", brute_src,
@@ -2027,6 +2275,17 @@ def main():
             pair_wave["launches"]["pair_sweep_any"], pair_errs["any"],
             pair_rows["any"]["sweep_ms"], pair_rows["any"]["sweep_twin_ms"],
             pair_rows["any"]["sweep_bound"]),
+        row("prep_rays", "directcomputeraytracing_tpu_torch/csrc/prep.cu",
+            f"{ref_wl}:205", alpha["launches"]["prep_rays"],
+            prep["max_abs_err"], prep["ms"], prep["twin_ms"], prep["bound"]),
+        row("item_list", probes_src, "experiments/probe_worklist.py:23",
+            probe_item["launches"], probe_item["max_abs_err"],
+            probe_item["row"]["ms"], probe_item["twin_ms"],
+            probe_item["bound"]),
+        row("transpose16", probes_src, "experiments/prof_prep.py:56",
+            probe_tr["launches"], 0.0, probe_tr["layout"]["kernel_ms"],
+            probe_tr["layout"]["twin_ms"], probe_tr["bound"],
+            probe_tr["layout"]["library_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,10 @@ from super to super, the pair sweep refines each (block, super) item to
 the rays that enter the super and walks every such (ray, super) pair on
 its own. A cast runs:
 
-1. `prep_rays`, `scene_exit` and `phases` of `accel.worklist`: the
-   (block, super) items of the work list's cull, as the reference builds
-   its items from the work list's phases A-B.
+1. `prep_rays` (its twin in the plain casts), `scene_exit` and `phases`
+   of `accel.worklist`: the (block, super) items of the work list's
+   cull, as the reference builds its items from the work list's phases
+   A-B.
 2. The emission. `emit_pairs` (kernel `emit_kernel`, twin
    `emit_pairs_torch`): per item and lane, one slab test of the item's
    super box, enter where (t_hi >= t_lo) & (t_hi >= 0) & (t_lo < cap) &
@@ -99,6 +100,7 @@ from .worklist import (
     decode_closest,
     phases,
     prep_rays,
+    prep_rays_torch,
     scene_exit,
     scene_tables,
     walk_any_torch,
@@ -434,7 +436,7 @@ def _soup_tables(scene):
 def _closest_cast(scene, origin, direction, t_min, watertight, plain, t_cap):
     _check_rays(origin, direction)
     tables = _soup_tables(scene)
-    od, tm, r = prep_rays(origin, direction)
+    od, tm, r = (prep_rays_torch if plain else prep_rays)(origin, direction)
     texp = scene_exit(tables, od)
     if t_cap is not None:
         cap = _cap(t_cap, texp, r)
@@ -457,7 +459,8 @@ def _closest_cast(scene, origin, direction, t_min, watertight, plain, t_cap):
 def _any_cast(scene, origin, direction, t_max, t_min, watertight, plain):
     _check_rays(origin, direction)
     tables = _soup_tables(scene)
-    od, tm, r = prep_rays(origin, direction, t_max)
+    od, tm, r = (prep_rays_torch if plain else prep_rays)(origin, direction,
+                                                          t_max)
     items = phases(tables, od, tm, plain) if r else None
     if items is None:
         return torch.zeros(r, dtype=torch.bool, device=origin.device), None

@@ -28,14 +28,22 @@ twins for CPU tensors. `t_cap` caps the window of the work-list and pair
 casts; the dense and clustered sweeps ignore it and report `iterations`
 0, as the reference's non-work-list backends do.
 `intersect_closest_slab` marches a closest cast in distance windows.
-Alpha-tested casts, the stack walker ("jax") and the reference's
-interpret-mode names raise NotImplementedError naming the ROADMAP item
-that brings them (the twins stand in for interpret mode).
+Alpha-tested casts (`opacity_u`) run the reference's recast loop
+(`alpha_recast`) around the opaque casts of every backend, over the
+opaque/masked cluster split where the scene has one. The stack walker
+("jax") and the reference's interpret-mode names raise
+NotImplementedError naming the ROADMAP item that brings the walker (the
+twins stand in for interpret mode).
 """
 
 from typing import NamedTuple
 
 import torch
+
+from ..core.constants import (
+    INSTANCE_FLAG_OPAQUE,
+    INSTANCE_MATERIAL_OVERRIDE_NONE,
+)
 
 
 class HitInfo(NamedTuple):
@@ -170,39 +178,215 @@ def _resolve_backend(scene, backend):
     return _WORKLIST_BACKENDS[backend]
 
 
-def _no_alpha(opacity_u):
-    if opacity_u is not None:
-        raise NotImplementedError(
-            "alpha-tested casts (opacity_u): ROADMAP queue 1, item 4")
-
-
-def intersect_closest(scene, origin, direction, t_min=0.0, backend="auto",
-                      watertight=False, opacity_u=None, t_cap=None):
-    """Closest hit over the scene; origin/direction (R, 3) f32. t_cap
-    (scalar or (R,)) caps the window of the work-list and pair casts (see
-    `worklist.worklist_closest`); the dense and clustered sweeps search
-    the whole ray, as the reference's non-work-list backends do."""
-    _no_alpha(opacity_u)
-    kind = _resolve_backend(scene, backend)
+def _cast_closest(scene, kind, origin, direction, t_min, watertight,
+                  t_cap=None):
+    """One opaque closest cast of backend kind (`_resolve_backend`):
+    (t, u, v, tri, inst, back, iters)."""
     if kind == "pair":
         from .pairsweep import pair_closest
 
-        t, u, v, tri, inst, back, iters = pair_closest(
-            scene, origin, direction, t_min, watertight, t_cap=t_cap)
-    elif kind in ("wl", "wlg"):
+        return pair_closest(scene, origin, direction, t_min, watertight,
+                            t_cap=t_cap)
+    if kind in ("wl", "wlg"):
         from .worklist import worklist_closest
 
-        t, u, v, tri, inst, back, iters = worklist_closest(
-            scene, origin, direction, t_min, watertight,
-            grouped=kind == "wlg", t_cap=t_cap)
+        return worklist_closest(scene, origin, direction, t_min, watertight,
+                                grouped=kind == "wlg", t_cap=t_cap)
+    if kind == "cluster":
+        from .clustered import clustered_closest as cast
     else:
-        if kind == "cluster":
-            from .clustered import clustered_closest as cast
-        else:
-            from .brute import brute_closest as cast
-        t, u, v, tri, inst, back = cast(scene, origin, direction, t_min,
-                                        watertight)
-        iters = torch.zeros_like(tri)
+        from .brute import brute_closest as cast
+    out = cast(scene, origin, direction, t_min, watertight)
+    return (*out, torch.zeros_like(out[3]))
+
+
+def _cast_any(scene, kind, origin, direction, t_max, t_min, watertight):
+    """One opaque occlusion cast of backend kind: (R,) bool."""
+    if kind == "pair":
+        from .pairsweep import pair_any
+
+        return pair_any(scene, origin, direction, t_max, t_min, watertight)
+    if kind in ("wl", "wlg"):
+        from .worklist import worklist_any
+
+        return worklist_any(scene, origin, direction, t_max, t_min,
+                            watertight, grouped=kind == "wlg")
+    if kind == "cluster":
+        from .clustered import clustered_any as cast
+    else:
+        from .brute import brute_any as cast
+    return cast(scene, origin, direction, t_max, t_min, watertight)
+
+
+def effective_opacity(scene, prim, inst, u, v, alpha_textures):
+    """Alpha-test opacity of candidate hits and the instance OPAQUE flag
+    that bypasses the test (reference `effective_opacity`): an instance's
+    material override wins over the triangle's material; with
+    alpha_textures the opacity texture's R channel, sampled at the hit's
+    UV times the material's tiling, multiplies it. prim: leaf-ordered
+    triangle ids, u, v: barycentrics (R,)."""
+    inst_c = inst.long().clamp(0, scene.instance_flags.shape[0] - 1)
+    opaque = (scene.instance_flags[inst_c] & INSTANCE_FLAG_OPAQUE) != 0
+    override = scene.instance_material_overrides[inst_c]
+    has_ov = override != INSTANCE_MATERIAL_OVERRIDE_NONE
+    last_mat = scene.mat_table.shape[0] - 1
+    prim = prim.long().clamp(0, scene.tri_opacity.shape[0] - 1)
+    opac = torch.where(has_ov, scene.mat_table[override.clamp(0, last_mat), 9],
+                       scene.tri_opacity[prim])
+    if alpha_textures:
+        from ..integrator.common import sample_texture_atlas
+
+        mrow = scene.mat_table[torch.where(has_ov, override,
+                                           scene.material_ids[prim])
+                               .clamp(0, last_mat)]
+        otex = mrow[:, 12].long()
+        c0, c1, c2 = (scene.vtx_table[scene.triangles[prim, k], 9:11]
+                      for k in range(3))
+        uvh = (c0 + (c1 - c0) * u[..., None] + (c2 - c0) * v[..., None]) \
+            * mrow[:, 7:9]
+        tex_o = sample_texture_atlas(scene.textures, scene.texture_sizes,
+                                     otex, uvh)[..., 0]
+        opac = opac * torch.where(otex >= 0, tex_o, 1.0)
+    return opac, opaque
+
+
+# the recast loop's bound (the deepest transparent stack it resolves) and
+# the relative origin advance past a rejected hit (the reference's)
+ALPHA_MAX_PASSES = 64
+ALPHA_ADVANCE = 4e-4
+
+
+def alpha_recast(scene, cast, origin, direction, first_floor, opacity_u,
+                 alpha_textures, t_max=None):
+    """Alpha-tested query by re-casting around an opaque closest cast
+    (reference `_alpha_recast`): cast, take a hit whose opacity accepts
+    the ray's pre-drawn sample (`opacity_u < opacity`, or an OPAQUE
+    instance), and re-cast the rays whose hit was rejected from
+    t * (1 + ALPHA_ADVANCE) + 1e-5 beyond it, at most ALPHA_MAX_PASSES
+    passes. cast(o, d, t_min, cap) -> (t, u, v, tri, inst, back, ...): the
+    pass's floor is first_floor on the first pass (the original origins)
+    and 0 on later ones (advanced origins); cap is None, or per ray the
+    window left, t_max - t_base (the distance already advanced).
+
+    Where the reference keeps every lane and parks the resolved ones, each
+    pass here casts only the unresolved rays, gathered in their order
+    (one host read a pass, the live count), so a pass costs what its rays
+    need; per-ray results are the reference's. With t_max (per ray or a
+    scalar) only hits below t_max count, and a ray with t_max <= 0 is
+    resolved before the first pass. Returns (t accumulated over the passes,
+    +inf on miss; u; v; tri; inst; back; occluded = a hit was taken).
+    Counters: `alpha_recast.calls`, `alpha_recast.passes` (casts made)."""
+    r, dev = origin.shape[0], origin.device
+    out_t = torch.full((r,), float("inf"), device=dev)
+    out_u, out_v = torch.zeros(r, device=dev), torch.zeros(r, device=dev)
+    out_tri = torch.zeros(r, dtype=torch.int32, device=dev)
+    out_inst = torch.zeros_like(out_tri)
+    out_back = torch.zeros(r, dtype=torch.bool, device=dev)
+    alpha_recast.calls += 1
+    bounded = t_max is not None
+    live = torch.arange(r, device=dev)
+    if bounded:
+        t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                                   device=dev), (r,))
+        live = torch.nonzero(t_max > 0.0)[:, 0]
+    cur_o, t_base = origin, torch.zeros(r, device=dev)
+    for k in range(ALPHA_MAX_PASSES):
+        if not live.numel():
+            break
+        o, d, t_b = cur_o[live], direction[live], t_base[live]
+        cap = torch.clamp_min(t_max[live] - t_b, 0.0) if bounded else None
+        alpha_recast.passes += 1
+        t, u, v, tri, inst, back = cast(o, d, first_floor if k == 0 else 0.0,
+                                        cap)[:6]
+        hit = torch.isfinite(t)
+        opac, opaque = effective_opacity(scene, tri, inst, u, v,
+                                         alpha_textures)
+        accept = opaque | (opacity_u[live] < opac)
+        t_tot = t_b + t
+        take = hit & accept
+        ends = ~hit | accept
+        if bounded:
+            beyond = t_tot >= t_max[live]
+            take, ends = take & ~beyond, ends | beyond
+        for out, new in ((out_t, t_tot), (out_u, u), (out_v, v),
+                         (out_tri, tri), (out_inst, inst), (out_back, back)):
+            out[live] = torch.where(take, new, out[live])
+        reject = hit & ~accept
+        adv = t * (1.0 + ALPHA_ADVANCE) + 1e-5
+        cur_o = cur_o.index_put((live,), torch.where(
+            reject[:, None], o + adv[:, None] * d, o))
+        t_base = t_base.index_put((live,), torch.where(reject, t_b + adv,
+                                                       t_b))
+        live = live[torch.nonzero(~ends)[:, 0]]
+    return (out_t, out_u, out_v, out_tri, out_inst, out_back,
+            torch.isfinite(out_t))
+
+
+def _has_alpha_split(scene, kind):
+    """True where the opaque/masked split applies: the scene carries both
+    sides' cluster tables (world-soup tables only) and the backend casts
+    through cluster tables a view can swap (not the dense sweep)."""
+    return (kind != "dense" and scene.mclu_bbox.shape[0] > 1
+            and scene.oclu_bbox.shape[0] > 1
+            and scene.isup_inst.shape[0] <= 1)
+
+
+def _split_view(scene, masked):
+    """The scene with one side of the split as its cluster tables (a
+    `_replace` aliases the tensors; the work-list, pair and clustered
+    table caches key on `cluster_bbox`, so each side has its own)."""
+    if masked:
+        return scene._replace(cluster_tris=scene.mclu_tris,
+                              cluster_bw=scene.mclu_bw,
+                              cluster_bbox=scene.mclu_bbox)
+    return scene._replace(cluster_tris=scene.oclu_tris,
+                          cluster_bw=scene.oclu_bw,
+                          cluster_bbox=scene.oclu_bbox)
+
+
+def _recast_closest(scene, kind, watertight):
+    """The recast loop's cast: an opaque closest cast of kind over scene,
+    capped at the window left."""
+    def cast(o, d, t_min, cap):
+        return _cast_closest(scene, kind, o, d, t_min, watertight, cap)
+    return cast
+
+
+def intersect_closest(scene, origin, direction, t_min=0.0, backend="auto",
+                      watertight=False, opacity_u=None, alpha_textures=False,
+                      t_cap=None):
+    """Closest hit over the scene; origin/direction (R, 3) f32. t_cap
+    (scalar or (R,)) caps the window of the work-list and pair casts (see
+    `worklist.worklist_closest`); the dense and clustered sweeps search
+    the whole ray, as the reference's non-work-list backends do.
+    opacity_u (R,): the alpha test's pre-drawn samples (alpha_textures:
+    with opacity textures). With the opaque/masked split one plain cast
+    answers the opaque side and `alpha_recast` the masked side below the
+    opaque hit (and t_cap); without it `alpha_recast` runs over the whole
+    scene, capped at t_cap, and reports `iterations` 0."""
+    kind = _resolve_backend(scene, backend)
+    if opacity_u is None:
+        out = _cast_closest(scene, kind, origin, direction, t_min, watertight,
+                            t_cap)
+    elif _has_alpha_split(scene, kind):
+        out = _cast_closest(_split_view(scene, False), kind, origin,
+                            direction, t_min, watertight, t_cap)
+        ceil = out[0] if t_cap is None else torch.minimum(
+            out[0], torch.as_tensor(t_cap, dtype=torch.float32,
+                                    device=origin.device))
+        masked = alpha_recast(
+            scene, _recast_closest(_split_view(scene, True), kind,
+                                   watertight),
+            origin, direction, t_min, opacity_u, alpha_textures, ceil)
+        m = torch.isfinite(masked[0]) & (masked[0] < out[0])
+        out = tuple(torch.where(m, a, b) for a, b in zip(masked[:6], out)) \
+            + (out[6],)
+    else:
+        out = alpha_recast(scene, _recast_closest(scene, kind, watertight),
+                           origin, direction, t_min, opacity_u,
+                           alpha_textures, t_cap)
+        out = out[:6] + (torch.zeros_like(out[3]),)
+    t, u, v, tri, inst, back, iters = out
     return HitInfo(t=t, u=u, v=v, triangle=tri, instance=inst, backface=back,
                    hit=torch.isfinite(t), iterations=iters)
 
@@ -233,7 +417,8 @@ class SlabStats:
 
 def intersect_closest_slab(scene, origin, direction, t_cap, backend="auto",
                            watertight=False, live=None,
-                           phases=SLAB_PHASES, stats=None):
+                           phases=SLAB_PHASES, stats=None, opacity_u=None,
+                           alpha_textures=False):
     """Distance-slab closest hit in `phases` geometric windows (reference
     `accel.traverse.intersect_closest_slab`). Phase 1 caps each ray at its
     scene-box entry + t_cap. Each later phase re-casts the still
@@ -247,7 +432,10 @@ def intersect_closest_slab(scene, origin, direction, t_cap, backend="auto",
     final regardless. Each later phase reads two device values on the
     host (counted in `stats.host_reads`): the unresolved count and the
     floor, which the kernels take as a float. The scene box is the work
-    list's table bounds (the reference uses its TLAS root box)."""
+    list's table bounds (the reference uses its TLAS root box). With
+    opacity_u every phase is an alpha-tested cast of its rays; the floor
+    then holds on the recast loop's first pass only (see
+    `alpha_recast`)."""
     if int(phases) < 2:
         raise ValueError("slab marching needs a final unbounded phase")
     from .worklist import scene_tables
@@ -266,7 +454,8 @@ def intersect_closest_slab(scene, origin, direction, t_cap, backend="auto",
                         torch.clamp_min(t_en, 0.0), 0.0)
     caps = entry + t_cap
     hit = intersect_closest(scene, origin, direction, backend=backend,
-                            watertight=watertight, t_cap=caps)
+                            watertight=watertight, opacity_u=opacity_u,
+                            alpha_textures=alpha_textures, t_cap=caps)
     stats.casts[0] += 1
     # a capped miss is final when the ray leaves the scene box before the
     # cap: the cast's window was the whole ray
@@ -289,6 +478,8 @@ def intersect_closest_slab(scene, origin, direction, t_cap, backend="auto",
         hit_k = intersect_closest(
             scene, origin[idx], direction[idx], t_min=floor_k,
             backend=backend, watertight=watertight,
+            opacity_u=None if opacity_u is None else opacity_u[idx],
+            alpha_textures=alpha_textures,
             t_cap=None if cap_k is None else cap_k[idx])
         iters = hit[7]
         for j, x in enumerate(hit_k):
@@ -302,21 +493,30 @@ def intersect_closest_slab(scene, origin, direction, t_cap, backend="auto",
 
 
 def intersect_any(scene, origin, direction, t_max, t_min=0.0, backend="auto",
-                  watertight=False, opacity_u=None):
-    """Occlusion: True where a hit lies in [t_min, t_max)."""
-    _no_alpha(opacity_u)
+                  watertight=False, opacity_u=None, alpha_textures=False):
+    """Occlusion: True where a hit lies in [t_min, t_max). With opacity_u
+    (alpha-tested): on the split, the opaque side's occlusion cast, then
+    `alpha_recast` over the masked side for the rays it left unoccluded;
+    without the split `alpha_recast` over the whole scene."""
     kind = _resolve_backend(scene, backend)
-    if kind == "pair":
-        from .pairsweep import pair_any
+    if opacity_u is None:
+        return _cast_any(scene, kind, origin, direction, t_max, t_min,
+                         watertight)
+    if not _has_alpha_split(scene, kind):
+        return alpha_recast(scene, _recast_closest(scene, kind, watertight),
+                            origin, direction, t_min, opacity_u,
+                            alpha_textures, t_max)[6]
+    occ = _cast_any(_split_view(scene, False), kind, origin, direction,
+                    t_max, t_min, watertight)
+    t_rest = torch.where(occ, 0.0, torch.as_tensor(
+        t_max, dtype=torch.float32, device=origin.device))
+    return occ | alpha_recast(
+        scene, _recast_closest(_split_view(scene, True), kind, watertight),
+        origin, direction, t_min, opacity_u, alpha_textures, t_rest)[6]
 
-        return pair_any(scene, origin, direction, t_max, t_min, watertight)
-    if kind in ("wl", "wlg"):
-        from .worklist import worklist_any
 
-        return worklist_any(scene, origin, direction, t_max, t_min,
-                            watertight, grouped=kind == "wlg")
-    if kind == "cluster":
-        from .clustered import clustered_any as cast
-    else:
-        from .brute import brute_any as cast
-    return cast(scene, origin, direction, t_max, t_min, watertight)
+def reset_counters():
+    alpha_recast.calls = alpha_recast.passes = 0
+
+
+reset_counters()

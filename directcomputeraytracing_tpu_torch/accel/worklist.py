@@ -5,9 +5,11 @@ Counterpart of `directcomputeraytracing_tpu.accel.worklist` for world-soup
 cluster tables (scenes of 2049 to 2^20 world triangles) and the instanced
 tables of larger scenes (`scene_tables`). A cast runs:
 
-1. `prep_rays`: (R, 3) rays -> (9, Rp) rows [o; d; 1/d] and a per-ray
-   t_max row, padded to a multiple of `RB` with far rays that enter
-   nothing; non-finite or zero-length rays are parked the same way.
+1. `prep_rays` (kernel `prep_kernel` of `csrc/prep.cu`, twin
+   `prep_rays_torch`): (R, 3) rays -> (9, Rp) rows [o; d; 1/d] and a
+   per-ray t_max row, padded to a multiple of `RB` with far rays that
+   enter nothing; non-finite or zero-length rays are parked the same way.
+   One launch replaces the twin's ~20 small device operations.
 2. The cull. `cull_boxes` (kernel `cull_kernel`, twin `cull_boxes_torch`):
    for every block of RB rays and every box, the minimum entry distance
    over the block's rays that enter the box within their t_max (BIG: none
@@ -76,14 +78,15 @@ the clusters its own fine cull admitted, summed over its block's items.
 `worklist_closest` also takes a window cap, t_cap (scalar or per ray):
 the scene exit and the cull's t_max shrink to t_cap * 1.001 + 1e-3.
 
-Wrappers launch the kernels of `csrc/worklist.cu` on CUDA tensors and run
+Wrappers launch the kernels of `csrc/worklist.cu` (`prep_rays` that of
+`csrc/prep.cu`) on CUDA tensors and run
 the twins on CPU tensors; any other device raises. `worklist_closest`
 and `worklist_any` are the casts the intersector calls;
 `worklist_closest_torch` and `worklist_any_torch` are the same casts with
 every step in plain PyTorch, on any device. All four take grouped=True
 for the grouped sweep.
 
-Counters: `cull_boxes.launches`, `refine.launches`,
+Counters: `prep_rays.launches`, `cull_boxes.launches`, `refine.launches`,
 `sweep_closest.launches`, `sweep_any.launches`,
 `sweep_closest_grouped.launches`, `sweep_any_grouped.launches`,
 `sweep_closest_inst.launches` and `sweep_any_inst.launches` count CUDA
@@ -110,6 +113,7 @@ _LOWM = (SUPER << 4) - 1     # packed best-hit low bits: (child << 4) | row
 _KEYM = 63                   # group pick-key low bits: the child id
 BIG = 3.0e38
 _FAR = 2.0 * BIG ** 0.5      # parked-ray origin: enters no box
+_FLT_MIN = 2.0 ** -126       # smallest normal float32
 _INVERTED_BOX = (1.0, 1.0, 1.0, -1.0, -1.0, -1.0, 0.0, 0.0)
 _I32_MAX = 0x7FFFFFFF
 TWIN_RAY_CHUNK = 1 << 20     # rays per chunk of the sweep twins
@@ -118,6 +122,7 @@ _BW_META, _RAW_META = 12, 9  # tri|inst|flip columns of the two slab tables
 
 _NVCC_EXTRA = ("-fmad=false",)   # round like the twins (see brute.py)
 _built = None
+_prep_built = None
 _TABLES = WeakIdKeyDictionary()
 
 
@@ -262,16 +267,70 @@ def scene_tables(scene):
 # ray preparation and the scene exit
 # ---------------------------------------------------------------------------
 
+def prep_kernels():
+    """The loaded ray-prep library (`csrc/prep.cu`, built on first call)."""
+    global _prep_built
+    if _prep_built is None:
+        from ..utils.cuda_build import load_library
+
+        built = load_library("prep.cu", _NVCC_EXTRA)
+        c_p, c_i, c_f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        built.lib.dcrt_prep_rays.argtypes = [c_p, c_p, c_i, c_p, c_i, c_f,
+                                             c_f, c_i, c_p, c_p, c_p]
+        built.lib.dcrt_prep_rays.restype = c_i
+        _prep_built = built
+    return _prep_built
+
+
 def prep_rays(origin, direction, t_max=None):
     """(R, 3) rays [+ t_max, scalar or (R,)] -> (od (9, Rp) [o; d; 1/d],
-    tm (Rp,) per-ray t_max, R), Rp a multiple of RB. Rays with a
-    non-finite component or a zero-length direction are parked at _FAR
-    along +x, where they enter no box; padding rays too, with t_max 0.
-    Without t_max (closest casts) real rays get BIG."""
+    tm (Rp,) per-ray t_max, R), Rp a multiple of RB (see
+    `prep_rays_torch`): the kernel `prep_kernel` (kernel row 6) on CUDA
+    tensors, one launch a call with rays, the twin on CPU tensors."""
+    _check_rays(origin, direction)
+    if not _on_cuda(origin, direction):
+        return prep_rays_torch(origin, direction, t_max)
+    r = origin.shape[0]
+    rp = -(-r // RB) * RB
+    od = torch.empty((9, rp), dtype=torch.float32, device=origin.device)
+    tm = torch.empty(rp, dtype=torch.float32, device=origin.device)
+    if rp == 0:
+        return od, tm, r
+    ptr, stride, value = None, 0, BIG
+    if isinstance(t_max, torch.Tensor):
+        t_max = t_max.to(device=origin.device,
+                         dtype=torch.float32).contiguous()
+        if t_max.numel() != 1 and tuple(t_max.shape) != (r,):
+            raise ValueError(f"t_max: need a scalar or ({r},), got "
+                             f"{tuple(t_max.shape)}")
+        ptr, stride = t_max.data_ptr(), int(t_max.numel() != 1)
+    elif t_max is not None:
+        value = float(t_max)
+    origin, direction = origin.contiguous(), direction.contiguous()
+    with torch.cuda.device(origin.device):
+        err = prep_kernels().lib.dcrt_prep_rays(
+            origin.data_ptr(), direction.data_ptr(), r, ptr, stride, value,
+            _FAR, rp, od.data_ptr(), tm.data_ptr(), _stream(origin))
+    _raise_on(err, "prep_rays")
+    prep_rays.launches += 1
+    return od, tm, r
+
+
+def prep_rays_torch(origin, direction, t_max=None):
+    """Twin of `prep_kernel`: (R, 3) rays [+ t_max, scalar or (R,)] ->
+    (od (9, Rp) [o; d; 1/d], tm (Rp,) per-ray t_max, R), Rp a multiple of
+    RB. Rays with a non-finite component or a zero-length direction are
+    parked at _FAR along +x, where they enter no box; padding rays too,
+    with t_max 0. Without t_max (closest casts) real rays get BIG.
+    Reciprocals of |d| < 1e-30 are taken of +-1e-30, + for d >= 0. A
+    denormal counts as zero, as in the reference's flush-to-zero float
+    arithmetic: a direction whose squared components are all below
+    _FLT_MIN is zero-length, and a negative denormal component gets
+    +1e-30."""
     r = origin.shape[0]
     rp = -(-r // RB) * RB
     bad = ~(torch.isfinite(origin).all(1) & torch.isfinite(direction).all(1)
-            & ((direction * direction).sum(1) > 0.0))
+            & (direction * direction >= _FLT_MIN).any(1))
     x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=origin.dtype,
                           device=origin.device)
     o = torch.full((rp, 3), _FAR, dtype=origin.dtype, device=origin.device)
@@ -279,7 +338,7 @@ def prep_rays(origin, direction, t_max=None):
     o[:r] = torch.where(bad[:, None], _FAR, origin)
     d[:r] = torch.where(bad[:, None], x_axis, direction)
     inv = 1.0 / torch.where(d.abs() < 1e-30,
-                            torch.where(d >= 0, 1e-30, -1e-30), d)
+                            torch.where(d > -_FLT_MIN, 1e-30, -1e-30), d)
     od = torch.cat([o, d, inv], dim=1).T.contiguous()
     tm = torch.zeros(rp, dtype=origin.dtype, device=origin.device)
     tm[:r] = BIG if t_max is None else torch.as_tensor(
@@ -1032,7 +1091,7 @@ def _closest_cast(scene, origin, direction, t_min, watertight, plain,
                   grouped, t_cap):
     _check_rays(origin, direction)
     tables = scene_tables(scene)
-    od, tm, r = prep_rays(origin, direction)
+    od, tm, r = (prep_rays_torch if plain else prep_rays)(origin, direction)
     texp = scene_exit(tables, od)
     if t_cap is not None:
         cap = _cap(t_cap, texp, r)
@@ -1049,7 +1108,8 @@ def _any_cast(scene, origin, direction, t_max, t_min, watertight, plain,
               grouped):
     _check_rays(origin, direction)
     tables = scene_tables(scene)
-    od, tm, r = prep_rays(origin, direction, t_max)
+    od, tm, r = (prep_rays_torch if plain else prep_rays)(origin, direction,
+                                                          t_max)
     items = phases(tables, od, tm, plain) if r else None
     if items is None:
         return torch.zeros(r, dtype=torch.bool, device=origin.device), True
@@ -1101,7 +1161,8 @@ def worklist_any_torch(scene, origin, direction, t_max, t_min=0.0,
 
 def counters():
     """Launch and cast counters (see the module docstring)."""
-    return dict(cull_boxes=cull_boxes.launches, refine=refine.launches,
+    return dict(prep_rays=prep_rays.launches,
+                cull_boxes=cull_boxes.launches, refine=refine.launches,
                 refine_skipped=refine.skipped,
                 sweep_closest=sweep_closest.launches,
                 sweep_any=sweep_any.launches,
@@ -1114,6 +1175,7 @@ def counters():
 
 
 def reset_counters():
+    prep_rays.launches = 0
     cull_boxes.launches = refine.launches = refine.skipped = 0
     sweep_closest.launches = sweep_any.launches = 0
     sweep_closest_grouped.launches = sweep_any_grouped.launches = 0

@@ -3,7 +3,9 @@
 PyTorch counterparts of `directcomputeraytracing_tpu.core.types`, with the
 reference's field names. `SceneTensors` holds only the scene fields the
 integrators read, over the dense sweep or the work-list traversal of the
-world soup or of the instanced tables. Integer fields are int64:
+world soup or of the instanced tables, and the alpha test's: opacities,
+instance flags and the opaque/masked cluster split. Integer fields are
+int64:
 the reference's uint32 fields use bit 31 (`LIGHT_INDEX_INVALID`,
 `INSTANCE_MATERIAL_OVERRIDE_NONE`), which int32 cannot hold. Float
 fields are float32 throughout.
@@ -39,7 +41,11 @@ class SceneTensors(NamedTuple):
     mat_table: torch.Tensor         # (M, 16) f32 albedo|ior|rough|tiling|
                                     #   opacity|flags|albedo_tex|opacity_tex
     material_ids: torch.Tensor      # (T,) i64
+    tri_opacity: torch.Tensor       # (T,) f32 base-material opacity
+    world_tri_opacity: torch.Tensor  # (B,) f32 override-aware, 1 on
+                                     #   opaque instances
     instance_transforms: torch.Tensor          # (I, 4, 3) f32
+    instance_flags: torch.Tensor               # (I,) i64 INSTANCE_FLAG_*
     instance_material_overrides: torch.Tensor  # (I,) i64
     instance_light_indices: torch.Tensor       # (I,) i64
     light_radiance: torch.Tensor    # (L, 3) f32
@@ -51,6 +57,16 @@ class SceneTensors(NamedTuple):
     textures: torch.Tensor          # (K, TH, TW, 4) f32
     texture_sizes: torch.Tensor     # (K, 2) i64 (h, w)
     env_texture: torch.Tensor       # (EH, EW, 3) or (6, S, S, 3) f32
+    # the opaque/masked split of the world-soup clusters (alpha-tested
+    # scenes with cluster tables; (16, 13) / (16, 16) / (1, 8)
+    # placeholders otherwise): cluster tables of the triangles that never
+    # alpha-test (o) and of those that may (m)
+    oclu_tris: torch.Tensor         # (CO*16, 13) f32
+    oclu_bw: torch.Tensor           # (CO*16, 16) f32
+    oclu_bbox: torch.Tensor         # (CO, 8) f32
+    mclu_tris: torch.Tensor         # (CM*16, 13) f32
+    mclu_bw: torch.Tensor           # (CM*16, 16) f32
+    mclu_bbox: torch.Tensor         # (CM, 8) f32
 
 
 class Intersection(NamedTuple):

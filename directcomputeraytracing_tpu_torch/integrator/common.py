@@ -46,6 +46,7 @@ class RenderConfig:
     filter_type: str = "box"            # film reconstruction filter
     filter_radius: float = 0.5
     any_hit: bool = False               # alpha-tested transparency
+    any_hit_texture: bool = False       # ... with opacity textures
     watertight: bool = False            # PBRT watertight triangle test
     slab_march: Optional[float] = None  # distance-slab casting: phase 1
                                         # capped at this fraction of the

@@ -20,6 +20,13 @@ the work list or the pair sweep (`megakernel_slab_depth`) the camera cast
 and the sorted extension casts march distance slabs
 (`intersect_closest_slab`), as the reference's megakernel does; elsewhere
 the field is ignored.
+
+Alpha-tested scenes (`RenderConfig.any_hit`) pre-draw one opacity sample
+per cast where the reference does: the camera ray's right after the
+aperture sample, the shadow ray's after the light sample (masked on the
+active lanes), the extension ray's after the BSDF sample (masked on the
+lanes whose path goes on), and pass it into every cast, the sorted and
+slab-marched ones included.
 """
 
 from typing import NamedTuple
@@ -81,12 +88,6 @@ def _mesh_light_camera_eval(scene, light_index, wo, geometry_normal):
     return torch.where(facing[..., None], scene.light_radiance[idx], 0.0)
 
 
-def _check_supported(cfg: RenderConfig):
-    if cfg.any_hit:
-        raise NotImplementedError(
-            "alpha-tested scenes: ROADMAP queue 1, item 4")
-
-
 class _Carry(NamedTuple):
     rng: torch.Tensor
     l: torch.Tensor
@@ -96,24 +97,29 @@ class _Carry(NamedTuple):
     active: torch.Tensor
 
 
-def _closest(scene, cfg, depth, origin, direction, live=None):
+def _closest(scene, cfg, depth, origin, direction, opacity_u, live=None):
     """A closest cast of the megakernel: slab-marched from phase-1 cap
-    depth (live: the lanes whose result counts), or one cast for None."""
+    depth (live: the lanes whose result counts), or one cast for None;
+    alpha-tested with opacity_u (None: opaque)."""
+    alpha = dict(opacity_u=opacity_u, alpha_textures=cfg.any_hit_texture)
     if depth is None:
         return intersect_closest(scene, origin, direction,
                                  backend=cfg.traversal_backend,
-                                 watertight=cfg.watertight)
+                                 watertight=cfg.watertight, **alpha)
     return intersect_closest_slab(scene, origin, direction, depth,
                                   backend=cfg.traversal_backend,
-                                  watertight=cfg.watertight, live=live)
+                                  watertight=cfg.watertight, live=live,
+                                  **alpha)
 
 
-def _sorted_closest(scene, cfg, depth, origin, direction, alive):
+def _sorted_closest(scene, cfg, depth, origin, direction, opacity_u, alive):
     """Extension cast in `ray_sort_key` order, hits returned in lane order.
     Dead lanes sort last and are parked, so they enter nothing."""
     order = sort_order(scene, origin, direction, alive)
     o, d = park_rays(alive, origin, direction)
-    hit = _closest(scene, cfg, depth, o[order], d[order], alive[order])
+    hit = _closest(scene, cfg, depth, o[order], d[order],
+                   None if opacity_u is None else opacity_u[order],
+                   alive[order])
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.shape[0], device=order.device)
     return HitInfo(*(x[inv] for x in hit))
@@ -132,11 +138,15 @@ def _bounce(scene, luts, cfg, depth, c):
         ls = sample_light_direct(scene, cfg.light_count, cfg.has_env_texture,
                                  itx.position, u_sel, u_tri, u2)
         shadow_o = offset_ray_origin(itx.position, itx.geometry_normal, ls.wi)
+        ou_s = None
+        if cfg.any_hit:
+            rng, ou_s = _masked_1d(rng, active)
         # inactive lanes cast a zero-length parked ray
         occluded = intersect_any(
             scene, *park_rays(active, shadow_o, ls.wi),
             torch.where(active, ls.distance, 0.0),
-            backend=cfg.traversal_backend, watertight=cfg.watertight)
+            backend=cfg.traversal_backend, watertight=cfg.watertight,
+            opacity_u=ou_s, alpha_textures=cfg.any_hit_texture)
         f = evaluate_bsdf(luts, ls.wi, wo, itx, cfg.use_vndf)
         f_pdf = evaluate_bsdf_pdf(luts, ls.wi, wo, itx, cfg.use_vndf)
         n_dot_wi = torch.abs(dot(itx.normal, ls.wi))
@@ -160,12 +170,15 @@ def _bounce(scene, luts, cfg, depth, c):
     throughput = _sel(alive, throughput, c.throughput)
 
     ext_o = offset_ray_origin(itx.position, itx.geometry_normal, wi_new)
+    ou_e = None
+    if cfg.any_hit:
+        # masked on alive: a path whose BSDF sample died casts no
+        # extension ray and draws no sample (the wavefront's stream)
+        rng, ou_e = _masked_1d(rng, alive)
     if has_worklist_tables(scene):
-        hit2 = _sorted_closest(scene, cfg, depth, ext_o, wi_new, alive)
+        hit2 = _sorted_closest(scene, cfg, depth, ext_o, wi_new, ou_e, alive)
     else:
-        hit2 = intersect_closest(scene, ext_o, wi_new,
-                                 backend=cfg.traversal_backend,
-                                 watertight=cfg.watertight)
+        hit2 = _closest(scene, cfg, None, ext_o, wi_new, ou_e)
     itx2 = shade_hit(scene, ext_o, wi_new, hit2)
 
     env_idx = cfg.env_light_index if cfg.has_env_light \
@@ -195,7 +208,6 @@ def render_samples(scene, luts, cam, cfg: RenderConfig, pixel_x, pixel_y,
     pixel_x / pixel_y: (R,) int64. Returns (sample_position (R, 2) in-pixel
     jitter, sample_value (R, 3) radiance).
     """
-    _check_supported(cfg)
     rng = init_rng(pixel_x, pixel_y, frame_seed)
     rng, pixel_sample = next_sample_2d(rng)
     res = torch.tensor([cfg.width, cfg.height], dtype=torch.float32,
@@ -204,9 +216,12 @@ def render_samples(scene, luts, cam, cfg: RenderConfig, pixel_x, pixel_y,
     rng, aperture_sample = next_sample_3d(rng)
     origin, wi = generate_ray(cam, (pixel_sample + pix) / res,
                               aperture_sample)
+    ou = None
+    if cfg.any_hit:
+        rng, ou = next_sample_1d(rng)
 
     depth = megakernel_slab_depth(scene, cfg)
-    hit = _closest(scene, cfg, depth, origin, wi)
+    hit = _closest(scene, cfg, depth, origin, wi, ou)
     itx = shade_hit(scene, origin, wi, hit)
     itx = itx._replace(position=_sel(hit.hit, itx.position, origin))
 

@@ -17,8 +17,10 @@ independent of the order. The reference's tunnel pacing and its
 2^18-pixel dispatch budget are gone.
 
 `traversal_backend`, `pool_backend` and `slab_march` pass through to the
-integrators in the `RenderConfig`. Splatting filters and alpha-tested
-scenes raise NotImplementedError (ROADMAP queue 1).
+integrators in the `RenderConfig`; alpha-tested scenes set `any_hit` and
+`any_hit_texture` from the scene's meta. Splatting filters raise
+NotImplementedError (ROADMAP queue 1). `device` defaults to "cuda"; pass
+"cpu" for the twins.
 """
 
 import torch
@@ -53,7 +55,7 @@ SEED_FRAME_INDEX = "frame_index"     # seed = frame counter that survives
 class Renderer:
     def __init__(self, scene, camera, width, height, max_bounce=4,
                  luts=None, integrator="megakernel", filter_params=None,
-                 post_params=None, *, device, **cfg_overrides):
+                 post_params=None, *, device="cuda", **cfg_overrides):
         self.device = torch.device(device)
         if integrator not in ("megakernel", "wavefront"):
             raise ValueError(f"integrator {integrator!r}: 'megakernel' or "
@@ -62,11 +64,8 @@ class Renderer:
         if filter_params is not None and (filter_params.kind != "box"
                                           or filter_params.radius > 0.5):
             raise NotImplementedError(
-                "splatting reconstruction filters: ROADMAP queue 1, item 9")
+                "splatting reconstruction filters: ROADMAP queue 1, item 6")
         self.arrays, self.meta = flatten_scene(scene, self.device)
-        if self.meta.any_non_opaque:
-            raise NotImplementedError(
-                "alpha-tested scenes: ROADMAP queue 1, item 11")
         self.camera = to_device(camera, self.device)
         if luts is None:
             # placeholder (unit-energy) LUTs zero the plastic diffuse lobe,
@@ -82,12 +81,14 @@ class Renderer:
         cfg_kwargs = dict(width=width, height=height, max_bounce=max_bounce,
                           light_count=self.meta.light_count,
                           env_light_index=env_idx,
-                          has_env_texture=self.meta.has_env_texture)
+                          has_env_texture=self.meta.has_env_texture,
+                          any_hit=self.meta.any_non_opaque,
+                          any_hit_texture=self.meta.any_opacity_texture)
         cfg_kwargs.update(cfg_overrides)
         self.cfg = RenderConfig(**cfg_kwargs)
         if self.cfg.filter_type != "box" or self.cfg.filter_radius > 0.5:
             raise NotImplementedError(
-                "splatting reconstruction filters: ROADMAP queue 1, item 9")
+                "splatting reconstruction filters: ROADMAP queue 1, item 6")
         self.post_params = post_params or PostParams()
         self.film = create_film(height, width, self.device)
         self.spp = 0

@@ -31,8 +31,14 @@ iterations, pool size, `spp_batch`, the pool backend and slab depth,
 casts per slab phase and rays re-cast in later phases, for the closest
 and the shadow casts, and host reads. The reference's tunnel pacing
 (bounded dispatches, pauses) is gone. Per-sample output slots, which
-serve the splatting filters, and alpha-tested scenes raise
-NotImplementedError.
+serve the splatting filters, raise NotImplementedError.
+
+Alpha-tested scenes carry the reference's pre-drawn opacity sample per
+lane (`PoolState.opacity_u`): drawn at refill right after the aperture
+sample, for the shadow cast after the light sample and for the next
+extension cast after the BSDF sample, at the megakernel's draw sites and
+masks, so both integrators trace the same paths; every pool cast and its
+slab phases take it.
 """
 
 from typing import NamedTuple
@@ -82,8 +88,7 @@ LAST_STATS = {}
 
 class PoolState(NamedTuple):
     """Per-lane path state (the reference's ray, pixel, rng, throughput,
-    radiance and flag buffers). The reference's pre-drawn alpha-test
-    sample is absent: the port has no alpha-tested scenes yet."""
+    radiance, flag buffers and pre-drawn alpha-test sample)."""
     rng: torch.Tensor         # (P, 4) xoshiro state
     pixel: torch.Tensor       # (P,) int64 (pixel, sample) item, -1 unset
     ray_o: torch.Tensor       # (P, 3)
@@ -93,6 +98,7 @@ class PoolState(NamedTuple):
     bsdf_pdf: torch.Tensor    # (P,) pdf of the sampled direction (MIS)
     is_delta: torch.Tensor    # (P,) bool
     bounce: torch.Tensor      # (P,) int64
+    opacity_u: torch.Tensor   # (P,) f32 the next closest cast's sample
     busy: torch.Tensor        # (P,) bool: the lane holds a live path
 
 
@@ -118,6 +124,7 @@ def _make_state(R, pool_size, spp_batch, device):
         bsdf_pdf=torch.zeros(P, dtype=torch.float32, device=device),
         is_delta=torch.zeros(P, dtype=torch.bool, device=device),
         bounce=zi.clone(),
+        opacity_u=torch.zeros(P, dtype=torch.float32, device=device),
         busy=torch.zeros(P, dtype=torch.bool, device=device))
 
 
@@ -127,6 +134,7 @@ class _Casts:
     def __init__(self, scene, cfg):
         self.backend = pool_cast_backend(cfg, scene)
         self.watertight = cfg.watertight
+        self.alpha_textures = cfg.any_hit_texture
         march = pool_slab_march(scene, cfg, self.backend)
         self.slab = march > 0.0
         self.depth = slab_depth(scene, march) if self.slab else None
@@ -134,21 +142,22 @@ class _Casts:
         self.any = SlabStats(2)
 
 
-def _pool_closest(scene, casts, busy, ray_o, ray_d):
+def _pool_closest(scene, casts, busy, ray_o, ray_d, opacity_u):
     """Closest cast over the pool in lane order; idle lanes are parked.
-    With slabs, the cast marches distance windows."""
+    With slabs, the cast marches distance windows; alpha-tested with
+    opacity_u (None: opaque)."""
     ray_o, ray_d = park_rays(busy, ray_o, ray_d)
-    wt = casts.watertight
+    kw = dict(backend=casts.backend, watertight=casts.watertight,
+              opacity_u=opacity_u, alpha_textures=casts.alpha_textures)
     if not casts.slab:
         casts.closest.casts[0] += 1
-        return intersect_closest(scene, ray_o, ray_d, backend=casts.backend,
-                                 watertight=wt)
-    return intersect_closest_slab(
-        scene, ray_o, ray_d, casts.depth, backend=casts.backend,
-        watertight=wt, live=busy, stats=casts.closest)
+        return intersect_closest(scene, ray_o, ray_d, **kw)
+    return intersect_closest_slab(scene, ray_o, ray_d, casts.depth,
+                                  live=busy, stats=casts.closest, **kw)
 
 
-def _pool_any(scene, casts, active, shadow_o, shadow_d, distance):
+def _pool_any(scene, casts, active, shadow_o, shadow_d, distance,
+              opacity_u):
     """Shadow cast over the pool in lane order; inactive lanes park and
     cast a zero-length ray. With slabs it runs in two windows: phase 1
     over [0, min(dist, D)), then the unoccluded rays with dist > D are
@@ -156,14 +165,15 @@ def _pool_any(scene, casts, active, shadow_o, shadow_d, distance):
     exhaustive below D."""
     dist = torch.where(active, distance, 0.0)
     o_s, d_s = park_rays(active, shadow_o, shadow_d)
-    wt = casts.watertight
+    kw = dict(backend=casts.backend, watertight=casts.watertight,
+              alpha_textures=casts.alpha_textures)
     casts.any.casts[0] += 1
     if not casts.slab:
-        return intersect_any(scene, o_s, d_s, dist, backend=casts.backend,
-                             watertight=wt)
+        return intersect_any(scene, o_s, d_s, dist, opacity_u=opacity_u,
+                             **kw)
     D = casts.depth
     occ1 = intersect_any(scene, o_s, d_s, torch.clamp_max(dist, D),
-                         backend=casts.backend, watertight=wt)
+                         opacity_u=opacity_u, **kw)
     idx = torch.nonzero(active & ~occ1 & (dist > D))[:, 0]
     casts.any.host_reads += 1
     if not idx.numel():
@@ -171,7 +181,8 @@ def _pool_any(scene, casts, active, shadow_o, shadow_d, distance):
     casts.any.casts[1] += 1
     casts.any.recast[0] += idx.numel()
     occ2 = intersect_any(scene, o_s[idx], d_s[idx], dist[idx], t_min=D,
-                         backend=casts.backend, watertight=wt)
+                         opacity_u=None if opacity_u is None
+                         else opacity_u[idx], **kw)
     return occ1.index_put((idx,), occ2)
 
 
@@ -243,6 +254,10 @@ def _step(f: _Frame, casts: _Casts, s: PoolState, cursor, n_busy):
     rng, aperture_sample = _m3(rng, take)
     cam_o, cam_d = generate_ray(f.cam, (pixel_sample + pix) / f.res,
                                 aperture_sample)
+    opacity_u = s.opacity_u
+    if cfg.any_hit:
+        rng, ou_new = _m1(rng, take)
+        opacity_u = torch.where(take, ou_new, opacity_u)
     ray_o = _sel(take, cam_o, s.ray_o)
     ray_d = _sel(take, cam_d, s.ray_d)
     throughput = _sel(take, torch.ones_like(s.throughput), s.throughput)
@@ -256,12 +271,14 @@ def _step(f: _Frame, casts: _Casts, s: PoolState, cursor, n_busy):
     # ---- one sort of the pool per iteration; both casts run in its order
     if f.sort:
         (busy, ray_o, ray_d, rng, pixel_new, pidx, throughput, li, bounce,
-         is_primary, bsdf_pdf_prev, is_delta_prev) = _permute_pool(
+         is_primary, opacity_u, bsdf_pdf_prev, is_delta_prev) = _permute_pool(
             scene, (busy, ray_o, ray_d, rng, pixel_new, pidx, throughput, li,
-                    bounce, is_primary, bsdf_pdf_prev, is_delta_prev))
+                    bounce, is_primary, opacity_u, bsdf_pdf_prev,
+                    is_delta_prev))
 
     # ---- EXTENSION_RAY_CAST: camera and extension rays together
-    hit = _pool_closest(scene, casts, busy, ray_o, ray_d)
+    hit = _pool_closest(scene, casts, busy, ray_o, ray_d,
+                        opacity_u if cfg.any_hit else None)
     itx = shade_hit(scene, ray_o, ray_d, hit)
     itx = itx._replace(position=_sel(hit.hit, itx.position, ray_o))
 
@@ -298,8 +315,11 @@ def _step(f: _Frame, casts: _Casts, s: PoolState, cursor, n_busy):
         ls = sample_light_direct(scene, cfg.light_count, cfg.has_env_texture,
                                  itx.position, u_sel, u_tri, u2)
         shadow_o = offset_ray_origin(itx.position, itx.geometry_normal, ls.wi)
+        ou_s = None
+        if cfg.any_hit:
+            rng, ou_s = _m1(rng, alive)
         occluded = _pool_any(scene, casts, alive, shadow_o, ls.wi,
-                             ls.distance)
+                             ls.distance, ou_s)
         fb = evaluate_bsdf(f.luts, ls.wi, wo, itx, cfg.use_vndf)
         f_pdf = evaluate_bsdf_pdf(f.luts, ls.wi, wo, itx, cfg.use_vndf)
         n_dot_wi = torch.abs(dot(itx.normal, ls.wi))
@@ -323,6 +343,9 @@ def _step(f: _Frame, casts: _Casts, s: PoolState, cursor, n_busy):
     throughput = _sel(alive & ~dead, tp_new, throughput)
     ext_o = offset_ray_origin(itx.position, itx.geometry_normal, wi_new)
     still = alive & ~dead
+    if cfg.any_hit:
+        rng, ou_e = _m1(rng, still)
+        opacity_u = torch.where(still, ou_e, opacity_u)
     ray_o = _sel(still, ext_o, ray_o)
     ray_d = _sel(still, wi_new, ray_d)
 
@@ -335,7 +358,8 @@ def _step(f: _Frame, casts: _Casts, s: PoolState, cursor, n_busy):
         throughput=throughput, li=li,
         bsdf_pdf=torch.where(still, f_pdf, bsdf_pdf_prev),
         is_delta=torch.where(still, is_delta, is_delta_prev),
-        bounce=torch.where(still, bounce + 1, bounce), busy=still), cursor
+        bounce=torch.where(still, bounce + 1, bounce), opacity_u=opacity_u,
+        busy=still), cursor
 
 
 def render_samples_wavefront(scene, luts, cam, cfg: RenderConfig, pixel_x,
@@ -354,10 +378,7 @@ def render_samples_wavefront(scene, luts, cam, cfg: RenderConfig, pixel_x,
     if sample_slots:
         raise NotImplementedError(
             "per-sample output slots serve the splatting filters: ROADMAP "
-            "queue 1, item 9")
-    if cfg.any_hit:
-        raise NotImplementedError(
-            "alpha-tested scenes: ROADMAP queue 1, item 11")
+            "queue 1, item 6")
     f = _Frame(scene, luts, cam, cfg, pixel_x, pixel_y, frame_seed,
                spp_batch)
     casts = _Casts(scene, cfg)

@@ -1,9 +1,16 @@
-"""Procedural scenes: the Cornell box and the sphere grid.
+"""Procedural scenes: the Cornell box, the sphere grid and their
+alpha-tested variants.
 
 Counterparts of `cornell_box`, `uv_sphere` and `sphere_grid` in
 `directcomputeraytracing_tpu.scene.presets`, with the same geometry,
 materials, lights and camera: LHS coordinates, front faces wound
 clockwise (geometry normal = cross(v0v2, v0v1)), camera looking along +z.
+
+Alpha-tested scenes: `alpha_sphere_grid` is the reference's split scene
+(its tests' `split_scene`: the spheres of material override 1 see-through
+at opacity 0.4), or with textured=True opaque but for the holes of an
+opacity mask (`dot_mask`, the reference stand-in's dot grid, made here
+with numpy); `alpha_panel` is the reference tests' panel over a floor.
 """
 
 import numpy as np
@@ -189,4 +196,72 @@ def sphere_grid(nx=5, nz=5, stacks=24, slices=32, light="area"):
         transform=look_at_transform((0.0, 4.5, -1.9 * max(nx, nz)),
                                     (0.0, 0.5, 0.0)),
         fov_x=np.deg2rad(50.0), focal_distance=10.0)
+    return scene, cam
+
+
+def dot_mask(size=64, cell=16, r2_min=18):
+    """(size, size, 4) f32 RGBA opacity mask: R (the opacity) 0 in round
+    holes on a grid of cell-pixel cells, 1 elsewhere (the reference
+    stand-in's mask, `scene/standin.py` `_write_textures`)."""
+    yy, xx = np.mgrid[0:size, 0:size]
+    tex = np.ones((size, size, 4), np.float32)
+    tex[..., 0] = ((xx % cell - cell // 2) ** 2
+                   + (yy % cell - cell // 2) ** 2 > r2_min)
+    return tex
+
+
+def sphere_uvs(stacks, slices):
+    """Lat-long texture coordinates of `uv_sphere(stacks, slices)`'s
+    vertices."""
+    i, j = np.divmod(np.arange((stacks + 1) * (slices + 1)), slices + 1)
+    return np.stack([j / slices, i / stacks], 1).astype(np.float32)
+
+
+def set_alpha_material(scene, material_cls, textured, stacks, slices):
+    """Make material 1 (the spheres of `sphere_grid`'s override 1)
+    alpha-tested in place: opacity 0.4, or with textured opacity 1 and
+    `dot_mask` as texture 0 over the sphere's lat-long UVs. material_cls
+    is the Material of the scene's own module."""
+    scene.materials[1] = material_cls(
+        albedo=(0.8, 0.3, 0.3), opacity=1.0 if textured else 0.4,
+        opacity_texture=0 if textured else -1, name="seethrough")
+    if textured:
+        scene.textures = [dot_mask()]
+        scene.meshes[0].texcoords = sphere_uvs(stacks, slices)
+
+
+def alpha_sphere_grid(nx=5, nz=5, stacks=24, slices=32, textured=False):
+    """`sphere_grid` with half its spheres alpha-tested
+    (`set_alpha_material`); flattened with cluster tables it gets the
+    opaque/masked split. Returns (Scene, CameraParams on the CPU)."""
+    scene, cam = sphere_grid(nx, nz, stacks, slices)
+    set_alpha_material(scene, Material, textured, stacks, slices)
+    return scene, cam
+
+
+def alpha_panel(opacity=0.5, textured=False):
+    """A floor and a panel above it under a point light (the reference
+    alpha tests' `_panel_scene`): the panel has `opacity`, or with
+    textured opacity 1 and `dot_mask` over its UVs. 4 triangles: the
+    dense sweep. Returns (Scene, CameraParams on the CPU)."""
+    fp, fi = _quad([-2, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2])
+    floor = Mesh(positions=fp, indices=fi,
+                 material_ids=np.zeros(len(fi), np.int64), name="floor")
+    pp, pi = _quad([-1, 1, -1], [-1, 1, 1], [1, 1, 1], [1, 1, -1])
+    panel = Mesh(positions=pp, indices=pi,
+                 material_ids=np.ones(len(pi), np.int64),
+                 texcoords=np.asarray([[0, 0], [0, 1], [1, 1], [1, 0]],
+                                      np.float32), name="panel")
+    mats = [Material(albedo=(0.8, 0.8, 0.8), name="floor"),
+            Material(albedo=(0.8, 0.8, 0.8),
+                     opacity=1.0 if textured else opacity,
+                     opacity_texture=0 if textured else -1, name="panel")]
+    scene = Scene(meshes=[floor, panel],
+                  instances=[Instance(mesh=0), Instance(mesh=1)],
+                  materials=mats, textures=[dot_mask()] if textured else [],
+                  lights=[PunctualLight(kind="point", radiance=(20, 20, 20),
+                                        position=(0.0, 3.0, 0.0))])
+    cam = CameraParams.create(
+        transform=look_at_transform((0, 2.5, -4.0), (0, 0, 0)),
+        fov_x=np.deg2rad(45.0))
     return scene, cam

@@ -11,8 +11,16 @@ scenes keep their triangles mesh-local and get the instanced work-list
 tables instead (the reference's BLAS sharing; a test forces them on a
 small scene by lowering `SOUP_MAX_TRIS`). The port has no stack
 traversal, so no TLAS is built: a larger scene of at most 64 local
-triangles, which the reference sends to its stack walker, raises, and so
-do clustered scenes with alpha (the opaque/masked split is not built).
+triangles, which the reference sends to its stack walker, raises.
+
+Alpha-tested scenes (a material with opacity < 1 or an opacity texture)
+get the reference's alpha tables: per-triangle and per-world-triangle
+opacity, per-instance OPAQUE flags (an instance is opaque unless its
+override, or one of its mesh's materials, may be transparent), and on
+world-soup cluster tables the opaque/masked split: the clusters of the
+triangles that never alpha-test and of those that may, when both exist.
+Instanced tables get no split (the reference's needs the soup), so their
+alpha casts re-cast through the whole scene.
 """
 
 from dataclasses import dataclass, field
@@ -23,6 +31,7 @@ import torch
 
 from ..accel.build import build_bvh
 from ..core.constants import (
+    INSTANCE_FLAG_OPAQUE,
     INSTANCE_MATERIAL_OVERRIDE_NONE,
     INTERNAL_SCATTERING_MODE_IGNORE,
     LIGHT_FLAGS_DIRECTIONAL,
@@ -166,6 +175,7 @@ class SceneMeta(NamedTuple):
     env_light_index: int   # LIGHT_INDEX_INVALID if none
     has_env_texture: bool
     any_non_opaque: bool
+    any_opacity_texture: bool
 
 
 def compute_vertex_normals(positions, indices):
@@ -272,6 +282,77 @@ def _world_soup(scene, tri_verts, mesh_tri_offsets):
     return np.concatenate(world_tris), np.concatenate(world_meta)
 
 
+_SPLIT_FIELDS = ("oclu_tris", "oclu_bw", "oclu_bbox", "mclu_tris", "mclu_bw",
+                 "mclu_bbox")
+
+
+def _no_clusters():
+    """Placeholder cluster tables (tris, Baldwin-Weber rows, boxes)."""
+    return (np.zeros((CLUSTER_SIZE, 13), np.float32),
+            np.zeros((CLUSTER_SIZE, 16), np.float32),
+            np.zeros((1, 8), np.float32))
+
+
+def _instance_flags(scene, material_ids, mesh_tri_offsets):
+    """(I,) INSTANCE_FLAG_OPAQUE, or 0 where the instance's override (or,
+    without one, a material of its mesh) may be transparent."""
+    n_mat = len(scene.materials)
+    flags = np.full(len(scene.instances), INSTANCE_FLAG_OPAQUE, np.int64)
+    for i, inst in enumerate(scene.instances):
+        if 0 <= inst.material_override < n_mat:
+            mats = [inst.material_override]
+        else:
+            lo = mesh_tri_offsets[inst.mesh]
+            mats = np.unique(material_ids[
+                lo:lo + scene.meshes[inst.mesh].indices.shape[0]])
+        if any(scene.materials[int(m)].non_opaque for m in mats):
+            flags[i] = 0
+    return flags
+
+
+def _world_opacity(scene, inst_flags, mat_table, tri_opacity,
+                   mesh_tri_offsets):
+    """(B,) opacity per world-soup triangle: 1 on opaque instances, the
+    override's opacity where an instance has one, else the triangle's."""
+    n_mat = mat_table.shape[0]
+    out = []
+    for i, inst in enumerate(scene.instances):
+        lo = int(mesh_tri_offsets[inst.mesh])
+        n = scene.meshes[inst.mesh].indices.shape[0]
+        if inst_flags[i] & INSTANCE_FLAG_OPAQUE:
+            out.append(np.ones(n, np.float32))
+        elif 0 <= inst.material_override < n_mat:
+            out.append(np.full(n, mat_table[inst.material_override, 9],
+                               np.float32))
+        else:
+            out.append(tri_opacity[lo:lo + n])
+    return np.concatenate(out)
+
+
+def _alpha_split(scene, world_tris, world_meta, world_opacity, inst_flags,
+                 material_ids, mat_table):
+    """The opaque/masked split of the world soup's clusters: (oclu_tris,
+    oclu_bw, oclu_bbox, mclu_tris, mclu_bw, mclu_bbox), or None unless
+    both sides have triangles. A triangle is maybe-transparent on a
+    non-opaque instance where its opacity is below 1 or its effective
+    material (the override, else its own) has an opacity texture."""
+    n_mat = mat_table.shape[0]
+    prim = world_meta[:, 0].astype(np.int64)
+    iid = world_meta[:, 1].astype(np.int64)
+    ov = np.asarray([inst.material_override for inst in scene.instances],
+                    np.int64)[iid]
+    eff = np.where((ov >= 0) & (ov < n_mat), ov, material_ids[prim])
+    opaque = (inst_flags[iid] & INSTANCE_FLAG_OPAQUE) != 0
+    maybe = ~opaque & ((world_opacity < 1.0) | (mat_table[eff, 12] >= 0))
+    if not (maybe.any() and (~maybe).any()):
+        return None
+    out = ()
+    for part in (~maybe, maybe):
+        tris, bbox = build_clusters(world_tris[part], world_meta[part])
+        out += (tris, baldwin_table(tris), bbox)
+    return out
+
+
 def flatten_scene(scene: Scene, device):
     """Compile the host scene into (SceneTensors on `device`, SceneMeta)."""
     if not (scene.meshes and scene.instances):
@@ -286,12 +367,8 @@ def flatten_scene(scene: Scene, device):
         raise NotImplementedError(
             f"{total_world_tris} world triangles from {local_tris} local "
             "ones: the reference casts such scenes with its stack walker "
-            "(ROADMAP queue 1, item 11)")
+            "(ROADMAP queue 1, item 8)")
     any_non_opaque = any(m.non_opaque for m in scene.materials)
-    if any_non_opaque and total_world_tris > DENSE_MAX_TRIS:
-        raise NotImplementedError(
-            "alpha-tested clustered scenes need the opaque/masked cluster "
-            "split (ROADMAP queue 1, item 11)")
 
     # per-mesh BLAS leaf order; triangle ids are global, mesh by mesh
     mesh_tris, mesh_matids = [], []
@@ -326,9 +403,18 @@ def flatten_scene(scene: Scene, device):
         cluster_tris, cluster_bbox = build_clusters(world_tris, world_meta)
         cluster_bw = baldwin_table(cluster_tris)
     else:
-        cluster_tris = np.zeros((CLUSTER_SIZE, 13), np.float32)
-        cluster_bw = np.zeros((CLUSTER_SIZE, 16), np.float32)
-        cluster_bbox = np.zeros((1, 8), np.float32)
+        cluster_tris, cluster_bw, cluster_bbox = _no_clusters()
+
+    inst_flags = _instance_flags(scene, material_ids, mesh_tri_offsets)
+    tri_opacity = mat_table[material_ids, 9]
+    world_opacity = (_world_opacity(scene, inst_flags, mat_table,
+                                    tri_opacity, mesh_tri_offsets)
+                     if world_tris.shape[0] > 1
+                     else np.ones(1, np.float32))
+    split = _no_clusters() * 2
+    if any_non_opaque and cluster_bbox.shape[0] > 1:
+        split = _alpha_split(scene, world_tris, world_meta, world_opacity,
+                             inst_flags, material_ids, mat_table) or split
 
     inst_tf = np.stack([i.transform for i in scene.instances])
     inst_inv = np.stack([invert_rigid_affine43(t) for t in inst_tf])
@@ -388,7 +474,10 @@ def flatten_scene(scene: Scene, device):
         vtx_table=t(vtx_table, np.float32),
         mat_table=t(mat_table),
         material_ids=t(material_ids),
+        tri_opacity=t(tri_opacity, np.float32),
+        world_tri_opacity=t(world_opacity, np.float32),
         instance_transforms=t(inst_tf),
+        instance_flags=t(inst_flags, np.int64),
         instance_material_overrides=t(overrides),
         instance_light_indices=t(inst_light),
         light_radiance=t(light_cols[0]),
@@ -400,11 +489,14 @@ def flatten_scene(scene: Scene, device):
         textures=t(atlas),
         texture_sizes=t(sizes),
         env_texture=t(env, np.float32),
+        **{f: t(a) for f, a in zip(_SPLIT_FIELDS, split)},
     )
     meta = SceneMeta(
         light_count=n_lights,
         env_light_index=int(env_light_index),
         has_env_texture=scene.env_texture is not None,
         any_non_opaque=any_non_opaque,
+        any_opacity_texture=any(m.opacity_texture >= 0
+                                for m in scene.materials),
     )
     return arrays, meta

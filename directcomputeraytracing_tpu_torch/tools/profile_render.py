@@ -11,7 +11,9 @@ the instanced work-list sweeps, 1024x1024), `clustered` (`sphere_grid(12,
 (`sphere_grid(12, 12)` through `traversal_backend="pallas_pair"`,
 1024x1024), all through the megakernel, or `wavefront` (`sphere_grid(12,
 12)` at 1920x1080 through the wavefront integrator and its grouped pool
-casts) and `pair_wavefront` (the same with `pool_backend="pallas_pair"`).
+casts) and `pair_wavefront` (the same with `pool_backend="pallas_pair"`);
+`alpha` is `alpha_sphere_grid(12, 12)` (half the spheres alpha-tested,
+the opaque/masked split) through the megakernel at 1024x1024.
 Needs a CUDA
 device; with none it exits non-zero. Renders at max_bounce 4 through
 `Renderer.render(spp=8)`: the fused 8-sample call that chip_smoke.py's
@@ -35,7 +37,8 @@ JSON lines:
   kernels (launched through ctypes, so no PyTorch operator holds them),
   and their share of busy time;
 - `wavefront_stats` (the wavefront case): `LAST_STATS` of the traced
-  pass (iterations, casts per slab phase, host reads).
+  pass (iterations, casts per slab phase, host reads);
+- `alpha` (the alpha case): recast loops and passes per sample pass.
 """
 
 import json
@@ -49,7 +52,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..integrator.renderer import Renderer
-from ..scene.presets import cornell_box, sphere_grid
+from ..accel import traverse
+from ..scene.presets import alpha_sphere_grid, cornell_box, sphere_grid
 
 MAX_BOUNCE = 4
 SPP = 8
@@ -69,13 +73,16 @@ CASES = {"cornell": (lambda: cornell_box("area", "glossy"), 1024, 1024,
          "wavefront": (lambda: sphere_grid(12, 12), 1920, 1080,
                        "wavefront", "auto", ""),
          "pair_wavefront": (lambda: sphere_grid(12, 12), 1920, 1080,
-                            "wavefront", "auto", "pallas_pair")}
+                            "wavefront", "auto", "pallas_pair"),
+         "alpha": (lambda: alpha_sphere_grid(12, 12), 1024, 1024,
+                   "megakernel", "auto", "")}
 # the port's kernels, told apart by entry point and template or parameter
 # types in the demangled names the profiler reports; a kernel counts under
 # the first key it matches (the clustered sweeps take mask pointers,
 # `unsigned char const*`, which no other closest or any-hit kernel takes;
 # the pair kernels' names hold the work list's as a suffix)
 PORT_KERNELS = {
+    "prep.cu prep_kernel": ("prep_kernel",),
     "pairsweep.cu emit_kernel": ("emit_kernel",),
     "pairsweep.cu pair_closest_kernel": ("pair_closest_kernel",),
     "pairsweep.cu pair_any_kernel": ("pair_any_kernel",),
@@ -159,6 +166,7 @@ def main(argv=None):
 
     r.reset()
     torch.cuda.synchronize()
+    traverse.reset_counters()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -190,6 +198,10 @@ def main(argv=None):
         from ..integrator.wavefront import LAST_STATS
 
         print("wavefront_stats", json.dumps(LAST_STATS))
+    if r.cfg.any_hit:
+        print("alpha", json.dumps(dict(
+            recast_loops_per_spp=traverse.alpha_recast.calls / SPP,
+            recast_passes_per_spp=traverse.alpha_recast.passes / SPP)))
     return 0
 
 

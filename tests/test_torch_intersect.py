@@ -163,7 +163,17 @@ def test_unported_paths_raise(case):
     elif case == "backend":
         kw = dict(backend="jax")
     elif case == "alpha":
-        kw = dict(opacity_u=torch.zeros(8))
+        # alpha-tested casts run (queue 1, item 4): samples of 0 accept
+        # every hit of a half-transparent scene, so the opaque hit returns
+        cornell = cornell_box("area", "glossy")[0]
+        cornell.materials[0].opacity = 0.5
+        arrays, meta = flatten_scene(cornell, "cpu")
+        assert meta.any_non_opaque
+        got = intersect_closest(arrays, o, d, opacity_u=torch.zeros(8))
+        want = intersect_closest(arrays, o, d)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        return
     else:
         o, err = o.double(), ValueError
     with pytest.raises(err):

@@ -222,6 +222,10 @@ def test_unported_options_raise(case):
     elif case == "backend":
         kw = dict(traversal_backend="jax")
     else:
-        scene.materials.append(Material(opacity=0.5))
+        # alpha-tested scenes render (queue 1, item 4)
+        scene.materials[0] = Material(opacity=0.5)
+        img = Renderer(scene, cam, 8, 8, device=CPU).render(1)
+        assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(scene, cam, 8, 8, device=CPU, **kw).render(1)

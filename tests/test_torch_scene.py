@@ -94,7 +94,8 @@ def test_flatten_matches_reference_clustered_and_instanced():
     """A clustered scene (2049 to 2^20 world triangles) flattens exactly as
     the reference does, cluster tables included, and so does a scene above
     2^20 world triangles, instanced tables included and the world soup a
-    placeholder; with alpha the port refuses a clustered scene."""
+    placeholder; with alpha the clustered scene gets the opaque/masked
+    split of its clusters, as the reference's does."""
     from directcomputeraytracing_tpu.scene import scene as ref_scene_mod
     from directcomputeraytracing_tpu.scene.presets import (
         sphere_grid as ref_grid,
@@ -132,9 +133,15 @@ def test_flatten_matches_reference_clustered_and_instanced():
         x, y = getattr(want, f), getattr(got, f)
         assert x.dtype == y.dtype and x.shape == y.shape, f
         assert torch.equal(x, y), f
-    scene.materials.append(Material(opacity=0.5))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        flatten_scene(scene, "cpu")
+    scene.materials[1] = Material(opacity=0.4)
+    ref_scene.materials[1] = ref_scene_mod.Material(opacity=0.4)
+    got, meta = flatten_scene(scene, "cpu")
+    want = from_reference(ref_flatten(ref_scene)[0], ref_placeholder_luts(),
+                          ref_camera, "cpu")[0]
+    assert meta.any_non_opaque and got.mclu_bbox.shape[0] > 1
+    for f in ("oclu_bbox", "mclu_bbox", "world_tri_opacity",
+              "instance_flags"):
+        assert torch.equal(getattr(want, f), getattr(got, f)), f
 
 
 def test_port_runs_without_jax():
