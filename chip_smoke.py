@@ -10,7 +10,9 @@ any failure exits non-zero:
    work-list, clustered, pair, ray-prep and probe kernels
    (csrc/brute_sweep.cu, csrc/worklist.cu, csrc/clustered.cu,
    csrc/pairsweep.cu, csrc/prep.cu, csrc/probes.cu; the six nvcc runs in
-   parallel) and print the build times and ptxas reports;
+   parallel) and print the build times and ptxas reports, then the
+   grouped sweeps' registers, shared memory and spills (ptxas) and their
+   resident blocks per SM;
 2. dense-sweep kernels against their PyTorch twins on the card, Moeller
    and watertight, closest and any-hit: (a) the Cornell soup (32
    triangles) with 1,048,576 camera rays plus 1,048,576 random rays from
@@ -30,7 +32,13 @@ any failure exits non-zero:
    counts of every field, `iters` equality against the twin; the twins
    run on the first 2^18 rays of the incoherent sets, where a 1M-ray
    twin cast would take minutes, and on the whole camera set; CUDA-event
-   times of grouped and per-ray kernels, clusters swept per ray;
+   times of grouped and per-ray kernels, clusters swept per ray; the
+   census of the grouped walk on the twins' rays, counted by walking the
+   twins' steps (`tools/grouped_ab.py`): items per block, the shares of (item, warp) pairs that pass the block vote,
+   the warp vote and the super-box admission (any-hit: of the warps not
+   yet occluded), fine-cull slab tests per ray of the grouped walk and
+   of a walk by blocks, beside the clusters swept per ray of the grouped
+   and per-ray sweeps on the whole set;
 2d. instanced work-list kernels (closest and any-hit sweeps) against their
    twins on sphere_grid(27, 27) (1,073,092 world triangles from 1,476
    local ones, in the instanced tables), Baldwin-Weber and watertight:
@@ -104,8 +112,10 @@ any failure exits non-zero:
    the pool casts `LAST_STATS` counted, one cull per cast; then the same
    pass without slab marching (slab_march=0.0) and with it again, in the
    order off, off, on (with the render: on, off, off, on), its image held
-   to the render's (RMSE <= 1e-3); then one timed pass with a 2^20-path
-   pool;
+   to the render's (RMSE <= 1e-3); then the pass through the three pool
+   backends in turns (the grouped default, "pallas_wl", "pallas_pair";
+   grouped, wl, pair, pair, wl, grouped, after a one-sample warm-up pass
+   of the last two); then one timed pass with a 2^20-path pool;
 3d. the wavefront against the megakernel on the card (sphere_grid(12,
    12), 256x256, 4 spp, same seeds): RMSE <= 1e-3;
 3e. the main path on the instanced scene: sphere_grid(27, 27) 1024x1024,
@@ -160,6 +170,9 @@ any failure exits non-zero:
 5. one JSON line listing the nineteen kernels, then the contract line,
    last.
 
+The seeded ray sets of the sphere grids (2b-2h) come from
+`tools/common.py` `grid_ray_sets`, each phase with its own seed.
+
 Tolerances (kernel vs twin): the kernels are built without FMA
 contraction, so they round like the twins; a hit/miss or occlusion
 disagreement is allowed only where the twin's t lies within 1e-5 (1 + t)
@@ -184,6 +197,13 @@ the fine cull of every item of the ray's block and 16 triangle tests per
 cluster the per-ray walk swept (the any-hit sweeps only the fine cull, a
 lower bound; the instanced sweeps leave out the move of the ray to
 instance space, also a lower bound); tables count once, whole. The
+grouped sweeps count, from 2c's census of the pool, one admission test
+a ray of each (item, warp) pair its warp visits (closest: past the warp
+vote; any-hit: a ray of the warp not yet occluded) and the fine cull of
+each pair the warp admits, with the closest sweep's triangle tests as
+above and the admission boxes among the tables; their
+`bound_ms_block_walk` keeps the count of the first grouped design, which
+walked its items by 1024-ray blocks (the per-ray sweeps' count). The
 clustered cull counts FLOPS_INTERVAL operations per (ray block,
 cluster), its closest sweep one Moeller test per ray and row of every
 cluster the ray's block entered, its any-hit sweep the same for the rays
@@ -226,7 +246,6 @@ GATE_DIVERGED_FRACTION = 0.01
 WAVEFRONT = dict(width=1920, height=1080, spp=8, max_bounce=4)
 POOL_BIG = 1 << 20
 TWIN_SUBSET = 1 << 18                   # rays of a twin cast on big sets
-POOL_RAYS = 1 << 18                     # the default pool at 1080p x 8 spp
 MK_VS_WF = dict(width=256, height=256, spp=4, max_bounce=4)
 GATE_WF_RMSE = 1e-3
 INST_GRID = (27, 27)                    # 1,073,092 world triangles, instanced
@@ -254,23 +273,6 @@ ALPHA_WAVEFRONT = dict(width=1920, height=1080, spp=2, max_bounce=4)
 ALPHA_TEX_RENDER = dict(width=1024, height=1024, spp=2, max_bounce=4)
 
 
-def _timed(fn, reps, warm=True):
-    """Mean ms of fn() over reps launches, after one warm-up launch unless
-    warm is False (CUDA events)."""
-    import torch
-
-    if warm:
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _timed_call(fn):
     """(fn(), its ms) of one launch, timed with CUDA events."""
     import torch
@@ -289,12 +291,6 @@ def _bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
-
-
-def _rays_inside(rng, n, lo, hi):
-    d = rng.normal(size=(n, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return rng.uniform(lo, hi, (n, 3)), d
 
 
 def _random_soup(rng, n):
@@ -403,15 +399,17 @@ def phase_kernels(device):
     from directcomputeraytracing_tpu_torch.core.types import to_device
     from directcomputeraytracing_tpu_torch.scene.presets import cornell_box
     from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+    from directcomputeraytracing_tpu_torch.tools import common
+    from directcomputeraytracing_tpu_torch.tools.common import timed
 
     rng = np.random.default_rng(20261016)
     scene, cam = cornell_box("area", "glossy")
     arrays, _ = flatten_scene(scene, device)
     cornell_tab = brute.build_table(arrays)
     o_cam, d_cam = _camera_rays(to_device(cam, device), 1024, 1024, device)
-    o_in, d_in = _rays_inside(rng, N_RAYS, [-0.95, 0.05, -0.95],
-                              [0.95, 1.95, 0.95])
-    o_soup, d_soup = _rays_inside(rng, N_RAYS, -1.5, 1.5)
+    o_in, d_in = common.rays_inside(rng, N_RAYS, [-0.95, 0.05, -0.95],
+                                    [0.95, 1.95, 0.95])
+    o_soup, d_soup = common.rays_inside(rng, N_RAYS, -1.5, 1.5)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -437,13 +435,13 @@ def phase_kernels(device):
             print("kernel-vs-twin", json.dumps(rep))
             tag = f"{name}_{'watertight' if wt else 'moeller'}"
             times[tag] = dict(
-                closest_ms=_timed(lambda: brute.brute_closest(
+                closest_ms=timed(lambda: brute.brute_closest(
                     scene_like, o, d, t_min, wt), 10),
-                closest_twin_ms=_timed(lambda: brute.brute_closest_torch(
+                closest_twin_ms=timed(lambda: brute.brute_closest_torch(
                     tab, o, d, t_min, wt), 2),
-                any_ms=_timed(lambda: brute.brute_any(
+                any_ms=timed(lambda: brute.brute_any(
                     scene_like, o, d, t_max, t_min, wt), 10),
-                any_twin_ms=_timed(lambda: brute.brute_any_torch(
+                any_twin_ms=timed(lambda: brute.brute_any_torch(
                     tab, o, d, t_max, t_min, wt), 2))
             print("timing", tag, f"rays={o.shape[0]} tris={tab.shape[0]}",
                   json.dumps(times[tag]))
@@ -451,25 +449,6 @@ def phase_kernels(device):
     if bad:
         raise SystemExit(f"kernel/twin mismatch beyond tolerance: {bad}")
     return reports, times
-
-
-def _tiled_camera_rays(cam, width, height, device):
-    """Pixel-centre camera rays in the renderer's 32x32 tile order."""
-    import torch
-
-    from directcomputeraytracing_tpu_torch.camera.camera import generate_ray
-    from directcomputeraytracing_tpu_torch.integrator.common import (
-        RenderConfig,
-    )
-    from directcomputeraytracing_tpu_torch.integrator.megakernel import (
-        tiled_frame_pixels,
-    )
-
-    px, py, _ = tiled_frame_pixels(RenderConfig(width=width, height=height),
-                                   device)
-    film = torch.stack([(px + 0.5) / width, (py + 0.5) / height], dim=-1)
-    return generate_ray(cam, film.float(),
-                        torch.zeros(film.shape[0], 3, device=device))
 
 
 def _items_census(tables, od, tm):
@@ -484,31 +463,6 @@ def _items_census(tables, od, tm):
                 items_per_block_max=int(counts.max()))
 
 
-def _grid_ray_sets(rng, cam, device):
-    """The three 1M-ray sets of the sphere grid: tiled camera rays, random
-    rays from inside the scene box and shadow rays towards the lamp, each
-    (o, d, t_max)."""
-    import torch
-
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
-    lo, hi = [-18.0, 0.01, -18.0], [18.0, 6.9, 18.0]
-    side = int(np.sqrt(N_RAYS))
-    o_cam, d_cam = _tiled_camera_rays(cam, side, side, device)
-    o_in, d_in = _rays_inside(rng, N_RAYS, lo, hi)
-    o_sh = rng.uniform([-9.0, 0.01, -9.0], [9.0, 1.5, 9.0], (N_RAYS, 3))
-    to_lamp = rng.uniform([-2.0, 7.0, -2.0], [2.0, 7.0, 2.0],
-                          (N_RAYS, 3)) - o_sh
-    dist = np.linalg.norm(to_lamp, axis=1)
-    return {
-        "camera": (o_cam, d_cam, f32(rng.uniform(0.5, 30.0, N_RAYS))),
-        "random": (f32(o_in), f32(d_in), f32(rng.uniform(0.5, 30.0, N_RAYS))),
-        "shadow": (f32(o_sh), f32(to_lamp / dist[:, None]),
-                   f32(0.999 * dist)),
-    }
-
-
 def phase_worklist_kernels(device):
     """Work-list kernels vs twins on sphere_grid(12, 12); kernel and twin
     times at the camera rays; the item and cluster census."""
@@ -518,6 +472,8 @@ def phase_worklist_kernels(device):
     from directcomputeraytracing_tpu_torch.core.types import to_device
     from directcomputeraytracing_tpu_torch.scene.presets import sphere_grid
     from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+    from directcomputeraytracing_tpu_torch.tools import common
+    from directcomputeraytracing_tpu_torch.tools.common import timed
 
     rng = np.random.default_rng(20261017)
     scene, cam = sphere_grid(*GRID)
@@ -533,7 +489,8 @@ def phase_worklist_kernels(device):
     if tables.hbox is None:
         raise SystemExit("sphere_grid(12, 12) should use the hyper level")
 
-    sets = _grid_ray_sets(rng, to_device(cam, device), device)
+    sets = common.grid_ray_sets(rng, tables, to_device(cam, device), device,
+                                names=("camera", "random", "shadow"))
     t_min = 1e-4
     reports, census = [], {}
     cull = dict(diff=0, err=0.0, refine_diff=0, refine_err=0.0)
@@ -588,24 +545,24 @@ def phase_worklist_kernels(device):
     items = wl.phases(tables, od, tm)
     items_any = wl.phases(tables, od, tm_any)
     times = dict(
-        cull_ms=_timed(lambda: wl.cull_boxes(boxes, od, tm), 20),
-        cull_twin_ms=_timed(lambda: wl.cull_boxes_torch(boxes, od, tm), 2),
-        closest_ms=_timed(lambda: wl.sweep_closest(
+        cull_ms=timed(lambda: wl.cull_boxes(boxes, od, tm), 20),
+        cull_twin_ms=timed(lambda: wl.cull_boxes_torch(boxes, od, tm), 2),
+        closest_ms=timed(lambda: wl.sweep_closest(
             tables, items, od, texp, t_min, False), 10),
-        closest_twin_ms=_timed(lambda: wl.sweep_closest_torch(
+        closest_twin_ms=timed(lambda: wl.sweep_closest_torch(
             tables, items, od, texp, t_min, False), 1),
-        any_ms=_timed(lambda: wl.sweep_any(
+        any_ms=timed(lambda: wl.sweep_any(
             tables, items_any, od, tm_any, t_min, False), 10),
-        any_twin_ms=_timed(lambda: wl.sweep_any_torch(
+        any_twin_ms=timed(lambda: wl.sweep_any_torch(
             tables, items_any, od, tm_any, t_min, False), 1),
-        closest_cast_ms=_timed(lambda: wl.worklist_closest(
+        closest_cast_ms=timed(lambda: wl.worklist_closest(
             arrays, o, d, t_min), 5),
-        any_cast_ms=_timed(lambda: wl.worklist_any(
+        any_cast_ms=timed(lambda: wl.worklist_any(
             arrays, o, d, t_max, t_min), 5),
         refine_items=int(blk.shape[0]),
-        refine_ms=_timed(lambda: wl.refine(tables.hsup, blk, hyp, od, tm),
+        refine_ms=timed(lambda: wl.refine(tables.hsup, blk, hyp, od, tm),
                          20),
-        refine_twin_ms=_timed(lambda: wl.refine_torch(
+        refine_twin_ms=timed(lambda: wl.refine_torch(
             tables.hsup, blk, hyp, od, tm), 2))
     print("worklist timing camera", f"rays={o.shape[0]}", json.dumps(times))
     bad = [r for r in reports if not r["ok"]]
@@ -633,66 +590,27 @@ def phase_worklist_kernels(device):
     return reports, times, cull, work, census
 
 
-def _sweep_diffs(a, b, fields):
-    """Per-field count of rays whose sweep state differs (bits)."""
-    names = ("best", "t", "u", "v", "tri", "inst", "back", "iters")
-    return {names[i]: int((a[i] != b[i]).sum()) for i in fields}
-
-
-def _sorted_rays(tables, o, d):
-    """Rays in `ray_sort_key` order, as the wavefront sorts its pool."""
-    import torch
-
-    from directcomputeraytracing_tpu_torch.integrator.common import (
-        ray_sort_key,
-    )
-
-    lo, hi = tables.bounds
-    key = ray_sort_key(o, d, lo, 1.0 / (hi - lo).clamp_min(1e-6))
-    order = torch.argsort(key, stable=True)
-    return o[order].contiguous(), d[order].contiguous()
-
-
 def phase_grouped_kernels(device):
     """Grouped kernels against their twins and the per-ray sweeps on the
-    sphere grid; grouped vs per-ray kernel times; clusters per ray."""
+    sphere grid; grouped vs per-ray kernel times; the census of the
+    grouped walk (items per block, admitted (item, warp) pairs, fine-cull
+    tests and clusters swept per ray)."""
     import torch
 
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
     from directcomputeraytracing_tpu_torch.core.types import to_device
     from directcomputeraytracing_tpu_torch.scene.presets import sphere_grid
     from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+    from directcomputeraytracing_tpu_torch.tools import common, grouped_ab
+    from directcomputeraytracing_tpu_torch.tools.common import timed
 
-    rng = np.random.default_rng(20261018)
     scene, cam = sphere_grid(*GRID)
     arrays, _ = flatten_scene(scene, device)
     tables = wl.scene_tables(arrays)
-
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
-    lo, hi = [-18.0, 0.01, -18.0], [18.0, 6.9, 18.0]
-    side = int(np.sqrt(N_RAYS))
-    o_cam, d_cam = _tiled_camera_rays(to_device(cam, device), side, side,
-                                      device)
-    o_in, d_in = (f32(x) for x in _rays_inside(rng, N_RAYS, lo, hi))
-    o_sh = rng.uniform([-9.0, 0.01, -9.0], [9.0, 1.5, 9.0], (N_RAYS, 3))
-    to_lamp = rng.uniform([-2.0, 7.0, -2.0], [2.0, 7.0, 2.0],
-                          (N_RAYS, 3)) - o_sh
-    dist = np.linalg.norm(to_lamp, axis=1)
-    o_pool, d_pool = (f32(x) for x in _rays_inside(rng, POOL_RAYS, lo, hi))
-    sets = {
-        "camera": (o_cam, d_cam, f32(rng.uniform(0.5, 30.0, N_RAYS))),
-        "random": (o_in, d_in, f32(rng.uniform(0.5, 30.0, N_RAYS))),
-        "shadow": (f32(o_sh), f32(to_lamp / dist[:, None]),
-                   f32(0.999 * dist)),
-        "random_sorted": (*_sorted_rays(tables, o_in, d_in),
-                          f32(rng.uniform(0.5, 30.0, N_RAYS))),
-        "pool_sorted": (*_sorted_rays(tables, o_pool, d_pool),
-                        f32(rng.uniform(0.5, 30.0, POOL_RAYS))),
-    }
+    # the five sets, from seed 20261018
+    sets = grouped_ab.ray_sets(tables, to_device(cam, device), device)
     t_min = 1e-4
-    reports, timing, errs = [], {}, dict(closest=0.0, any=0.0)
+    reports, timing, errs, counts = [], {}, dict(closest=0.0, any=0.0), {}
 
     def prepared(o, d, t_max):
         od, tm_c, _ = wl.prep_rays(o, d)
@@ -723,9 +641,9 @@ def phase_grouped_kernels(device):
             rep = dict(case=name, watertight=wt, rays=o.shape[0],
                        twin_rays=n_twin,
                        twin_s=time.perf_counter() - t0,
-                       vs_twin=_sweep_diffs(gs, gw, range(8)),
+                       vs_twin=common.sweep_diffs(gs, gw),
                        vs_twin_occ=int((gas != gaw).sum()),
-                       vs_per_ray=_sweep_diffs(g, p, range(7)),
+                       vs_per_ray=common.sweep_diffs(g, p, 7),
                        vs_per_ray_occ=int((ga != pa).sum()),
                        iters_per_ray=float(p[7].float().mean()),
                        grouped_iters_per_ray=float(g[7].float().mean()),
@@ -742,35 +660,60 @@ def phase_grouped_kernels(device):
             errs["any"] = max(errs["any"], float((gas != gaw).float().max()))
             reports.append(rep)
             print("grouped-kernel", json.dumps(rep))
+            counts[name, wt] = (
+                grouped_ab.closest_census(tables, it_cs, od_s, texp_s, t_min,
+                                          wt),
+                grouped_ab.any_census(tables, it_as, od_s, tm_as, t_min, wt))
+            census = dict(
+                case=name, watertight=wt, twin_rays=n_twin,
+                items_per_block=float(it_cs.seg[-1])
+                / (od_s.shape[1] // wl.RB),
+                **grouped_ab.census_summary(*counts[name, wt],
+                                            od_s.shape[1]),
+                iters_per_ray=rep["iters_per_ray"],
+                grouped_iters_per_ray=rep["grouped_iters_per_ray"])
+            print("grouped-census", json.dumps(census))
         od, tm_c, tm_a, texp, it_c, it_a = full
         timing[name] = dict(
             rays=o.shape[0],
             items_per_block=float(it_c.seg[-1]) / (od.shape[1] // wl.RB),
-            closest_ms=_timed(lambda: wl.sweep_closest(
+            closest_ms=timed(lambda: wl.sweep_closest(
                 tables, it_c, od, texp, t_min, False), 5),
-            closest_grouped_ms=_timed(lambda: wl.sweep_closest_grouped(
+            closest_grouped_ms=timed(lambda: wl.sweep_closest_grouped(
                 tables, it_c, od, texp, t_min, False), 5),
-            any_ms=_timed(lambda: wl.sweep_any(
+            any_ms=timed(lambda: wl.sweep_any(
                 tables, it_a, od, tm_a, t_min, False), 5),
-            any_grouped_ms=_timed(lambda: wl.sweep_any_grouped(
+            any_grouped_ms=timed(lambda: wl.sweep_any_grouped(
                 tables, it_a, od, tm_a, t_min, False), 5))
         print("grouped-timing", name, json.dumps(timing[name]))
-    # the main path's shape: a sorted pool of 2^18 rays
+    # the main path's shape: a sorted pool of 2^18 rays, whose census
+    # (Baldwin-Weber) covers the whole set
     od, tm_c, tm_a, texp, it_c, it_a = prepared(*sets["pool_sorted"])
     rp = od.shape[1]
     iters = wl.sweep_closest(tables, it_c, od, texp, t_min, False)[7]
+    tri_ops = 16 * FLOPS_BW * int(iters.long().sum())
     table_bytes = 4 * (tables.cbox3.numel() + tables.bwtab.numel())
     fine = FLOPS_SLAB * wl.RB * wl.SUPER
     n_c, n_a = int(it_c.seg[-1]), int(it_a.seg[-1])
+    c_n, a_n = counts["pool_sorted", False]
+    # one admission test a ray of each (item, warp) pair the warp visits,
+    # the fine cull (32 tests a ray) of each pair it admits
+    slab = FLOPS_SLAB * wl.GL
+    closest_ops = slab * (c_n["warp_voted"] + wl.SUPER * c_n["admitted"])
+    any_ops = slab * (a_n["visited"] + wl.SUPER * a_n["admitted"])
+    box_bytes = table_bytes + 4 * tables.abox.numel()
     pool = dict(
-        closest_twin_ms=_timed(lambda: wl.sweep_closest_grouped_torch(
+        closest_twin_ms=timed(lambda: wl.sweep_closest_grouped_torch(
             tables, it_c, od, texp, t_min, False), 1),
-        any_twin_ms=_timed(lambda: wl.sweep_any_torch(
+        any_twin_ms=timed(lambda: wl.sweep_any_torch(
             tables, it_a, od, tm_a, t_min, False), 1),
-        closest_bound=_bound(fine * n_c + 16 * FLOPS_BW
-                             * int(iters.long().sum()),
-                             69 * rp + 12 * n_c + table_bytes),
-        any_bound=_bound(fine * n_a, 41 * rp + 8 * n_a + table_bytes))
+        closest_bound=_bound(closest_ops + tri_ops,
+                             69 * rp + 12 * n_c + box_bytes),
+        any_bound=_bound(any_ops, 41 * rp + 8 * n_a + box_bytes),
+        closest_bound_block_walk=_bound(fine * n_c + tri_ops,
+                                        69 * rp + 12 * n_c + table_bytes),
+        any_bound_block_walk=_bound(fine * n_a,
+                                    41 * rp + 8 * n_a + table_bytes))
     pool.update(closest_ms=timing["pool_sorted"]["closest_grouped_ms"],
                 any_ms=timing["pool_sorted"]["any_grouped_ms"])
     print("grouped-pool", json.dumps(pool))
@@ -820,6 +763,8 @@ def phase_instanced_kernels(device, soup_census):
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
     from directcomputeraytracing_tpu_torch.core.types import to_device
     from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+    from directcomputeraytracing_tpu_torch.tools import common
+    from directcomputeraytracing_tpu_torch.tools.common import timed
 
     rng = np.random.default_rng(20261019)
     scene, cam = _scene("inst_grid")
@@ -838,28 +783,10 @@ def phase_instanced_kernels(device, soup_census):
         raise SystemExit("sphere_grid(27, 27) should use the instanced "
                          "tables and the hyper level")
 
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
-    lo, hi = [-21.0, 0.01, -21.0], [21.0, 6.9, 21.0]
-    side = int(np.sqrt(N_RAYS))
-    o_cam, d_cam = _tiled_camera_rays(to_device(cam, device), side, side,
-                                      device)
-    o_sh = rng.uniform([-20.0, 0.01, -20.0], [20.0, 1.5, 20.0], (N_RAYS, 3))
-    to_lamp = rng.uniform([-2.0, 7.0, -2.0], [2.0, 7.0, 2.0],
-                          (N_RAYS, 3)) - o_sh
-    dist = np.linalg.norm(to_lamp, axis=1)
-    o_in, d_in = (f32(x) for x in _rays_inside(rng, N_RAYS, lo, hi))
-    o_pool, d_pool = (f32(x) for x in _rays_inside(rng, POOL_RAYS, lo, hi))
-    sets = {
-        "camera": (o_cam, d_cam, f32(rng.uniform(0.5, 30.0, N_RAYS))),
-        "shadow": (f32(o_sh), f32(to_lamp / dist[:, None]),
-                   f32(0.999 * dist)),
-        "random_sorted": (*_sorted_rays(tables, o_in, d_in),
-                          f32(rng.uniform(0.5, 30.0, N_RAYS))),
-        "pool_sorted": (*_sorted_rays(tables, o_pool, d_pool),
-                        f32(rng.uniform(0.5, 30.0, POOL_RAYS))),
-    }
+    sets = common.grid_ray_sets(
+        rng, tables, to_device(cam, device), device, half=21.0,
+        shadow_half=20.0,
+        names=("camera", "shadow", "random_sorted", "pool_sorted"))
     t_min = 1e-4
     reports, census, errs = [], {}, dict(closest=0.0, any=0.0)
 
@@ -900,15 +827,15 @@ def phase_instanced_kernels(device, soup_census):
                                                    r)[0])
             iters = k[7][:r]
             timing = dict(
-                closest_ms=_timed(lambda: wl.sweep_closest_inst(
+                closest_ms=timed(lambda: wl.sweep_closest_inst(
                     tables, it_c, od, texp, t_min, wt), 3),
-                any_ms=_timed(lambda: wl.sweep_any_inst(
+                any_ms=timed(lambda: wl.sweep_any_inst(
                     tables, it_a, od, tm_a, t_min, wt), 3))
             bc, ba = _inst_bounds(tables, it_c, it_a, iters, od.shape[1], wt)
             rep = dict(case=name, watertight=wt, rays=r,
                        twin_rays=int(idx.numel()), twin_s=twin_s,
                        items_equal=items_equal,
-                       vs_twin=_sweep_diffs(ks, w, range(8)),
+                       vs_twin=common.sweep_diffs(ks, w),
                        vs_twin_occ=int((kas != wa).sum()),
                        hits=int(hit.sum()),
                        twin_occluded=int(wa.sum()),
@@ -945,9 +872,9 @@ def phase_instanced_kernels(device, soup_census):
         closest_ms=cam_rep["closest_ms"], any_ms=cam_rep["any_ms"],
         closest_bound=cam_rep["closest_bound"],
         any_bound=cam_rep["any_bound"],
-        closest_twin_ms=_timed(lambda: wl.sweep_closest_inst_torch(
+        closest_twin_ms=timed(lambda: wl.sweep_closest_inst_torch(
             tables, it_c, od, texp, t_min, False), 1, warm=False),
-        any_twin_ms=_timed(lambda: wl.sweep_any_inst_torch(
+        any_twin_ms=timed(lambda: wl.sweep_any_inst_torch(
             tables, it_a, od, tm_a, t_min, False), 1, warm=False))
     print("instanced-row", json.dumps(row))
     return reports, errs, row
@@ -996,6 +923,7 @@ def phase_instanced_vs_soup(device):
     )
     from directcomputeraytracing_tpu_torch.core.types import to_device
     from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+    from directcomputeraytracing_tpu_torch.tools import common
 
     scene, cam = _scene("grid")
     soup, _ = flatten_scene(scene, device)
@@ -1005,7 +933,8 @@ def phase_instanced_vs_soup(device):
         raise SystemExit("sphere_grid(12, 12): expected soup clusters and "
                          "forced instanced tables")
     side = int(np.sqrt(N_RAYS))
-    o, d = _tiled_camera_rays(to_device(cam, device), side, side, device)
+    o, d = common.tiled_camera_rays(to_device(cam, device), side, side,
+                                    device)
     rep = dict(rays=o.shape[0], edge_tol=EDGE_TOL)
     t_wt = None
     for wt in (True, False):
@@ -1146,6 +1075,8 @@ def phase_clustered_kernels(device):
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
     from directcomputeraytracing_tpu_torch.core.types import to_device
     from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+    from directcomputeraytracing_tpu_torch.tools import common
+    from directcomputeraytracing_tpu_torch.tools.common import timed
 
     rng = np.random.default_rng(20261020)
     scene, cam = _scene("grid")
@@ -1156,30 +1087,10 @@ def phase_clustered_kernels(device):
         clusters=tables.cbox.shape[0], groups=tables.n_groups,
         reach=tables.reach)))
 
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
-    lo, hi = [-18.0, 0.01, -18.0], [18.0, 6.9, 18.0]
-    side = int(np.sqrt(N_RAYS))
-    o_cam, d_cam = _tiled_camera_rays(to_device(cam, device), side, side,
-                                      device)
-    o_sh = rng.uniform([-9.0, 0.01, -9.0], [9.0, 1.5, 9.0], (N_RAYS, 3))
-    to_lamp = rng.uniform([-2.0, 7.0, -2.0], [2.0, 7.0, 2.0],
-                          (N_RAYS, 3)) - o_sh
-    dist = np.linalg.norm(to_lamp, axis=1)
-    o_in, d_in = (f32(x) for x in _rays_inside(rng, N_RAYS, lo, hi))
-    o_pool, d_pool = (f32(x) for x in _rays_inside(rng, POOL_RAYS, lo, hi))
     wtab = wl.scene_tables(arrays)
-    sets = {
-        "camera": (o_cam.contiguous(), d_cam.contiguous(),
-                   f32(rng.uniform(0.5, 30.0, N_RAYS))),
-        "shadow": (f32(o_sh), f32(to_lamp / dist[:, None]),
-                   f32(0.999 * dist)),
-        "random_sorted": (*_sorted_rays(wtab, o_in, d_in),
-                          f32(rng.uniform(0.5, 30.0, N_RAYS))),
-        "pool_sorted": (*_sorted_rays(wtab, o_pool, d_pool),
-                        f32(rng.uniform(0.5, 30.0, POOL_RAYS))),
-    }
+    sets = common.grid_ray_sets(
+        rng, wtab, to_device(cam, device), device,
+        names=("camera", "shadow", "random_sorted", "pool_sorted"))
     t_min = 1e-4
     reports, census, errs = [], {}, dict(cull=0.0, closest=0.0, any=0.0)
     rows = {}
@@ -1201,7 +1112,7 @@ def phase_clustered_kernels(device):
                                 cm_s.float().sum(1).mean()),
                             reaching=float(cl.reach_mask(tables, o, d)
                                            .float().mean()))
-        cull_ms = _timed(lambda: cl.cull_masks(tables, o, d), 5)
+        cull_ms = timed(lambda: cl.cull_masks(tables, o, d), 5)
         for wt in (False, True):
             k = cl.sweep_closest(tables, cmask, gmask, o, d, t_min, wt)
             ka = cl.sweep_any(tables, cmask, gmask, o, d, t_max, t_min, wt)
@@ -1222,9 +1133,9 @@ def phase_clustered_kernels(device):
             reps = 1 if name == "shadow" else 5
             timing = dict(
                 cull_ms=cull_ms,
-                closest_ms=_timed(lambda: cl.sweep_closest(
+                closest_ms=timed(lambda: cl.sweep_closest(
                     tables, cmask, gmask, o, d, t_min, wt), reps),
-                any_ms=_timed(lambda: cl.sweep_any(
+                any_ms=timed(lambda: cl.sweep_any(
                     tables, cmask, gmask, o, d, t_max, t_min, wt), reps),
                 dense_closest_ms=dense_ms, dense_any_ms=dense_any_ms)
             bc, bk, ba = _cluster_bounds(tables, cmask, gmask, r, ka)
@@ -1258,11 +1169,11 @@ def phase_clustered_kernels(device):
                     cull_ms=cull_ms, closest_ms=timing["closest_ms"],
                     any_ms=timing["any_ms"], cull_bound=bc,
                     closest_bound=bk, any_bound=ba,
-                    cull_twin_ms=_timed(lambda: cl.cull_masks_torch(
+                    cull_twin_ms=timed(lambda: cl.cull_masks_torch(
                         tables, o, d), 1, warm=False),
-                    closest_twin_ms=_timed(lambda: cl.sweep_closest_torch(
+                    closest_twin_ms=timed(lambda: cl.sweep_closest_torch(
                         tables, cmask, gmask, o, d, t_min), 1, warm=False),
-                    any_twin_ms=_timed(lambda: cl.sweep_any_torch(
+                    any_twin_ms=timed(lambda: cl.sweep_any_torch(
                         tables, cmask, gmask, o, d, t_max, t_min), 1,
                         warm=False))
             reports.append(rep)
@@ -1324,29 +1235,16 @@ def phase_pair_kernels(device):
     from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
     from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+    from directcomputeraytracing_tpu_torch.tools import common
+    from directcomputeraytracing_tpu_torch.tools.common import timed
 
     rng = np.random.default_rng(20261021)
     arrays, _ = flatten_scene(_scene("grid")[0], device)
     tables = wl.scene_tables(arrays)
 
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
-    lo, hi = [-18.0, 0.01, -18.0], [18.0, 6.9, 18.0]
-    o_sh = rng.uniform([-9.0, 0.01, -9.0], [9.0, 1.5, 9.0], (N_RAYS, 3))
-    to_lamp = rng.uniform([-2.0, 7.0, -2.0], [2.0, 7.0, 2.0],
-                          (N_RAYS, 3)) - o_sh
-    dist = np.linalg.norm(to_lamp, axis=1)
-    o_in, d_in = (f32(x) for x in _rays_inside(rng, N_RAYS, lo, hi))
-    o_pool, d_pool = (f32(x) for x in _rays_inside(rng, POOL_RAYS, lo, hi))
-    sets = {
-        "shadow": (f32(o_sh), f32(to_lamp / dist[:, None]),
-                   f32(0.999 * dist)),
-        "random_sorted": (*_sorted_rays(tables, o_in, d_in),
-                          f32(rng.uniform(0.5, 30.0, N_RAYS))),
-        "pool_sorted": (*_sorted_rays(tables, o_pool, d_pool),
-                        f32(rng.uniform(0.5, 30.0, POOL_RAYS))),
-    }
+    sets = common.grid_ray_sets(
+        rng, tables, None, device,
+        names=("shadow", "random_sorted", "pool_sorted"))
     t_min = 1e-4
     reports, errs, rows = [], dict(emit=0.0, closest=0.0, any=0.0), {}
     for name, (o, d, t_max) in sets.items():
@@ -1363,15 +1261,15 @@ def phase_pair_kernels(device):
                 tables, items, od, cap, t_min))
             emit_diff = int((grid != twin).sum())
             del twin
-            emit_ms = _timed(lambda: ps.emit_pairs(tables, items, od, cap,
+            emit_ms = timed(lambda: ps.emit_pairs(tables, items, od, cap,
                                                    t_min), 3)
             it, lane = torch.nonzero(grid, as_tuple=True)
-            nonzero_ms = _timed(lambda: torch.nonzero(grid, as_tuple=True),
+            nonzero_ms = timed(lambda: torch.nonzero(grid, as_tuple=True),
                                 3)
             cells = grid.numel()
             del grid
             pairs = ps.pair_list(tables, items, it, lane)
-            list_ms = _timed(lambda: ps.pair_list(tables, items, it, lane),
+            list_ms = timed(lambda: ps.pair_list(tables, items, it, lane),
                              3)
             sub = _pair_subset(tables, items, it, lane, idx)
             del it, lane
@@ -1388,16 +1286,16 @@ def phase_pair_kernels(device):
                     sweep, twin_fn = ps.pair_sweep_any, ps.pair_sweep_any_torch
                     cast, wl_cast, args = ps.pair_any, wl.worklist_any, (tm,)
                 out = sweep(tables, pairs, od, *args, t_min, wt)
-                sweep_ms = _timed(lambda: sweep(tables, pairs, od, *args,
+                sweep_ms = timed(lambda: sweep(tables, pairs, od, *args,
                                                 t_min, wt), 3)
                 ks = sweep(tables, sub, od, *args, t_min, wt)
                 ws = twin_fn(tables, sub, od, *args, t_min, wt)
                 if kind == "closest":
-                    vs_twin = _sweep_diffs(ks, ws, range(8))
+                    vs_twin = common.sweep_diffs(ks, ws)
                     errs["closest"] = max(errs["closest"], *(
                         float((a.float() - b.float()).abs().max())
                         for a, b in zip(ks[1:4], ws[1:4])))
-                    reduce_ms = _timed(lambda: ps.reduce_closest(
+                    reduce_ms = timed(lambda: ps.reduce_closest(
                         ps._initial_state(texp), out, pairs, texp), 3)
                     iters_p = out[7]
                 else:
@@ -1406,7 +1304,7 @@ def phase_pair_kernels(device):
                                       float((ks != ws).float().max()))
                     hits = torch.zeros(od.shape[1], dtype=torch.int32,
                                        device=device)
-                    reduce_ms = _timed(lambda: hits.index_add_(
+                    reduce_ms = timed(lambda: hits.index_add_(
                         0, pairs.ray.long(), out.to(torch.int32)), 3)
                     iters_p = None
                 del out
@@ -1417,10 +1315,10 @@ def phase_pair_kernels(device):
                     pc = cast(arrays, o, d, t_min, wt)
                     peak = torch.cuda.max_memory_allocated() - base
                     wc = wl_cast(arrays, o, d, t_min, wt)
-                    cast_ms = _timed(lambda: cast(arrays, o, d, t_min, wt), 3)
-                    wl_ms = _timed(lambda: wl_cast(arrays, o, d, t_min, wt),
+                    cast_ms = timed(lambda: cast(arrays, o, d, t_min, wt), 3)
+                    wl_ms = timed(lambda: wl_cast(arrays, o, d, t_min, wt),
                                    3)
-                    wlg_ms = _timed(lambda: wl_cast(
+                    wlg_ms = timed(lambda: wl_cast(
                         arrays, o, d, t_min, wt, grouped=True), 3)
                     vs_wl = {f: int((a != b).sum()) for f, a, b in zip(
                         ("t", "u", "v", "tri", "inst", "back"), pc, wc)}
@@ -1434,11 +1332,11 @@ def phase_pair_kernels(device):
                     pc = cast(arrays, o, d, t_max, t_min, wt)
                     peak = torch.cuda.max_memory_allocated() - base
                     wc = wl_cast(arrays, o, d, t_max, t_min, wt)
-                    cast_ms = _timed(lambda: cast(arrays, o, d, t_max, t_min,
+                    cast_ms = timed(lambda: cast(arrays, o, d, t_max, t_min,
                                                   wt), 3)
-                    wl_ms = _timed(lambda: wl_cast(arrays, o, d, t_max, t_min,
+                    wl_ms = timed(lambda: wl_cast(arrays, o, d, t_max, t_min,
                                                    wt), 3)
-                    wlg_ms = _timed(lambda: wl_cast(
+                    wlg_ms = timed(lambda: wl_cast(
                         arrays, o, d, t_max, t_min, wt, grouped=True), 3)
                     vs_wl = dict(occ=int((pc != wc).sum()))
                     extra = dict(occluded=int(pc.sum()))
@@ -1496,7 +1394,9 @@ def _injected_rays(rng, n, device):
     injected at random rays, and per-ray t_max."""
     import torch
 
-    o, d = _rays_inside(rng, n, -5.0, 5.0)
+    from directcomputeraytracing_tpu_torch.tools import common
+
+    o, d = common.rays_inside(rng, n, -5.0, 5.0)
     o, d = o.astype(np.float32), d.astype(np.float32)
     for vals, arr in (((np.nan, np.inf, -np.inf), o),
                       ((0.0, np.nan, np.inf, 1e-31, -1e-31, -0.0, -1e-40),
@@ -1523,13 +1423,15 @@ def phase_prep_kernel(device):
     from directcomputeraytracing_tpu_torch.core.types import to_device
     from directcomputeraytracing_tpu_torch.scene.presets import sphere_grid
     from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+    from directcomputeraytracing_tpu_torch.tools import common
+    from directcomputeraytracing_tpu_torch.tools.common import timed
 
     rng = np.random.default_rng(20261018)
     scene, cam = sphere_grid(*GRID)
     tables = wl.scene_tables(flatten_scene(scene, device)[0])
-    sets = _grid_ray_sets(rng, to_device(cam, device), device)
-    o, d, t_max = sets["random"]
-    sets["random_sorted"] = (*_sorted_rays(tables, o, d), t_max)
+    sets = common.grid_ray_sets(
+        rng, tables, to_device(cam, device), device,
+        names=("camera", "random", "shadow", "random_sorted"))
     sets["injected"] = _injected_rays(rng, N_RAYS, device)
     reports, err = [], 0.0
     for name, (o, d, t_max) in sets.items():
@@ -1553,10 +1455,10 @@ def phase_prep_kernel(device):
     rp = -(-N_RAYS // wl.RB) * wl.RB
     row = dict(
         rays=N_RAYS, max_abs_err=err,
-        ms=_timed(lambda: wl.prep_rays(o, d), 50),
-        twin_ms=_timed(lambda: wl.prep_rays_torch(o, d), 20),
-        shadow_ms=_timed(lambda: wl.prep_rays(o, d, t_max), 50),
-        shadow_twin_ms=_timed(lambda: wl.prep_rays_torch(o, d, t_max), 20),
+        ms=timed(lambda: wl.prep_rays(o, d), 50),
+        twin_ms=timed(lambda: wl.prep_rays_torch(o, d), 20),
+        shadow_ms=timed(lambda: wl.prep_rays(o, d, t_max), 50),
+        shadow_twin_ms=timed(lambda: wl.prep_rays_torch(o, d, t_max), 20),
         # 3 tests, 3 squares and 2 adds, 3 compares and 3 divisions a ray
         bound=_bound(14 * N_RAYS, 24 * N_RAYS + 40 * rp))
     print("prep timing camera", json.dumps(row))
@@ -1572,6 +1474,7 @@ def phase_probes(device, wl_times, wl_census):
     `.T.contiguous()` and to the twin."""
     import torch
 
+    from directcomputeraytracing_tpu_torch.tools.common import timed
     from directcomputeraytracing_tpu_torch.tools import prof_prep as pp
     from directcomputeraytracing_tpu_torch.tools import probe_worklist as pw
 
@@ -1609,7 +1512,7 @@ def phase_probes(device, wl_times, wl_census):
     cap = rows[-1]["capacity"]
     r = 64 * pw.RB
     item = dict(row=rows[-1], max_abs_err=err, launches=launches["item_list"],
-                twin_ms=_timed(lambda: pw.item_list_torch(items, tab, o), 1),
+                twin_ms=timed(lambda: pw.item_list_torch(items, tab, o), 1),
                 bound=_bound(23 * pw.CS * pw.RB * cap,
                              4 * cap + 4 * tab.numel() + 8 * r))
     tr = dict(layout=layout, launches=launches["transpose16"],
@@ -1858,6 +1761,7 @@ def phase_wavefront(device):
     expect = _expected_wavefront_launches(r.arrays, stats, launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     slabs = _slab_ab(r, img, seconds)
+    backends = _pool_backends_ab(r)
     # one timed pass of the same 8 samples through a 2^20-path pool
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1876,7 +1780,7 @@ def phase_wavefront(device):
                ms_per_spp=1000.0 * seconds / p["spp"], total_s=seconds,
                warmup_s=warm_s, peak_mem_gib=peak, last_stats=stats,
                launches=launches, expected_launches=expect,
-               slab_ab=slabs, pool_2_20=big)
+               slab_ab=slabs, pool_backends=backends, pool_2_20=big)
     print("wavefront", json.dumps(rep))
     if not (rep["finite"] and rep["mean"] > 0.0
             and img.shape == (p["height"], p["width"], 3)):
@@ -1916,6 +1820,37 @@ def _slab_ab(r, img, on_s):
             off, out["off_stats"] = val, dict(wf.LAST_STATS)
     got = (r._raster(off) / p["spp"]).reshape(img.shape).cpu().numpy()
     out["rmse_off_vs_on"] = float(np.sqrt(((got - img) ** 2).mean()))
+    return out
+
+
+def _pool_backends_ab(r):
+    """The render's pool pass (seed 0, 8 samples, default slabs) through
+    the three pool backends in turns, "" (the default: the grouped sweep,
+    "pallas_wlg"), "pallas_wl" and "pallas_pair", after a one-sample
+    warm-up pass of the last two: ms/spp in the order grouped, wl, pair,
+    pair, wl, grouped."""
+    from dataclasses import replace
+
+    import torch
+
+    from directcomputeraytracing_tpu_torch.integrator import wavefront as wf
+
+    names = {"": "pallas_wlg", "pallas_wl": "pallas_wl",
+             "pallas_pair": "pallas_pair"}
+    order = list(names) + list(names)[::-1]
+    out = dict(order=[names[b] for b in order],
+               ms_per_spp={n: [] for n in names.values()})
+    for spp, b in [(1, "pallas_wl"), (1, "pallas_pair")] + [
+            (WAVEFRONT["spp"], b) for b in order]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wf.render_samples_wavefront(
+            r.arrays, r.luts, r.camera, replace(r.cfg, pool_backend=b),
+            r._px, r._py, 0, spp_batch=spp)
+        torch.cuda.synchronize()
+        if spp == WAVEFRONT["spp"]:
+            out["ms_per_spp"][names[b]].append(
+                1000.0 * (time.perf_counter() - t0) / spp)
     return out
 
 
@@ -2080,6 +2015,7 @@ def _build_all():
     from directcomputeraytracing_tpu_torch.accel import clustered as cl
     from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
+    from directcomputeraytracing_tpu_torch.tools import grouped_ab
     from directcomputeraytracing_tpu_torch.tools import probe_worklist as pw
 
     sources = (("brute_sweep.cu", brute.kernels),
@@ -2094,6 +2030,11 @@ def _build_all():
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("ptxas:", line.strip())
+    # the grouped sweeps' registers, shared memory and spills, and their
+    # resident blocks per SM on this card
+    print("grouped-ptxas", json.dumps(grouped_ab.ptxas_report(
+        futures["worklist.cu"].result().log)))
+    print("grouped-resources", json.dumps(wl.grouped_resources()))
 
 
 def main():
@@ -2205,12 +2146,12 @@ def main():
     wl_any_err = max(r["any_max_abs_err"] for r in wl_reports)
 
     def row(name, src, replaces, launches, err, ms, plain_ms, bound,
-            library_ms=None):
+            library_ms=None, **extra):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": library_ms}
+                "library_ms": library_ms, **extra}
 
     print(json.dumps({"kernels": [
         row("brute_closest", brute_src,
@@ -2239,10 +2180,12 @@ def main():
         row("sweep_closest_grouped", wl_src, f"{ref_wl}:1000",
             wave["launches"]["sweep_closest_grouped"], g_errs["closest"],
             g_pool["closest_ms"], g_pool["closest_twin_ms"],
-            g_pool["closest_bound"]),
+            g_pool["closest_bound"],
+            bound_ms_block_walk=g_pool["closest_bound_block_walk"][0]),
         row("sweep_any_grouped", wl_src, f"{ref_wl}:1113",
             wave["launches"]["sweep_any_grouped"], g_errs["any"],
-            g_pool["any_ms"], g_pool["any_twin_ms"], g_pool["any_bound"]),
+            g_pool["any_ms"], g_pool["any_twin_ms"], g_pool["any_bound"],
+            bound_ms_block_walk=g_pool["any_bound_block_walk"][0]),
         row("sweep_closest_inst", wl_src, f"{ref_wl}:1208",
             inst["launches"]["sweep_closest_inst"], inst_errs["closest"],
             inst_row["closest_ms"], inst_row["closest_twin_ms"],

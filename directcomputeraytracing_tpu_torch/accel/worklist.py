@@ -49,13 +49,25 @@ the clusters its own fine cull admitted, summed over its block's items.
    same inputs and return the same outputs, but walk each item per group
    of GL = 32 rays (one warp; the reference's groups are 128 lanes): the
    group pops its two nearest clusters per step and every ray of the
-   group tests them, masked by its own fine cull. `iters` is then the
-   number of clusters the ray's group swept in the items the ray entered
-   something in. The closest twin `sweep_closest_grouped_torch` replays
-   the group walk so that `iters` matches. The any-hit twin is
-   `sweep_any_torch`: the grouped walk tests, for every ray not yet
-   occluded, every cluster its own fine cull entered (a group stops only
-   when all its rays are occluded), so its answer is the per-ray walk's.
+   group tests them, masked by its own fine cull. Each warp walks its
+   block's items on its own, with no barrier across the block: it skips
+   an item by a warp vote (closest: no ray's best lies beyond the item's
+   entry) and by a super-box admission (no ray enters the item's
+   admission box, `admission_boxes`, under its cap: then no ray enters a
+   child), looks ahead 32 items at a time and copies the next admitted
+   item's boxes into shared memory (cp.async) while it sweeps the
+   current one. `iters` is the number of clusters the ray's group swept
+   in the items the ray entered something in. The closest twin
+   `sweep_closest_grouped_torch` replays the group walk so that `iters`
+   matches. The any-hit twin is `sweep_any_torch`: the grouped walk
+   tests, for every ray not yet occluded, every cluster its own fine
+   cull entered (a warp stops when all its rays are occluded), so its
+   answer is the per-ray walk's. On an NVIDIA H100 80GB HBM3 at 700 W,
+   on a sorted 2^18-ray pool of `sphere_grid(12, 12)`, the warps admit
+   7.4 % of the (item, warp) pairs, and the kernels take 0.977 ms
+   (closest) and 0.414 ms (any-hit), where the first design, a 1024-ray
+   block walking its items in lockstep, took 9.23 and 4.41 and the
+   per-ray sweep takes 6.59 and 3.69 (`tools/grouped_ab.py`, PERF.md).
 
 6. The instanced sweeps. `sweep_closest_inst` / `sweep_any_inst`
    (kernels `closest_inst_kernel` / `any_inst_kernel`, twins
@@ -145,16 +157,19 @@ def kernels():
                 c_p]
         lib.dcrt_wl_closest.argtypes = closest
         lib.dcrt_wl_any.argtypes = any_
-        lib.dcrt_wl_closest_grouped.argtypes = closest
-        lib.dcrt_wl_any_grouped.argtypes = any_
+        # the grouped sweeps add the admission boxes before the child boxes
+        lib.dcrt_wl_closest_grouped.argtypes = closest[:4] + [c_p] \
+            + closest[4:]
+        lib.dcrt_wl_any_grouped.argtypes = any_[:3] + [c_p] + any_[3:]
+        lib.dcrt_wl_grouped_resources.argtypes = [c_p]
         # the instanced sweeps add three table pointers after the slab's
         lib.dcrt_wl_closest_inst.argtypes = closest[:6] + [c_p] * 3 \
             + closest[6:]
         lib.dcrt_wl_any_inst.argtypes = any_[:5] + [c_p] * 3 + any_[5:]
         for fn in (lib.dcrt_wl_cull, lib.dcrt_wl_refine, lib.dcrt_wl_closest,
                    lib.dcrt_wl_any, lib.dcrt_wl_closest_grouped,
-                   lib.dcrt_wl_any_grouped, lib.dcrt_wl_closest_inst,
-                   lib.dcrt_wl_any_inst):
+                   lib.dcrt_wl_any_grouped, lib.dcrt_wl_grouped_resources,
+                   lib.dcrt_wl_closest_inst, lib.dcrt_wl_any_inst):
             fn.restype = c_i
         _built = built
     return _built
@@ -179,6 +194,8 @@ class Tables(NamedTuple):
     isup_local: Optional[torch.Tensor] = None   # (Cs,) i32
     isup_inst: Optional[torch.Tensor] = None    # (Cs,) i32
     inst_rows: Optional[torch.Tensor] = None    # (I, 16) f32 world->local
+    # world-soup tables only: the grouped sweeps' admission boxes
+    abox: Optional[torch.Tensor] = None         # (Cs, 8)
 
 
 def _inverted(n, like):
@@ -208,6 +225,20 @@ def pad_tables(scene):
     sbox = torch.cat([cbox3[:, :, 0:3].amin(1), cbox3[:, :, 3:6].amax(1),
                       torch.zeros_like(cbox3[:, 0, 0:2])], dim=1)
     return ctab.contiguous(), bwtab.contiguous(), cbox3.contiguous(), sbox
+
+
+def admission_boxes(cbox3):
+    """(Cs, SUPER, 8) child boxes -> (Cs, 8) admission boxes of the
+    grouped sweeps: per super the min/max of its child boxes as a slab
+    test reads them, each axis from min(lo, hi) to max(lo, hi). That is
+    the super box itself unless the super holds padding: the slab test
+    reads an inverted padding box as the cube [-1, 1]^3. A ray that
+    misses the admission box under a cap enters none of the children
+    under it."""
+    lo, hi = cbox3[:, :, 0:3], cbox3[:, :, 3:6]
+    return torch.cat([torch.minimum(lo, hi).amin(1),
+                      torch.maximum(lo, hi).amax(1),
+                      torch.zeros_like(cbox3[:, 0, 0:2])], dim=1)
 
 
 def build_hyper(sbox):
@@ -258,7 +289,8 @@ def scene_tables(scene):
         else:
             ctab, bwtab, cbox3, sbox = pad_tables(scene)
             tab = Tables(ctab, bwtab, cbox3, sbox, *build_hyper(sbox),
-                         _box_bounds(scene.cluster_bbox), config)
+                         _box_bounds(scene.cluster_bbox), config,
+                         abox=admission_boxes(cbox3))
         _TABLES[key] = tab
     return tab
 
@@ -634,16 +666,32 @@ def _window(best):
     return _bits_float((best | _LOWM) + 1)
 
 
-def _voted(items, rays, item, best):
-    """The closest kernels' block vote: keep the blocks of (rays, item)
-    where some ray's best lies beyond the item's entry distance. Without
-    a t_cap the vote never drops an item a ray would enter; with one, a
-    ray may enter a child box between its capped t_max and its best, and
-    the twins skip what the kernels skip."""
-    keep = (_window(best[rays]).view(-1, RB)
-            > items.t_ent[item.view(-1, RB)[:, 0:1]]).any(1)
-    keep = keep.repeat_interleave(RB)
+def _voted(items, rays, item, best, group=None):
+    """The closest kernels' vote: keep the groups of `group` rays (RB by
+    default: the per-ray sweeps' blocks; GL: the grouped sweeps' warps)
+    of (rays, item) where some ray's best lies beyond the item's entry
+    distance. Without a t_cap the vote never drops an item a ray would
+    enter; with one, a ray may enter a child box between its capped
+    t_max and its best, and the twins skip what the kernels skip. (Such
+    a child starts past the scene exit's truncation quantum, so a hit in
+    it decodes as a miss: the block and the warp vote give the same
+    decoded hits.)"""
+    group = group or RB
+    keep = (_window(best[rays]).view(-1, group)
+            > items.t_ent[item.view(-1, group)[:, 0:1]]).any(1)
+    keep = keep.repeat_interleave(group)
     return rays[keep], item[keep]
+
+
+def warp_admitted(abox, od_r, cap, t_min):
+    """The grouped kernels' super-box admission for whole warps of rays
+    od_r (9, n), n a multiple of GL, each ray against its item's
+    admission box abox (n, 8) (one item per warp) under its cap (n,):
+    per ray, whether some ray of its warp enters the box under its cap,
+    by `_fine_cull`'s rule. A warp refused here enters no child of the
+    item (`admission_boxes`)."""
+    enter = _fine_cull(abox[:, None, :], od_r, cap, t_min)[0][:, 0]
+    return enter.view(-1, GL).any(1).repeat_interleave(GL)
 
 
 class _Best:
@@ -799,20 +847,26 @@ def sweep_closest_torch(tables, items, od, texp, t_min, watertight):
 def sweep_any_torch(tables, items, od, tm, t_min, watertight):
     """Twin of `any_kernel` and, on instanced tables, of `any_inst_kernel`:
     (Rp,) bool, a hit in [t_min, t_max) within a cluster the ray's fine
-    cull admits (box entered before t_max)."""
+    cull admits (box entered before t_max). Also the grouped any-hit
+    sweep's twin, whose walk gives the same answer."""
     rp = od.shape[1]
-    tab = tables.ctab if watertight else tables.bwtab
     occ = torch.zeros(rp, dtype=torch.bool, device=od.device)
     for lo in range(0, rp, TWIN_RAY_CHUNK):
         for rays, item in _ray_steps(items, lo, min(rp, lo + TWIN_RAY_CHUNK)):
-            live = torch.nonzero(~occ[rays])[:, 0]
-            rays, sup = rays[live], items.sup[item[live]].long()
-            enter, _ = _fine_cull(tables.cbox3[sup], od[:, rays], tm[rays],
-                                  t_min)
-            slab, o, d, _ = _item_rays(tables, sup, od, rays)
-            walk_any_torch(occ, tab, rays, slab, o, d, enter, tm, t_min,
-                           watertight)
+            any_step(tables, items, od, tm, t_min, watertight, occ, rays,
+                     item)
     return occ
+
+
+def any_step(tables, items, od, tm, t_min, watertight, occ, rays, item):
+    """One step of `sweep_any_torch`: whole blocks of rays, each ray
+    against one item of its block (`_ray_steps`); marks occ."""
+    tab = tables.ctab if watertight else tables.bwtab
+    live = torch.nonzero(~occ[rays])[:, 0]
+    rays, sup = rays[live], items.sup[item[live]].long()
+    enter, _ = _fine_cull(tables.cbox3[sup], od[:, rays], tm[rays], t_min)
+    slab, o, d, _ = _item_rays(tables, sup, od, rays)
+    walk_any_torch(occ, tab, rays, slab, o, d, enter, tm, t_min, watertight)
 
 
 # the instanced kernels' twins: the per-ray walks above, which move each
@@ -824,72 +878,88 @@ sweep_any_inst_torch = sweep_any_torch
 def sweep_closest_grouped_torch(tables, items, od, texp, t_min, watertight):
     """Twin of `closest_grouped_kernel`: the same per-ray sweep state as
     `sweep_closest_torch`, computed by the grouped walk. Each group of GL
-    consecutive rays (one warp) takes, per item, one pick key per child:
-    (bits(t_g) & ~_KEYM) | child, t_g the least clamped entry distance of
-    the group's rays that entered the child in their own fine cull (sign
-    bit masked, so -0.0 sorts as 0). Each step pops the group's two
-    nearest keys and stops the group once the nearest starts beyond every
-    ray's window ((key & ~_KEYM) > (largest best | _LOWM)). A ray tests a
-    popped cluster only if its own fine cull entered it; both clusters of
-    a step are tested against the ray's window before the step and the
-    smallest candidate key wins, strictly. `iters` adds the clusters of
-    each step to every ray of the group that entered something in the
-    item."""
+    consecutive rays (one warp) walks its block's items on its own: it
+    skips an item where no ray's window lies beyond the item's entry
+    distance (the warp vote) or where no ray enters the item's admission
+    box under its window (`warp_admitted`; neither skip changes a result
+    or `iters`, but for the vote past a t_cap, see `_voted`). Per item
+    the group takes one pick key per child: (bits(t_g) & ~_KEYM) | child,
+    t_g the least clamped entry distance of the group's rays that entered
+    the child in their own fine cull (sign bit masked, so -0.0 sorts as
+    0). Each step pops the group's two nearest keys and stops the group
+    once the nearest starts beyond every ray's window ((key & ~_KEYM) >
+    (largest best | _LOWM)). A ray tests a popped cluster only if its own
+    fine cull entered it; both clusters of a step are tested against the
+    ray's window before the step and the smallest candidate key wins,
+    strictly. `iters` adds the clusters of each step to every ray of the
+    group that entered something in the item."""
     rp = od.shape[1]
+    st = _Best(texp)
+    for lo in range(0, rp, TWIN_RAY_CHUNK):
+        for rays, item in _ray_steps(items, lo, min(rp, lo + TWIN_RAY_CHUNK)):
+            grouped_closest_step(tables, items, od, t_min, watertight, st,
+                                 rays, item)
+    return st.state(tables.ctab if watertight else tables.bwtab, watertight)
+
+
+def grouped_closest_step(tables, items, od, t_min, watertight, st, rays,
+                         item):
+    """One step of `sweep_closest_grouped_torch`: whole blocks of rays,
+    each ray against one item of its block (`_ray_steps`); updates the
+    state st (`_Best`)."""
     dev = od.device
     tab = tables.ctab if watertight else tables.bwtab
-    st = _Best(texp)
     big = int(_float_bits(torch.tensor([BIG], dtype=torch.float32))[0])
     child_id = torch.arange(SUPER, dtype=torch.int32, device=dev)
     lane16 = torch.arange(CLUSTER_SIZE, device=dev)
     lanes = torch.arange(GL, device=dev)
-    for lo in range(0, rp, TWIN_RAY_CHUNK):
-        for rays, item in _ray_steps(items, lo, min(rp, lo + TWIN_RAY_CHUNK)):
-            rays, item = _voted(items, rays, item, st.best)
-            if not rays.numel():
-                continue
-            sup = items.sup[item].long()
-            enter, tl = _fine_cull(tables.cbox3[sup], od[:, rays],
-                                   _window(st.best[rays]), t_min)
-            nw = rays.numel() // GL
-            enter = enter.view(nw, GL, SUPER)
-            t_g = (_float_bits(torch.where(enter.view(-1, SUPER), tl, BIG))
-                   & _I32_MAX).view(nw, GL, SUPER).amin(1)
-            keys = torch.where(t_g < big, (t_g & ~_KEYM) | child_id, _I32_MAX)
-            member = enter.any(2)
-            rays_w, sup_w = rays.view(nw, GL), sup.view(nw, GL)[:, 0]
-            w = torch.arange(nw, device=dev)
-            while w.numel():
-                kw = keys[w]
-                step = torch.arange(w.numel(), device=dev)
-                k1, c1 = kw.min(1)
-                kw[step, c1] = _I32_MAX
-                k2, c2 = kw.min(1)
-                kw[step, c2] = _I32_MAX
-                keys[w] = kw
-                bound = st.best[rays_w[w]].amax(1) | _LOWM
-                go = torch.nonzero((k1 < _I32_MAX)
-                                   & ((k1 & ~_KEYM) <= bound))[:, 0]
-                w, c1, c2, has2 = w[go], c1[go], c2[go], (k2 < _I32_MAX)[go]
-                if not w.numel():
-                    break
-                st.iters[rays_w[w]] += torch.where(
-                    member[w], 1 + has2[:, None].int(), 0).int()
-                e1 = enter[w[:, None], lanes, c1[:, None]]
-                e2 = enter[w[:, None], lanes, c2[:, None]] & has2[:, None]
-                pick = torch.nonzero((e1 | e2).reshape(-1))[:, 0]
-                g = pick // GL
-                child = torch.cat([c1[g, None].expand(-1, CLUSTER_SIZE),
-                                   c2[g, None].expand(-1, CLUSTER_SIZE)], 1)
-                rows = ((sup_w[w[g], None] * SUPER + child) * CLUSTER_SIZE
-                        + lane16.repeat(2))
-                colmask = torch.cat([
-                    e1.reshape(-1)[pick, None].expand(-1, CLUSTER_SIZE),
-                    e2.reshape(-1)[pick, None].expand(-1, CLUSTER_SIZE)], 1)
-                r = rays_w[w].reshape(-1)[pick]
-                st.sweep(tab, r, child, rows, colmask, od[0:3, r].T,
-                         od[3:6, r].T, t_min, watertight)
-    return st.state(tab, watertight)
+    rays, item = _voted(items, rays, item, st.best, GL)
+    sup = items.sup[item].long()
+    cap = _window(st.best[rays])
+    keep = torch.nonzero(warp_admitted(tables.abox[sup], od[:, rays], cap,
+                                       t_min))[:, 0]
+    rays, sup, cap = rays[keep], sup[keep], cap[keep]
+    if not rays.numel():
+        return
+    enter, tl = _fine_cull(tables.cbox3[sup], od[:, rays], cap, t_min)
+    nw = rays.numel() // GL
+    enter = enter.view(nw, GL, SUPER)
+    t_g = (_float_bits(torch.where(enter.view(-1, SUPER), tl, BIG))
+           & _I32_MAX).view(nw, GL, SUPER).amin(1)
+    keys = torch.where(t_g < big, (t_g & ~_KEYM) | child_id, _I32_MAX)
+    member = enter.any(2)
+    rays_w, sup_w = rays.view(nw, GL), sup.view(nw, GL)[:, 0]
+    w = torch.arange(nw, device=dev)
+    while w.numel():
+        kw = keys[w]
+        step = torch.arange(w.numel(), device=dev)
+        k1, c1 = kw.min(1)
+        kw[step, c1] = _I32_MAX
+        k2, c2 = kw.min(1)
+        kw[step, c2] = _I32_MAX
+        keys[w] = kw
+        bound = st.best[rays_w[w]].amax(1) | _LOWM
+        go = torch.nonzero((k1 < _I32_MAX)
+                           & ((k1 & ~_KEYM) <= bound))[:, 0]
+        w, c1, c2, has2 = w[go], c1[go], c2[go], (k2 < _I32_MAX)[go]
+        if not w.numel():
+            break
+        st.iters[rays_w[w]] += torch.where(
+            member[w], 1 + has2[:, None].int(), 0).int()
+        e1 = enter[w[:, None], lanes, c1[:, None]]
+        e2 = enter[w[:, None], lanes, c2[:, None]] & has2[:, None]
+        pick = torch.nonzero((e1 | e2).reshape(-1))[:, 0]
+        g = pick // GL
+        child = torch.cat([c1[g, None].expand(-1, CLUSTER_SIZE),
+                           c2[g, None].expand(-1, CLUSTER_SIZE)], 1)
+        rows = ((sup_w[w[g], None] * SUPER + child) * CLUSTER_SIZE
+                + lane16.repeat(2))
+        colmask = torch.cat([
+            e1.reshape(-1)[pick, None].expand(-1, CLUSTER_SIZE),
+            e2.reshape(-1)[pick, None].expand(-1, CLUSTER_SIZE)], 1)
+        r = rays_w[w].reshape(-1)[pick]
+        st.sweep(tab, r, child, rows, colmask, od[0:3, r].T,
+                 od[3:6, r].T, t_min, watertight)
 
 
 def _launch_closest(fn, tables, items, od, texp, t_min, watertight):
@@ -922,15 +992,23 @@ def _launch_any(fn, tables, items, od, tm, t_min, watertight):
 
 
 def _table_ptrs(tables, watertight, fn):
-    """The sweep kernel fn's table pointers: child boxes and slab rows,
-    then, for the instanced kernels, the per-super local super and
-    instance and the instance rows. The kind of tables must be fn's."""
+    """The sweep kernel fn's table pointers: for the grouped kernels the
+    admission boxes, then child boxes and slab rows, then, for the
+    instanced kernels, the per-super local super and instance and the
+    instance rows. The kind of tables must be fn's."""
     inst = fn.__name__.endswith("_inst")
     if inst != (tables.inst_rows is not None):
         raise ValueError(f"{fn.__name__}: needs "
                          f"{'instanced' if inst else 'world-soup'} tables")
     tab = tables.ctab if watertight else tables.bwtab
     ptrs = [tables.cbox3.data_ptr(), tab.data_ptr()]
+    if fn.__name__.endswith("_grouped"):
+        # cp.async copies the boxes 16 bytes at a time
+        _check_f32("abox", tables.abox, (tables.sbox.shape[0], 8))
+        if tables.abox.data_ptr() % 16 or tables.cbox3.data_ptr() % 16:
+            raise ValueError(f"{fn.__name__}: box tables must be 16-byte "
+                             "aligned")
+        ptrs.insert(0, tables.abox.data_ptr())
     if inst:
         ptrs += [tables.isup_local.data_ptr(), tables.isup_inst.data_ptr(),
                  tables.inst_rows.data_ptr()]
@@ -983,6 +1061,20 @@ def sweep_any_grouped(tables, items, od, tm, t_min, watertight):
     _raise_on(err, "sweep_any_grouped")
     sweep_any_grouped.launches += 1
     return occ
+
+
+def grouped_resources():
+    """The grouped kernels' resources on the current card, per kernel
+    (closest_bw, closest_wt, any_bw, any_wt: Baldwin-Weber or watertight):
+    resident blocks per SM, registers, static shared bytes, local (spill)
+    bytes per thread and threads per block."""
+    out = (ctypes.c_int * 20)()
+    _raise_on(kernels().lib.dcrt_wl_grouped_resources(out),
+              "grouped_resources")
+    keys = ("blocks_per_sm", "registers", "static_smem", "local_bytes",
+            "threads")
+    return {name: dict(zip(keys, out[5 * f:5 * f + 5])) for f, name in
+            enumerate(("closest_bw", "closest_wt", "any_bw", "any_wt"))}
 
 
 def sweep_closest_inst(tables, items, od, texp, t_min, watertight):

@@ -14,14 +14,16 @@
 //   any_kernel     <- _wl_any_kernel (:866, launched by _any_impl :1916):
 //                     occlusion within a per-ray t_max;
 //   closest_grouped_kernel <- _wlg_closest_kernel (:1000): the closest hit
-//                     by a per-warp cluster walk (see its section below);
+//                     by warps that each walk their ray block's items on
+//                     their own (see its section below);
 //   any_grouped_kernel     <- _wlg_any_kernel (:1113): occlusion, the same;
 //   closest_inst_kernel    <- _wl_closest_inst_kernel (:1208): closest_kernel
 //                     on instanced tables (see its section below);
 //   any_inst_kernel        <- _wl_any_inst_kernel (:1349): any_kernel, the
 //                     same.
 // Rays are the (9, Rp) rows [o; d; 1/d] of prep_rays, Rp a multiple of
-// the block size RB (one thread per ray, one block per RB rays).
+// the block size RB (one thread per ray, one block per RB rays; the
+// grouped sweeps run kGroupThreads-thread blocks, several per ray block).
 //
 // What bounds them. The culls: FP32 ALU, ~20 operations per (ray, box),
 // and one block-wide min per box (warp shuffles, then 32 partials in
@@ -190,47 +192,207 @@ any_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
 // (launched by _closest_impl :1750 and _any_impl :1916 with grouped=True).
 //
 // The TPU kernels gave each 128-lane group its own front-to-back cluster
-// list; here the group is one warp (GL = 32). Per item, each lane runs its
-// fine cull of the 32 child boxes against its own best (closest) or t_max
-// (any-hit; an occluded lane enters nothing). A warp-wide min per child
-// gives the warp's pick key for that child, held by lane `child`:
-// (bits(t_g) & ~kKeyM) | child, INT_MAX where no lane entered it. Each
-// step pops the two nearest keys with two __reduce_min_sync; every lane
-// then sweeps the same cluster pair (uniform triangle loads), masked by
-// its own fine cull. The closest walk stops once the nearest key, its low
-// kKeyM bits cleared, starts beyond every lane's window (the group bound);
-// the any-hit walk once every lane is occluded. Both clusters of a step
-// are tested against the lane's window before the step, and the smallest
-// candidate key replaces the best only if strictly smaller: the same hit
-// as closest_kernel's, bit for bit. No per-thread cluster order or entry
-// distances are kept, which is what spills in closest_kernel. `iters`
-// adds the step's clusters (1 or 2) for every lane that entered something
-// in the item.
+// list; here the group is one warp (GL = 32). Per item, each lane's ray gets
+// its fine cull of the 32 child boxes against its own best (closest) or
+// t_max (any-hit; an occluded lane enters nothing). The warp's pick key for
+// a child is (bits(t_g) & ~kKeyM) | child, held by lane `child`, t_g the
+// least entry distance of the lanes that entered it (INT_MAX: none). Each
+// step pops the two nearest keys with two __reduce_min_sync; every lane then
+// sweeps the same cluster pair (uniform triangle loads), masked by its own
+// fine cull. The closest walk stops once the nearest key, its low kKeyM bits
+// cleared, starts beyond every lane's window (the group bound); the any-hit
+// walk once every lane is occluded. Both clusters of a step are tested
+// against the lane's window before the step, and the smallest candidate key
+// replaces the best only if strictly smaller: the same hit as
+// closest_kernel's, bit for bit. `iters` adds the step's clusters (1 or 2)
+// for every lane that entered something in the item.
+//
+// What bounds them: FP32 ALU in the fine cull (32 slab tests of ~20
+// operations per lane and item) and the triangle tests, and the latency
+// of the loads of item boxes and triangle rows from L2. The first port
+// walked a 1024-ray block in lockstep: two block-wide barriers per item
+// (a vote, then the staging of the child boxes), every warp paying the
+// slowest warp's walk and the whole fine cull of every item of its block,
+// boxes loaded only after the barrier, and one 1024-thread block per SM.
+//
+// Design. Warps walk on their own: a CUDA block of kGroupThreads threads
+// takes kGroupWarps warps of one ray block, and each warp walks the ray
+// block's item segment with no block-wide barrier. Two cheap tests guard
+// an item, both exact: the warp vote (closest: some lane's window lies
+// beyond the item's entry distance, the block vote of the per-ray sweep
+// taken per warp) and the super-box admission (some lane enters the
+// item's admission box under its cap, enters() of worklist.cuh). The
+// admission box (Tables.abox) is the min/max of the super's 32 child
+// boxes as a slab test reads them, the super box itself unless the super
+// holds padding (to a slab test an inverted padding box is the cube
+// [-1, 1]^3). The slab planes are monotone in the box, so a lane that
+// misses it enters no child: the fine cull would admit nothing, and
+// results and `iters` are those of the walk without the test. The warp
+// looks ahead 32 items at a time: lane j loads item j's super and entry
+// distance and slab-tests its admission box against the warp's 32 rays
+// (staged once in the warp's shared memory, their caps restaged per
+// look-ahead), one ballot naming the admitted items. Caps only shrink
+// along the walk, so an item refused early would be refused later; an
+// admitted one is tested again, per lane, when its turn comes. The next
+// admitted item's admission box and 32 child boxes (1,056 bytes) go by
+// cp.async into a two-stage ring in the warp's shared memory while the
+// current item is culled and swept. The pick keys come from a 32x32
+// transpose: lane c tests child c against the warp's 32 staged rays and
+// takes its key with no reduction, and the lanes' entry masks come back
+// by 32 ballots (3-7 % faster than 32 per-lane child tests and 32
+// __reduce_min_sync, PERF.md). 128-thread blocks at 8 resident per SM
+// cap a thread at 64 registers: the closest kernels keep 8-32 bytes a
+// thread in local memory. With the skips a warp does ~10 % of the block
+// walk's fine cull on a sorted pool, and the walk's latency bounds it.
 // ---------------------------------------------------------------------------
 
 constexpr int kKeyM = 63;   // pick-key low bits: the child id
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGroupThreads = 128;                  // threads per CUDA block
+constexpr int kGroupMinBlocks = 8;                  // resident per SM
+constexpr int kGroupWarps = kGroupThreads / 32;
+constexpr int kStage = 2 + 2 * kSuper;              // float4 of a ring stage
 
-// The warp's pick keys for the staged item; returns the lane's mask of
-// entered children. `cap` is the lane's fine-cull ceiling.
-__device__ __forceinline__ unsigned group_keys(const RayInv& q,
+// A warp's shared memory: the ring (each stage an item's admission box,
+// then its 32 child boxes) and the warp's rays, (ox, oy, oz, cap) and (1/dx,
+// 1/dy, 1/dz, 0) per lane.
+struct WarpSmem {
+  float4 stage[2][kStage];
+  float4 ray[32][2];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copy of super `sup`'s boxes into a ring stage (every lane
+// copies two child-box float4, lanes 0-1 the admission box).
+__device__ __forceinline__ void prefetch_stage(float4* stage,
+                                               const float* abox,
+                                               const float* cbox, int sup) {
+  const int lane = threadIdx.x & 31;
+  const float4* c = reinterpret_cast<const float4*>(cbox) +
+                    static_cast<size_t>(sup) * 2 * kSuper;
+  cp_async16(stage + 2 + lane, c + lane);
+  cp_async16(stage + 2 + 32 + lane, c + 32 + lane);
+  if (lane < 2)
+    cp_async16(stage + lane, reinterpret_cast<const float4*>(abox) +
+                                 static_cast<size_t>(sup) * 2 + lane);
+}
+
+// Staged ray r (origin and inverse direction, all a slab test reads) and
+// its cap.
+__device__ __forceinline__ RayInv staged_ray(const WarpSmem& sm, int r,
+                                             float& cap) {
+  const float4 o = sm.ray[r][0], v = sm.ray[r][1];
+  cap = o.w;
+  return RayInv{Ray{o.x, o.y, o.z, 0.f, 0.f, 0.f}, v.x, v.y, v.z};
+}
+
+// Restage the lane's cap beside its ray (every lane, converged).
+__device__ __forceinline__ void stage_cap(WarpSmem& sm, float cap) {
+  __syncwarp();
+  sm.ray[threadIdx.x & 31][0].w = cap;
+  __syncwarp();
+}
+
+// The warp's look-ahead over its ray block's items [next, end), 32 at a
+// time: lane j holds item base + j's super and entry distance, `adm` the
+// items of the chunk that passed the vote and the admission.
+struct ItemScan {
+  int next, end, base;
+  unsigned adm;
+  int sup;
+  float t;
+};
+
+// The next admitted item (its super and entry distance), or false at the
+// segment's end. kVote: closest (caps are the lanes' windows, and the
+// warp vote applies).
+template <bool kVote>
+__device__ __forceinline__ bool next_item(ItemScan& sc, WarpSmem& sm,
+                                          const int* __restrict__ item_sup,
+                                          const float* __restrict__ item_t,
+                                          const float* __restrict__ abox,
+                                          float cap, float t_min, int& sup,
+                                          float& t) {
+  const int lane = threadIdx.x & 31;
+  while (!sc.adm) {
+    if (sc.next >= sc.end) return false;
+    sc.base = sc.next;
+    sc.next += 32;
+    const int j = sc.base + lane;
+    const bool in = j < sc.end;
+    sc.sup = in ? __ldg(item_sup + j) : 0;
+    sc.t = kVote && in ? __ldg(item_t + j) : 0.f;
+    bool a = in;
+    if (kVote) {
+      // windows are positive: their bits order like their values
+      const float top =
+          __int_as_float(__reduce_max_sync(kFull, __float_as_int(cap)));
+      a = a && top > sc.t;
+    }
+    stage_cap(sm, cap);
+    if (__any_sync(kFull, a)) {
+      const float4* sb = reinterpret_cast<const float4*>(abox) +
+                         static_cast<size_t>(sc.sup) * 2;
+      const float4 lo = __ldg(sb), hi = __ldg(sb + 1);
+      bool e = false;
+      for (int r = 0; r < 32; ++r) {
+        float c, t_lo, t_hi;
+        const RayInv q = staged_ray(sm, r, c);
+        slab(q, lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, t_lo, t_hi);
+        e = e || dcrt::enters(t_lo, t_hi, c, t_min);
+      }
+      a = a && e;
+    }
+    sc.adm = __ballot_sync(kFull, a);
+  }
+  const int j = __ffs(sc.adm) - 1;
+  sc.adm &= sc.adm - 1;
+  sup = __shfl_sync(kFull, sc.sup, j);
+  t = __shfl_sync(kFull, sc.t, j);
+  return true;
+}
+
+// The warp's pick keys for the staged item (boxes: its 32 child boxes):
+// lane c tests child c against the warp's rays under their caps and holds
+// its key; ray r's mask of entered children comes back by ballot. Returns
+// the lane's mask. `cap` is the lane's fine-cull ceiling.
+__device__ __forceinline__ unsigned group_keys(WarpSmem& sm,
                                                const float4* boxes,
                                                float cap, float t_min,
                                                int& key) {
   const int lane = threadIdx.x & 31;
   const int big = __float_as_int(kBig);
+  stage_cap(sm, cap);
+  const float4 lo = boxes[2 * lane], hi = boxes[2 * lane + 1];
   unsigned mask = 0u;
-  key = INT_MAX;
-  for (int c = 0; c < kSuper; ++c) {
-    float t_lo;
-    const bool e = child_enter(q, boxes, c, cap, t_min, t_lo);
-    if (e) mask |= 1u << c;
+  int m = big;
+  for (int r = 0; r < 32; ++r) {
+    float c, t_lo, t_hi;
+    slab(staged_ray(sm, r, c), lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, t_lo,
+         t_hi);
+    const bool e = dcrt::enters(t_lo, t_hi, c, t_min);
     // entry distances are >= 0 (the sign bit is masked for -0.0), so
     // their bits order like their values
-    const int m = __reduce_min_sync(
-        kFull, e ? __float_as_int(fmaxf(t_lo, 0.f)) & INT_MAX : big);
-    if (lane == c && m < big) key = (m & ~kKeyM) | c;
+    if (e) m = min(m, __float_as_int(fmaxf(t_lo, 0.f)) & INT_MAX);
+    const unsigned bal = __ballot_sync(kFull, e);
+    if (lane == r) mask = bal;
   }
+  key = m < big ? (m & ~kKeyM) | lane : INT_MAX;
   return mask;
 }
 
@@ -241,99 +403,184 @@ __device__ __forceinline__ int pop_key(int& key) {
   return k;
 }
 
+// The super-box admission of the staged item: does some lane enter its
+// admission box under its cap?
+__device__ __forceinline__ bool admitted(const RayInv& q, const float4* stage,
+                                         float cap, float t_min) {
+  float t_lo;
+  return __any_sync(kFull, child_enter(q, stage, 0, cap, t_min, t_lo));
+}
+
+// One item of the closest walk, its boxes staged (entry distance te).
 template <class Tri>
-__global__ void __launch_bounds__(1024)
+__device__ __forceinline__ void closest_item(const RayInv& q,
+                                             const typename Tri::Pre& pre,
+                                             WarpSmem& sm, const float4* stage,
+                                             int sup, float te,
+                                             const float* __restrict__ tab,
+                                             float t_min, Best& s) {
+  const float cap = window(s.best);
+  // the warp vote, then the admission
+  if (!__any_sync(kFull, cap > te) || !admitted(q, stage, cap, t_min)) return;
+  int key;
+  const unsigned mask = group_keys(sm, stage + 2, cap, t_min, key);
+  for (;;) {
+    const int p1 = pop_key(key);
+    const int p2 = p1 == INT_MAX ? INT_MAX : pop_key(key);
+    // stop once the nearest cluster starts beyond every lane's window
+    const int bound = __reduce_max_sync(kFull, s.best) | kLowM;
+    if (p1 == INT_MAX || !((p1 & ~kKeyM) <= bound)) break;
+    const int c1 = p1 & kKeyM, c2 = p2 & kKeyM;
+    const bool has2 = p2 != INT_MAX;
+    if (mask) s.iters += has2 ? 2 : 1;
+    const float t_max = window(s.best);
+    int cand = INT_MAX, crow = -1;
+    Hit hc{0.f, 0.f, 0.f, false};
+    for (int j = 0; j < 2; ++j) {
+      const int c = j ? c2 : c1;
+      if ((j && !has2) || !((mask >> c) & 1u)) continue;
+      dcrt::test_cluster<Tri, true>(q.r, pre, tab,
+                                    (sup * kSuper + c) * kCluster, c, t_min,
+                                    t_max, cand, hc, crow);
+    }
+    s.take(cand, hc, crow);
+  }
+}
+
+// One item of the occlusion walk, its boxes staged.
+template <class Tri>
+__device__ __forceinline__ void any_item(const RayInv& q,
+                                         const typename Tri::Pre& pre,
+                                         WarpSmem& sm, const float4* stage,
+                                         int sup,
+                                         const float* __restrict__ tab,
+                                         float t_max, float t_min,
+                                         bool& occ) {
+  const float cap = occ ? -kBig : t_max;
+  if (!admitted(q, stage, cap, t_min)) return;
+  int key;
+  const unsigned mask = group_keys(sm, stage + 2, cap, t_min, key);
+  for (;;) {
+    const int p1 = pop_key(key);
+    const int p2 = p1 == INT_MAX ? INT_MAX : pop_key(key);
+    if (p1 == INT_MAX || __all_sync(kFull, occ)) break;
+    const int c1 = p1 & kKeyM, c2 = p2 & kKeyM;
+    for (int s = 0; s < 2 && !occ; ++s) {
+      const int c = s ? c2 : c1;
+      if ((s && p2 == INT_MAX) || !((mask >> c) & 1u)) continue;
+      const int base = (sup * kSuper + c) * kCluster;
+      for (int r = 0; r < kCluster; ++r) {
+        Hit h;
+        if (Tri::test(q.r, pre, tab, base + r, t_min, t_max, h)) {
+          occ = true;
+          break;
+        }
+      }
+    }
+  }
+}
+
+// The warp's rays: lane's ray index i (-1: the warp lies past the ray
+// block), staged into the warp's shared memory.
+__device__ __forceinline__ int warp_ray(int rb) {
+  const int w = blockIdx.y * kGroupWarps + (threadIdx.x >> 5);
+  if (w * 32 >= rb) return -1;
+  return blockIdx.x * rb + w * 32 + (threadIdx.x & 31);
+}
+
+__device__ __forceinline__ void stage_ray(WarpSmem& sm, const RayInv& q) {
+  const int lane = threadIdx.x & 31;
+  sm.ray[lane][0] = make_float4(q.r.ox, q.r.oy, q.r.oz, 0.f);
+  sm.ray[lane][1] = make_float4(q.ix, q.iy, q.iz, 0.f);
+}
+
+template <class Tri>
+__global__ void __launch_bounds__(kGroupThreads, kGroupMinBlocks)
 closest_grouped_kernel(const int* __restrict__ seg,
                        const int* __restrict__ item_sup,
                        const float* __restrict__ item_t,
+                       const float* __restrict__ abox,
                        const float* __restrict__ cbox,
                        const float* __restrict__ tab,
                        const float* __restrict__ od,
-                       const float* __restrict__ texp, int rp, float t_min,
-                       dcrt::ClosestOut out) {
-  __shared__ float4 boxes[2 * kSuper];
-  const int b = blockIdx.x;
-  const int i = b * blockDim.x + threadIdx.x;
+                       const float* __restrict__ texp, int rp, int rb,
+                       float t_min, dcrt::ClosestOut out) {
+  __shared__ WarpSmem smem[kGroupWarps];
+  const int i = warp_ray(rb);
+  if (i < 0) return;
+  WarpSmem& sm = smem[threadIdx.x >> 5];
   const RayInv q = load_od(od, rp, i);
+  stage_ray(sm, q);
   const typename Tri::Pre pre = Tri::prepare(q.r);
   Best s = start_best(texp[i]);
-  const int k1 = seg[b + 1];
-  for (int k = seg[b]; k < k1; ++k) {
-    // the block vote of closest_kernel (also the barrier before restaging)
-    if (!__syncthreads_or(window(s.best) > item_t[k])) continue;
-    const int sup = item_sup[k];
-    stage_boxes(cbox, sup, boxes);
-    __syncthreads();
-    int key;
-    const unsigned mask = group_keys(q, boxes, window(s.best), t_min, key);
-    for (;;) {
-      const int p1 = pop_key(key);
-      const int p2 = p1 == INT_MAX ? INT_MAX : pop_key(key);
-      // stop once the nearest cluster starts beyond every lane's window
-      const int bound = __reduce_max_sync(kFull, s.best) | kLowM;
-      if (p1 == INT_MAX || !((p1 & ~kKeyM) <= bound)) break;
-      const int c1 = p1 & kKeyM, c2 = p2 & kKeyM;
-      const bool has2 = p2 != INT_MAX;
-      if (mask) s.iters += has2 ? 2 : 1;
-      const float t_max = window(s.best);
-      int cand = INT_MAX, crow = -1;
-      Hit hc{0.f, 0.f, 0.f, false};
-      for (int j = 0; j < 2; ++j) {
-        const int c = j ? c2 : c1;
-        if ((j && !has2) || !((mask >> c) & 1u)) continue;
-        dcrt::test_cluster<Tri, true>(q.r, pre, tab,
-                                      (sup * kSuper + c) * kCluster, c, t_min,
-                                      t_max, cand, hc, crow);
-      }
-      s.take(cand, hc, crow);
-    }
+  ItemScan sc{seg[blockIdx.x], seg[blockIdx.x + 1], 0, 0u, 0, 0.f};
+  int sup;
+  float te;
+  bool have = next_item<true>(sc, sm, item_sup, item_t, abox,
+                              window(s.best), t_min, sup, te);
+  if (have) prefetch_stage(sm.stage[0], abox, cbox, sup);
+  cp_async_commit();
+  for (int st = 0; have; st ^= 1) {
+    int sup2;
+    float te2;
+    const bool have2 = next_item<true>(sc, sm, item_sup, item_t, abox,
+                                       window(s.best), t_min, sup2, te2);
+    if (have2) prefetch_stage(sm.stage[st ^ 1], abox, cbox, sup2);
+    cp_async_commit();
+    cp_async_wait<1>();   // this item's stage has landed
+    __syncwarp();
+    closest_item<Tri>(q, pre, sm, sm.stage[st], sup, te, tab, t_min, s);
+    __syncwarp();         // the stage is read before it is refilled
+    have = have2;
+    sup = sup2;
+    te = te2;
   }
   dcrt::store_soup<Tri>(out, i, tab, s, s.row);
 }
 
 template <class Tri>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kGroupThreads, kGroupMinBlocks)
 any_grouped_kernel(const int* __restrict__ seg,
                    const int* __restrict__ item_sup,
+                   const float* __restrict__ abox,
                    const float* __restrict__ cbox,
                    const float* __restrict__ tab,
                    const float* __restrict__ od, const float* __restrict__ tm,
-                   int rp, float t_min, unsigned char* __restrict__ out_occ) {
-  __shared__ float4 boxes[2 * kSuper];
-  const int b = blockIdx.x;
-  const int i = b * blockDim.x + threadIdx.x;
+                   int rp, int rb, float t_min,
+                   unsigned char* __restrict__ out_occ) {
+  __shared__ WarpSmem smem[kGroupWarps];
+  const int i = warp_ray(rb);
+  if (i < 0) return;
+  WarpSmem& sm = smem[threadIdx.x >> 5];
   const RayInv q = load_od(od, rp, i);
+  stage_ray(sm, q);
   const typename Tri::Pre pre = Tri::prepare(q.r);
   const float t_max = tm[i];
   bool occ = false;
-  const int k1 = seg[b + 1];
-  for (int k = seg[b]; k < k1; ++k) {
-    if (__syncthreads_and(occ)) break;
-    const int sup = item_sup[k];
-    stage_boxes(cbox, sup, boxes);
-    __syncthreads();
-    int key;
-    const unsigned mask = group_keys(q, boxes, occ ? -kBig : t_max, t_min,
-                                     key);
-    for (;;) {
-      const int p1 = pop_key(key);
-      const int p2 = p1 == INT_MAX ? INT_MAX : pop_key(key);
-      if (p1 == INT_MAX || __all_sync(kFull, occ)) break;
-      const int c1 = p1 & kKeyM, c2 = p2 & kKeyM;
-      for (int s = 0; s < 2 && !occ; ++s) {
-        const int c = s ? c2 : c1;
-        if ((s && p2 == INT_MAX) || !((mask >> c) & 1u)) continue;
-        const int base = (sup * kSuper + c) * kCluster;
-        for (int r = 0; r < kCluster; ++r) {
-          Hit h;
-          if (Tri::test(q.r, pre, tab, base + r, t_min, t_max, h)) {
-            occ = true;
-            break;
-          }
-        }
-      }
-    }
+  ItemScan sc{seg[blockIdx.x], seg[blockIdx.x + 1], 0, 0u, 0, 0.f};
+  int sup;
+  float te;
+  bool have = next_item<false>(sc, sm, item_sup, nullptr, abox, t_max,
+                               t_min, sup, te);
+  if (have) prefetch_stage(sm.stage[0], abox, cbox, sup);
+  cp_async_commit();
+  // stop once every ray of the warp is occluded
+  for (int st = 0; have && !__all_sync(kFull, occ); st ^= 1) {
+    int sup2;
+    float te2;
+    const bool have2 = next_item<false>(sc, sm, item_sup, nullptr, abox,
+                                        occ ? -kBig : t_max, t_min, sup2,
+                                        te2);
+    if (have2) prefetch_stage(sm.stage[st ^ 1], abox, cbox, sup2);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    any_item<Tri>(q, pre, sm, sm.stage[st], sup, tab, t_max, t_min, occ);
+    __syncwarp();
+    have = have2;
+    sup = sup2;
   }
+  cp_async_wait<0>();     // no copy in flight into a finished warp's ring
   out_occ[i] = occ;
 }
 
@@ -479,9 +726,11 @@ any_inst_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
 }  // namespace
 
 // C interface (ctypes). Pointers are device pointers; `stream` is a
-// cudaStream_t; `rb` is the block size (rays per block, a multiple of 32,
-// at most 1024) and divides `rp`. Each returns cudaGetLastError() after
-// the launch.
+// cudaStream_t; `rb` is the ray block size (rays per block, a multiple of
+// 32, at most 1024) and divides `rp`; a ray block is one CUDA block but
+// for the grouped sweeps, which launch (rp / rb) x ceil(rb /
+// kGroupThreads) blocks of kGroupThreads. Each returns cudaGetLastError()
+// after the launch.
 
 extern "C" int dcrt_wl_cull(const float* boxes, int n_boxes, const float* od,
                             const float* tm, int rp, int rb, float* out,
@@ -543,39 +792,69 @@ extern "C" int dcrt_wl_any(const int* seg, const int* item_sup, int nb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The grouped sweeps take one more table pointer before the child boxes:
+// the (Cs, 8) admission boxes (Tables.abox).
 extern "C" int dcrt_wl_closest_grouped(
     const int* seg, const int* item_sup, const float* item_t, int nb,
-    const float* cbox, const float* tab, int watertight, const float* od,
-    const float* texp, int rp, int rb, float t_min, int* best, float* t,
-    float* u, float* v, int* tri, int* inst, unsigned char* back, int* iters,
-    void* stream) {
+    const float* abox, const float* cbox, const float* tab, int watertight,
+    const float* od, const float* texp, int rp, int rb, float t_min,
+    int* best, float* t, float* u, float* v, int* tri, int* inst,
+    unsigned char* back, int* iters, void* stream) {
   if (nb > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const dcrt::ClosestOut out{best, t, u, v, tri, inst, back, iters};
+    const dim3 grid(nb, (rb + kGroupThreads - 1) / kGroupThreads);
     if (watertight)
-      closest_grouped_kernel<RawWatertight><<<nb, rb, 0, s>>>(
-          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, out);
+      closest_grouped_kernel<RawWatertight><<<grid, kGroupThreads, 0, s>>>(
+          seg, item_sup, item_t, abox, cbox, tab, od, texp, rp, rb, t_min,
+          out);
     else
-      closest_grouped_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
-          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, out);
+      closest_grouped_kernel<BaldwinWeber><<<grid, kGroupThreads, 0, s>>>(
+          seg, item_sup, item_t, abox, cbox, tab, od, texp, rp, rb, t_min,
+          out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int dcrt_wl_any_grouped(const int* seg, const int* item_sup,
-                                   int nb, const float* cbox,
-                                   const float* tab, int watertight,
-                                   const float* od, const float* tm, int rp,
-                                   int rb, float t_min, unsigned char* occ,
+                                   int nb, const float* abox,
+                                   const float* cbox, const float* tab,
+                                   int watertight, const float* od,
+                                   const float* tm, int rp, int rb,
+                                   float t_min, unsigned char* occ,
                                    void* stream) {
   if (nb > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const dim3 grid(nb, (rb + kGroupThreads - 1) / kGroupThreads);
     if (watertight)
-      any_grouped_kernel<RawWatertight><<<nb, rb, 0, s>>>(
-          seg, item_sup, cbox, tab, od, tm, rp, t_min, occ);
+      any_grouped_kernel<RawWatertight><<<grid, kGroupThreads, 0, s>>>(
+          seg, item_sup, abox, cbox, tab, od, tm, rp, rb, t_min, occ);
     else
-      any_grouped_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
-          seg, item_sup, cbox, tab, od, tm, rp, t_min, occ);
+      any_grouped_kernel<BaldwinWeber><<<grid, kGroupThreads, 0, s>>>(
+          seg, item_sup, abox, cbox, tab, od, tm, rp, rb, t_min, occ);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The grouped kernels' resources, for the report: per kernel (closest
+// Baldwin-Weber, closest watertight, any-hit Baldwin-Weber, any-hit
+// watertight) 5 ints: resident blocks per SM, registers, static shared
+// bytes, local (spill) bytes per thread, threads per block.
+extern "C" int dcrt_wl_grouped_resources(int* out) {
+  const void* fns[4] = {
+      reinterpret_cast<const void*>(closest_grouped_kernel<BaldwinWeber>),
+      reinterpret_cast<const void*>(closest_grouped_kernel<RawWatertight>),
+      reinterpret_cast<const void*>(any_grouped_kernel<BaldwinWeber>),
+      reinterpret_cast<const void*>(any_grouped_kernel<RawWatertight>)};
+  for (int f = 0; f < 4; ++f) {
+    cudaFuncAttributes a;
+    cudaFuncGetAttributes(&a, fns[f]);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 5 * f, fns[f],
+                                                  kGroupThreads, 0);
+    out[5 * f + 1] = a.numRegs;
+    out[5 * f + 2] = static_cast<int>(a.sharedSizeBytes);
+    out[5 * f + 3] = static_cast<int>(a.localSizeBytes);
+    out[5 * f + 4] = kGroupThreads;
   }
   return static_cast<int>(cudaGetLastError());
 }

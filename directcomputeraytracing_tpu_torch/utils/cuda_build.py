@@ -38,24 +38,25 @@ def find_nvcc():
 class Built:
     """A loaded library with how it was obtained: `seconds` of build
     (0 when an earlier build was reused) and the compiler's `log`
-    (ptxas register and spill report)."""
+    (ptxas register and spill report), kept beside the library."""
 
     def __init__(self, lib, path, seconds, log):
         self.lib, self.path, self.seconds, self.log = lib, path, seconds, log
 
 
-def load_library(source_name, extra_flags=()):
-    """Compile `csrc/<source_name>` for sm_90a (once per source and flag
-    set) and load it with ctypes."""
-    src = os.path.join(CSRC, source_name)
+def load_library(source_name, extra_flags=(), csrc=CSRC, name=None):
+    """Compile `<csrc>/<source_name>` (the package's `csrc/` by default)
+    for sm_90a, once per source and flag set, into `lib<name>-<hash>.so`
+    (name: the source's stem by default) and load it with ctypes."""
+    src = os.path.join(csrc, source_name)
     flags = NVCC_FLAGS + tuple(extra_flags)
     digest = hashlib.sha256(" ".join(flags).encode())
-    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+    for path in [src] + sorted(glob.glob(os.path.join(csrc, "*.cuh"))):
         with open(path, "rb") as f:
             digest.update(f.read())
-    stem = os.path.splitext(source_name)[0]
+    stem = name or os.path.splitext(source_name)[0]
     out = os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
-    seconds, log = 0.0, ""
+    seconds = 0.0
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
@@ -66,5 +67,12 @@ def load_library(source_name, extra_flags=()):
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        with open(f"{tmp}.log", "w") as f:
+            f.write(log)
+        os.replace(f"{tmp}.log", f"{out}.log")
         os.replace(tmp, out)
+    log = ""
+    if os.path.exists(f"{out}.log"):
+        with open(f"{out}.log") as f:
+            log = f.read()
     return Built(ctypes.CDLL(out), out, seconds, log)

@@ -22,6 +22,16 @@ aside (the grouped any-hit sweep's twin is the per-ray one,
 `iters` included
 (`python -m pytest --noconftest -m cuda tests/test_torch_grouped.py` on
 a card).
+
+The grouped kernels skip an item for a warp whose rays all miss the
+item's admission box (`wl.admission_boxes`); the tests below hold that
+box to containing every child box as a slab test reads it, hold a plain
+model of the per-warp admission (`wl.warp_admitted`) to refusing no
+(item, warp) in which some ray's fine cull enters a child, and hold the
+grouped twin with the admission to the twin without it in every field.
+Scenes there: the grid, both sides of `alpha_sphere_grid(3, 3, stacks=12,
+slices=16)`'s opaque/masked split, and a seeded 2,100-triangle random
+soup (180 clusters: its last super holds padding).
 """
 
 import numpy as np
@@ -31,12 +41,22 @@ import torch
 from directcomputeraytracing_tpu_torch.accel import worklist as wl
 from directcomputeraytracing_tpu_torch.accel.traverse import (
     SlabStats,
+    _split_view,
     intersect_any,
     intersect_closest,
     intersect_closest_slab,
 )
-from directcomputeraytracing_tpu_torch.scene.presets import sphere_grid
-from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+from directcomputeraytracing_tpu_torch.scene.presets import (
+    alpha_sphere_grid,
+    sphere_grid,
+)
+from directcomputeraytracing_tpu_torch.scene.scene import (
+    Instance,
+    Mesh,
+    Scene,
+    flatten_scene,
+)
+from directcomputeraytracing_tpu_torch.tools import grouped_ab
 
 GRID = (3, 3)
 GRID_KW = dict(stacks=12, slices=16)
@@ -79,6 +99,163 @@ def _rays(n, seed=0):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     t_max = rs.uniform(0.1, 3.0, n).astype(np.float32)
     return o, d, t_max
+
+
+def _shadow_rays(n, seed):
+    """Rays from under the spheres' tops towards a lamp point above the
+    grid, t_max short of the lamp."""
+    rs = np.random.default_rng(seed)
+    o = rs.uniform([-3.0, 0.01, -3.0], [3.0, 1.0, 3.0], (n, 3))
+    to_lamp = rs.uniform([-1.0, 6.0, -1.0], [1.0, 6.0, 1.0], (n, 3)) - o
+    dist = np.linalg.norm(to_lamp, axis=1)
+    return (o.astype(np.float32), (to_lamp / dist[:, None]).astype(np.float32),
+            (0.999 * dist).astype(np.float32))
+
+
+def _random_soup(n=2100, seed=5):
+    """A seeded soup of n small triangles in [0, 2]^3 (2,100: 180
+    clusters, so the last super holds 12 padding children)."""
+    rs = np.random.default_rng(seed)
+    cen = rs.uniform(0.0, 2.0, (n, 3))
+    v = cen[:, None, :] + rs.uniform(-0.08, 0.08, (n, 3, 3))
+    return flatten_scene(Scene(
+        meshes=[Mesh(positions=v.reshape(-1, 3).astype(np.float32),
+                     indices=np.arange(3 * n).reshape(n, 3),
+                     material_ids=np.zeros(n, np.int64), name="soup")],
+        instances=[Instance(mesh=0)]), "cpu")[0]
+
+
+@pytest.fixture(scope="module")
+def scenes(port_scene):
+    """name -> a scene with world-soup cluster tables."""
+    alpha = flatten_scene(alpha_sphere_grid(*GRID, **GRID_KW)[0], "cpu")[0]
+    return {"grid": port_scene, "alpha_opaque": _split_view(alpha, False),
+            "alpha_masked": _split_view(alpha, True),
+            "soup": _random_soup()}
+
+
+@pytest.mark.parametrize("name", ["grid", "alpha_opaque", "alpha_masked",
+                                  "soup"])
+def test_super_box_contains_its_children(scenes, name):
+    """sbox holds each real child box bit for bit (lo <= the child's lo,
+    hi >= its hi); abox, the kernels' admission box, holds every child box
+    as a slab test reads it (padding's inverted box is the cube [-1, 1]^3)
+    and is sbox itself on supers without padding."""
+    scene = scenes[name]
+    tables = wl.scene_tables(scene)
+    c = scene.cluster_bbox.shape[0]
+    cs = tables.sbox.shape[0]
+    child = tables.cbox3.reshape(-1, 8)
+    sup = torch.arange(cs * wl.SUPER) // wl.SUPER
+    real = torch.arange(cs * wl.SUPER) < c
+    assert torch.equal(child[:c], scene.cluster_bbox)
+    assert (tables.sbox[sup[real], 0:3] <= child[real, 0:3]).all()
+    assert (tables.sbox[sup[real], 3:6] >= child[real, 3:6]).all()
+    lo = torch.minimum(child[:, 0:3], child[:, 3:6])
+    hi = torch.maximum(child[:, 0:3], child[:, 3:6])
+    assert (tables.abox[sup, 0:3] <= lo).all()
+    assert (tables.abox[sup, 3:6] >= hi).all()
+    padded = ~real.view(cs, wl.SUPER).all(1)
+    assert torch.equal(tables.abox[~padded], tables.sbox[~padded])
+    assert bool(padded.any()) == (name == "soup")
+
+
+def _pairs(tables, items):
+    """Every (item, ray) of the items' blocks: the rays (n_items, RB) and
+    the item index of each."""
+    counts = (items.seg[1:] - items.seg[:-1]).long()
+    blk = torch.repeat_interleave(torch.arange(counts.numel()), counts)
+    rays = blk[:, None] * wl.RB + torch.arange(wl.RB)
+    item = torch.arange(blk.numel())[:, None].expand_as(rays)
+    return rays, item
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+@pytest.mark.parametrize("rays", ["random", "shadow"])
+@pytest.mark.parametrize("name", ["grid", "soup"])
+def test_warp_admission_refuses_no_entered_child(scenes, name, rays, kind):
+    """The plain model of the kernels' super-box admission never refuses
+    an (item, warp) in which some ray's fine cull enters a child, under
+    the closest sweeps' first window (the scene exit's) and under the
+    any-hit t_max; it does refuse some."""
+    scene = scenes[name]
+    tables = wl.scene_tables(scene)
+    o, d, t_max = _rays(4 * wl.RB + 5, 51) if rays == "random" \
+        else _shadow_rays(4 * wl.RB + 5, 52)
+    if name == "soup":
+        o = o * 0.5 + 0.5
+        if rays == "shadow":
+            o[:, 1] = np.abs(o[:, 1]) * 0.5
+    o, d, t_max = (torch.from_numpy(x) for x in (o, d, t_max))
+    od, tm, _ = wl.prep_rays(o, d, t_max if kind == "any" else None)
+    items = wl.phases(tables, od, tm, plain=True)
+    cap = tm if kind == "any" else wl._window(
+        wl._float_bits(wl.scene_exit(tables, od)) | wl._LOWM)
+    ray, item = (x.reshape(-1) for x in _pairs(tables, items))
+    sup = items.sup[item].long()
+    adm = wl.warp_admitted(tables.abox[sup], od[:, ray], cap[ray], 1e-4)
+    enter, _ = wl._fine_cull(tables.cbox3[sup], od[:, ray], cap[ray], 1e-4)
+    fine = enter.any(1).view(-1, wl.GL).any(1)
+    adm = adm.view(-1, wl.GL)[:, 0]
+    assert not (fine & ~adm).any()
+    assert fine.sum() > 0 and adm.sum() < adm.numel()
+
+
+@pytest.mark.parametrize("cap", [None, "per_ray"])
+@pytest.mark.parametrize("name", ["grid", "soup"])
+def test_admission_changes_no_field(scenes, monkeypatch, name, cap):
+    """The grouped twin with the super-box admission equals the twin with
+    every (item, warp) admitted in every field of the sweep state,
+    `iters` included; its census counts what the admission refused."""
+    scene = scenes[name]
+    tables = wl.scene_tables(scene)
+    o, d, t_max = _rays(3 * wl.RB + 77, 53)
+    if name == "soup":
+        o = o * 0.5 + 0.5
+    o, d, t_max = (torch.from_numpy(x) for x in (o, d, t_max))
+    od, tm, r = wl.prep_rays(o, d)
+    texp = wl.scene_exit(tables, od)
+    if cap:
+        c = wl._cap(t_max, texp, r)
+        texp, tm = torch.minimum(texp, c), torch.minimum(tm, c)
+    items = wl.phases(tables, od, tm, plain=True)
+    got = wl.sweep_closest_grouped_torch(tables, items, od, texp, 1e-4,
+                                         False)
+    census = grouped_ab.closest_census(tables, items, od, texp, 1e-4, False)
+    with monkeypatch.context() as m:
+        m.setattr(wl, "warp_admitted", lambda abox, od_r, c, t: torch.ones(
+            od_r.shape[1], dtype=torch.bool))
+        want = wl.sweep_closest_grouped_torch(tables, items, od, texp, 1e-4,
+                                              False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (census["pairs"] >= census["block_voted"] >= census["warp_voted"]
+            > census["admitted"] > 0)
+    assert torch.isfinite(wl.decode_closest(got, texp, items.block_any,
+                                            r)[0]).sum() > 100
+
+
+@pytest.mark.parametrize("name", ["grid", "soup"])
+def test_any_census_counts_the_walk(scenes, name):
+    """The any-hit census walks the twin's own steps: its walk leaves the
+    twin's answer, it counts every (item, warp) pair of the cast, and the
+    admission refuses some of the pairs the warps visit."""
+    scene = scenes[name]
+    tables = wl.scene_tables(scene)
+    o, d, t_max = _shadow_rays(3 * wl.RB + 77, 54)
+    if name == "soup":
+        o = o * 0.5 + 0.5
+        o[:, 1] = np.abs(o[:, 1]) * 0.5
+    o, d, t_max = (torch.from_numpy(x) for x in (o, d, t_max))
+    od, tm, _ = wl.prep_rays(o, d, t_max)
+    items = wl.phases(tables, od, tm, plain=True)
+    census = grouped_ab.any_census(tables, items, od, tm, 1e-4, False)
+    counts = (items.seg[1:] - items.seg[:-1]).long()
+    assert census["pairs"] == int(counts.sum()) * (wl.RB // wl.GL)
+    assert census["pairs"] >= census["visited"] > census["admitted"] > 0
+    summary = grouped_ab.census_summary({}, census, od.shape[1])
+    assert 0 < summary["any_admitted_share"] < 1
+    assert wl.sweep_any_torch(tables, items, od, tm, 1e-4, False).any()
 
 
 def _assert_closest_close(want, got, min_hits=40):
@@ -234,39 +411,87 @@ def test_backend_names(port_scene):
         intersect_closest(port_scene, o, d, backend="jax")
 
 
+def _aimed_shadow_rays(world_tris, n_warps, seed):
+    """Warps of 32 shadow rays, each warp aimed from above at one random
+    triangle's centroid from nearby origins, t_max a little past it: whole
+    warps are occluded at the first sphere they enter."""
+    rs = np.random.default_rng(seed)
+    tris = world_tris.cpu().numpy().reshape(-1, 3, 3)
+    target = tris[rs.integers(0, tris.shape[0], n_warps)].mean(1)
+    target = np.repeat(target, wl.GL, axis=0)
+    o = target + rs.uniform([-0.3, 4.0, -0.3], [0.3, 4.5, 0.3],
+                            target.shape)
+    d = target - o
+    dist = np.linalg.norm(d, axis=1)
+    return (o.astype(np.float32), (d / dist[:, None]).astype(np.float32),
+            (dist + 0.5).astype(np.float32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("watertight", [False, True],
                          ids=["baldwin_weber", "watertight"])
 def test_cuda_grouped_kernels_match_twins(watertight):
+    """On unsorted random rays (100,003: a multiple of neither 32 nor the
+    kernels' 128-thread blocks; the warps of a block enter different
+    items) and on aimed shadow rays (whole warps occluded at their first
+    sphere): kernel and twin equal in every field, `iters` included, and
+    the per-ray sweep in every hit field; the same for casts with a
+    per-ray t_cap (decoded) and for slab-marched casts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
     dev = torch.device("cuda")
     arrays, _ = flatten_scene(sphere_grid(*GRID, **GRID_KW)[0], dev)
-    o, d, t_max = (torch.from_numpy(x).to(dev) for x in _rays(100_003, 37))
     tables = wl.scene_tables(arrays)
-    od, tm, _ = wl.prep_rays(o, d, t_max)
-    items = wl.phases(tables, od, tm)
-    texp = wl.scene_exit(tables, od)
+    sets = {"random": _rays(100_003, 37),
+            "aimed_shadow": _aimed_shadow_rays(arrays.world_tris, 1000, 38)}
     wl.reset_counters()
-    got = wl.sweep_closest_grouped(tables, items, od, texp, 1e-4, watertight)
-    want = wl.sweep_closest_grouped_torch(tables, items, od, texp, 1e-4,
-                                          watertight)
-    per_ray = wl.sweep_closest(tables, items, od, texp, 1e-4, watertight)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    for a, c in zip(got[:7], per_ray[:7]):
-        assert torch.equal(a, c)
-    occ = wl.sweep_any_grouped(tables, items, od, tm, 1e-4, watertight)
-    assert torch.equal(occ, wl.sweep_any_torch(tables, items, od, tm, 1e-4,
-                                               watertight))
-    assert torch.equal(occ, wl.sweep_any(tables, items, od, tm, 1e-4,
-                                         watertight))
-    cap = wl.worklist_closest(arrays, o, d, 1e-4, watertight, grouped=True,
-                              t_cap=t_max)
-    cap_twin = wl.worklist_closest_torch(arrays, o, d, 1e-4, watertight,
-                                         grouped=True, t_cap=t_max)
-    for a, b in zip(cap, cap_twin):
-        assert torch.equal(a, b)
+    for name, rays in sets.items():
+        o, d, t_max = (torch.from_numpy(x).to(dev) for x in rays)
+        od, tm, r = wl.prep_rays(o, d, t_max)
+        items = wl.phases(tables, od, tm)
+        texp = wl.scene_exit(tables, od)
+        got = wl.sweep_closest_grouped(tables, items, od, texp, 1e-4,
+                                       watertight)
+        want = wl.sweep_closest_grouped_torch(tables, items, od, texp, 1e-4,
+                                              watertight)
+        per_ray = wl.sweep_closest(tables, items, od, texp, 1e-4, watertight)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), name
+        for a, c in zip(got[:7], per_ray[:7]):
+            assert torch.equal(a, c), name
+        occ = wl.sweep_any_grouped(tables, items, od, tm, 1e-4, watertight)
+        assert torch.equal(occ, wl.sweep_any_torch(tables, items, od, tm,
+                                                   1e-4, watertight)), name
+        assert torch.equal(occ, wl.sweep_any(tables, items, od, tm, 1e-4,
+                                             watertight)), name
+        if name == "aimed_shadow":
+            warp_occ = occ[:r].view(-1, wl.GL).all(1)
+            assert warp_occ.float().mean() > 0.5
+        cap = wl.worklist_closest(arrays, o, d, 1e-4, watertight,
+                                  grouped=True, t_cap=t_max)
+        cap_twin = wl.worklist_closest_torch(arrays, o, d, 1e-4, watertight,
+                                             grouped=True, t_cap=t_max)
+        cap_per_ray = wl.worklist_closest(arrays, o, d, 1e-4, watertight,
+                                          t_cap=t_max)
+        for a, b in zip(cap, cap_twin):
+            assert torch.equal(a, b), name
+        for a, c in zip(cap[:6], cap_per_ray[:6]):
+            assert torch.equal(a, c), name
     torch.cuda.synchronize()
     c = wl.counters()
-    assert c["sweep_closest_grouped"] == 2 and c["sweep_any_grouped"] == 1
+    assert c["sweep_closest_grouped"] == 4 and c["sweep_any_grouped"] == 2
+    o, d, _ = (torch.from_numpy(x).to(dev) for x in sets["random"])
+    full = intersect_closest(arrays, o, d, backend="pallas_wl")
+    # 40th percentile of the hit distances, moved off the hit it names
+    depth = float(torch.quantile(full.t[full.hit], 0.4)) * (1 + 1e-4)
+    stats = SlabStats(3)
+    slab = intersect_closest_slab(arrays, o, d, depth, backend="pallas_wlg",
+                                  watertight=watertight, phases=3,
+                                  stats=stats)
+    slab_per_ray = intersect_closest_slab(arrays, o, d, depth,
+                                          backend="pallas_wl",
+                                          watertight=watertight, phases=3)
+    assert stats.casts[:2] == [1, 1]
+    for a, b in zip(slab[:6], slab_per_ray[:6]):
+        assert torch.equal(a, b)
+    assert wl.counters()["sweep_closest_grouped"] > 4
