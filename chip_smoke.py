@@ -11,8 +11,8 @@ any failure exits non-zero:
    (csrc/brute_sweep.cu, csrc/worklist.cu, csrc/clustered.cu,
    csrc/pairsweep.cu, csrc/prep.cu, csrc/probes.cu; the six nvcc runs in
    parallel) and print the build times and ptxas reports, then the
-   grouped sweeps' registers, shared memory and spills (ptxas) and their
-   resident blocks per SM;
+   warp-walk sweeps' (grouped, per-ray and instanced closest) registers,
+   shared memory and spills (ptxas) and their resident blocks per SM;
 2. dense-sweep kernels against their PyTorch twins on the card, Moeller
    and watertight, closest and any-hit: (a) the Cornell soup (32
    triangles) with 1,048,576 camera rays plus 1,048,576 random rays from
@@ -22,9 +22,18 @@ any failure exits non-zero:
    their twins on sphere_grid(12, 12) (211,972 triangles), Baldwin-Weber
    and watertight: 1,048,576 tiled camera rays, 1,048,576 random rays
    from inside the scene box, 1,048,576 shadow rays towards the lamp with
-   per-ray t_max; mismatch counts, `iters` equality, kernel and twin
-   times at the camera rays (CUDA events), items per block and mean
-   clusters swept per ray;
+   per-ray t_max; mismatch counts of the casts against the plain casts
+   (every step in PyTorch), `iters` equality, the kernels' item lists
+   equal to the plain phases', the closest sweep against its twin (on
+   the plain prep and phases) in every field of the sweep state,
+   kernel and twin times at the camera rays (CUDA events), items per
+   block and mean clusters swept per ray; the census of the per-ray
+   closest sweep's warp walk, counted by walking the twin's steps
+   (`tools/worklist_ab.py` `ray_census`, which gives the twin's state):
+   the shares of (item, warp) pairs that pass the block vote of the first
+   per-ray kernel, the warp vote and the super-box admission, fine-cull
+   slab tests per ray against the block walk's, items entered per ray
+   (`ray-census` lines);
 2c. grouped work-list kernels (closest and any-hit) against their twins
    and against the per-ray sweeps on the three 1M-ray sets of 2b plus the
    random set sorted by `ray_sort_key` (like a permuted pool) and a
@@ -34,8 +43,9 @@ any failure exits non-zero:
    twin cast would take minutes, and on the whole camera set; CUDA-event
    times of grouped and per-ray kernels, clusters swept per ray; the
    census of the grouped walk on the twins' rays, counted by walking the
-   twins' steps (`tools/grouped_ab.py`): items per block, the shares of (item, warp) pairs that pass the block vote,
-   the warp vote and the super-box admission (any-hit: of the warps not
+   twins' steps (`tools/worklist_ab.py`): items per block, the shares
+   of (item, warp) pairs that pass the block vote, the warp vote and the
+   super-box admission (any-hit: of the warps not
    yet occluded), fine-cull slab tests per ray of the grouped walk and
    of a walk by blocks, beside the clusters swept per ray of the grouped
    and per-ray sweeps on the whole set;
@@ -47,8 +57,10 @@ any failure exits non-zero:
    and a pool-sized (2^18) sorted set. The twins run on 64 blocks spread
    over each set (65,536 rays; a 1M-ray twin cast takes minutes), where
    kernel and twin must agree in every field of the sweep state and the
-   kernels' item lists must equal the twins'; CUDA-event times, bounds
-   and the census (items per block, clusters swept per ray) on the whole
+   kernels' item lists must equal the twins'; the census of the closest
+   sweep's warp walk on those rays (as in 2b; the twin's state comes
+   from it) and on the whole camera set; CUDA-event times, bounds and the
+   item census (items per block, clusters swept per ray) on the whole
    sets, beside the soup's census of 2b;
 2e. instanced against soup: sphere_grid(12, 12) flattened twice, as the
    world soup and forced onto the instanced tables (SOUP_MAX_TRIS
@@ -180,8 +192,9 @@ of t_min or t_max, a triangle-id disagreement only between hits within
 that bound of each other (a near-tie; for the work list also within
 2^-12 relative, twice the packed argmin's truncation quantum), and t, u,
 v of same-triangle hits must agree within 1e-5 (relative to 1 + t for
-t). Work-list `iters` must be equal. The grouped kernels must equal their
-twins in every field, and the per-ray sweeps in every hit field. The
+t). Work-list `iters` must be equal, and the per-ray closest sweep its
+twin in every field of the sweep state. The grouped kernels must equal
+their twins in every field, and the per-ray sweeps in every hit field. The
 grouped any-hit sweep's plain version is the per-ray twin
 `sweep_any_torch`, whose answer the grouped walk must give (its
 `plain_ms` in the kernels line times that twin). The instanced kernels
@@ -192,18 +205,21 @@ Bounds (`bound_ms` of the kernels line): the larger of the counted
 floating-point operations at 67 TFLOP/s and the bytes read and written
 once at 3.35 TB/s (the H100 SXM's published float32 and memory rates),
 from this run's inputs: a Moeller test 45 operations, a Baldwin-Weber
-test 31, a slab test of a ray and a box 20; the work-list sweeps count
-the fine cull of every item of the ray's block and 16 triangle tests per
-cluster the per-ray walk swept (the any-hit sweeps only the fine cull, a
-lower bound; the instanced sweeps leave out the move of the ray to
-instance space, also a lower bound); tables count once, whole. The
-grouped sweeps count, from 2c's census of the pool, one admission test
-a ray of each (item, warp) pair its warp visits (closest: past the warp
-vote; any-hit: a ray of the warp not yet occluded) and the fine cull of
-each pair the warp admits, with the closest sweep's triangle tests as
-above and the admission boxes among the tables; their
-`bound_ms_block_walk` keeps the count of the first grouped design, which
-walked its items by 1024-ray blocks (the per-ray sweeps' count). The
+test 31, a slab test of a ray and a box 20, the move of a ray to
+instance space 33; the per-ray any-hit sweeps count the fine cull of
+every item of the ray's block (a lower bound: their triangle tests are
+left out); tables count once, whole. The per-ray closest sweeps count,
+from the census of their warp walk on the camera rays (2b; 2d on the
+whole camera set), one admission test a ray of each (item, warp) pair
+past the warp vote, the fine cull of each pair the warp admits and 16
+triangle tests per cluster the ray swept, on instanced tables also the
+move to instance space of each (ray, item) whose fine cull entered a
+child, with the admission boxes among the tables; the grouped sweeps
+count the same from 2c's census of the pool (any-hit: the pairs whose
+warp holds a ray not yet occluded, no triangle tests). Their
+`bound_ms_block_walk` keeps the count of the first designs, which walked
+the items by 1024-ray blocks: the fine cull of every item of the ray's
+block and the triangle tests. The
 clustered cull counts FLOPS_INTERVAL operations per (ray block,
 cluster), its closest sweep one Moeller test per ray and row of every
 cluster the ray's block entered, its any-hit sweep the same for the rays
@@ -258,6 +274,7 @@ EDGE_TOL = 1e-4                         # barycentric margin of an edge hit
 PEAK_FLOPS = 67e12                      # H100 SXM float32, no tensor cores
 PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
 FLOPS_MOELLER, FLOPS_BW, FLOPS_SLAB = 45, 31, 20
+FLOPS_LOCAL_RAY = 33        # [o, 1] @ M, d @ M: 18 products, 15 sums
 # the interval cull of one (ray block, cluster) pair: per axis 4 numerator
 # differences, 8 products, 14 min/max over them and 2 into the entry and
 # exit, then 3 for enter
@@ -451,6 +468,20 @@ def phase_kernels(device):
     return reports, times
 
 
+def _walk_ops(counts, local_ray=False):
+    """Operations of the per-ray warp walk besides its triangle tests,
+    from its census (`worklist_ab.ray_census`): one admission slab test a
+    ray of each (item, warp) pair past the warp vote and the fine cull
+    (32 slab tests a ray) of each admitted pair; with local_ray also the
+    move to instance space (FLOPS_LOCAL_RAY) of each (ray, item) whose
+    fine cull entered a child."""
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+
+    ops = FLOPS_SLAB * wl.GL * (counts["warp_voted"]
+                                + wl.SUPER * counts["admitted"])
+    return ops + (FLOPS_LOCAL_RAY * counts["entered"] if local_ray else 0)
+
+
 def _items_census(tables, od, tm):
     """Items per block of one cast: mean and max over blocks."""
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
@@ -472,7 +503,7 @@ def phase_worklist_kernels(device):
     from directcomputeraytracing_tpu_torch.core.types import to_device
     from directcomputeraytracing_tpu_torch.scene.presets import sphere_grid
     from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
-    from directcomputeraytracing_tpu_torch.tools import common
+    from directcomputeraytracing_tpu_torch.tools import common, worklist_ab
     from directcomputeraytracing_tpu_torch.tools.common import timed
 
     rng = np.random.default_rng(20261017)
@@ -492,11 +523,17 @@ def phase_worklist_kernels(device):
     sets = common.grid_ray_sets(rng, tables, to_device(cam, device), device,
                                 names=("camera", "random", "shadow"))
     t_min = 1e-4
-    reports, census = [], {}
+    reports, census, walk = [], {}, {}
     cull = dict(diff=0, err=0.0, refine_diff=0, refine_err=0.0)
     for name, (o, d, t_max) in sets.items():
         od, tm_closest, _ = wl.prep_rays(o, d)
         _, tm_any, _ = wl.prep_rays(o, d, t_max)
+        texp = wl.scene_exit(tables, od)
+        items_c = wl.phases(tables, od, tm_closest)
+        od_w, tm_w, _ = wl.prep_rays_torch(o, d)
+        texp_w = wl.scene_exit(tables, od_w)
+        items_w = wl.phases(tables, od_w, tm_w, plain=True)
+        items_equal = all(torch.equal(a, b) for a, b in zip(items_c, items_w))
         census[name] = dict(closest=_items_census(tables, od, tm_closest),
                             any=_items_census(tables, od, tm_any))
         for tm in (tm_closest, tm_any):
@@ -514,16 +551,31 @@ def phase_worklist_kernels(device):
             t0 = time.perf_counter()
             k = wl.worklist_closest(arrays, o, d, t_min, wt)
             occ_k = wl.worklist_any(arrays, o, d, t_max, t_min, wt)
+            state_k = wl.sweep_closest(tables, items_c, od, texp, t_min, wt)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            w = wl.worklist_closest_torch(arrays, o, d, t_min, wt)
+            # the plain cast (worklist_closest_torch's steps: plain prep,
+            # plain phases), its sweep walked by the census (the twin's
+            # own steps)
+            state_w, walk[name, wt] = worklist_ab.ray_census(
+                tables, items_w, od_w, texp_w, t_min, wt)
+            w = wl.decode_closest(state_w, texp_w, items_w.block_any,
+                                  o.shape[0])
             occ_w = wl.worklist_any_torch(arrays, o, d, t_max, t_min, wt)
             torch.cuda.synchronize()
             rep = _mismatches(k, w, occ_k, occ_w, o, t_max, t_min, TIE_WL)
             rep["iters_diff"] = int((k[6] != w[6]).sum())
-            rep["ok"] = rep["ok"] and rep["iters_diff"] == 0
+            rep["items_equal"] = items_equal
+            rep["vs_twin"] = common.sweep_diffs(state_k, state_w)
+            rep["ok"] = (rep["ok"] and rep["iters_diff"] == 0 and items_equal
+                         and not any(rep["vs_twin"].values()))
             rep.update(case=name, watertight=wt, kernel_casts_s=t1 - t0,
                        twin_casts_s=time.perf_counter() - t1)
+            print("ray-census", json.dumps(dict(
+                case=name, watertight=wt, rays=o.shape[0],
+                **worklist_ab.ray_census_summary(walk[name, wt],
+                                                 od.shape[1]),
+                iters_per_ray=float(state_k[7].float().mean()))))
             if not wt:
                 hit = torch.isfinite(k[0])
                 census[name].update(
@@ -574,6 +626,7 @@ def phase_worklist_kernels(device):
     table_bytes = 4 * (tables.cbox3.numel() + tables.bwtab.numel())
     n_items, n_items_any = int(items.seg[-1]), int(items_any.seg[-1])
     fine = FLOPS_SLAB * wl.RB * wl.SUPER
+    tri_ops = 16 * FLOPS_BW * int(iters.long().sum())
     work = dict(
         cull=_bound(FLOPS_SLAB * rp * boxes.shape[0],
                     40 * rp + 32 * boxes.shape[0]
@@ -581,9 +634,13 @@ def phase_worklist_kernels(device):
         refine=_bound(FLOPS_SLAB * blk.shape[0] * wl.RB * hs,
                       40 * rp + 4 * tables.hsup.numel()
                       + (8 + 4 * hs) * blk.shape[0]),
-        sweep_closest=_bound(fine * n_items
-                             + 16 * FLOPS_BW * int(iters.long().sum()),
-                             69 * rp + 12 * n_items + table_bytes),
+        # the warp walk's work, from the census of the camera rays
+        sweep_closest=_bound(_walk_ops(walk["camera", False]) + tri_ops,
+                             69 * rp + 12 * n_items + table_bytes
+                             + 4 * tables.abox.numel()),
+        sweep_closest_block_walk=_bound(fine * n_items + tri_ops,
+                                        69 * rp + 12 * n_items
+                                        + table_bytes),
         sweep_any=_bound(fine * n_items_any,
                          41 * rp + 8 * n_items_any + table_bytes))
     print("worklist bounds camera", json.dumps(work))
@@ -601,14 +658,14 @@ def phase_grouped_kernels(device):
     from directcomputeraytracing_tpu_torch.core.types import to_device
     from directcomputeraytracing_tpu_torch.scene.presets import sphere_grid
     from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
-    from directcomputeraytracing_tpu_torch.tools import common, grouped_ab
+    from directcomputeraytracing_tpu_torch.tools import common, worklist_ab
     from directcomputeraytracing_tpu_torch.tools.common import timed
 
     scene, cam = sphere_grid(*GRID)
     arrays, _ = flatten_scene(scene, device)
     tables = wl.scene_tables(arrays)
     # the five sets, from seed 20261018
-    sets = grouped_ab.ray_sets(tables, to_device(cam, device), device)
+    sets = worklist_ab.ray_sets(tables, to_device(cam, device), device)
     t_min = 1e-4
     reports, timing, errs, counts = [], {}, dict(closest=0.0, any=0.0), {}
 
@@ -661,15 +718,16 @@ def phase_grouped_kernels(device):
             reports.append(rep)
             print("grouped-kernel", json.dumps(rep))
             counts[name, wt] = (
-                grouped_ab.closest_census(tables, it_cs, od_s, texp_s, t_min,
-                                          wt),
-                grouped_ab.any_census(tables, it_as, od_s, tm_as, t_min, wt))
+                worklist_ab.closest_census(tables, it_cs, od_s, texp_s,
+                                           t_min, wt),
+                worklist_ab.any_census(tables, it_as, od_s, tm_as, t_min,
+                                       wt))
             census = dict(
                 case=name, watertight=wt, twin_rays=n_twin,
                 items_per_block=float(it_cs.seg[-1])
                 / (od_s.shape[1] // wl.RB),
-                **grouped_ab.census_summary(*counts[name, wt],
-                                            od_s.shape[1]),
+                **worklist_ab.census_summary(*counts[name, wt],
+                                             od_s.shape[1]),
                 iters_per_ray=rep["iters_per_ray"],
                 grouped_iters_per_ray=rep["grouped_iters_per_ray"])
             print("grouped-census", json.dumps(census))
@@ -723,24 +781,12 @@ def phase_grouped_kernels(device):
     return reports, timing, errs, pool
 
 
-def _spread_blocks(n_rays, n_blocks, device):
-    """Indices of the rays of n_blocks RB-ray blocks spread evenly over
-    n_rays rays."""
-    import torch
-
-    from directcomputeraytracing_tpu_torch.accel import worklist as wl
-
-    nb = n_rays // wl.RB
-    blocks = torch.arange(0, nb, max(1, nb // n_blocks),
-                          device=device)[:n_blocks]
-    return (blocks[:, None] * wl.RB
-            + torch.arange(wl.RB, device=device)).reshape(-1)
-
-
-def _inst_bounds(tables, it_c, it_a, iters, rp, watertight):
-    """(closest, any) bounds of the instanced sweeps on one ray set: the
-    work-list sweeps' count (module docstring); the tables are the world
-    child boxes, the local slab, the per-super ids and the instance rows."""
+def _inst_bounds(tables, it_c, it_a, iters, rp, watertight, walk=None):
+    """(closest, any, closest by the block walk) bounds of the instanced
+    sweeps on one ray set (module docstring): the closest sweep's from
+    the census `walk` of its warp walk on the whole set (None without
+    one); the tables are the world child boxes, the local slab, the
+    per-super ids and the instance rows (and the admission boxes)."""
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
 
     tab = tables.ctab if watertight else tables.bwtab
@@ -749,9 +795,14 @@ def _inst_bounds(tables, it_c, it_a, iters, rp, watertight):
     fine = FLOPS_SLAB * tables.cbox3.shape[1]
     n_c, n_a = int(it_c.seg[-1]), int(it_a.seg[-1])
     test = FLOPS_MOELLER if watertight else FLOPS_BW
-    return (_bound(fine * wl.RB * n_c + 16 * test * int(iters.long().sum()),
-                   69 * rp + 12 * n_c + table_bytes),
-            _bound(fine * wl.RB * n_a, 41 * rp + 8 * n_a + table_bytes))
+    tri_ops = 16 * test * int(iters.long().sum())
+    closest = walk and _bound(_walk_ops(walk, local_ray=True) + tri_ops,
+                              69 * rp + 12 * n_c + table_bytes
+                              + 4 * tables.abox.numel())
+    return (closest,
+            _bound(fine * wl.RB * n_a, 41 * rp + 8 * n_a + table_bytes),
+            _bound(fine * wl.RB * n_c + tri_ops,
+                   69 * rp + 12 * n_c + table_bytes))
 
 
 def phase_instanced_kernels(device, soup_census):
@@ -763,10 +814,9 @@ def phase_instanced_kernels(device, soup_census):
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
     from directcomputeraytracing_tpu_torch.core.types import to_device
     from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
-    from directcomputeraytracing_tpu_torch.tools import common
+    from directcomputeraytracing_tpu_torch.tools import common, worklist_ab
     from directcomputeraytracing_tpu_torch.tools.common import timed
 
-    rng = np.random.default_rng(20261019)
     scene, cam = _scene("inst_grid")
     t0 = time.perf_counter()
     arrays, _ = flatten_scene(scene, device)
@@ -783,10 +833,8 @@ def phase_instanced_kernels(device, soup_census):
         raise SystemExit("sphere_grid(27, 27) should use the instanced "
                          "tables and the hyper level")
 
-    sets = common.grid_ray_sets(
-        rng, tables, to_device(cam, device), device, half=21.0,
-        shadow_half=20.0,
-        names=("camera", "shadow", "random_sorted", "pool_sorted"))
+    # the A/B tool's four sets, from seed 20261019
+    sets = worklist_ab.inst_ray_sets(tables, to_device(cam, device), device)
     t_min = 1e-4
     reports, census, errs = [], {}, dict(closest=0.0, any=0.0)
 
@@ -799,7 +847,8 @@ def phase_instanced_kernels(device, soup_census):
 
     for name, (o, d, t_max) in sets.items():
         od, tm_c, tm_a, texp, it_c, it_a = prepared(o, d, t_max)
-        idx = _spread_blocks(o.shape[0], INST_TWIN_BLOCKS, device)
+        idx = common.spread_blocks(o.shape[0], INST_TWIN_BLOCKS, device,
+                                   wl.RB)
         od_s, _, tm_as, texp_s, it_cs, it_as = prepared(o[idx], d[idx],
                                                         t_max[idx])
         plain = prepared(o[idx], d[idx], t_max[idx], plain=True)
@@ -817,8 +866,9 @@ def phase_instanced_kernels(device, soup_census):
             kas = wl.sweep_any_inst(tables, it_as, od_s, tm_as, t_min, wt)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            w = wl.sweep_closest_inst_torch(tables, it_cs, od_s, texp_s,
-                                            t_min, wt)
+            # the twin's sweep, walked by the census (its own steps)
+            w, walk = worklist_ab.ray_census(tables, it_cs, od_s, texp_s,
+                                             t_min, wt)
             wa = wl.sweep_any_inst_torch(tables, it_as, od_s, tm_as, t_min,
                                          wt)
             torch.cuda.synchronize()
@@ -831,7 +881,8 @@ def phase_instanced_kernels(device, soup_census):
                     tables, it_c, od, texp, t_min, wt), 3),
                 any_ms=timed(lambda: wl.sweep_any_inst(
                     tables, it_a, od, tm_a, t_min, wt), 3))
-            bc, ba = _inst_bounds(tables, it_c, it_a, iters, od.shape[1], wt)
+            _, ba, bc = _inst_bounds(tables, it_c, it_a, iters, od.shape[1],
+                                     wt)
             rep = dict(case=name, watertight=wt, rays=r,
                        twin_rays=int(idx.numel()), twin_s=twin_s,
                        items_equal=items_equal,
@@ -841,8 +892,8 @@ def phase_instanced_kernels(device, soup_census):
                        twin_occluded=int(wa.sum()),
                        iters_per_ray=float(iters.float().mean()),
                        iters_per_hit=float(iters[hit].float().mean()),
-                       **timing, closest_bound=bc, any_bound=ba,
-                       closest_share=bc[0] / timing["closest_ms"],
+                       **timing, closest_bound_block_walk=bc,
+                       any_bound=ba,
                        any_share=ba[0] / timing["any_ms"])
             rep["ok"] = (items_equal and not any(rep["vs_twin"].values())
                          and rep["vs_twin_occ"] == 0)
@@ -856,6 +907,11 @@ def phase_instanced_kernels(device, soup_census):
                                     hit_fraction=float(hit.float().mean()))
             reports.append(rep)
             print("instanced-kernel", json.dumps(rep))
+            print("ray-census", json.dumps(dict(
+                case=f"inst_{name}", watertight=wt,
+                twin_rays=rep["twin_rays"],
+                **worklist_ab.ray_census_summary(walk, od_s.shape[1]),
+                iters_per_ray=float(w[7].float().mean()))))
     print("instanced census", json.dumps(dict(
         instanced_27x27=census, soup_12x12=soup_census)))
     bad = [r for r in reports if not r["ok"]]
@@ -868,9 +924,18 @@ def phase_instanced_kernels(device, soup_census):
     od, tm_c, tm_a, texp, it_c, it_a = prepared(o, d, t_max)
     cam_rep = next(r for r in reports
                    if r["case"] == "camera" and not r["watertight"])
+    state, walk = worklist_ab.ray_census(tables, it_c, od, texp, t_min,
+                                         False)
+    print("ray-census", json.dumps(dict(
+        case="inst_camera_whole_set", watertight=False, rays=o.shape[0],
+        **worklist_ab.ray_census_summary(walk, od.shape[1]))))
+    bound = _inst_bounds(tables, it_c, it_a, state[7][:o.shape[0]],
+                         od.shape[1], False, walk)[0]
     row = dict(
         closest_ms=cam_rep["closest_ms"], any_ms=cam_rep["any_ms"],
-        closest_bound=cam_rep["closest_bound"],
+        closest_bound=bound,
+        closest_bound_block_walk=cam_rep["closest_bound_block_walk"],
+        closest_share=bound[0] / cam_rep["closest_ms"],
         any_bound=cam_rep["any_bound"],
         closest_twin_ms=timed(lambda: wl.sweep_closest_inst_torch(
             tables, it_c, od, texp, t_min, False), 1, warm=False),
@@ -1100,7 +1165,7 @@ def phase_clustered_kernels(device):
         cm_w, gm_w = cl.cull_masks_torch(tables, o, d)
         cull_diff = int((cmask != cm_w).sum() + (gmask != gm_w).sum())
         errs["cull"] = max(errs["cull"], float(cull_diff > 0))
-        idx = _spread_blocks(r, CLUSTER_TWIN_BLOCKS, device)
+        idx = common.spread_blocks(r, CLUSTER_TWIN_BLOCKS, device, wl.RB)
         blocks = idx[::cl.RAY_BLOCK] // cl.RAY_BLOCK
         cm_s, gm_s = cmask[blocks].contiguous(), gmask[blocks].contiguous()
         o_s, d_s, tm_s = o[idx], d[idx], t_max[idx]
@@ -1253,7 +1318,7 @@ def phase_pair_kernels(device):
         _, tm_a, _ = wl.prep_rays(o, d, t_max)
         texp = wl.scene_exit(tables, od)
         cap_c = wl._window(wl._float_bits(texp) | wl._LOWM)
-        idx = _spread_blocks(r, PAIR_TWIN_BLOCKS, device)
+        idx = common.spread_blocks(r, PAIR_TWIN_BLOCKS, device, wl.RB)
         for kind, tm, cap in (("closest", tm_c, cap_c), ("any", tm_a, tm_a)):
             items = wl.phases(tables, od, tm)
             grid = ps.emit_pairs(tables, items, od, cap, t_min)
@@ -2015,7 +2080,7 @@ def _build_all():
     from directcomputeraytracing_tpu_torch.accel import clustered as cl
     from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
-    from directcomputeraytracing_tpu_torch.tools import grouped_ab
+    from directcomputeraytracing_tpu_torch.tools import worklist_ab
     from directcomputeraytracing_tpu_torch.tools import probe_worklist as pw
 
     sources = (("brute_sweep.cu", brute.kernels),
@@ -2030,11 +2095,12 @@ def _build_all():
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("ptxas:", line.strip())
-    # the grouped sweeps' registers, shared memory and spills, and their
-    # resident blocks per SM on this card
-    print("grouped-ptxas", json.dumps(grouped_ab.ptxas_report(
+    # the warp-walk sweeps' (grouped, per-ray and instanced closest)
+    # registers, shared memory and spills, and their resident blocks per SM
+    # on this card
+    print("warp-ptxas", json.dumps(worklist_ab.ptxas_report(
         futures["worklist.cu"].result().log)))
-    print("grouped-resources", json.dumps(wl.grouped_resources()))
+    print("warp-resources", json.dumps(wl.warp_resources()))
 
 
 def main():
@@ -2173,7 +2239,8 @@ def main():
         row("sweep_closest", wl_src, f"{ref_wl}:678",
             grid["launches"]["sweep_closest"], wl_closest_err,
             wl_times["closest_ms"], wl_times["closest_twin_ms"],
-            wl_work["sweep_closest"]),
+            wl_work["sweep_closest"],
+            bound_ms_block_walk=wl_work["sweep_closest_block_walk"][0]),
         row("sweep_any", wl_src, f"{ref_wl}:866",
             grid["launches"]["sweep_any"], wl_any_err, wl_times["any_ms"],
             wl_times["any_twin_ms"], wl_work["sweep_any"]),
@@ -2189,7 +2256,8 @@ def main():
         row("sweep_closest_inst", wl_src, f"{ref_wl}:1208",
             inst["launches"]["sweep_closest_inst"], inst_errs["closest"],
             inst_row["closest_ms"], inst_row["closest_twin_ms"],
-            inst_row["closest_bound"]),
+            inst_row["closest_bound"],
+            bound_ms_block_walk=inst_row["closest_bound_block_walk"][0]),
         row("sweep_any_inst", wl_src, f"{ref_wl}:1349",
             inst["launches"]["sweep_any_inst"], inst_errs["any"],
             inst_row["any_ms"], inst_row["any_twin_ms"],

@@ -21,13 +21,22 @@ tables of larger scenes (`scene_tables`). A cast runs:
    are sized from the true count, read back by the host once per level
    (`torch.nonzero`): one synchronisation per cast, two with the hyper
    level. There is no capacity and so no overflow fallback.
-4. The sweep. `sweep_closest` / `sweep_any` (kernels `closest_kernel` /
-   `any_kernel`, twins `sweep_closest_torch` / `sweep_any_torch`). Each
-   ray walks its block's items in order. Per item it tests the super's
-   32 child boxes (its fine cull) and sweeps the 16-triangle clusters it
-   entered, nearest first, each with the Baldwin-Weber test (or the
-   watertight one), and stops at the first cluster that starts beyond
-   its current best hit.
+4. The sweep. `sweep_closest` / `sweep_any` (kernels
+   `closest_ray_kernel` / `any_kernel`, twins `sweep_closest_torch` /
+   `sweep_any_torch`). Each ray walks its block's items in order. Per
+   item it tests the super's 32 child boxes (its fine cull) and sweeps
+   the 16-triangle clusters it entered, nearest first, each with the
+   Baldwin-Weber test (or the watertight one), and stops at the first
+   cluster that starts beyond its current best hit. The closest kernel
+   runs the ray walks of one warp together, each warp walking its block's
+   items on its own: it skips an item by the warp vote and the super-box
+   admission of 5. below (a skipped item is one where no ray of the
+   warp would enter a real child; `_voted` on padding) and copies the
+   next admitted item's boxes ahead by cp.async. On an NVIDIA H100
+   80GB HBM3 at 700 W this took the sorted 2^18-ray pool of
+   `sphere_grid(12, 12)` from 6.615 ms (a 1024-ray block walking its
+   items in lockstep) to 0.842 ms (Baldwin-Weber, `tools/worklist_ab.py`,
+   PERF.md).
 
 The closest hit is a bit-packed argmin: key = (bits(t) & ~_LOWM) |
 (child << 4) | row, the best starts at bits(scene exit) | _LOWM, and a
@@ -38,7 +47,7 @@ t < the best read as a float, which makes a near-tie (two hits with the
 same truncated t) depend on the order clusters are visited in; with the
 whole quantum the result is the least key over the hits swept, so the
 per-ray and grouped walks give the same hit bit for bit. The fine cull,
-the nearest-first stop and the block vote use the same window. t, u and
+the nearest-first stop and the vote use the same window. t, u and
 v are the winner's own; the decode compares the truncated t against the
 truncated scene exit. `iters` is the number of clusters the ray swept:
 the clusters its own fine cull admitted, summed over its block's items.
@@ -54,24 +63,25 @@ the clusters its own fine cull admitted, summed over its block's items.
    an item by a warp vote (closest: no ray's best lies beyond the item's
    entry) and by a super-box admission (no ray enters the item's
    admission box, `admission_boxes`, under its cap: then no ray enters a
-   child), looks ahead 32 items at a time and copies the next admitted
-   item's boxes into shared memory (cp.async) while it sweeps the
-   current one. `iters` is the number of clusters the ray's group swept
-   in the items the ray entered something in. The closest twin
-   `sweep_closest_grouped_torch` replays the group walk so that `iters`
-   matches. The any-hit twin is `sweep_any_torch`: the grouped walk
-   tests, for every ray not yet occluded, every cluster its own fine
-   cull entered (a warp stops when all its rays are occluded), so its
-   answer is the per-ray walk's. On an NVIDIA H100 80GB HBM3 at 700 W,
+   child; `warp_admitted`), looks ahead 32 items at a time and copies
+   the next admitted item's boxes into shared memory (cp.async) while it
+   sweeps the current one. `iters` is the number of clusters the ray's
+   group swept in the items the ray entered something in. The closest
+   twin `sweep_closest_grouped_torch` replays the group walk so that
+   `iters` matches. The any-hit twin is `sweep_any_torch`: the grouped
+   walk tests, for every ray not yet occluded, every cluster its own
+   fine cull entered (a warp stops when all its rays are occluded), so
+   its answer is the per-ray walk's. On an NVIDIA H100 80GB HBM3 at 700 W,
    on a sorted 2^18-ray pool of `sphere_grid(12, 12)`, the warps admit
    7.4 % of the (item, warp) pairs, and the kernels take 0.977 ms
    (closest) and 0.414 ms (any-hit), where the first design, a 1024-ray
    block walking its items in lockstep, took 9.23 and 4.41 and the
-   per-ray sweep takes 6.59 and 3.69 (`tools/grouped_ab.py`, PERF.md).
+   per-ray sweep then took 6.59 and 3.69 (`tools/grouped_ab.py` of the
+   time, PERF.md).
 
 6. The instanced sweeps. `sweep_closest_inst` / `sweep_any_inst`
-   (kernels `closest_inst_kernel` / `any_inst_kernel`, twins
-   `sweep_closest_inst_torch` / `sweep_any_inst_torch`, the per-ray
+   (kernels `closest_ray_kernel` on instanced tables / `any_inst_kernel`,
+   twins `sweep_closest_inst_torch` / `sweep_any_inst_torch`, the per-ray
    walks of 4. above) sweep instanced tables: the mesh-local clusters
    are stored once per mesh, a super is an (instance, local super) pair
    with world-space child boxes. The cull, the items and the fine cull
@@ -146,33 +156,37 @@ def kernels():
         from ..utils.cuda_build import load_library
 
         built = load_library("worklist.cu", _NVCC_EXTRA)
-        c_p, c_i, c_f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib = built.lib
-        lib.dcrt_wl_cull.argtypes = [c_p, c_i, c_p, c_p, c_i, c_i, c_p, c_p]
-        lib.dcrt_wl_refine.argtypes = [c_p, c_i, c_p, c_p, c_i, c_p, c_p,
-                                       c_i, c_i, c_p, c_p]
-        closest = [c_p, c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i, c_i, c_f,
-                   c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p]
-        any_ = [c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i, c_i, c_f, c_p,
-                c_p]
-        lib.dcrt_wl_closest.argtypes = closest
-        lib.dcrt_wl_any.argtypes = any_
-        # the grouped sweeps add the admission boxes before the child boxes
-        lib.dcrt_wl_closest_grouped.argtypes = closest[:4] + [c_p] \
-            + closest[4:]
-        lib.dcrt_wl_any_grouped.argtypes = any_[:3] + [c_p] + any_[3:]
-        lib.dcrt_wl_grouped_resources.argtypes = [c_p]
-        # the instanced sweeps add three table pointers after the slab's
-        lib.dcrt_wl_closest_inst.argtypes = closest[:6] + [c_p] * 3 \
-            + closest[6:]
-        lib.dcrt_wl_any_inst.argtypes = any_[:5] + [c_p] * 3 + any_[5:]
-        for fn in (lib.dcrt_wl_cull, lib.dcrt_wl_refine, lib.dcrt_wl_closest,
-                   lib.dcrt_wl_any, lib.dcrt_wl_closest_grouped,
-                   lib.dcrt_wl_any_grouped, lib.dcrt_wl_grouped_resources,
-                   lib.dcrt_wl_closest_inst, lib.dcrt_wl_any_inst):
-            fn.restype = c_i
+        bind(built.lib)
         _built = built
     return _built
+
+
+def bind(lib):
+    """Set the argument and result types of a loaded build of
+    `csrc/worklist.cu`'s C interface; returns lib."""
+    c_p, c_i, c_f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dcrt_wl_cull.argtypes = [c_p, c_i, c_p, c_p, c_i, c_i, c_p, c_p]
+    lib.dcrt_wl_refine.argtypes = [c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i,
+                                   c_i, c_p, c_p]
+    # the closest and grouped sweeps take the admission boxes before the
+    # child boxes
+    closest = [c_p, c_p, c_p, c_i, c_p, c_p, c_p, c_i, c_p, c_p, c_i, c_i,
+               c_f, c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p]
+    any_ = [c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i, c_i, c_f, c_p, c_p]
+    lib.dcrt_wl_closest.argtypes = closest
+    lib.dcrt_wl_any.argtypes = any_
+    lib.dcrt_wl_closest_grouped.argtypes = closest
+    lib.dcrt_wl_any_grouped.argtypes = any_[:3] + [c_p] + any_[3:]
+    lib.dcrt_wl_warp_resources.argtypes = [c_p]
+    # the instanced sweeps add three table pointers after the slab's
+    lib.dcrt_wl_closest_inst.argtypes = closest[:7] + [c_p] * 3 + closest[7:]
+    lib.dcrt_wl_any_inst.argtypes = any_[:5] + [c_p] * 3 + any_[5:]
+    for fn in (lib.dcrt_wl_cull, lib.dcrt_wl_refine, lib.dcrt_wl_closest,
+               lib.dcrt_wl_any, lib.dcrt_wl_closest_grouped,
+               lib.dcrt_wl_any_grouped, lib.dcrt_wl_warp_resources,
+               lib.dcrt_wl_closest_inst, lib.dcrt_wl_any_inst):
+        fn.restype = c_i
+    return lib
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +208,8 @@ class Tables(NamedTuple):
     isup_local: Optional[torch.Tensor] = None   # (Cs,) i32
     isup_inst: Optional[torch.Tensor] = None    # (Cs,) i32
     inst_rows: Optional[torch.Tensor] = None    # (I, 16) f32 world->local
-    # world-soup tables only: the grouped sweeps' admission boxes
+    # the closest and grouped sweeps' admission boxes (`admission_boxes`
+    # of cbox3, world boxes on either kind of tables)
     abox: Optional[torch.Tensor] = None         # (Cs, 8)
 
 
@@ -229,12 +244,12 @@ def pad_tables(scene):
 
 def admission_boxes(cbox3):
     """(Cs, SUPER, 8) child boxes -> (Cs, 8) admission boxes of the
-    grouped sweeps: per super the min/max of its child boxes as a slab
-    test reads them, each axis from min(lo, hi) to max(lo, hi). That is
-    the super box itself unless the super holds padding: the slab test
-    reads an inverted padding box as the cube [-1, 1]^3. A ray that
-    misses the admission box under a cap enters none of the children
-    under it."""
+    closest and grouped sweeps: per super the min/max of its child boxes
+    as a slab test reads them, each axis from min(lo, hi) to max(lo,
+    hi). That is the super box itself unless the super holds padding:
+    the slab test reads an inverted padding box as the cube [-1, 1]^3.
+    A ray that misses the admission box under a cap enters none of the
+    children under it."""
     lo, hi = cbox3[:, :, 0:3], cbox3[:, :, 3:6]
     return torch.cat([torch.minimum(lo, hi).amin(1),
                       torch.maximum(lo, hi).amax(1),
@@ -285,7 +300,8 @@ def scene_tables(scene):
                          *build_hyper(sbox), _box_bounds(sbox), config,
                          scene.isup_local.to(torch.int32).contiguous(),
                          scene.isup_inst.to(torch.int32).contiguous(),
-                         scene.inst_rows.contiguous())
+                         scene.inst_rows.contiguous(),
+                         admission_boxes(scene.isup_cbox))
         else:
             ctab, bwtab, cbox3, sbox = pad_tables(scene)
             tab = Tables(ctab, bwtab, cbox3, sbox, *build_hyper(sbox),
@@ -667,15 +683,22 @@ def _window(best):
 
 
 def _voted(items, rays, item, best, group=None):
-    """The closest kernels' vote: keep the groups of `group` rays (RB by
-    default: the per-ray sweeps' blocks; GL: the grouped sweeps' warps)
+    """The closest kernels' vote: keep the groups of `group` rays (GL:
+    the warps of the per-ray and grouped sweeps; RB by default: the
+    1024-ray blocks of the first per-ray kernel, which the census counts)
     of (rays, item) where some ray's best lies beyond the item's entry
-    distance. Without a t_cap the vote never drops an item a ray would
-    enter; with one, a ray may enter a child box between its capped
-    t_max and its best, and the twins skip what the kernels skip. (Such
-    a child starts past the scene exit's truncation quantum, so a hit in
-    it decodes as a miss: the block and the warp vote give the same
-    decoded hits.)"""
+    distance. Without a t_cap the vote never drops an item in which a ray
+    would enter a real child (inside the super box); with one, a ray may
+    enter a child box between its capped t_max and its best, and the
+    twins skip what the kernels skip. (Such a child starts past the scene
+    exit's truncation quantum, so a hit in it decodes as a miss: the
+    block and the warp vote give the same decoded hits.) A padding
+    child's inverted box reads to the slab test as the cube [-1, 1]^3,
+    which may lie outside the super box: a ray that enters it in front of
+    its hit sweeps the padded super's empty clusters when its group
+    votes for the item, so `iters`, and nothing else, differs between
+    the two votes there, by those clusters (`tools/worklist_ab.py`
+    `padding_iters` counts them)."""
     group = group or RB
     keep = (_window(best[rays]).view(-1, group)
             > items.t_ent[item.view(-1, group)[:, 0:1]]).any(1)
@@ -823,25 +846,34 @@ def walk_any_torch(occ, tab, rays, slab, o, d, enter, tm, t_min, watertight):
 
 
 def sweep_closest_torch(tables, items, od, texp, t_min, watertight):
-    """Twin of `closest_kernel` and, on instanced tables, of
-    `closest_inst_kernel` (the fine cull in world space, each swept
-    cluster tested with the ray in its item's instance space). Returns
-    the per-ray sweep state (packed best i32, t, u, v, tri i32, inst i32,
-    back bool, iters i32), each (Rp,): see the module docstring for the
-    rules it follows."""
+    """Twin of `closest_ray_kernel` on world-soup and on instanced tables
+    (the fine cull in world space, each swept cluster tested with the ray
+    in its item's instance space). Returns the per-ray sweep state
+    (packed best i32, t, u, v, tri i32, inst i32, back bool, iters i32),
+    each (Rp,): see the module docstring for the rules it follows."""
     rp = od.shape[1]
-    tab = tables.ctab if watertight else tables.bwtab
     st = _Best(texp)
     for lo in range(0, rp, TWIN_RAY_CHUNK):
         for rays, item in _ray_steps(items, lo, min(rp, lo + TWIN_RAY_CHUNK)):
-            rays, item = _voted(items, rays, item, st.best)
-            sup = items.sup[item].long()
-            enter, tl = _fine_cull(tables.cbox3[sup], od[:, rays],
-                                   _window(st.best[rays]), t_min)
-            slab, o, d, ins = _item_rays(tables, sup, od, rays)
-            walk_closest_torch(st, tab, rays, slab, o, d, enter, tl, t_min,
-                               watertight, ins)
-    return st.state(tab, watertight, tables.inst_rows is not None)
+            closest_step(tables, items, od, t_min, watertight, st, rays,
+                         item)
+    return st.state(tables.ctab if watertight else tables.bwtab, watertight,
+                    tables.inst_rows is not None)
+
+
+def closest_step(tables, items, od, t_min, watertight, st, rays, item):
+    """One step of `sweep_closest_torch`: whole blocks of rays, each ray
+    against one item of its block (`_ray_steps`); updates the state st
+    (`_Best`). The kernel's warp vote (`_voted` per GL rays) keeps an
+    item for a warp; its super-box admission skips only items whose
+    fine cull enters nothing, so the twin leaves it out."""
+    rays, item = _voted(items, rays, item, st.best, GL)
+    sup = items.sup[item].long()
+    enter, tl = _fine_cull(tables.cbox3[sup], od[:, rays],
+                           _window(st.best[rays]), t_min)
+    slab, o, d, ins = _item_rays(tables, sup, od, rays)
+    walk_closest_torch(st, tables.ctab if watertight else tables.bwtab, rays,
+                       slab, o, d, enter, tl, t_min, watertight, ins)
 
 
 def sweep_any_torch(tables, items, od, tm, t_min, watertight):
@@ -962,7 +994,8 @@ def grouped_closest_step(tables, items, od, t_min, watertight, st, rays,
                  od[3:6, r].T, t_min, watertight)
 
 
-def _launch_closest(fn, tables, items, od, texp, t_min, watertight):
+def _launch_closest(fn, tables, items, od, texp, t_min, watertight,
+                    abox=True):
     rp = od.shape[1]
     f32 = dict(dtype=torch.float32, device=od.device)
     i32 = dict(dtype=torch.int32, device=od.device)
@@ -972,7 +1005,7 @@ def _launch_closest(fn, tables, items, od, texp, t_min, watertight):
     with torch.cuda.device(od.device):
         err = fn(items.seg.data_ptr(), items.sup.data_ptr(),
                  items.t_ent.data_ptr(), rp // RB,
-                 *_table_ptrs(tables, watertight, fn), int(watertight),
+                 *_table_ptrs(tables, watertight, fn, abox), int(watertight),
                  od.data_ptr(), texp.data_ptr(), rp, RB, float(t_min),
                  best.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(),
                  tri.data_ptr(), inst.data_ptr(), back.data_ptr(),
@@ -980,34 +1013,36 @@ def _launch_closest(fn, tables, items, od, texp, t_min, watertight):
     return err, (best, t, u, v, tri, inst, back, iters)
 
 
-def _launch_any(fn, tables, items, od, tm, t_min, watertight):
+def _launch_any(fn, tables, items, od, tm, t_min, watertight, abox=False):
     rp = od.shape[1]
     occ = torch.empty(rp, dtype=torch.bool, device=od.device)
     with torch.cuda.device(od.device):
         err = fn(items.seg.data_ptr(), items.sup.data_ptr(), rp // RB,
-                 *_table_ptrs(tables, watertight, fn), int(watertight),
+                 *_table_ptrs(tables, watertight, fn, abox), int(watertight),
                  od.data_ptr(), tm.data_ptr(), rp, RB, float(t_min),
                  occ.data_ptr(), _stream(od))
     return err, occ
 
 
-def _table_ptrs(tables, watertight, fn):
-    """The sweep kernel fn's table pointers: for the grouped kernels the
-    admission boxes, then child boxes and slab rows, then, for the
-    instanced kernels, the per-super local super and instance and the
-    instance rows. The kind of tables must be fn's."""
+def _table_ptrs(tables, watertight, fn, abox):
+    """The sweep kernel fn's table pointers: with abox (the closest and
+    grouped kernels) the admission boxes, then child boxes and slab rows,
+    then, for the instanced kernels, the per-super local super and
+    instance and the instance rows. The kind of tables must be fn's."""
     inst = fn.__name__.endswith("_inst")
     if inst != (tables.inst_rows is not None):
         raise ValueError(f"{fn.__name__}: needs "
                          f"{'instanced' if inst else 'world-soup'} tables")
     tab = tables.ctab if watertight else tables.bwtab
     ptrs = [tables.cbox3.data_ptr(), tab.data_ptr()]
-    if fn.__name__.endswith("_grouped"):
-        # cp.async copies the boxes 16 bytes at a time
+    if abox:
+        # cp.async copies the boxes (and instance rows) 16 bytes at a time
         _check_f32("abox", tables.abox, (tables.sbox.shape[0], 8))
-        if tables.abox.data_ptr() % 16 or tables.cbox3.data_ptr() % 16:
-            raise ValueError(f"{fn.__name__}: box tables must be 16-byte "
-                             "aligned")
+        rows = tables.inst_rows.data_ptr() if inst else 0
+        if (tables.abox.data_ptr() % 16 or tables.cbox3.data_ptr() % 16
+                or rows % 16):
+            raise ValueError(f"{fn.__name__}: box tables and instance rows "
+                             "must be 16-byte aligned")
         ptrs.insert(0, tables.abox.data_ptr())
     if inst:
         ptrs += [tables.isup_local.data_ptr(), tables.isup_inst.data_ptr(),
@@ -1057,24 +1092,29 @@ def sweep_any_grouped(tables, items, od, tm, t_min, watertight):
     if not _on_cuda(od, tm, items.seg):
         return sweep_any_torch(tables, items, od, tm, t_min, watertight)
     err, occ = _launch_any(kernels().lib.dcrt_wl_any_grouped, tables, items,
-                           od, tm, t_min, watertight)
+                           od, tm, t_min, watertight, abox=True)
     _raise_on(err, "sweep_any_grouped")
     sweep_any_grouped.launches += 1
     return occ
 
 
-def grouped_resources():
-    """The grouped kernels' resources on the current card, per kernel
-    (closest_bw, closest_wt, any_bw, any_wt: Baldwin-Weber or watertight):
+WARP_KERNELS = ("closest_bw", "closest_wt", "any_bw", "any_wt",
+                "ray_closest_bw", "ray_closest_wt", "inst_closest_bw",
+                "inst_closest_wt")
+
+
+def warp_resources():
+    """The warp-walk kernels' resources on the current card, per kernel of
+    WARP_KERNELS (grouped closest and any-hit, per-ray closest on the soup
+    and on instanced tables; bw / wt: Baldwin-Weber or watertight):
     resident blocks per SM, registers, static shared bytes, local (spill)
     bytes per thread and threads per block."""
-    out = (ctypes.c_int * 20)()
-    _raise_on(kernels().lib.dcrt_wl_grouped_resources(out),
-              "grouped_resources")
+    out = (ctypes.c_int * (5 * len(WARP_KERNELS)))()
+    _raise_on(kernels().lib.dcrt_wl_warp_resources(out), "warp_resources")
     keys = ("blocks_per_sm", "registers", "static_smem", "local_bytes",
             "threads")
-    return {name: dict(zip(keys, out[5 * f:5 * f + 5])) for f, name in
-            enumerate(("closest_bw", "closest_wt", "any_bw", "any_wt"))}
+    return {name: dict(zip(keys, out[5 * f:5 * f + 5]))
+            for f, name in enumerate(WARP_KERNELS)}
 
 
 def sweep_closest_inst(tables, items, od, texp, t_min, watertight):

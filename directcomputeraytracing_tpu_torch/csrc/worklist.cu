@@ -9,42 +9,45 @@
 //   refine_kernel  <- _refine_kernel (:445, launched by _refine_items
 //                     :479): the same per (block, hyper) item over the
 //                     hyper's member supers;
-//   closest_kernel <- _wl_closest_kernel (:678, launched by _closest_impl
-//                     :1750): closest hit, a bit-packed argmin;
 //   any_kernel     <- _wl_any_kernel (:866, launched by _any_impl :1916):
 //                     occlusion within a per-ray t_max;
 //   closest_grouped_kernel <- _wlg_closest_kernel (:1000): the closest hit
 //                     by warps that each walk their ray block's items on
 //                     their own (see its section below);
 //   any_grouped_kernel     <- _wlg_any_kernel (:1113): occlusion, the same;
-//   closest_inst_kernel    <- _wl_closest_inst_kernel (:1208): closest_kernel
-//                     on instanced tables (see its section below);
-//   any_inst_kernel        <- _wl_any_inst_kernel (:1349): any_kernel, the
-//                     same.
+//   any_inst_kernel        <- _wl_any_inst_kernel (:1349): any_kernel on
+//                     instanced tables (see its section below);
+//   closest_ray_kernel<Tri, false> <- _wl_closest_kernel (:678, launched
+//                     by _closest_impl :1750): closest hit per ray, a
+//                     bit-packed argmin, by warps that walk their items on
+//                     their own (see its section below);
+//   closest_ray_kernel<Tri, true>  <- _wl_closest_inst_kernel (:1208): the
+//                     same on instanced tables.
 // Rays are the (9, Rp) rows [o; d; 1/d] of prep_rays, Rp a multiple of
-// the block size RB (one thread per ray, one block per RB rays; the
-// grouped sweeps run kGroupThreads-thread blocks, several per ray block).
+// the block size RB (the culls and the per-ray any-hit sweeps: one thread
+// per ray, one block per RB rays; the warp-walk sweeps run kGroupThreads-
+// thread blocks, several per ray block).
 //
 // What bounds them. The culls: FP32 ALU, ~20 operations per (ray, box),
 // and one block-wide min per box (warp shuffles, then 32 partials in
 // shared memory, so one barrier per 32 boxes). The sweeps: FP32 ALU in
 // the per-ray fine cull (32 slab tests per item) and the triangle tests,
-// and the latency of reading 64-byte triangle rows from L2; rays of one
-// warp that pick different clusters diverge. At 1024 threads a block may
-// hold 64 registers a thread.
+// and the latency of reading item boxes and 64-byte triangle rows from
+// L2; rays of one warp that pick different clusters diverge. At 1024
+// threads a block may hold 64 registers a thread.
 //
 // Design. The TPU grid walked (block, super) items in order and carried
 // the best hit across them in the output block and a termination bound in
-// an SMEM scalar. Here one CUDA block owns one ray block and loops over
-// its own item segment, front to back; each thread keeps its ray's packed
-// best hit in registers. A block-wide vote (__syncthreads_or) skips an
-// item once no ray's best lies beyond its entry distance. The item's 32
-// child boxes (1 KB) are staged in shared memory; each thread tests them
-// against its own ray and its current best (the fine cull) and sweeps the
-// entered clusters nearest first, stopping at the first that starts
-// beyond its window. The packed key is (bits(t) & ~kLowM) | (child << 4)
-// | row, as in the reference, and a cluster's smallest key replaces the
-// best only if strictly smaller; a candidate needs t inside the best's
+// an SMEM scalar. Here a ray's walk runs in one thread, over its ray
+// block's item segment front to back, its packed best hit in registers.
+// The per-ray any-hit sweeps give a ray block one CUDA block: a
+// block-wide vote (__syncthreads_and) stops once every ray is occluded,
+// the item's 32 child boxes (1 KB) are staged in shared memory, and each
+// thread tests them against its own ray (the fine cull) and sweeps the
+// entered clusters. The closest sweeps let each warp walk on its own
+// (their section below). The packed key is (bits(t) & ~kLowM) | (child
+// << 4) | row, as in the reference, and a cluster's smallest key replaces
+// the best only if strictly smaller; a candidate needs t inside the best's
 // whole truncation quantum (window(), where the reference takes t < the
 // best read as a float), so the result does not depend on the visiting
 // order. Built with -fmad=false: kernels and twins agree bit for bit.
@@ -54,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "worklist.cuh"
 
@@ -131,36 +136,6 @@ refine_kernel(const float* __restrict__ hsup, int hs,
 
 template <class Tri>
 __global__ void __launch_bounds__(1024)
-closest_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
-               const float* __restrict__ item_t,
-               const float* __restrict__ cbox, const float* __restrict__ tab,
-               const float* __restrict__ od, const float* __restrict__ texp,
-               int rp, float t_min, dcrt::ClosestOut out) {
-  __shared__ float4 boxes[2 * kSuper];
-  const int b = blockIdx.x;
-  const int i = b * blockDim.x + threadIdx.x;
-  const RayInv q = load_od(od, rp, i);
-  const typename Tri::Pre pre = Tri::prepare(q.r);
-  Best s = start_best(texp[i]);
-  const int k1 = seg[b + 1];
-  for (int k = seg[b]; k < k1; ++k) {
-    // skip an item that starts beyond every ray's best (the vote is also
-    // the barrier before the boxes are restaged)
-    if (!__syncthreads_or(window(s.best) > item_t[k])) continue;
-    const int sup = item_sup[k];
-    stage_boxes(cbox, sup, boxes);
-    __syncthreads();
-    float tl[kSuper];
-    const unsigned mask = dcrt::fine_cull(q, boxes, window(s.best), t_min,
-                                          tl);
-    dcrt::walk_closest<Tri, true>(q.r, pre, tab, sup * kSuperRows, t_min, tl,
-                                  mask, s);
-  }
-  dcrt::store_soup<Tri>(out, i, tab, s, s.row);
-}
-
-template <class Tri>
-__global__ void __launch_bounds__(1024)
 any_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
            const float* __restrict__ cbox, const float* __restrict__ tab,
            const float* __restrict__ od, const float* __restrict__ tm,
@@ -203,9 +178,9 @@ any_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
 // cleared, starts beyond every lane's window (the group bound); the any-hit
 // walk once every lane is occluded. Both clusters of a step are tested
 // against the lane's window before the step, and the smallest candidate key
-// replaces the best only if strictly smaller: the same hit as
-// closest_kernel's, bit for bit. `iters` adds the step's clusters (1 or 2)
-// for every lane that entered something in the item.
+// replaces the best only if strictly smaller: the same hit as the per-ray
+// sweep's (closest_ray_kernel), bit for bit. `iters` adds the step's
+// clusters (1 or 2) for every lane that entered something in the item.
 //
 // What bounds them: FP32 ALU in the fine cull (32 slab tests of ~20
 // operations per lane and item) and the triangle tests, and the latency
@@ -219,7 +194,7 @@ any_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
 // takes kGroupWarps warps of one ray block, and each warp walks the ray
 // block's item segment with no block-wide barrier. Two cheap tests guard
 // an item, both exact: the warp vote (closest: some lane's window lies
-// beyond the item's entry distance, the block vote of the per-ray sweep
+// beyond the item's entry distance, the first per-ray sweep's block vote
 // taken per warp) and the super-box admission (some lane enters the
 // item's admission box under its cap, enters() of worklist.cuh). The
 // admission box (Tables.abox) is the min/max of the super's 32 child
@@ -308,26 +283,39 @@ __device__ __forceinline__ void stage_cap(WarpSmem& sm, float cap) {
   __syncwarp();
 }
 
+// An item of a warp's walk: its super and entry distance and, on
+// instanced tables, the super's local super and instance.
+struct Item {
+  int sup;
+  float t;
+  int loc, ins;
+};
+
 // The warp's look-ahead over its ray block's items [next, end), 32 at a
-// time: lane j holds item base + j's super and entry distance, `adm` the
-// items of the chunk that passed the vote and the admission.
+// time: lane j holds item base + j, `adm` the items of the chunk that
+// passed the vote and the admission.
 struct ItemScan {
   int next, end, base;
   unsigned adm;
-  int sup;
-  float t;
+  Item it;
 };
 
-// The next admitted item (its super and entry distance), or false at the
-// segment's end. kVote: closest (caps are the lanes' windows, and the
-// warp vote applies).
-template <bool kVote>
-__device__ __forceinline__ bool next_item(ItemScan& sc, WarpSmem& sm,
-                                          const int* __restrict__ item_sup,
-                                          const float* __restrict__ item_t,
-                                          const float* __restrict__ abox,
-                                          float cap, float t_min, int& sup,
-                                          float& t) {
+__device__ __forceinline__ ItemScan item_scan(const int* __restrict__ seg) {
+  return ItemScan{seg[blockIdx.x], seg[blockIdx.x + 1], 0, 0u,
+                  Item{0, 0.f, 0, 0}};
+}
+
+// The next admitted item, or false at the segment's end. kVote: closest
+// (caps are the lanes' windows, and the warp vote applies). kInst: read
+// the admitted items' local supers and instances (isup_local, isup_inst),
+// one load per lane for the whole chunk.
+template <bool kVote, bool kInst = false>
+__device__ __forceinline__ bool next_item(
+    ItemScan& sc, WarpSmem& sm, const int* __restrict__ item_sup,
+    const float* __restrict__ item_t, const float* __restrict__ abox,
+    float cap, float t_min, Item& out,
+    const int* __restrict__ isup_local = nullptr,
+    const int* __restrict__ isup_inst = nullptr) {
   const int lane = threadIdx.x & 31;
   while (!sc.adm) {
     if (sc.next >= sc.end) return false;
@@ -335,19 +323,19 @@ __device__ __forceinline__ bool next_item(ItemScan& sc, WarpSmem& sm,
     sc.next += 32;
     const int j = sc.base + lane;
     const bool in = j < sc.end;
-    sc.sup = in ? __ldg(item_sup + j) : 0;
-    sc.t = kVote && in ? __ldg(item_t + j) : 0.f;
+    sc.it.sup = in ? __ldg(item_sup + j) : 0;
+    sc.it.t = kVote && in ? __ldg(item_t + j) : 0.f;
     bool a = in;
     if (kVote) {
       // windows are positive: their bits order like their values
       const float top =
           __int_as_float(__reduce_max_sync(kFull, __float_as_int(cap)));
-      a = a && top > sc.t;
+      a = a && top > sc.it.t;
     }
     stage_cap(sm, cap);
     if (__any_sync(kFull, a)) {
       const float4* sb = reinterpret_cast<const float4*>(abox) +
-                         static_cast<size_t>(sc.sup) * 2;
+                         static_cast<size_t>(sc.it.sup) * 2;
       const float4 lo = __ldg(sb), hi = __ldg(sb + 1);
       bool e = false;
       for (int r = 0; r < 32; ++r) {
@@ -359,11 +347,19 @@ __device__ __forceinline__ bool next_item(ItemScan& sc, WarpSmem& sm,
       a = a && e;
     }
     sc.adm = __ballot_sync(kFull, a);
+    if (kInst && a) {
+      sc.it.loc = __ldg(isup_local + sc.it.sup);
+      sc.it.ins = __ldg(isup_inst + sc.it.sup);
+    }
   }
   const int j = __ffs(sc.adm) - 1;
   sc.adm &= sc.adm - 1;
-  sup = __shfl_sync(kFull, sc.sup, j);
-  t = __shfl_sync(kFull, sc.t, j);
+  out.sup = __shfl_sync(kFull, sc.it.sup, j);
+  out.t = __shfl_sync(kFull, sc.it.t, j);
+  if (kInst) {
+    out.loc = __shfl_sync(kFull, sc.it.loc, j);
+    out.ins = __shfl_sync(kFull, sc.it.ins, j);
+  }
   return true;
 }
 
@@ -513,27 +509,25 @@ closest_grouped_kernel(const int* __restrict__ seg,
   stage_ray(sm, q);
   const typename Tri::Pre pre = Tri::prepare(q.r);
   Best s = start_best(texp[i]);
-  ItemScan sc{seg[blockIdx.x], seg[blockIdx.x + 1], 0, 0u, 0, 0.f};
-  int sup;
-  float te;
+  ItemScan sc = item_scan(seg);
+  Item it;
   bool have = next_item<true>(sc, sm, item_sup, item_t, abox,
-                              window(s.best), t_min, sup, te);
-  if (have) prefetch_stage(sm.stage[0], abox, cbox, sup);
+                              window(s.best), t_min, it);
+  if (have) prefetch_stage(sm.stage[0], abox, cbox, it.sup);
   cp_async_commit();
   for (int st = 0; have; st ^= 1) {
-    int sup2;
-    float te2;
+    Item it2;
     const bool have2 = next_item<true>(sc, sm, item_sup, item_t, abox,
-                                       window(s.best), t_min, sup2, te2);
-    if (have2) prefetch_stage(sm.stage[st ^ 1], abox, cbox, sup2);
+                                       window(s.best), t_min, it2);
+    if (have2) prefetch_stage(sm.stage[st ^ 1], abox, cbox, it2.sup);
     cp_async_commit();
     cp_async_wait<1>();   // this item's stage has landed
     __syncwarp();
-    closest_item<Tri>(q, pre, sm, sm.stage[st], sup, te, tab, t_min, s);
+    closest_item<Tri>(q, pre, sm, sm.stage[st], it.sup, it.t, tab, t_min,
+                      s);
     __syncwarp();         // the stage is read before it is refilled
     have = have2;
-    sup = sup2;
-    te = te2;
+    it = it2;
   }
   dcrt::store_soup<Tri>(out, i, tab, s, s.row);
 }
@@ -557,28 +551,26 @@ any_grouped_kernel(const int* __restrict__ seg,
   const typename Tri::Pre pre = Tri::prepare(q.r);
   const float t_max = tm[i];
   bool occ = false;
-  ItemScan sc{seg[blockIdx.x], seg[blockIdx.x + 1], 0, 0u, 0, 0.f};
-  int sup;
-  float te;
+  ItemScan sc = item_scan(seg);
+  Item it;
   bool have = next_item<false>(sc, sm, item_sup, nullptr, abox, t_max,
-                               t_min, sup, te);
-  if (have) prefetch_stage(sm.stage[0], abox, cbox, sup);
+                               t_min, it);
+  if (have) prefetch_stage(sm.stage[0], abox, cbox, it.sup);
   cp_async_commit();
   // stop once every ray of the warp is occluded
   for (int st = 0; have && !__all_sync(kFull, occ); st ^= 1) {
-    int sup2;
-    float te2;
+    Item it2;
     const bool have2 = next_item<false>(sc, sm, item_sup, nullptr, abox,
-                                        occ ? -kBig : t_max, t_min, sup2,
-                                        te2);
-    if (have2) prefetch_stage(sm.stage[st ^ 1], abox, cbox, sup2);
+                                        occ ? -kBig : t_max, t_min, it2);
+    if (have2) prefetch_stage(sm.stage[st ^ 1], abox, cbox, it2.sup);
     cp_async_commit();
     cp_async_wait<1>();
     __syncwarp();
-    any_item<Tri>(q, pre, sm, sm.stage[st], sup, tab, t_max, t_min, occ);
+    any_item<Tri>(q, pre, sm, sm.stage[st], it.sup, tab, t_max, t_min,
+                  occ);
     __syncwarp();
     have = have2;
-    sup = sup2;
+    it = it2;
   }
   cp_async_wait<0>();     // no copy in flight into a finished warp's ring
   out_occ[i] = occ;
@@ -587,36 +579,40 @@ any_grouped_kernel(const int* __restrict__ seg,
 // ---------------------------------------------------------------------------
 // Instanced sweeps <- _wl_closest_inst_kernel (:1208) and _wl_any_inst_kernel
 // (:1349) (launched by _closest_impl :1722 and _any_impl :1889 on scenes
-// with instanced tables).
+// with instanced tables): closest_ray_kernel<Tri, true> (the next section)
+// and any_inst_kernel.
 //
 // The tables share each mesh's triangles: the slab rows are mesh-local,
 // stored once, and a super is an (instance, local super) pair with world
-// child boxes (isup_cbox). Items, the block vote and the per-ray fine cull
-// are closest_kernel's and any_kernel's, in world space with the world ray,
-// so entry distances compare across items. The item's super gives its
-// local super (isup_local) and its instance (isup_inst); the instance's
-// world->local transform (12 floats of its inst_rows row) is staged beside
-// the child boxes, and the ray is moved to local space once per item that
-// its fine cull entered (to_local, the reference's _local_rays: the
-// direction is not normalised, so t stays the world ray's parameter and
-// the packed keys compare across instances; Tri::prepare runs on the local
-// ray, since the watertight permutation follows the direction). The rows
-// swept are (loc * kSuper + c) * kCluster + r. The closest kernel keeps the
-// winning item's instance: the hit's instance is it, tri is the slab row's
-// global id, and the back-face flag is the local test's as it is (a
-// mirroring instance turns the world normal, and the soup's flip column
-// turns it back; the reference's kernel XORs the flip in again, :1323).
+// child boxes (isup_cbox). Items, the votes, the admission and the per-ray
+// fine cull are the soup's, in world space with the world ray, so entry
+// distances compare across items. The item's super gives its local super
+// (isup_local) and its instance (isup_inst); the instance's world->local
+// transform (12 floats of its inst_rows row) is staged beside the child
+// boxes, and the ray is moved to local space once per item that its fine
+// cull entered (to_local, the reference's _local_rays: the direction is
+// not normalised, so t stays the world ray's parameter and the packed keys
+// compare across instances; Tri::prepare runs on the local ray, since the
+// watertight permutation follows the direction). The rows swept are (loc *
+// kSuper + c) * kCluster + r. The closest kernel keeps the winning item's
+// instance: the hit's instance is it, tri is the slab row's global id, and
+// the back-face flag is the local test's as it is (a mirroring instance
+// turns the world normal, and the soup's flip column turns it back; the
+// reference's kernel XORs the flip in again, :1323).
 //
-// What bounds them: as closest_kernel and any_kernel, FP32 ALU in the fine
-// cull (32 ray-box tests of ~20 operations per item) and in the triangle
-// tests (31 operations Baldwin-Weber, ~45 watertight, 16 per swept
-// cluster), plus 27 operations per entered item for the local ray, and
-// the latency of reading triangle rows from L2. Instanced supers are many
-// and overlap, so a block walks more items than on the soup (the TPU's
-// census: 44.3 clusters swept per ray against 8.0). The design keeps
-// closest_kernel's answer to that, per-ray skipping of clusters and items
-// beyond the ray's own best; a faster walk is later work. Built with
-// -fmad=false, so the local ray rounds as in the twin.
+// What bounds them: as on the soup, FP32 ALU in the fine cull (32 ray-box
+// tests of ~20 operations per item) and in the triangle tests (31
+// operations Baldwin-Weber, ~45 watertight, 16 per swept cluster), plus 27
+// operations per entered item for the local ray, and the latency of
+// reading item boxes and triangle rows from L2. Instanced supers are many
+// and overlap, so a ray block walks more items than on the soup (340-690
+// per incoherent 1024-ray block of sphere_grid(27, 27), PERF.md; the TPU's
+// census: 44.3 clusters swept per ray against 8.0), and most of a block's
+// items hold nothing for most of its warps. The closest kernel walks by
+// warps (next section), so a warp pays the fine cull only of the items
+// one of its own rays enters. any_inst_kernel keeps the first port's
+// block walk. Built with -fmad=false, so the local ray rounds as in the
+// twin.
 // ---------------------------------------------------------------------------
 
 // [o, 1] @ M and d @ M for the (4, 3) world->local transform M in
@@ -644,51 +640,6 @@ __device__ __forceinline__ void stage_inst_item(const float* cbox,
   if (threadIdx.x < kInstXf)
     row[threadIdx.x] = __ldg(inst_rows + static_cast<size_t>(ins) *
                                              kInstCols + threadIdx.x);
-}
-
-template <class Tri>
-__global__ void __launch_bounds__(1024)
-closest_inst_kernel(const int* __restrict__ seg,
-                    const int* __restrict__ item_sup,
-                    const float* __restrict__ item_t,
-                    const float* __restrict__ cbox,
-                    const float* __restrict__ tab,
-                    const int* __restrict__ isup_local,
-                    const int* __restrict__ isup_inst,
-                    const float* __restrict__ inst_rows,
-                    const float* __restrict__ od,
-                    const float* __restrict__ texp, int rp, float t_min,
-                    dcrt::ClosestOut out) {
-  __shared__ float4 boxes[2 * kSuper];
-  __shared__ float row[kInstXf];
-  const int b = blockIdx.x;
-  const int i = b * blockDim.x + threadIdx.x;
-  const RayInv q = load_od(od, rp, i);
-  Best s = start_best(texp[i]);
-  int binst = 0;
-  const int k1 = seg[b + 1];
-  for (int k = seg[b]; k < k1; ++k) {
-    // the block vote of closest_kernel (also the barrier before restaging)
-    if (!__syncthreads_or(window(s.best) > item_t[k])) continue;
-    const int sup = item_sup[k];
-    const int loc = isup_local[sup], ins = isup_inst[sup];
-    stage_inst_item(cbox, inst_rows, sup, ins, boxes, row);
-    __syncthreads();
-    float tl[kSuper];
-    const unsigned mask = dcrt::fine_cull(q, boxes, window(s.best), t_min,
-                                          tl);
-    if (!mask) continue;
-    const Ray rl = to_local(q.r, row);
-    const typename Tri::Pre pre = Tri::prepare(rl);
-    if (dcrt::walk_closest<Tri, true>(rl, pre, tab, loc * kSuperRows, t_min,
-                                      tl, mask, s))
-      binst = ins;
-  }
-  const float tri =
-      s.row >= 0 ? tab[static_cast<size_t>(s.row) * Tri::kCols + Tri::kMeta]
-                 : 0.f;
-  out.store(i, s, static_cast<int>(tri), s.row >= 0 ? binst : 0,
-            s.row >= 0 && s.back);
 }
 
 template <class Tri>
@@ -723,12 +674,181 @@ any_inst_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
   out_occ[i] = occ;
 }
 
+// ---------------------------------------------------------------------------
+// Per-ray closest sweeps <- _wl_closest_kernel (:678) and
+// _wl_closest_inst_kernel (:1208) (launched by _closest_impl :1750 and
+// :1722): closest_ray_kernel<Tri, kInst>, kInst on instanced tables.
+//
+// Each ray keeps its own walk, exactly: per item its fine cull of the 32
+// child boxes under its own window, then its nearest-first sweep of the
+// clusters it entered (walk_closest), so the hit, the sweep state and
+// `iters` (the clusters the ray itself swept) are the per-ray contract's
+// (accel/worklist.py), unlike the grouped walk, whose warps pop shared
+// pick keys.
+//
+// What bounds it: FP32 ALU in the fine cull and the triangle tests, and
+// the latency of reading item boxes and triangle rows from L2. The first
+// port gave a 1024-ray block one CUDA block walking its items in
+// lockstep: per item a block-wide vote (__syncthreads_or) and a barrier
+// after staging the 1 KB of child boxes, which were loaded only after it;
+// every thread ran the whole fine cull of every item its block voted for,
+// also where no ray of its warp entered the super; one resident block per
+// SM at 64 registers, and the fine cull's 32 entry distances spilled.
+//
+// Design: the grouped sweeps' warp walk (previous sections) around the
+// per-ray walk. 128-thread blocks over (rp / RB) x (RB / 128); each warp
+// walks its ray block's item segment on its own, with no block-wide
+// barrier. The look-ahead (next_item) votes per warp (some lane's window
+// beyond the item's entry distance) and admits an item only if one of
+// the warp's rays enters its admission box under its window; both tests
+// are exact, caps only shrink along the walk, and each is taken again per
+// item with the lanes' current windows before the fine cull. The next
+// admitted item's admission box and 32 child boxes (and, on instanced
+// tables, its instance's transform, 48 bytes of the 64-byte inst_rows
+// row) go by cp.async into the warp's two-stage ring while the current
+// item is culled and swept. Without a t_cap every skip is one the fine
+// cull would make, so results and `iters` are the first port's bit for
+// bit; with one, the vote is per warp where the first port's was per
+// block (accel/worklist.py _voted: decoded hits are the same). One
+// exception: a padding child's inverted box reads to the slab test as
+// the cube [-1, 1]^3, which may lie outside the super box, so a ray that
+// enters the cube in front of its hit swept the padded super's empty
+// clusters whenever its block voted for the item, and now only when its
+// warp does; `iters` alone differs there, by exactly those clusters (3
+// rays of 262,144 on an instanced set; tools/worklist_ab.py
+// padding_iters counts them). With the skips a
+// warp admits 3-9 % of its (item, warp) pairs on incoherent sets, so a
+// ray runs 3-9 % of the block walk's fine cull there; on an NVIDIA H100
+// 80GB HBM3 at 700 W the sorted 2^18-ray pool of sphere_grid(12, 12)
+// takes 0.842 ms against the first port's 6.615, 1M shadow rays 5.13
+// against 43.56, and on sphere_grid(27, 27) 4.98 against 60.19
+// (Baldwin-Weber; PERF.md). The grouped kernels' layout, 8 resident
+// blocks per SM, caps a thread at 64 registers: it spills 154 bytes (214
+// on instanced tables). Measured against it on the same card (PERF.md),
+// 4 blocks (116-128 registers, no spill) ran 2-25 % slower on every set
+// but one, since fewer warps hide less latency, and 6 (80 registers, 74
+// and 142 bytes) up to 4 % faster on the soup's sorted pool and camera
+// rays and up to 9 % slower on the other sets.
+// ---------------------------------------------------------------------------
+
+// A warp's shared memory on instanced tables: the ring, the rays and each
+// stage's instance transform.
+struct InstWarpSmem : WarpSmem {
+  float4 xf[2][kInstXf / 4];
+};
+
+// Start the copy of item `it`'s boxes (and, kInst, its instance's
+// transform: lanes 0-2) into ring stage st.
+template <bool kInst, class Smem>
+__device__ __forceinline__ void prefetch_item(Smem& sm, int st,
+                                              const float* abox,
+                                              const float* cbox,
+                                              const float* inst_rows,
+                                              const Item& it) {
+  prefetch_stage(sm.stage[st], abox, cbox, it.sup);
+  if constexpr (kInst) {
+    const int lane = threadIdx.x & 31;
+    if (lane < kInstXf / 4)
+      cp_async16(sm.xf[st] + lane,
+                 reinterpret_cast<const float4*>(inst_rows) +
+                     static_cast<size_t>(it.ins) * (kInstCols / 4) + lane);
+  }
+}
+
+// One item of a ray's walk, its boxes staged (xf: its instance's
+// transform, kInst). Returns whether the ray's best improved.
+template <class Tri, bool kInst>
+__device__ __forceinline__ bool ray_item(const RayInv& q,
+                                         const typename Tri::Pre& pre,
+                                         const float4* stage, const float* xf,
+                                         const Item& it,
+                                         const float* __restrict__ tab,
+                                         float t_min, Best& s) {
+  const float cap = window(s.best);
+  // the warp vote, then the admission
+  if (!__any_sync(kFull, cap > it.t) || !admitted(q, stage, cap, t_min))
+    return false;
+  float tl[kSuper];
+  const unsigned mask = dcrt::fine_cull(q, stage + 2, cap, t_min, tl);
+  if constexpr (kInst) {
+    if (!mask) return false;
+    const Ray rl = to_local(q.r, xf);
+    return dcrt::walk_closest<Tri, true>(rl, Tri::prepare(rl), tab,
+                                         it.loc * kSuperRows, t_min, tl,
+                                         mask, s);
+  } else {
+    return dcrt::walk_closest<Tri, true>(q.r, pre, tab, it.sup * kSuperRows,
+                                         t_min, tl, mask, s);
+  }
+}
+
+template <class Tri, bool kInst>
+__global__ void __launch_bounds__(kGroupThreads, kGroupMinBlocks)
+closest_ray_kernel(const int* __restrict__ seg,
+                   const int* __restrict__ item_sup,
+                   const float* __restrict__ item_t,
+                   const float* __restrict__ abox,
+                   const float* __restrict__ cbox,
+                   const float* __restrict__ tab,
+                   const int* __restrict__ isup_local,
+                   const int* __restrict__ isup_inst,
+                   const float* __restrict__ inst_rows,
+                   const float* __restrict__ od,
+                   const float* __restrict__ texp, int rp, int rb,
+                   float t_min, dcrt::ClosestOut out) {
+  using Smem = std::conditional_t<kInst, InstWarpSmem, WarpSmem>;
+  __shared__ Smem smem[kGroupWarps];
+  const int i = warp_ray(rb);
+  if (i < 0) return;
+  Smem& sm = smem[threadIdx.x >> 5];
+  const RayInv q = load_od(od, rp, i);
+  stage_ray(sm, q);
+  // the world ray's test setup (instanced tables: per item, local ray)
+  const typename Tri::Pre pre = Tri::prepare(q.r);
+  Best s = start_best(texp[i]);
+  int binst = 0;
+  ItemScan sc = item_scan(seg);
+  Item it;
+  bool have = next_item<true, kInst>(sc, sm, item_sup, item_t, abox,
+                                     window(s.best), t_min, it, isup_local,
+                                     isup_inst);
+  if (have) prefetch_item<kInst>(sm, 0, abox, cbox, inst_rows, it);
+  cp_async_commit();
+  for (int st = 0; have; st ^= 1) {
+    Item it2;
+    const bool have2 = next_item<true, kInst>(
+        sc, sm, item_sup, item_t, abox, window(s.best), t_min, it2,
+        isup_local, isup_inst);
+    if (have2) prefetch_item<kInst>(sm, st ^ 1, abox, cbox, inst_rows, it2);
+    cp_async_commit();
+    cp_async_wait<1>();   // this item's stage has landed
+    __syncwarp();
+    const float* xf = nullptr;
+    if constexpr (kInst) xf = reinterpret_cast<const float*>(sm.xf[st]);
+    if (ray_item<Tri, kInst>(q, pre, sm.stage[st], xf, it, tab, t_min, s))
+      binst = it.ins;
+    __syncwarp();         // the stage is read before it is refilled
+    have = have2;
+    it = it2;
+  }
+  if constexpr (kInst) {
+    const float tri =
+        s.row >= 0
+            ? tab[static_cast<size_t>(s.row) * Tri::kCols + Tri::kMeta]
+            : 0.f;
+    out.store(i, s, static_cast<int>(tri), s.row >= 0 ? binst : 0,
+              s.row >= 0 && s.back);
+  } else {
+    dcrt::store_soup<Tri>(out, i, tab, s, s.row);
+  }
+}
+
 }  // namespace
 
 // C interface (ctypes). Pointers are device pointers; `stream` is a
 // cudaStream_t; `rb` is the ray block size (rays per block, a multiple of
 // 32, at most 1024) and divides `rp`; a ray block is one CUDA block but
-// for the grouped sweeps, which launch (rp / rb) x ceil(rb /
+// for the closest and grouped sweeps, which launch (rp / rb) x ceil(rb /
 // kGroupThreads) blocks of kGroupThreads. Each returns cudaGetLastError()
 // after the launch.
 
@@ -754,8 +874,11 @@ extern "C" int dcrt_wl_refine(const float* hsup, int hs, const int* item_blk,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The closest sweeps (per-ray and grouped) take one more table pointer
+// before the child boxes: the (Cs, 8) admission boxes (Tables.abox).
 extern "C" int dcrt_wl_closest(const int* seg, const int* item_sup,
-                               const float* item_t, int nb, const float* cbox,
+                               const float* item_t, int nb,
+                               const float* abox, const float* cbox,
                                const float* tab, int watertight,
                                const float* od, const float* texp, int rp,
                                int rb, float t_min, int* best, float* t,
@@ -765,12 +888,15 @@ extern "C" int dcrt_wl_closest(const int* seg, const int* item_sup,
   if (nb > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const dcrt::ClosestOut out{best, t, u, v, tri, inst, back, iters};
+    const dim3 grid(nb, (rb + kGroupThreads - 1) / kGroupThreads);
     if (watertight)
-      closest_kernel<RawWatertight><<<nb, rb, 0, s>>>(
-          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, out);
+      closest_ray_kernel<RawWatertight, false><<<grid, kGroupThreads, 0, s>>>(
+          seg, item_sup, item_t, abox, cbox, tab, nullptr, nullptr, nullptr,
+          od, texp, rp, rb, t_min, out);
     else
-      closest_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
-          seg, item_sup, item_t, cbox, tab, od, texp, rp, t_min, out);
+      closest_ray_kernel<BaldwinWeber, false><<<grid, kGroupThreads, 0, s>>>(
+          seg, item_sup, item_t, abox, cbox, tab, nullptr, nullptr, nullptr,
+          od, texp, rp, rb, t_min, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -792,8 +918,7 @@ extern "C" int dcrt_wl_any(const int* seg, const int* item_sup, int nb,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The grouped sweeps take one more table pointer before the child boxes:
-// the (Cs, 8) admission boxes (Tables.abox).
+// The grouped sweeps take the admission boxes too.
 extern "C" int dcrt_wl_closest_grouped(
     const int* seg, const int* item_sup, const float* item_t, int nb,
     const float* abox, const float* cbox, const float* tab, int watertight,
@@ -836,17 +961,23 @@ extern "C" int dcrt_wl_any_grouped(const int* seg, const int* item_sup,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The grouped kernels' resources, for the report: per kernel (closest
-// Baldwin-Weber, closest watertight, any-hit Baldwin-Weber, any-hit
-// watertight) 5 ints: resident blocks per SM, registers, static shared
-// bytes, local (spill) bytes per thread, threads per block.
-extern "C" int dcrt_wl_grouped_resources(int* out) {
-  const void* fns[4] = {
+// The warp-walk kernels' resources, for the report: per kernel (grouped
+// closest Baldwin-Weber, grouped closest watertight, grouped any-hit
+// Baldwin-Weber, grouped any-hit watertight, per-ray closest Baldwin-Weber,
+// per-ray closest watertight, instanced closest Baldwin-Weber, instanced
+// closest watertight) 5 ints: resident blocks per SM, registers, static
+// shared bytes, local (spill) bytes per thread, threads per block.
+extern "C" int dcrt_wl_warp_resources(int* out) {
+  const void* fns[8] = {
       reinterpret_cast<const void*>(closest_grouped_kernel<BaldwinWeber>),
       reinterpret_cast<const void*>(closest_grouped_kernel<RawWatertight>),
       reinterpret_cast<const void*>(any_grouped_kernel<BaldwinWeber>),
-      reinterpret_cast<const void*>(any_grouped_kernel<RawWatertight>)};
-  for (int f = 0; f < 4; ++f) {
+      reinterpret_cast<const void*>(any_grouped_kernel<RawWatertight>),
+      reinterpret_cast<const void*>(closest_ray_kernel<BaldwinWeber, false>),
+      reinterpret_cast<const void*>(closest_ray_kernel<RawWatertight, false>),
+      reinterpret_cast<const void*>(closest_ray_kernel<BaldwinWeber, true>),
+      reinterpret_cast<const void*>(closest_ray_kernel<RawWatertight, true>)};
+  for (int f = 0; f < 8; ++f) {
     cudaFuncAttributes a;
     cudaFuncGetAttributes(&a, fns[f]);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 5 * f, fns[f],
@@ -861,25 +992,26 @@ extern "C" int dcrt_wl_grouped_resources(int* out) {
 
 // The instanced sweeps take dcrt_wl_closest's and dcrt_wl_any's arguments
 // with three more after the slab: the (NS,) local super and instance of
-// each super and the (I, 16) instance rows.
+// each super and the (I, 16) instance rows (16-byte aligned).
 extern "C" int dcrt_wl_closest_inst(
     const int* seg, const int* item_sup, const float* item_t, int nb,
-    const float* cbox, const float* tab, const int* isup_local,
-    const int* isup_inst, const float* inst_rows, int watertight,
-    const float* od, const float* texp, int rp, int rb, float t_min,
-    int* best, float* t, float* u, float* v, int* tri, int* inst,
-    unsigned char* back, int* iters, void* stream) {
+    const float* abox, const float* cbox, const float* tab,
+    const int* isup_local, const int* isup_inst, const float* inst_rows,
+    int watertight, const float* od, const float* texp, int rp, int rb,
+    float t_min, int* best, float* t, float* u, float* v, int* tri,
+    int* inst, unsigned char* back, int* iters, void* stream) {
   if (nb > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const dcrt::ClosestOut out{best, t, u, v, tri, inst, back, iters};
+    const dim3 grid(nb, (rb + kGroupThreads - 1) / kGroupThreads);
     if (watertight)
-      closest_inst_kernel<RawWatertight><<<nb, rb, 0, s>>>(
-          seg, item_sup, item_t, cbox, tab, isup_local, isup_inst, inst_rows,
-          od, texp, rp, t_min, out);
+      closest_ray_kernel<RawWatertight, true><<<grid, kGroupThreads, 0, s>>>(
+          seg, item_sup, item_t, abox, cbox, tab, isup_local, isup_inst,
+          inst_rows, od, texp, rp, rb, t_min, out);
     else
-      closest_inst_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
-          seg, item_sup, item_t, cbox, tab, isup_local, isup_inst, inst_rows,
-          od, texp, rp, t_min, out);
+      closest_ray_kernel<BaldwinWeber, true><<<grid, kGroupThreads, 0, s>>>(
+          seg, item_sup, item_t, abox, cbox, tab, isup_local, isup_inst,
+          inst_rows, od, texp, rp, rb, t_min, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -80,13 +80,15 @@ def pool_cast_backend(cfg, scene):
     on instanced scenes the per-ray instanced sweep, which the reference's
     "pallas_wlg" downgrades to as well). The grouped kernels' warps walk
     their block's items on their own and skip the items none of their
-    rays can enter, so on an NVIDIA H100 80GB HBM3 at 700 W the grouped
-    sweep takes 0.11-0.17x the per-ray sweep's time on a sorted 2^18-ray
-    pool (Baldwin-Weber: 0.977 against 6.59 ms closest, 0.414 against
-    3.69 any-hit) and 0.06-0.8x on the other ray sets measured, with the
-    same hits. Of "pallas_wlg", "pallas_wl" and "pallas_pair", its 1080p
-    pool pass was the fastest on the mean in three runs of four,
-    "pallas_pair" in the fourth (PERF.md)."""
+    rays can enter, with the same hits as the per-ray sweeps. On an
+    NVIDIA H100 80GB HBM3 at 700 W, on a sorted 2^18-ray pool
+    (Baldwin-Weber), the grouped any-hit sweep takes 0.416 ms against the
+    per-ray one's 3.72; the per-ray closest sweep, which walks by warps
+    too, takes 0.821 against the grouped one's 0.971 (the grouped one
+    leads on the unsorted 1M sets, 2.18 against 2.54 ms on random rays;
+    `tools/worklist_ab.py`, PERF.md). The three pool backends'
+    ("pallas_wlg", "pallas_wl", "pallas_pair") 1080p pool passes trade
+    the lead between runs (PERF.md)."""
     if cfg.pool_backend:
         return cfg.pool_backend
     if cfg.traversal_backend == "auto" and scene.cluster_bbox.shape[0] > 1:

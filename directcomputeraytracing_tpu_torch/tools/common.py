@@ -1,5 +1,6 @@
 """What `chip_smoke.py` and the kernel tools share: the seeded ray sets
-of the sphere grids, CUDA-event timing and sweep-state diffs.
+of the sphere grids, spread ray blocks, CUDA-event timing and
+sweep-state diffs.
 
 `grid_ray_sets` draws every set from one numpy generator in one fixed
 order, whichever sets the caller keeps, so two callers with the same
@@ -95,6 +96,16 @@ def grid_ray_sets(rng, tables, cam, device, half=18.0, shadow_half=9.0,
         sets["pool_sorted"] = (*sorted_rays(tables, o_pool, d_pool),
                                t_max["pool_sorted"])
     return sets
+
+
+def spread_blocks(n_rays, n_blocks, device, rb):
+    """Indices of the rays of n_blocks rb-ray blocks (the work list's RB)
+    spread evenly over n_rays rays."""
+    nb = n_rays // rb
+    blocks = torch.arange(0, nb, max(1, nb // n_blocks),
+                          device=device)[:n_blocks]
+    return (blocks[:, None] * rb
+            + torch.arange(rb, device=device)).reshape(-1)
 
 
 def timed(fn, reps, warm=True):

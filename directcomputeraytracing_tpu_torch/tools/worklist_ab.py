@@ -1,0 +1,566 @@
+"""A/B of the work-list sweeps' warp-walk kernels on one GPU.
+
+    python -m directcomputeraytracing_tpu_torch.tools.worklist_ab \
+        [--parent DIR] [--rows ROWS] [--reps N]
+
+Times, in turns, the kernels of `csrc/worklist.cu` that walk a ray
+block's items by warps, Baldwin-Weber and watertight:
+
+- `grouped` (kernel rows 11-12): `closest_grouped_kernel` and
+  `any_grouped_kernel` on the five ray sets of `chip_smoke.py` phase 2c
+  over `sphere_grid(12, 12)` (211,972 triangles; `ray_sets`, seed
+  20261018): 1,048,576 tiled camera rays, 1,048,576 random rays from
+  inside the scene box, 1,048,576 shadow rays towards the lamp, the
+  random set in `ray_sort_key` order and a pool-sized (2^18) sorted set;
+  the per-ray sweeps `sweep_closest` / `sweep_any` beside them;
+- `ray` (row 9): the per-ray closest sweep `closest_ray_kernel` on the
+  same five sets;
+- `inst` (row 13): the same kernel on instanced tables, on the four sets
+  of phase 2d over `sphere_grid(27, 27)` (1,073,092 triangles; seed
+  20261019): camera, shadow, random sorted and the sorted 2^18 pool.
+
+`--rows` picks some of them (comma-separated; default all). Variants:
+
+- `parent`: `--parent DIR`'s `worklist.cu` with its headers, an earlier
+  version of the source, built under the library name worklist_parent.
+  A source with this C interface (it exports `dcrt_wl_warp_resources`)
+  is bound as the package's; else it must be commit 8f64292's, whose
+  per-ray closest kernels take no admission boxes and vote per 1024-ray
+  block (`_bind_parent`);
+- `new`: the package's build of the source.
+
+Each is timed with CUDA events, the mean of `reps` (default 5) launches
+after a warm-up, in turns: the variants in order, then in reverse
+(parent, new, new, parent; the grouped row also the per-ray sweep). A
+line per (row, set, test, kind) gives the turns and their mean. Every
+variant must equal `new` in every field of the sweep state (`iters`
+included: without a cap the walks count the same), `new` its twin in
+every field on 64 ray blocks spread over the set (rows 9 and 13), and
+the grouped kernels the per-ray sweep in the hit fields; the tool exits
+non-zero otherwise. One exception, exact: the per-ray kernels of commit
+8f64292 swept a padded super's empty padding clusters where their block
+voted for it and the ray's warp would not, so there `iters` must exceed
+`new`'s by the count of `padding_iters`, walked on the blocks where it
+can be non-zero (`cube_blocks`, where `new` must also equal the twin).
+Prints the card's name and power limit first, then per built variant
+its sweep kernels' ptxas lines and (`new`) the warp-walk kernels'
+resources (resident blocks per SM, registers, shared and spill bytes).
+Needs a CUDA device; with none it exits non-zero.
+
+`ray_sets`, `inst_ray_sets`, the censuses (`closest_census`,
+`any_census`, `ray_census`), their summaries and `ptxas_report` serve
+`chip_smoke.py` phases 1, 2b, 2c and 2d too: the censuses walk the
+twins' own steps and count the (item, warp) pairs of the warp walks;
+`padding_iters` walks the per-ray twin the same way.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from ..accel import worklist as wl
+from ..core.types import to_device
+from ..scene.presets import sphere_grid
+from ..scene.scene import flatten_scene
+from .common import grid_ray_sets, spread_blocks, sweep_diffs, timed
+
+GRID = (12, 12)
+INST_GRID = (27, 27)
+SEED = 20261018
+INST_SEED = 20261019
+INST_SETS = ("camera", "shadow", "random_sorted", "pool_sorted")
+TWIN_BLOCKS = 64
+T_MIN = 1e-4
+ROWS = ("grouped", "ray", "inst")
+
+
+def ray_sets(tables, cam, device, seed=SEED):
+    """The five ray sets of the sphere grid, name -> (o, d, t_max)
+    (`tools.common.grid_ray_sets`)."""
+    return grid_ray_sets(np.random.default_rng(seed), tables, cam, device)
+
+
+def inst_ray_sets(tables, cam, device, seed=INST_SEED):
+    """The four ray sets of `sphere_grid(27, 27)` (phase 2d's)."""
+    return grid_ray_sets(np.random.default_rng(seed), tables, cam, device,
+                         half=21.0, shadow_half=20.0, names=INST_SETS)
+
+
+def _walk_census(step, tables, items, od, texp, t_min, watertight,
+                 gap=None):
+    """Walk a closest twin's steps (`step`: `wl.closest_step` or
+    `wl.grouped_closest_step`) over one cast and count its (item, warp)
+    pairs: `pairs` (every warp of a block against every item of its
+    block), `block_voted` (passing the first per-ray sweep's block vote),
+    `warp_voted` (the warp vote), `admitted` (then the super-box
+    admission, `wl.warp_admitted`) and `entered`, the (ray, item) pairs
+    whose fine cull entered a child (where the instanced kernel moves the
+    ray to local space). With gap ((2, Rp) int32) also add `_vote_gap`'s
+    counts of each step. Returns (the walk's state, `wl._Best`, and the
+    counts)."""
+    rp, n = od.shape[1], Counter()
+    st = wl._Best(texp)
+    for lo in range(0, rp, wl.TWIN_RAY_CHUNK):
+        for rays, item in wl._ray_steps(items, lo,
+                                        min(rp, lo + wl.TWIN_RAY_CHUNK)):
+            voted, v_item = wl._voted(items, rays, item, st.best, wl.GL)
+            block, b_item = wl._voted(items, rays, item, st.best)
+            sup = items.sup[v_item].long()
+            cap = wl._window(st.best[voted])
+            adm = wl.warp_admitted(tables.abox[sup], od[:, voted], cap, t_min)
+            enter, _ = wl._fine_cull(tables.cbox3[sup], od[:, voted], cap,
+                                     t_min)
+            n.update(pairs=rays.numel() // wl.GL,
+                     block_voted=block.numel() // wl.GL,
+                     warp_voted=voted.numel() // wl.GL,
+                     admitted=int(adm.sum()) // wl.GL,
+                     entered=int(enter.any(1).sum()))
+            if gap is not None:
+                _vote_gap(tables, items, od, t_min, st, voted, block, b_item,
+                          gap)
+            step(tables, items, od, t_min, watertight, st, rays, item)
+    return st, dict(n)
+
+
+def _vote_gap(tables, items, od, t_min, st, warp, block, b_item, gap):
+    """Per ray of `block` (a step's rays that the block vote keeps, against
+    their items b_item) that the warp vote drops (its rays `warp`): add
+    the padding children (gap[0]) and the real children (gap[1]) that its
+    fine cull enters under its window before the step."""
+    drop = torch.ones(od.shape[1], dtype=torch.bool, device=od.device)
+    drop[warp] = False
+    keep = drop[block]
+    rays, box = block[keep], tables.cbox3[items.sup[b_item[keep]].long()]
+    enter, _ = wl._fine_cull(box, od[:, rays], wl._window(st.best[rays]),
+                             t_min)
+    pad = box[..., 0] > box[..., 3]     # inverted: a padding child
+    gap[0].index_add_(0, rays, (enter & pad).sum(1, dtype=torch.int32))
+    gap[1].index_add_(0, rays, (enter & ~pad).sum(1, dtype=torch.int32))
+
+
+def closest_census(tables, items, od, texp, t_min, watertight):
+    """The counts of `_walk_census` of the grouped closest walk of one
+    cast."""
+    return _walk_census(wl.grouped_closest_step, tables, items, od, texp,
+                        t_min, watertight)[1]
+
+
+def ray_census(tables, items, od, texp, t_min, watertight):
+    """The per-ray closest walk of one cast (world-soup or instanced
+    tables) by the twin's own steps: (its sweep state, which is
+    `wl.sweep_closest_torch`'s, and the counts of `_walk_census`)."""
+    st, n = _walk_census(wl.closest_step, tables, items, od, texp, t_min,
+                         watertight)
+    tab = tables.ctab if watertight else tables.bwtab
+    return st.state(tab, watertight, tables.inst_rows is not None), n
+
+
+def any_census(tables, items, od, tm, t_min, watertight):
+    """Counts of the (item, warp) pairs of the grouped any-hit walk of one
+    cast, by the twin's own steps (`wl.any_step`): `pairs`, `visited`
+    (some ray of the warp not yet occluded) and `admitted` (then the
+    super-box admission, occluded rays capped at -BIG)."""
+    rp, n = od.shape[1], Counter()
+    occ = torch.zeros(rp, dtype=torch.bool, device=od.device)
+    for lo in range(0, rp, wl.TWIN_RAY_CHUNK):
+        for rays, item in wl._ray_steps(items, lo,
+                                        min(rp, lo + wl.TWIN_RAY_CHUNK)):
+            occ_r = occ[rays]
+            adm = wl.warp_admitted(tables.abox[items.sup[item].long()],
+                                   od[:, rays],
+                                   torch.where(occ_r, -wl.BIG, tm[rays]),
+                                   t_min)
+            n.update(pairs=rays.numel() // wl.GL,
+                     visited=int((~occ_r).view(-1, wl.GL).any(1).sum()),
+                     admitted=int(adm.sum()) // wl.GL)
+            wl.any_step(tables, items, od, tm, t_min, watertight, occ, rays,
+                        item)
+    return dict(n)
+
+
+def _share(c, key):
+    return c.get(key, 0) / max(1, c.get("pairs", 0))
+
+
+def census_summary(closest, any_, rp):
+    """Per-ray and per-pair figures of the grouped walks from the
+    censuses (`closest_census`, `any_census`) of one cast of rp padded
+    rays. Fine-cull slab tests per ray: 32 for each pair the warp admits
+    (the per-ray sweep and the first grouped design: 32 for each pair of
+    an item that passed the block vote)."""
+    warps = rp // wl.GL
+    return dict(
+        pairs_per_warp=closest.get("pairs", 0) / warps,
+        closest_block_voted_share=_share(closest, "block_voted"),
+        closest_warp_voted_share=_share(closest, "warp_voted"),
+        closest_admitted_share=_share(closest, "admitted"),
+        fine_tests_per_ray=wl.SUPER * closest.get("admitted", 0) / warps,
+        fine_tests_per_ray_block_walk=wl.SUPER
+        * closest.get("block_voted", 0) / warps,
+        any_pairs_per_warp=any_.get("pairs", 0) / warps,
+        any_visited_share=_share(any_, "visited"),
+        any_admitted_share=_share(any_, "admitted"),
+        any_fine_tests_per_ray=wl.SUPER * any_.get("admitted", 0) / warps)
+
+
+def ray_census_summary(counts, rp):
+    """Per-ray and per-pair figures of the per-ray closest walk from its
+    census (`ray_census`) of one cast of rp padded rays: the shares of
+    (item, warp) pairs past the block vote, the warp vote and the
+    admission; fine-cull slab tests per ray (32 for each admitted pair;
+    the block walk of the first per-ray kernel: 32 for each pair of an
+    item its block voted for); items entered per ray."""
+    warps = rp // wl.GL
+    return dict(
+        pairs_per_warp=counts.get("pairs", 0) / warps,
+        block_voted_share=_share(counts, "block_voted"),
+        warp_voted_share=_share(counts, "warp_voted"),
+        admitted_share=_share(counts, "admitted"),
+        fine_tests_per_ray=wl.SUPER * counts.get("admitted", 0) / warps,
+        fine_tests_per_ray_block_walk=wl.SUPER
+        * counts.get("block_voted", 0) / warps,
+        entered_items_per_ray=counts.get("entered", 0) / rp)
+
+
+def padding_iters(tables, items, od, texp, t_min, watertight):
+    """The per-ray closest twin's walk of one cast (warp vote), and what
+    the first per-ray kernels' vote per 1024-ray block adds to it:
+    (the twin's sweep state, gap (2, Rp) int32). A padding child's
+    inverted box reads to a slab test as the cube [-1, 1]^3, which may
+    lie outside its super's box, so a vote on the super's entry distance
+    is not exact for it. Per ray, gap[0] counts the padding children its
+    fine cull enters in the items that its block votes for and its warp
+    does not: empty clusters that the block walk sweeps (so its `iters`
+    is the twin's plus gap[0]) and that change nothing else. gap[1]
+    counts the real children entered there: none without a t_cap, where
+    the vote skips only items whose real children the ray cannot enter
+    (`block_vote_diffs` holds a block-vote state to this)."""
+    gap = torch.zeros(2, od.shape[1], dtype=torch.int32, device=od.device)
+    st, _ = _walk_census(wl.closest_step, tables, items, od, texp, t_min,
+                         watertight, gap)
+    tab = tables.ctab if watertight else tables.bwtab
+    return st.state(tab, watertight, tables.inst_rows is not None), gap
+
+
+def block_vote_diffs(block, warp, gap):
+    """Rays where a sweep state of the block vote (block) and one of the
+    warp vote (warp) of the same cast disagree, per field, beyond the
+    padding clusters of `padding_iters` (gap): every field but `iters`
+    must be equal and `iters` exceed warp's by exactly gap[0]; `real`
+    counts rays that entered a real child in an item only the block
+    voted for."""
+    out = sweep_diffs(block, warp, 7)
+    out["iters"] = int(((block[7] - warp[7]) != gap[0]).sum())
+    out["real"] = int((gap[1] != 0).sum())
+    return out
+
+
+def cube_blocks(od, texp, r, t_min=T_MIN):
+    """Indices (below r) of the rays of the RB-ray blocks that hold a ray
+    entering the cube [-1, 1]^3 under its first window (the scene exit):
+    only there can `padding_iters`'s gap be non-zero, since a padding
+    child reads to the fine cull as that cube and windows only shrink."""
+    cube = torch.tensor(wl._INVERTED_BOX, dtype=od.dtype, device=od.device)
+    first = wl._window(wl._float_bits(texp) | wl._LOWM)
+    enter = wl._fine_cull(cube.expand(od.shape[1], 1, 8), od, first,
+                          t_min)[0][:, 0]
+    blocks = torch.nonzero(enter.view(-1, wl.RB).any(1))[:, 0]
+    rays = (blocks[:, None] * wl.RB
+            + torch.arange(wl.RB, device=od.device)).reshape(-1)
+    return rays[rays < r]
+
+
+def _short(entry):
+    """Short name of a sweep kernel's mangled entry (the warp-walk
+    kernels; commit 8f64292's per-ray closest kernels, `--parent`, as the
+    per-ray closest kernels), or None."""
+    test = "wt" if "RawWatertight" in entry else "bw"
+    if "closest_ray_kernel" in entry:
+        return f"{'inst' if 'Lb1E' in entry else 'ray'}_closest_{test}"
+    if "14closest_kernel" in entry or "19closest_inst_kernel" in entry:
+        return f"{'inst' if 'inst' in entry else 'ray'}_closest_{test}"
+    for kind in ("closest", "any"):
+        if f"{kind}_grouped_kernel" in entry:
+            return f"{kind}_{test}"
+    return None
+
+
+def ptxas_report(log):
+    """The ptxas lines (`nvcc -Xptxas -v`) of the sweep kernels `_short`
+    names: {short name: {registers, smem, stack, spill_stores,
+    spill_loads}}, short names those of `wl.WARP_KERNELS`."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = _short(m.group(1))
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        for name, pat in (("registers", r"Used (\d+) registers"),
+                          ("smem", r"(\d+) bytes smem"),
+                          ("stack", r"(\d+) bytes stack frame"),
+                          ("spill_stores", r"(\d+) bytes spill stores"),
+                          ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, line)
+            if m:
+                out[cur][name] = int(m.group(1))
+    return out
+
+
+def _bind_parent(lib):
+    """Bind a parent's build: (name -> (entry, takes admission boxes),
+    whether its per-ray closest kernels vote per block). A build that
+    exports `dcrt_wl_warp_resources` has the package's C interface;
+    else it is commit 8f64292's: the grouped sweeps' as now, the per-ray
+    closest sweeps without admission boxes."""
+    if hasattr(lib, "dcrt_wl_warp_resources"):
+        return _entries(wl.bind(lib)), False
+    c_p, c_i, c_f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    closest = [c_p, c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i, c_i, c_f,
+               c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p]
+    lib.dcrt_wl_closest.argtypes = closest
+    lib.dcrt_wl_closest_inst.argtypes = closest[:6] + [c_p] * 3 \
+        + closest[6:]
+    lib.dcrt_wl_closest_grouped.argtypes = closest[:4] + [c_p] \
+        + closest[4:]
+    lib.dcrt_wl_any_grouped.argtypes = [c_p, c_p, c_i, c_p, c_p, c_p, c_i,
+                                        c_p, c_p, c_i, c_i, c_f, c_p, c_p]
+    for fn in (lib.dcrt_wl_closest, lib.dcrt_wl_closest_inst,
+               lib.dcrt_wl_closest_grouped, lib.dcrt_wl_any_grouped):
+        fn.restype = c_i
+    return dict(ray=(lib.dcrt_wl_closest, False),
+                inst=(lib.dcrt_wl_closest_inst, False),
+                grouped_closest=(lib.dcrt_wl_closest_grouped, True),
+                grouped_any=(lib.dcrt_wl_any_grouped, True)), True
+
+
+def _entries(lib):
+    return dict(ray=(lib.dcrt_wl_closest, True),
+                inst=(lib.dcrt_wl_closest_inst, True),
+                grouped_closest=(lib.dcrt_wl_closest_grouped, True),
+                grouped_any=(lib.dcrt_wl_any_grouped, True))
+
+
+def _build(parent):
+    """(name -> (entries, built library) of the package's kernels and the
+    parent's, given a directory; whether the parent's per-ray kernels
+    vote per block). The two nvcc runs go in parallel."""
+    from ..utils.cuda_build import load_library
+
+    with ThreadPoolExecutor(2) as pool:
+        new = pool.submit(wl.kernels)
+        old = parent and pool.submit(
+            load_library, "worklist.cu", wl._NVCC_EXTRA,
+            csrc=os.path.abspath(parent), name="worklist_parent")
+    out, block_vote = {}, False
+    if old:
+        built = old.result()
+        entries, block_vote = _bind_parent(built.lib)
+        out["parent"] = (entries, built)
+    out["new"] = (_entries(new.result().lib), new.result())
+    return out, block_vote
+
+
+def _closest_run(fn, abox, tables, items, od, texp, wt):
+    def run():
+        err, out = wl._launch_closest(fn, tables, items, od, texp, T_MIN, wt,
+                                      abox)
+        wl._raise_on(err, fn.__name__)
+        return out
+    return run
+
+
+def _any_run(fn, tables, items, od, tm, wt):
+    def run():
+        err, occ = wl._launch_any(fn, tables, items, od, tm, T_MIN, wt,
+                                  abox=True)
+        wl._raise_on(err, fn.__name__)
+        return occ
+    return run
+
+
+def _in_turns(runs, reps):
+    """name -> the ms of each turn: the runs in order, then in reverse."""
+    order = list(runs)
+    turns = {name: [] for name in order}
+    for name in order + order[::-1]:
+        turns[name].append(timed(runs[name], reps))
+    return order + order[::-1], turns
+
+
+def _line(row, case, wt, kind, rays, items, order, turns, **extra):
+    return dict(row=row, case=case, watertight=wt, kind=kind, rays=rays,
+                items=items, order=order, ms=turns,
+                mean_ms={n: sum(t) / len(t) for n, t in turns.items()},
+                **extra)
+
+
+def _prepared(tables, o, d, t_max):
+    od, tm_c, _ = wl.prep_rays(o, d)
+    _, tm_a, _ = wl.prep_rays(o, d, t_max)
+    return (od, tm_a, wl.scene_exit(tables, od), wl.phases(tables, od, tm_c),
+            wl.phases(tables, od, tm_a))
+
+
+def _grouped_row(variants, tables, sets, reps, bad):
+    for case, (o, d, t_max) in sets.items():
+        od, tm_a, texp, it_c, it_a = _prepared(tables, o, d, t_max)
+        for wt in (False, True):
+            runs_c = {n: _closest_run(*e["grouped_closest"], tables, it_c, od,
+                                      texp, wt)
+                      for n, (e, _) in variants.items()}
+            runs_a = {n: _any_run(e["grouped_any"][0], tables, it_a, od,
+                                  tm_a, wt)
+                      for n, (e, _) in variants.items()}
+            runs_c["per_ray"] = lambda: wl.sweep_closest(
+                tables, it_c, od, texp, T_MIN, wt)
+            runs_a["per_ray"] = lambda: wl.sweep_any(tables, it_a, od, tm_a,
+                                                     T_MIN, wt)
+            want_c, want_a = runs_c["new"](), runs_a["new"]()
+            check = {}
+            for name in runs_c:
+                n = 7 if name == "per_ray" else 8
+                check[name] = dict(
+                    closest=sweep_diffs(runs_c[name](), want_c, n),
+                    occ=int((runs_a[name]() != want_a).sum()))
+                if any(check[name]["closest"].values()) \
+                        or check[name]["occ"]:
+                    bad.append(("grouped", case, wt, name))
+            for kind, runs, it in (("closest", runs_c, it_c),
+                                   ("any", runs_a, it_a)):
+                order, turns = _in_turns(runs, reps)
+                extra = dict(diffs_vs_new=check) if kind == "closest" else {}
+                print("worklist-ab", json.dumps(_line(
+                    "grouped", case, wt, kind, o.shape[0],
+                    int(it.seg[-1]), order, turns, **extra)))
+
+
+def _block_vote_check(tables, o, d, t_max, cube, parent, new, wt):
+    """A parent that votes per block against `new` on one set: exactly
+    equal outside the blocks `cube` (`cube_blocks`); on them, `new` equal
+    to the twin and the parent to `block_vote_diffs` of `padding_iters`.
+    Returns (the differences, flat, and what the gap counted)."""
+    rest = torch.ones(new[0].shape[0], dtype=torch.bool, device=o.device)
+    rest[cube] = False
+    diffs = {f"outside_{f}": n for f, n in sweep_diffs(
+        [x[rest] for x in parent], [x[rest] for x in new]).items()}
+    info = dict(cube_rays=int(cube.numel()), padding_rays=0,
+                padding_clusters=0)
+    if cube.numel():
+        od, _, texp, items, _ = _prepared(tables, o[cube], d[cube],
+                                          t_max[cube])
+        twin, gap = padding_iters(tables, items, od, texp, T_MIN, wt)
+        n = cube.numel()
+        twin, gap = [x[:n] for x in twin], gap[:, :n]
+        parent, new = ([x[cube] for x in s] for s in (parent, new))
+        diffs.update({f"cube_twin_{f}": v for f, v in
+                      sweep_diffs(new, twin).items()})
+        diffs.update({f"cube_{f}": v for f, v in
+                      block_vote_diffs(parent, new, gap).items()})
+        info.update(padding_rays=int((gap[0] > 0).sum()),
+                    padding_clusters=int(gap[0].sum()))
+    return diffs, info
+
+
+def _ray_row(row, variants, tables, sets, reps, bad, block_vote):
+    """Rows 9 and 13: the per-ray closest sweep of every variant, in turns;
+    equality with `new` on the whole set (a parent that votes per block,
+    block_vote: `_block_vote_check`) and of `new` with its twin on
+    TWIN_BLOCKS spread blocks."""
+    for case, (o, d, t_max) in sets.items():
+        od, _, texp, it_c, _ = _prepared(tables, o, d, t_max)
+        idx = spread_blocks(o.shape[0], TWIN_BLOCKS, o.device, wl.RB)
+        od_s, _, texp_s, it_s, _ = _prepared(tables, o[idx], d[idx],
+                                             t_max[idx])
+        cube = cube_blocks(od, texp, o.shape[0]) if block_vote else None
+        for wt in (False, True):
+            runs = {n: _closest_run(*e[row], tables, it_c, od, texp, wt)
+                    for n, (e, _) in variants.items()}
+            want = runs["new"]()
+            got = {n: run() for n, run in runs.items()}
+            check = {n: sweep_diffs(g, want) for n, g in got.items()}
+            new_s = _closest_run(*variants["new"][0][row], tables, it_s,
+                                 od_s, texp_s, wt)()
+            check["twin"] = sweep_diffs(
+                new_s, wl.sweep_closest_torch(tables, it_s, od_s, texp_s,
+                                              T_MIN, wt))
+            padding = {}
+            if cube is not None and "parent" in got:
+                check["parent"], padding = _block_vote_check(
+                    tables, o, d, t_max, cube, got["parent"], want, wt)
+            for name, diff in check.items():
+                if any(diff.values()):
+                    bad.append((row, case, wt, name))
+            order, turns = _in_turns(runs, reps)
+            print("worklist-ab", json.dumps(_line(
+                row, case, wt, "closest", o.shape[0], int(it_c.seg[-1]),
+                order, turns, twin_rays=int(idx.numel()),
+                diffs_vs_new=check, parent_block_vote=padding,
+                iters_per_ray=float(want[7][:o.shape[0]].float().mean()))))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", help="directory of an earlier worklist.cu")
+    ap.add_argument("--rows", default=",".join(ROWS))
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("worklist_ab: no CUDA device", file=sys.stderr)
+        return 1
+    rows = args.rows.split(",")
+    if set(rows) - set(ROWS):
+        ap.error(f"--rows: pick from {ROWS}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    dev = torch.device("cuda")
+    variants, block_vote = _build(args.parent)
+    for name, (_, built) in variants.items():
+        rep = dict(variant=name, build_s=built.seconds,
+                   ptxas=ptxas_report(built.log))
+        if name == "new":
+            rep["resources"] = wl.warp_resources()
+        print("worklist-ab-build", json.dumps(rep))
+    bad = []
+    if "grouped" in rows or "ray" in rows:
+        scene, cam = sphere_grid(*GRID)
+        arrays, _ = flatten_scene(scene, dev)
+        tables = wl.scene_tables(arrays)
+        sets = ray_sets(tables, to_device(cam, dev), dev)
+        if "grouped" in rows:
+            _grouped_row(variants, tables, sets, args.reps, bad)
+        if "ray" in rows:
+            _ray_row("ray", variants, tables, sets, args.reps, bad,
+                     block_vote)
+        del arrays, tables, sets
+    if "inst" in rows:
+        scene, cam = sphere_grid(*INST_GRID)
+        arrays, _ = flatten_scene(scene, dev)
+        tables = wl.scene_tables(arrays)
+        if tables.inst_rows is None:
+            raise SystemExit("sphere_grid(27, 27) should use the instanced "
+                             "tables")
+        _ray_row("inst", variants, tables,
+                 inst_ray_sets(tables, to_device(cam, dev), dev), args.reps,
+                 bad, block_vote)
+    if bad:
+        print(f"worklist_ab: variants differ: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

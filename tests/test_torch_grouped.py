@@ -46,6 +46,7 @@ from directcomputeraytracing_tpu_torch.accel.traverse import (
     intersect_closest,
     intersect_closest_slab,
 )
+from directcomputeraytracing_tpu_torch.scene import scene as scene_mod
 from directcomputeraytracing_tpu_torch.scene.presets import (
     alpha_sphere_grid,
     sphere_grid,
@@ -56,7 +57,7 @@ from directcomputeraytracing_tpu_torch.scene.scene import (
     Scene,
     flatten_scene,
 )
-from directcomputeraytracing_tpu_torch.tools import grouped_ab
+from directcomputeraytracing_tpu_torch.tools import worklist_ab
 
 GRID = (3, 3)
 GRID_KW = dict(stacks=12, slices=16)
@@ -127,28 +128,41 @@ def _random_soup(n=2100, seed=5):
 
 @pytest.fixture(scope="module")
 def scenes(port_scene):
-    """name -> a scene with world-soup cluster tables."""
+    """name -> a scene with work-list tables: world-soup cluster tables
+    but for "instanced", the grid forced onto the instanced tables (its
+    flattening's SOUP_MAX_TRIS lowered, as the instanced tests do)."""
     alpha = flatten_scene(alpha_sphere_grid(*GRID, **GRID_KW)[0], "cpu")[0]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(scene_mod, "SOUP_MAX_TRIS", 256)
+        inst = flatten_scene(sphere_grid(*GRID, **GRID_KW)[0], "cpu")[0]
     return {"grid": port_scene, "alpha_opaque": _split_view(alpha, False),
             "alpha_masked": _split_view(alpha, True),
-            "soup": _random_soup()}
+            "soup": _random_soup(), "instanced": inst}
 
 
 @pytest.mark.parametrize("name", ["grid", "alpha_opaque", "alpha_masked",
-                                  "soup"])
+                                  "soup", "instanced"])
 def test_super_box_contains_its_children(scenes, name):
     """sbox holds each real child box bit for bit (lo <= the child's lo,
     hi >= its hi); abox, the kernels' admission box, holds every child box
     as a slab test reads it (padding's inverted box is the cube [-1, 1]^3)
-    and is sbox itself on supers without padding."""
+    and is sbox itself on supers without padding. On instanced tables the
+    children are the world boxes of each (instance, local super) pair."""
     scene = scenes[name]
     tables = wl.scene_tables(scene)
-    c = scene.cluster_bbox.shape[0]
     cs = tables.sbox.shape[0]
     child = tables.cbox3.reshape(-1, 8)
     sup = torch.arange(cs * wl.SUPER) // wl.SUPER
-    real = torch.arange(cs * wl.SUPER) < c
-    assert torch.equal(child[:c], scene.cluster_bbox)
+    if name == "instanced":
+        assert tables.inst_rows is not None
+        assert torch.equal(tables.cbox3, scene.isup_cbox)
+        real = child[:, 0] <= child[:, 3]
+        assert (child[~real, 0:6] == torch.tensor(
+            [1.0, 1.0, 1.0, -1.0, -1.0, -1.0])).all()
+    else:
+        c = scene.cluster_bbox.shape[0]
+        real = torch.arange(cs * wl.SUPER) < c
+        assert torch.equal(child[:c], scene.cluster_bbox)
     assert (tables.sbox[sup[real], 0:3] <= child[real, 0:3]).all()
     assert (tables.sbox[sup[real], 3:6] >= child[real, 3:6]).all()
     lo = torch.minimum(child[:, 0:3], child[:, 3:6])
@@ -157,7 +171,7 @@ def test_super_box_contains_its_children(scenes, name):
     assert (tables.abox[sup, 3:6] >= hi).all()
     padded = ~real.view(cs, wl.SUPER).all(1)
     assert torch.equal(tables.abox[~padded], tables.sbox[~padded])
-    assert bool(padded.any()) == (name == "soup")
+    assert bool(padded.any()) == (name in ("soup", "instanced"))
 
 
 def _pairs(tables, items):
@@ -172,7 +186,7 @@ def _pairs(tables, items):
 
 @pytest.mark.parametrize("kind", ["closest", "any"])
 @pytest.mark.parametrize("rays", ["random", "shadow"])
-@pytest.mark.parametrize("name", ["grid", "soup"])
+@pytest.mark.parametrize("name", ["grid", "soup", "instanced"])
 def test_warp_admission_refuses_no_entered_child(scenes, name, rays, kind):
     """The plain model of the kernels' super-box admission never refuses
     an (item, warp) in which some ray's fine cull enters a child, under
@@ -221,7 +235,7 @@ def test_admission_changes_no_field(scenes, monkeypatch, name, cap):
     items = wl.phases(tables, od, tm, plain=True)
     got = wl.sweep_closest_grouped_torch(tables, items, od, texp, 1e-4,
                                          False)
-    census = grouped_ab.closest_census(tables, items, od, texp, 1e-4, False)
+    census = worklist_ab.closest_census(tables, items, od, texp, 1e-4, False)
     with monkeypatch.context() as m:
         m.setattr(wl, "warp_admitted", lambda abox, od_r, c, t: torch.ones(
             od_r.shape[1], dtype=torch.bool))
@@ -249,13 +263,112 @@ def test_any_census_counts_the_walk(scenes, name):
     o, d, t_max = (torch.from_numpy(x) for x in (o, d, t_max))
     od, tm, _ = wl.prep_rays(o, d, t_max)
     items = wl.phases(tables, od, tm, plain=True)
-    census = grouped_ab.any_census(tables, items, od, tm, 1e-4, False)
+    census = worklist_ab.any_census(tables, items, od, tm, 1e-4, False)
     counts = (items.seg[1:] - items.seg[:-1]).long()
     assert census["pairs"] == int(counts.sum()) * (wl.RB // wl.GL)
     assert census["pairs"] >= census["visited"] > census["admitted"] > 0
-    summary = grouped_ab.census_summary({}, census, od.shape[1])
+    summary = worklist_ab.census_summary({}, census, od.shape[1])
     assert 0 < summary["any_admitted_share"] < 1
     assert wl.sweep_any_torch(tables, items, od, tm, 1e-4, False).any()
+
+
+def _block_vote(monkeypatch, fn, *args):
+    """fn(*args) with the closest twins' vote taken per 1024-ray block, as
+    the first per-ray kernels took it."""
+    voted = wl._voted
+    with monkeypatch.context() as m:
+        m.setattr(wl, "_voted", lambda items, rays, item, best, group=None:
+                  voted(items, rays, item, best))
+        return fn(*args)
+
+
+@pytest.mark.parametrize("cap", [None, "scalar", "per_ray"])
+@pytest.mark.parametrize("name", ["grid", "instanced"])
+def test_per_ray_warp_vote_matches_block_vote(scenes, monkeypatch, name,
+                                              cap):
+    """The per-ray twin (and so `closest_ray_kernel`) votes per warp; the
+    first per-ray kernel voted per 1024-ray block. Without a t_cap the two
+    give the same sweep state but for `iters`, which the block vote raises
+    by exactly the empty padding clusters `padding_iters` counts; with one
+    the decoded hits agree. The census walk and `padding_iters` walk the
+    twin: their state is the twin's, and the census counts what the warp
+    vote and the admission refused."""
+    scene = scenes[name]
+    tables = wl.scene_tables(scene)
+    o, d, t_max = (torch.from_numpy(x) for x in _rays(3 * wl.RB + 77, 55))
+    od, tm, r = wl.prep_rays(o, d)
+    texp = wl.scene_exit(tables, od)
+    if cap:
+        c = wl._cap(1.2 if cap == "scalar" else t_max, texp, r)
+        texp, tm = torch.minimum(texp, c), torch.minimum(tm, c)
+    items = wl.phases(tables, od, tm, plain=True)
+    warp = wl.sweep_closest_torch(tables, items, od, texp, 1e-4, False)
+    state, census = worklist_ab.ray_census(tables, items, od, texp, 1e-4,
+                                           False)
+    padded, gap = worklist_ab.padding_iters(tables, items, od, texp, 1e-4,
+                                            False)
+    block = _block_vote(monkeypatch, wl.sweep_closest_torch, tables, items,
+                        od, texp, 1e-4, False)
+    for a, b, c in zip(warp, state, padded):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    decoded = [wl.decode_closest(x, texp, items.block_any, r)
+               for x in (warp, block)]
+    for a, b in zip(*decoded):
+        assert torch.equal(a, b)
+    if not cap:
+        diffs = worklist_ab.block_vote_diffs(block, warp, gap)
+        assert not any(diffs.values()), diffs
+    assert torch.isfinite(decoded[0][0]).sum() > 100
+    assert (census["pairs"] >= census["block_voted"]
+            >= census["warp_voted"] > census["admitted"] > 0)
+    assert census["entered"] <= census["admitted"] * wl.GL
+    summary = worklist_ab.ray_census_summary(census, od.shape[1])
+    assert (summary["fine_tests_per_ray"]
+            < summary["fine_tests_per_ray_block_walk"])
+
+
+@pytest.mark.parametrize("name", ["grid", "instanced"])
+def test_padding_iters_explains_only_padding(scenes, monkeypatch, name):
+    """`padding_iters` counts exactly the empty padding clusters that the
+    block vote sweeps and the warp vote does not. One 1024-ray block: 16
+    warps fall onto the centre sphere from above through the cube
+    [-1, 1]^3 (how a slab test reads a padding child's inverted box) and
+    hit it before the ground's entry distance, so their warps refuse the
+    ground; 16 warps fall onto the ground between the spheres, so the
+    block keeps it. On the instanced tables the ground is one cluster of
+    a super padded with 31, and the block vote sweeps those 31 for each
+    ray of the first 16 warps. `block_vote_diffs` then finds nothing, and
+    finds a fault of one cluster in any ray's `iters`."""
+    tables = wl.scene_tables(scenes[name])
+    g = torch.arange(wl.RB // 2, dtype=torch.float32)
+    jx, jz = (g % 16) / 16 - 0.5, (g // 16) / 32 - 0.5
+    o = torch.cat([torch.stack([0.2 * jx, torch.full_like(g, 3.0),
+                                0.2 * jz], 1),
+                   torch.stack([0.75 + 0.1 * jx, torch.full_like(g, 3.0),
+                                0.75 + 0.1 * jz], 1)])
+    d = torch.tensor([0.01, -1.0, 0.013]).expand(wl.RB, 3)
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    od, tm, r = wl.prep_rays(o, d)
+    texp = wl.scene_exit(tables, od)
+    items = wl.phases(tables, od, tm, plain=True)
+    warp, gap = worklist_ab.padding_iters(tables, items, od, texp, 1e-4,
+                                          False)
+    block = _block_vote(monkeypatch, wl.sweep_closest_torch, tables, items,
+                        od, texp, 1e-4, False)
+    hit = wl.decode_closest(warp, texp, items.block_any, r)
+    assert torch.isfinite(hit[0]).all()
+    assert (hit[0][:wl.RB // 2] < 2.9).all()          # the sphere's top
+    assert not any(worklist_ab.block_vote_diffs(block, warp, gap).values())
+    assert not gap[1].any()
+    if name == "instanced":
+        assert (gap[0][:wl.RB // 2] == 31).all()
+        assert not gap[0][wl.RB // 2:].any()
+    for ray in (0, wl.RB - 1):
+        fault = list(block)
+        fault[7] = block[7].clone()
+        fault[7][ray] += 1
+        diffs = worklist_ab.block_vote_diffs(fault, warp, gap)
+        assert diffs["iters"] == 1 and sum(diffs.values()) == 1
 
 
 def _assert_closest_close(want, got, min_hits=40):

@@ -191,6 +191,38 @@ def test_local_clusters_and_supers_match_reference(scenes, name):
 
 
 @pytest.mark.parametrize("name", ["grid", "two_mesh"])
+def test_instanced_admission_boxes(scenes, name):
+    """The instanced tables carry the closest sweep's admission boxes: per
+    (instance, local super) the min/max of its world child boxes as a
+    slab test reads them (a padding child's inverted box as the cube
+    [-1, 1]^3), isup_sbox itself on supers without padding; so a ray that
+    enters a child box under a cap enters the admission box under it."""
+    tables = wl.scene_tables(scenes[name][0])
+    assert tables.inst_rows is not None
+    cs = tables.sbox.shape[0]
+    assert tables.abox.shape == (cs, 8) and tables.abox.is_contiguous()
+    child = tables.cbox3
+    lo = torch.minimum(child[..., 0:3], child[..., 3:6])
+    hi = torch.maximum(child[..., 0:3], child[..., 3:6])
+    assert (tables.abox[:, None, 0:3] <= lo).all()
+    assert (tables.abox[:, None, 3:6] >= hi).all()
+    padded = (child[..., 0] > child[..., 3]).any(1)
+    assert padded.any()
+    assert torch.equal(tables.abox[~padded], tables.sbox[~padded])
+    o, d, t_max = (torch.from_numpy(x) for x in _rays(4096, 61))
+    od, _, _ = wl.prep_rays(o, d)
+    ray = torch.arange(od.shape[1]).repeat_interleave(cs)
+    sup = torch.arange(cs).repeat(od.shape[1])
+    cap = torch.cat([t_max, torch.full((od.shape[1] - 4096,), 1e-3)])[ray]
+    enter, _ = wl._fine_cull(child[sup], od[:, ray], cap, 1e-4)
+    adm, _ = wl._fine_cull(tables.abox[sup][:, None, :], od[:, ray], cap,
+                           1e-4)
+    entered = enter.any(1)
+    assert not (entered & ~adm[:, 0]).any()
+    assert entered.sum() > 100 and adm.sum() < adm.numel()
+
+
+@pytest.mark.parametrize("name", ["grid", "two_mesh"])
 def test_flatten_matches_the_reference_forced_flatten(scenes, name):
     """Every field the port builds equals the reference's forced flatten,
     through `from_reference`; the world soup and its opacities are the
@@ -486,3 +518,15 @@ def test_cuda_kernels_match_twins(watertight, monkeypatch):
     assert c["sweep_closest_inst"] == c["sweep_any_inst"] == 1
     assert c["sweep_closest"] == c["sweep_any"] == 0
     assert c["refine"] == 2
+    # a per-ray t_cap: the kernel's warp vote is the twin's, every field
+    tables = wl.scene_tables(arrays)
+    od, tm, r = wl.prep_rays(o, d)
+    cap = wl._cap(t_max, wl.scene_exit(tables, od), r)
+    texp, tm = torch.minimum(wl.scene_exit(tables, od), cap), \
+        torch.minimum(tm, cap)
+    items = wl.phases(tables, od, tm)
+    got = wl.sweep_closest_inst(tables, items, od, texp, 1e-4, watertight)
+    want = wl.sweep_closest_inst_torch(tables, items, od, texp, 1e-4,
+                                       watertight)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -354,3 +354,13 @@ def test_cuda_kernels_match_twins(watertight, monkeypatch):
     c = wl.counters()
     assert c["cull_boxes"] == 3 and c["refine"] == 3
     assert c["sweep_closest"] == c["sweep_any"] == 1
+    # a per-ray t_cap: the kernel's warp vote is the twin's, every field
+    od, tm, r = wl.prep_rays(o, d)
+    cap = wl._cap(t_max, wl.scene_exit(tables, od), r)
+    texp, tm = torch.minimum(wl.scene_exit(tables, od), cap), \
+        torch.minimum(tm, cap)
+    items = wl.phases(tables, od, tm)
+    got = wl.sweep_closest(tables, items, od, texp, 1e-4, watertight)
+    want = wl.sweep_closest_torch(tables, items, od, texp, 1e-4, watertight)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
