@@ -11,8 +11,9 @@ any failure exits non-zero:
    (csrc/brute_sweep.cu, csrc/worklist.cu, csrc/clustered.cu,
    csrc/pairsweep.cu, csrc/prep.cu, csrc/probes.cu; the six nvcc runs in
    parallel) and print the build times and ptxas reports, then the
-   warp-walk sweeps' (grouped, per-ray and instanced closest) registers,
-   shared memory and spills (ptxas) and their resident blocks per SM;
+   warp-walk sweeps' (grouped, per-ray and instanced, closest and
+   any-hit) registers, shared memory and spills (ptxas, `warp-ptxas`)
+   and their resident blocks per SM (`warp-resources`);
 2. dense-sweep kernels against their PyTorch twins on the card, Moeller
    and watertight, closest and any-hit: (a) the Cornell soup (32
    triangles) with 1,048,576 camera rays plus 1,048,576 random rays from
@@ -25,15 +26,19 @@ any failure exits non-zero:
    per-ray t_max; mismatch counts of the casts against the plain casts
    (every step in PyTorch), `iters` equality, the kernels' item lists
    equal to the plain phases', the closest sweep against its twin (on
-   the plain prep and phases) in every field of the sweep state,
-   kernel and twin times at the camera rays (CUDA events), items per
-   block and mean clusters swept per ray; the census of the per-ray
-   closest sweep's warp walk, counted by walking the twin's steps
-   (`tools/worklist_ab.py` `ray_census`, which gives the twin's state):
-   the shares of (item, warp) pairs that pass the block vote of the first
-   per-ray kernel, the warp vote and the super-box admission, fine-cull
-   slab tests per ray against the block walk's, items entered per ray
-   (`ray-census` lines);
+   the plain prep and phases) in every field of the sweep state and the
+   any-hit cast's occlusion equal to the plain cast's on every ray,
+   kernel and twin times at the camera rays (CUDA events) and the
+   any-hit sweep's on the shadow rays, items per block and mean clusters
+   swept per ray; the censuses of the per-ray sweeps' warp walks,
+   counted by walking the twins' steps (`tools/worklist_ab.py`
+   `ray_census` and `any_census`, which give the twins' results):
+   closest, the shares of (item, warp) pairs that pass the block vote of
+   the first per-ray kernel, the warp vote and the super-box admission,
+   fine-cull slab tests per ray against the block walk's, items entered
+   per ray (`ray-census` lines); any-hit, the shares of pairs visited (a
+   ray of the warp not yet done) and admitted, the same tests and items
+   (`any-census` lines);
 2c. grouped work-list kernels (closest and any-hit) against their twins
    and against the per-ray sweeps on the three 1M-ray sets of 2b plus the
    random set sorted by `ray_sort_key` (like a permuted pool) and a
@@ -57,11 +62,12 @@ any failure exits non-zero:
    and a pool-sized (2^18) sorted set. The twins run on 64 blocks spread
    over each set (65,536 rays; a 1M-ray twin cast takes minutes), where
    kernel and twin must agree in every field of the sweep state and the
-   kernels' item lists must equal the twins'; the census of the closest
-   sweep's warp walk on those rays (as in 2b; the twin's state comes
-   from it) and on the whole camera set; CUDA-event times, bounds and the
-   item census (items per block, clusters swept per ray) on the whole
-   sets, beside the soup's census of 2b;
+   kernels' item lists must equal the twins'; the censuses of the
+   closest and any-hit sweeps' warp walks on those rays (as in 2b; the
+   twins' results come from them) and on the whole camera set;
+   CUDA-event times, bounds and the item census (items per block,
+   clusters swept per ray) on the whole sets, beside the soup's census
+   of 2b;
 2e. instanced against soup: sphere_grid(12, 12) flattened twice, as the
    world soup and forced onto the instanced tables (SOUP_MAX_TRIS
    lowered): on 1,048,576 camera rays, watertight and Baldwin-Weber,
@@ -192,8 +198,9 @@ of t_min or t_max, a triangle-id disagreement only between hits within
 that bound of each other (a near-tie; for the work list also within
 2^-12 relative, twice the packed argmin's truncation quantum), and t, u,
 v of same-triangle hits must agree within 1e-5 (relative to 1 + t for
-t). Work-list `iters` must be equal, and the per-ray closest sweep its
-twin in every field of the sweep state. The grouped kernels must equal
+t). Work-list `iters` must be equal, the per-ray closest sweep its
+twin in every field of the sweep state, and the per-ray any-hit casts
+their twins' occlusion on every ray. The grouped kernels must equal
 their twins in every field, and the per-ray sweeps in every hit field. The
 grouped any-hit sweep's plain version is the per-ray twin
 `sweep_any_torch`, whose answer the grouped walk must give (its
@@ -206,20 +213,19 @@ floating-point operations at 67 TFLOP/s and the bytes read and written
 once at 3.35 TB/s (the H100 SXM's published float32 and memory rates),
 from this run's inputs: a Moeller test 45 operations, a Baldwin-Weber
 test 31, a slab test of a ray and a box 20, the move of a ray to
-instance space 33; the per-ray any-hit sweeps count the fine cull of
-every item of the ray's block (a lower bound: their triangle tests are
-left out); tables count once, whole. The per-ray closest sweeps count,
-from the census of their warp walk on the camera rays (2b; 2d on the
-whole camera set), one admission test a ray of each (item, warp) pair
-past the warp vote, the fine cull of each pair the warp admits and 16
-triangle tests per cluster the ray swept, on instanced tables also the
-move to instance space of each (ray, item) whose fine cull entered a
-child, with the admission boxes among the tables; the grouped sweeps
-count the same from 2c's census of the pool (any-hit: the pairs whose
-warp holds a ray not yet occluded, no triangle tests). Their
-`bound_ms_block_walk` keeps the count of the first designs, which walked
-the items by 1024-ray blocks: the fine cull of every item of the ray's
-block and the triangle tests. The
+instance space 33; tables count once, whole. The work-list sweeps
+count the work their warp walks need, from the censuses of the walks on
+the camera rays (2b; 2d on the whole camera set; the grouped sweeps from
+2c's census of the pool), with the admission boxes among the tables:
+one admission slab test a ray of each (item, warp) pair the warp visits
+(closest: past the warp vote; any-hit: some ray of the warp not yet
+done), the fine cull of each pair the warp admits, on instanced tables
+the move to instance space of each (ray, item) whose fine cull entered a
+child, and for the closest sweeps 16 triangle tests per cluster the ray
+swept (the any-hit sweeps leave their triangle tests out, so theirs are
+lower bounds). Their `bound_ms_block_walk` keeps the count of the first
+designs, which walked the items by 1024-ray blocks: the fine cull of
+every item of the ray's block and, closest, the triangle tests. The
 clustered cull counts FLOPS_INTERVAL operations per (ray block,
 cluster), its closest sweep one Moeller test per ray and row of every
 cluster the ray's block entered, its any-hit sweep the same for the rays
@@ -468,16 +474,18 @@ def phase_kernels(device):
     return reports, times
 
 
-def _walk_ops(counts, local_ray=False):
-    """Operations of the per-ray warp walk besides its triangle tests,
-    from its census (`worklist_ab.ray_census`): one admission slab test a
-    ray of each (item, warp) pair past the warp vote and the fine cull
-    (32 slab tests a ray) of each admitted pair; with local_ray also the
-    move to instance space (FLOPS_LOCAL_RAY) of each (ray, item) whose
-    fine cull entered a child."""
+def _walk_ops(counts, local_ray=False, tested="warp_voted"):
+    """Operations of a per-ray warp walk besides its triangle tests, from
+    its census (`worklist_ab.ray_census`, or `any_census` with tested
+    "visited"): one admission slab test a ray of each (item, warp) pair
+    the census counts under `tested` (closest: past the warp vote;
+    any-hit: some ray of the warp not yet done) and the fine cull (32
+    slab tests a ray) of each admitted pair; with local_ray also the move
+    to instance space (FLOPS_LOCAL_RAY) of each (ray, item) whose fine
+    cull entered a child."""
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
 
-    ops = FLOPS_SLAB * wl.GL * (counts["warp_voted"]
+    ops = FLOPS_SLAB * wl.GL * (counts[tested]
                                 + wl.SUPER * counts["admitted"])
     return ops + (FLOPS_LOCAL_RAY * counts["entered"] if local_ray else 0)
 
@@ -523,7 +531,7 @@ def phase_worklist_kernels(device):
     sets = common.grid_ray_sets(rng, tables, to_device(cam, device), device,
                                 names=("camera", "random", "shadow"))
     t_min = 1e-4
-    reports, census, walk = [], {}, {}
+    reports, census, walk, any_walk = [], {}, {}, {}
     cull = dict(diff=0, err=0.0, refine_diff=0, refine_err=0.0)
     for name, (o, d, t_max) in sets.items():
         od, tm_closest, _ = wl.prep_rays(o, d)
@@ -533,6 +541,8 @@ def phase_worklist_kernels(device):
         od_w, tm_w, _ = wl.prep_rays_torch(o, d)
         texp_w = wl.scene_exit(tables, od_w)
         items_w = wl.phases(tables, od_w, tm_w, plain=True)
+        od_wa, tm_wa, _ = wl.prep_rays_torch(o, d, t_max)
+        items_wa = wl.phases(tables, od_wa, tm_wa, plain=True)
         items_equal = all(torch.equal(a, b) for a, b in zip(items_c, items_w))
         census[name] = dict(closest=_items_census(tables, od, tm_closest),
                             any=_items_census(tables, od, tm_any))
@@ -561,14 +571,21 @@ def phase_worklist_kernels(device):
                 tables, items_w, od_w, texp_w, t_min, wt)
             w = wl.decode_closest(state_w, texp_w, items_w.block_any,
                                   o.shape[0])
-            occ_w = wl.worklist_any_torch(arrays, o, d, t_max, t_min, wt)
+            # the plain any-hit cast (worklist_any_torch's steps), its
+            # sweep walked by the census
+            occ_w, any_walk[name, wt] = worklist_ab.any_census(
+                tables, items_wa, od_wa, tm_wa, t_min, wt)
+            occ_w = (occ_w & items_wa.block_any.repeat_interleave(
+                wl.RB))[:o.shape[0]]
             torch.cuda.synchronize()
             rep = _mismatches(k, w, occ_k, occ_w, o, t_max, t_min, TIE_WL)
             rep["iters_diff"] = int((k[6] != w[6]).sum())
             rep["items_equal"] = items_equal
             rep["vs_twin"] = common.sweep_diffs(state_k, state_w)
+            rep["any_vs_twin"] = int((occ_k != occ_w).sum())
             rep["ok"] = (rep["ok"] and rep["iters_diff"] == 0 and items_equal
-                         and not any(rep["vs_twin"].values()))
+                         and not any(rep["vs_twin"].values())
+                         and rep["any_vs_twin"] == 0)
             rep.update(case=name, watertight=wt, kernel_casts_s=t1 - t0,
                        twin_casts_s=time.perf_counter() - t1)
             print("ray-census", json.dumps(dict(
@@ -576,6 +593,11 @@ def phase_worklist_kernels(device):
                 **worklist_ab.ray_census_summary(walk[name, wt],
                                                  od.shape[1]),
                 iters_per_ray=float(state_k[7].float().mean()))))
+            print("any-census", json.dumps(dict(
+                case=name, watertight=wt, rays=o.shape[0],
+                **worklist_ab.any_census_summary(any_walk[name, wt],
+                                                 od_wa.shape[1]),
+                occluded=float(occ_w.float().mean()))))
             if not wt:
                 hit = torch.isfinite(k[0])
                 census[name].update(
@@ -617,6 +639,15 @@ def phase_worklist_kernels(device):
         refine_twin_ms=timed(lambda: wl.refine_torch(
             tables.hsup, blk, hyp, od, tm), 2))
     print("worklist timing camera", f"rays={o.shape[0]}", json.dumps(times))
+    # the any-hit sweep at the shape the main path launches it on: 1M
+    # shadow rays
+    o_sh, d_sh, t_sh = sets["shadow"]
+    od_sh, tm_sh, _ = wl.prep_rays(o_sh, d_sh, t_sh)
+    items_sh = wl.phases(tables, od_sh, tm_sh)
+    times["any_shadow_ms"] = timed(lambda: wl.sweep_any(
+        tables, items_sh, od_sh, tm_sh, t_min, False), 10)
+    print("worklist timing shadow", f"rays={o_sh.shape[0]}",
+          json.dumps(dict(any_ms=times["any_shadow_ms"])))
     bad = [r for r in reports if not r["ok"]]
     if bad or cull["diff"] or cull["refine_diff"]:
         raise SystemExit(f"work-list kernel/twin mismatch: {bad} {cull}")
@@ -641,8 +672,12 @@ def phase_worklist_kernels(device):
         sweep_closest_block_walk=_bound(fine * n_items + tri_ops,
                                         69 * rp + 12 * n_items
                                         + table_bytes),
-        sweep_any=_bound(fine * n_items_any,
-                         41 * rp + 8 * n_items_any + table_bytes))
+        sweep_any=_bound(_walk_ops(any_walk["camera", False],
+                                   tested="visited"),
+                         41 * rp + 8 * n_items_any + table_bytes
+                         + 4 * tables.abox.numel()),
+        sweep_any_block_walk=_bound(fine * n_items_any,
+                                    41 * rp + 8 * n_items_any + table_bytes))
     print("worklist bounds camera", json.dumps(work))
     return reports, times, cull, work, census
 
@@ -693,7 +728,9 @@ def phase_grouped_kernels(device):
             gw = wl.sweep_closest_grouped_torch(tables, it_cs, od_s, texp_s,
                                                 t_min, wt)
             gas = wl.sweep_any_grouped(tables, it_as, od_s, tm_as, t_min, wt)
-            gaw = wl.sweep_any_torch(tables, it_as, od_s, tm_as, t_min, wt)
+            # the any-hit twin's sweep, walked by the census (its own steps)
+            gaw, any_counts = worklist_ab.any_census(tables, it_as, od_s,
+                                                     tm_as, t_min, wt)
             torch.cuda.synchronize()
             rep = dict(case=name, watertight=wt, rays=o.shape[0],
                        twin_rays=n_twin,
@@ -719,9 +756,7 @@ def phase_grouped_kernels(device):
             print("grouped-kernel", json.dumps(rep))
             counts[name, wt] = (
                 worklist_ab.closest_census(tables, it_cs, od_s, texp_s,
-                                           t_min, wt),
-                worklist_ab.any_census(tables, it_as, od_s, tm_as, t_min,
-                                       wt))
+                                           t_min, wt), any_counts)
             census = dict(
                 case=name, watertight=wt, twin_rays=n_twin,
                 items_per_block=float(it_cs.seg[-1])
@@ -781,28 +816,35 @@ def phase_grouped_kernels(device):
     return reports, timing, errs, pool
 
 
-def _inst_bounds(tables, it_c, it_a, iters, rp, watertight, walk=None):
-    """(closest, any, closest by the block walk) bounds of the instanced
-    sweeps on one ray set (module docstring): the closest sweep's from
-    the census `walk` of its warp walk on the whole set (None without
-    one); the tables are the world child boxes, the local slab, the
-    per-super ids and the instance rows (and the admission boxes)."""
+def _inst_bounds(tables, it_c, it_a, iters, rp, watertight, walk=None,
+                 any_walk=None):
+    """Bounds of the instanced sweeps on one ray set (module docstring):
+    `closest` and `any` from the censuses of their warp walks on the
+    whole set (walk: `worklist_ab.ray_census`'s, any_walk: `any_census`'s;
+    None without one), `closest_block_walk` and `any_block_walk` by the
+    first designs' count; the tables are the world child boxes, the local
+    slab, the per-super ids and the instance rows (and for the warp walks
+    the admission boxes)."""
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
 
     tab = tables.ctab if watertight else tables.bwtab
     table_bytes = 4 * (tables.cbox3.numel() + tab.numel()
                        + tables.inst_rows.numel() + 2 * tables.sbox.shape[0])
+    abox_bytes = 4 * tables.abox.numel()
     fine = FLOPS_SLAB * tables.cbox3.shape[1]
     n_c, n_a = int(it_c.seg[-1]), int(it_a.seg[-1])
     test = FLOPS_MOELLER if watertight else FLOPS_BW
     tri_ops = 16 * test * int(iters.long().sum())
-    closest = walk and _bound(_walk_ops(walk, local_ray=True) + tri_ops,
-                              69 * rp + 12 * n_c + table_bytes
-                              + 4 * tables.abox.numel())
-    return (closest,
-            _bound(fine * wl.RB * n_a, 41 * rp + 8 * n_a + table_bytes),
-            _bound(fine * wl.RB * n_c + tri_ops,
-                   69 * rp + 12 * n_c + table_bytes))
+    closest_bytes = 69 * rp + 12 * n_c + table_bytes
+    any_bytes = 41 * rp + 8 * n_a + table_bytes
+    return dict(
+        closest=walk and _bound(_walk_ops(walk, local_ray=True) + tri_ops,
+                                closest_bytes + abox_bytes),
+        any=any_walk and _bound(_walk_ops(any_walk, True, "visited"),
+                                any_bytes + abox_bytes),
+        closest_block_walk=_bound(fine * wl.RB * n_c + tri_ops,
+                                  closest_bytes),
+        any_block_walk=_bound(fine * wl.RB * n_a, any_bytes))
 
 
 def phase_instanced_kernels(device, soup_census):
@@ -869,8 +911,8 @@ def phase_instanced_kernels(device, soup_census):
             # the twin's sweep, walked by the census (its own steps)
             w, walk = worklist_ab.ray_census(tables, it_cs, od_s, texp_s,
                                              t_min, wt)
-            wa = wl.sweep_any_inst_torch(tables, it_as, od_s, tm_as, t_min,
-                                         wt)
+            wa, any_walk = worklist_ab.any_census(tables, it_as, od_s, tm_as,
+                                                  t_min, wt)
             torch.cuda.synchronize()
             twin_s = time.perf_counter() - t0
             hit = torch.isfinite(wl.decode_closest(k, texp, it_c.block_any,
@@ -881,8 +923,7 @@ def phase_instanced_kernels(device, soup_census):
                     tables, it_c, od, texp, t_min, wt), 3),
                 any_ms=timed(lambda: wl.sweep_any_inst(
                     tables, it_a, od, tm_a, t_min, wt), 3))
-            _, ba, bc = _inst_bounds(tables, it_c, it_a, iters, od.shape[1],
-                                     wt)
+            bounds = _inst_bounds(tables, it_c, it_a, iters, od.shape[1], wt)
             rep = dict(case=name, watertight=wt, rays=r,
                        twin_rays=int(idx.numel()), twin_s=twin_s,
                        items_equal=items_equal,
@@ -892,9 +933,9 @@ def phase_instanced_kernels(device, soup_census):
                        twin_occluded=int(wa.sum()),
                        iters_per_ray=float(iters.float().mean()),
                        iters_per_hit=float(iters[hit].float().mean()),
-                       **timing, closest_bound_block_walk=bc,
-                       any_bound=ba,
-                       any_share=ba[0] / timing["any_ms"])
+                       **timing,
+                       closest_bound_block_walk=bounds["closest_block_walk"],
+                       any_bound_block_walk=bounds["any_block_walk"])
             rep["ok"] = (items_equal and not any(rep["vs_twin"].values())
                          and rep["vs_twin_occ"] == 0)
             errs["closest"] = max(errs["closest"], *(
@@ -912,6 +953,11 @@ def phase_instanced_kernels(device, soup_census):
                 twin_rays=rep["twin_rays"],
                 **worklist_ab.ray_census_summary(walk, od_s.shape[1]),
                 iters_per_ray=float(w[7].float().mean()))))
+            print("any-census", json.dumps(dict(
+                case=f"inst_{name}", watertight=wt,
+                twin_rays=rep["twin_rays"],
+                **worklist_ab.any_census_summary(any_walk, od_s.shape[1]),
+                occluded=float(wa.float().mean()))))
     print("instanced census", json.dumps(dict(
         instanced_27x27=census, soup_12x12=soup_census)))
     bad = [r for r in reports if not r["ok"]]
@@ -929,14 +975,23 @@ def phase_instanced_kernels(device, soup_census):
     print("ray-census", json.dumps(dict(
         case="inst_camera_whole_set", watertight=False, rays=o.shape[0],
         **worklist_ab.ray_census_summary(walk, od.shape[1]))))
-    bound = _inst_bounds(tables, it_c, it_a, state[7][:o.shape[0]],
-                         od.shape[1], False, walk)[0]
+    _, any_walk = worklist_ab.any_census(tables, it_a, od, tm_a, t_min, False)
+    print("any-census", json.dumps(dict(
+        case="inst_camera_whole_set", watertight=False, rays=o.shape[0],
+        **worklist_ab.any_census_summary(any_walk, od.shape[1]))))
+    bounds = _inst_bounds(tables, it_c, it_a, state[7][:o.shape[0]],
+                          od.shape[1], False, walk, any_walk)
+    shadow_rep = next(r for r in reports
+                      if r["case"] == "shadow" and not r["watertight"])
     row = dict(
         closest_ms=cam_rep["closest_ms"], any_ms=cam_rep["any_ms"],
-        closest_bound=bound,
+        any_shadow_ms=shadow_rep["any_ms"],
+        closest_bound=bounds["closest"],
         closest_bound_block_walk=cam_rep["closest_bound_block_walk"],
-        closest_share=bound[0] / cam_rep["closest_ms"],
-        any_bound=cam_rep["any_bound"],
+        closest_share=bounds["closest"][0] / cam_rep["closest_ms"],
+        any_bound=bounds["any"],
+        any_bound_block_walk=cam_rep["any_bound_block_walk"],
+        any_share=bounds["any"][0] / cam_rep["any_ms"],
         closest_twin_ms=timed(lambda: wl.sweep_closest_inst_torch(
             tables, it_c, od, texp, t_min, False), 1, warm=False),
         any_twin_ms=timed(lambda: wl.sweep_any_inst_torch(
@@ -2095,9 +2150,9 @@ def _build_all():
         for line in built.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("ptxas:", line.strip())
-    # the warp-walk sweeps' (grouped, per-ray and instanced closest)
-    # registers, shared memory and spills, and their resident blocks per SM
-    # on this card
+    # the warp-walk sweeps' (grouped, per-ray and instanced, closest and
+    # any-hit) registers, shared memory and spills, and their resident
+    # blocks per SM on this card
     print("warp-ptxas", json.dumps(worklist_ab.ptxas_report(
         futures["worklist.cu"].result().log)))
     print("warp-resources", json.dumps(wl.warp_resources()))
@@ -2243,7 +2298,9 @@ def main():
             bound_ms_block_walk=wl_work["sweep_closest_block_walk"][0]),
         row("sweep_any", wl_src, f"{ref_wl}:866",
             grid["launches"]["sweep_any"], wl_any_err, wl_times["any_ms"],
-            wl_times["any_twin_ms"], wl_work["sweep_any"]),
+            wl_times["any_twin_ms"], wl_work["sweep_any"],
+            bound_ms_block_walk=wl_work["sweep_any_block_walk"][0],
+            shadow_ms=wl_times["any_shadow_ms"]),
         row("sweep_closest_grouped", wl_src, f"{ref_wl}:1000",
             wave["launches"]["sweep_closest_grouped"], g_errs["closest"],
             g_pool["closest_ms"], g_pool["closest_twin_ms"],
@@ -2261,7 +2318,9 @@ def main():
         row("sweep_any_inst", wl_src, f"{ref_wl}:1349",
             inst["launches"]["sweep_any_inst"], inst_errs["any"],
             inst_row["any_ms"], inst_row["any_twin_ms"],
-            inst_row["any_bound"]),
+            inst_row["any_bound"],
+            bound_ms_block_walk=inst_row["any_bound_block_walk"][0],
+            shadow_ms=inst_row["any_shadow_ms"]),
         row("cluster_cull", cl_src, f"{ref_brute}:338",
             cl_grid["launches"]["cluster_cull"], cl_errs["cull"],
             cl_row["cull_ms"], cl_row["cull_twin_ms"], cl_row["cull_bound"]),

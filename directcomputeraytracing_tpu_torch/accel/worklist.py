@@ -22,20 +22,22 @@ tables of larger scenes (`scene_tables`). A cast runs:
    (`torch.nonzero`): one synchronisation per cast, two with the hyper
    level. There is no capacity and so no overflow fallback.
 4. The sweep. `sweep_closest` / `sweep_any` (kernels
-   `closest_ray_kernel` / `any_kernel`, twins `sweep_closest_torch` /
+   `closest_ray_kernel` / `any_ray_kernel`, twins `sweep_closest_torch` /
    `sweep_any_torch`). Each ray walks its block's items in order. Per
    item it tests the super's 32 child boxes (its fine cull) and sweeps
    the 16-triangle clusters it entered, nearest first, each with the
    Baldwin-Weber test (or the watertight one), and stops at the first
-   cluster that starts beyond its current best hit. The closest kernel
-   runs the ray walks of one warp together, each warp walking its block's
-   items on its own: it skips an item by the warp vote and the super-box
-   admission of 5. below (a skipped item is one where no ray of the
-   warp would enter a real child; `_voted` on padding) and copies the
-   next admitted item's boxes ahead by cp.async. On an NVIDIA H100
-   80GB HBM3 at 700 W this took the sorted 2^18-ray pool of
-   `sphere_grid(12, 12)` from 6.615 ms (a 1024-ray block walking its
-   items in lockstep) to 0.842 ms (Baldwin-Weber, `tools/worklist_ab.py`,
+   cluster that starts beyond its current best hit (any-hit: in child
+   order, to the first hit). The kernels run the ray walks of one warp
+   together, each warp walking its block's items on its own: it skips an
+   item by the super-box admission of 5. below and, closest, the warp
+   vote (a skipped item is one where no ray of the warp would enter a
+   real child; `_voted` on padding), copies the next admitted item's
+   boxes ahead by cp.async, and (any-hit) stops once every ray of the
+   warp is occluded or has t_max <= t_min. On an NVIDIA H100 80GB HBM3 at
+   700 W this took the sorted 2^18-ray pool of `sphere_grid(12, 12)` from
+   6.615 ms (a 1024-ray block walking its items in lockstep) to 0.842 ms
+   for the closest sweep (Baldwin-Weber, `tools/worklist_ab.py`,
    PERF.md).
 
 The closest hit is a bit-packed argmin: key = (bits(t) & ~_LOWM) |
@@ -80,7 +82,7 @@ the clusters its own fine cull admitted, summed over its block's items.
    time, PERF.md).
 
 6. The instanced sweeps. `sweep_closest_inst` / `sweep_any_inst`
-   (kernels `closest_ray_kernel` on instanced tables / `any_inst_kernel`,
+   (kernels `closest_ray_kernel` / `any_ray_kernel` on instanced tables,
    twins `sweep_closest_inst_torch` / `sweep_any_inst_torch`, the per-ray
    walks of 4. above) sweep instanced tables: the mesh-local clusters
    are stored once per mesh, a super is an (instance, local super) pair
@@ -168,19 +170,19 @@ def bind(lib):
     lib.dcrt_wl_cull.argtypes = [c_p, c_i, c_p, c_p, c_i, c_i, c_p, c_p]
     lib.dcrt_wl_refine.argtypes = [c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i,
                                    c_i, c_p, c_p]
-    # the closest and grouped sweeps take the admission boxes before the
-    # child boxes
+    # the sweeps take the admission boxes before the child boxes
     closest = [c_p, c_p, c_p, c_i, c_p, c_p, c_p, c_i, c_p, c_p, c_i, c_i,
                c_f, c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p]
-    any_ = [c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i, c_i, c_f, c_p, c_p]
+    any_ = [c_p, c_p, c_i, c_p, c_p, c_p, c_i, c_p, c_p, c_i, c_i, c_f, c_p,
+            c_p]
     lib.dcrt_wl_closest.argtypes = closest
     lib.dcrt_wl_any.argtypes = any_
     lib.dcrt_wl_closest_grouped.argtypes = closest
-    lib.dcrt_wl_any_grouped.argtypes = any_[:3] + [c_p] + any_[3:]
+    lib.dcrt_wl_any_grouped.argtypes = any_
     lib.dcrt_wl_warp_resources.argtypes = [c_p]
     # the instanced sweeps add three table pointers after the slab's
     lib.dcrt_wl_closest_inst.argtypes = closest[:7] + [c_p] * 3 + closest[7:]
-    lib.dcrt_wl_any_inst.argtypes = any_[:5] + [c_p] * 3 + any_[5:]
+    lib.dcrt_wl_any_inst.argtypes = any_[:6] + [c_p] * 3 + any_[6:]
     for fn in (lib.dcrt_wl_cull, lib.dcrt_wl_refine, lib.dcrt_wl_closest,
                lib.dcrt_wl_any, lib.dcrt_wl_closest_grouped,
                lib.dcrt_wl_any_grouped, lib.dcrt_wl_warp_resources,
@@ -208,8 +210,8 @@ class Tables(NamedTuple):
     isup_local: Optional[torch.Tensor] = None   # (Cs,) i32
     isup_inst: Optional[torch.Tensor] = None    # (Cs,) i32
     inst_rows: Optional[torch.Tensor] = None    # (I, 16) f32 world->local
-    # the closest and grouped sweeps' admission boxes (`admission_boxes`
-    # of cbox3, world boxes on either kind of tables)
+    # the sweeps' admission boxes (`admission_boxes` of cbox3, world boxes
+    # on either kind of tables)
     abox: Optional[torch.Tensor] = None         # (Cs, 8)
 
 
@@ -244,12 +246,12 @@ def pad_tables(scene):
 
 def admission_boxes(cbox3):
     """(Cs, SUPER, 8) child boxes -> (Cs, 8) admission boxes of the
-    closest and grouped sweeps: per super the min/max of its child boxes
-    as a slab test reads them, each axis from min(lo, hi) to max(lo,
-    hi). That is the super box itself unless the super holds padding:
-    the slab test reads an inverted padding box as the cube [-1, 1]^3.
-    A ray that misses the admission box under a cap enters none of the
-    children under it."""
+    sweeps: per super the min/max of its child boxes as a slab test
+    reads them, each axis from min(lo, hi) to max(lo, hi). That is the
+    super box itself unless the super holds padding: the slab test
+    reads an inverted padding box as the cube [-1, 1]^3. A ray that
+    misses the admission box under a cap enters none of the children
+    under it."""
     lo, hi = cbox3[:, :, 0:3], cbox3[:, :, 3:6]
     return torch.cat([torch.minimum(lo, hi).amin(1),
                       torch.maximum(lo, hi).amax(1),
@@ -877,7 +879,7 @@ def closest_step(tables, items, od, t_min, watertight, st, rays, item):
 
 
 def sweep_any_torch(tables, items, od, tm, t_min, watertight):
-    """Twin of `any_kernel` and, on instanced tables, of `any_inst_kernel`:
+    """Twin of `any_ray_kernel` on world-soup and on instanced tables:
     (Rp,) bool, a hit in [t_min, t_max) within a cluster the ray's fine
     cull admits (box entered before t_max). Also the grouped any-hit
     sweep's twin, whose walk gives the same answer."""
@@ -994,8 +996,7 @@ def grouped_closest_step(tables, items, od, t_min, watertight, st, rays,
                  od[3:6, r].T, t_min, watertight)
 
 
-def _launch_closest(fn, tables, items, od, texp, t_min, watertight,
-                    abox=True):
+def _launch_closest(fn, tables, items, od, texp, t_min, watertight):
     rp = od.shape[1]
     f32 = dict(dtype=torch.float32, device=od.device)
     i32 = dict(dtype=torch.int32, device=od.device)
@@ -1005,7 +1006,7 @@ def _launch_closest(fn, tables, items, od, texp, t_min, watertight,
     with torch.cuda.device(od.device):
         err = fn(items.seg.data_ptr(), items.sup.data_ptr(),
                  items.t_ent.data_ptr(), rp // RB,
-                 *_table_ptrs(tables, watertight, fn, abox), int(watertight),
+                 *_table_ptrs(tables, watertight, fn), int(watertight),
                  od.data_ptr(), texp.data_ptr(), rp, RB, float(t_min),
                  best.data_ptr(), t.data_ptr(), u.data_ptr(), v.data_ptr(),
                  tri.data_ptr(), inst.data_ptr(), back.data_ptr(),
@@ -1013,7 +1014,10 @@ def _launch_closest(fn, tables, items, od, texp, t_min, watertight,
     return err, (best, t, u, v, tri, inst, back, iters)
 
 
-def _launch_any(fn, tables, items, od, tm, t_min, watertight, abox=False):
+def _launch_any(fn, tables, items, od, tm, t_min, watertight, abox=True):
+    """Launch the any-hit sweep fn; abox=False for a build whose per-ray
+    any-hit sweeps take no admission boxes (the block walk's, as
+    `tools/worklist_ab.py` binds an earlier source)."""
     rp = od.shape[1]
     occ = torch.empty(rp, dtype=torch.bool, device=od.device)
     with torch.cuda.device(od.device):
@@ -1024,11 +1028,11 @@ def _launch_any(fn, tables, items, od, tm, t_min, watertight, abox=False):
     return err, occ
 
 
-def _table_ptrs(tables, watertight, fn, abox):
-    """The sweep kernel fn's table pointers: with abox (the closest and
-    grouped kernels) the admission boxes, then child boxes and slab rows,
-    then, for the instanced kernels, the per-super local super and
-    instance and the instance rows. The kind of tables must be fn's."""
+def _table_ptrs(tables, watertight, fn, abox=True):
+    """The sweep kernel fn's table pointers: with abox the admission
+    boxes, then child boxes and slab rows, then, for the instanced
+    kernels, the per-super local super and instance and the instance
+    rows. The kind of tables must be fn's."""
     inst = fn.__name__.endswith("_inst")
     if inst != (tables.inst_rows is not None):
         raise ValueError(f"{fn.__name__}: needs "
@@ -1092,7 +1096,7 @@ def sweep_any_grouped(tables, items, od, tm, t_min, watertight):
     if not _on_cuda(od, tm, items.seg):
         return sweep_any_torch(tables, items, od, tm, t_min, watertight)
     err, occ = _launch_any(kernels().lib.dcrt_wl_any_grouped, tables, items,
-                           od, tm, t_min, watertight, abox=True)
+                           od, tm, t_min, watertight)
     _raise_on(err, "sweep_any_grouped")
     sweep_any_grouped.launches += 1
     return occ
@@ -1100,13 +1104,15 @@ def sweep_any_grouped(tables, items, od, tm, t_min, watertight):
 
 WARP_KERNELS = ("closest_bw", "closest_wt", "any_bw", "any_wt",
                 "ray_closest_bw", "ray_closest_wt", "inst_closest_bw",
-                "inst_closest_wt")
+                "inst_closest_wt", "ray_any_bw", "ray_any_wt", "inst_any_bw",
+                "inst_any_wt")
 
 
 def warp_resources():
     """The warp-walk kernels' resources on the current card, per kernel of
-    WARP_KERNELS (grouped closest and any-hit, per-ray closest on the soup
-    and on instanced tables; bw / wt: Baldwin-Weber or watertight):
+    WARP_KERNELS (grouped closest and any-hit, per-ray closest and any-hit
+    on the soup and on instanced tables; bw / wt: Baldwin-Weber or
+    watertight):
     resident blocks per SM, registers, static shared bytes, local (spill)
     bytes per thread and threads per block."""
     out = (ctypes.c_int * (5 * len(WARP_KERNELS)))()

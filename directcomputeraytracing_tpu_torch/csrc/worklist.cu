@@ -9,24 +9,25 @@
 //   refine_kernel  <- _refine_kernel (:445, launched by _refine_items
 //                     :479): the same per (block, hyper) item over the
 //                     hyper's member supers;
-//   any_kernel     <- _wl_any_kernel (:866, launched by _any_impl :1916):
-//                     occlusion within a per-ray t_max;
 //   closest_grouped_kernel <- _wlg_closest_kernel (:1000): the closest hit
 //                     by warps that each walk their ray block's items on
 //                     their own (see its section below);
 //   any_grouped_kernel     <- _wlg_any_kernel (:1113): occlusion, the same;
-//   any_inst_kernel        <- _wl_any_inst_kernel (:1349): any_kernel on
-//                     instanced tables (see its section below);
 //   closest_ray_kernel<Tri, false> <- _wl_closest_kernel (:678, launched
 //                     by _closest_impl :1750): closest hit per ray, a
 //                     bit-packed argmin, by warps that walk their items on
 //                     their own (see its section below);
 //   closest_ray_kernel<Tri, true>  <- _wl_closest_inst_kernel (:1208): the
+//                     same on instanced tables;
+//   any_ray_kernel<Tri, false>     <- _wl_any_kernel (:866, launched by
+//                     _any_impl :1916): occlusion within a per-ray t_max,
+//                     by the same warp walk (see its section below);
+//   any_ray_kernel<Tri, true>      <- _wl_any_inst_kernel (:1349): the
 //                     same on instanced tables.
 // Rays are the (9, Rp) rows [o; d; 1/d] of prep_rays, Rp a multiple of
-// the block size RB (the culls and the per-ray any-hit sweeps: one thread
-// per ray, one block per RB rays; the warp-walk sweeps run kGroupThreads-
-// thread blocks, several per ray block).
+// the block size RB (the culls: one thread per ray, one block per RB
+// rays; the sweeps run kGroupThreads-thread blocks, several per ray
+// block, one warp per 32 rays).
 //
 // What bounds them. The culls: FP32 ALU, ~20 operations per (ray, box),
 // and one block-wide min per box (warp shuffles, then 32 partials in
@@ -40,13 +41,12 @@
 // the best hit across them in the output block and a termination bound in
 // an SMEM scalar. Here a ray's walk runs in one thread, over its ray
 // block's item segment front to back, its packed best hit in registers.
-// The per-ray any-hit sweeps give a ray block one CUDA block: a
-// block-wide vote (__syncthreads_and) stops once every ray is occluded,
-// the item's 32 child boxes (1 KB) are staged in shared memory, and each
-// thread tests them against its own ray (the fine cull) and sweeps the
-// entered clusters. The closest sweeps let each warp walk on its own
-// (their section below). The packed key is (bits(t) & ~kLowM) | (child
-// << 4) | row, as in the reference, and a cluster's smallest key replaces
+// Every sweep lets each warp walk its ray block's items on its own (the
+// sections below): it skips the items none of its rays can enter, copies
+// the next item's boxes into shared memory while it sweeps the current
+// one, and stops once its rays are done, with no block-wide barrier. The
+// packed key is (bits(t) & ~kLowM) | (child << 4) | row, as in the
+// reference, and a cluster's smallest key replaces
 // the best only if strictly smaller; a candidate needs t inside the best's
 // whole truncation quantum (window(), where the reference takes t < the
 // best read as a float), so the result does not depend on the visiting
@@ -78,7 +78,6 @@ using dcrt::RawWatertight;
 using dcrt::Ray;
 using dcrt::RayInv;
 using dcrt::slab;
-using dcrt::stage_boxes;
 using dcrt::start_best;
 using dcrt::window;
 
@@ -132,34 +131,6 @@ refine_kernel(const float* __restrict__ hsup, int hs,
   block_entry_min(load_od(od, rp, i), tm[i],
                   hsup + static_cast<size_t>(item_hyp[item]) * hs * 8, hs,
                   out + static_cast<size_t>(item) * hs);
-}
-
-template <class Tri>
-__global__ void __launch_bounds__(1024)
-any_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
-           const float* __restrict__ cbox, const float* __restrict__ tab,
-           const float* __restrict__ od, const float* __restrict__ tm,
-           int rp, float t_min, unsigned char* __restrict__ out_occ) {
-  __shared__ float4 boxes[2 * kSuper];
-  const int b = blockIdx.x;
-  const int i = b * blockDim.x + threadIdx.x;
-  const RayInv q = load_od(od, rp, i);
-  const typename Tri::Pre pre = Tri::prepare(q.r);
-  const float t_max = tm[i];
-  bool occ = false;
-  const int k1 = seg[b + 1];
-  for (int k = seg[b]; k < k1; ++k) {
-    // stop once every ray of the block is occluded (also the barrier
-    // before the boxes are restaged)
-    if (__syncthreads_and(occ)) break;
-    const int sup = item_sup[k];
-    stage_boxes(cbox, sup, boxes);
-    __syncthreads();
-    if (!occ)
-      occ = dcrt::walk_any<Tri, true>(q, q.r, pre, boxes, tab,
-                                      sup * kSuperRows, t_max, t_min);
-  }
-  out_occ[i] = occ;
 }
 
 // ---------------------------------------------------------------------------
@@ -579,8 +550,8 @@ any_grouped_kernel(const int* __restrict__ seg,
 // ---------------------------------------------------------------------------
 // Instanced sweeps <- _wl_closest_inst_kernel (:1208) and _wl_any_inst_kernel
 // (:1349) (launched by _closest_impl :1722 and _any_impl :1889 on scenes
-// with instanced tables): closest_ray_kernel<Tri, true> (the next section)
-// and any_inst_kernel.
+// with instanced tables): closest_ray_kernel<Tri, true> and
+// any_ray_kernel<Tri, true> (the next two sections).
 //
 // The tables share each mesh's triangles: the slab rows are mesh-local,
 // stored once, and a super is an (instance, local super) pair with world
@@ -588,31 +559,31 @@ any_grouped_kernel(const int* __restrict__ seg,
 // fine cull are the soup's, in world space with the world ray, so entry
 // distances compare across items. The item's super gives its local super
 // (isup_local) and its instance (isup_inst); the instance's world->local
-// transform (12 floats of its inst_rows row) is staged beside the child
-// boxes, and the ray is moved to local space once per item that its fine
-// cull entered (to_local, the reference's _local_rays: the direction is
-// not normalised, so t stays the world ray's parameter and the packed keys
-// compare across instances; Tri::prepare runs on the local ray, since the
-// watertight permutation follows the direction). The rows swept are (loc *
-// kSuper + c) * kCluster + r. The closest kernel keeps the winning item's
-// instance: the hit's instance is it, tri is the slab row's global id, and
-// the back-face flag is the local test's as it is (a mirroring instance
-// turns the world normal, and the soup's flip column turns it back; the
-// reference's kernel XORs the flip in again, :1323).
+// transform (12 floats of its inst_rows row) goes into the warp's ring
+// beside the child boxes, and the ray is moved to local space once per
+// item that its fine cull entered (to_local, the reference's _local_rays:
+// the direction is not normalised, so t stays the world ray's parameter
+// and the packed keys compare across instances; Tri::prepare runs on the
+// local ray, since the watertight permutation follows the direction). The
+// rows swept are (loc * kSuper + c) * kCluster + r. The closest kernel
+// keeps the winning item's instance: the hit's instance is it, tri is the
+// slab row's global id, and the back-face flag is the local test's as it
+// is (a mirroring instance turns the world normal, and the soup's flip
+// column turns it back; the reference's kernel XORs the flip in again,
+// :1323).
 //
 // What bounds them: as on the soup, FP32 ALU in the fine cull (32 ray-box
 // tests of ~20 operations per item) and in the triangle tests (31
-// operations Baldwin-Weber, ~45 watertight, 16 per swept cluster), plus 27
+// operations Baldwin-Weber, ~45 watertight, 16 per swept cluster), plus 33
 // operations per entered item for the local ray, and the latency of
 // reading item boxes and triangle rows from L2. Instanced supers are many
 // and overlap, so a ray block walks more items than on the soup (340-690
 // per incoherent 1024-ray block of sphere_grid(27, 27), PERF.md; the TPU's
 // census: 44.3 clusters swept per ray against 8.0), and most of a block's
-// items hold nothing for most of its warps. The closest kernel walks by
-// warps (next section), so a warp pays the fine cull only of the items
-// one of its own rays enters. any_inst_kernel keeps the first port's
-// block walk. Built with -fmad=false, so the local ray rounds as in the
-// twin.
+// items hold nothing for most of its warps. Both kernels walk by warps, so
+// a warp pays the fine cull only of the items one of its own rays enters
+// (3-4 % of its items on incoherent sets, PERF.md). Built with
+// -fmad=false, so the local ray rounds as in the twin.
 // ---------------------------------------------------------------------------
 
 // [o, 1] @ M and d @ M for the (4, 3) world->local transform M in
@@ -630,49 +601,6 @@ __device__ __forceinline__ Ray to_local(const Ray& r, const float* m) {
 
 constexpr int kInstCols = 16;   // inst_rows: 3x3 | t | flip | 0 0 0
 constexpr int kInstXf = 12;     // the columns of the transform
-
-// Stage the item's child boxes and its instance's transform.
-__device__ __forceinline__ void stage_inst_item(const float* cbox,
-                                                const float* inst_rows,
-                                                int sup, int ins,
-                                                float4* boxes, float* row) {
-  stage_boxes(cbox, sup, boxes);
-  if (threadIdx.x < kInstXf)
-    row[threadIdx.x] = __ldg(inst_rows + static_cast<size_t>(ins) *
-                                             kInstCols + threadIdx.x);
-}
-
-template <class Tri>
-__global__ void __launch_bounds__(1024)
-any_inst_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
-                const float* __restrict__ cbox, const float* __restrict__ tab,
-                const int* __restrict__ isup_local,
-                const int* __restrict__ isup_inst,
-                const float* __restrict__ inst_rows,
-                const float* __restrict__ od, const float* __restrict__ tm,
-                int rp, float t_min, unsigned char* __restrict__ out_occ) {
-  __shared__ float4 boxes[2 * kSuper];
-  __shared__ float row[kInstXf];
-  const int b = blockIdx.x;
-  const int i = b * blockDim.x + threadIdx.x;
-  const RayInv q = load_od(od, rp, i);
-  const float t_max = tm[i];
-  bool occ = false;
-  const int k1 = seg[b + 1];
-  for (int k = seg[b]; k < k1; ++k) {
-    // any_kernel's stop (also the barrier before restaging)
-    if (__syncthreads_and(occ)) break;
-    const int sup = item_sup[k];
-    const int loc = isup_local[sup];
-    stage_inst_item(cbox, inst_rows, sup, isup_inst[sup], boxes, row);
-    __syncthreads();
-    if (occ) continue;
-    const Ray rl = to_local(q.r, row);
-    occ = dcrt::walk_any<Tri, true>(q, rl, Tri::prepare(rl), boxes, tab,
-                                    loc * kSuperRows, t_max, t_min);
-  }
-  out_occ[i] = occ;
-}
 
 // ---------------------------------------------------------------------------
 // Per-ray closest sweeps <- _wl_closest_kernel (:678) and
@@ -843,14 +771,168 @@ closest_ray_kernel(const int* __restrict__ seg,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Per-ray any-hit sweeps <- _wl_any_kernel (:866) and _wl_any_inst_kernel
+// (:1349) (launched by _any_impl :1916 and :1889): any_ray_kernel<Tri,
+// kInst>, kInst on instanced tables. Every shadow ray of the megakernel
+// takes one, and the instanced wavefront's pool any-hit casts take the
+// instanced one.
+//
+// A ray is occluded iff some cluster that its fine cull admits under its
+// t_max holds a hit in [t_min, t_max). That is order-free, so each lane
+// keeps its own walk (its fine cull, then its entered clusters in child
+// order until the first hit) and the answer is the twin's bit for bit,
+// whichever items its warp skips, as long as it skips only items no lane
+// of the warp could enter.
+//
+// What bounds it: FP32 ALU in the fine cull and the triangle tests, and
+// the latency of reading item boxes and triangle rows from L2. Shadow
+// rays mostly end unoccluded, so they walk every item of their block. The
+// first port gave a 1024-ray block one CUDA block walking its items in
+// lockstep: per item a block-wide vote (__syncthreads_and) and a barrier
+// after staging the 1 KB of child boxes, which were loaded only after it;
+// every thread ran the fine cull of every item its block had, also where
+// no ray of its warp entered the super.
+//
+// Design: the grouped sweeps' warp walk around the per-ray occlusion walk
+// (the closest kernel's, previous section, with the occlusion walk in
+// place of the nearest-first one). 128-thread blocks over (rp / RB) x (RB
+// / 128); each warp walks its ray block's item segment on its own, with no
+// block-wide barrier. A lane is done once it is occluded, and from the
+// start where t_max <= t_min (no hit lies in [t_min, t_max); padding rays
+// are parked so): its cap is then -kBig, the reference's cap_row for an
+// occluded ray, so it enters nothing, and the warp stops once every lane
+// is done. The look-ahead (next_item) admits an item only if a lane
+// enters its admission box under its cap; caps only shrink along the
+// walk, and the admission is taken again per item with the current caps
+// before the lanes' fine cull. The next admitted item's admission box and
+// 32 child boxes (and, on instanced tables, its instance's transform) go
+// by cp.async into the warp's two-stage ring while the current item is
+// culled and swept. A lane moves its ray to instance space only for an
+// item whose fine cull it entered, and the warps of a ray block without
+// items read no ray. There is no array of entry distances, so the walk
+// fits the 64 registers of 8 resident 128-thread blocks (56-64, no spill).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/worklist_ab.py, in
+// turns with the block walk, Baldwin-Weber; PERF.md): on sphere_grid(12,
+// 12) the sorted 2^18-ray pool 3.705 -> 0.335 ms, 1M shadow rays 36.93 ->
+// 3.455, 1M random rays 15.91 -> 1.035; on sphere_grid(27, 27) 1M shadow
+// rays 52.61 -> 3.108, the pool 7.879 -> 0.563. Camera rays (t_max up to
+// 30) stop after a few items: 0.563 -> 0.309 on the soup, but 0.0322 ->
+// 0.0451 on the instanced tables, where 374 items fall on 1,024 ray
+// blocks and a warp with an item pays the walk's fixed cost (its rays
+// staged, the look-ahead's 32 admission tests a lane, the admission
+// again) beside the fine cull that was all the block walk did.
+// ---------------------------------------------------------------------------
+
+// The occlusion walk over the entered clusters (mask) of a super whose
+// rows start at row0 of tab, in child order, each tested with ray r; true
+// at the first hit in [t_min, t_max).
+template <class Tri>
+__device__ __forceinline__ bool any_clusters(const Ray& r,
+                                             const typename Tri::Pre& pre,
+                                             const float* __restrict__ tab,
+                                             int row0, unsigned mask,
+                                             float t_min, float t_max) {
+  for (; mask; mask &= mask - 1) {
+    const int base = row0 + (__ffs(mask) - 1) * kCluster;
+    for (int k = 0; k < kCluster; ++k) {
+      Hit h;
+      if (Tri::test(r, pre, tab, base + k, t_min, t_max, h)) return true;
+    }
+  }
+  return false;
+}
+
+// One item of a ray's occlusion walk, its boxes staged (xf: its
+// instance's transform, kInst). done: the lane's answer is known; occ:
+// the lane is occluded.
+template <class Tri, bool kInst>
+__device__ __forceinline__ void any_ray_item(const RayInv& q,
+                                             const typename Tri::Pre& pre,
+                                             const float4* stage,
+                                             const float* xf, const Item& it,
+                                             const float* __restrict__ tab,
+                                             float t_max, float t_min,
+                                             bool& done, bool& occ) {
+  if (!admitted(q, stage, done ? -kBig : t_max, t_min) || done) return;
+  float tl[kSuper];   // unread: the walk takes the clusters in child order
+  const unsigned mask = dcrt::fine_cull(q, stage + 2, t_max, t_min, tl);
+  if (!mask) return;
+  if constexpr (kInst) {
+    const Ray rl = to_local(q.r, xf);
+    occ = any_clusters<Tri>(rl, Tri::prepare(rl), tab, it.loc * kSuperRows,
+                            mask, t_min, t_max);
+  } else {
+    occ = any_clusters<Tri>(q.r, pre, tab, it.sup * kSuperRows, mask, t_min,
+                            t_max);
+  }
+  done = occ;
+}
+
+template <class Tri, bool kInst>
+__global__ void __launch_bounds__(kGroupThreads, kGroupMinBlocks)
+any_ray_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
+               const float* __restrict__ abox, const float* __restrict__ cbox,
+               const float* __restrict__ tab,
+               const int* __restrict__ isup_local,
+               const int* __restrict__ isup_inst,
+               const float* __restrict__ inst_rows,
+               const float* __restrict__ od, const float* __restrict__ tm,
+               int rp, int rb, float t_min,
+               unsigned char* __restrict__ out_occ) {
+  using Smem = std::conditional_t<kInst, InstWarpSmem, WarpSmem>;
+  __shared__ Smem smem[kGroupWarps];
+  const int i = warp_ray(rb);
+  if (i < 0) return;
+  ItemScan sc = item_scan(seg);
+  if (sc.next == sc.end) {   // a ray block without items: nothing to read
+    out_occ[i] = 0;
+    return;
+  }
+  Smem& sm = smem[threadIdx.x >> 5];
+  const RayInv q = load_od(od, rp, i);
+  stage_ray(sm, q);
+  // the world ray's test setup (instanced tables: per item, local ray)
+  const typename Tri::Pre pre = Tri::prepare(q.r);
+  const float t_max = tm[i];
+  bool occ = false, done = !(t_max > t_min);
+  Item it;
+  bool have = !__all_sync(kFull, done) &&
+              next_item<false, kInst>(sc, sm, item_sup, nullptr, abox,
+                                      done ? -kBig : t_max, t_min, it,
+                                      isup_local, isup_inst);
+  if (have) prefetch_item<kInst>(sm, 0, abox, cbox, inst_rows, it);
+  cp_async_commit();
+  // stop once every lane of the warp is done
+  for (int st = 0; have && !__all_sync(kFull, done); st ^= 1) {
+    Item it2;
+    const bool have2 = next_item<false, kInst>(
+        sc, sm, item_sup, nullptr, abox, done ? -kBig : t_max, t_min, it2,
+        isup_local, isup_inst);
+    if (have2) prefetch_item<kInst>(sm, st ^ 1, abox, cbox, inst_rows, it2);
+    cp_async_commit();
+    cp_async_wait<1>();   // this item's stage has landed
+    __syncwarp();
+    const float* xf = nullptr;
+    if constexpr (kInst) xf = reinterpret_cast<const float*>(sm.xf[st]);
+    any_ray_item<Tri, kInst>(q, pre, sm.stage[st], xf, it, tab, t_max,
+                             t_min, done, occ);
+    __syncwarp();         // the stage is read before it is refilled
+    have = have2;
+    it = it2;
+  }
+  cp_async_wait<0>();     // no copy in flight into a finished warp's ring
+  out_occ[i] = occ;
+}
+
 }  // namespace
 
 // C interface (ctypes). Pointers are device pointers; `stream` is a
 // cudaStream_t; `rb` is the ray block size (rays per block, a multiple of
-// 32, at most 1024) and divides `rp`; a ray block is one CUDA block but
-// for the closest and grouped sweeps, which launch (rp / rb) x ceil(rb /
-// kGroupThreads) blocks of kGroupThreads. Each returns cudaGetLastError()
-// after the launch.
+// 32, at most 1024) and divides `rp`; a ray block is one CUDA block of the
+// culls, and the sweeps launch (rp / rb) x ceil(rb / kGroupThreads) blocks
+// of kGroupThreads. Each returns cudaGetLastError() after the launch.
 
 extern "C" int dcrt_wl_cull(const float* boxes, int n_boxes, const float* od,
                             const float* tm, int rp, int rb, float* out,
@@ -874,8 +956,8 @@ extern "C" int dcrt_wl_refine(const float* hsup, int hs, const int* item_blk,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The closest sweeps (per-ray and grouped) take one more table pointer
-// before the child boxes: the (Cs, 8) admission boxes (Tables.abox).
+// The sweeps take the (Cs, 8) admission boxes (Tables.abox) before the
+// (Cs, 32, 8) child boxes, both 16-byte aligned.
 extern "C" int dcrt_wl_closest(const int* seg, const int* item_sup,
                                const float* item_t, int nb,
                                const float* abox, const float* cbox,
@@ -902,23 +984,25 @@ extern "C" int dcrt_wl_closest(const int* seg, const int* item_sup,
 }
 
 extern "C" int dcrt_wl_any(const int* seg, const int* item_sup, int nb,
-                           const float* cbox, const float* tab,
-                           int watertight, const float* od, const float* tm,
-                           int rp, int rb, float t_min, unsigned char* occ,
-                           void* stream) {
+                           const float* abox, const float* cbox,
+                           const float* tab, int watertight, const float* od,
+                           const float* tm, int rp, int rb, float t_min,
+                           unsigned char* occ, void* stream) {
   if (nb > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const dim3 grid(nb, (rb + kGroupThreads - 1) / kGroupThreads);
     if (watertight)
-      any_kernel<RawWatertight><<<nb, rb, 0, s>>>(seg, item_sup, cbox, tab,
-                                                  od, tm, rp, t_min, occ);
+      any_ray_kernel<RawWatertight, false><<<grid, kGroupThreads, 0, s>>>(
+          seg, item_sup, abox, cbox, tab, nullptr, nullptr, nullptr, od, tm,
+          rp, rb, t_min, occ);
     else
-      any_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(seg, item_sup, cbox, tab, od,
-                                                 tm, rp, t_min, occ);
+      any_ray_kernel<BaldwinWeber, false><<<grid, kGroupThreads, 0, s>>>(
+          seg, item_sup, abox, cbox, tab, nullptr, nullptr, nullptr, od, tm,
+          rp, rb, t_min, occ);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The grouped sweeps take the admission boxes too.
 extern "C" int dcrt_wl_closest_grouped(
     const int* seg, const int* item_sup, const float* item_t, int nb,
     const float* abox, const float* cbox, const float* tab, int watertight,
@@ -962,13 +1046,13 @@ extern "C" int dcrt_wl_any_grouped(const int* seg, const int* item_sup,
 }
 
 // The warp-walk kernels' resources, for the report: per kernel (grouped
-// closest Baldwin-Weber, grouped closest watertight, grouped any-hit
-// Baldwin-Weber, grouped any-hit watertight, per-ray closest Baldwin-Weber,
-// per-ray closest watertight, instanced closest Baldwin-Weber, instanced
-// closest watertight) 5 ints: resident blocks per SM, registers, static
-// shared bytes, local (spill) bytes per thread, threads per block.
+// closest, grouped any-hit, per-ray closest, instanced closest, per-ray
+// any-hit, instanced any-hit; each Baldwin-Weber, then watertight) 5 ints:
+// resident blocks per SM, registers, static shared bytes, local (spill)
+// bytes per thread, threads per block.
 extern "C" int dcrt_wl_warp_resources(int* out) {
-  const void* fns[8] = {
+  constexpr int kFns = 12;
+  const void* fns[kFns] = {
       reinterpret_cast<const void*>(closest_grouped_kernel<BaldwinWeber>),
       reinterpret_cast<const void*>(closest_grouped_kernel<RawWatertight>),
       reinterpret_cast<const void*>(any_grouped_kernel<BaldwinWeber>),
@@ -976,8 +1060,12 @@ extern "C" int dcrt_wl_warp_resources(int* out) {
       reinterpret_cast<const void*>(closest_ray_kernel<BaldwinWeber, false>),
       reinterpret_cast<const void*>(closest_ray_kernel<RawWatertight, false>),
       reinterpret_cast<const void*>(closest_ray_kernel<BaldwinWeber, true>),
-      reinterpret_cast<const void*>(closest_ray_kernel<RawWatertight, true>)};
-  for (int f = 0; f < 8; ++f) {
+      reinterpret_cast<const void*>(closest_ray_kernel<RawWatertight, true>),
+      reinterpret_cast<const void*>(any_ray_kernel<BaldwinWeber, false>),
+      reinterpret_cast<const void*>(any_ray_kernel<RawWatertight, false>),
+      reinterpret_cast<const void*>(any_ray_kernel<BaldwinWeber, true>),
+      reinterpret_cast<const void*>(any_ray_kernel<RawWatertight, true>)};
+  for (int f = 0; f < kFns; ++f) {
     cudaFuncAttributes a;
     cudaFuncGetAttributes(&a, fns[f]);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 5 * f, fns[f],
@@ -1017,22 +1105,23 @@ extern "C" int dcrt_wl_closest_inst(
 }
 
 extern "C" int dcrt_wl_any_inst(const int* seg, const int* item_sup, int nb,
-                                const float* cbox, const float* tab,
-                                const int* isup_local, const int* isup_inst,
-                                const float* inst_rows, int watertight,
-                                const float* od, const float* tm, int rp,
-                                int rb, float t_min, unsigned char* occ,
-                                void* stream) {
+                                const float* abox, const float* cbox,
+                                const float* tab, const int* isup_local,
+                                const int* isup_inst, const float* inst_rows,
+                                int watertight, const float* od,
+                                const float* tm, int rp, int rb, float t_min,
+                                unsigned char* occ, void* stream) {
   if (nb > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const dim3 grid(nb, (rb + kGroupThreads - 1) / kGroupThreads);
     if (watertight)
-      any_inst_kernel<RawWatertight><<<nb, rb, 0, s>>>(
-          seg, item_sup, cbox, tab, isup_local, isup_inst, inst_rows, od, tm,
-          rp, t_min, occ);
+      any_ray_kernel<RawWatertight, true><<<grid, kGroupThreads, 0, s>>>(
+          seg, item_sup, abox, cbox, tab, isup_local, isup_inst, inst_rows,
+          od, tm, rp, rb, t_min, occ);
     else
-      any_inst_kernel<BaldwinWeber><<<nb, rb, 0, s>>>(
-          seg, item_sup, cbox, tab, isup_local, isup_inst, inst_rows, od, tm,
-          rp, t_min, occ);
+      any_ray_kernel<BaldwinWeber, true><<<grid, kGroupThreads, 0, s>>>(
+          seg, item_sup, abox, cbox, tab, isup_local, isup_inst, inst_rows,
+          od, tm, rp, rb, t_min, occ);
   }
   return static_cast<int>(cudaGetLastError());
 }

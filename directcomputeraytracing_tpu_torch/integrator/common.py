@@ -80,13 +80,13 @@ def pool_cast_backend(cfg, scene):
     on instanced scenes the per-ray instanced sweep, which the reference's
     "pallas_wlg" downgrades to as well). The grouped kernels' warps walk
     their block's items on their own and skip the items none of their
-    rays can enter, with the same hits as the per-ray sweeps. On an
-    NVIDIA H100 80GB HBM3 at 700 W, on a sorted 2^18-ray pool
-    (Baldwin-Weber), the grouped any-hit sweep takes 0.416 ms against the
-    per-ray one's 3.72; the per-ray closest sweep, which walks by warps
-    too, takes 0.821 against the grouped one's 0.971 (the grouped one
-    leads on the unsorted 1M sets, 2.18 against 2.54 ms on random rays;
-    `tools/worklist_ab.py`, PERF.md). The three pool backends'
+    rays can enter, with the same hits as the per-ray sweeps, which walk
+    by warps too. On an NVIDIA H100 80GB HBM3 at 700 W, on a sorted
+    2^18-ray pool (Baldwin-Weber), the per-ray sweeps take 0.333 ms
+    (any-hit) and 0.853 (closest) against the grouped ones' 0.404 and
+    1.000 (`chip_smoke.py` phase 2c, one run; the grouped closest sweep
+    led on the unsorted 1M sets, 2.18 against 2.54 ms on random rays,
+    `tools/worklist_ab.py`; PERF.md). The three pool backends'
     ("pallas_wlg", "pallas_wl", "pallas_pair") 1080p pool passes trade
     the lead between runs (PERF.md)."""
     if cfg.pool_backend:

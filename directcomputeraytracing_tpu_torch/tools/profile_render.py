@@ -77,8 +77,8 @@ CASES = {"cornell": (lambda: cornell_box("area", "glossy"), 1024, 1024,
          "alpha": (lambda: alpha_sphere_grid(12, 12), 1024, 1024,
                    "megakernel", "auto", "")}
 # the port's kernels, told apart by entry point and template or parameter
-# types in the demangled names the profiler reports (the per-ray closest
-# sweep's second template argument is true on instanced tables); a kernel
+# types in the demangled names the profiler reports (the per-ray sweeps'
+# second template argument is true on instanced tables); a kernel
 # counts under the first key it matches (the clustered sweeps take mask
 # pointers, `unsigned char const*`, which no other closest or any-hit
 # kernel takes; the pair kernels' names hold the work list's as a suffix)
@@ -93,12 +93,12 @@ PORT_KERNELS = {
     "worklist.cu cull_kernel": ("cull_kernel",),
     "worklist.cu refine_kernel": ("refine_kernel",),
     "worklist.cu closest_ray_kernel": ("closest_ray_kernel", "false>"),
-    "worklist.cu any_kernel": ("any_kernel", "BaldwinWeber", "RawWatertight"),
+    "worklist.cu any_ray_kernel": ("any_ray_kernel", "false>"),
     "worklist.cu closest_grouped_kernel": ("closest_grouped_kernel",),
     "worklist.cu any_grouped_kernel": ("any_grouped_kernel",),
     "worklist.cu closest_ray_kernel (instanced)": ("closest_ray_kernel",
                                                    "true>"),
-    "worklist.cu any_inst_kernel": ("any_inst_kernel",),
+    "worklist.cu any_ray_kernel (instanced)": ("any_ray_kernel", "true>"),
     "brute_sweep.cu closest_kernel": ("closest_kernel", "Moeller",
                                       "dcrt::Watertight"),
     "brute_sweep.cu any_kernel": ("any_kernel", "Moeller",

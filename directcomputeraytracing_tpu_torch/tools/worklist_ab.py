@@ -17,16 +17,19 @@ block's items by warps, Baldwin-Weber and watertight:
   same five sets;
 - `inst` (row 13): the same kernel on instanced tables, on the four sets
   of phase 2d over `sphere_grid(27, 27)` (1,073,092 triangles; seed
-  20261019): camera, shadow, random sorted and the sorted 2^18 pool.
+  20261019): camera, shadow, random sorted and the sorted 2^18 pool;
+- `ray_any` (row 10): the per-ray any-hit sweep `any_ray_kernel` on the
+  five sets of `ray`, each with its per-ray t_max;
+- `inst_any` (row 14): the same kernel on instanced tables, on the four
+  sets of `inst`.
 
 `--rows` picks some of them (comma-separated; default all). Variants:
 
 - `parent`: `--parent DIR`'s `worklist.cu` with its headers, an earlier
-  version of the source, built under the library name worklist_parent.
-  A source with this C interface (it exports `dcrt_wl_warp_resources`)
-  is bound as the package's; else it must be commit 8f64292's, whose
-  per-ray closest kernels take no admission boxes and vote per 1024-ray
-  block (`_bind_parent`);
+  version of the source with the package's C interface, built under the
+  library name worklist_parent. A source without `any_ray_kernel` has
+  the block walk's per-ray any-hit sweeps, whose entries take no
+  admission boxes (`_bind_parent`);
 - `new`: the package's build of the source.
 
 Each is timed with CUDA events, the mean of `reps` (default 5) launches
@@ -34,14 +37,10 @@ after a warm-up, in turns: the variants in order, then in reverse
 (parent, new, new, parent; the grouped row also the per-ray sweep). A
 line per (row, set, test, kind) gives the turns and their mean. Every
 variant must equal `new` in every field of the sweep state (`iters`
-included: without a cap the walks count the same), `new` its twin in
-every field on 64 ray blocks spread over the set (rows 9 and 13), and
-the grouped kernels the per-ray sweep in the hit fields; the tool exits
-non-zero otherwise. One exception, exact: the per-ray kernels of commit
-8f64292 swept a padded super's empty padding clusters where their block
-voted for it and the ray's warp would not, so there `iters` must exceed
-`new`'s by the count of `padding_iters`, walked on the blocks where it
-can be non-zero (`cube_blocks`, where `new` must also equal the twin).
+included: without a cap the walks count the same; any-hit: `occ`),
+`new` its twin in every field on 64 ray blocks spread over the set
+(rows 9, 10, 13 and 14), and the grouped kernels the per-ray sweep in
+the hit fields; the tool exits non-zero otherwise.
 Prints the card's name and power limit first, then per built variant
 its sweep kernels' ptxas lines and (`new`) the warp-walk kernels'
 resources (resident blocks per SM, registers, shared and spill bytes).
@@ -51,7 +50,8 @@ Needs a CUDA device; with none it exits non-zero.
 `any_census`, `ray_census`), their summaries and `ptxas_report` serve
 `chip_smoke.py` phases 1, 2b, 2c and 2d too: the censuses walk the
 twins' own steps and count the (item, warp) pairs of the warp walks;
-`padding_iters` walks the per-ray twin the same way.
+`padding_iters` walks the per-ray twin the same way and counts what a
+vote per 1024-ray block, the first per-ray kernels', adds to `iters`.
 """
 
 import argparse
@@ -80,7 +80,7 @@ INST_SEED = 20261019
 INST_SETS = ("camera", "shadow", "random_sorted", "pool_sorted")
 TWIN_BLOCKS = 64
 T_MIN = 1e-4
-ROWS = ("grouped", "ray", "inst")
+ROWS = ("grouped", "ray", "inst", "ray_any", "inst_any")
 
 
 def ray_sets(tables, cam, device, seed=SEED):
@@ -165,26 +165,38 @@ def ray_census(tables, items, od, texp, t_min, watertight):
 
 
 def any_census(tables, items, od, tm, t_min, watertight):
-    """Counts of the (item, warp) pairs of the grouped any-hit walk of one
-    cast, by the twin's own steps (`wl.any_step`): `pairs`, `visited`
-    (some ray of the warp not yet occluded) and `admitted` (then the
-    super-box admission, occluded rays capped at -BIG)."""
+    """The per-ray any-hit walk of one cast (world-soup or instanced
+    tables) by the twin's own steps (`wl.any_step`): (its occlusion,
+    which is `wl.sweep_any_torch`'s, and the counts of its (item, warp)
+    pairs): `pairs` (every warp of a block against every item of its
+    block), `visited` (some ray of the warp not yet done: occluded, or
+    from the start where t_max <= t_min), `admitted` (then the super-box
+    admission, rays that are done capped at -BIG) and `entered`, the
+    (ray, item) pairs whose fine cull entered a child (where the
+    instanced kernel moves the ray to instance space). The grouped
+    any-hit walk visits and admits the same pairs, but keeps rays with
+    t_max <= t_min live (the ray sets here have none)."""
     rp, n = od.shape[1], Counter()
     occ = torch.zeros(rp, dtype=torch.bool, device=od.device)
+    dead = ~(tm > t_min)
     for lo in range(0, rp, wl.TWIN_RAY_CHUNK):
         for rays, item in wl._ray_steps(items, lo,
                                         min(rp, lo + wl.TWIN_RAY_CHUNK)):
-            occ_r = occ[rays]
-            adm = wl.warp_admitted(tables.abox[items.sup[item].long()],
-                                   od[:, rays],
-                                   torch.where(occ_r, -wl.BIG, tm[rays]),
-                                   t_min)
+            done = (occ | dead)[rays]
+            sup = items.sup[item].long()
+            cap = torch.where(done, -wl.BIG, tm[rays])
+            adm = torch.nonzero(wl.warp_admitted(tables.abox[sup],
+                                                 od[:, rays], cap,
+                                                 t_min))[:, 0]
+            enter, _ = wl._fine_cull(tables.cbox3[sup[adm]], od[:, rays[adm]],
+                                     cap[adm], t_min)
             n.update(pairs=rays.numel() // wl.GL,
-                     visited=int((~occ_r).view(-1, wl.GL).any(1).sum()),
-                     admitted=int(adm.sum()) // wl.GL)
+                     visited=int((~done).view(-1, wl.GL).any(1).sum()),
+                     admitted=adm.numel() // wl.GL,
+                     entered=int(enter.any(1).sum()))
             wl.any_step(tables, items, od, tm, t_min, watertight, occ, rays,
                         item)
-    return dict(n)
+    return occ, dict(n)
 
 
 def _share(c, key):
@@ -192,11 +204,11 @@ def _share(c, key):
 
 
 def census_summary(closest, any_, rp):
-    """Per-ray and per-pair figures of the grouped walks from the
-    censuses (`closest_census`, `any_census`) of one cast of rp padded
-    rays. Fine-cull slab tests per ray: 32 for each pair the warp admits
-    (the per-ray sweep and the first grouped design: 32 for each pair of
-    an item that passed the block vote)."""
+    """Per-ray and per-pair figures of the warp walks from the censuses
+    (`closest_census` of the grouped closest walk, `any_census` of the
+    any-hit walk) of one cast of rp padded rays. Fine-cull slab tests per
+    ray: 32 for each pair the warp admits (the first closest designs: 32
+    for each pair of an item that passed the block vote)."""
     warps = rp // wl.GL
     return dict(
         pairs_per_warp=closest.get("pairs", 0) / warps,
@@ -206,10 +218,24 @@ def census_summary(closest, any_, rp):
         fine_tests_per_ray=wl.SUPER * closest.get("admitted", 0) / warps,
         fine_tests_per_ray_block_walk=wl.SUPER
         * closest.get("block_voted", 0) / warps,
-        any_pairs_per_warp=any_.get("pairs", 0) / warps,
-        any_visited_share=_share(any_, "visited"),
-        any_admitted_share=_share(any_, "admitted"),
-        any_fine_tests_per_ray=wl.SUPER * any_.get("admitted", 0) / warps)
+        **any_census_summary(any_, rp))
+
+
+def any_census_summary(counts, rp):
+    """Per-ray and per-pair figures of the any-hit warp walk from its
+    census (`any_census`) of one cast of rp padded rays: the shares of
+    (item, warp) pairs visited and admitted, fine-cull slab tests per ray
+    (32 for each admitted pair; the block walk of the first per-ray
+    kernel: 32 for each pair) and items entered per ray."""
+    warps = rp // wl.GL
+    return dict(
+        any_pairs_per_warp=counts.get("pairs", 0) / warps,
+        any_visited_share=_share(counts, "visited"),
+        any_admitted_share=_share(counts, "admitted"),
+        any_fine_tests_per_ray=wl.SUPER * counts.get("admitted", 0) / warps,
+        any_fine_tests_per_ray_block_walk=wl.SUPER * counts.get("pairs", 0)
+        / warps,
+        any_entered_items_per_ray=counts.get("entered", 0) / rp)
 
 
 def ray_census_summary(counts, rp):
@@ -264,30 +290,14 @@ def block_vote_diffs(block, warp, gap):
     return out
 
 
-def cube_blocks(od, texp, r, t_min=T_MIN):
-    """Indices (below r) of the rays of the RB-ray blocks that hold a ray
-    entering the cube [-1, 1]^3 under its first window (the scene exit):
-    only there can `padding_iters`'s gap be non-zero, since a padding
-    child reads to the fine cull as that cube and windows only shrink."""
-    cube = torch.tensor(wl._INVERTED_BOX, dtype=od.dtype, device=od.device)
-    first = wl._window(wl._float_bits(texp) | wl._LOWM)
-    enter = wl._fine_cull(cube.expand(od.shape[1], 1, 8), od, first,
-                          t_min)[0][:, 0]
-    blocks = torch.nonzero(enter.view(-1, wl.RB).any(1))[:, 0]
-    rays = (blocks[:, None] * wl.RB
-            + torch.arange(wl.RB, device=od.device)).reshape(-1)
-    return rays[rays < r]
-
-
 def _short(entry):
-    """Short name of a sweep kernel's mangled entry (the warp-walk
-    kernels; commit 8f64292's per-ray closest kernels, `--parent`, as the
-    per-ray closest kernels), or None."""
+    """Short name (one of `wl.WARP_KERNELS`) of a warp-walk sweep
+    kernel's mangled entry, or None."""
     test = "wt" if "RawWatertight" in entry else "bw"
-    if "closest_ray_kernel" in entry:
-        return f"{'inst' if 'Lb1E' in entry else 'ray'}_closest_{test}"
-    if "14closest_kernel" in entry or "19closest_inst_kernel" in entry:
-        return f"{'inst' if 'inst' in entry else 'ray'}_closest_{test}"
+    for kind in ("closest", "any"):
+        if f"{kind}_ray_kernel" in entry:
+            # the second template argument, kInst, mangles as Lb1E
+            return f"{'inst' if 'Lb1E' in entry else 'ray'}_{kind}_{test}"
     for kind in ("closest", "any"):
         if f"{kind}_grouped_kernel" in entry:
             return f"{kind}_{test}"
@@ -319,44 +329,33 @@ def ptxas_report(log):
     return out
 
 
-def _bind_parent(lib):
-    """Bind a parent's build: (name -> (entry, takes admission boxes),
-    whether its per-ray closest kernels vote per block). A build that
-    exports `dcrt_wl_warp_resources` has the package's C interface;
-    else it is commit 8f64292's: the grouped sweeps' as now, the per-ray
-    closest sweeps without admission boxes."""
-    if hasattr(lib, "dcrt_wl_warp_resources"):
-        return _entries(wl.bind(lib)), False
-    c_p, c_i, c_f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    closest = [c_p, c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i, c_i, c_f,
-               c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p]
-    lib.dcrt_wl_closest.argtypes = closest
-    lib.dcrt_wl_closest_inst.argtypes = closest[:6] + [c_p] * 3 \
-        + closest[6:]
-    lib.dcrt_wl_closest_grouped.argtypes = closest[:4] + [c_p] \
-        + closest[4:]
-    lib.dcrt_wl_any_grouped.argtypes = [c_p, c_p, c_i, c_p, c_p, c_p, c_i,
-                                        c_p, c_p, c_i, c_i, c_f, c_p, c_p]
-    for fn in (lib.dcrt_wl_closest, lib.dcrt_wl_closest_inst,
-               lib.dcrt_wl_closest_grouped, lib.dcrt_wl_any_grouped):
-        fn.restype = c_i
-    return dict(ray=(lib.dcrt_wl_closest, False),
-                inst=(lib.dcrt_wl_closest_inst, False),
-                grouped_closest=(lib.dcrt_wl_closest_grouped, True),
-                grouped_any=(lib.dcrt_wl_any_grouped, True)), True
+def _bind_parent(lib, source):
+    """Bind a parent's build (its `worklist.cu` text: source) as the
+    package's C interface; a source without `any_ray_kernel` has the
+    block walk's per-ray any-hit sweeps, which take no admission boxes.
+    Returns whether its per-ray any-hit sweeps take them."""
+    wl.bind(lib)
+    abox = "any_ray_kernel" in source
+    if not abox:
+        c_p, c_i, c_f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        any_ = [c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i, c_i, c_f, c_p,
+                c_p]
+        lib.dcrt_wl_any.argtypes = any_
+        lib.dcrt_wl_any_inst.argtypes = any_[:5] + [c_p] * 3 + any_[5:]
+    return abox
 
 
 def _entries(lib):
-    return dict(ray=(lib.dcrt_wl_closest, True),
-                inst=(lib.dcrt_wl_closest_inst, True),
-                grouped_closest=(lib.dcrt_wl_closest_grouped, True),
-                grouped_any=(lib.dcrt_wl_any_grouped, True))
+    return dict(ray=lib.dcrt_wl_closest, inst=lib.dcrt_wl_closest_inst,
+                grouped_closest=lib.dcrt_wl_closest_grouped,
+                grouped_any=lib.dcrt_wl_any_grouped,
+                ray_any=lib.dcrt_wl_any, inst_any=lib.dcrt_wl_any_inst)
 
 
 def _build(parent):
-    """(name -> (entries, built library) of the package's kernels and the
-    parent's, given a directory; whether the parent's per-ray kernels
-    vote per block). The two nvcc runs go in parallel."""
+    """name -> (entries, built library, whether its per-ray any-hit
+    sweeps take admission boxes) of the package's kernels and, given a
+    directory, the parent's. The two nvcc runs go in parallel."""
     from ..utils.cuda_build import load_library
 
     with ThreadPoolExecutor(2) as pool:
@@ -364,28 +363,27 @@ def _build(parent):
         old = parent and pool.submit(
             load_library, "worklist.cu", wl._NVCC_EXTRA,
             csrc=os.path.abspath(parent), name="worklist_parent")
-    out, block_vote = {}, False
+    out = {}
     if old:
         built = old.result()
-        entries, block_vote = _bind_parent(built.lib)
-        out["parent"] = (entries, built)
-    out["new"] = (_entries(new.result().lib), new.result())
-    return out, block_vote
+        with open(os.path.join(parent, "worklist.cu")) as f:
+            abox = _bind_parent(built.lib, f.read())
+        out["parent"] = (_entries(built.lib), built, abox)
+    out["new"] = (_entries(new.result().lib), new.result(), True)
+    return out
 
 
-def _closest_run(fn, abox, tables, items, od, texp, wt):
+def _closest_run(fn, tables, items, od, texp, wt):
     def run():
-        err, out = wl._launch_closest(fn, tables, items, od, texp, T_MIN, wt,
-                                      abox)
+        err, out = wl._launch_closest(fn, tables, items, od, texp, T_MIN, wt)
         wl._raise_on(err, fn.__name__)
         return out
     return run
 
 
-def _any_run(fn, tables, items, od, tm, wt):
+def _any_run(fn, tables, items, od, tm, wt, abox=True):
     def run():
-        err, occ = wl._launch_any(fn, tables, items, od, tm, T_MIN, wt,
-                                  abox=True)
+        err, occ = wl._launch_any(fn, tables, items, od, tm, T_MIN, wt, abox)
         wl._raise_on(err, fn.__name__)
         return occ
     return run
@@ -418,12 +416,12 @@ def _grouped_row(variants, tables, sets, reps, bad):
     for case, (o, d, t_max) in sets.items():
         od, tm_a, texp, it_c, it_a = _prepared(tables, o, d, t_max)
         for wt in (False, True):
-            runs_c = {n: _closest_run(*e["grouped_closest"], tables, it_c, od,
+            runs_c = {n: _closest_run(e["grouped_closest"], tables, it_c, od,
                                       texp, wt)
-                      for n, (e, _) in variants.items()}
-            runs_a = {n: _any_run(e["grouped_any"][0], tables, it_a, od,
-                                  tm_a, wt)
-                      for n, (e, _) in variants.items()}
+                      for n, (e, _, _) in variants.items()}
+            runs_a = {n: _any_run(e["grouped_any"], tables, it_a, od, tm_a,
+                                  wt)
+                      for n, (e, _, _) in variants.items()}
             runs_c["per_ray"] = lambda: wl.sweep_closest(
                 tables, it_c, od, texp, T_MIN, wt)
             runs_a["per_ray"] = lambda: wl.sweep_any(tables, it_a, od, tm_a,
@@ -447,59 +445,25 @@ def _grouped_row(variants, tables, sets, reps, bad):
                     int(it.seg[-1]), order, turns, **extra)))
 
 
-def _block_vote_check(tables, o, d, t_max, cube, parent, new, wt):
-    """A parent that votes per block against `new` on one set: exactly
-    equal outside the blocks `cube` (`cube_blocks`); on them, `new` equal
-    to the twin and the parent to `block_vote_diffs` of `padding_iters`.
-    Returns (the differences, flat, and what the gap counted)."""
-    rest = torch.ones(new[0].shape[0], dtype=torch.bool, device=o.device)
-    rest[cube] = False
-    diffs = {f"outside_{f}": n for f, n in sweep_diffs(
-        [x[rest] for x in parent], [x[rest] for x in new]).items()}
-    info = dict(cube_rays=int(cube.numel()), padding_rays=0,
-                padding_clusters=0)
-    if cube.numel():
-        od, _, texp, items, _ = _prepared(tables, o[cube], d[cube],
-                                          t_max[cube])
-        twin, gap = padding_iters(tables, items, od, texp, T_MIN, wt)
-        n = cube.numel()
-        twin, gap = [x[:n] for x in twin], gap[:, :n]
-        parent, new = ([x[cube] for x in s] for s in (parent, new))
-        diffs.update({f"cube_twin_{f}": v for f, v in
-                      sweep_diffs(new, twin).items()})
-        diffs.update({f"cube_{f}": v for f, v in
-                      block_vote_diffs(parent, new, gap).items()})
-        info.update(padding_rays=int((gap[0] > 0).sum()),
-                    padding_clusters=int(gap[0].sum()))
-    return diffs, info
-
-
-def _ray_row(row, variants, tables, sets, reps, bad, block_vote):
+def _ray_row(row, variants, tables, sets, reps, bad):
     """Rows 9 and 13: the per-ray closest sweep of every variant, in turns;
-    equality with `new` on the whole set (a parent that votes per block,
-    block_vote: `_block_vote_check`) and of `new` with its twin on
+    equality with `new` on the whole set, and of `new` with its twin on
     TWIN_BLOCKS spread blocks."""
     for case, (o, d, t_max) in sets.items():
         od, _, texp, it_c, _ = _prepared(tables, o, d, t_max)
         idx = spread_blocks(o.shape[0], TWIN_BLOCKS, o.device, wl.RB)
         od_s, _, texp_s, it_s, _ = _prepared(tables, o[idx], d[idx],
                                              t_max[idx])
-        cube = cube_blocks(od, texp, o.shape[0]) if block_vote else None
         for wt in (False, True):
-            runs = {n: _closest_run(*e[row], tables, it_c, od, texp, wt)
-                    for n, (e, _) in variants.items()}
+            runs = {n: _closest_run(e[row], tables, it_c, od, texp, wt)
+                    for n, (e, _, _) in variants.items()}
             want = runs["new"]()
-            got = {n: run() for n, run in runs.items()}
-            check = {n: sweep_diffs(g, want) for n, g in got.items()}
-            new_s = _closest_run(*variants["new"][0][row], tables, it_s,
-                                 od_s, texp_s, wt)()
+            check = {n: sweep_diffs(run(), want) for n, run in runs.items()}
+            new_s = _closest_run(variants["new"][0][row], tables, it_s, od_s,
+                                 texp_s, wt)()
             check["twin"] = sweep_diffs(
                 new_s, wl.sweep_closest_torch(tables, it_s, od_s, texp_s,
                                               T_MIN, wt))
-            padding = {}
-            if cube is not None and "parent" in got:
-                check["parent"], padding = _block_vote_check(
-                    tables, o, d, t_max, cube, got["parent"], want, wt)
             for name, diff in check.items():
                 if any(diff.values()):
                     bad.append((row, case, wt, name))
@@ -507,8 +471,36 @@ def _ray_row(row, variants, tables, sets, reps, bad, block_vote):
             print("worklist-ab", json.dumps(_line(
                 row, case, wt, "closest", o.shape[0], int(it_c.seg[-1]),
                 order, turns, twin_rays=int(idx.numel()),
-                diffs_vs_new=check, parent_block_vote=padding,
+                diffs_vs_new=check,
                 iters_per_ray=float(want[7][:o.shape[0]].float().mean()))))
+
+
+def _any_row(row, variants, tables, sets, reps, bad):
+    """Rows 10 and 14: the per-ray any-hit sweep of every variant, in
+    turns; `occ` equal to `new`'s on the whole set, and `new`'s to its
+    twin's on TWIN_BLOCKS spread blocks."""
+    for case, (o, d, t_max) in sets.items():
+        od, tm_a, _, _, it_a = _prepared(tables, o, d, t_max)
+        idx = spread_blocks(o.shape[0], TWIN_BLOCKS, o.device, wl.RB)
+        od_s, tm_s, _, _, it_s = _prepared(tables, o[idx], d[idx],
+                                           t_max[idx])
+        for wt in (False, True):
+            runs = {n: _any_run(e[row], tables, it_a, od, tm_a, wt, abox)
+                    for n, (e, _, abox) in variants.items()}
+            want = runs["new"]()
+            check = {n: int((run() != want).sum()) for n, run in runs.items()}
+            new_s = _any_run(variants["new"][0][row], tables, it_s, od_s,
+                             tm_s, wt)()
+            check["twin"] = int((new_s != wl.sweep_any_torch(
+                tables, it_s, od_s, tm_s, T_MIN, wt)).sum())
+            for name, diff in check.items():
+                if diff:
+                    bad.append((row, case, wt, name))
+            order, turns = _in_turns(runs, reps)
+            print("worklist-ab", json.dumps(_line(
+                row, case, wt, "any", o.shape[0], int(it_a.seg[-1]), order,
+                turns, twin_rays=int(idx.numel()), occ_diffs_vs_new=check,
+                occluded=float(want[:o.shape[0]].float().mean()))))
 
 
 def main(argv=None):
@@ -527,15 +519,15 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
-    variants, block_vote = _build(args.parent)
-    for name, (_, built) in variants.items():
+    variants = _build(args.parent)
+    for name, (_, built, _) in variants.items():
         rep = dict(variant=name, build_s=built.seconds,
                    ptxas=ptxas_report(built.log))
         if name == "new":
             rep["resources"] = wl.warp_resources()
         print("worklist-ab-build", json.dumps(rep))
     bad = []
-    if "grouped" in rows or "ray" in rows:
+    if set(rows) & {"grouped", "ray", "ray_any"}:
         scene, cam = sphere_grid(*GRID)
         arrays, _ = flatten_scene(scene, dev)
         tables = wl.scene_tables(arrays)
@@ -543,19 +535,22 @@ def main(argv=None):
         if "grouped" in rows:
             _grouped_row(variants, tables, sets, args.reps, bad)
         if "ray" in rows:
-            _ray_row("ray", variants, tables, sets, args.reps, bad,
-                     block_vote)
+            _ray_row("ray", variants, tables, sets, args.reps, bad)
+        if "ray_any" in rows:
+            _any_row("ray_any", variants, tables, sets, args.reps, bad)
         del arrays, tables, sets
-    if "inst" in rows:
+    if set(rows) & {"inst", "inst_any"}:
         scene, cam = sphere_grid(*INST_GRID)
         arrays, _ = flatten_scene(scene, dev)
         tables = wl.scene_tables(arrays)
         if tables.inst_rows is None:
             raise SystemExit("sphere_grid(27, 27) should use the instanced "
                              "tables")
-        _ray_row("inst", variants, tables,
-                 inst_ray_sets(tables, to_device(cam, dev), dev), args.reps,
-                 bad, block_vote)
+        sets = inst_ray_sets(tables, to_device(cam, dev), dev)
+        if "inst" in rows:
+            _ray_row("inst", variants, tables, sets, args.reps, bad)
+        if "inst_any" in rows:
+            _any_row("inst_any", variants, tables, sets, args.reps, bad)
     if bad:
         print(f"worklist_ab: variants differ: {bad}", file=sys.stderr)
         return 1

@@ -249,13 +249,18 @@ def test_admission_changes_no_field(scenes, monkeypatch, name, cap):
                                             r)[0]).sum() > 100
 
 
-@pytest.mark.parametrize("name", ["grid", "soup"])
+@pytest.mark.parametrize("name", ["grid", "soup", "instanced"])
 def test_any_census_counts_the_walk(scenes, name):
-    """The any-hit census walks the twin's own steps: its walk leaves the
-    twin's answer, it counts every (item, warp) pair of the cast, and the
-    admission refuses some of the pairs the warps visit."""
+    """The any-hit census walks the twin's own steps: its walk gives the
+    twin's answer (`sweep_any_inst_torch` on instanced tables), it counts
+    every (item, warp) pair of the cast, the admission refuses some of
+    the pairs the warps visit (but on the soup, whose supers each span
+    its whole box, so that every ray enters every super box: there the
+    warps of parked padding rays, done from the start, are not visited),
+    and the rays that enter a child are rays of admitted pairs."""
     scene = scenes[name]
     tables = wl.scene_tables(scene)
+    assert (tables.inst_rows is not None) == (name == "instanced")
     o, d, t_max = _shadow_rays(3 * wl.RB + 77, 54)
     if name == "soup":
         o = o * 0.5 + 0.5
@@ -263,13 +268,111 @@ def test_any_census_counts_the_walk(scenes, name):
     o, d, t_max = (torch.from_numpy(x) for x in (o, d, t_max))
     od, tm, _ = wl.prep_rays(o, d, t_max)
     items = wl.phases(tables, od, tm, plain=True)
-    census = worklist_ab.any_census(tables, items, od, tm, 1e-4, False)
+    occ, census = worklist_ab.any_census(tables, items, od, tm, 1e-4, False)
+    assert torch.equal(occ, wl.sweep_any_inst_torch(tables, items, od, tm,
+                                                    1e-4, False))
+    assert occ.any() and not occ.all()
     counts = (items.seg[1:] - items.seg[:-1]).long()
     assert census["pairs"] == int(counts.sum()) * (wl.RB // wl.GL)
-    assert census["pairs"] >= census["visited"] > census["admitted"] > 0
+    assert census["pairs"] >= census["visited"] >= census["admitted"] > 0
+    if name == "soup":
+        padding_warps = (od.shape[1] - o.shape[0]) // wl.GL
+        assert census["visited"] <= census["pairs"] - padding_warps * (
+            int(counts[-1]))
+    else:
+        assert census["visited"] > census["admitted"]
+    assert 0 < census["entered"] <= census["admitted"] * wl.GL
     summary = worklist_ab.census_summary({}, census, od.shape[1])
     assert 0 < summary["any_admitted_share"] < 1
-    assert wl.sweep_any_torch(tables, items, od, tm, 1e-4, False).any()
+    assert (summary["any_fine_tests_per_ray"]
+            < summary["any_fine_tests_per_ray_block_walk"])
+
+
+def _any_warp_walk(tables, items, od, tm, t_min, watertight):
+    """A plain model of `any_ray_kernel`'s walk, warp by warp: each warp
+    of GL rays walks its block's items in order and stops once every ray
+    is done (occluded, or from the start where t_max <= t_min); per item
+    it skips unless some ray enters the item's admission box under its
+    cap (-BIG for a ray that is done), and the rays not yet done take the
+    twin's step (`wl.any_step`). Returns (occ, the warps that stopped
+    before their block's last item, the (item, warp) pairs admitted)."""
+    rp = od.shape[1]
+    occ = torch.zeros(rp, dtype=torch.bool)
+    dead = ~(tm > t_min)
+    lanes = torch.arange(wl.GL)
+    stopped = admitted = 0
+    for w in range(rp // wl.GL):
+        rays = w * wl.GL + lanes
+        blk = w * wl.GL // wl.RB
+        for k in range(int(items.seg[blk]), int(items.seg[blk + 1])):
+            done = occ[rays] | dead[rays]
+            if done.all():
+                stopped += 1
+                break
+            sup = items.sup[k].long()
+            cap = torch.where(done, -wl.BIG, tm[rays])
+            if not wl.warp_admitted(tables.abox[sup].expand(wl.GL, 8),
+                                    od[:, rays], cap, t_min)[0]:
+                continue
+            admitted += 1
+            live = rays[~done]
+            wl.any_step(tables, items, od, tm, t_min, watertight, occ, live,
+                        torch.full_like(live, k))
+    return occ, stopped, admitted
+
+
+def _half_occluded_rays(world_tris, n_warps, seed):
+    """Aimed shadow warps (`_aimed_shadow_rays`): every odd warp sends
+    lanes 16-31 straight up from their origins with t_max 1, short of the
+    lamp (y = 7), so that its other lanes are occluded at their first
+    sphere and it walks on; every
+    5th lane of every third warp gets t_max 0 and its neighbour t_max
+    t_min (1e-4): no hit lies in [t_min, t_max)."""
+    o, d, t_max = _aimed_shadow_rays(world_tris, n_warps, seed)
+    lane = np.arange(o.shape[0]) % wl.GL
+    warp = np.arange(o.shape[0]) // wl.GL
+    up = (warp % 2 == 1) & (lane >= 16)
+    d[up] = (0.0, 1.0, 0.0)
+    t_max[up] = 1.0
+    dead = (warp % 3 == 0) & (lane % 5 == 0)
+    t_max[dead] = 0.0
+    t_max[np.roll(dead, 1)] = 1e-4
+    return o, d, t_max
+
+
+@pytest.mark.parametrize("rays", ["random", "half_occluded"])
+@pytest.mark.parametrize("name", ["grid", "instanced"])
+def test_any_warp_walk_matches_twin(scenes, name, rays):
+    """`any_ray_kernel`'s walk, modelled warp by warp, gives the twin's
+    occlusion on every ray: the admission skips only items that no ray
+    of the warp would enter, a warp stops only once all its rays are
+    done, and rays with t_max <= t_min, which enter nothing, are not
+    occluded and do not hold the warp. Random rays with per-ray t_max
+    (some at 0 and at t_min; 4,101 rays, so the last block holds parked
+    padding rays), and aimed shadow warps, half of them half occluded at
+    their first item; on the soup and on the instanced tables."""
+    tables = wl.scene_tables(scenes[name])
+    if rays == "random":
+        o, d, t_max = _rays(4 * wl.RB + 5, 56)
+        t_max[::9] = 0.0
+        t_max[1::9] = 1e-4
+    else:
+        o, d, t_max = _half_occluded_rays(scenes["grid"].world_tris, 96, 57)
+    o, d, t_max = (torch.from_numpy(x) for x in (o, d, t_max))
+    od, tm, r = wl.prep_rays(o, d, t_max)
+    items = wl.phases(tables, od, tm, plain=True)
+    occ, stopped, admitted = _any_warp_walk(tables, items, od, tm, 1e-4,
+                                            False)
+    want = wl.sweep_any_torch(tables, items, od, tm, 1e-4, False)
+    assert torch.equal(occ, want)
+    assert not occ[r:].any() and not occ[:r][~(t_max > 1e-4)].any()
+    assert want[:r].any() and not want[:r].all()
+    assert admitted > 0
+    if rays == "half_occluded":
+        per_warp = occ[:r].view(-1, wl.GL)
+        assert (per_warp[1::2, :16].all(1) & ~per_warp[1::2, 16:].any(1)
+                ).float().mean() > 0.5
+        assert stopped > 0
 
 
 def _block_vote(monkeypatch, fn, *args):
@@ -608,3 +711,66 @@ def test_cuda_grouped_kernels_match_twins(watertight):
     for a, b in zip(slab[:6], slab_per_ray[:6]):
         assert torch.equal(a, b)
     assert wl.counters()["sweep_closest_grouped"] > 4
+
+
+# csrc/worklist.cu's kernels as nvcc 12.8 names them in its ptxas lines
+# for sm_90a (anonymous namespace, then the kernel and its template
+# arguments), with the short name `worklist_ab._short` gives each (None:
+# not a warp-walk sweep)
+_NS = "_ZN44_GLOBAL__N__ff7794f1_11_worklist_cu_501dc527"
+_BW, _WT = "IN4dcrt12BaldwinWeberE", "IN4dcrt13RawWatertightE"
+_CLOSEST = "PKiS4_PKfS6_S6_S6_S6_S6_iifNS1_10ClosestOutE"
+_RAY_CLOSEST = "PKiS4_PKfS6_S6_S6_S4_S4_S6_S6_S6_iifNS1_10ClosestOutE"
+_ANY = "PKiS4_PKfS6_S6_S6_S6_iifPh"
+_RAY_ANY = "PKiS4_PKfS6_S6_S4_S4_S6_S6_S6_iifPh"
+_ENTRIES = {
+    f"{_NS}22closest_grouped_kernel{_BW}EEv{_CLOSEST}": "closest_bw",
+    f"{_NS}22closest_grouped_kernel{_WT}EEv{_CLOSEST}": "closest_wt",
+    f"{_NS}18any_grouped_kernel{_BW}EEv{_ANY}": "any_bw",
+    f"{_NS}18any_grouped_kernel{_WT}EEv{_ANY}": "any_wt",
+    f"{_NS}18closest_ray_kernel{_BW}Lb0EEEv{_RAY_CLOSEST}": "ray_closest_bw",
+    f"{_NS}18closest_ray_kernel{_WT}Lb0EEEv{_RAY_CLOSEST}": "ray_closest_wt",
+    f"{_NS}18closest_ray_kernel{_BW}Lb1EEEv{_RAY_CLOSEST}": "inst_closest_bw",
+    f"{_NS}18closest_ray_kernel{_WT}Lb1EEEv{_RAY_CLOSEST}": "inst_closest_wt",
+    f"{_NS}14any_ray_kernel{_BW}Lb0EEEv{_RAY_ANY}": "ray_any_bw",
+    f"{_NS}14any_ray_kernel{_WT}Lb0EEEv{_RAY_ANY}": "ray_any_wt",
+    f"{_NS}14any_ray_kernel{_BW}Lb1EEEv{_RAY_ANY}": "inst_any_bw",
+    f"{_NS}14any_ray_kernel{_WT}Lb1EEEv{_RAY_ANY}": "inst_any_wt",
+    f"{_NS}11cull_kernelEPKfiS1_S1_iPf": None,
+    f"{_NS}13refine_kernelEPKfiPKiS3_S1_S1_iPf": None,
+}
+
+
+def _ptxas_log():
+    """A ptxas report (`nvcc -Xptxas -v`) of the kernels of _ENTRIES, the
+    j-th with 40 + j registers, 8 * j bytes of stack and spill."""
+    lines = []
+    for j, entry in enumerate(_ENTRIES):
+        lines += [
+            f"ptxas info    : Compiling entry function '{entry}' for "
+            "'sm_90a'",
+            f"ptxas info    : Function properties for {entry}",
+            f"    {8 * j} bytes stack frame, {8 * j} bytes spill stores, "
+            f"{8 * j} bytes spill loads",
+            f"ptxas info    : Used {40 + j} registers, used 0 barriers, "
+            f"{1024 * j} bytes smem",
+            "ptxas info    : Compile time = 255.933 ms"]
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("entry", list(_ENTRIES),
+                         ids=[v or "other" for v in _ENTRIES.values()])
+def test_ptxas_report_names_the_warp_kernels(entry):
+    """`ptxas_report` files each kernel's registers, shared memory, stack
+    and spills under the short name `_short` gives its entry, one of the
+    12 names of `wl.WARP_KERNELS` (the order of `warp_resources`), and
+    skips the kernels that do not walk by warps."""
+    assert len(wl.WARP_KERNELS) == len(set(wl.WARP_KERNELS)) == 12
+    short, j = _ENTRIES[entry], list(_ENTRIES).index(entry)
+    assert worklist_ab._short(entry) == short
+    rep = worklist_ab.ptxas_report(_ptxas_log())
+    assert set(rep) == set(wl.WARP_KERNELS)
+    if short is not None:
+        assert rep[short] == dict(registers=40 + j, smem=1024 * j,
+                                  stack=8 * j, spill_stores=8 * j,
+                                  spill_loads=8 * j)

@@ -159,6 +159,32 @@ def _rays(n, seed):
     return o, d, t_max
 
 
+def _half_occluded_rays(n_warps, seed):
+    """Warps of 32 rays from y = 3 above the small grid's sphere centres:
+    lanes pointing straight down (t_max 5) are occluded at the first
+    sphere their block enters; lanes 16-31 of every odd warp point
+    straight up (t_max 1, short of the lamp at y = 7) and are never
+    occluded, so those warps walk on half occluded; every 5th lane of
+    every third warp has t_max 0 and the next t_max 1e-4 (= t_min): no hit
+    lies in [t_min, t_max)."""
+    rs = np.random.default_rng(seed)
+    n = n_warps * 32
+    xz = np.repeat(rs.integers(-1, 2, (n_warps, 2)) * 1.5, 32, axis=0) \
+        + rs.uniform(-0.1, 0.1, (n, 2))
+    o = np.stack([xz[:, 0], np.full(n, 3.0), xz[:, 1]], 1)
+    d = np.tile([0.0, -1.0, 0.0], (n, 1))
+    t_max = np.full(n, 5.0)
+    lane, warp = np.arange(n) % 32, np.arange(n) // 32
+    up = (warp % 2 == 1) & (lane >= 16)
+    d[up] = (0.0, 1.0, 0.0)
+    t_max[up] = 1.0
+    dead = (warp % 3 == 0) & (lane % 5 == 0)
+    t_max[dead] = 0.0
+    t_max[np.roll(dead, 1)] = 1e-4
+    return (o.astype(np.float32), d.astype(np.float32),
+            t_max.astype(np.float32))
+
+
 def _local_inputs(arrays, scene):
     """build_local_clusters' and build_instanced_supers' inputs from a
     port flatten."""
@@ -530,3 +556,16 @@ def test_cuda_kernels_match_twins(watertight, monkeypatch):
                                        watertight)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    # any-hit warps occluded at their first item, whole or half, and
+    # lanes with t_max <= t_min; a partial last ray block
+    o, d, t_max = (torch.from_numpy(x).to(dev)
+                   for x in _half_occluded_rays(3 * 32 * 11 + 3, 12))
+    od, tm, r = wl.prep_rays(o, d, t_max)
+    items = wl.phases(tables, od, tm)
+    occ = wl.sweep_any_inst(tables, items, od, tm, 1e-4, watertight)
+    assert torch.equal(occ, wl.sweep_any_inst_torch(tables, items, od, tm,
+                                                    1e-4, watertight))
+    warps = occ[:r - r % 32].view(-1, 32)
+    assert warps[0::2].sum() > 0.5 * warps[0::2].numel()
+    assert warps[1::2, :16].any() and not warps[1::2, 16:].any()
+    assert not occ[:r][~(t_max > 1e-4)].any()
