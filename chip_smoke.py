@@ -13,7 +13,8 @@ any failure exits non-zero:
    parallel) and print the build times and ptxas reports, then the
    warp-walk sweeps' (grouped, per-ray and instanced, closest and
    any-hit) registers, shared memory and spills (ptxas, `warp-ptxas`)
-   and their resident blocks per SM (`warp-resources`);
+   and their resident blocks per SM (`warp-resources`), and the same of
+   the work list's cull and refine (`cull-ptxas`, `cull-resources`);
 2. dense-sweep kernels against their PyTorch twins on the card, Moeller
    and watertight, closest and any-hit: (a) the Cornell soup (32
    triangles) with 1,048,576 camera rays plus 1,048,576 random rays from
@@ -38,7 +39,11 @@ any failure exits non-zero:
    fine-cull slab tests per ray against the block walk's, items entered
    per ray (`ray-census` lines); any-hit, the shares of pairs visited (a
    ray of the warp not yet done) and admitted, the same tests and items
-   (`any-census` lines);
+   (`any-census` lines); the cull and the refine against their twins
+   bit for bit (the sign of a zero included) on every set, and their
+   times and bounds on the shadow rays and on the random set sorted by
+   `ray_sort_key` (the megakernel's sorted bounce casts) beside the
+   camera rays' (`worklist timing culls` lines);
 2c. grouped work-list kernels (closest and any-hit) against their twins
    and against the per-ray sweeps on the three 1M-ray sets of 2b plus the
    random set sorted by `ray_sort_key` (like a permuted pool) and a
@@ -67,7 +72,10 @@ any failure exits non-zero:
    twins' results come from them) and on the whole camera set;
    CUDA-event times, bounds and the item census (items per block,
    clusters swept per ray) on the whole sets, beside the soup's census
-   of 2b;
+   of 2b; the hyper cull (183 hypers: chunks of 64 boxes, the last one
+   partial) and the refine (16 members) against their twins bit for bit
+   on each whole set, with the closest and the any-hit casts' t_max
+   (`instanced cull-and-refine-vs-twin`);
 2e. instanced against soup: sphere_grid(12, 12) flattened twice, as the
    world soup and forced onto the instanced tables (SOUP_MAX_TRIS
    lowered): on 1,048,576 camera rays, watertight and Baldwin-Weber,
@@ -213,7 +221,10 @@ floating-point operations at 67 TFLOP/s and the bytes read and written
 once at 3.35 TB/s (the H100 SXM's published float32 and memory rates),
 from this run's inputs: a Moeller test 45 operations, a Baldwin-Weber
 test 31, a slab test of a ray and a box 20, the move of a ray to
-instance space 33; tables count once, whole. The work-list sweeps
+instance space 33; tables count once, whole. The cull and the refine
+count 28 bytes a ray (origin, 1/d, t_max: the slab test reads no
+direction) and 24 a box (`tools.common.cull_bound`, `refine_bound`).
+The work-list sweeps
 count the work their warp walks need, from the censuses of the walks on
 the camera rays (2b; 2d on the whole camera set; the grouped sweeps from
 2c's census of the pool), with the admission boxes among the tables:
@@ -252,6 +263,8 @@ from contextlib import contextmanager, nullcontext
 
 import numpy as np
 
+from directcomputeraytracing_tpu_torch.tools.common import bound
+
 TOL = 1e-5
 TIE_WL = 2.0 ** -12
 N_RAYS = 1 << 20
@@ -277,8 +290,6 @@ FORCED_SOUP_MAX = 2048                  # SOUP_MAX_TRIS that forces instancing
 INST_VS_SOUP = dict(width=256, height=256, spp=4, max_bounce=4)
 T_RTOL_INST = 3e-5
 EDGE_TOL = 1e-4                         # barycentric margin of an edge hit
-PEAK_FLOPS = 67e12                      # H100 SXM float32, no tensor cores
-PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
 FLOPS_MOELLER, FLOPS_BW, FLOPS_SLAB = 45, 31, 20
 FLOPS_LOCAL_RAY = 33        # [o, 1] @ M, d @ M: 18 products, 15 sums
 # the interval cull of one (ray block, cluster) pair: per axis 4 numerator
@@ -307,13 +318,6 @@ def _timed_call(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
-
-
-def _bound(flops, nbytes):
-    """(bound_ms, bound_by) of work of `flops` operations moving `nbytes`."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def _random_soup(rng, n):
@@ -552,9 +556,9 @@ def phase_worklist_kernels(device):
             blk, hyp, _ = wl.compact_pairs(tlo_w)
             ref = wl.refine(tables.hsup, blk, hyp, od, tm)
             ref_w = wl.refine_torch(tables.hsup, blk, hyp, od, tm)
-            cull["diff"] += int((tlo != tlo_w).sum())
+            cull["diff"] += _bit_diff(tlo, tlo_w)
             cull["err"] = max(cull["err"], float((tlo - tlo_w).abs().max()))
-            cull["refine_diff"] += int((ref != ref_w).sum())
+            cull["refine_diff"] += _bit_diff(ref, ref_w)
             cull["refine_err"] = max(cull["refine_err"],
                                      float((ref - ref_w).abs().max()))
         for wt in (False, True):
@@ -648,35 +652,53 @@ def phase_worklist_kernels(device):
         tables, items_sh, od_sh, tm_sh, t_min, False), 10)
     print("worklist timing shadow", f"rays={o_sh.shape[0]}",
           json.dumps(dict(any_ms=times["any_shadow_ms"])))
+    # rows 7-8 at the main path's other shapes, each against the twins bit
+    # for bit: the shadow casts and the sorted bounce casts (the random
+    # set in ray_sort_key order)
+    o_r, d_r, _ = sets["random"]
+    shapes = dict(shadow=(o_sh, d_sh, t_sh),
+                  random_sorted=(*common.sorted_rays(tables, o_r, d_r), None))
+    for name, (o_c, d_c, t_c) in shapes.items():
+        od_c, tm_c, _ = wl.prep_rays(o_c, d_c, t_c)
+        diffs = worklist_ab.cull_refine_diffs(tables, od_c, tm_c)
+        cull["diff"] += diffs["cull_bits"]
+        cull["refine_diff"] += diffs["refine_bits"]
+        blk_c, hyp_c, _ = wl.compact_pairs(wl.cull_boxes(boxes, od_c, tm_c))
+        print("worklist timing culls", name, f"rays={o_c.shape[0]}",
+              json.dumps(dict(
+                  diffs,
+                  cull_ms=timed(lambda: wl.cull_boxes(boxes, od_c, tm_c),
+                                20),
+                  refine_ms=timed(lambda: wl.refine(
+                      tables.hsup, blk_c, hyp_c, od_c, tm_c), 20),
+                  cull_bound=common.cull_bound(od_c.shape[1],
+                                               boxes.shape[0], wl.RB),
+                  refine_bound=common.refine_bound(
+                      od_c.shape[1], tables.hsup, blk_c.shape[0], wl.RB))))
     bad = [r for r in reports if not r["ok"]]
     if bad or cull["diff"] or cull["refine_diff"]:
         raise SystemExit(f"work-list kernel/twin mismatch: {bad} {cull}")
     rp = od.shape[1]
     iters = wl.sweep_closest(tables, items, od, texp, t_min, False)[7]
-    hs = tables.hsup.shape[1]
     table_bytes = 4 * (tables.cbox3.numel() + tables.bwtab.numel())
     n_items, n_items_any = int(items.seg[-1]), int(items_any.seg[-1])
     fine = FLOPS_SLAB * wl.RB * wl.SUPER
     tri_ops = 16 * FLOPS_BW * int(iters.long().sum())
     work = dict(
-        cull=_bound(FLOPS_SLAB * rp * boxes.shape[0],
-                    40 * rp + 32 * boxes.shape[0]
-                    + 4 * boxes.shape[0] * rp // wl.RB),
-        refine=_bound(FLOPS_SLAB * blk.shape[0] * wl.RB * hs,
-                      40 * rp + 4 * tables.hsup.numel()
-                      + (8 + 4 * hs) * blk.shape[0]),
+        cull=common.cull_bound(rp, boxes.shape[0], wl.RB),
+        refine=common.refine_bound(rp, tables.hsup, blk.shape[0], wl.RB),
         # the warp walk's work, from the census of the camera rays
-        sweep_closest=_bound(_walk_ops(walk["camera", False]) + tri_ops,
+        sweep_closest=bound(_walk_ops(walk["camera", False]) + tri_ops,
                              69 * rp + 12 * n_items + table_bytes
                              + 4 * tables.abox.numel()),
-        sweep_closest_block_walk=_bound(fine * n_items + tri_ops,
+        sweep_closest_block_walk=bound(fine * n_items + tri_ops,
                                         69 * rp + 12 * n_items
                                         + table_bytes),
-        sweep_any=_bound(_walk_ops(any_walk["camera", False],
+        sweep_any=bound(_walk_ops(any_walk["camera", False],
                                    tested="visited"),
                          41 * rp + 8 * n_items_any + table_bytes
                          + 4 * tables.abox.numel()),
-        sweep_any_block_walk=_bound(fine * n_items_any,
+        sweep_any_block_walk=bound(fine * n_items_any,
                                     41 * rp + 8 * n_items_any + table_bytes))
     print("worklist bounds camera", json.dumps(work))
     return reports, times, cull, work, census
@@ -800,12 +822,12 @@ def phase_grouped_kernels(device):
             tables, it_c, od, texp, t_min, False), 1),
         any_twin_ms=timed(lambda: wl.sweep_any_torch(
             tables, it_a, od, tm_a, t_min, False), 1),
-        closest_bound=_bound(closest_ops + tri_ops,
+        closest_bound=bound(closest_ops + tri_ops,
                              69 * rp + 12 * n_c + box_bytes),
-        any_bound=_bound(any_ops, 41 * rp + 8 * n_a + box_bytes),
-        closest_bound_block_walk=_bound(fine * n_c + tri_ops,
+        any_bound=bound(any_ops, 41 * rp + 8 * n_a + box_bytes),
+        closest_bound_block_walk=bound(fine * n_c + tri_ops,
                                         69 * rp + 12 * n_c + table_bytes),
-        any_bound_block_walk=_bound(fine * n_a,
+        any_bound_block_walk=bound(fine * n_a,
                                     41 * rp + 8 * n_a + table_bytes))
     pool.update(closest_ms=timing["pool_sorted"]["closest_grouped_ms"],
                 any_ms=timing["pool_sorted"]["any_grouped_ms"])
@@ -838,13 +860,13 @@ def _inst_bounds(tables, it_c, it_a, iters, rp, watertight, walk=None,
     closest_bytes = 69 * rp + 12 * n_c + table_bytes
     any_bytes = 41 * rp + 8 * n_a + table_bytes
     return dict(
-        closest=walk and _bound(_walk_ops(walk, local_ray=True) + tri_ops,
+        closest=walk and bound(_walk_ops(walk, local_ray=True) + tri_ops,
                                 closest_bytes + abox_bytes),
-        any=any_walk and _bound(_walk_ops(any_walk, True, "visited"),
+        any=any_walk and bound(_walk_ops(any_walk, True, "visited"),
                                 any_bytes + abox_bytes),
-        closest_block_walk=_bound(fine * wl.RB * n_c + tri_ops,
+        closest_block_walk=bound(fine * wl.RB * n_c + tri_ops,
                                   closest_bytes),
-        any_block_walk=_bound(fine * wl.RB * n_a, any_bytes))
+        any_block_walk=bound(fine * wl.RB * n_a, any_bytes))
 
 
 def phase_instanced_kernels(device, soup_census):
@@ -887,8 +909,13 @@ def phase_instanced_kernels(device, soup_census):
                 wl.phases(tables, od, tm_c, plain),
                 wl.phases(tables, od, tm_a, plain))
 
+    culls = {}
     for name, (o, d, t_max) in sets.items():
         od, tm_c, tm_a, texp, it_c, it_a = prepared(o, d, t_max)
+        # the hyper cull (183 hypers: chunks of 64, a partial last one)
+        # and the refine (16 members) against their twins, bit for bit
+        culls[name] = [worklist_ab.cull_refine_diffs(tables, od, tm)
+                       for tm in (tm_c, tm_a)]
         idx = common.spread_blocks(o.shape[0], INST_TWIN_BLOCKS, device,
                                    wl.RB)
         od_s, _, tm_as, texp_s, it_cs, it_as = prepared(o[idx], d[idx],
@@ -960,9 +987,13 @@ def phase_instanced_kernels(device, soup_census):
                 occluded=float(wa.float().mean()))))
     print("instanced census", json.dumps(dict(
         instanced_27x27=census, soup_12x12=soup_census)))
+    print("instanced cull-and-refine-vs-twin", json.dumps(culls))
     bad = [r for r in reports if not r["ok"]]
-    if bad:
-        raise SystemExit(f"instanced kernel/twin mismatch: {bad}")
+    bad_culls = [(name, c) for name, cs in culls.items() for c in cs
+                 if c["cull_bits"] or c["refine_bits"]]
+    if bad or bad_culls:
+        raise SystemExit(f"instanced kernel/twin mismatch: {bad} "
+                         f"{bad_culls}")
 
     # the kernels line's rows: the main path's first cast, 1M camera rays,
     # Baldwin-Weber; the twins timed once each on the whole set
@@ -1179,9 +1210,9 @@ def _cluster_bounds(tables, cmask, gmask, r, occ):
     per_ray = cmask.sum(1, dtype=torch.int64) \
         .repeat_interleave(cl.RAY_BLOCK)[:r]
     rows = cl.CLUSTER_SIZE * FLOPS_MOELLER
-    return (_bound(FLOPS_INTERVAL * nb * cg, 24 * r + 32 * cg + masks),
-            _bound(rows * int(per_ray.sum()), 45 * r + masks + table),
-            _bound(rows * int(per_ray[~occ].sum()), 29 * r + masks + table))
+    return (bound(FLOPS_INTERVAL * nb * cg, 24 * r + 32 * cg + masks),
+            bound(rows * int(per_ray.sum()), 45 * r + masks + table),
+            bound(rows * int(per_ray[~occ].sum()), 29 * r + masks + table))
 
 
 def phase_clustered_kernels(device):
@@ -1317,7 +1348,7 @@ def _pair_bounds(tables, items, pairs, iters_p, rp, watertight, kind):
 
     n, p = items.sup.shape[0], pairs.ray.shape[0]
     cells = n * wl.RB
-    emit = _bound(FLOPS_SLAB * cells,
+    emit = bound(FLOPS_SLAB * cells,
                   cells + 40 * rp + 8 * n + 32 * tables.sbox.shape[0])
     tab = tables.ctab if watertight else tables.bwtab
     table_bytes = 4 * (tables.cbox3.numel() + tab.numel())
@@ -1325,10 +1356,10 @@ def _pair_bounds(tables, items, pairs, iters_p, rp, watertight, kind):
     lists = 4 * p + 12 * pairs.chunk_sup.shape[0]
     if kind == "closest":
         test = FLOPS_MOELLER if watertight else FLOPS_BW
-        sweep = _bound(fine + 16 * test * int(iters_p.long().sum()),
+        sweep = bound(fine + 16 * test * int(iters_p.long().sum()),
                        lists + 29 * p + 40 * rp + table_bytes)
     else:
-        sweep = _bound(fine, lists + p + 40 * rp + table_bytes)
+        sweep = bound(fine, lists + p + 40 * rp + table_bytes)
     return emit, sweep
 
 
@@ -1580,7 +1611,7 @@ def phase_prep_kernel(device):
         shadow_ms=timed(lambda: wl.prep_rays(o, d, t_max), 50),
         shadow_twin_ms=timed(lambda: wl.prep_rays_torch(o, d, t_max), 20),
         # 3 tests, 3 squares and 2 adds, 3 compares and 3 divisions a ray
-        bound=_bound(14 * N_RAYS, 24 * N_RAYS + 40 * rp))
+        bound=bound(14 * N_RAYS, 24 * N_RAYS + 40 * rp))
     print("prep timing camera", json.dumps(row))
     return row
 
@@ -1633,10 +1664,10 @@ def phase_probes(device, wl_times, wl_census):
     r = 64 * pw.RB
     item = dict(row=rows[-1], max_abs_err=err, launches=launches["item_list"],
                 twin_ms=timed(lambda: pw.item_list_torch(items, tab, o), 1),
-                bound=_bound(23 * pw.CS * pw.RB * cap,
+                bound=bound(23 * pw.CS * pw.RB * cap,
                              4 * cap + 4 * tab.numel() + 8 * r))
     tr = dict(layout=layout, launches=launches["transpose16"],
-              bound=_bound(0, 2 * 64 * pp.R))
+              bound=bound(0, 2 * 64 * pp.R))
     return item, tr
 
 
@@ -2156,6 +2187,10 @@ def _build_all():
     print("warp-ptxas", json.dumps(worklist_ab.ptxas_report(
         futures["worklist.cu"].result().log)))
     print("warp-resources", json.dumps(wl.warp_resources()))
+    # the culls' (rows 7-8) the same
+    print("cull-ptxas", json.dumps(worklist_ab.cull_ptxas_report(
+        futures["worklist.cu"].result().log)))
+    print("cull-resources", json.dumps(wl.cull_resources()))
 
 
 def main():
@@ -2260,9 +2295,9 @@ def main():
     ref_brute = "directcomputeraytracing_tpu/accel/pallas_brute.py"
     top = times["cornell32_moeller"]   # the main path's scene and test
     n, tris = N_RAYS, 32
-    brute_closest_bound = _bound(FLOPS_MOELLER * n * tris,
+    brute_closest_bound = bound(FLOPS_MOELLER * n * tris,
                                  45 * n + 48 * tris)
-    brute_any_bound = _bound(FLOPS_MOELLER * n * tris, 29 * n + 48 * tris)
+    brute_any_bound = bound(FLOPS_MOELLER * n * tris, 29 * n + 48 * tris)
     wl_closest_err = max(r["closest_max_abs_err"] for r in wl_reports)
     wl_any_err = max(r["any_max_abs_err"] for r in wl_reports)
 

@@ -26,16 +26,26 @@ def __getattr__(name):
                 "SEED_FRAME_INDEX"):
         from .integrator import renderer as _m
         return getattr(_m, name)
-    if name == "cornell_box":
-        from .scene.presets import cornell_box
-        return cornell_box
+    if name == "RenderConfig":
+        from .integrator.common import RenderConfig
+        return RenderConfig
+    if name in ("cornell_box", "sphere_grid"):
+        from .scene import presets as _m
+        return getattr(_m, name)
     if name in ("Scene", "Mesh", "Material", "Instance", "PunctualLight",
                 "flatten_scene"):
         from .scene import scene as _m
         return getattr(_m, name)
+    if name == "CameraParams":
+        from .core.types import CameraParams
+        return CameraParams
+    if name == "PostParams":
+        from .post.pipeline import PostParams
+        return PostParams
     raise AttributeError(name)
 
 
-__all__ = ["Renderer", "SEED_FIXED", "SEED_SAMPLE_COUNT", "SEED_FRAME_INDEX",
-           "cornell_box", "Scene", "Mesh", "Material", "Instance",
-           "PunctualLight", "flatten_scene"]
+__all__ = ["Renderer", "RenderConfig", "SEED_FIXED", "SEED_SAMPLE_COUNT",
+           "SEED_FRAME_INDEX", "cornell_box", "sphere_grid", "Scene", "Mesh",
+           "Material", "Instance", "PunctualLight", "flatten_scene",
+           "CameraParams", "PostParams"]

@@ -15,7 +15,10 @@ tables of larger scenes (`scene_tables`). A cast runs:
    over the block's rays that enter the box within their t_max (BIG: none
    does). Scenes above `HIER_MIN` supers cull hyper boxes first, then
    `refine` (kernel `refine_kernel`, twin `refine_torch`) culls each
-   entered hyper's member supers for its block.
+   entered hyper's member supers for its block. Both kernels stage a ray
+   block's rays in shared memory and put boxes on lanes, each thread
+   keeping its boxes' minima over a slice of the rays; the refine walks
+   a ray block's items together (`item_segments`).
 3. `phases`: the entered (block, super) pairs as an item list sorted by
    (block, entry distance, super) with per-block segment offsets. Lists
    are sized from the true count, read back by the host once per level
@@ -168,8 +171,8 @@ def bind(lib):
     `csrc/worklist.cu`'s C interface; returns lib."""
     c_p, c_i, c_f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dcrt_wl_cull.argtypes = [c_p, c_i, c_p, c_p, c_i, c_i, c_p, c_p]
-    lib.dcrt_wl_refine.argtypes = [c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i,
-                                   c_i, c_p, c_p]
+    lib.dcrt_wl_refine.argtypes = [c_p, c_i, c_i, c_p, c_p, c_i, c_p, c_p,
+                                   c_i, c_i, c_p, c_p]
     # the sweeps take the admission boxes before the child boxes
     closest = [c_p, c_p, c_p, c_i, c_p, c_p, c_p, c_i, c_p, c_p, c_i, c_i,
                c_f, c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p, c_p]
@@ -515,29 +518,62 @@ def cull_boxes(boxes, od, tm):
     return out
 
 
+def item_segments(blk, nb):
+    """(nb + 1,) int32 offsets of each ray block's items in a
+    block-sorted item list blk (`compact_pairs` gives it so): block b's
+    items are blk[seg[b]:seg[b + 1]]. One search on the device, no host
+    read."""
+    bounds = torch.arange(nb + 1, dtype=blk.dtype, device=blk.device)
+    return torch.searchsorted(blk, bounds, out_int32=True)
+
+
 def refine(hsup, blk, hyp, od, tm):
     """(block, hyper) items -> (n_items, hs) member-super entries: kernel
-    on CUDA tensors, twin on CPU tensors."""
+    on CUDA tensors, twin on CPU tensors. The kernel walks each ray
+    block's items together over its staged rays, so blk must be sorted
+    (`compact_pairs` gives it so). On CPU tensors an unsorted blk
+    raises, so every caller the tests drive is held to the kernel's
+    rule; on CUDA tensors it is not checked, as that would read back to
+    the host."""
     rp = od.shape[1]
     _check_f32("hsup", hsup)
     _check_f32("od", od, (9, rp))
     _check_f32("tm", tm, (rp,))
     if not _on_cuda(hsup, blk, hyp, od, tm):
+        if bool((blk[1:] < blk[:-1]).any()):
+            raise ValueError("refine: the items must be sorted by ray block")
         return refine_torch(hsup, blk, hyp, od, tm)
     hs = hsup.shape[1]
     if hs > 32:
         raise ValueError(f"refine: {hs} members per hyper, at most 32")
-    blk32, hyp32 = blk.to(torch.int32), hyp.to(torch.int32)
+    seg = item_segments(blk, rp // RB)
+    hyp32 = hyp.to(torch.int32)
     out = torch.empty((blk.shape[0], hs), dtype=torch.float32,
                       device=od.device)
     with torch.cuda.device(od.device):
         err = kernels().lib.dcrt_wl_refine(
-            hsup.data_ptr(), hs, blk32.data_ptr(), hyp32.data_ptr(),
-            blk.shape[0], od.data_ptr(), tm.data_ptr(), rp, RB,
-            out.data_ptr(), _stream(od))
+            hsup.data_ptr(), hs, hsup.shape[0], seg.data_ptr(),
+            hyp32.data_ptr(), blk.shape[0], od.data_ptr(), tm.data_ptr(), rp,
+            RB, out.data_ptr(), _stream(od))
     _raise_on(err, "refine")
     refine.launches += 1
     return out
+
+
+CULL_KERNELS = ("cull", "refine")
+
+
+def cull_resources():
+    """The culls' resources on the current card, per kernel of
+    CULL_KERNELS, as `warp_resources` gives them."""
+    fn = kernels().lib.dcrt_wl_cull_resources
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * (5 * len(CULL_KERNELS)))()
+    _raise_on(fn(out), "cull_resources")
+    keys = ("blocks_per_sm", "registers", "static_smem", "local_bytes",
+            "threads")
+    return {name: dict(zip(keys, out[5 * f:5 * f + 5]))
+            for f, name in enumerate(CULL_KERNELS)}
 
 
 # ---------------------------------------------------------------------------
@@ -1014,40 +1050,36 @@ def _launch_closest(fn, tables, items, od, texp, t_min, watertight):
     return err, (best, t, u, v, tri, inst, back, iters)
 
 
-def _launch_any(fn, tables, items, od, tm, t_min, watertight, abox=True):
-    """Launch the any-hit sweep fn; abox=False for a build whose per-ray
-    any-hit sweeps take no admission boxes (the block walk's, as
-    `tools/worklist_ab.py` binds an earlier source)."""
+def _launch_any(fn, tables, items, od, tm, t_min, watertight):
+    """Launch the any-hit sweep fn."""
     rp = od.shape[1]
     occ = torch.empty(rp, dtype=torch.bool, device=od.device)
     with torch.cuda.device(od.device):
         err = fn(items.seg.data_ptr(), items.sup.data_ptr(), rp // RB,
-                 *_table_ptrs(tables, watertight, fn, abox), int(watertight),
+                 *_table_ptrs(tables, watertight, fn), int(watertight),
                  od.data_ptr(), tm.data_ptr(), rp, RB, float(t_min),
                  occ.data_ptr(), _stream(od))
     return err, occ
 
 
-def _table_ptrs(tables, watertight, fn, abox=True):
-    """The sweep kernel fn's table pointers: with abox the admission
-    boxes, then child boxes and slab rows, then, for the instanced
-    kernels, the per-super local super and instance and the instance
-    rows. The kind of tables must be fn's."""
+def _table_ptrs(tables, watertight, fn):
+    """The sweep kernel fn's table pointers: the admission boxes, child
+    boxes and slab rows, then, for the instanced kernels, the per-super
+    local super and instance and the instance rows. The kind of tables
+    must be fn's."""
     inst = fn.__name__.endswith("_inst")
     if inst != (tables.inst_rows is not None):
         raise ValueError(f"{fn.__name__}: needs "
                          f"{'instanced' if inst else 'world-soup'} tables")
     tab = tables.ctab if watertight else tables.bwtab
-    ptrs = [tables.cbox3.data_ptr(), tab.data_ptr()]
-    if abox:
-        # cp.async copies the boxes (and instance rows) 16 bytes at a time
-        _check_f32("abox", tables.abox, (tables.sbox.shape[0], 8))
-        rows = tables.inst_rows.data_ptr() if inst else 0
-        if (tables.abox.data_ptr() % 16 or tables.cbox3.data_ptr() % 16
-                or rows % 16):
-            raise ValueError(f"{fn.__name__}: box tables and instance rows "
-                             "must be 16-byte aligned")
-        ptrs.insert(0, tables.abox.data_ptr())
+    # cp.async copies the boxes (and instance rows) 16 bytes at a time
+    _check_f32("abox", tables.abox, (tables.sbox.shape[0], 8))
+    rows = tables.inst_rows.data_ptr() if inst else 0
+    if (tables.abox.data_ptr() % 16 or tables.cbox3.data_ptr() % 16
+            or rows % 16):
+        raise ValueError(f"{fn.__name__}: box tables and instance rows "
+                         "must be 16-byte aligned")
+    ptrs = [tables.abox.data_ptr(), tables.cbox3.data_ptr(), tab.data_ptr()]
     if inst:
         ptrs += [tables.isup_local.data_ptr(), tables.isup_inst.data_ptr(),
                  tables.inst_rows.data_ptr()]

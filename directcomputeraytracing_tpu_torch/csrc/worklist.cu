@@ -8,7 +8,7 @@
 //                     (block, box), BIG where no ray enters within t_max;
 //   refine_kernel  <- _refine_kernel (:445, launched by _refine_items
 //                     :479): the same per (block, hyper) item over the
-//                     hyper's member supers;
+//                     hyper's member supers (both: see their section);
 //   closest_grouped_kernel <- _wlg_closest_kernel (:1000): the closest hit
 //                     by warps that each walk their ray block's items on
 //                     their own (see its section below);
@@ -25,17 +25,17 @@
 //   any_ray_kernel<Tri, true>      <- _wl_any_inst_kernel (:1349): the
 //                     same on instanced tables.
 // Rays are the (9, Rp) rows [o; d; 1/d] of prep_rays, Rp a multiple of
-// the block size RB (the culls: one thread per ray, one block per RB
-// rays; the sweeps run kGroupThreads-thread blocks, several per ray
-// block, one warp per 32 rays).
+// the block size RB (the culls run kCullThreads-thread blocks, one or a
+// few per ray block, boxes on lanes; the sweeps kGroupThreads-thread
+// blocks, several per ray block, one warp per 32 rays).
 //
-// What bounds them. The culls: FP32 ALU, ~20 operations per (ray, box),
-// and one block-wide min per box (warp shuffles, then 32 partials in
-// shared memory, so one barrier per 32 boxes). The sweeps: FP32 ALU in
+// What bounds them. The culls: FP32 ALU, ~30 instructions per (ray, box),
+// the rays staged once per CUDA block and each box's min kept in a
+// register (one barrier per chunk of up to 64 boxes), and on casts of a
+// few ray blocks the latency of the staging. The sweeps: FP32 ALU in
 // the per-ray fine cull (32 slab tests per item) and the triangle tests,
 // and the latency of reading item boxes and 64-byte triangle rows from
-// L2; rays of one warp that pick different clusters diverge. At 1024
-// threads a block may hold 64 registers a thread.
+// L2; rays of one warp that pick different clusters diverge.
 //
 // Design. The TPU grid walked (block, super) items in order and carried
 // the best hit across them in the output block and a termination bound in
@@ -81,56 +81,263 @@ using dcrt::slab;
 using dcrt::start_best;
 using dcrt::window;
 
-constexpr int kBoxChunk = 32;              // boxes per block-wide min pass
+// ---------------------------------------------------------------------------
+// The culls <- _cull_super_kernel (:365, launched by _cull_super :370) and
+// _refine_kernel (:445, launched by _refine_items :479): cull_kernel and
+// refine_kernel, one body (entry_min_list).
+//
+// Both take, per ray block, a list of boxes and write for each the minimum
+// over the block's rays of the clamped entry distance, kBig where no ray
+// enters within its t_max. The cull's list is the same n boxes for every
+// ray block (row b of the (nb, n) output); the refine's is the member
+// supers of the block's (block, hyper) items, hs each, items
+// seg[b]..seg[b + 1] of the block-sorted item list, whose rows of the
+// (n_items, hs) output are contiguous: box j of block b is member j % hs of
+// item seg[b] + j / hs and lands at out[seg[b] * hs + j]. So the cull is
+// the refine of one item per block whose members are all n boxes.
+//
+// What bounds them: the ALU pipe (half the FP32 rate on Hopper), which
+// runs the slab test's min/max and the compares: 14 of its instructions
+// per (ray, box) beside 12 FP32 subtractions and products, against
+// FLOPS_SLAB = 20 operations in the bound; on casts of a few ray blocks,
+// the latency of staging the rays. The first port gave each (ray block,
+// 32-box chunk) (cull) or item (refine) one 1024-thread block: every
+// thread slab-tested its own ray against each box and took a 5-step
+// shuffle butterfly per (warp, box) (five shuffles and five min per box
+// beside the ~20 of the test), one barrier per 32 boxes; the refine
+// reloaded its ray block's rays (40 B a ray) for every item, and a block
+// of 1024 threads held a whole SM, idle at every barrier.
+//
+// Design. A CUDA block of kCullThreads threads stages its ray block's rays
+// once into shared memory as the slab test reads them (origin and cap,
+// then 1/d: 32 bytes a ray), then walks the block's box list in chunks of
+// 2G boxes. Boxes ride lanes: thread t holds boxes t % G and t % G + G of
+// the chunk in registers and loops over the rays of its slice (rays
+// t / G, t / G + 256 / G, ...; the lanes of a slice read the same ray, a
+// shared-memory broadcast), keeping each box's running min in a register,
+// so there is no shuffle per (ray, box). A slice's partial minima meet the
+// other slices' once per chunk: the slices of a warp by log2(32 / G)
+// shuffles, the warps' in shared memory after one barrier, where one
+// thread per box takes the min over the 8 warps and writes it. A chunk of
+// at most G boxes runs one box a thread, and so do the G-box chunks of
+// casts of very few ray blocks (k_max = 1, cull_shape). G is the widest
+// of 32, 16 and 8 that wastes at most an eighth of a list's lanes (a
+// refine list is hs times its items: 8 lanes fit hs = 8 exactly), at most
+// the launcher's width. A ray block's chunks go to `split` CUDA blocks
+// (blockIdx.y takes chunks blockIdx.y, blockIdx.y + split, ...), each
+// staging the rays once (cull_shape): a list of one chunk, as most
+// camera-ray lists are, is read with its rays once; long lists are cut so
+// that no few of them hold the card; and casts of few ray blocks (an
+// alpha recast pass, a late bounce), which would fill few SMs, also
+// narrow G and may hold one box a thread. The slab test
+// drops the +-kBig clamps of its first axis (two ALU instructions a
+// pair) and the staged cap makes up for them (cull_cap), and the enter
+// rule is y >= max(x, 0) && x <= cap: the same result as the twin's for
+// every input. A min is order-free, so the output equals the twin's bit
+// for bit. Copying the rays by cp.async would overlap nothing: a CUDA
+// block has one ray block to stage. With 36 KB of shared memory six
+// blocks fit an SM, and __launch_bounds__(256, kCullFill) holds a thread
+// to their 40 registers (4 bytes spill); left to itself the compiler gave
+// the cull 52 and four blocks an SM, 4-5 % slower on 1M-ray casts
+// (PERF.md).
+// ---------------------------------------------------------------------------
 
-// out[j] = min over the block's rays of the clamped entry distance into
-// boxes[j] (8 floats each), j < n <= kBoxChunk; kBig where no ray enters
-// within its t_max. A min is order-free, so this equals the twin exactly.
-__device__ void block_entry_min(const RayInv& q, float tm, const float* boxes,
-                                int n, float* out) {
-  __shared__ float part[32][kBoxChunk + 1];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = 0; j < n; ++j) {
-    const float* b = boxes + 8 * j;
-    float t_lo, t_hi;
-    slab(q, b[0], b[1], b[2], b[3], b[4], b[5], t_lo, t_hi);
-    float v = (t_hi >= t_lo && t_hi >= 0.f && t_lo <= tm) ? fmaxf(t_lo, 0.f)
-                                                           : kBig;
-    for (int off = 16; off > 0; off >>= 1)
-      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if (lane == 0) part[warp][j] = v;
+constexpr int kCullThreads = 256;          // threads per CUDA block
+constexpr int kCullFill = 6;               // resident CUDA blocks an SM
+constexpr int kCullWarps = kCullThreads / 32;
+constexpr int kCullMaxK = 2;               // boxes a thread holds
+constexpr int kCullRow = kCullMaxK * 32;   // boxes of a chunk, at most
+constexpr int kMaxRb = 1024;               // rays per ray block, at most
+
+struct CullSmem {
+  float4 ray[kMaxRb][2];                   // (ox, oy, oz, cap), (1/d, 0)
+  float part[2][kCullWarps][kCullRow];     // warp partials, two chunks deep
+};
+
+// The cap a ray is staged with: with it, the unclamped slab test's entry x
+// and exit y enter by y >= max(x, 0) && x <= cap exactly where the
+// clamped test's t_lo = max(x, -kBig) and t_hi = min(y, kBig) enter by
+// t_hi >= t_lo && t_hi >= 0 && t_lo <= t_max: that needs t_max >= -kBig
+// (else NaN, which admits nothing) and x <= min(t_max, kBig).
+__device__ __forceinline__ float cull_cap(float t_max) {
+  return t_max >= -kBig ? fminf(t_max, kBig) : __int_as_float(0x7fffffff);
+}
+
+// The slab test without the +-kBig clamps: entry x, exit y.
+__device__ __forceinline__ void slab_raw(const float4& o, const float4& v,
+                                         const float* lo, const float* hi,
+                                         float& x, float& y) {
+  float a = (lo[0] - o.x) * v.x, b = (hi[0] - o.x) * v.x;
+  x = fminf(a, b);
+  y = fmaxf(a, b);
+  a = (lo[1] - o.y) * v.y;
+  b = (hi[1] - o.y) * v.y;
+  x = fmaxf(x, fminf(a, b));
+  y = fminf(y, fmaxf(a, b));
+  a = (lo[2] - o.z) * v.z;
+  b = (hi[2] - o.z) * v.z;
+  x = fmaxf(x, fminf(a, b));
+  y = fminf(y, fmaxf(a, b));
+}
+
+// The refine's box j of a ray block whose items start at item0 (the
+// cull's: boxes[j], item0 = b, hyper 0, hs = n).
+template <bool kCull>
+__device__ __forceinline__ const float* list_box(
+    const float* __restrict__ boxes, int hs, const int* __restrict__ hyp,
+    int item0, int j) {
+  if (kCull) return boxes + 8 * static_cast<size_t>(j);
+  const int k = j / hs;
+  return boxes + 8 * (static_cast<size_t>(__ldg(hyp + item0 + k)) * hs +
+                      (j - k * hs));
+}
+
+// The chunk at j0 of nbox boxes: the thread's K boxes (j0 + k * g + slot;
+// past the chunk's end a copy of its first, whose minimum is not written),
+// their minima over the rays of its slice, then over the slices of its
+// warp, into the warp's row of the partials.
+template <int K, bool kCull>
+__device__ __forceinline__ void chunk_min(
+    const CullSmem& sm, float (*part)[kCullRow],
+    const float* __restrict__ boxes, int hs, const int* __restrict__ hyp,
+    int item0, int j0, int nbox, int g, int rb) {
+  const int lane = threadIdx.x & 31, slot = threadIdx.x & (g - 1);
+  const int slices = kCullThreads / g;
+  float lo[K][3], hi[K][3], m[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float* b = list_box<kCull>(
+        boxes, hs, hyp, item0, k * g + slot < nbox ? j0 + k * g + slot : j0);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      lo[k][c] = __ldg(b + c);
+      hi[k][c] = __ldg(b + 3 + c);
+    }
+    m[k] = kBig;
+  }
+  for (int r = threadIdx.x / g; r < rb; r += slices) {
+    const float4 o = sm.ray[r][0], v = sm.ray[r][1];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float x, y;
+      slab_raw(o, v, lo[k], hi[k], x, y);
+      const float t = fmaxf(x, 0.f);
+      if (y >= t && x <= o.w) m[k] = fminf(m[k], t);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    for (int off = g; off < 32; off <<= 1)
+      m[k] = fminf(m[k], __shfl_xor_sync(0xffffffffu, m[k], off));
+    if (lane < g) part[threadIdx.x >> 5][k * g + slot] = m[k];
+  }
+}
+
+// The width of a list's box groups: the widest of 32, 16 and 8, at most
+// 1 << g_max, that leaves at most an eighth of the list's lanes idle.
+__device__ __forceinline__ int group_log2(int n_list, int g_max) {
+  int gl = g_max;
+  while (gl > 3 && ((-n_list) & ((1 << gl) - 1)) * 8 > n_list) --gl;
+  return gl;
+}
+
+// The body of both culls for ray block blockIdx.x: its box list (the
+// cull's n boxes, or the refine's items' members) in chunks of 2G boxes,
+// chunks blockIdx.y, blockIdx.y + gridDim.y, ...
+template <bool kCull>
+__device__ __forceinline__ void entry_min_list(
+    const float* __restrict__ boxes, int hs, const int* __restrict__ seg,
+    const int* __restrict__ hyp, const float* __restrict__ od,
+    const float* __restrict__ tm, int rp, int rb, int g_max, int k_max,
+    float* __restrict__ out) {
+  __shared__ CullSmem sm;
+  const int b = blockIdx.x;
+  const int item0 = kCull ? b : __ldg(seg + b);
+  const int n_list = kCull ? hs : (__ldg(seg + b + 1) - item0) * hs;
+  const int g = 1 << group_log2(n_list, g_max), chunk = k_max * g;
+  const int n_chunks = (n_list + chunk - 1) / chunk;
+  if (static_cast<int>(blockIdx.y) >= n_chunks) return;
+  const size_t n = static_cast<size_t>(rp);
+  for (int r = threadIdx.x; r < rb; r += kCullThreads) {
+    const size_t i = static_cast<size_t>(b) * rb + r;
+    sm.ray[r][0] = make_float4(od[i], od[n + i], od[2 * n + i],
+                               cull_cap(tm[i]));
+    sm.ray[r][1] = make_float4(od[6 * n + i], od[7 * n + i], od[8 * n + i],
+                               0.f);
   }
   __syncthreads();
-  if (static_cast<int>(threadIdx.x) < n) {
-    float m = part[0][threadIdx.x];
-    for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w)
-      m = fminf(m, part[w][threadIdx.x]);
-    out[threadIdx.x] = m;
+  float* const dst = out + static_cast<size_t>(item0) * hs;
+  int buf = 0;
+  for (int c = blockIdx.y; c < n_chunks; c += gridDim.y, buf ^= 1) {
+    const int j0 = c * chunk, nbox = min(chunk, n_list - j0);
+    if (k_max == 2 && nbox > g)
+      chunk_min<2, kCull>(sm, sm.part[buf], boxes, hs, hyp, item0, j0, nbox,
+                          g, rb);
+    else
+      chunk_min<1, kCull>(sm, sm.part[buf], boxes, hs, hyp, item0, j0, nbox,
+                          g, rb);
+    // the next chunk fills the other partials: one barrier a chunk
+    __syncthreads();
+    const int t = threadIdx.x;
+    if (t < nbox) {
+      float v = sm.part[buf][0][t];
+      for (int w = 1; w < kCullWarps; ++w) v = fminf(v, sm.part[buf][w][t]);
+      dst[j0 + t] = v;
+    }
   }
 }
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kCullThreads, kCullFill)
 cull_kernel(const float* __restrict__ boxes, int n_boxes,
             const float* __restrict__ od, const float* __restrict__ tm,
-            int rp, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j0 = blockIdx.y * kBoxChunk;
-  block_entry_min(load_od(od, rp, i), tm[i], boxes + 8 * j0,
-                  min(kBoxChunk, n_boxes - j0),
-                  out + static_cast<size_t>(blockIdx.x) * n_boxes + j0);
+            int rp, int rb, int g_max, int k_max,
+            float* __restrict__ out) {
+  entry_min_list<true>(boxes, n_boxes, nullptr, nullptr, od, tm, rp, rb,
+                       g_max, k_max, out);
 }
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kCullThreads, kCullFill)
 refine_kernel(const float* __restrict__ hsup, int hs,
-              const int* __restrict__ item_blk,
-              const int* __restrict__ item_hyp,
+              const int* __restrict__ seg, const int* __restrict__ item_hyp,
               const float* __restrict__ od, const float* __restrict__ tm,
-              int rp, float* __restrict__ out) {
-  const int item = blockIdx.x;
-  const int i = item_blk[item] * blockDim.x + threadIdx.x;
-  block_entry_min(load_od(od, rp, i), tm[i],
-                  hsup + static_cast<size_t>(item_hyp[item]) * hs * 8, hs,
-                  out + static_cast<size_t>(item) * hs);
+              int rp, int rb, int g_max, int k_max,
+              float* __restrict__ out) {
+  entry_min_list<false>(hsup, hs, seg, item_hyp, od, tm, rp, rb, g_max,
+                        k_max, out);
+}
+
+// The culls' launch shape for nb ray blocks whose box lists hold up to
+// max_list boxes: the widest box groups, 1 << g_max, and the boxes a
+// thread holds, k_max (32 and 2; where nb x the chunks of a list falls
+// short of kCullFill CUDA blocks an SM, 16 or 8, then 1), and the CUDA
+// blocks per ray block, split: the chunks of the longest list, at most
+// kCullSplit or, on casts of few ray blocks, kCullFill x SMs / nb. Lists
+// of one cast differ in length (a sorted pool's ray blocks enter 0 to 64
+// hypers), and many small CUDA blocks keep a few long lists from holding
+// the card; those past their list's chunks exit before staging anything,
+// which costs next to nothing (the refine of 1M camera rays took the same
+// time at split 1, 8 and 12; PERF.md). On casts of few ray blocks, short
+// chunks spread the work over more threads, each with a shorter chain.
+constexpr int kCullSplit = 12;
+
+void cull_shape(int nb, int max_list, int& g_max, int& k_max, int& split) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    sms = max(sms, 1);
+  }
+  const int want = kCullFill * sms;
+  auto chunks = [&](int gl, int k) {
+    return (max_list + (k << gl) - 1) / (k << gl);
+  };
+  g_max = 5;
+  k_max = kCullMaxK;
+  while (g_max > 3 && nb * chunks(g_max, k_max) < want) --g_max;
+  if (nb * chunks(g_max, k_max) < want) k_max = 1;
+  split = max(1, min(chunks(g_max, k_max),
+                     max(kCullSplit, (want + nb - 1) / nb)));
 }
 
 // ---------------------------------------------------------------------------
@@ -930,28 +1137,57 @@ any_ray_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
 
 // C interface (ctypes). Pointers are device pointers; `stream` is a
 // cudaStream_t; `rb` is the ray block size (rays per block, a multiple of
-// 32, at most 1024) and divides `rp`; a ray block is one CUDA block of the
-// culls, and the sweeps launch (rp / rb) x ceil(rb / kGroupThreads) blocks
-// of kGroupThreads. Each returns cudaGetLastError() after the launch.
+// 32, at most 1024) and divides `rp`; the culls launch (rp / rb) x split
+// blocks of kCullThreads (cull_shape), the sweeps (rp / rb) x
+// ceil(rb / kGroupThreads) blocks of kGroupThreads. Each returns
+// cudaGetLastError() after the launch.
 
 extern "C" int dcrt_wl_cull(const float* boxes, int n_boxes, const float* od,
                             const float* tm, int rp, int rb, float* out,
                             void* stream) {
   if (rp > 0 && n_boxes > 0) {
-    const dim3 grid(rp / rb, (n_boxes + kBoxChunk - 1) / kBoxChunk);
-    cull_kernel<<<grid, rb, 0, static_cast<cudaStream_t>(stream)>>>(
-        boxes, n_boxes, od, tm, rp, out);
+    const int nb = rp / rb;
+    int g_max, k_max, split;
+    cull_shape(nb, n_boxes, g_max, k_max, split);
+    cull_kernel<<<dim3(nb, split), kCullThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+        boxes, n_boxes, od, tm, rp, rb, g_max, k_max, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dcrt_wl_refine(const float* hsup, int hs, const int* item_blk,
-                              const int* item_hyp, int n_items,
-                              const float* od, const float* tm, int rp,
-                              int rb, float* out, void* stream) {
-  if (n_items > 0) {
-    refine_kernel<<<n_items, rb, 0, static_cast<cudaStream_t>(stream)>>>(
-        hsup, hs, item_blk, item_hyp, od, tm, rp, out);
+// The refine takes the items' hypers (n_items,) and, per ray block, the
+// offset of its first item in the block-sorted item list (seg, nb + 1
+// int32); n_hyper bounds the items of one ray block.
+extern "C" int dcrt_wl_refine(const float* hsup, int hs, int n_hyper,
+                              const int* seg, const int* item_hyp,
+                              int n_items, const float* od, const float* tm,
+                              int rp, int rb, float* out, void* stream) {
+  if (n_items > 0 && rp > 0) {
+    const int nb = rp / rb;
+    int g_max, k_max, split;
+    cull_shape(nb, min(n_items, n_hyper) * hs, g_max, k_max, split);
+    refine_kernel<<<dim3(nb, split), kCullThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+        hsup, hs, seg, item_hyp, od, tm, rp, rb, g_max, k_max, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The culls' resources, for the report: per kernel (cull, refine) 5 ints,
+// as dcrt_wl_warp_resources gives them.
+extern "C" int dcrt_wl_cull_resources(int* out) {
+  const void* fns[2] = {reinterpret_cast<const void*>(cull_kernel),
+                        reinterpret_cast<const void*>(refine_kernel)};
+  for (int f = 0; f < 2; ++f) {
+    cudaFuncAttributes a;
+    cudaFuncGetAttributes(&a, fns[f]);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 5 * f, fns[f],
+                                                  kCullThreads, 0);
+    out[5 * f + 1] = a.numRegs;
+    out[5 * f + 2] = static_cast<int>(a.sharedSizeBytes);
+    out[5 * f + 3] = static_cast<int>(a.localSizeBytes);
+    out[5 * f + 4] = kCullThreads;
   }
   return static_cast<int>(cudaGetLastError());
 }

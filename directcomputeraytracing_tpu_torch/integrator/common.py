@@ -3,8 +3,15 @@ the bounce-ray sort key and order, parked rays.
 
 Counterpart of `directcomputeraytracing_tpu.integrator.common`, with the
 casts' slab and backend settings: `marches_slabs`, `pool_cast_backend`,
-`pool_slab_march`, `megakernel_slab_depth` and `slab_depth`. "Auto" is
-`None` for `RenderConfig.slab_march` and "" for `pool_backend`.
+`pool_slab_march`, `pool_slab_phases`, `megakernel_slab_depth` and
+`slab_depth`. "Auto" is `None` for `RenderConfig.slab_march` and
+`pool_slab_march` (a negative `pool_slab_march`, the reference's -1,
+too) and "" for `pool_backend`. `slab_march=None` means the integrator's
+default: no slabs in the megakernel, POOL_SLAB_DEFAULT for the
+wavefront's pool casts; an explicit value, 0.0 included, reaches the
+pool casts unless `pool_slab_march` is set (the reference's
+`pool_slab_cfg` inherits only a positive `slab_march` and takes its
+default for 0.0).
 """
 
 from dataclasses import dataclass
@@ -54,6 +61,17 @@ class RenderConfig:
                                         # the integrator's default (off in
                                         # the megakernel, POOL_SLAB_DEFAULT
                                         # for the wavefront's pool casts)
+    slab_phases: int = 2                # slab phases of a marched cast
+                                        # (windows SLAB_GROW-x wider each,
+                                        # the last unbounded)
+    pool_slab_march: Optional[float] = None  # the wavefront pool casts'
+                                        # own slab_march: None (or < 0) =
+                                        # auto, slab_march with
+                                        # slab_phases where slab_march is
+                                        # set, else POOL_SLAB_DEFAULT with
+                                        # pool_slab_phases; 0 = off
+    pool_slab_phases: int = 2           # slab phases of the pool casts'
+                                        # own setting (and of the default)
     pool_backend: str = ""              # the wavefront's pool casts'
                                         # backend, "" = pool_cast_backend's
                                         # choice; "pallas_pair" sweeps the
@@ -115,14 +133,32 @@ def marches_slabs(scene, backend):
     return _resolve_backend(scene, backend) in ("wl", "wlg", "pair")
 
 
+def _pool_slab(cfg):
+    """(march, phases) of the pool casts: cfg.pool_slab_march when it is
+    set (>= 0) with pool_slab_phases; else cfg.slab_march with
+    slab_phases where slab_march is set; else POOL_SLAB_DEFAULT with
+    pool_slab_phases. The reference's `pool_slab_cfg` resolves them the
+    same way, but for a slab_march set to 0.0 or less, which turns the
+    pool slabs off here and gives POOL_SLAB_DEFAULT there."""
+    if cfg.pool_slab_march is not None and cfg.pool_slab_march >= 0.0:
+        return cfg.pool_slab_march, cfg.pool_slab_phases
+    if cfg.slab_march is not None:
+        return cfg.slab_march, cfg.slab_phases
+    return POOL_SLAB_DEFAULT, cfg.pool_slab_phases
+
+
 def pool_slab_march(scene, cfg, backend):
     """The pool casts' phase-1 window as a fraction of the scene diagonal,
-    0.0 for no slabs: cfg.slab_march, or POOL_SLAB_DEFAULT for None, where
-    `marches_slabs`."""
-    march = POOL_SLAB_DEFAULT if cfg.slab_march is None else cfg.slab_march
+    0.0 for no slabs: `_pool_slab`'s, where `marches_slabs`."""
+    march = _pool_slab(cfg)[0]
     if march <= 0.0 or not marches_slabs(scene, backend):
         return 0.0
     return float(march)
+
+
+def pool_slab_phases(cfg):
+    """The slab phases of the pool casts' closest casts (`_pool_slab`)."""
+    return int(_pool_slab(cfg)[1])
 
 
 def megakernel_slab_depth(scene, cfg):

@@ -17,9 +17,9 @@ on for world-soup cluster tables on its accelerator; the port sorts on
 instanced scenes too), so that a block of the work-list traversal holds
 rays of like origin and direction. With `RenderConfig.slab_march` > 0 on
 the work list or the pair sweep (`megakernel_slab_depth`) the camera cast
-and the sorted extension casts march distance slabs
-(`intersect_closest_slab`), as the reference's megakernel does; elsewhere
-the field is ignored.
+and the sorted extension casts march distance slabs in
+`RenderConfig.slab_phases` phases (`intersect_closest_slab`), as the
+reference's megakernel does; elsewhere the field is ignored.
 
 Alpha-tested scenes (`RenderConfig.any_hit`) pre-draw one opacity sample
 per cast where the reference does: the camera ray's right after the
@@ -109,7 +109,7 @@ def _closest(scene, cfg, depth, origin, direction, opacity_u, live=None):
     return intersect_closest_slab(scene, origin, direction, depth,
                                   backend=cfg.traversal_backend,
                                   watertight=cfg.watertight, live=live,
-                                  **alpha)
+                                  phases=cfg.slab_phases, **alpha)
 
 
 def _sorted_closest(scene, cfg, depth, origin, direction, opacity_u, alive):

@@ -21,10 +21,10 @@ tables; the port sorts instanced scenes too) and both casts run in that
 lane order. The pool casts use `pool_cast_backend` (`RenderConfig.
 pool_backend` when set, e.g. "pallas_pair"; else the grouped work-list
 sweep by default on clustered scenes) and march distance slabs at
-`pool_slab_march` of the scene diagonal (`RenderConfig.slab_march`,
-0.0 for none): the closest cast through
-`accel.traverse.intersect_closest_slab`, the shadow cast in two windows
-(`_pool_any`).
+`pool_slab_march` of the scene diagonal (`RenderConfig.pool_slab_march`
+or `slab_march`, 0.0 for none): the closest cast through
+`accel.traverse.intersect_closest_slab` in `pool_slab_phases` phases,
+the shadow cast in two windows (`_pool_any`).
 
 `LAST_STATS` describes the last `render_samples_wavefront` call:
 iterations, pool size, `spp_batch`, the pool backend and slab depth,
@@ -46,7 +46,6 @@ from typing import NamedTuple
 import torch
 
 from ..accel.traverse import (
-    SLAB_PHASES,
     SlabStats,
     intersect_any,
     intersect_closest,
@@ -74,6 +73,7 @@ from .common import (
     park_rays,
     pool_cast_backend,
     pool_slab_march,
+    pool_slab_phases,
     shade_hit,
     slab_depth,
     sort_order,
@@ -138,7 +138,8 @@ class _Casts:
         march = pool_slab_march(scene, cfg, self.backend)
         self.slab = march > 0.0
         self.depth = slab_depth(scene, march) if self.slab else None
-        self.closest = SlabStats(SLAB_PHASES)
+        self.phases = pool_slab_phases(cfg)
+        self.closest = SlabStats(self.phases)
         self.any = SlabStats(2)
 
 
@@ -153,7 +154,8 @@ def _pool_closest(scene, casts, busy, ray_o, ray_d, opacity_u):
         casts.closest.casts[0] += 1
         return intersect_closest(scene, ray_o, ray_d, **kw)
     return intersect_closest_slab(scene, ray_o, ray_d, casts.depth,
-                                  live=busy, stats=casts.closest, **kw)
+                                  live=busy, phases=casts.phases,
+                                  stats=casts.closest, **kw)
 
 
 def _pool_any(scene, casts, active, shadow_o, shadow_d, distance,

@@ -1,6 +1,6 @@
 """What `chip_smoke.py` and the kernel tools share: the seeded ray sets
-of the sphere grids, spread ray blocks, CUDA-event timing and
-sweep-state diffs.
+of the sphere grids, spread ray blocks, CUDA-event timing, sweep-state
+diffs and the culls' bounds.
 
 `grid_ray_sets` draws every set from one numpy generator in one fixed
 order, whichever sets the caller keeps, so two callers with the same
@@ -14,6 +14,9 @@ N_RAYS = 1 << 20
 POOL_RAYS = 1 << 18                     # the default pool at 1080p x 8 spp
 SET_NAMES = ("camera", "random", "shadow", "random_sorted", "pool_sorted")
 SWEEP_FIELDS = ("best", "t", "u", "v", "tri", "inst", "back", "iters")
+PEAK_FLOPS = 67e12                      # H100 SXM float32, no tensor cores
+PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
+FLOPS_SLAB = 20                         # one ray-box slab test and its rule
 
 
 def rays_inside(rng, n, lo, hi):
@@ -123,7 +126,58 @@ def timed(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, reps, entry, tries=3):
+    """Mean device ms a call of fn of the kernels whose name holds `entry`,
+    over reps calls after a warm-up, by torch.profiler: the kernels' own
+    time, without the host's gaps between launches that CUDA events
+    around a run of short launches count. None if the profiler caught
+    none of them in `tries` runs (it drops a run's events now and then)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and entry in e.name]
+        if spans:
+            return sum(spans) / 1000.0 / reps
+    return None
+
+
 def sweep_diffs(a, b, n=len(SWEEP_FIELDS)):
     """Per field of the first n of a sweep state, the count of rays whose
     bits differ."""
     return {SWEEP_FIELDS[i]: int((a[i] != b[i]).sum()) for i in range(n)}
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by) of work of `flops` operations moving `nbytes`
+    on an H100 SXM: the larger of the two times at the card's peaks."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def cull_bound(rp, n_boxes, rb):
+    """The bound of a cull of rp rays (rb a ray block) against n_boxes
+    boxes: FLOPS_SLAB per (ray, box); each ray (28 bytes: o, 1/d, t_max;
+    the slab test reads no direction), box (24: lo, hi) and output (4 a
+    (block, box)) moved once."""
+    return bound(FLOPS_SLAB * rp * n_boxes,
+                 28 * rp + 24 * n_boxes + 4 * n_boxes * (rp // rb))
+
+
+def refine_bound(rp, hsup, n_items, rb):
+    """The bound of a refine of n_items (block, hyper) items over rp rays
+    against the (nh, hs, 8) member boxes hsup: FLOPS_SLAB per (ray of the
+    item's block, member); each ray (28 bytes, as `cull_bound`'s),
+    member box (24), item (block and hyper) and output moved once."""
+    hs = hsup.shape[1]
+    return bound(FLOPS_SLAB * n_items * rb * hs,
+                 28 * rp + 24 * hsup.shape[0] * hs + (8 + 4 * hs) * n_items)

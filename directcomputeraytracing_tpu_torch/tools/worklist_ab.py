@@ -21,15 +21,29 @@ block's items by warps, Baldwin-Weber and watertight:
 - `ray_any` (row 10): the per-ray any-hit sweep `any_ray_kernel` on the
   five sets of `ray`, each with its per-ray t_max;
 - `inst_any` (row 14): the same kernel on instanced tables, on the four
-  sets of `inst`.
+  sets of `inst`;
+- `cull` and `refine` (rows 7 and 8): `cull_kernel` on the hyper boxes
+  and `refine_kernel` on the items the hyper cull admits, on both grids
+  (`sphere_grid(12, 12)`: 64 hypers of 8; `sphere_grid(27, 27)`: 183 of
+  16) at the main path's shapes: camera rays, the sorted random set (the
+  megakernel's sorted bounce casts) and the sorted 2^18 pool, each with
+  the closest casts' t_max, the shadow set with its own (the shadow
+  casts), and small casts of 1, 2, 4 and 32 ray blocks spread over the
+  shadow set (`SMALL_BLOCKS`, as an alpha recast pass or a late bounce
+  casts). Each line gives the rays, ray blocks, boxes or items, the
+  turns, each variant's kernel time by the profiler (`kernel_ms`: small
+  casts launch faster than the host can issue them, so CUDA events
+  around their turns time the host) and the bound
+  (`tools.common.cull_bound` / `refine_bound`) with its share of that
+  time.
 
 `--rows` picks some of them (comma-separated; default all). Variants:
 
 - `parent`: `--parent DIR`'s `worklist.cu` with its headers, an earlier
   version of the source with the package's C interface, built under the
-  library name worklist_parent. A source without `any_ray_kernel` has
-  the block walk's per-ray any-hit sweeps, whose entries take no
-  admission boxes (`_bind_parent`);
+  library name worklist_parent. A source without `entry_min_list` has
+  the first refine, whose entry takes each item's block
+  (`_bind_parent`);
 - `new`: the package's build of the source.
 
 Each is timed with CUDA events, the mean of `reps` (default 5) launches
@@ -40,15 +54,19 @@ variant must equal `new` in every field of the sweep state (`iters`
 included: without a cap the walks count the same; any-hit: `occ`),
 `new` its twin in every field on 64 ray blocks spread over the set
 (rows 9, 10, 13 and 14), and the grouped kernels the per-ray sweep in
-the hit fields; the tool exits non-zero otherwise.
+the hit fields; the culls' outputs must equal the twins' and each
+other's bit for bit on every set (rows 7 and 8); the tool exits non-zero
+otherwise.
 Prints the card's name and power limit first, then per built variant
-its sweep kernels' ptxas lines and (`new`) the warp-walk kernels'
-resources (resident blocks per SM, registers, shared and spill bytes).
+its sweep kernels' and culls' ptxas lines and (`new`) the warp-walk
+kernels' and the culls' resources (resident blocks per SM, registers,
+shared and spill bytes).
 Needs a CUDA device; with none it exits non-zero.
 
 `ray_sets`, `inst_ray_sets`, the censuses (`closest_census`,
-`any_census`, `ray_census`), their summaries and `ptxas_report` serve
-`chip_smoke.py` phases 1, 2b, 2c and 2d too: the censuses walk the
+`any_census`, `ray_census`), their summaries, `ptxas_report`,
+`cull_ptxas_report` and `cull_refine_diffs` serve `chip_smoke.py`
+phases 1, 2b, 2c and 2d too: the censuses walk the
 twins' own steps and count the (item, warp) pairs of the warp walks;
 `padding_iters` walks the per-ray twin the same way and counts what a
 vote per 1024-ray block, the first per-ray kernels', adds to `iters`.
@@ -71,7 +89,15 @@ from ..accel import worklist as wl
 from ..core.types import to_device
 from ..scene.presets import sphere_grid
 from ..scene.scene import flatten_scene
-from .common import grid_ray_sets, spread_blocks, sweep_diffs, timed
+from .common import (
+    cull_bound,
+    grid_ray_sets,
+    kernel_ms,
+    refine_bound,
+    spread_blocks,
+    sweep_diffs,
+    timed,
+)
 
 GRID = (12, 12)
 INST_GRID = (27, 27)
@@ -80,7 +106,9 @@ INST_SEED = 20261019
 INST_SETS = ("camera", "shadow", "random_sorted", "pool_sorted")
 TWIN_BLOCKS = 64
 T_MIN = 1e-4
-ROWS = ("grouped", "ray", "inst", "ray_any", "inst_any")
+ROWS = ("grouped", "ray", "inst", "ray_any", "inst_any", "cull", "refine")
+CULL_SETS = ("camera", "random_sorted", "pool_sorted", "shadow")
+SMALL_BLOCKS = (1, 2, 4, 32)
 
 
 def ray_sets(tables, cam, device, seed=SEED):
@@ -304,15 +332,25 @@ def _short(entry):
     return None
 
 
-def ptxas_report(log):
-    """The ptxas lines (`nvcc -Xptxas -v`) of the sweep kernels `_short`
-    names: {short name: {registers, smem, stack, spill_stores,
-    spill_loads}}, short names those of `wl.WARP_KERNELS`."""
+def _cull_short(entry):
+    """Short name (one of `wl.CULL_KERNELS`) of a cull kernel's mangled
+    entry, or None."""
+    for name in wl.CULL_KERNELS:
+        if f"{name}_kernel" in entry:
+            return name
+    return None
+
+
+def ptxas_report(log, short=_short):
+    """The ptxas lines (`nvcc -Xptxas -v`) of the kernels `short` names:
+    {short name: {registers, smem, stack, spill_stores, spill_loads}},
+    short names those of `wl.WARP_KERNELS` (`_short`, the sweeps) or of
+    `wl.CULL_KERNELS` (`_cull_short`)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            cur = _short(m.group(1))
+            cur = short(m.group(1))
             if cur:
                 out[cur] = {}
             continue
@@ -329,33 +367,36 @@ def ptxas_report(log):
     return out
 
 
+def cull_ptxas_report(log):
+    """`ptxas_report` of the culls, under the names of
+    `wl.CULL_KERNELS`."""
+    return ptxas_report(log, _cull_short)
+
+
 def _bind_parent(lib, source):
     """Bind a parent's build (its `worklist.cu` text: source) as the
-    package's C interface; a source without `any_ray_kernel` has the
-    block walk's per-ray any-hit sweeps, which take no admission boxes.
-    Returns whether its per-ray any-hit sweeps take them."""
+    package's C interface; a source without `entry_min_list` has the
+    first refine, which takes each item's block (int32) where the
+    package's takes per-block item offsets (`_refine_call`)."""
     wl.bind(lib)
-    abox = "any_ray_kernel" in source
-    if not abox:
-        c_p, c_i, c_f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        any_ = [c_p, c_p, c_i, c_p, c_p, c_i, c_p, c_p, c_i, c_i, c_f, c_p,
-                c_p]
-        lib.dcrt_wl_any.argtypes = any_
-        lib.dcrt_wl_any_inst.argtypes = any_[:5] + [c_p] * 3 + any_[5:]
-    return abox
+    if "entry_min_list" not in source:
+        c_p, c_i = ctypes.c_void_p, ctypes.c_int
+        lib.dcrt_wl_refine.argtypes = [c_p, c_i, c_p, c_p, c_i, c_p, c_p,
+                                       c_i, c_i, c_p, c_p]
+        lib.dcrt_wl_refine.item_blocks = True
 
 
 def _entries(lib):
     return dict(ray=lib.dcrt_wl_closest, inst=lib.dcrt_wl_closest_inst,
                 grouped_closest=lib.dcrt_wl_closest_grouped,
                 grouped_any=lib.dcrt_wl_any_grouped,
-                ray_any=lib.dcrt_wl_any, inst_any=lib.dcrt_wl_any_inst)
+                ray_any=lib.dcrt_wl_any, inst_any=lib.dcrt_wl_any_inst,
+                cull=lib.dcrt_wl_cull, refine=lib.dcrt_wl_refine)
 
 
 def _build(parent):
-    """name -> (entries, built library, whether its per-ray any-hit
-    sweeps take admission boxes) of the package's kernels and, given a
-    directory, the parent's. The two nvcc runs go in parallel."""
+    """name -> (entries, built library) of the package's kernels and,
+    given a directory, the parent's. The two nvcc runs go in parallel."""
     from ..utils.cuda_build import load_library
 
     with ThreadPoolExecutor(2) as pool:
@@ -367,9 +408,9 @@ def _build(parent):
     if old:
         built = old.result()
         with open(os.path.join(parent, "worklist.cu")) as f:
-            abox = _bind_parent(built.lib, f.read())
-        out["parent"] = (_entries(built.lib), built, abox)
-    out["new"] = (_entries(new.result().lib), new.result(), True)
+            _bind_parent(built.lib, f.read())
+        out["parent"] = (_entries(built.lib), built)
+    out["new"] = (_entries(new.result().lib), new.result())
     return out
 
 
@@ -381,12 +422,124 @@ def _closest_run(fn, tables, items, od, texp, wt):
     return run
 
 
-def _any_run(fn, tables, items, od, tm, wt, abox=True):
+def _any_run(fn, tables, items, od, tm, wt):
     def run():
-        err, occ = wl._launch_any(fn, tables, items, od, tm, T_MIN, wt, abox)
+        err, occ = wl._launch_any(fn, tables, items, od, tm, T_MIN, wt)
         wl._raise_on(err, fn.__name__)
         return occ
     return run
+
+
+def _cull_call(fn, boxes, od, tm):
+    """A run of a build's cull entry fn: (n, 8) boxes x rays -> (nb, n)."""
+    def run():
+        out = torch.empty((od.shape[1] // wl.RB, boxes.shape[0]),
+                          dtype=torch.float32, device=od.device)
+        wl._raise_on(fn(boxes.data_ptr(), boxes.shape[0], od.data_ptr(),
+                        tm.data_ptr(), od.shape[1], wl.RB, out.data_ptr(),
+                        wl._stream(od)), "cull")
+        return out
+    return run
+
+
+def _refine_call(fn, hsup, blk, hyp, od, tm):
+    """A run of a build's refine entry fn over the (block, hyper) items:
+    -> (n_items, hs). The package's takes per-block item offsets, a first
+    refine (`_bind_parent`) each item's block."""
+    hs, rp = hsup.shape[1], od.shape[1]
+    # the index tensors live as long as the run (it holds their pointers)
+    hyp32 = hyp.to(torch.int32)
+    if getattr(fn, "item_blocks", False):
+        index = (blk.to(torch.int32), hyp32)
+        head = (hsup.data_ptr(), hs)
+    else:
+        index = (wl.item_segments(blk, rp // wl.RB), hyp32)
+        head = (hsup.data_ptr(), hs, hsup.shape[0])
+
+    def run():
+        out = torch.empty((blk.shape[0], hs), dtype=torch.float32,
+                          device=od.device)
+        wl._raise_on(fn(*head, *(x.data_ptr() for x in index), blk.shape[0],
+                        od.data_ptr(), tm.data_ptr(), rp, wl.RB,
+                        out.data_ptr(), wl._stream(od)), "refine")
+        return out
+    return run
+
+
+def _bit_diff(a, b):
+    """Elements whose float32 bits differ (a zero's sign included)."""
+    if a.shape != b.shape:
+        return -1
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def cull_sets(sets):
+    """The culls' sets of `sets` (`CULL_SETS`, then `small_k`: k ray
+    blocks spread over the shadow set, k in SMALL_BLOCKS), name -> (o, d,
+    t_max or None): the closest casts' t_max (BIG) on all but the shadow
+    sets, which keep their own."""
+    out = {name: (o, d, t_max if name == "shadow" else None)
+           for name, (o, d, t_max) in sets.items() if name in CULL_SETS}
+    o, d, t_max = sets["shadow"]
+    for k in SMALL_BLOCKS:
+        idx = spread_blocks(o.shape[0], k, o.device, wl.RB)
+        out[f"small_{k}"] = (o[idx], d[idx], t_max[idx])
+    return out
+
+
+def cull_refine_diffs(tables, od, tm):
+    """The package's hyper cull and refine against their twins on one
+    cast (tables with a hyper level): bit differences of each, with the
+    hypers and the items."""
+    tlo_w = wl.cull_boxes_torch(tables.hbox, od, tm)
+    blk, hyp, _ = wl.compact_pairs(tlo_w)
+    return dict(
+        hypers=int(tables.hbox.shape[0]), items=int(blk.shape[0]),
+        cull_bits=_bit_diff(wl.cull_boxes(tables.hbox, od, tm), tlo_w),
+        refine_bits=_bit_diff(wl.refine(tables.hsup, blk, hyp, od, tm),
+                              wl.refine_torch(tables.hsup, blk, hyp, od,
+                                              tm)))
+
+
+def _cull_row(rows, variants, tables, sets, reps, bad, grid):
+    """Rows 7 and 8: every variant's cull of the hyper boxes and refine
+    of the admitted items, in turns, on the culls' sets; each bit-equal
+    to the twin."""
+    for case, (o, d, t_max) in cull_sets(sets).items():
+        od, tm, _ = wl.prep_rays(o, d, t_max)
+        rp, nb = od.shape[1], od.shape[1] // wl.RB
+        cast = "closest" if t_max is None else "any"
+        boxes = tables.hbox
+        want = wl.cull_boxes_torch(boxes, od, tm)
+        blk, hyp, _ = wl.compact_pairs(want)
+        lines = {}
+        if "cull" in rows:
+            runs = {n: _cull_call(e["cull"], boxes, od, tm)
+                    for n, (e, _) in variants.items()}
+            lines["cull"] = (runs, want, None,
+                             dict(boxes=int(boxes.shape[0])),
+                             cull_bound(rp, boxes.shape[0], wl.RB))
+        if "refine" in rows and blk.numel():
+            runs = {n: _refine_call(e["refine"], tables.hsup, blk, hyp, od,
+                                    tm)
+                    for n, (e, _) in variants.items()}
+            lines["refine"] = (
+                runs, wl.refine_torch(tables.hsup, blk, hyp, od, tm),
+                int(blk.shape[0]), dict(hs=int(tables.hsup.shape[1])),
+                refine_bound(rp, tables.hsup, blk.shape[0], wl.RB))
+        for row, (runs, twin, items, size, bnd) in lines.items():
+            check = {n: _bit_diff(run(), twin) for n, run in runs.items()}
+            if any(check.values()):
+                bad.append((row, grid, case, check))
+            order, turns = _in_turns(runs, reps)
+            dev_ms = {n: kernel_ms(run, reps, f"{row}_kernel")
+                      for n, run in runs.items()}
+            line = _line(row, case, None, cast, o.shape[0], items, order,
+                         turns, grid=grid, ray_blocks=nb, **size,
+                         kernel_ms=dev_ms, bound=bnd, bits_vs_twin=check,
+                         share={n: t and bnd[0] / t
+                                for n, t in dev_ms.items()})
+            print("worklist-ab", json.dumps(line))
 
 
 def _in_turns(runs, reps):
@@ -418,10 +571,10 @@ def _grouped_row(variants, tables, sets, reps, bad):
         for wt in (False, True):
             runs_c = {n: _closest_run(e["grouped_closest"], tables, it_c, od,
                                       texp, wt)
-                      for n, (e, _, _) in variants.items()}
+                      for n, (e, _) in variants.items()}
             runs_a = {n: _any_run(e["grouped_any"], tables, it_a, od, tm_a,
                                   wt)
-                      for n, (e, _, _) in variants.items()}
+                      for n, (e, _) in variants.items()}
             runs_c["per_ray"] = lambda: wl.sweep_closest(
                 tables, it_c, od, texp, T_MIN, wt)
             runs_a["per_ray"] = lambda: wl.sweep_any(tables, it_a, od, tm_a,
@@ -456,7 +609,7 @@ def _ray_row(row, variants, tables, sets, reps, bad):
                                              t_max[idx])
         for wt in (False, True):
             runs = {n: _closest_run(e[row], tables, it_c, od, texp, wt)
-                    for n, (e, _, _) in variants.items()}
+                    for n, (e, _) in variants.items()}
             want = runs["new"]()
             check = {n: sweep_diffs(run(), want) for n, run in runs.items()}
             new_s = _closest_run(variants["new"][0][row], tables, it_s, od_s,
@@ -485,8 +638,8 @@ def _any_row(row, variants, tables, sets, reps, bad):
         od_s, tm_s, _, _, it_s = _prepared(tables, o[idx], d[idx],
                                            t_max[idx])
         for wt in (False, True):
-            runs = {n: _any_run(e[row], tables, it_a, od, tm_a, wt, abox)
-                    for n, (e, _, abox) in variants.items()}
+            runs = {n: _any_run(e[row], tables, it_a, od, tm_a, wt)
+                    for n, (e, _) in variants.items()}
             want = runs["new"]()
             check = {n: int((run() != want).sum()) for n, run in runs.items()}
             new_s = _any_run(variants["new"][0][row], tables, it_s, od_s,
@@ -520,14 +673,17 @@ def main(argv=None):
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
     variants = _build(args.parent)
-    for name, (_, built, _) in variants.items():
+    for name, (_, built) in variants.items():
         rep = dict(variant=name, build_s=built.seconds,
-                   ptxas=ptxas_report(built.log))
+                   ptxas=ptxas_report(built.log),
+                   cull_ptxas=cull_ptxas_report(built.log))
         if name == "new":
             rep["resources"] = wl.warp_resources()
+            rep["cull_resources"] = wl.cull_resources()
         print("worklist-ab-build", json.dumps(rep))
     bad = []
-    if set(rows) & {"grouped", "ray", "ray_any"}:
+    culls = [r for r in rows if r in ("cull", "refine")]
+    if set(rows) & {"grouped", "ray", "ray_any", "cull", "refine"}:
         scene, cam = sphere_grid(*GRID)
         arrays, _ = flatten_scene(scene, dev)
         tables = wl.scene_tables(arrays)
@@ -538,8 +694,11 @@ def main(argv=None):
             _ray_row("ray", variants, tables, sets, args.reps, bad)
         if "ray_any" in rows:
             _any_row("ray_any", variants, tables, sets, args.reps, bad)
+        if culls:
+            _cull_row(culls, variants, tables, sets, args.reps, bad,
+                      "grid_12x12")
         del arrays, tables, sets
-    if set(rows) & {"inst", "inst_any"}:
+    if set(rows) & {"inst", "inst_any", "cull", "refine"}:
         scene, cam = sphere_grid(*INST_GRID)
         arrays, _ = flatten_scene(scene, dev)
         tables = wl.scene_tables(arrays)
@@ -551,6 +710,9 @@ def main(argv=None):
             _ray_row("inst", variants, tables, sets, args.reps, bad)
         if "inst_any" in rows:
             _any_row("inst_any", variants, tables, sets, args.reps, bad)
+        if culls:
+            _cull_row(culls, variants, tables, sets, args.reps, bad,
+                      "instanced_27x27")
     if bad:
         print(f"worklist_ab: variants differ: {bad}", file=sys.stderr)
         return 1

@@ -98,3 +98,46 @@ def test_build_bvh_equals_the_reference(preset):
         assert want.max_depth == got.max_depth
         n += 1
     assert n >= 2
+
+
+# the reference's exports whose module the port does not have yet, each
+# with the ROADMAP queue 1 item that ports it
+_NOT_YET = {"load_obj": "item 5", "load_mitsuba_xml": "item 5",
+            "FilterParams": "item 6", "bake_luts": "item 10",
+            "bake_luts_cached": "item 10", "DistributedRenderer": "item 11",
+            "make_mesh": "item 11"}
+
+
+def _ref_exports():
+    import directcomputeraytracing_tpu as ref_pkg
+
+    return list(ref_pkg.__all__)
+
+
+@pytest.mark.parametrize("name", _ref_exports())
+def test_reference_exports_resolve_in_the_port(name):
+    """Every name the reference's package serves lazily resolves in the
+    port where the port has its module, to the port's own object from the
+    counterpart module; a name whose module the port lacks does not
+    resolve yet, and `_NOT_YET` names its queue 1 item."""
+    import importlib.util
+
+    import directcomputeraytracing_tpu as ref_pkg
+
+    want = getattr(ref_pkg, name)
+    if not hasattr(want, "__module__") or isinstance(want, str):
+        assert getattr(port_pkg, name) == want
+        return
+    module = want.__module__.replace(REF, port_pkg.__name__, 1)
+    try:
+        has_module = importlib.util.find_spec(module) is not None
+    except ModuleNotFoundError:     # its package is missing too
+        has_module = False
+    assert has_module == (name not in _NOT_YET), (name, module)
+    if name in _NOT_YET:
+        with pytest.raises(AttributeError):
+            getattr(port_pkg, name)
+    else:
+        got = getattr(port_pkg, name)
+        assert got.__module__ == module and got.__name__ == want.__name__
+        assert name in port_pkg.__all__

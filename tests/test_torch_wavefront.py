@@ -24,6 +24,8 @@ import torch
 
 from directcomputeraytracing_tpu_torch.core.types import to_device
 from directcomputeraytracing_tpu_torch.integrator import wavefront as wf
+from directcomputeraytracing_tpu_torch.integrator import common
+from directcomputeraytracing_tpu_torch.integrator import megakernel as mk
 from directcomputeraytracing_tpu_torch.integrator.common import RenderConfig
 from directcomputeraytracing_tpu_torch.integrator.megakernel import (
     full_frame_pixels,
@@ -149,6 +151,120 @@ def test_wavefront_matches_reference_on_the_grid():
                                          tpy, 3)
     _assert_pixels_close(want, got.numpy(), GRID_MAX_DIVERGED)
     assert got.mean() > 0
+
+
+# (port RenderConfig fields, reference RenderConfig fields) of the pool
+# casts' slab settings, and the (march, phases) both resolve them to
+_SLAB_CFGS = {
+    "default": ({}, {}, (common.POOL_SLAB_DEFAULT, 2)),
+    "inherit": (dict(slab_march=0.05, slab_phases=3),
+                dict(slab_march=0.05, slab_phases=3), (0.05, 3)),
+    "own": (dict(slab_march=0.05, slab_phases=3, pool_slab_march=0.02,
+                 pool_slab_phases=4),
+            dict(slab_march=0.05, slab_phases=3, pool_slab_march=0.02,
+                 pool_slab_phases=4), (0.02, 4)),
+    "default_phases": (dict(pool_slab_phases=3), dict(pool_slab_phases=3),
+                       (common.POOL_SLAB_DEFAULT, 3)),
+    "reference_auto": (dict(pool_slab_march=-1.0, pool_slab_phases=3),
+                       dict(pool_slab_march=-1.0, pool_slab_phases=3),
+                       (common.POOL_SLAB_DEFAULT, 3)),
+    "off": (dict(slab_march=0.05, pool_slab_march=0.0),
+            dict(slab_march=0.05, pool_slab_march=0.0), (0.0, 2)),
+    # the one documented difference: the port's explicit slab_march=0.0
+    # (the reference's default, written out) turns the pool slabs off;
+    # the reference falls back to POOL_SLAB_DEFAULT
+    "explicit_zero": (dict(slab_march=0.0), dict(slab_march=0.0),
+                      (common.POOL_SLAB_DEFAULT, 2), (0.0, 2)),
+}
+
+
+@pytest.mark.parametrize("case", list(_SLAB_CFGS))
+def test_pool_slab_config_matches_reference(case):
+    """`slab_phases`, `pool_slab_march` and `pool_slab_phases` resolve for
+    the pool casts as the reference's `pool_slab_cfg` resolves them, but
+    for the one difference `integrator/common.py`'s docstring states
+    (a case whose port value is given apart)."""
+    from directcomputeraytracing_tpu.integrator.common import (
+        RenderConfig as RefConfig,
+    )
+    from directcomputeraytracing_tpu.integrator.common import pool_slab_cfg
+
+    port_kw, ref_kw, ref_want, *port_want = _SLAB_CFGS[case]
+    ref = pool_slab_cfg(RefConfig(width=8, height=8, **ref_kw))
+    assert (ref.slab_march, ref.slab_phases) == ref_want
+    march, phases = port_want[0] if port_want else ref_want
+    arrays, _, _, cfg, _, _ = _setup("grid", 8, **port_kw)
+    assert common.pool_slab_march(arrays, cfg, "pallas_wlg") == march
+    assert common.pool_slab_phases(cfg) == phases
+    # the dense and clustered sweeps take no slabs, as the reference's
+    # slab_enabled has it
+    assert common.pool_slab_march(arrays, cfg, "pallas_cluster") == 0.0
+
+
+def test_megakernel_slab_phases_match_reference(monkeypatch):
+    """`RenderConfig.slab_phases` reaches every marched cast of the
+    megakernel (three phases here), and the image is the reference
+    megakernel's with the same slab settings (its work list
+    interpreted, its bounce casts sorted), within the grid tolerance."""
+    from directcomputeraytracing_tpu.integrator.common import (
+        RenderConfig as RefConfig,
+    )
+    from directcomputeraytracing_tpu.integrator.megakernel import (
+        full_frame_pixels as ref_pixels,
+    )
+    from directcomputeraytracing_tpu.integrator.megakernel import (
+        render_samples as ref_render_samples,
+    )
+    from directcomputeraytracing_tpu.lut.textures import (
+        placeholder_luts as ref_luts,
+    )
+    from directcomputeraytracing_tpu.scene.presets import (
+        sphere_grid as ref_grid,
+    )
+    from directcomputeraytracing_tpu.scene.scene import (
+        flatten_scene as ref_flatten,
+    )
+
+    size, bounces, slabs = 16, 2, dict(slab_march=0.03, slab_phases=3)
+    scene, cam = ref_grid(*GRID[0], **GRID[1])
+    arrays, meta = ref_flatten(scene)
+    ref_cfg = RefConfig(width=size, height=size, max_bounce=bounces,
+                        stack_size=meta.stack_size,
+                        light_count=meta.light_count,
+                        traversal_backend="pallas_wl_interpret",
+                        sort_bounce_rays=True, **slabs)
+    px, py = ref_pixels(ref_cfg)
+    _, want = ref_render_samples(arrays, ref_luts(), cam, ref_cfg, px, py,
+                                 jnp.uint32(3))
+    seen, marched = [], mk.intersect_closest_slab
+
+    def spy(*args, **kw):
+        seen.append(kw["phases"])
+        return marched(*args, **kw)
+
+    monkeypatch.setattr(mk, "intersect_closest_slab", spy)
+    p_arrays, luts, p_cam, cfg, tpx, tpy = _setup("grid", size, bounces,
+                                                  **slabs)
+    _, got = render_samples(p_arrays, luts, p_cam, cfg, tpx, tpy, 3)
+    assert len(seen) >= 2 and set(seen) == {3}
+    _assert_pixels_close(want, got.numpy(), GRID_MAX_DIVERGED)
+    assert got.mean() > 0
+
+
+def test_wavefront_pool_casts_march_three_phases():
+    """`pool_slab_phases=3` marches the pool's closest casts in three
+    windows (`LAST_STATS` counts casts in each) and gives the
+    megakernel's image, as two phases do."""
+    arrays, luts, cam, cfg, px, py = _setup("grid", 32, pool_slab_phases=3)
+    _, val_w = wf.render_samples_wavefront(arrays, luts, cam, cfg, px, py, 3)
+    stats = wf.LAST_STATS
+    assert len(stats["closest_casts_per_phase"]) == 3
+    assert all(n > 0 for n in stats["closest_casts_per_phase"])
+    assert len(stats["closest_recast"]) == 2
+    _, val_m = render_samples(arrays, luts, cam, cfg, px, py, 3)
+    np.testing.assert_allclose(val_w.numpy(), val_m.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    assert val_w.mean() > 0
 
 
 @pytest.mark.parametrize("name", ["area-diffuse", "grid"])

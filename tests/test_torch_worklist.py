@@ -337,6 +337,73 @@ def test_cpu_intersector_runs_the_work_list_twins(port_scene):
     assert wl.counters() == dict.fromkeys(wl.counters(), 0)
 
 
+def _refine_by_lists(hsup, seg, hyp, od, tm):
+    """The refine as the kernel walks it: per ray block b, one list of the
+    members of its items seg[b]..seg[b + 1] (hs each, item-major), culled
+    against the block's rays and written to rows seg[b] * hs onwards."""
+    hs = hsup.shape[1]
+    out = torch.full((hyp.shape[0] * hs,), -1.0)
+    for b in range(seg.shape[0] - 1):
+        lo, hi = int(seg[b]), int(seg[b + 1])
+        if hi > lo:
+            rays = slice(b * wl.RB, (b + 1) * wl.RB)
+            boxes = hsup[hyp[lo:hi]].reshape(-1, 8)
+            out[lo * hs:hi * hs] = wl.cull_boxes_torch(
+                boxes, od[:, rays].contiguous(), tm[rays].contiguous())[0]
+    return out.view(-1, hs)
+
+
+@pytest.mark.parametrize("case", ["camera", "random"])
+def test_item_segments_match_a_per_item_loop(port_scene, monkeypatch, case):
+    """`item_segments` gives each ray block its run of the block-sorted
+    (block, hyper) items, as a plain loop over the items counts them, and
+    the refine walked per block over those runs (the kernel's box lists)
+    writes the twin's rows bit for bit."""
+    from directcomputeraytracing_tpu_torch.core.types import to_device
+    from directcomputeraytracing_tpu_torch.tools.common import (
+        tiled_camera_rays,
+    )
+
+    monkeypatch.setattr(wl, "HIER_MIN", 2)
+    tables = wl.scene_tables(port_scene)
+    assert tables.hbox is not None
+    if case == "camera":
+        cam = to_device(sphere_grid(*GRID, **GRID_KW)[1], "cpu")
+        o, d = tiled_camera_rays(cam, 64, 64, torch.device("cpu"))
+    else:
+        o, d, _ = (torch.from_numpy(x) for x in _rays(5 * wl.RB - 7, 23))
+    od, tm, _ = wl.prep_rays(o, d)
+    nb = od.shape[1] // wl.RB
+    blk, hyp, _ = wl.compact_pairs(wl.cull_boxes_torch(tables.hbox, od, tm))
+    seg = wl.item_segments(blk, nb)
+    want = [0]
+    for b in range(nb):
+        want.append(want[-1] + sum(int(x) == b for x in blk))
+    assert seg.dtype == torch.int32 and seg.tolist() == want
+    assert len(set(blk.tolist())) > 1
+    got = _refine_by_lists(tables.hsup, seg, hyp, od, tm)
+    twin = wl.refine_torch(tables.hsup, blk, hyp, od, tm)
+    assert torch.equal(got.view(torch.int32), twin.view(torch.int32))
+
+
+def test_refine_needs_block_sorted_items(port_scene, monkeypatch):
+    """`refine` takes its items sorted by ray block, as `compact_pairs`
+    gives them and as the kernel's per-block walk needs them: on the CPU
+    the same items out of order raise, in order they give the twin's
+    rows."""
+    monkeypatch.setattr(wl, "HIER_MIN", 2)
+    tables = wl.scene_tables(port_scene)
+    o, d, _ = (torch.from_numpy(x) for x in _rays(3 * wl.RB - 7, 29))
+    od, tm, _ = wl.prep_rays(o, d)
+    blk, hyp, _ = wl.compact_pairs(wl.cull_boxes_torch(tables.hbox, od, tm))
+    assert len(set(blk.tolist())) > 1
+    assert torch.equal(wl.refine(tables.hsup, blk, hyp, od, tm),
+                       wl.refine_torch(tables.hsup, blk, hyp, od, tm))
+    flip = torch.flip(torch.arange(blk.shape[0]), [0])
+    with pytest.raises(ValueError, match="sorted by ray block"):
+        wl.refine(tables.hsup, blk[flip], hyp[flip], od, tm)
+
+
 def test_empty_casts_return_misses(port_scene):
     """Rays that enter no super: no items, no sweep, all misses."""
     n = 64
@@ -403,3 +470,154 @@ def test_cuda_kernels_match_twins(watertight, monkeypatch):
     assert warps[0::2].sum() > 0.5 * warps[0::2].numel()
     assert warps[1::2, :16].any() and not warps[1::2, 16:].any()
     assert not occ[:r][~(t_max > 1e-4)].any()
+
+
+def _boxes(rs, n, inverted=0):
+    """n random (8,) boxes in [-3, 3]^3, the last `inverted` of them
+    inverted padding boxes."""
+    lo = rs.uniform(-3.0, 2.5, (n, 3))
+    hi = lo + rs.uniform(0.05, 1.5, (n, 3))
+    b = np.concatenate([lo, hi, np.zeros((n, 2))], axis=1)
+    b[n - inverted:] = wl._INVERTED_BOX
+    return b.astype(np.float32)
+
+
+def _plane_rays(boxes, n):
+    """n rays starting on the +x face of one of `boxes` (inside its y and z
+    range) and pointing into it: their slab entry is exactly zero, -0.0
+    before the clamp (the x slab's exit term is 0 * (1 / dx), dx < 0)."""
+    rs = np.random.default_rng(31)
+    k = rs.integers(0, boxes.shape[0], n)
+    lo, hi = boxes[k, 0:3], boxes[k, 3:6]
+    o = lo + rs.uniform(0.2, 0.8, (n, 3)) * (hi - lo)
+    o[:, 0] = hi[:, 0]
+    d = np.stack([-np.ones(n), rs.uniform(-0.3, 0.3, n),
+                  rs.uniform(-0.3, 0.3, n)], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+_CULL_CASES = ["n1", "n31", "n33", "n183", "hs4", "hs8", "hs16", "blocks1",
+               "blocks2", "blocks3", "parked", "tmax0", "plane", "sbox"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _CULL_CASES)
+def test_cuda_culls_match_twins_bitwise(case):
+    """`cull_boxes` and `refine` against their twins, bit for bit (the
+    sign of a zero included): box counts of 1, 31, 33 and 183 (chunks of
+    64 boxes, a partial last one), hyper fan-outs of 4, 8 and 16, casts of
+    1-3 ray blocks (the launcher splits a ray block's boxes over several
+    CUDA blocks there), a ray block of parked rays only, rays with t_max
+    <= 0, rays starting on a box plane, and a scene at or below HIER_MIN
+    supers, whose super boxes are culled directly (its items against the
+    plain phases')."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    dev = torch.device("cuda")
+    rs = np.random.default_rng(_CULL_CASES.index(case) + 40)
+    n, hs, nb = 64, 8, 3
+    if case.startswith("n"):
+        n = int(case[1:])
+    elif case.startswith("hs"):
+        hs = int(case[2:])
+    elif case.startswith("blocks"):
+        nb = int(case[6:])
+    boxes = _boxes(rs, n * hs, inverted=hs // 2)
+    r = nb * wl.RB - 5
+    o, d, t_max = _rays(r, seed=50 + nb)
+    if case == "parked":           # ray block 1 holds parked rays only
+        o[wl.RB:2 * wl.RB] = np.nan
+    if case == "tmax0":
+        t_max[::3] = 0.0
+        t_max[1::3] = -1.0
+    if case == "plane":
+        o, d = _plane_rays(boxes, r)
+        o[::2] += d[::2] * 0.5     # half the rays start inside instead
+    if case == "sbox":
+        arrays, _ = flatten_scene(sphere_grid(*GRID, **GRID_KW)[0], dev)
+        tables = wl.scene_tables(arrays)
+        assert tables.hbox is None and tables.sbox.shape[0] <= wl.HIER_MIN
+        od, tm, _ = wl.prep_rays(*(torch.from_numpy(x).to(dev)
+                                   for x in (o, d)))
+        assert _bits_equal(wl.cull_boxes(tables.sbox, od, tm),
+                           wl.cull_boxes_torch(tables.sbox, od, tm))
+        items = wl.phases(tables, od, tm)
+        for a, b in zip(items, wl.phases(tables, od, tm, plain=True)):
+            assert torch.equal(a, b)
+        return
+    o, d, t_max = (torch.from_numpy(x).to(dev) for x in (o, d, t_max))
+    od, tm, _ = wl.prep_rays(o, d, t_max)
+    assert od.shape[1] == nb * wl.RB
+    box_t = torch.from_numpy(boxes).to(dev)
+    # the cull: every box of the set (n * hs of them, or n on the "n" cases)
+    flat = box_t[:n] if case.startswith("n") else box_t
+    tlo = wl.cull_boxes(flat, od, tm)
+    assert _bits_equal(tlo, wl.cull_boxes_torch(flat, od, tm))
+    # the refine: hypers of hs members, items from the hyper boxes' cull
+    hsup = box_t.view(n, hs, 8)
+    hbox = torch.cat([hsup[:, :, 0:3].amin(1), hsup[:, :, 3:6].amax(1),
+                      hsup[:, 0, 6:8]], dim=1).contiguous()
+    blk, hyp, _ = wl.compact_pairs(wl.cull_boxes(hbox, od, tm))
+    ref = wl.refine(hsup, blk, hyp, od, tm)
+    assert _bits_equal(ref, wl.refine_torch(hsup, blk, hyp, od, tm))
+    torch.cuda.synchronize()
+    if case == "parked":
+        assert (tlo[1] == wl.BIG).all() and not (blk == 1).any()
+    if case == "plane":
+        assert (tlo == 0.0).any() and (ref == 0.0).any()
+    if case != "tmax0":
+        assert blk.numel() > 0 and (ref < wl.BIG).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hs,nb", [(64, 8, 4), (183, 16, 2), (7, 4, 1)],
+                         ids=["grid", "instanced", "one_block"])
+def test_cuda_culls_write_only_their_rows(n, hs, nb):
+    """The cull and the refine write their output rows and nothing around
+    them, on the longest box lists a cast can give: every ray block's
+    items are every hyper (64 of 8 members, as the grid's; 183 of 16, as
+    the instanced grid's; 7 of 4 on one ray block), the items built
+    directly, block-sorted. Each output lies between two guard runs of a
+    NaN pattern that must keep its bits, and equals the twin's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    dev = torch.device("cuda")
+    rs = np.random.default_rng(60 + n)
+    box_t = torch.from_numpy(_boxes(rs, n * hs, inverted=hs // 2)).to(dev)
+    o, d, t_max = (torch.from_numpy(x).to(dev)
+                   for x in _rays(nb * wl.RB, seed=61 + n))
+    od, tm, _ = wl.prep_rays(o, d, t_max)
+    rp = od.shape[1]
+    hsup = box_t.view(n, hs, 8)
+    blk = torch.arange(nb, device=dev).repeat_interleave(n)
+    hyp = torch.arange(n, device=dev).repeat(nb)
+    seg = wl.item_segments(blk, nb)
+    hyp32 = hyp.to(torch.int32)
+    lib, stream, guard = wl.kernels().lib, wl._stream(od), 4096
+
+    def guarded(size, launch):
+        buf = torch.full((size + 2 * guard,), 0x7FA5A5A5, dtype=torch.int32,
+                         device=dev)
+        wl._raise_on(launch(buf[guard:].data_ptr()), "launch")
+        torch.cuda.synchronize()
+        assert (buf[:guard] == 0x7FA5A5A5).all()
+        assert (buf[guard + size:] == 0x7FA5A5A5).all()
+        return buf[guard:guard + size].view(torch.float32)
+
+    tlo = guarded(nb * n * hs, lambda out: lib.dcrt_wl_cull(
+        box_t.data_ptr(), n * hs, od.data_ptr(), tm.data_ptr(), rp, wl.RB,
+        out, stream))
+    assert _bits_equal(tlo.view(nb, n * hs),
+                       wl.cull_boxes_torch(box_t, od, tm))
+    ref = guarded(nb * n * hs, lambda out: lib.dcrt_wl_refine(
+        hsup.data_ptr(), hs, n, seg.data_ptr(), hyp32.data_ptr(), nb * n,
+        od.data_ptr(), tm.data_ptr(), rp, wl.RB, out, stream))
+    assert _bits_equal(ref.view(nb * n, hs),
+                       wl.refine_torch(hsup, blk, hyp, od, tm))
+    assert (ref < wl.BIG).any()
