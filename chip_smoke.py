@@ -14,12 +14,20 @@ any failure exits non-zero:
    warp-walk sweeps' (grouped, per-ray and instanced, closest and
    any-hit) registers, shared memory and spills (ptxas, `warp-ptxas`)
    and their resident blocks per SM (`warp-resources`), and the same of
-   the work list's cull and refine (`cull-ptxas`, `cull-resources`);
+   the work list's cull and refine (`cull-ptxas`, `cull-resources`) and
+   of the dense sweep (`brute-ptxas`, `brute-resources`: resident blocks
+   per SM with a full 2048-row table);
 2. dense-sweep kernels against their PyTorch twins on the card, Moeller
-   and watertight, closest and any-hit: (a) the Cornell soup (32
-   triangles) with 1,048,576 camera rays plus 1,048,576 random rays from
-   inside the box, (b) a seeded 2048-triangle random soup with 1,048,576
-   random rays; mismatch counts, max errors and kernel/twin times;
+   and watertight, closest and any-hit, on `tools/brute_ab.py`'s sets:
+   (a) the Cornell soup (32 triangles) with 1,048,576 camera rays plus
+   1,048,576 random rays from inside the box, (b) a seeded 2048-triangle
+   random soup with 1,048,576 random rays, (c) the adversarial set (each
+   triangle cast alone: u, v and u + v at their limits, det at +-1e-10,
+   products that underflow, t at t_min and t_max, degenerate triangles,
+   axis and near-axis rays); mismatch counts, max errors and the rays
+   whose bits differ per field (all 0, or the phase fails); CUDA-event
+   and profiler (kernel) times and twin times on the Cornell camera rays
+   and the soup's, at 2^20 rays and at a 2^18 pool;
 2b. work-list kernels (cull, refine, closest and any-hit sweeps) against
    their twins on sphere_grid(12, 12) (211,972 triangles), Baldwin-Weber
    and watertight: 1,048,576 tiled camera rays, 1,048,576 random rays
@@ -194,13 +202,16 @@ any failure exits non-zero:
    with alpha through the wavefront and 4j. its textured variant
    (megakernel);
 5. one JSON line listing the nineteen kernels, then the contract line,
-   last.
+   last. `ms` is CUDA events around runs of wrapper calls; rows 1-2 also
+   give `kernel_ms`, the kernels' own time by the profiler (a Cornell
+   cast is short enough that events time the host too).
 
 The seeded ray sets of the sphere grids (2b-2h) come from
 `tools/common.py` `grid_ray_sets`, each phase with its own seed.
 
 Tolerances (kernel vs twin): the kernels are built without FMA
-contraction, so they round like the twins; a hit/miss or occlusion
+contraction, so they round like the twins; the dense sweep must equal its
+twins bit for bit in every field (phase 2); a hit/miss or occlusion
 disagreement is allowed only where the twin's t lies within 1e-5 (1 + t)
 of t_min or t_max, a triangle-id disagreement only between hits within
 that bound of each other (a near-tie; for the work list also within
@@ -219,7 +230,8 @@ the clustered kernels, whose masks are bit-equal to the cull twin's.
 Bounds (`bound_ms` of the kernels line): the larger of the counted
 floating-point operations at 67 TFLOP/s and the bytes read and written
 once at 3.35 TB/s (the H100 SXM's published float32 and memory rates),
-from this run's inputs: a Moeller test 45 operations, a Baldwin-Weber
+from this run's inputs: a Moeller test 45 operations (the dense sweep:
+one a (ray, row) pair, `tools.common.dense_bound`), a Baldwin-Weber
 test 31, a slab test of a ray and a box 20, the move of a ray to
 instance space 33; tables count once, whole. The cull and the refine
 count 28 bytes a ray (origin, 1/d, t_max: the slab test reads no
@@ -263,7 +275,7 @@ from contextlib import contextmanager, nullcontext
 
 import numpy as np
 
-from directcomputeraytracing_tpu_torch.tools.common import bound
+from directcomputeraytracing_tpu_torch.tools.common import bound, dense_bound
 
 TOL = 1e-5
 TIE_WL = 2.0 ** -12
@@ -320,43 +332,24 @@ def _timed_call(fn):
     return out, start.elapsed_time(end)
 
 
-def _random_soup(rng, n):
-    """n small random triangles in [-1, 1]^3 with random winding flips."""
-    v0 = rng.uniform(-1.0, 1.0, (n, 3))
-    tab = np.concatenate([v0, v0 + rng.normal(0.0, 0.15, (n, 3)),
-                          v0 + rng.normal(0.0, 0.15, (n, 3)),
-                          np.arange(n)[:, None], np.zeros((n, 1)),
-                          rng.integers(0, 2, (n, 1))], axis=1)
-    return tab.astype(np.float32)
-
-
-def _camera_rays(cam, width, height, device):
-    import torch
-
-    from directcomputeraytracing_tpu_torch.camera.camera import generate_ray
-
-    ys, xs = torch.meshgrid(torch.arange(height, device=device),
-                            torch.arange(width, device=device), indexing="ij")
-    film = torch.stack([(xs.reshape(-1) + 0.5) / width,
-                        (ys.reshape(-1) + 0.5) / height], dim=-1)
-    return generate_ray(cam, film, torch.zeros(film.shape[0], 3,
-                                               device=device))
-
-
 def compare_kernels(tab, o, d, t_max, t_min, watertight):
-    """Dense-sweep kernel vs twin on one ray set; the mismatch report."""
+    """Dense-sweep kernel vs twin on one ray set; the mismatch report, with
+    the rays whose bits differ per field (`bits`, zeros' signs included)."""
     import torch
 
     from directcomputeraytracing_tpu_torch.accel import brute
+    from directcomputeraytracing_tpu_torch.tools import brute_ab
 
-    scene = _SoupScene(tab)
+    scene = brute_ab.Soup(tab)
     k = brute.brute_closest(scene, o, d, t_min, watertight)
     w = brute.brute_closest_torch(tab, o, d, t_min, watertight)
     occ_k = brute.brute_any(scene, o, d, t_max, t_min, watertight)
     occ_w = brute.brute_any_torch(tab, o, d, t_max, t_min, watertight)
     torch.cuda.synchronize()
     rep = _mismatches(k, w, occ_k, occ_w, o, t_max, t_min, 0.0)
-    rep.update(tris=tab.shape[0], watertight=bool(watertight))
+    rep.update(tris=tab.shape[0], watertight=bool(watertight),
+               bits=dict(brute_ab.closest_diffs(k, w),
+                         occ=int((occ_k != occ_w).sum())))
     return rep
 
 
@@ -411,70 +404,73 @@ def _mismatches(k, w, occ_k, occ_w, o, t_max, t_min, tie_rel):
     return rep
 
 
-class _SoupScene:
-    """The two fields the dense sweep reads, from a (B, 12) table."""
-
-    def __init__(self, tab):
-        self.world_tris = tab[:, 0:9]
-        self.world_tri_meta = tab[:, 9:12]
-
-
 def phase_kernels(device):
+    """Dense-sweep kernels against their twins (phase 2) on
+    `tools/brute_ab.py`'s sets: bit differences per field on the Cornell
+    soup's camera and random rays, the 2048-triangle soup and the
+    adversarial set (each triangle cast alone); CUDA-event and profiler
+    times at 2^20 and 2^18 rays."""
     import torch
 
     from directcomputeraytracing_tpu_torch.accel import brute
-    from directcomputeraytracing_tpu_torch.core.types import to_device
-    from directcomputeraytracing_tpu_torch.scene.presets import cornell_box
-    from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
-    from directcomputeraytracing_tpu_torch.tools import common
-    from directcomputeraytracing_tpu_torch.tools.common import timed
+    from directcomputeraytracing_tpu_torch.tools import brute_ab
+    from directcomputeraytracing_tpu_torch.tools.common import (
+        kernel_ms,
+        timed,
+    )
 
-    rng = np.random.default_rng(20261016)
-    scene, cam = cornell_box("area", "glossy")
-    arrays, _ = flatten_scene(scene, device)
-    cornell_tab = brute.build_table(arrays)
-    o_cam, d_cam = _camera_rays(to_device(cam, device), 1024, 1024, device)
-    o_in, d_in = common.rays_inside(rng, N_RAYS, [-0.95, 0.05, -0.95],
-                                    [0.95, 1.95, 0.95])
-    o_soup, d_soup = common.rays_inside(rng, N_RAYS, -1.5, 1.5)
-
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
-    cases = {
-        "cornell32": (cornell_tab, torch.cat([o_cam, f32(o_in)]),
-                      torch.cat([d_cam, f32(d_in)]),
-                      f32(rng.uniform(0.05, 4.0, 2 * N_RAYS))),
-        "soup2048": (f32(_random_soup(rng, 2048)), f32(o_soup), f32(d_soup),
-                     f32(rng.uniform(0.05, 3.0, N_RAYS))),
-    }
+    sets = brute_ab.dense_sets(device, names=(
+        "cornell_camera", "cornell_random", "cornell_pool", "soup_random",
+        "soup_pool"))
+    cam, rnd = sets["cornell_camera"], sets["cornell_random"]
+    cases = {"cornell32": (cam[0], *(torch.cat([a, b]) for a, b in zip(
+                 cam[1:], rnd[1:]))),
+             "soup2048": sets["soup_random"]}
+    # timed at the main path's cast size, one ray per pixel of 1024^2 (for
+    # Cornell its camera rays), and at a 2^18 pool's
+    timed_sets = {"cornell32": cam, "cornell32_pool": sets["cornell_pool"],
+                  "soup2048": sets["soup_random"],
+                  "soup2048_pool": sets["soup_pool"]}
     reports, times = [], {}
-    t_min = 1e-4
-    for name, (tab, o_all, d_all, t_max_all) in cases.items():
-        scene_like = _SoupScene(tab)
-        # timed at the main path's cast size: one ray per pixel of 1024^2
-        # (for Cornell, the camera rays)
-        o, d, t_max = o_all[:N_RAYS], d_all[:N_RAYS], t_max_all[:N_RAYS]
-        for wt in (False, True):
-            rep = compare_kernels(tab, o_all, d_all, t_max_all, t_min, wt)
+    t_min = brute_ab.T_MIN
+    for wt in (False, True):
+        for name, (tab, o, d, t_max) in cases.items():
+            rep = compare_kernels(tab, o, d, t_max, t_min, wt)
             rep["case"] = name
             reports.append(rep)
             print("kernel-vs-twin", json.dumps(rep))
+        rep = dict(brute_ab.adversarial_diffs(device, wt), case="adversarial",
+                   watertight=wt)
+        rep["ok"] = not any(rep[f] for f in brute_ab.FIELDS + ("occ",))
+        # bit differences: the errors are 0 where the phase passes
+        rep.update(closest_max_abs_err=0.0, any_max_abs_err=0.0)
+        reports.append(rep)
+        print("kernel-vs-twin", json.dumps(rep))
+        for name, (tab, o, d, t_max) in timed_sets.items():
+            scene_like = brute_ab.Soup(tab)
             tag = f"{name}_{'watertight' if wt else 'moeller'}"
+
+            def closest():
+                return brute.brute_closest(scene_like, o, d, t_min, wt)
+
+            def any_():
+                return brute.brute_any(scene_like, o, d, t_max, t_min, wt)
+
             times[tag] = dict(
-                closest_ms=timed(lambda: brute.brute_closest(
-                    scene_like, o, d, t_min, wt), 10),
+                closest_ms=timed(closest, 10),
+                closest_kernel_ms=kernel_ms(closest, 10, "closest_kernel"),
                 closest_twin_ms=timed(lambda: brute.brute_closest_torch(
                     tab, o, d, t_min, wt), 2),
-                any_ms=timed(lambda: brute.brute_any(
-                    scene_like, o, d, t_max, t_min, wt), 10),
+                any_ms=timed(any_, 10),
+                any_kernel_ms=kernel_ms(any_, 10, "any_kernel"),
                 any_twin_ms=timed(lambda: brute.brute_any_torch(
                     tab, o, d, t_max, t_min, wt), 2))
             print("timing", tag, f"rays={o.shape[0]} tris={tab.shape[0]}",
                   json.dumps(times[tag]))
-    bad = [r for r in reports if not r["ok"]]
+    bad = [r for r in reports if not r["ok"]
+           or any(r.get("bits", {}).values())]
     if bad:
-        raise SystemExit(f"kernel/twin mismatch beyond tolerance: {bad}")
+        raise SystemExit(f"kernel/twin mismatch: {bad}")
     return reports, times
 
 
@@ -2166,7 +2162,7 @@ def _build_all():
     from directcomputeraytracing_tpu_torch.accel import clustered as cl
     from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
-    from directcomputeraytracing_tpu_torch.tools import worklist_ab
+    from directcomputeraytracing_tpu_torch.tools import brute_ab, worklist_ab
     from directcomputeraytracing_tpu_torch.tools import probe_worklist as pw
 
     sources = (("brute_sweep.cu", brute.kernels),
@@ -2191,6 +2187,10 @@ def _build_all():
     print("cull-ptxas", json.dumps(worklist_ab.cull_ptxas_report(
         futures["worklist.cu"].result().log)))
     print("cull-resources", json.dumps(wl.cull_resources()))
+    # the dense sweep's (rows 1-2) the same
+    print("brute-ptxas", json.dumps(brute_ab.ptxas_report(
+        futures["brute_sweep.cu"].result().log)))
+    print("brute-resources", json.dumps(brute.resources()))
 
 
 def main():
@@ -2295,9 +2295,8 @@ def main():
     ref_brute = "directcomputeraytracing_tpu/accel/pallas_brute.py"
     top = times["cornell32_moeller"]   # the main path's scene and test
     n, tris = N_RAYS, 32
-    brute_closest_bound = bound(FLOPS_MOELLER * n * tris,
-                                 45 * n + 48 * tris)
-    brute_any_bound = bound(FLOPS_MOELLER * n * tris, 29 * n + 48 * tris)
+    brute_closest_bound = dense_bound("closest", n, tris)
+    brute_any_bound = dense_bound("any", n, tris)
     wl_closest_err = max(r["closest_max_abs_err"] for r in wl_reports)
     wl_any_err = max(r["any_max_abs_err"] for r in wl_reports)
 
@@ -2314,12 +2313,14 @@ def main():
             "directcomputeraytracing_tpu/accel/pallas_brute.py:128",
             cornell["launches"]["brute_closest"],
             max(r["closest_max_abs_err"] for r in reports),
-            top["closest_ms"], top["closest_twin_ms"], brute_closest_bound),
+            top["closest_ms"], top["closest_twin_ms"], brute_closest_bound,
+            kernel_ms=top["closest_kernel_ms"]),
         row("brute_any", brute_src,
             "directcomputeraytracing_tpu/accel/pallas_brute.py:179",
             cornell["launches"]["brute_any"],
             max(r["any_max_abs_err"] for r in reports),
-            top["any_ms"], top["any_twin_ms"], brute_any_bound),
+            top["any_ms"], top["any_twin_ms"], brute_any_bound,
+            kernel_ms=top["any_kernel_ms"]),
         row("cull_boxes", wl_src, f"{ref_wl}:365",
             grid["launches"]["cull_boxes"], wl_cull["err"],
             wl_times["cull_ms"], wl_times["cull_twin_ms"], wl_work["cull"]),

@@ -44,6 +44,9 @@ struct Moeller {
   struct Pre {};
   __device__ static Pre prepare(const Ray&) { return Pre{}; }
 
+  // stage writes a table row's 48-byte form; accel/brute.py prepare_rows
+  // builds the same rows on the host for csrc/brute_sweep.cu (its bits
+  // are checked in tests/test_torch_brute.py): change the two together.
   __device__ static void stage(const float r[12], float4* g) {
     g[0] = make_float4(r[0], r[1], r[2], 0.f);
     g[1] = make_float4(r[3] - r[0], r[4] - r[1], r[5] - r[2], 0.f);
@@ -98,6 +101,7 @@ struct Watertight {
     return p;
   }
 
+  // the row's 48-byte form, as accel/brute.py prepare_rows builds it too
   __device__ static void stage(const float r[12], float4* g) {
     const float ax = r[3] - r[0], ay = r[4] - r[1], az = r[5] - r[2];
     const float bx = r[6] - r[0], by = r[7] - r[1], bz = r[8] - r[2];

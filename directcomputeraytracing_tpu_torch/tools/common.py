@@ -1,6 +1,7 @@
 """What `chip_smoke.py` and the kernel tools share: the seeded ray sets
-of the sphere grids, spread ray blocks, CUDA-event timing, sweep-state
-diffs and the culls' bounds.
+of the sphere grids, the random soup and row-major camera rays of the
+dense sweep, spread ray blocks, CUDA-event timing, bit and sweep-state diffs and
+the culls' and the dense sweep's bounds.
 
 `grid_ray_sets` draws every set from one numpy generator in one fixed
 order, whichever sets the caller keeps, so two callers with the same
@@ -17,6 +18,7 @@ SWEEP_FIELDS = ("best", "t", "u", "v", "tri", "inst", "back", "iters")
 PEAK_FLOPS = 67e12                      # H100 SXM float32, no tensor cores
 PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
 FLOPS_SLAB = 20                         # one ray-box slab test and its rule
+FLOPS_MOELLER = 45                      # one Moeller ray-triangle test
 
 
 def rays_inside(rng, n, lo, hi):
@@ -25,6 +27,30 @@ def rays_inside(rng, n, lo, hi):
     d = rng.normal(size=(n, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return rng.uniform(lo, hi, (n, 3)), d
+
+
+def random_soup(rng, n):
+    """(n, 12) float32 table of n small random triangles in [-1, 1]^3
+    with random winding flips."""
+    v0 = rng.uniform(-1.0, 1.0, (n, 3))
+    tab = np.concatenate([v0, v0 + rng.normal(0.0, 0.15, (n, 3)),
+                          v0 + rng.normal(0.0, 0.15, (n, 3)),
+                          np.arange(n)[:, None], np.zeros((n, 1)),
+                          rng.integers(0, 2, (n, 1))], axis=1)
+    return tab.astype(np.float32)
+
+
+def camera_rays(cam, width, height, device):
+    """Pixel-centre camera rays in row-major order (the order of a dense
+    scene's render)."""
+    from ..camera.camera import generate_ray
+
+    ys, xs = torch.meshgrid(torch.arange(height, device=device),
+                            torch.arange(width, device=device), indexing="ij")
+    film = torch.stack([(xs.reshape(-1) + 0.5) / width,
+                        (ys.reshape(-1) + 0.5) / height], dim=-1)
+    return generate_ray(cam, film, torch.zeros(film.shape[0], 3,
+                                               device=device))
 
 
 def tiled_camera_rays(cam, width, height, device):
@@ -127,11 +153,12 @@ def timed(fn, reps, warm=True):
 
 
 def kernel_ms(fn, reps, entry, tries=3):
-    """Mean device ms a call of fn of the kernels whose name holds `entry`,
-    over reps calls after a warm-up, by torch.profiler: the kernels' own
-    time, without the host's gaps between launches that CUDA events
-    around a run of short launches count. None if the profiler caught
-    none of them in `tries` runs (it drops a run's events now and then)."""
+    """Mean device ms of one launch of the kernels whose name holds
+    `entry`, over reps calls of fn (each launching one of them) after a
+    warm-up, by torch.profiler: the kernels' own time, without the host's
+    gaps between launches that CUDA events around a run of short launches
+    count. The mean is over the launches the profiler caught (it drops a
+    run's events now and then); None if it caught none in `tries` runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -146,8 +173,18 @@ def kernel_ms(fn, reps, entry, tries=3):
         spans = [e.time_range.end - e.time_range.start for e in prof.events()
                  if e.device_type == DeviceType.CUDA and entry in e.name]
         if spans:
-            return sum(spans) / 1000.0 / reps
+            return sum(spans) / 1000.0 / len(spans)
     return None
+
+
+def bit_diff(a, b):
+    """Elements whose bits differ (a float32's zero sign included); -1
+    when the shapes differ."""
+    if a.shape != b.shape:
+        return -1
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
 
 
 def sweep_diffs(a, b, n=len(SWEEP_FIELDS)):
@@ -181,3 +218,12 @@ def refine_bound(rp, hsup, n_items, rb):
     hs = hsup.shape[1]
     return bound(FLOPS_SLAB * n_items * rb * hs,
                  28 * rp + 24 * hsup.shape[0] * hs + (8 + 4 * hs) * n_items)
+
+
+def dense_bound(kind, rays, tris):
+    """The bound of a dense cast ("closest" or "any") of rays against a
+    table of tris rows: FLOPS_MOELLER per pair (the watertight test costs
+    more); each ray (24 bytes, and t_max for any-hit), output (21 bytes
+    closest, 1 any-hit) and row (48) moved once."""
+    per_ray = 45 if kind == "closest" else 29
+    return bound(FLOPS_MOELLER * rays * tris, per_ray * rays + 48 * tris)

@@ -90,6 +90,7 @@ from ..core.types import to_device
 from ..scene.presets import sphere_grid
 from ..scene.scene import flatten_scene
 from .common import (
+    bit_diff,
     cull_bound,
     grid_ray_sets,
     kernel_ms,
@@ -466,13 +467,6 @@ def _refine_call(fn, hsup, blk, hyp, od, tm):
     return run
 
 
-def _bit_diff(a, b):
-    """Elements whose float32 bits differ (a zero's sign included)."""
-    if a.shape != b.shape:
-        return -1
-    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
-
-
 def cull_sets(sets):
     """The culls' sets of `sets` (`CULL_SETS`, then `small_k`: k ray
     blocks spread over the shadow set, k in SMALL_BLOCKS), name -> (o, d,
@@ -495,8 +489,8 @@ def cull_refine_diffs(tables, od, tm):
     blk, hyp, _ = wl.compact_pairs(tlo_w)
     return dict(
         hypers=int(tables.hbox.shape[0]), items=int(blk.shape[0]),
-        cull_bits=_bit_diff(wl.cull_boxes(tables.hbox, od, tm), tlo_w),
-        refine_bits=_bit_diff(wl.refine(tables.hsup, blk, hyp, od, tm),
+        cull_bits=bit_diff(wl.cull_boxes(tables.hbox, od, tm), tlo_w),
+        refine_bits=bit_diff(wl.refine(tables.hsup, blk, hyp, od, tm),
                               wl.refine_torch(tables.hsup, blk, hyp, od,
                                               tm)))
 
@@ -528,7 +522,7 @@ def _cull_row(rows, variants, tables, sets, reps, bad, grid):
                 int(blk.shape[0]), dict(hs=int(tables.hsup.shape[1])),
                 refine_bound(rp, tables.hsup, blk.shape[0], wl.RB))
         for row, (runs, twin, items, size, bnd) in lines.items():
-            check = {n: _bit_diff(run(), twin) for n, run in runs.items()}
+            check = {n: bit_diff(run(), twin) for n, run in runs.items()}
             if any(check.values()):
                 bad.append((row, grid, case, check))
             order, turns = _in_turns(runs, reps)
