@@ -14,9 +14,10 @@ any failure exits non-zero:
    warp-walk sweeps' (grouped, per-ray and instanced, closest and
    any-hit) registers, shared memory and spills (ptxas, `warp-ptxas`)
    and their resident blocks per SM (`warp-resources`), and the same of
-   the work list's cull and refine (`cull-ptxas`, `cull-resources`) and
-   of the dense sweep (`brute-ptxas`, `brute-resources`: resident blocks
-   per SM with a full 2048-row table);
+   the work list's cull and refine (`cull-ptxas`, `cull-resources`), of
+   the dense sweep (`brute-ptxas`, `brute-resources`: resident blocks
+   per SM with a full 2048-row table) and of the clustered sweeps
+   (`cluster-resources`);
 2. dense-sweep kernels against their PyTorch twins on the card, Moeller
    and watertight, closest and any-hit, on `tools/brute_ab.py`'s sets:
    (a) the Cornell soup (32 triangles) with 1,048,576 camera rays plus
@@ -99,11 +100,18 @@ any failure exits non-zero:
    from inside the box sorted by `ray_sort_key`, and a pool-sized (2^18)
    sorted set. The cull kernel's masks must equal its twin's on every
    set, and contain the exact per-ray masks on 64 blocks spread over it;
-   the sweeps must equal their twins in every field on those 64 blocks
-   (a 1M-ray twin cast takes seconds to minutes), and the dense sweep
-   over the world soup on the whole set: hits and t equal, ids equal but
-   at exact-t ties (counted); CUDA-event times, bounds, and the census
-   (clusters and groups entered per block, tests per ray);
+   the sweeps must equal their twins in every bit of every field on those
+   64 blocks, and the dense sweep over the world soup on the whole set
+   (`tools/clustered_ab.py` `graze_diffs`): hits, t, and u, v and side of
+   the same triangle equal, ids equal but at exact-t ties (counted),
+   except edge grazes: a ray whose dense hit lies in a cluster whose box
+   its own slab test misses, which the warp admission may leave out
+   (listed, explained, and no other difference allowed); CUDA-event
+   times, the bounds of the warp walks and of the first block walk, and
+   the census of the warp walks (`admission_census`: clusters and groups
+   entered per block, group boxes and clusters admitted per warp, votes
+   and triangle tests per ray; no cluster admitted in a group whose box
+   its warp does not enter);
 2g. pair kernels (emission, closest and any-hit pair sweeps) against
    their twins on sphere_grid(12, 12), Baldwin-Weber and watertight:
    1,048,576 shadow rays towards the lamp, 1,048,576 random rays sorted
@@ -225,7 +233,8 @@ grouped any-hit sweep's plain version is the per-ray twin
 `sweep_any_torch`, whose answer the grouped walk must give (its
 `plain_ms` in the kernels line times that twin). The instanced kernels
 must equal their twins in every field, `iters` included, and so must
-the clustered kernels, whose masks are bit-equal to the cull twin's.
+the clustered kernels (every bit), whose masks are bit-equal to the cull
+twin's.
 
 Bounds (`bound_ms` of the kernels line): the larger of the counted
 floating-point operations at 67 TFLOP/s and the bytes read and written
@@ -250,9 +259,16 @@ lower bounds). Their `bound_ms_block_walk` keeps the count of the first
 designs, which walked the items by 1024-ray blocks: the fine cull of
 every item of the ray's block and, closest, the triangle tests. The
 clustered cull counts FLOPS_INTERVAL operations per (ray block,
-cluster), its closest sweep one Moeller test per ray and row of every
-cluster the ray's block entered, its any-hit sweep the same for the rays
-that end unoccluded only (they test everything; the others stop early).
+cluster) (`tools/clustered_ab.py` `cast_bounds`). The clustered sweeps
+count their warp walks' work, from the census of 2f's cast
+(`clustered_ab.admission_census`): FLOPS_VOTE (26) per slab vote of a
+lane (one per group its block entered, one per masked cluster of each
+group whose box its warp enters) and one Moeller test per row of every
+cluster admitted for the ray's warp; the any-hit sweep only the votes of
+the warps that hold a ray ending unoccluded and the triangle tests of
+those rays (a lower bound). Their `bound_ms_block_walk` keeps the first
+design's count: one Moeller test per ray and row of every cluster the
+ray's block entered (any-hit: the rays that end unoccluded only).
 The pair emission counts 20 operations a cell against the grid written
 and the rays, caps, items and super boxes read once; the pair closest
 sweep the fine cull of every pair (32 slab tests) and 16 triangle tests
@@ -304,10 +320,6 @@ T_RTOL_INST = 3e-5
 EDGE_TOL = 1e-4                         # barycentric margin of an edge hit
 FLOPS_MOELLER, FLOPS_BW, FLOPS_SLAB = 45, 31, 20
 FLOPS_LOCAL_RAY = 33        # [o, 1] @ M, d @ M: 18 products, 15 sums
-# the interval cull of one (ray block, cluster) pair: per axis 4 numerator
-# differences, 8 products, 14 min/max over them and 2 into the entry and
-# exit, then 3 for enter
-FLOPS_INTERVAL = 3 * 28 + 3
 CLUSTER_TWIN_BLOCKS = 64                # ray blocks of a clustered twin cast
 CLUSTER_RENDER = dict(width=1024, height=1024, spp=4, max_bounce=4)
 CLUSTER_WAVEFRONT = dict(width=1920, height=1080, spp=2, max_bounce=4)
@@ -1124,121 +1136,25 @@ def phase_instanced_vs_soup(device):
     return rep
 
 
-def _vs_dense(tables, cmask, o, d, k, ka, dense, dense_a):
-    """The clustered cast (k, ka) against the dense sweep over the world
-    soup (dense, dense_a): the same test on the same vertices, so hits, t
-    and the same triangle's u, v, instance and side are equal; the ids
-    differ only where two triangles give the very same t (exact-t ties:
-    the two visit the triangles in other orders). A ray whose hits
-    differ is explained (an edge graze, counted and listed) where the
-    dense hit's cluster was not entered and the ray's own slab test of
-    that cluster's box misses it: the box test and the triangle test
-    round the ray apart at the box's boundary, and the reference's exact
-    masks leave that cluster out as well."""
-    import torch
-
-    from directcomputeraytracing_tpu_torch.accel import clustered as cl
-
-    hk, hd = torch.isfinite(k[0]), torch.isfinite(dense[0])
-    both = hk & hd
-    ids = both & ((k[3] != dense[3]) | (k[4] != dense[4]))
-    same = both & ~ids
-    fields = ((k[1] != dense[1]) | (k[2] != dense[2]) | (k[5] != dense[5]))
-    hit_rays = torch.nonzero(hk != hd)[:, 0]
-    listed, explained = [], 0
-    for i in hit_rays[:20].tolist():
-        rows = torch.nonzero((tables.ctab[:, 9] == float(dense[3][i]))
-                             & (tables.ctab[:, 10] == float(dense[4][i])))
-        c = int(rows[0, 0]) // cl.CLUSTER_SIZE if rows.numel() else -1
-        box = tables.cbox[c]
-        inv = cl._safe_inv(d[i])
-        a, b = (box[0:3] - o[i]) * inv, (box[3:6] - o[i]) * inv
-        t_lo = torch.minimum(a, b).max()
-        t_hi = torch.maximum(a, b).min()
-        entered = bool(cmask[i // cl.RAY_BLOCK, c])
-        box_miss = bool((t_hi < t_lo) | (t_hi < 0.0))
-        u, v = float(dense[1][i]), float(dense[2][i])
-        explained += int(not entered and box_miss)
-        listed.append(dict(ray=i, t=[float(k[0][i]), float(dense[0][i])],
-                           tri=int(dense[3][i]), cluster=c,
-                           block_entered=entered, box_t=[float(t_lo),
-                                                         float(t_hi)],
-                           uv=[u, v], margin=min(u, v, 1.0 - u - v)))
-    n_hit = int(hit_rays.numel())
-    return dict(hit_diff=n_hit,
-                hit_diff_unexplained=n_hit - explained,
-                t_diff=int((both & (k[0] != dense[0])).sum()),
-                id_diff=int(ids.sum()),
-                uv_back_diff_same_triangle=int((same & fields).sum()),
-                occ_diff=int((ka != dense_a).sum()), hit_diff_rays=listed)
-
-
-def _cluster_census(cmask, gmask, r):
-    """Clusters and groups entered per ray block, and triangle tests per
-    ray of a closest sweep (every row of every cluster its block
-    entered)."""
-    import torch
-
-    from directcomputeraytracing_tpu_torch.accel import clustered as cl
-
-    per_block = cmask.sum(1, dtype=torch.int64)
-    rays = torch.full_like(per_block, cl.RAY_BLOCK)
-    rays[-1] = r - cl.RAY_BLOCK * (per_block.shape[0] - 1)
-    tests = int((per_block * rays).sum()) * cl.CLUSTER_SIZE
-    return dict(clusters_per_block=float(per_block.float().mean()),
-                clusters_per_block_max=int(per_block.max()),
-                clusters=cmask.shape[1],
-                groups_per_block=float(gmask.float().sum(1).mean()),
-                groups=gmask.shape[1], tests_per_ray=tests / r,
-                tests=tests)
-
-
-def _cluster_bounds(tables, cmask, gmask, r, occ):
-    """(cull, closest, any) bounds of one clustered cast of r rays; occ
-    the any-hit result (its unoccluded rays test every entered row)."""
-    import torch
-
-    from directcomputeraytracing_tpu_torch.accel import clustered as cl
-
-    nb, cg = cmask.shape
-    masks = nb * (cg + gmask.shape[1])
-    table = 4 * (tables.ctab.numel() + tables.cbox.numel())
-    per_ray = cmask.sum(1, dtype=torch.int64) \
-        .repeat_interleave(cl.RAY_BLOCK)[:r]
-    rows = cl.CLUSTER_SIZE * FLOPS_MOELLER
-    return (bound(FLOPS_INTERVAL * nb * cg, 24 * r + 32 * cg + masks),
-            bound(rows * int(per_ray.sum()), 45 * r + masks + table),
-            bound(rows * int(per_ray[~occ].sum()), 29 * r + masks + table))
-
-
 def phase_clustered_kernels(device):
     """Clustered kernels against their twins and the dense sweep on
-    sphere_grid(12, 12); CUDA-event times, bounds and the census; the
-    kernels line's rows at the camera rays."""
+    sphere_grid(12, 12); CUDA-event times, bounds and the census of the
+    warp walks; the kernels line's rows at the camera rays."""
     import torch
 
     from directcomputeraytracing_tpu_torch.accel import brute
     from directcomputeraytracing_tpu_torch.accel import clustered as cl
-    from directcomputeraytracing_tpu_torch.accel import worklist as wl
-    from directcomputeraytracing_tpu_torch.core.types import to_device
-    from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
+    from directcomputeraytracing_tpu_torch.tools import clustered_ab as cab
     from directcomputeraytracing_tpu_torch.tools import common
+    from directcomputeraytracing_tpu_torch.tools.brute_ab import closest_diffs
     from directcomputeraytracing_tpu_torch.tools.common import timed
 
-    rng = np.random.default_rng(20261020)
-    scene, cam = _scene("grid")
-    arrays, _ = flatten_scene(scene, device)
-    tables = cl.pad_cluster_tables(arrays)
+    arrays, tables, sets = cab.grid_sets(device)
     print("clustered scene", json.dumps(dict(
         world_tris=arrays.world_tris.shape[0],
         clusters=tables.cbox.shape[0], groups=tables.n_groups,
         reach=tables.reach)))
-
-    wtab = wl.scene_tables(arrays)
-    sets = common.grid_ray_sets(
-        rng, wtab, to_device(cam, device), device,
-        names=("camera", "shadow", "random_sorted", "pool_sorted"))
-    t_min = 1e-4
+    t_min = cab.T_MIN
     reports, census, errs = [], {}, dict(cull=0.0, closest=0.0, any=0.0)
     rows = {}
     for name, (o, d, t_max) in sets.items():
@@ -1247,18 +1163,12 @@ def phase_clustered_kernels(device):
         cm_w, gm_w = cl.cull_masks_torch(tables, o, d)
         cull_diff = int((cmask != cm_w).sum() + (gmask != gm_w).sum())
         errs["cull"] = max(errs["cull"], float(cull_diff > 0))
-        idx = common.spread_blocks(r, CLUSTER_TWIN_BLOCKS, device, wl.RB)
+        idx = common.spread_blocks(r, CLUSTER_TWIN_BLOCKS, device,
+                                   cl.RAY_BLOCK)
         blocks = idx[::cl.RAY_BLOCK] // cl.RAY_BLOCK
         cm_s, gm_s = cmask[blocks].contiguous(), gmask[blocks].contiguous()
         o_s, d_s, tm_s = o[idx], d[idx], t_max[idx]
         exact = cl.exact_masks_torch(arrays, o_s, d_s)[0]
-        census[name] = dict(_cluster_census(cmask, gmask, r),
-                            exact_clusters_per_block=float(
-                                exact.float().sum(1).mean()),
-                            spread_clusters_per_block=float(
-                                cm_s.float().sum(1).mean()),
-                            reaching=float(cl.reach_mask(tables, o, d)
-                                           .float().mean()))
         cull_ms = timed(lambda: cl.cull_masks(tables, o, d), 5)
         for wt in (False, True):
             k = cl.sweep_closest(tables, cmask, gmask, o, d, t_min, wt)
@@ -1277,36 +1187,39 @@ def phase_clustered_kernels(device):
                 arrays, o, d, t_min, wt))
             dense_a, dense_any_ms = _timed_call(lambda: brute.brute_any(
                 arrays, o, d, t_max, t_min, wt))
-            reps = 1 if name == "shadow" else 5
             timing = dict(
                 cull_ms=cull_ms,
                 closest_ms=timed(lambda: cl.sweep_closest(
-                    tables, cmask, gmask, o, d, t_min, wt), reps),
+                    tables, cmask, gmask, o, d, t_min, wt), 5),
                 any_ms=timed(lambda: cl.sweep_any(
-                    tables, cmask, gmask, o, d, t_max, t_min, wt), reps),
+                    tables, cmask, gmask, o, d, t_max, t_min, wt), 5),
                 dense_closest_ms=dense_ms, dense_any_ms=dense_any_ms)
-            bc, bk, ba = _cluster_bounds(tables, cmask, gmask, r, ka)
+            cen = cab.admission_census(tables, cmask, gmask, o, d, ka)
+            census[f"{name}_{'watertight' if wt else 'moeller'}"] = dict(
+                cen, exact_clusters_per_block=float(
+                    exact.float().sum(1).mean()),
+                spread_clusters_per_block=float(cm_s.float().sum(1).mean()),
+                reaching=float(cl.reach_mask(tables, o, d).float().mean()))
+            bnd = cab.cast_bounds(tables, cmask, gmask, r, ka, cen)
             rep = dict(case=name, watertight=wt, rays=r,
                        twin_rays=int(idx.numel()), twin_s=twin_s,
                        cull_diff=cull_diff,
                        cull_sound=bool((cm_s >= exact).all()),
-                       vs_twin={f: int((a != b).sum()) for f, a, b in zip(
-                           ("t", "u", "v", "tri", "inst", "back"), ks, w)},
-                       vs_twin_occ=int((kas != wa).sum()),
-                       vs_dense=_vs_dense(tables, cmask, o, d, k, ka, dense,
-                                          dense_a),
+                       vs_twin=closest_diffs(ks, w),
+                       vs_twin_occ=common.bit_diff(kas, wa),
+                       vs_dense=cab.graze_diffs(tables, cmask, o, d, k, dense,
+                                                ka, dense_a, t_max, t_min,
+                                                wt),
+                       group_misses=cen["group_misses"],
                        hits=int(torch.isfinite(k[0]).sum()),
-                       occluded=int(ka.sum()), **timing,
-                       cull_bound=bc, closest_bound=bk, any_bound=ba,
-                       closest_share=bk[0] / timing["closest_ms"],
-                       any_share=ba[0] / timing["any_ms"])
-            vd = rep["vs_dense"]
+                       occluded=int(ka.sum()), **timing, bounds=bnd,
+                       closest_share=bnd["closest"][0] / timing["closest_ms"],
+                       any_share=bnd["any"][0] / timing["any_ms"])
             rep["ok"] = (cull_diff == 0 and rep["cull_sound"]
                          and not any(rep["vs_twin"].values())
                          and rep["vs_twin_occ"] == 0
-                         and vd["hit_diff_unexplained"] == vd["t_diff"] == 0
-                         and vd["uv_back_diff_same_triangle"] == 0
-                         and vd["occ_diff"] == 0)
+                         and rep["group_misses"] == 0
+                         and cab.graze_ok(rep["vs_dense"]))
             errs["closest"] = max(errs["closest"], *(
                 float(torch.where(torch.isfinite(a), a - b, 0.0).abs().max())
                 for a, b in zip(ks[:3], w[:3])))
@@ -1314,8 +1227,7 @@ def phase_clustered_kernels(device):
             if name == "camera" and not wt:
                 rows = dict(
                     cull_ms=cull_ms, closest_ms=timing["closest_ms"],
-                    any_ms=timing["any_ms"], cull_bound=bc,
-                    closest_bound=bk, any_bound=ba,
+                    any_ms=timing["any_ms"], bounds=bnd,
                     cull_twin_ms=timed(lambda: cl.cull_masks_torch(
                         tables, o, d), 1, warm=False),
                     closest_twin_ms=timed(lambda: cl.sweep_closest_torch(
@@ -2191,6 +2103,8 @@ def _build_all():
     print("brute-ptxas", json.dumps(brute_ab.ptxas_report(
         futures["brute_sweep.cu"].result().log)))
     print("brute-resources", json.dumps(brute.resources()))
+    # the clustered sweeps' (rows 4-5) the same
+    print("cluster-resources", json.dumps(cl.resources()))
 
 
 def main():
@@ -2359,14 +2273,17 @@ def main():
             shadow_ms=inst_row["any_shadow_ms"]),
         row("cluster_cull", cl_src, f"{ref_brute}:338",
             cl_grid["launches"]["cluster_cull"], cl_errs["cull"],
-            cl_row["cull_ms"], cl_row["cull_twin_ms"], cl_row["cull_bound"]),
+            cl_row["cull_ms"], cl_row["cull_twin_ms"],
+            cl_row["bounds"]["cull"]),
         row("cluster_closest", cl_src, f"{ref_brute}:425",
             cl_grid["launches"]["cluster_closest"], cl_errs["closest"],
             cl_row["closest_ms"], cl_row["closest_twin_ms"],
-            cl_row["closest_bound"]),
+            cl_row["bounds"]["closest"], bound_ms_block_walk=cl_row[
+                "bounds"]["closest_block_walk"][0]),
         row("cluster_any", cl_src, f"{ref_brute}:508",
             cl_grid["launches"]["cluster_any"], cl_errs["any"],
-            cl_row["any_ms"], cl_row["any_twin_ms"], cl_row["any_bound"]),
+            cl_row["any_ms"], cl_row["any_twin_ms"], cl_row["bounds"]["any"],
+            bound_ms_block_walk=cl_row["bounds"]["any_block_walk"][0]),
         row("pair_emit", pair_src, f"{ref_pair}:78",
             pair_wave["launches"]["pair_emit"], pair_errs["emit"],
             pair_rows["closest"]["emit_ms"],

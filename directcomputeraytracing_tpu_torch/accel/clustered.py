@@ -21,20 +21,30 @@ pallas_brute` (`_pad_cluster_tables`, `_cull_masks`, `_exact_masks`,
    block entered. The reference pads the rays to 8 blocks with zero rays
    and takes every ray into the bundle.
 2. The sweep. `sweep_closest` / `sweep_any` (kernels `closest_kernel` /
-   `any_kernel`, twins `sweep_closest_torch` / `sweep_any_torch`): every
-   ray tests every row of every cluster its block entered, groups and
-   clusters in ascending order, with its current best as t_max. The
+   `any_kernel`, twins `sweep_closest_torch` / `sweep_any_torch`): a ray
+   tests the 16 rows of a cluster exactly when its block's mask holds the
+   cluster and a ray of its warp (the WARP rays i // WARP; rays past the
+   cast vote no) votes for it (`ray_votes`: its own slab test enters the
+   cluster's box, `exact_masks_torch`'s arithmetic, no t range; a ray
+   with a non-finite component votes no). Groups and clusters go in
+   ascending order, rows with the ray's current best as t_max. The
    closest hit is the first triangle in cluster-table order among those
    at the minimum t (strict `<`); `back` is the test's flag XOR the
-   table's flip column. Any-hit: a hit in [t_min, t_max).
+   table's flip column. Any-hit: a hit in [t_min, t_max). Sound: every
+   cluster whose box the ray's own slab test enters is swept for it. A
+   sweep of the whole block mask finds another hit only where the ray's
+   own slab test misses the box of a triangle it hits (an edge graze).
+   The kernels vote per group box first (`group_boxes`), which is exact:
+   a ray that enters a member box enters its group box.
 
 `clustered_closest` / `clustered_any` are the casts the intersector
 calls: kernels on CUDA tensors, twins on CPU tensors, and any other
 device raises. `clustered_closest_torch` / `clustered_any_torch` are the
 same casts with the twins on any device. `exact_masks_torch` is the
-reference's per-ray exact mask, for the tests. The tables
-(`pad_cluster_tables`) are built once per scene and cached on its
-`cluster_bbox`.
+reference's per-ray exact mask, for the tests; `admission_torch` the
+sweeps' (ray, cluster) admission. The tables (`pad_cluster_tables`) are
+built once per scene and cached on its `cluster_bbox`, and the kernels'
+rows (`prepared_rows`) once per table and test.
 
 Counters: `cull_masks.launches`, `sweep_closest.launches` and
 `sweep_any.launches` count CUDA launches (`counters()`,
@@ -47,13 +57,14 @@ from typing import NamedTuple
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from .brute import _slab_test
+from .brute import _slab_test, prepare_rows
 from .cluster import CLUSTER_SIZE
 from .traverse import _safe_inv
 
 RAY_BLOCK = 1024         # rays per mask row: one 32x32 tile of the renderer
 CLUSTER_GROUP = 16       # clusters per group
 GROUP_ROWS = CLUSTER_GROUP * CLUSTER_SIZE
+WARP = 32                # rays that vote together (a CUDA warp)
 BIG = 3.0e38
 REACH_PAD = 1e-3         # the reach box: the scene box widened by this
                          # fraction of its largest extent
@@ -62,6 +73,9 @@ TWIN_PAIRS = 1 << 22     # (ray, row) or (block, cluster) pairs per step
                          # of the twins
 
 _NVCC_EXTRA = ("-fmad=false",)   # round like the twins (see brute.py)
+# the sweeps in `dcrt_cluster_resources` order
+SWEEP_KERNELS = ("closest_moeller", "closest_watertight", "any_moeller",
+                 "any_watertight")
 _built = None
 _TABLES = WeakIdKeyDictionary()
 
@@ -74,19 +88,37 @@ def kernels():
         from ..utils.cuda_build import load_library
 
         built = load_library("clustered.cu", _NVCC_EXTRA)
-        c_p, c_i, c_f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib = built.lib
-        lib.dcrt_cluster_cull.argtypes = [c_p, c_i, c_p, c_p, c_i] \
-            + [c_f] * 6 + [c_p, c_p, c_p]
-        lib.dcrt_cluster_closest.argtypes = [c_p, c_p, c_p, c_i, c_p, c_p,
-                                             c_i, c_f, c_i] + [c_p] * 7
-        lib.dcrt_cluster_any.argtypes = [c_p, c_p, c_p, c_i, c_p, c_p, c_p,
-                                         c_i, c_f, c_i, c_p, c_p]
-        for fn in (lib.dcrt_cluster_cull, lib.dcrt_cluster_closest,
-                   lib.dcrt_cluster_any):
-            fn.restype = c_i
+        bind(built.lib)
         _built = built
     return _built
+
+
+def bind(lib):
+    """Set the C interface's argument and result types on a loaded
+    library."""
+    c_p, c_i, c_f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dcrt_cluster_cull.argtypes = [c_p, c_i, c_p, c_p, c_i] \
+        + [c_f] * 6 + [c_p, c_p, c_p]
+    lib.dcrt_cluster_closest.argtypes = [c_p] * 6 + [c_i, c_p, c_p, c_i,
+                                                     c_f, c_i] + [c_p] * 7
+    lib.dcrt_cluster_any.argtypes = [c_p] * 5 + [c_i, c_p, c_p, c_p, c_i,
+                                                 c_f, c_i, c_p, c_p]
+    lib.dcrt_cluster_resources.argtypes = [c_p]
+    for fn in (lib.dcrt_cluster_cull, lib.dcrt_cluster_closest,
+               lib.dcrt_cluster_any, lib.dcrt_cluster_resources):
+        fn.restype = c_i
+
+
+def resources():
+    """The sweeps' resources on the current card, per kernel of
+    SWEEP_KERNELS: resident blocks per SM, registers, static shared
+    bytes, local (spill) bytes per thread and threads per block."""
+    out = (ctypes.c_int * (5 * len(SWEEP_KERNELS)))()
+    _raise_on(kernels().lib.dcrt_cluster_resources(out), "cluster_resources")
+    keys = ("blocks_per_sm", "registers", "static_smem", "local_bytes",
+            "threads")
+    return {name: dict(zip(keys, out[5 * f:5 * f + 5]))
+            for f, name in enumerate(SWEEP_KERNELS)}
 
 
 # ---------------------------------------------------------------------------
@@ -96,16 +128,30 @@ def kernels():
 class ClusterTables(NamedTuple):
     ctab: torch.Tensor   # (Cg * 16, 12) rows [v0 v1 v2 | tri | inst | flip]
     cbox: torch.Tensor   # (Cg, 8) boxes, inverted on padding clusters
+    gbox: torch.Tensor   # (Cg / 16, 8) group boxes (`group_boxes`)
     n_groups: int        # Cg / CLUSTER_GROUP
     reach: tuple         # reach box (lo xyz, hi xyz), float32 values
+    rows: dict           # the kernels' rows by test (`prepared_rows`)
+
+
+def group_boxes(cbox):
+    """(Cg / 16, 8) boxes [lo | hi | 0 0] of the groups of boxes cbox (Cg,
+    8): per axis the min over the members of min(lo, hi) and the max of
+    max(lo, hi), so that a group box holds each member box as a slab test
+    reads it (an inverted padding box as the cube [-1, 1]^3)."""
+    lo = torch.minimum(cbox[:, 0:3], cbox[:, 3:6])
+    hi = torch.maximum(cbox[:, 0:3], cbox[:, 3:6])
+    lo = lo.view(-1, CLUSTER_GROUP, 3).amin(1)
+    hi = hi.view(-1, CLUSTER_GROUP, 3).amax(1)
+    return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], 1).contiguous()
 
 
 def pad_cluster_tables(scene):
     """The world-soup cluster tables padded to a CLUSTER_GROUP multiple
     (reference `_pad_cluster_tables` without its TPU lane padding):
-    padding clusters get zero rows, which never hit, and inverted boxes.
-    Built once and kept for as long as the scene's `cluster_bbox` lives;
-    the reach box costs one host read then."""
+    padding clusters get zero rows, which never hit, and inverted boxes;
+    and the group boxes. Built once and kept for as long as the scene's
+    `cluster_bbox` lives; the reach box costs one host read then."""
     tab = _TABLES.get(scene.cluster_bbox)
     if tab is None:
         cbox = scene.cluster_bbox
@@ -122,10 +168,19 @@ def pad_cluster_tables(scene):
         hi = scene.cluster_bbox[:, 3:6].amax(0)
         pad = REACH_PAD * (hi - lo).amax()
         reach = torch.cat([lo - pad, hi + pad]).cpu().tolist()
-        tab = ClusterTables(ctab.contiguous(), cbox.contiguous(),
-                            cg // CLUSTER_GROUP, tuple(reach))
+        cbox = cbox.contiguous()
+        tab = ClusterTables(ctab.contiguous(), cbox, group_boxes(cbox),
+                            cg // CLUSTER_GROUP, tuple(reach), {})
         _TABLES[scene.cluster_bbox] = tab
     return tab
+
+
+def prepared_rows(tables, watertight):
+    """The kernels' (Cg * 16, 12) rows of the cluster table in the test's
+    48-byte form (`brute.prepare_rows`), built once per table and test."""
+    if watertight not in tables.rows:
+        tables.rows[watertight] = prepare_rows(tables.ctab, watertight)
+    return tables.rows[watertight]
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +267,21 @@ def cull_masks_torch(tables, origin, direction):
     return cmask, _group_mask(cmask, tables.n_groups)
 
 
+def _slab_enters(boxes, origin, inv):
+    """(R, K) bool: the slab test of rays (origin, reciprocals inv (R, 3))
+    against boxes (K, 8) enters, with no t range: the reference's
+    `_exact_masks` arithmetic."""
+    o, iv = origin[:, None, :], inv[:, None, :]
+    a = (boxes[None, :, 0:3] - o) * iv
+    b = (boxes[None, :, 3:6] - o) * iv
+    t_lo = torch.full(a.shape[:2], -BIG, dtype=a.dtype, device=a.device)
+    t_hi = torch.full_like(t_lo, BIG)
+    for ax in range(3):
+        t_lo = torch.maximum(t_lo, torch.minimum(a[..., ax], b[..., ax]))
+        t_hi = torch.minimum(t_hi, torch.maximum(a[..., ax], b[..., ax]))
+    return (t_hi >= t_lo) & (t_hi >= 0.0)
+
+
 def exact_masks_torch(scene, origin, direction):
     """The reference's `_exact_masks` over the real rays: a cluster is
     entered where some ray of the block enters its box (per-ray slab
@@ -221,17 +291,9 @@ def exact_masks_torch(scene, origin, direction):
     cbox = scene.cluster_bbox
     r, c = origin.shape[0], cbox.shape[0]
     inv = _safe_inv(direction)
-    rows = []
-    for i in range(0, r, RAY_BLOCK):
-        o, iv = origin[i:i + RAY_BLOCK, None, :], inv[i:i + RAY_BLOCK, None, :]
-        a = (cbox[None, :, 0:3] - o) * iv
-        b = (cbox[None, :, 3:6] - o) * iv
-        t_lo = torch.full(a.shape[:2], -BIG, dtype=a.dtype, device=a.device)
-        t_hi = torch.full_like(t_lo, BIG)
-        for ax in range(3):
-            t_lo = torch.maximum(t_lo, torch.minimum(a[..., ax], b[..., ax]))
-            t_hi = torch.minimum(t_hi, torch.maximum(a[..., ax], b[..., ax]))
-        rows.append(((t_hi >= t_lo) & (t_hi >= 0.0)).any(0))
+    rows = [_slab_enters(cbox, origin[i:i + RAY_BLOCK],
+                         inv[i:i + RAY_BLOCK]).any(0)
+            for i in range(0, r, RAY_BLOCK)]
     cmask = torch.zeros((_n_blocks(r), tables.cbox.shape[0]),
                         dtype=torch.uint8, device=origin.device)
     if rows:
@@ -243,16 +305,56 @@ def exact_masks_torch(scene, origin, direction):
 # the sweeps: kernel rows 4 (closest) and 5 (any), twins
 # ---------------------------------------------------------------------------
 
-def _group_rays(cmask, gmask, g, r):
-    """The rays (n,) of the blocks that entered group g, and each one's
-    (n, GROUP_ROWS) row mask (its block's entered clusters)."""
+def ray_votes(boxes, origin, direction):
+    """(R, K) bool: ray r votes for box k, its own slab test enters it
+    (`exact_masks_torch`'s arithmetic: `_safe_inv` reciprocals, no t
+    range). A ray with a non-finite origin or direction component votes
+    no: csrc/clustered.cu's fminf would drop a NaN that torch.minimum
+    keeps. A finite ray's slab test reads no NaN (its reciprocals are
+    finite and non-zero, 1e30 for a zero component), so the two agree."""
+    finite = torch.isfinite(origin).all(1) & torch.isfinite(direction).all(1)
+    return _slab_enters(boxes, origin, _safe_inv(direction)) & finite[:, None]
+
+
+def warp_any(votes):
+    """(R, K) bool: votes OR-ed over each row's warp, rows i // WARP (the
+    rows whole warps from row 0, the last one possibly short)."""
+    n, k = votes.shape
+    pad = votes.new_zeros((-n % WARP, k))
+    warps = torch.cat([votes, pad]).view(-1, WARP, k).any(1)
+    return warps.repeat_interleave(WARP, 0)[:n]
+
+
+def group_rays(cmask, gmask, g, r):
+    """The rays (n,) of the blocks that entered group g, in order: whole
+    warps, the last one short where the cast ends in it."""
     blocks = torch.nonzero(gmask[:, g])[:, 0]
     rays = (blocks[:, None] * RAY_BLOCK
             + torch.arange(RAY_BLOCK, device=gmask.device)).reshape(-1)
-    cols = cmask[blocks, g * CLUSTER_GROUP:(g + 1) * CLUSTER_GROUP].bool()
-    cols = cols.repeat_interleave(CLUSTER_SIZE, 1)
-    keep = rays < r
-    return rays[keep], cols.repeat_interleave(RAY_BLOCK, 0)[keep]
+    return rays[rays < r]
+
+
+def admission_torch(tables, cmask, origin, direction):
+    """(R, Cg) bool: the clusters whose rows each ray tests, the sweeps'
+    rule (its block entered the cluster, a ray of its warp votes for its
+    box)."""
+    r = origin.shape[0]
+    blocks = torch.arange(r, device=origin.device) // RAY_BLOCK
+    return cmask[blocks].bool() & warp_any(ray_votes(tables.cbox, origin,
+                                                     direction))
+
+
+def _group_rays(tables, cmask, gmask, g, origin, direction):
+    """The rays (n,) for which group g holds an admitted cluster (their
+    block entered the cluster, a ray of their warp votes for its box),
+    and each one's (n, GROUP_ROWS) row mask: its admitted clusters'
+    rows."""
+    rays = group_rays(cmask, gmask, g, origin.shape[0])
+    lo, hi = g * CLUSTER_GROUP, (g + 1) * CLUSTER_GROUP
+    cols = cmask[rays // RAY_BLOCK, lo:hi].bool() & warp_any(ray_votes(
+        tables.cbox[lo:hi], origin[rays], direction[rays]))
+    keep = torch.nonzero(cols.any(1))[:, 0]
+    return rays[keep], cols[keep].repeat_interleave(CLUSTER_SIZE, 1)
 
 
 def _chunks(n, width):
@@ -264,16 +366,17 @@ def sweep_closest_torch(tables, cmask, gmask, origin, direction, t_min=0.0,
                         watertight=False):
     """Twin of `closest_kernel`: (t, +inf on miss; u; v; tri i32; inst
     i32; back bool). Per group, the rays of the blocks that entered it
-    test its rows with their best as t_max; the first row at the group's
-    minimum replaces the best when strictly nearer, as the kernel's
-    row-by-row scan does."""
+    test its admitted clusters' rows with their best as t_max; the first
+    row at the group's minimum replaces the best when strictly nearer, as
+    the kernel's row-by-row scan does."""
     r, dev = origin.shape[0], origin.device
     t_b = torch.full((r,), BIG, dtype=torch.float32, device=dev)
     u_b, v_b = torch.zeros_like(t_b), torch.zeros_like(t_b)
     row_b = torch.full((r,), -1, dtype=torch.int64, device=dev)
     back_b = torch.zeros(r, dtype=torch.bool, device=dev)
     for g in range(tables.n_groups):
-        rays_g, cols_g = _group_rays(cmask, gmask, g, r)
+        rays_g, cols_g = _group_rays(tables, cmask, gmask, g, origin,
+                                     direction)
         tab = tables.ctab[g * GROUP_ROWS:(g + 1) * GROUP_ROWS]
         for lo, hi in _chunks(rays_g.shape[0], GROUP_ROWS):
             rays, cols = rays_g[lo:hi], cols_g[lo:hi]
@@ -306,12 +409,13 @@ def _t_max_rays(t_max, origin):
 def sweep_any_torch(tables, cmask, gmask, origin, direction, t_max,
                     t_min=0.0, watertight=False):
     """Twin of `any_kernel`: (R,) bool, a hit in [t_min, t_max) in a
-    cluster the ray's block entered."""
+    cluster admitted for the ray."""
     r = origin.shape[0]
     t_max = _t_max_rays(t_max, origin)
     occ = torch.zeros(r, dtype=torch.bool, device=origin.device)
     for g in range(tables.n_groups):
-        rays_g, cols_g = _group_rays(cmask, gmask, g, r)
+        rays_g, cols_g = _group_rays(tables, cmask, gmask, g, origin,
+                                     direction)
         live = torch.nonzero(~occ[rays_g])[:, 0]
         rays_g, cols_g = rays_g[live], cols_g[live]
         tab = tables.ctab[g * GROUP_ROWS:(g + 1) * GROUP_ROWS]
@@ -410,8 +514,10 @@ def sweep_closest(tables, cmask, gmask, origin, direction, t_min=0.0,
         return t, u, v, tri, inst, back
     with torch.cuda.device(origin.device):
         err = kernels().lib.dcrt_cluster_closest(
-            tables.ctab.data_ptr(), cmask.data_ptr(), gmask.data_ptr(),
-            tables.cbox.shape[0], origin.data_ptr(), direction.data_ptr(), r,
+            tables.ctab.data_ptr(), prepared_rows(tables, watertight)
+            .data_ptr(), tables.cbox.data_ptr(), tables.gbox.data_ptr(),
+            cmask.data_ptr(), gmask.data_ptr(), tables.cbox.shape[0],
+            origin.data_ptr(), direction.data_ptr(), r,
             float(t_min), int(watertight), t.data_ptr(), u.data_ptr(),
             v.data_ptr(), tri.data_ptr(), inst.data_ptr(), back.data_ptr(),
             _stream(origin))
@@ -436,8 +542,10 @@ def sweep_any(tables, cmask, gmask, origin, direction, t_max, t_min=0.0,
         return occ
     with torch.cuda.device(origin.device):
         err = kernels().lib.dcrt_cluster_any(
-            tables.ctab.data_ptr(), cmask.data_ptr(), gmask.data_ptr(),
-            tables.cbox.shape[0], origin.data_ptr(), direction.data_ptr(),
+            prepared_rows(tables, watertight).data_ptr(),
+            tables.cbox.data_ptr(), tables.gbox.data_ptr(),
+            cmask.data_ptr(), gmask.data_ptr(), tables.cbox.shape[0],
+            origin.data_ptr(), direction.data_ptr(),
             t_max.data_ptr(), r, float(t_min), int(watertight),
             occ.data_ptr(), _stream(origin))
     _raise_on(err, "sweep_any")

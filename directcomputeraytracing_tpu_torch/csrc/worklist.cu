@@ -67,6 +67,9 @@ namespace {
 using dcrt::BaldwinWeber;
 using dcrt::Best;
 using dcrt::child_enter;
+using dcrt::cp_async16;
+using dcrt::cp_async_commit;
+using dcrt::cp_async_wait;
 using dcrt::Hit;
 using dcrt::kBig;
 using dcrt::kCluster;
@@ -413,22 +416,6 @@ struct WarpSmem {
   float4 stage[2][kStage];
   float4 ray[32][2];
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Start the copy of super `sup`'s boxes into a ring stage (every lane
 // copies two child-box float4, lanes 0-1 the admission box).

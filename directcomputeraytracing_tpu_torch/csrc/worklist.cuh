@@ -71,6 +71,24 @@ __device__ __forceinline__ bool enters(float t_lo, float t_hi, float cap,
   return t_hi >= t_lo && t_hi >= 0.f && t_lo < cap && t_hi >= t_min;
 }
 
+// A 16-byte copy from device to shared memory by cp.async, and its
+// group commit and wait (at most N groups left in flight).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 template <bool kGlobal>
 __device__ __forceinline__ float4 ld4(const float4* p) {
   if constexpr (kGlobal) return __ldg(p);

@@ -11,7 +11,9 @@ the instanced work-list sweeps, 1024x1024), `clustered` (`sphere_grid(12,
 (`sphere_grid(12, 12)` through `traversal_backend="pallas_pair"`,
 1024x1024), all through the megakernel, or `wavefront` (`sphere_grid(12,
 12)` at 1920x1080 through the wavefront integrator and its grouped pool
-casts) and `pair_wavefront` (the same with `pool_backend="pallas_pair"`);
+casts), `pair_wavefront` (the same with `pool_backend="pallas_pair"`)
+and `clustered_wavefront` (the same through
+`traversal_backend="pallas_cluster"`: the clustered pool casts);
 `cornell_wavefront` is the Cornell scene through the wavefront
 integrator (the dense sweep on 2^18-ray pool casts) at 512x512: a closed
 box keeps every path to its last bounce, and at 1024x1024 one run of the
@@ -78,6 +80,8 @@ CASES = {"cornell": (lambda: cornell_box("area", "glossy"), 1024, 1024,
                        "wavefront", "auto", ""),
          "pair_wavefront": (lambda: sphere_grid(12, 12), 1920, 1080,
                             "wavefront", "auto", "pallas_pair"),
+         "clustered_wavefront": (lambda: sphere_grid(12, 12), 1920, 1080,
+                                 "wavefront", "pallas_cluster", ""),
          "cornell_wavefront": (lambda: cornell_box("area", "glossy"), 512,
                                512, "wavefront", "auto", ""),
          "alpha": (lambda: alpha_sphere_grid(12, 12), 1024, 1024,

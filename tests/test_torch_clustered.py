@@ -26,8 +26,10 @@ Tolerances:
   instance ids equal except at exact-t ties (t within that tolerance,
   counted): the dense sweep visits the soup in another order than the
   cluster table. The reference's interpret path sweeps
-  its exact masks, the port its interval masks: extra clusters hold no
-  nearer hit.
+  its exact masks, the port its interval masks under the warp admission
+  (`tests/test_torch_cluster_admission.py`): both sweep every cluster
+  whose box the ray's own slab test enters, so they could part only at
+  an edge graze, which these sets do not hold.
 - renders, 32x32 at 2 spp, against the reference's CPU renderer (its
   exact dense Moeller sweep): per pixel |port - reference| <= 2e-5
   (1 + |reference|) but for at most 2 of 1024 pixels, none beyond 1e-4
