@@ -16,8 +16,9 @@ any failure exits non-zero:
    and their resident blocks per SM (`warp-resources`), and the same of
    the work list's cull and refine (`cull-ptxas`, `cull-resources`), of
    the dense sweep (`brute-ptxas`, `brute-resources`: resident blocks
-   per SM with a full 2048-row table) and of the clustered sweeps
-   (`cluster-resources`);
+   per SM with a full 2048-row table), of the clustered sweeps
+   (`cluster-resources`) and of the pair kernels (`pair-ptxas`,
+   `pair-resources`: the emission and both sweeps);
 2. dense-sweep kernels against their PyTorch twins on the card, Moeller
    and watertight, closest and any-hit, on `tools/brute_ab.py`'s sets:
    (a) the Cornell soup (32 triangles) with 1,048,576 camera rays plus
@@ -122,8 +123,12 @@ any failure exits non-zero:
    the whole set (`iters` at least the work list's); CUDA-event times of
    each step (emission, `nonzero`, the pair list, the sweep, the
    reduction) and of the whole pair, work-list and grouped casts, the
-   peak memory of a pair cast, bounds, and the census (items, cells,
-   pairs per ray, pairs per chunk, clusters swept per pair);
+   profiler's kernel times of the emission and the sweeps, the peak
+   memory of a pair cast, bounds, and the census (items, cells, pairs
+   per ray, pairs per chunk, clusters swept per pair; `pair-census`
+   lines, `tools/pair_ab.py` `pair_census`: items per ray block, set
+   cells, full chunks, clusters a pair enters, a warp's longest lane and
+   union, and the any-hit walks' clusters and rows per pair);
 2h. the ray-prep kernel against `prep_rays_torch` on the three 1M-ray
    sets of 2b, the random set in `ray_sort_key` order and a 1M-ray set
    with NaN, inf, zero, +-1e-31, -0.0 and denormal components injected,
@@ -210,9 +215,10 @@ any failure exits non-zero:
    with alpha through the wavefront and 4j. its textured variant
    (megakernel);
 5. one JSON line listing the nineteen kernels, then the contract line,
-   last. `ms` is CUDA events around runs of wrapper calls; rows 1-2 also
-   give `kernel_ms`, the kernels' own time by the profiler (a Cornell
-   cast is short enough that events time the host too).
+   last. `ms` is CUDA events around runs of wrapper calls; rows 1-3 and
+   15-17 also give `kernel_ms`, the kernels' own time by the profiler
+   (a short cast is timed by events with the host's gaps between its
+   launches).
 
 The seeded ray sets of the sphere grids (2b-2h) come from
 `tools/common.py` `grid_ray_sets`, each phase with its own seed.
@@ -1170,6 +1176,8 @@ def phase_clustered_kernels(device):
         o_s, d_s, tm_s = o[idx], d[idx], t_max[idx]
         exact = cl.exact_masks_torch(arrays, o_s, d_s)[0]
         cull_ms = timed(lambda: cl.cull_masks(tables, o, d), 5)
+        cull_kernel_ms = common.kernel_ms(lambda: cl.cull_masks(
+            tables, o, d), 5, "cull_kernel")
         for wt in (False, True):
             k = cl.sweep_closest(tables, cmask, gmask, o, d, t_min, wt)
             ka = cl.sweep_any(tables, cmask, gmask, o, d, t_max, t_min, wt)
@@ -1188,7 +1196,7 @@ def phase_clustered_kernels(device):
             dense_a, dense_any_ms = _timed_call(lambda: brute.brute_any(
                 arrays, o, d, t_max, t_min, wt))
             timing = dict(
-                cull_ms=cull_ms,
+                cull_ms=cull_ms, cull_kernel_ms=cull_kernel_ms,
                 closest_ms=timed(lambda: cl.sweep_closest(
                     tables, cmask, gmask, o, d, t_min, wt), 5),
                 any_ms=timed(lambda: cl.sweep_any(
@@ -1226,7 +1234,8 @@ def phase_clustered_kernels(device):
             errs["any"] = max(errs["any"], float((kas != wa).float().max()))
             if name == "camera" and not wt:
                 rows = dict(
-                    cull_ms=cull_ms, closest_ms=timing["closest_ms"],
+                    cull_ms=cull_ms, cull_kernel_ms=cull_kernel_ms,
+                    closest_ms=timing["closest_ms"],
                     any_ms=timing["any_ms"], bounds=bnd,
                     cull_twin_ms=timed(lambda: cl.cull_masks_torch(
                         tables, o, d), 1, warm=False),
@@ -1245,45 +1254,6 @@ def phase_clustered_kernels(device):
     return reports, errs, rows, census
 
 
-def _pair_bounds(tables, items, pairs, iters_p, rp, watertight, kind):
-    """(emission, sweep) bounds of one pair cast: the emission 20
-    operations a cell against the grid written and the rays, caps, items
-    and super boxes read once; the closest sweep the fine cull of every
-    pair and 16 triangle tests per cluster its walk swept, the any-hit
-    sweep the fine cull only (a lower bound), against the pair list, the
-    rays, the per-pair outputs and the tables once."""
-    from directcomputeraytracing_tpu_torch.accel import worklist as wl
-
-    n, p = items.sup.shape[0], pairs.ray.shape[0]
-    cells = n * wl.RB
-    emit = bound(FLOPS_SLAB * cells,
-                  cells + 40 * rp + 8 * n + 32 * tables.sbox.shape[0])
-    tab = tables.ctab if watertight else tables.bwtab
-    table_bytes = 4 * (tables.cbox3.numel() + tab.numel())
-    fine = FLOPS_SLAB * wl.SUPER * p
-    lists = 4 * p + 12 * pairs.chunk_sup.shape[0]
-    if kind == "closest":
-        test = FLOPS_MOELLER if watertight else FLOPS_BW
-        sweep = bound(fine + 16 * test * int(iters_p.long().sum()),
-                       lists + 29 * p + 40 * rp + table_bytes)
-    else:
-        sweep = bound(fine, lists + p + 40 * rp + table_bytes)
-    return emit, sweep
-
-
-def _pair_subset(tables, items, it, lane, idx):
-    """The pair list of the cells whose ray lies in the ray indices idx
-    (whole blocks)."""
-    import torch
-
-    from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
-    from directcomputeraytracing_tpu_torch.accel import worklist as wl
-
-    blocks = torch.unique(idx // wl.RB)
-    keep = torch.isin(ps.item_blocks(items)[it], blocks)
-    return ps.pair_list(tables, items, it[keep], lane[keep])
-
-
 def phase_pair_kernels(device):
     """Pair kernels against their twins and the pair casts against the
     work list on sphere_grid(12, 12); CUDA-event times of every step of a
@@ -1295,9 +1265,10 @@ def phase_pair_kernels(device):
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
     from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
     from directcomputeraytracing_tpu_torch.tools import common
-    from directcomputeraytracing_tpu_torch.tools.common import timed
+    from directcomputeraytracing_tpu_torch.tools import pair_ab
+    from directcomputeraytracing_tpu_torch.tools.common import kernel_ms, timed
 
-    rng = np.random.default_rng(20261021)
+    rng = np.random.default_rng(pair_ab.SEED)
     arrays, _ = flatten_scene(_scene("grid")[0], device)
     tables = wl.scene_tables(arrays)
 
@@ -1322,6 +1293,8 @@ def phase_pair_kernels(device):
             del twin
             emit_ms = timed(lambda: ps.emit_pairs(tables, items, od, cap,
                                                    t_min), 3)
+            emit_kernel_ms = kernel_ms(lambda: ps.emit_pairs(
+                tables, items, od, cap, t_min), 3, "emit_kernel")
             it, lane = torch.nonzero(grid, as_tuple=True)
             nonzero_ms = timed(lambda: torch.nonzero(grid, as_tuple=True),
                                 3)
@@ -1330,11 +1303,18 @@ def phase_pair_kernels(device):
             pairs = ps.pair_list(tables, items, it, lane)
             list_ms = timed(lambda: ps.pair_list(tables, items, it, lane),
                              3)
-            sub = _pair_subset(tables, items, it, lane, idx)
+            sub = pair_ab.pair_subset(tables, items, it, lane, idx)
             del it, lane
             p = pairs.ray.shape[0]
             counts = pairs.chunk_count[pairs.chunk_count > 0].float()
             for wt in (False, True):
+                # the closest cast's census does not depend on the test
+                if kind == "any" or not wt:
+                    census = pair_ab.pair_census(
+                        tables, items, pairs, od, cap, t_min, r,
+                        tm if kind == "any" else None, wt)
+                    print("pair-census", json.dumps(dict(
+                        set=name, kind=kind, watertight=wt, **census)))
                 if kind == "closest":
                     sweep = ps.pair_sweep_closest
                     twin_fn = ps.pair_sweep_closest_torch
@@ -1347,6 +1327,9 @@ def phase_pair_kernels(device):
                 out = sweep(tables, pairs, od, *args, t_min, wt)
                 sweep_ms = timed(lambda: sweep(tables, pairs, od, *args,
                                                 t_min, wt), 3)
+                sweep_kernel_ms = kernel_ms(lambda: sweep(
+                    tables, pairs, od, *args, t_min, wt), 3,
+                    f"pair_{kind}_kernel")
                 ks = sweep(tables, sub, od, *args, t_min, wt)
                 ws = twin_fn(tables, sub, od, *args, t_min, wt)
                 if kind == "closest":
@@ -1400,8 +1383,9 @@ def phase_pair_kernels(device):
                     vs_wl = dict(occ=int((pc != wc).sum()))
                     extra = dict(occluded=int(pc.sum()))
                 peak /= 2**30
-                eb, sb = _pair_bounds(tables, items, pairs, iters_p,
-                                      od.shape[1], wt, kind)
+                eb, sb = pair_ab.pair_bounds(tables, items, pairs,
+                                             od.shape[1], wt, kind, iters_p,
+                                             census)
                 rep = dict(
                     case=name, kind=kind, watertight=wt, rays=r,
                     items=items.sup.shape[0], cells=cells, pairs=p,
@@ -1410,9 +1394,11 @@ def phase_pair_kernels(device):
                     chunks=int(counts.numel()),
                     twin_pairs=sub.ray.shape[0], emit_diff=emit_diff,
                     vs_twin=vs_twin, vs_worklist=vs_wl, **extra,
-                    emit_ms=emit_ms, emit_twin_ms=emit_twin_ms,
+                    emit_ms=emit_ms, emit_kernel_ms=emit_kernel_ms,
+                    emit_twin_ms=emit_twin_ms,
                     nonzero_ms=nonzero_ms, list_ms=list_ms,
-                    sweep_ms=sweep_ms, reduce_ms=reduce_ms,
+                    sweep_ms=sweep_ms, sweep_kernel_ms=sweep_kernel_ms,
+                    reduce_ms=reduce_ms,
                     cast_ms=cast_ms, worklist_cast_ms=wl_ms,
                     grouped_cast_ms=wlg_ms, cast_peak_gib=peak,
                     emit_bound=eb, sweep_bound=sb,
@@ -1427,8 +1413,10 @@ def phase_pair_kernels(device):
                         tables, pairs, od, *args, t_min, wt))
                     del twin_out
                     rows[kind] = dict(emit_ms=emit_ms,
+                                      emit_kernel_ms=emit_kernel_ms,
                                       emit_twin_ms=emit_twin_ms,
                                       emit_bound=eb, sweep_ms=sweep_ms,
+                                      sweep_kernel_ms=sweep_kernel_ms,
                                       sweep_twin_ms=twin_ms, sweep_bound=sb)
             errs["emit"] = max(errs["emit"], float(emit_diff > 0))
             del pairs, sub
@@ -2074,8 +2062,9 @@ def _build_all():
     from directcomputeraytracing_tpu_torch.accel import clustered as cl
     from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
-    from directcomputeraytracing_tpu_torch.tools import brute_ab, worklist_ab
+    from directcomputeraytracing_tpu_torch.tools import brute_ab, pair_ab
     from directcomputeraytracing_tpu_torch.tools import probe_worklist as pw
+    from directcomputeraytracing_tpu_torch.tools import worklist_ab
 
     sources = (("brute_sweep.cu", brute.kernels),
                ("worklist.cu", wl.kernels), ("clustered.cu", cl.kernels),
@@ -2105,6 +2094,10 @@ def _build_all():
     print("brute-resources", json.dumps(brute.resources()))
     # the clustered sweeps' (rows 4-5) the same
     print("cluster-resources", json.dumps(cl.resources()))
+    # the pair kernels' (rows 15-17) the same
+    print("pair-ptxas", json.dumps(pair_ab.ptxas_report(
+        futures["pairsweep.cu"].result().log)))
+    print("pair-resources", json.dumps(ps.resources()))
 
 
 def main():
@@ -2274,7 +2267,7 @@ def main():
         row("cluster_cull", cl_src, f"{ref_brute}:338",
             cl_grid["launches"]["cluster_cull"], cl_errs["cull"],
             cl_row["cull_ms"], cl_row["cull_twin_ms"],
-            cl_row["bounds"]["cull"]),
+            cl_row["bounds"]["cull"], kernel_ms=cl_row["cull_kernel_ms"]),
         row("cluster_closest", cl_src, f"{ref_brute}:425",
             cl_grid["launches"]["cluster_closest"], cl_errs["closest"],
             cl_row["closest_ms"], cl_row["closest_twin_ms"],
@@ -2288,16 +2281,19 @@ def main():
             pair_wave["launches"]["pair_emit"], pair_errs["emit"],
             pair_rows["closest"]["emit_ms"],
             pair_rows["closest"]["emit_twin_ms"],
-            pair_rows["closest"]["emit_bound"]),
+            pair_rows["closest"]["emit_bound"],
+            kernel_ms=pair_rows["closest"]["emit_kernel_ms"]),
         row("pair_sweep_closest", pair_src, f"{ref_pair}:274",
             pair_wave["launches"]["pair_sweep_closest"], pair_errs["closest"],
             pair_rows["closest"]["sweep_ms"],
             pair_rows["closest"]["sweep_twin_ms"],
-            pair_rows["closest"]["sweep_bound"]),
+            pair_rows["closest"]["sweep_bound"],
+            kernel_ms=pair_rows["closest"]["sweep_kernel_ms"]),
         row("pair_sweep_any", pair_src, f"{ref_pair}:359",
             pair_wave["launches"]["pair_sweep_any"], pair_errs["any"],
             pair_rows["any"]["sweep_ms"], pair_rows["any"]["sweep_twin_ms"],
-            pair_rows["any"]["sweep_bound"]),
+            pair_rows["any"]["sweep_bound"],
+            kernel_ms=pair_rows["any"]["sweep_kernel_ms"]),
         row("prep_rays", "directcomputeraytracing_tpu_torch/csrc/prep.cu",
             f"{ref_wl}:205", alpha["launches"]["prep_rays"],
             prep["max_abs_err"], prep["ms"], prep["twin_ms"], prep["bound"]),

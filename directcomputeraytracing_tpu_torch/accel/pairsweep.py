@@ -15,7 +15,10 @@ its own. A cast runs:
 2. The emission. `emit_pairs` (kernel `emit_kernel`, twin
    `emit_pairs_torch`): per item and lane, one slab test of the item's
    super box, enter where (t_hi >= t_lo) & (t_hi >= 0) & (t_lo < cap) &
-   (t_hi >= t_min) -> an (n_items, RB) uint8 grid in item order. A
+   (t_hi >= t_min) -> an (n_items, RB) uint8 grid in item order. The
+   kernel reads each ray block's rays once for all its items, which it
+   finds through the per-block offsets `items.seg` (`emit_shape` splits
+   long lists over CUDA blocks). A
    closest cast's cap is the candidate window of its initial best,
    `_window(bits(texp) | _LOWM)`, an any-hit cast's the ray's t_max. A
    super box is the exact min/max of its child boxes and slab arithmetic
@@ -110,6 +113,9 @@ from .worklist import (
 GRID_CELLS = 1 << 30         # emission cells (bytes) of one range of blocks
 RANGE_PAIRS = 1 << 26        # pairs swept and reduced in one range
 TWIN_CELL_CHUNK = 1 << 22    # (item, lane) cells per emission-twin chunk
+EMIT_SLICE = 16              # items a slice (csrc/pairsweep.cu kEmitSlice)
+EMIT_SKEW = 4                # longest list / mean list a split serves
+EMIT_FILL = 4                # resident emission blocks an SM
 _NO_PAIR = torch.iinfo(torch.int64).max
 
 _NVCC_EXTRA = ("-fmad=false",)   # round like the twins (see brute.py)
@@ -124,26 +130,53 @@ def kernels():
         from ..utils.cuda_build import load_library
 
         built = load_library("pairsweep.cu", _NVCC_EXTRA)
-        c_p, c_i, c_f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib = built.lib
-        lib.dcrt_pair_chunk.argtypes = []
-        lib.dcrt_pair_emit.argtypes = [c_p, c_p, c_i, c_p, c_p, c_p, c_i,
-                                       c_i, c_f, c_p, c_p]
-        lib.dcrt_pair_closest.argtypes = [c_p, c_p, c_p, c_i, c_p, c_p, c_p,
-                                          c_i, c_p, c_p, c_i, c_f] \
-            + [c_p] * 9
-        lib.dcrt_pair_any.argtypes = [c_p, c_p, c_p, c_i, c_p, c_p, c_p, c_i,
-                                      c_p, c_p, c_i, c_f, c_p, c_p]
-        for fn in (lib.dcrt_pair_chunk, lib.dcrt_pair_emit,
-                   lib.dcrt_pair_closest, lib.dcrt_pair_any):
-            fn.restype = c_i
+        bind(built.lib)
+        if built.lib.dcrt_pair_emit_slice() != EMIT_SLICE:
+            raise RuntimeError("csrc/pairsweep.cu kEmitSlice != EMIT_SLICE")
         _built = built
     return _built
 
 
+def bind(lib):
+    """Set the argument and result types of a loaded build of
+    `csrc/pairsweep.cu`'s C interface; returns lib."""
+    c_p, c_i, c_f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dcrt_pair_chunk.argtypes = []
+    lib.dcrt_pair_emit_slice.argtypes = []
+    lib.dcrt_pair_emit.argtypes = [c_p, c_p, c_i, c_i, c_i, c_p, c_p, c_p,
+                                   c_i, c_i, c_f, c_p, c_p]
+    lib.dcrt_pair_closest.argtypes = [c_p, c_p, c_p, c_i, c_p, c_p, c_p,
+                                      c_i, c_p, c_p, c_i, c_f] + [c_p] * 9
+    lib.dcrt_pair_any.argtypes = [c_p, c_p, c_p, c_i, c_p, c_p, c_p, c_i,
+                                  c_p, c_p, c_i, c_f, c_p, c_p]
+    lib.dcrt_pair_resources.argtypes = [c_p]
+    for fn in (lib.dcrt_pair_chunk, lib.dcrt_pair_emit_slice,
+               lib.dcrt_pair_emit, lib.dcrt_pair_closest, lib.dcrt_pair_any,
+               lib.dcrt_pair_resources):
+        fn.restype = c_i
+    return lib
+
+
+PAIR_KERNELS = ("emit", "closest_baldwin_weber", "closest_watertight",
+                "any_baldwin_weber", "any_watertight")
+
+
+def resources():
+    """The kernels' resources on the current card, per kernel of
+    PAIR_KERNELS: resident blocks per SM, registers, static shared bytes,
+    local (spill) bytes per thread and threads per block."""
+    out = (ctypes.c_int * (5 * len(PAIR_KERNELS)))()
+    _raise_on(kernels().lib.dcrt_pair_resources(out), "pair_resources")
+    keys = ("blocks_per_sm", "registers", "static_smem", "local_bytes",
+            "threads")
+    return {name: dict(zip(keys, out[5 * f:5 * f + 5]))
+            for f, name in enumerate(PAIR_KERNELS)}
+
+
 def chunk(device):
-    """Pairs per chunk of the launch list: the kernels' block size on a
-    CUDA device, the same 256 for the twins."""
+    """Pairs per chunk of the launch list: the closest sweep's block size
+    on a CUDA device (the any-hit sweep takes a chunk in two blocks), the
+    same 256 for the twins."""
     return kernels().lib.dcrt_pair_chunk() if device.type == "cuda" else 256
 
 
@@ -179,22 +212,60 @@ def emit_pairs_torch(tables, items, od, cap, t_min):
     return out
 
 
+def emit_shape(nb, n_items, n_supers, sms):
+    """The emission's launch from shapes alone (no host read): `split`,
+    the CUDA blocks of each of the nb ray blocks. CUDA block (b, y) takes
+    slices y, y + split, ... of EMIT_SLICE items of ray block b's list,
+    one slice where the list has split slices at most. A list holds each
+    super at most once, so none is longer than min(n_items, n_supers);
+    lists of one cast differ (a sorted pool's hold 0-450 items, 114 on
+    average), and split gives one slice a CUDA block to lists of up to
+    EMIT_SKEW times the mean (plus a slice), and at least the share of
+    EMIT_FILL x sms resident CUDA blocks that fills the card on casts of
+    few ray blocks. A CUDA block past its list's slices exits before it
+    reads a ray, which costs little, but not nothing where lists are
+    short (1-2 items on camera rays)."""
+    nb = max(nb, 1)
+    most = min(n_items, n_supers)
+    usual = min(most, EMIT_SKEW * -(-n_items // nb) + EMIT_SLICE)
+    want = -(-EMIT_FILL * sms // nb)
+    return max(1, min(-(-most // EMIT_SLICE),
+                      max(-(-usual // EMIT_SLICE), want), 65535))
+
+
+def _check_aligned(name, x):
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads 16-byte rows; the "
+                         "tensor's storage is not 16-byte aligned")
+
+
 def emit_pairs(tables, items, od, cap, t_min):
     """(block, super) items x their blocks' rays -> the (n_items, RB)
-    uint8 enter grid: kernel on CUDA tensors, twin on CPU tensors."""
+    uint8 enter grid: kernel on CUDA tensors, twin on CPU tensors. The
+    kernel takes the items' per-block offsets items.seg (int32) and
+    od's RB-ray blocks, one per offset."""
     rp = od.shape[1]
     _check_f32("od", od, (9, rp))
     _check_f32("cap", cap, (rp,))
-    if not _on_cuda(od, cap, items.sup):
+    if not _on_cuda(od, cap, items.sup, items.seg):
         return emit_pairs_torch(tables, items, od, cap, t_min)
+    nb = items.seg.shape[0] - 1
+    if rp != nb * RB or items.seg.dtype != torch.int32 \
+            or items.sup.dtype != torch.int32:
+        raise ValueError(f"emit_pairs: need int32 seg and sup and od of "
+                         f"{nb} x {RB} rays, got {rp}")
+    _check_aligned("od", od)
+    _check_aligned("cap", cap)
     n = items.sup.shape[0]
-    blk = item_blocks(items).to(torch.int32)
     out = torch.empty((n, RB), dtype=torch.uint8, device=od.device)
+    split = emit_shape(nb, n, tables.sbox.shape[0],
+                       torch.cuda.get_device_properties(
+                           od.device).multi_processor_count)
     with torch.cuda.device(od.device):
         err = kernels().lib.dcrt_pair_emit(
-            blk.data_ptr(), items.sup.data_ptr(), n, tables.sbox.data_ptr(),
-            od.data_ptr(), cap.data_ptr(), rp, RB, float(t_min),
-            out.data_ptr(), _stream(od))
+            items.seg.data_ptr(), items.sup.data_ptr(), n, nb, split,
+            tables.sbox.data_ptr(), od.data_ptr(), cap.data_ptr(), rp, RB,
+            float(t_min), out.data_ptr(), _stream(od))
     _raise_on(err, "emit_pairs")
     emit_pairs.launches += 1
     return out

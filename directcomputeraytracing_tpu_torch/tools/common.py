@@ -157,8 +157,11 @@ def kernel_ms(fn, reps, entry, tries=3):
     `entry`, over reps calls of fn (each launching one of them) after a
     warm-up, by torch.profiler: the kernels' own time, without the host's
     gaps between launches that CUDA events around a run of short launches
-    count. The mean is over the launches the profiler caught (it drops a
-    run's events now and then); None if it caught none in `tries` runs."""
+    count. The mean is over the launches the profiler caught with a span
+    of positive length (it drops a run's events now and then, and within
+    one process has also reported an empty span beside each launch); a
+    run that reports more such spans than launches is not read. None if
+    no run of `tries` gave one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -172,7 +175,8 @@ def kernel_ms(fn, reps, entry, tries=3):
             torch.cuda.synchronize()
         spans = [e.time_range.end - e.time_range.start for e in prof.events()
                  if e.device_type == DeviceType.CUDA and entry in e.name]
-        if spans:
+        spans = [t for t in spans if t > 0]
+        if 0 < len(spans) <= reps:
             return sum(spans) / 1000.0 / len(spans)
     return None
 

@@ -443,3 +443,352 @@ def test_cuda_kernels_match_twins(watertight):
     c = ps.counters()
     assert c["pair_emit"] == 4 and c["pair_sweep_closest"] == 2
     assert c["pair_sweep_any"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the emission's launch shape, the census (CPU) and the redesigned kernels
+# (card)
+# ---------------------------------------------------------------------------
+
+# items per ray block: none, one, two, hundreds, a single block, and a
+# cast like the sorted pool's (0-450 items a block, 512 supers)
+SEG_COUNTS = {
+    "empty": [0, 0, 0],
+    "ones": [1] * 5,
+    "twos": [2, 0, 2, 0, 2],
+    "hundreds": [300, 0, 450, 17, 16, 32, 0],
+    "single": [437],
+    "pool_like": np.random.default_rng(11).integers(0, 451, 256).tolist(),
+}
+
+
+def _emit_tiles(seg, split):
+    """The emission kernel's work as csrc/pairsweep.cu's emit_kernel walks
+    it: CUDA block (b, y) takes slices y, y + split, ... of EMIT_SLICE
+    items of ray block b's list (seg, the (nb + 1,) item offsets) and
+    exits before reading anything where it has none -> (ray block,
+    blockIdx.y, first item, items) per slice."""
+    seg = [int(x) for x in seg]
+    out = []
+    for b in range(len(seg) - 1):
+        n = seg[b + 1] - seg[b]
+        for k in range(-(-n // ps.EMIT_SLICE)):
+            out.append((b, k % split, seg[b] + k * ps.EMIT_SLICE,
+                        min(ps.EMIT_SLICE, n - k * ps.EMIT_SLICE)))
+    return out
+
+
+@pytest.mark.parametrize("shape", list(SEG_COUNTS))
+def test_emit_tiles_cover_every_item_once(shape):
+    """The emission's tiles (ray block, blockIdx.y, first item, items)
+    under `emit_shape`'s split: every item exactly once, each tile inside
+    its ray block's list and at most a slice long, no tile for a ray
+    block without items, blockIdx.y below the split; a CUDA block takes
+    one slice of a list up to EMIT_SKEW times the mean, the split fills
+    the card on casts of few ray blocks and never exceeds the slices of
+    the longest list a cast can hold."""
+    counts = SEG_COUNTS[shape]
+    seg = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    nb, n = len(counts), int(seg[-1])
+    n_supers, sms = 512, 132
+    split = ps.emit_shape(nb, n, n_supers, sms)
+    most = -(-min(n, n_supers) // ps.EMIT_SLICE)
+    assert 1 <= split <= max(1, most)
+    assert split >= min(most, -(-ps.EMIT_FILL * sms // nb))
+    tiles = _emit_tiles(torch.from_numpy(seg), split)
+    seen = np.zeros(n, dtype=np.int64)
+    for b, y, first, count in tiles:
+        assert counts[b] > 0 and 0 <= y < split
+        assert 1 <= count <= ps.EMIT_SLICE
+        assert seg[b] <= first and first + count <= seg[b + 1]
+        seen[first:first + count] += 1
+    assert (seen == 1).all()
+    assert {t[0] for t in tiles} == {b for b, c in enumerate(counts) if c}
+    # a CUDA block's share: its ray block's slices y, y + split, ...
+    per_block = {}
+    for b, y, _, count in tiles:
+        per_block[b, y] = per_block.get((b, y), 0) + count
+    for (b, _), items in per_block.items():
+        assert items <= -(-counts[b] // (ps.EMIT_SLICE * split)) \
+            * ps.EMIT_SLICE
+        if counts[b] <= ps.EMIT_SKEW * -(-n // nb) + ps.EMIT_SLICE:
+            assert items <= ps.EMIT_SLICE
+
+
+def _tile_grid(tables, items, od, cap, t_min):
+    """The enter grid built tile by tile, as the kernel walks its work:
+    each tile's rays against its slice's super boxes."""
+    split = ps.emit_shape(items.seg.shape[0] - 1, items.sup.shape[0],
+                          tables.sbox.shape[0], 132)
+    out = torch.zeros((items.sup.shape[0], wl.RB), dtype=torch.uint8)
+    lane = torch.arange(wl.RB)
+    for b, _, first, count in _emit_tiles(items.seg, split):
+        rays = b * wl.RB + lane
+        box = tables.sbox[items.sup[first:first + count].long()]
+        t_lo = torch.full((count, wl.RB), -wl.BIG)
+        t_hi = torch.full_like(t_lo, wl.BIG)
+        for ax in range(3):
+            t_lo, t_hi = wl._slab(box[:, ax, None], box[:, 3 + ax, None],
+                                  od[ax][rays], od[6 + ax][rays], t_lo, t_hi)
+        out[first:first + count] = ((t_hi >= t_lo) & (t_hi >= 0.0)
+                                    & (t_lo < cap[rays]) & (t_hi >= t_min))
+    return out
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_emission_by_tiles_and_ranges_equals_reference_grid(grid, kind,
+                                                            monkeypatch):
+    """The grid built tile by tile (`_emit_tiles`), and `emit_pairs` on
+    the per-block offsets of each emission range of a cast cut into ranges
+    of one ray block (`_grid_ranges`, seg renumbered from the range's
+    first block), equal `emit_pairs_torch`'s grid, which equals the
+    reference's rows (`test_emission_matches_reference`)."""
+    o, d, t_max = (torch.from_numpy(x) for x in _rays(3 * wl.RB + 77, 9))
+    tables = wl.scene_tables(grid)
+    od, tm, _ = wl.prep_rays(o, d, None if kind == "closest" else t_max)
+    texp = wl.scene_exit(tables, od)
+    cap = wl._window(wl._float_bits(texp) | wl._LOWM) if kind == "closest" \
+        else tm
+    items = wl.phases(tables, od, tm)
+    want = ps.emit_pairs_torch(tables, items, od, cap, T_MIN)
+    assert torch.equal(_tile_grid(tables, items, od, cap, T_MIN), want)
+    assert torch.equal(ps.emit_pairs(tables, items, od, cap, T_MIN), want)
+    monkeypatch.setattr(ps, "GRID_CELLS", wl.RB)
+    ranges = ps._grid_ranges(items)
+    assert len(ranges) == 4
+    got = []
+    for b0, sub in ranges:
+        assert sub.seg.dtype == torch.int32 and int(sub.seg[0]) == 0
+        r0, r1 = b0 * wl.RB, (b0 + sub.seg.shape[0] - 1) * wl.RB
+        got.append(ps.emit_pairs(tables, sub, od[:, r0:r1].contiguous(),
+                                 cap[r0:r1].contiguous(), T_MIN))
+    assert torch.equal(torch.cat(got), want)
+    assert 100 < int(want.sum()) < want.numel()
+
+
+def _plain_census(tables, pairs, od, cap, tm, watertight):
+    """pair_census's per-pair and per-warp numbers by a loop over the
+    launch list's chunks, warps and pairs, and the balanced walk played
+    out round by round."""
+    tab = tables.ctab if watertight else tables.bwtab
+
+    def hits(ray, sup, k):
+        rows = (sup * wl.SUPER + k) * 16 + torch.arange(16)
+        return bool(wl._tri_rows(
+            tab[rows][None], od[0:3, ray][None, None],
+            od[3:6, ray][None, None], T_MIN, tm[ray:ray + 1][:, None],
+            watertight)[4].any())
+
+    enters, lanes, unions, walked, rounds, tested = [], [], [], 0, [], 0
+    for f, c in zip(pairs.chunk_first.tolist(), pairs.chunk_count.tolist()):
+        for w0 in range(f, f + c, 32):
+            masks, tasks = [], []
+            for j in range(w0, min(w0 + 32, f + c)):
+                ray, sup = int(pairs.ray[j]), int(pairs.sup[j])
+                enter, _ = wl._fine_cull(tables.cbox3[sup:sup + 1],
+                                         od[:, ray:ray + 1],
+                                         cap[ray:ray + 1], T_MIN)
+                mask = [k for k in range(wl.SUPER) if bool(enter[0, k])]
+                masks.append(mask)
+                if tm is None or not float(tm[ray]) > T_MIN:
+                    continue
+                for k in mask:
+                    walked += 1
+                    if hits(ray, sup, k):
+                        break
+                tasks += [(j, ray, sup, k) for k in mask]
+            enters += [len(m) for m in masks]
+            lanes.append(max(len(m) for m in masks))
+            unions.append(len(set().union(*masks)))
+            done = set()
+            rounds.append(-(-len(tasks) // 32))
+            for r0 in range(0, len(tasks), 32):
+                found = set()
+                for j, ray, sup, k in tasks[r0:r0 + 32]:
+                    if j not in done:
+                        tested += 1
+                        if hits(ray, sup, k):
+                            found.add(j)
+                done |= found
+    out = dict(clusters_per_pair=np.mean(enters), warp_max_lane=np.mean(lanes),
+               warp_union=np.mean(unions), warps=len(lanes))
+    if tm is not None:
+        out.update(any_walked=walked,
+                   any_clusters_per_pair=walked / len(enters),
+                   any_warp_rounds=np.mean(rounds),
+                   any_tested_per_pair=tested / len(enters))
+    return out
+
+
+@pytest.mark.parametrize("kind,watertight", [("closest", False),
+                                             ("any", False), ("any", True)])
+def test_pair_census_matches_plain_loop(grid, kind, watertight):
+    """`tools/pair_ab.py` `pair_census` against a loop over the launch
+    list's warps and their pairs (the fine cull of each pair, its walk up
+    to its first hit, the balanced walk's rounds and tasks), on the small
+    grid's test rays."""
+    from directcomputeraytracing_tpu_torch.tools.pair_ab import pair_census
+
+    o, d, t_max = _torch_rays(seed=2)
+    t_max[::17] = 0.0          # empty windows: no walk
+    tables = wl.scene_tables(grid)
+    od, tm, _ = wl.prep_rays(o, d, None if kind == "closest" else t_max)
+    texp = wl.scene_exit(tables, od)
+    cap = wl._window(wl._float_bits(texp) | wl._LOWM) if kind == "closest" \
+        else tm
+    items = wl.phases(tables, od, tm)
+    cells = ps.emit_pairs(tables, items, od, cap, T_MIN)
+    pairs = ps.pair_list(tables, items, *torch.nonzero(cells, as_tuple=True))
+    got = pair_census(tables, items, pairs, od, cap, T_MIN, o.shape[0],
+                      tm if kind == "any" else None, watertight)
+    want = _plain_census(tables, pairs, od, cap,
+                         tm if kind == "any" else None, watertight)
+    for key, value in want.items():
+        assert got[key] == pytest.approx(value, rel=1e-12), key
+    seg = items.seg.long()
+    assert got["pairs"] == int(cells.sum()) == pairs.ray.shape[0] > 100
+    assert got["items_per_block_max"] == int((seg[1:] - seg[:-1]).max())
+    assert got["set_cell_share"] == pytest.approx(
+        float(cells.double().mean()), rel=1e-12)
+    assert 0 < got["full_chunk_share"] <= 1 or got["pairs"] < 256
+    if kind == "any":
+        assert 0 < got["any_walked"] <= got["any_tested_per_pair"] \
+            * got["pairs"] <= got["clusters_per_pair"] * got["pairs"]
+        assert got["any_rows_per_pair"] == 16 * got["any_tested_per_pair"]
+
+
+@pytest.fixture(scope="module")
+def cuda_tables():
+    """sphere_grid(12, 12)'s tables on the card (512 supers)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    arrays, _ = flatten_scene(sphere_grid(12, 12)[0], torch.device("cuda"))
+    return wl.scene_tables(arrays)
+
+
+def _edge_rays(tables, n, seed):
+    """n rays inside the grid's box (numpy seed), with parked lanes past
+    n, origins on child-box planes, zero direction components, and
+    t_max at, below and on t_min and NaN."""
+    rs = np.random.default_rng(seed)
+    lo, hi = (tables.bounds[i].cpu().numpy() for i in (0, 1))
+    o = rs.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = rs.uniform(0.1, 30.0, n).astype(np.float32)
+    boxes = tables.cbox3.reshape(-1, 8).cpu().numpy()
+    real = boxes[boxes[:, 0] <= boxes[:, 3]]
+    pick = real[rs.integers(0, real.shape[0], n // 8)]
+    on = rs.choice(n, n // 8, replace=False)
+    ax = rs.integers(0, 3, n // 8)
+    o[on, ax] = pick[np.arange(n // 8), ax]          # on a lo plane
+    o[on[::2], ax[::2]] = pick[np.arange(0, n // 8, 2), 3 + ax[::2]]
+    d[rs.choice(n, n // 16, replace=False), rs.integers(0, 3)] = 0.0
+    t_max[::29] = 0.0
+    t_max[1::29] = T_MIN
+    t_max[2::29] = T_MIN / 2
+    t_max[3::29] = np.nan
+    return tuple(torch.from_numpy(x).cuda() for x in (o, d, t_max))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [[0, 1, 37, 16, 0, 5], [0, 0, 1],
+                                    [200, 3, 0, 17]],
+                         ids=["mixed", "sparse", "long"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_emission_matches_twin_on_item_lists(cuda_tables, counts,
+                                                  kind):
+    """The emission kernel against its twin, bit for bit, on item lists
+    of chosen lengths (ray blocks of 0 and 1 items, longer than a slice,
+    n_items not a multiple of the slice), rays with parked lanes, origins
+    on box planes and empty windows."""
+    tables = cuda_tables
+    nb = len(counts)
+    o, d, t_max = _edge_rays(tables, nb * wl.RB - 300, 21)
+    od, tm, _ = wl.prep_rays(o, d, None if kind == "closest" else t_max)
+    texp = wl.scene_exit(tables, od)
+    cap = wl._window(wl._float_bits(texp) | wl._LOWM) if kind == "closest" \
+        else tm
+    # block b's list: the supers its rays enter (the cull's), then others
+    rs = np.random.default_rng(5)
+    cs = tables.sbox.shape[0]
+    real = wl.phases(tables, od, tm)
+    real_blk = ps.item_blocks(real).cpu().numpy()
+    real_sup = real.sup.cpu().numpy()
+    sup = []
+    for b, c in enumerate(counts):
+        mine = real_sup[real_blk == b]
+        rest = np.setdiff1d(np.arange(cs), mine)
+        sup.append(np.concatenate([mine, rs.permutation(rest)])[:c])
+    sup = np.concatenate(sup)
+    seg = np.concatenate([[0], np.cumsum(counts)])
+    items = wl.Items(torch.tensor(seg, dtype=torch.int32, device="cuda"),
+                     torch.tensor(sup, dtype=torch.int32, device="cuda"),
+                     torch.zeros(len(sup), device="cuda"),
+                     torch.tensor(counts, device="cuda") > 0)
+    ps.reset_counters()
+    got = ps.emit_pairs(tables, items, od, cap, T_MIN)
+    torch.cuda.synchronize()
+    assert ps.counters()["pair_emit"] == 1
+    want = ps.emit_pairs_torch(tables, items, od, cap, T_MIN)
+    assert torch.equal(got, want)
+    assert int(want.sum()) > 0
+    with pytest.raises(ValueError):
+        ps.emit_pairs(tables, items, od[:, :-wl.RB].contiguous(),
+                      cap[:-wl.RB].contiguous(), T_MIN)
+
+
+@pytest.mark.cuda
+@TESTS
+def test_cuda_any_sweep_matches_twin_on_chunks(cuda_tables, watertight):
+    """The any-hit kernel against its twin, bit for bit, on pair lists
+    whose supers hold 1, 31, 32, 33, 256 and 300 pairs (chunks of 1-256
+    pairs, halves of a chunk empty or partial), rays with parked lanes,
+    origins on box planes and empty or NaN windows."""
+    tables = cuda_tables
+    sizes = [1, 31, 32, 33, 256, 300]
+    o, d, t_max = _edge_rays(tables, 4 * wl.RB - 100, 22)
+    od, tm, _ = wl.prep_rays(o, d, t_max)
+    # the cull's items whose super the most rays enter, one a size
+    rs = np.random.default_rng(6)
+    real = wl.phases(tables, od, tm)
+    enters = ps.emit_pairs_torch(tables, real, od, tm, T_MIN)
+    top, seen = [], set()
+    for i in torch.argsort(enters.sum(1), descending=True).tolist():
+        if int(real.sup[i]) not in seen and len(top) < len(sizes):
+            top.append(i)
+            seen.add(int(real.sup[i]))
+    top = torch.tensor(sorted(top), device="cuda")
+    blk = ps.item_blocks(real)[top]
+    seg = torch.zeros(od.shape[1] // wl.RB + 1, dtype=torch.int32,
+                      device="cuda")
+    seg[1:] = torch.cumsum(torch.bincount(blk, minlength=seg.shape[0] - 1),
+                           0)
+    items = wl.Items(seg, real.sup[top].contiguous(), real.t_ent[top],
+                     seg[1:] > seg[:-1])
+    enters = enters[top].cpu().numpy()
+    # each item's lanes: the rays that enter its super box first, then
+    # others; the last ray block's item also takes parked lanes
+    it, lane = [], []
+    last = int(blk.max())
+    for i, size in enumerate(rs.permutation(sizes)):
+        inside = np.flatnonzero(enters[i])
+        rest = np.setdiff1d(np.arange(wl.RB), inside)
+        pick = np.concatenate([rs.permutation(inside),
+                               rs.permutation(rest)])[:size]
+        if int(blk[i]) == last and last == od.shape[1] // wl.RB - 1:
+            pick[-4:] = wl.RB - 1 - np.arange(4)
+        it.append(np.full(size, i))
+        lane.append(pick)
+    it, lane = np.concatenate(it), np.concatenate(lane)
+    pairs = ps.pair_list(tables, items, torch.tensor(it, device="cuda"),
+                         torch.tensor(lane, device="cuda"))
+    got_counts = sorted(pairs.chunk_count[pairs.chunk_count > 0].tolist())
+    assert got_counts == sorted([1, 31, 32, 33, 256, 256, 44])
+    want = ps.pair_sweep_any_torch(tables, pairs, od, tm, T_MIN, watertight)
+    ps.reset_counters()
+    got = ps.pair_sweep_any(tables, pairs, od, tm, T_MIN, watertight)
+    torch.cuda.synchronize()
+    assert ps.counters()["pair_sweep_any"] == 1
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < want.numel()
