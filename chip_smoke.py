@@ -16,7 +16,7 @@ any failure exits non-zero:
    and their resident blocks per SM (`warp-resources`), and the same of
    the work list's cull and refine (`cull-ptxas`, `cull-resources`), of
    the dense sweep (`brute-ptxas`, `brute-resources`: resident blocks
-   per SM with a full 2048-row table), of the clustered sweeps
+   per SM with a full 2048-row table), of the clustered cull and sweeps
    (`cluster-resources`) and of the pair kernels (`pair-ptxas`,
    `pair-resources`: the emission and both sweeps);
 2. dense-sweep kernels against their PyTorch twins on the card, Moeller
@@ -118,8 +118,9 @@ any failure exits non-zero:
    1,048,576 shadow rays towards the lamp, 1,048,576 random rays sorted
    by `ray_sort_key`, and the pool-sized (2^18) sorted set. The emission
    grid must equal its twin's on the whole set, the sweeps their twins
-   in every per-pair field on the pairs of 64 spread blocks, and the
-   pair casts `worklist_closest` / `worklist_any` in every hit field on
+   in every per-pair field on the pairs of 64 spread blocks (the closest
+   sweep also `tools/pair_ab.py` `closest_replay`, the model of its
+   dealt tests and replay), and the pair casts `worklist_closest` / `worklist_any` in every hit field on
    the whole set (`iters` at least the work list's); CUDA-event times of
    each step (emission, `nonzero`, the pair list, the sweep, the
    reduction) and of the whole pair, work-list and grouped casts, the
@@ -128,7 +129,9 @@ any failure exits non-zero:
    per ray, pairs per chunk, clusters swept per pair; `pair-census`
    lines, `tools/pair_ab.py` `pair_census`: items per ray block, set
    cells, full chunks, clusters a pair enters, a warp's longest lane and
-   union, and the any-hit walks' clusters and rows per pair);
+   union, the closest walks' clusters swept per pair, longest walk per
+   warp and the rounds and tests of the closest sweep's two schedules,
+   and the any-hit walks' clusters and rows per pair);
 2h. the ray-prep kernel against `prep_rays_torch` on the three 1M-ray
    sets of 2b, the random set in `ray_sort_key` order and a 1M-ray set
    with NaN, inf, zero, +-1e-31, -0.0 and denormal components injected,
@@ -264,8 +267,13 @@ swept (the any-hit sweeps leave their triangle tests out, so theirs are
 lower bounds). Their `bound_ms_block_walk` keeps the count of the first
 designs, which walked the items by 1024-ray blocks: the fine cull of
 every item of the ray's block and, closest, the triangle tests. The
-clustered cull counts FLOPS_INTERVAL operations per (ray block,
-cluster) (`tools/clustered_ab.py` `cast_bounds`). The clustered sweeps
+clustered cull counts what its kernel computes on 2f's camera rays
+(`tools/clustered_ab.py` `cull_bound`): per (ray block, cluster) of a
+block with a reaching ray 10 operations per axis whose direction bounds
+do not span zero and 3 for enter; its `bound_ms_reference` keeps the
+reference's count, FLOPS_INTERVAL (87) per (ray block, cluster), and
+both count 24 bytes a ray, 32 a box and a byte a mask entry. The
+clustered sweeps
 count their warp walks' work, from the census of 2f's cast
 (`clustered_ab.admission_census`): FLOPS_VOTE (26) per slab vote of a
 lane (one per group its block entered, one per masked cluster of each
@@ -1208,7 +1216,7 @@ def phase_clustered_kernels(device):
                     exact.float().sum(1).mean()),
                 spread_clusters_per_block=float(cm_s.float().sum(1).mean()),
                 reaching=float(cl.reach_mask(tables, o, d).float().mean()))
-            bnd = cab.cast_bounds(tables, cmask, gmask, r, ka, cen)
+            bnd = cab.cast_bounds(tables, cmask, gmask, o, d, ka, cen)
             rep = dict(case=name, watertight=wt, rays=r,
                        twin_rays=int(idx.numel()), twin_s=twin_s,
                        cull_diff=cull_diff,
@@ -1308,11 +1316,12 @@ def phase_pair_kernels(device):
             p = pairs.ray.shape[0]
             counts = pairs.chunk_count[pairs.chunk_count > 0].float()
             for wt in (False, True):
-                # the closest cast's census does not depend on the test
+                # the closest cast's census once, with the Baldwin-Weber test
                 if kind == "any" or not wt:
                     census = pair_ab.pair_census(
                         tables, items, pairs, od, cap, t_min, r,
-                        tm if kind == "any" else None, wt)
+                        tm if kind == "any" else None, wt,
+                        texp if kind == "closest" else None)
                     print("pair-census", json.dumps(dict(
                         set=name, kind=kind, watertight=wt, **census)))
                 if kind == "closest":
@@ -1334,6 +1343,10 @@ def phase_pair_kernels(device):
                 ws = twin_fn(tables, sub, od, *args, t_min, wt)
                 if kind == "closest":
                     vs_twin = common.sweep_diffs(ks, ws)
+                    model = pair_ab.closest_replay(tables, sub, od, texp,
+                                                   t_min, wt)
+                    vs_twin.update({f"model_{k}": v for k, v in
+                                    common.sweep_diffs(ks, model).items()})
                     errs["closest"] = max(errs["closest"], *(
                         float((a.float() - b.float()).abs().max())
                         for a, b in zip(ks[1:4], ws[1:4])))
@@ -2267,7 +2280,8 @@ def main():
         row("cluster_cull", cl_src, f"{ref_brute}:338",
             cl_grid["launches"]["cluster_cull"], cl_errs["cull"],
             cl_row["cull_ms"], cl_row["cull_twin_ms"],
-            cl_row["bounds"]["cull"], kernel_ms=cl_row["cull_kernel_ms"]),
+            cl_row["bounds"]["cull"], kernel_ms=cl_row["cull_kernel_ms"],
+            bound_ms_reference=cl_row["bounds"]["cull_reference"][0]),
         row("cluster_closest", cl_src, f"{ref_brute}:425",
             cl_grid["launches"]["cluster_closest"], cl_errs["closest"],
             cl_row["closest_ms"], cl_row["closest_twin_ms"],

@@ -19,7 +19,11 @@ pallas_brute` (`_pad_cluster_tables`, `_cull_masks`, `_exact_masks`,
    misses the reach box, which holds every cluster box, so it enters no
    cluster box and has no hit to lose; it is still swept against what its
    block entered. The reference pads the rays to 8 blocks with zero rays
-   and takes every ray into the bundle.
+   and takes every ray into the bundle. The kernel takes 8 ray blocks a
+   thread block cluster (a box read once for the 8) and computes each
+   axis's interval from 2 products where the reference takes 8 (the same
+   mask byte for byte; proof in csrc/clustered.cu, model in
+   `tools/clustered_ab.py` `interval_enter_signed`).
 2. The sweep. `sweep_closest` / `sweep_any` (kernels `closest_kernel` /
    `any_kernel`, twins `sweep_closest_torch` / `sweep_any_torch`): a ray
    tests the 16 rows of a cluster exactly when its block's mask holds the
@@ -73,9 +77,9 @@ TWIN_PAIRS = 1 << 22     # (ray, row) or (block, cluster) pairs per step
                          # of the twins
 
 _NVCC_EXTRA = ("-fmad=false",)   # round like the twins (see brute.py)
-# the sweeps in `dcrt_cluster_resources` order
-SWEEP_KERNELS = ("closest_moeller", "closest_watertight", "any_moeller",
-                 "any_watertight")
+# the kernels in `dcrt_cluster_resources` order
+CLUSTER_KERNELS = ("cull", "closest_moeller", "closest_watertight",
+                   "any_moeller", "any_watertight")
 _built = None
 _TABLES = WeakIdKeyDictionary()
 
@@ -110,15 +114,15 @@ def bind(lib):
 
 
 def resources():
-    """The sweeps' resources on the current card, per kernel of
-    SWEEP_KERNELS: resident blocks per SM, registers, static shared
+    """The kernels' resources on the current card, per kernel of
+    CLUSTER_KERNELS: resident blocks per SM, registers, static shared
     bytes, local (spill) bytes per thread and threads per block."""
-    out = (ctypes.c_int * (5 * len(SWEEP_KERNELS)))()
+    out = (ctypes.c_int * (5 * len(CLUSTER_KERNELS)))()
     _raise_on(kernels().lib.dcrt_cluster_resources(out), "cluster_resources")
     keys = ("blocks_per_sm", "registers", "static_smem", "local_bytes",
             "threads")
     return {name: dict(zip(keys, out[5 * f:5 * f + 5]))
-            for f, name in enumerate(SWEEP_KERNELS)}
+            for f, name in enumerate(CLUSTER_KERNELS)}
 
 
 # ---------------------------------------------------------------------------

@@ -38,8 +38,12 @@ its own. A cast runs:
    (fine cull of the super's 32 child boxes, nearest-first cluster walk,
    strict packed-key update under the candidate window) from the pair's
    own best bits(texp) | _LOWM, no best carried across supers: packed
-   best, t, u, v, tri, inst, back and clusters swept. Any-hit: the same
-   walk under the window t_max, stopping at the first hit: one byte.
+   best, t, u, v, tri, inst, back and clusters swept (the kernel tests
+   every entered cluster under the pair's initial window, a warp's
+   clusters dealt out 32 a round, and replays the walk from their least
+   keys: the same outputs bit for bit, `tools/pair_ab.py`
+   `closest_replay` models it). Any-hit: the same walk under the window
+   t_max, stopping at the first hit: one byte.
 5. The per-ray reduction, plain PyTorch on the device: best = the least
    pair key of the ray (`scatter_reduce` amin, from bits(texp) | _LOWM);
    the winner is the least grid-order pair whose key equals it. Equal
@@ -174,9 +178,8 @@ def resources():
 
 
 def chunk(device):
-    """Pairs per chunk of the launch list: the closest sweep's block size
-    on a CUDA device (the any-hit sweep takes a chunk in two blocks), the
-    same 256 for the twins."""
+    """Pairs per chunk of the launch list: 256 (each sweep takes a chunk
+    in two CUDA blocks), from the kernels on a CUDA device."""
     return kernels().lib.dcrt_pair_chunk() if device.type == "cuda" else 256
 
 

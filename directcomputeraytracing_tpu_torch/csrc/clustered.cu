@@ -23,21 +23,64 @@
 // origins and directions. A ray block is 1024 consecutive rays; the masks
 // are (n_blocks, Cg) and (n_blocks, Cg / 16) uint8.
 //
-// cull_kernel. Bound: operations, about 90 per (ray block, cluster) pair
-// against 24 bytes per ray and a few per pair of mask. One CUDA block of
-// 1024 threads per ray block. Each thread decides whether its ray can
-// reach the scene: finite, a non-zero direction, and its own slab test
-// enters the reach box (the union of the cluster boxes, widened). The
-// block reduces the min and max of origin and direction per axis over
-// those rays only (warp shuffles, then one warp over shared memory), so
-// that parked lanes (2e9 along +x) and rays past the scene cannot stretch
-// the bundle over the whole scene. Then one thread per (block, cluster)
-// runs the reference's interval test in its order: the 1e-30 nudged
-// reciprocals of the direction endpoints, the eight endpoint products,
-// the `spans` rule, enter = (t_hi >= t_lo) & (t_hi >= 0). A half-warp
-// ballot gives the group mask. Sound: a ray left out of the bounds misses
-// the reach box, so by monotone rounding its slab test misses every
-// cluster box inside it and it has no hit to lose.
+// cull_kernel. Each ray block's bounds are the min and max of origin and
+// direction per axis over its rays that can reach the scene: finite, a
+// non-zero direction, and its own slab test enters the reach box (the
+// union of the cluster boxes, widened), so that parked lanes (2e9 along
+// +x) and rays past the scene cannot stretch the bundle over the whole
+// scene. Sound: a ray left out of the bounds misses the reach box, so by
+// monotone rounding its slab test misses every cluster box inside it and
+// it has no hit to lose. Then each (ray block, cluster) pair runs the
+// reference's interval test: per axis where the bundle's direction does
+// not span zero (`spans`: d_lo <= 0 <= d_hi), the 1e-30 nudged
+// reciprocals i_a, i_b of the direction endpoints, i_lo = min, i_hi =
+// max, the eight products of the numerators n in {b0, b1} - {o_lo, o_hi}
+// with them, ax_lo = their min and ax_hi = their max folded into t_lo
+// and t_hi from -kBig and kBig; enter = (t_hi >= t_lo) & (t_hi >= 0).
+// The first port ran a 1024-thread CUDA block a ray block: each read the
+// whole box table (16k clusters x 32 bytes, 0.5 GB through L2 for 2^20
+// rays) and ran 8 products and 14 min/max an axis a pair, on the ALU
+// pipe that issues at half the FP32 rate. Here:
+// - A cluster of kCullBundles CUDA blocks (thread block cluster, Hopper)
+//   takes kCullBundles consecutive ray blocks. Block y of the cluster
+//   reduces the bounds of ray block 8x + y (a ray a thread, 4 a thread
+//   in all, warp shuffles, then the 8 warps), the cluster meets at a
+//   barrier, and every block reads the 8 bundles' bounds from its peers'
+//   shared memory (distributed shared memory) and derives each axis's
+//   constants once. Block y then takes slice y of the clusters (whole
+//   groups), so a ray is read once and a box once per 8 ray blocks.
+// - A thread takes 4 consecutive clusters at a time: two float4 loads a
+//   box, each box's per-axis min and max corner (bmin, bmax) once, then
+//   each of the 8 bundles against the 4 boxes: the 4 enter bytes as one
+//   32-bit store, the group mask (4 lanes hold a group of 16) from a
+//   ballot.
+// - Per non-spanning axis 2 products and 2 min/max in place of 8 and 14.
+//   Proof. The bundle's d_lo and d_hi are finite (only reaching rays are
+//   in it) and do not span zero, so both are > 0 or both < 0, and so are
+//   i_lo and i_hi: safe_inv keeps the sign and gives a finite non-zero
+//   number (+-1e30 at most). The numerators are finite or +-inf (a
+//   rounded difference of finite numbers may overflow), never NaN, and a
+//   product of one with a finite non-zero i is no NaN either. Rounded
+//   subtraction and multiplication are monotone: n -> n * i does not
+//   fall with n for i > 0 and does not rise for i < 0, and x - y does not
+//   fall with x nor rise with y. So for each i the least of n * i over
+//   the four numerators is e * i with e = min(b0, b1) - o_hi (the least
+//   numerator) where i > 0, and e = max(b0, b1) - o_lo (the greatest)
+//   where i < 0; both i share a sign, so one e serves both, and ax_lo =
+//   fminf(e * i_lo, e * i_hi). Likewise ax_hi = fmaxf(e' * i_lo, e' *
+//   i_hi) with e' the other endpoint. Inverted padding boxes (b0 > b1)
+//   take min(b0, b1) and max(b0, b1), as the eight products do. Every
+//   value is one of the eight products and no NaN is compared, so ax_lo
+//   and ax_hi equal the reference's but for the sign of a zero, and only
+//   the mask, a comparison of them, is an output. A ray block with no
+//   reaching ray (min > max: lo = +inf, hi = -inf) has no numbers to
+//   test; its rows are all zero, as the twin's `lo <= hi` gate makes
+//   them.
+// Bound (tools/clustered_ab.py cull_bound): per (ray block, cluster) of a
+// block with a reaching ray, 10 operations per non-spanning axis (2
+// differences, 4 products and 4 min/max) and 3 for enter, 33 at most
+// where the reference's count is 87 (FLOPS_INTERVAL, kept beside it);
+// 24 bytes a ray, 32 a box and a byte a mask entry moved once.
 //
 // The sweeps' rule (the port's choice: the reference sweeps every cluster
 // of its block's mask). Ray i tests the 16 rows of cluster c exactly when
@@ -95,24 +138,37 @@
 // so the kernels and their PyTorch twins (accel/clustered.py) agree bit
 // for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "worklist.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kRayBlock = 1024;   // rays per mask row (clustered.RAY_BLOCK)
 constexpr int kGroup = 16;        // clusters per group (CLUSTER_GROUP)
 constexpr int kClusterRows = 16;  // rows per cluster (CLUSTER_SIZE)
-constexpr int kWarps = kRayBlock / 32;
+constexpr int kWarps = kRayBlock / 32;   // warps of a ray block
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kCullBundles = 8;   // ray blocks of a thread block cluster
+constexpr int kCullThreads = 256;                        // a cull block's
+constexpr int kCullWarps = kCullThreads / 32;
+constexpr int kCullRays = kRayBlock / kCullThreads;      // rays a thread
+constexpr int kCullBoxes = 4;     // consecutive clusters a thread tests
+constexpr int kCullSpan = kCullThreads * kCullBoxes;     // clusters a pass
+constexpr int kSpans = 0, kPos = 1, kNeg = 2;            // an axis's sign
 constexpr int kSweepThreads = 128;               // threads per CUDA block
 constexpr int kSweepMinBlocks = 8;               // resident per SM
 constexpr int kSweepWarps = kSweepThreads / 32;
 constexpr int kSlot = 3 * kClusterRows;          // float4 of a cluster's rows
 
-static_assert(kWarps == 32, "one warp reduces the per-warp bounds");
+static_assert(kCullBoxes == 4, "a thread's enter bytes are one word");
+static_assert(kGroup % kCullBoxes == 0, "whole groups of lanes");
+static_assert(kCullBundles <= kCullThreads, "a thread reads a bundle");
 static_assert(2 * kGroup == 32, "a group's boxes are a float4 a lane");
 static_assert(kSlot > 32 && kSlot <= 64, "two float4 copies a lane");
 
@@ -153,94 +209,162 @@ __device__ bool reaches(const float v[6], const Reach& box) {
   return t_hi >= t_lo && t_hi >= 0.f;
 }
 
-__global__ void __launch_bounds__(kRayBlock)
+// The min and max of the 12 bounds over a warp (min o, min d, then max
+// o, max d).
+__device__ __forceinline__ void warp_bounds(float b[12]) {
+  for (int off = 16; off > 0; off >>= 1)
+    for (int k = 0; k < 6; ++k) {
+      b[k] = fminf(b[k], __shfl_xor_sync(kFull, b[k], off));
+      b[6 + k] = fmaxf(b[6 + k], __shfl_xor_sync(kFull, b[6 + k], off));
+    }
+}
+
+// One axis of a (ray block, box) pair from the bundle's constants a =
+// (o_lo, o_hi, i_lo, i_hi) and the box's min and max corner: the
+// endpoint numerators by the axis's sign, 2 products each (see the
+// header), folded into the entry and exit.
+template <int kSign>
+__device__ __forceinline__ void axis_fold(const float4& a, float bmin,
+                                          float bmax, float& t_lo,
+                                          float& t_hi) {
+  const float e_lo = kSign == kPos ? bmin - a.y : bmax - a.x;
+  const float e_hi = kSign == kPos ? bmax - a.x : bmin - a.y;
+  t_lo = fmaxf(t_lo, fminf(e_lo * a.z, e_lo * a.w));
+  t_hi = fminf(t_hi, fmaxf(e_hi * a.z, e_hi * a.w));
+}
+
+__global__ void __cluster_dims__(1, kCullBundles, 1)
+    __launch_bounds__(kCullThreads)
 cull_kernel(const float* __restrict__ cbox, int n_clusters,
             const float* __restrict__ o, const float* __restrict__ d,
             int n_rays, Reach reach, unsigned char* __restrict__ cmask,
             unsigned char* __restrict__ gmask) {
-  __shared__ float s_warp[kWarps][12];
-  __shared__ float s_block[12];   // min o, min d, max o, max d
+  __shared__ float s_warp[kCullWarps][12];
+  __shared__ float s_bounds[12];   // this block's ray block: min o, min d,
+                                   // max o, max d
+  __shared__ float4 s_axis[kCullBundles][3];   // o_lo, o_hi, i_lo, i_hi
+  __shared__ int s_sign[kCullBundles][3];      // kSpans, kPos or kNeg
+  __shared__ int s_any[kCullBundles];          // a ray reaches the scene
+  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i = blockIdx.x * kRayBlock + tid;
-  float v[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (i < n_rays) {
-    for (int k = 0; k < 3; ++k) {
-      v[k] = o[3 * i + k];
-      v[3 + k] = d[3 * i + k];
-    }
-  }
-  const bool in = i < n_rays && reaches(v, reach);
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int nb = static_cast<int>((static_cast<long long>(n_rays) +
+                                   kRayBlock - 1) / kRayBlock);
+  const int rb0 = blockIdx.x * kCullBundles;
+  // 1. the bounds of ray block rb0 + rank over its reaching rays
   float b[12];
   for (int k = 0; k < 6; ++k) {
-    b[k] = in ? v[k] : INFINITY;
-    b[6 + k] = in ? v[k] : -INFINITY;
+    b[k] = INFINITY;
+    b[6 + k] = -INFINITY;
   }
-  for (int off = 16; off > 0; off >>= 1)
-    for (int k = 0; k < 6; ++k) {
-      b[k] = fminf(b[k], __shfl_xor_sync(0xffffffffu, b[k], off));
-      b[6 + k] = fmaxf(b[6 + k], __shfl_xor_sync(0xffffffffu, b[6 + k], off));
-    }
+  for (int j = 0; j < kCullRays; ++j) {
+    const long long i = static_cast<long long>(rb0 + rank) * kRayBlock +
+                        j * kCullThreads + tid;
+    float v[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (i < n_rays)
+      for (int k = 0; k < 3; ++k) {
+        v[k] = __ldg(o + 3 * i + k);
+        v[3 + k] = __ldg(d + 3 * i + k);
+      }
+    if (i < n_rays && reaches(v, reach))
+      for (int k = 0; k < 6; ++k) {
+        b[k] = fminf(b[k], v[k]);
+        b[6 + k] = fmaxf(b[6 + k], v[k]);
+      }
+  }
+  warp_bounds(b);
   if (lane == 0)
     for (int k = 0; k < 12; ++k) s_warp[warp][k] = b[k];
   __syncthreads();
-  if (warp == 0) {
-    for (int k = 0; k < 12; ++k) b[k] = s_warp[lane][k];
-    for (int off = 16; off > 0; off >>= 1)
-      for (int k = 0; k < 6; ++k) {
-        b[k] = fminf(b[k], __shfl_xor_sync(0xffffffffu, b[k], off));
-        b[6 + k] = fmaxf(b[6 + k],
-                         __shfl_xor_sync(0xffffffffu, b[6 + k], off));
-      }
-    if (lane == 0)
-      for (int k = 0; k < 12; ++k) s_block[k] = b[k];
+  if (tid < 12) {
+    float x = s_warp[0][tid];
+    for (int w = 1; w < kCullWarps; ++w)
+      x = tid < 6 ? fminf(x, s_warp[w][tid]) : fmaxf(x, s_warp[w][tid]);
+    s_bounds[tid] = x;
   }
-  __syncthreads();
-  // no ray of the block reaches the scene: min > max, nothing is entered
-  const bool any = s_block[0] <= s_block[6];
-  bool spans[3];
-  float o_lo[3], o_hi[3], i_lo[3], i_hi[3];
-  for (int ax = 0; ax < 3; ++ax) {
-    o_lo[ax] = s_block[ax];
-    o_hi[ax] = s_block[6 + ax];
-    const float d_lo = s_block[3 + ax], d_hi = s_block[9 + ax];
-    spans[ax] = d_lo <= 0.f && d_hi >= 0.f;
-    const float i_a = safe_inv(d_lo), i_b = safe_inv(d_hi);
-    i_lo[ax] = fminf(i_a, i_b);
-    i_hi[ax] = fmaxf(i_a, i_b);
-  }
-  const int n_groups = n_clusters / kGroup;
-  for (int base = 0; base < n_clusters; base += kRayBlock) {
-    const int c = base + tid;
-    bool enter = false;
-    if (any && c < n_clusters) {
-      float t_lo = -kBig, t_hi = kBig;
-      for (int ax = 0; ax < 3; ++ax) {
-        if (spans[ax]) continue;
-        const float b0 = cbox[8 * c + ax], b1 = cbox[8 * c + 3 + ax];
-        const float n0_lo = b0 - o_hi[ax], n0_hi = b0 - o_lo[ax];
-        const float n1_lo = b1 - o_hi[ax], n1_hi = b1 - o_lo[ax];
-        const float cand[8] = {n0_lo * i_lo[ax], n0_lo * i_hi[ax],
-                               n0_hi * i_lo[ax], n0_hi * i_hi[ax],
-                               n1_lo * i_lo[ax], n1_lo * i_hi[ax],
-                               n1_hi * i_lo[ax], n1_hi * i_hi[ax]};
-        float ax_lo = cand[0], ax_hi = cand[0];
-        for (int k = 1; k < 8; ++k) {
-          ax_lo = fminf(ax_lo, cand[k]);
-          ax_hi = fmaxf(ax_hi, cand[k]);
-        }
-        t_lo = fmaxf(t_lo, ax_lo);
-        t_hi = fminf(t_hi, ax_hi);
-      }
-      enter = t_hi >= t_lo && t_hi >= 0.f;
+  cluster.sync();   // every block's bounds are written
+  // each bundle's axis constants, from its block's shared memory
+  if (tid < kCullBundles) {
+    const float* pb = cluster.map_shared_rank(s_bounds, tid);
+    float lo[6], hi[6];
+    for (int k = 0; k < 6; ++k) {
+      lo[k] = pb[k];
+      hi[k] = pb[6 + k];
     }
-    // n_clusters is a multiple of 16: a half-warp is one group, all in
-    // range or all out
-    const unsigned bits = __ballot_sync(0xffffffffu, enter);
-    if (c < n_clusters) {
-      cmask[static_cast<size_t>(blockIdx.x) * n_clusters + c] = enter;
-      if ((lane & 15) == 0)
-        gmask[static_cast<size_t>(blockIdx.x) * n_groups + c / kGroup] =
-            ((bits >> lane) & 0xffffu) != 0;
+    // no ray of the block reaches the scene: min > max, nothing entered
+    s_any[tid] = lo[0] <= hi[0];
+    for (int ax = 0; ax < 3; ++ax) {
+      const float d_lo = lo[3 + ax], d_hi = hi[3 + ax];
+      const float i_a = safe_inv(d_lo), i_b = safe_inv(d_hi);
+      s_axis[tid][ax] =
+          make_float4(lo[ax], hi[ax], fminf(i_a, i_b), fmaxf(i_a, i_b));
+      s_sign[tid][ax] = d_lo <= 0.f && d_hi >= 0.f ? kSpans
+                        : d_lo > 0.f               ? kPos
+                                                   : kNeg;
+    }
+  }
+  cluster.sync();   // the peers' bounds are read; the constants visible
+  // 2. slice `rank` of the clusters (whole groups) against the bundles
+  const int n_groups = n_clusters / kGroup;
+  const int per = (n_groups + kCullBundles - 1) / kCullBundles * kGroup;
+  const int c_lo = rank * per, c_hi = min(n_clusters, c_lo + per);
+  const int n_bund = min(kCullBundles, nb - rb0);
+  const float4* box4 = reinterpret_cast<const float4*>(cbox);
+  // a warp's clusters are consecutive, so its loop is uniform
+  for (int cw = c_lo + warp * 32 * kCullBoxes; cw < c_hi; cw += kCullSpan) {
+    const int c0 = cw + lane * kCullBoxes;
+    const bool in = c0 < c_hi;   // all 4 lanes of a group alike
+    float bmin[kCullBoxes][3], bmax[kCullBoxes][3];
+#pragma unroll
+    for (int k = 0; k < kCullBoxes; ++k) {
+      // [lo xyz, hi x], [hi yz, 0 0]
+      float4 p = make_float4(0.f, 0.f, 0.f, 0.f), q = p;
+      if (in) {
+        p = __ldg(box4 + 2 * static_cast<size_t>(c0 + k));
+        q = __ldg(box4 + 2 * static_cast<size_t>(c0 + k) + 1);
+      }
+      bmin[k][0] = fminf(p.x, p.w);
+      bmax[k][0] = fmaxf(p.x, p.w);
+      bmin[k][1] = fminf(p.y, q.x);
+      bmax[k][1] = fmaxf(p.y, q.x);
+      bmin[k][2] = fminf(p.z, q.y);
+      bmax[k][2] = fmaxf(p.z, q.y);
+    }
+    for (int bu = 0; bu < n_bund; ++bu) {
+      unsigned word = 0u;
+      if (s_any[bu] && in) {
+        float t_lo[kCullBoxes], t_hi[kCullBoxes];
+#pragma unroll
+        for (int k = 0; k < kCullBoxes; ++k) {
+          t_lo[k] = -kBig;
+          t_hi[k] = kBig;
+        }
+#pragma unroll
+        for (int ax = 0; ax < 3; ++ax) {
+          const int sign = s_sign[bu][ax];   // uniform: no divergence
+          const float4 a = s_axis[bu][ax];
+          if (sign == kPos) {
+#pragma unroll
+            for (int k = 0; k < kCullBoxes; ++k)
+              axis_fold<kPos>(a, bmin[k][ax], bmax[k][ax], t_lo[k], t_hi[k]);
+          } else if (sign == kNeg) {
+#pragma unroll
+            for (int k = 0; k < kCullBoxes; ++k)
+              axis_fold<kNeg>(a, bmin[k][ax], bmax[k][ax], t_lo[k], t_hi[k]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kCullBoxes; ++k)
+          if (t_hi[k] >= t_lo[k] && t_hi[k] >= 0.f) word |= 1u << (8 * k);
+      }
+      const unsigned groups = __ballot_sync(kFull, word != 0u);
+      if (in) {
+        const size_t row = static_cast<size_t>(rb0 + bu);
+        *reinterpret_cast<unsigned*>(cmask + row * n_clusters + c0) = word;
+        if (lane % (kGroup / kCullBoxes) == 0)
+          gmask[row * n_groups + c0 / kGroup] =
+              ((groups >> lane) & 0xfu) != 0u;
+      }
     }
   }
 }
@@ -487,8 +611,9 @@ inline bool whole_groups(int n_clusters) {
 
 // C interface (ctypes). Pointers are device pointers; `stream` is a
 // cudaStream_t; n_clusters is Cg, a multiple of 16. Each returns
-// cudaGetLastError() after the launch; the sweeps return
-// cudaErrorInvalidValue, and launch nothing, for a Cg they cannot take.
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue, and
+// launches nothing, for a Cg it cannot take (the cull also for a cmask
+// that is not 4-byte aligned).
 
 extern "C" int dcrt_cluster_cull(const float* cbox, int n_clusters,
                                  const float* o, const float* d, int n_rays,
@@ -496,10 +621,15 @@ extern "C" int dcrt_cluster_cull(const float* cbox, int n_clusters,
                                  float hi_x, float hi_y, float hi_z,
                                  unsigned char* cmask, unsigned char* gmask,
                                  void* stream) {
+  if (!whole_groups(n_clusters) || reinterpret_cast<uintptr_t>(cmask) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays > 0) {
     const Reach reach{{lo_x, lo_y, lo_z}, {hi_x, hi_y, hi_z}};
-    const dim3 grid((n_rays + kRayBlock - 1) / kRayBlock);
-    cull_kernel<<<grid, kRayBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+    const long long nb = (n_rays + kRayBlock - 1LL) / kRayBlock;
+    const dim3 grid(static_cast<unsigned>((nb + kCullBundles - 1) /
+                                          kCullBundles),
+                    kCullBundles);
+    cull_kernel<<<grid, kCullThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         cbox, n_clusters, o, d, n_rays, reach, cmask, gmask);
   }
   return static_cast<int>(cudaGetLastError());
@@ -551,28 +681,48 @@ extern "C" int dcrt_cluster_any(const float* rows, const float* cbox,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The sweeps' resources on this card, five ints per kernel in the order
-// closest Moeller, closest watertight, any-hit Moeller, any-hit
+// The kernels' resources on this card, five ints per kernel in the order
+// cull, closest Moeller, closest watertight, any-hit Moeller, any-hit
 // watertight: resident blocks per SM, registers, static shared bytes,
-// local (spill) bytes per thread, threads per block.
+// local (spill) bytes per thread, threads per block. The cull launches
+// clusters of kCullBundles blocks: its resident blocks per SM are the
+// card's most active clusters times kCullBundles over the SM count,
+// rounded down.
 extern "C" int dcrt_cluster_resources(int* out) {
-  constexpr int kFns = 4;
+  constexpr int kFns = 5;
   const void* fns[kFns] = {
+      reinterpret_cast<const void*>(cull_kernel),
       reinterpret_cast<const void*>(closest_kernel<Moeller>),
       reinterpret_cast<const void*>(closest_kernel<Watertight>),
       reinterpret_cast<const void*>(any_kernel<Moeller>),
       reinterpret_cast<const void*>(any_kernel<Watertight>)};
+  const int threads[kFns] = {kCullThreads, kSweepThreads, kSweepThreads,
+                             kSweepThreads, kSweepThreads};
   for (int f = 0; f < kFns; ++f) {
     cudaFuncAttributes a;
     cudaError_t err;
-    if ((err = cudaFuncGetAttributes(&a, fns[f])) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             out + 5 * f, fns[f], kSweepThreads, 0)) != cudaSuccess)
+    if ((err = cudaFuncGetAttributes(&a, fns[f])) != cudaSuccess)
       return static_cast<int>(err);
+    if (f == 0) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(1, kCullBundles);
+      cfg.blockDim = dim3(kCullThreads);
+      int clusters = 0, dev = 0, sms = 1;
+      if ((err = cudaGetDevice(&dev)) == cudaSuccess &&
+          (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev)) == cudaSuccess &&
+          (err = cudaOccupancyMaxActiveClusters(&clusters, fns[f], &cfg)) ==
+              cudaSuccess)
+        out[0] = clusters * kCullBundles / sms;
+    } else {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 5 * f, fns[f],
+                                                          threads[f], 0);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
     out[5 * f + 1] = a.numRegs;
     out[5 * f + 2] = static_cast<int>(a.sharedSizeBytes);
     out[5 * f + 3] = static_cast<int>(a.localSizeBytes);
-    out[5 * f + 4] = kSweepThreads;
+    out[5 * f + 4] = threads[f];
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -50,19 +50,59 @@
 // super) and cuts each super's run into chunks of at most kPairThreads
 // pairs: (super, first pair, count).
 //
-// pair_closest_kernel: one CUDA block of kPairThreads threads sweeps one
-// chunk, one pair per thread. The block stages the super's 32 child boxes
-// (1 KiB) and, when the chunk holds at least kStageMin pairs, its 512 slab
-// rows (32 KiB Baldwin-Weber, 26 KiB raw vertices) in shared memory, so
-// that one load of the super's tables serves the whole chunk; smaller
-// chunks read the rows through the read-only cache. Each thread then runs
-// the work list's per-ray walk (worklist.cuh, shared with worklist.cu)
-// from its own best, bits(texp) | kLowM: the fine cull and the walk use
-// the candidate window of that best, so that the least packed key over a
-// ray's pairs is the work list's hit bit for bit (accel/pairsweep.py).
-// Bound: FP32 ALU in the fine cull (32 slab tests of ~20 operations a
-// pair) and the triangle tests (16 a swept cluster, 31 operations
-// Baldwin-Weber, ~45 watertight), and the latency of the rows.
+// pair_closest_kernel. The first port ran a 256-thread CUDA block a
+// chunk, a pair a thread: it copied the super's 512 slab rows (32 KiB)
+// into shared memory behind a barrier when the chunk held at least 32
+// pairs, kept the 32 entry distances of its fine cull in registers (100
+// of them: 2 blocks, 16 warps an SM), and each lane walked its own
+// clusters nearest first, so that a warp lasted as long as its longest
+// lane (2.2-2.5 clusters where a pair enters about 1.0) and lanes testing
+// different clusters read row k of each at a 1 KiB stride (one bank).
+// Here it takes pair_any_kernel's shape: kSweepThreads threads a half
+// chunk (blockIdx.y), a pair a lane, only the 32 child boxes staged. Each
+// lane's fine cull (fine_mask, the any-hit sweep's, under its initial
+// window w0 = window(bits(texp) | kLowM)) gives a 32-bit mask. The warp
+// deals its (lane, entered cluster) tasks out 32 a round
+// (dealt_keys): each lane tests one task's 16 rows through the read-only
+// cache with the ray of the task's lane under that lane's w0 and writes
+// the least packed key it finds (INT_MAX: none) into the warp's table
+// keys (shared memory, a column a lane: the lane reads only its own
+// bank). Then each lane replays the nearest-first walk alone (replay),
+// taking its entered children's clamped entry distances tl from the
+// staged boxes once more (entry): it pops its entered clusters by tl,
+// lowest child on a tie, stops at the first whose tl is not below the
+// window of its best, counts each popped cluster into iters, and takes
+// a cluster's key where it is strictly below its best. One more test of
+// the winning row gives its t, u, v and side. Every entered cluster is tested, also those beyond the point
+// where the walk stops (schedule (a) of tools/pair_ab.py pair_census;
+// dealing a pair's k-th nearest cluster only after its (k-1)-th, schedule
+// (b), prunes as the walk does but takes as many rounds as the longest
+// walk in the warp).
+// Why the replay is worklist.cuh walk_closest bit for bit. Let B be the
+// best when the walk pops a cluster and W = window(B) (W <= w0: B only
+// falls). The walk tests the cluster under W and takes the least key of
+// its rows that hit in [t_min, W) if that is below B; the replay takes K0,
+// the least key under w0, if that is below B. A test's values t, u, v and
+// side do not depend on its t_max; only its verdict does, through t <
+// t_max. Where B >= 0 (as an int: texp >= 0) and W is a number, W > 0 and
+// the float order of non-negative numbers is their bits' order: a row
+// with t >= W has bits(t) >= (B | kLowM) + 1, whose low 9 bits are 0, so
+// its key is at least (B | kLowM) + 1 > B; a row with t < W has bits(t)
+// <= B | kLowM or negative bits (t < 0, or -0), so its key is at most B |
+// kLowM. So if K0's row has t < W, it hits under W too and is the least
+// key there (the rows that hit under W hit under w0); else every row that
+// hits under w0 has t >= W, none hits under W, the walk finds no
+// candidate, and K0 > B is not taken either. Both take the same key. Where
+// B < 0 (texp < 0 or -0) W < 0 <= tl and neither pops a cluster; where W
+// is NaN (texp NaN or +inf) neither enters one. So best, the window, the
+// order of the pops, the stop and iters run the same, and the winning row
+// is the same, whose test values the last test reproduces. tl: the twin's
+// clamped entry is fmaxf(t_lo, 0) with t_lo = max(-kBig, x) where x is no
+// NaN and -kBig where it is, so fmaxf(x, 0), which the fold leaves, is
+// the same number but for the sign of a zero; tl is only compared.
+// Bound: FP32 ALU in the fine cull (32 slab tests a pair) and the tests
+// of the entered clusters (16 a cluster), and the latency of their rows
+// (L2 / L1: a super's 32 KiB serves its chunks).
 //
 // pair_any_kernel. A pair enters about one of its super's 32 clusters,
 // and a warp's 32 pairs about 6-7 together (tools/pair_ab.py
@@ -71,7 +111,7 @@
 // wait for it at a barrier, holds 33 KiB of shared memory per 256-thread
 // block, and lanes that test different clusters read row k of each at a
 // 1 KiB stride: one shared-memory bank, serialised. Here a CUDA block of
-// kAnyThreads threads takes half a chunk (blockIdx.y), a pair a lane,
+// kSweepThreads threads takes half a chunk (blockIdx.y), a pair a lane,
 // stages only the super's 32 child boxes (1 KiB, read by all lanes at the
 // same address: a broadcast), and each lane runs its own fine cull (the
 // rule of worklist.cuh child_enter under t_max, folded: enters_fold) into
@@ -102,25 +142,25 @@ namespace {
 
 using dcrt::Best;
 using dcrt::kCluster;
+using dcrt::kLowM;
 using dcrt::kSuper;
 using dcrt::kSuperRows;
 using dcrt::RayInv;
 
-constexpr int kPairThreads = 256;   // the largest chunk: pairs per block
-constexpr int kStageMin = 32;       // pairs from which a chunk stages rows
+constexpr int kPairThreads = 256;   // the largest chunk: pairs per chunk
 constexpr int kRayBlock = 1024;     // rays per ray block (worklist.RB)
 constexpr int kEmitThreads = 256;   // threads of an emission block
 constexpr int kEmitLanes = kRayBlock / kEmitThreads;   // lanes a thread
 constexpr int kEmitSlice = 16;      // items whose boxes are staged at once
-constexpr int kAnyThreads = 128;    // threads of an any-hit block
-constexpr int kAnyHalves = kPairThreads / kAnyThreads;   // blocks a chunk
-constexpr int kAnyWarps = kAnyThreads / 32;
+constexpr int kSweepThreads = 128;  // threads of a sweep block
+constexpr int kHalves = kPairThreads / kSweepThreads;   // blocks a chunk
+constexpr int kSweepWarps = kSweepThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kEmitLanes == 4, "a thread stores its lanes' bytes as a word");
 static_assert(2 * kEmitSlice <= kEmitThreads, "a thread stages a half box");
-static_assert(2 * kSuper <= kAnyThreads, "a thread stages a half box");
-static_assert(kPairThreads % kAnyThreads == 0, "whole halves of a chunk");
+static_assert(2 * kSuper <= kSweepThreads, "a thread stages a half box");
+static_assert(kPairThreads % kSweepThreads == 0, "whole halves of a chunk");
 static_assert(kCluster % 4 == 0, "a cluster's rows four at a time");
 
 // Component l of v (l a constant after unrolling).
@@ -168,12 +208,15 @@ __device__ __forceinline__ float cap_below_big(float cap) {
   return fminf(cap, __int_as_float(__float_as_int(dcrt::kBig) + 1));
 }
 
-__device__ __forceinline__ bool enters_fold(const RayInv& q, float lx,
-                                            float ly, float lz, float hx,
-                                            float hy, float hz, float cap_b,
-                                            float t_floor) {
+// The fold's slab values of a ray and a box: x = max over the axes of
+// fminf(a_k, b_k), y = min of fmaxf(a_k, b_k) (no clamps).
+__device__ __forceinline__ void slab_fold(const RayInv& q, float lx,
+                                          float ly, float lz, float hx,
+                                          float hy, float hz, float& x,
+                                          float& y) {
   float a = (lx - q.r.ox) * q.ix, b = (hx - q.r.ox) * q.ix;
-  float x = fminf(a, b), y = fmaxf(a, b);
+  x = fminf(a, b);
+  y = fmaxf(a, b);
   a = (ly - q.r.oy) * q.iy;
   b = (hy - q.r.oy) * q.iy;
   x = fmaxf(x, fminf(a, b));
@@ -182,7 +225,20 @@ __device__ __forceinline__ bool enters_fold(const RayInv& q, float lx,
   b = (hz - q.r.oz) * q.iz;
   x = fmaxf(x, fminf(a, b));
   y = fminf(y, fmaxf(a, b));
+}
+
+__device__ __forceinline__ bool fold_rule(float x, float y, float cap_b,
+                                          float t_floor) {
   return !(y < x) && !(y < t_floor) && !(x >= cap_b);
+}
+
+__device__ __forceinline__ bool enters_fold(const RayInv& q, float lx,
+                                            float ly, float lz, float hx,
+                                            float hy, float hz, float cap_b,
+                                            float t_floor) {
+  float x, y;
+  slab_fold(q, lx, ly, lz, hx, hy, hz, x, y);
+  return fold_rule(x, y, cap_b, t_floor);
 }
 
 __global__ void __launch_bounds__(kEmitThreads)
@@ -246,66 +302,14 @@ emit_kernel(const int* __restrict__ seg, const int* __restrict__ item_sup,
   }
 }
 
-// The chunk's super tables: its child boxes always, its slab rows when
-// the chunk has at least kStageMin pairs (returns whether it staged them).
-template <class Tri>
-__device__ __forceinline__ bool stage_super(const float* cbox,
-                                            const float* stab, int sup,
-                                            int n, float4* boxes,
-                                            float4* rows) {
-  constexpr int kRow4 = kSuperRows * Tri::kCols / 4;
-  dcrt::stage_boxes(cbox, sup, boxes);
-  const bool staged = n >= kStageMin;
-  if (staged)
-    for (int k = threadIdx.x; k < kRow4; k += blockDim.x)
-      rows[k] = __ldg(reinterpret_cast<const float4*>(stab) + k);
-  __syncthreads();
-  return staged;
-}
-
-template <class Tri>
-__global__ void __launch_bounds__(kPairThreads)
-pair_closest_kernel(const int* __restrict__ chunk_sup,
-                    const int* __restrict__ chunk_first,
-                    const int* __restrict__ chunk_count,
-                    const int* __restrict__ pair_ray,
-                    const float* __restrict__ cbox,
-                    const float* __restrict__ tab,
-                    const float* __restrict__ od,
-                    const float* __restrict__ texp, int rp, float t_min,
-                    dcrt::ClosestOut out) {
-  __shared__ float4 boxes[2 * kSuper];
-  __shared__ float4 rows[kSuperRows * Tri::kCols / 4];
-  const int n = chunk_count[blockIdx.x];
-  if (n == 0) return;   // a spare entry of the launch list (whole block)
-  const int sup = chunk_sup[blockIdx.x];
-  const float* stab = tab + static_cast<size_t>(sup) * kSuperRows * Tri::kCols;
-  const bool staged = stage_super<Tri>(cbox, stab, sup, n, boxes, rows);
-  if (static_cast<int>(threadIdx.x) >= n) return;
-  const size_t p = static_cast<size_t>(chunk_first[blockIdx.x]) + threadIdx.x;
-  const int ray = pair_ray[p];
-  const RayInv q = dcrt::load_od(od, rp, ray);
-  const typename Tri::Pre pre = Tri::prepare(q.r);
-  Best s = dcrt::start_best(texp[ray]);
-  float tl[kSuper];
-  const unsigned mask = dcrt::fine_cull(q, boxes, dcrt::window(s.best),
-                                        t_min, tl);
-  if (staged)
-    dcrt::walk_closest<Tri, false>(q.r, pre,
-                                   reinterpret_cast<const float*>(rows), 0,
-                                   t_min, tl, mask, s);
-  else
-    dcrt::walk_closest<Tri, true>(q.r, pre, stab, 0, t_min, tl, mask, s);
-  dcrt::store_soup<Tri>(out, p, stab, s, s.row);
-}
-
-// The any-hit fine cull: the children whose box the ray enters before
-// t_max, in front of t_min (worklist.cuh child_enter's rule, folded; the
-// caller clears a lane where lane_open fails).
-__device__ __forceinline__ unsigned any_mask(const RayInv& q,
-                                             const float4* boxes,
-                                             float t_max, float t_min) {
-  const float cap_b = cap_below_big(t_max), t_floor = fmaxf(t_min, 0.f);
+// The fine cull of both sweeps: the children whose box the ray enters
+// before cap (the any-hit sweep's t_max, the closest sweep's initial
+// window), in front of t_min (worklist.cuh child_enter's rule, folded;
+// the caller clears a lane where lane_open fails).
+__device__ __forceinline__ unsigned fine_mask(const RayInv& q,
+                                              const float4* boxes, float cap,
+                                              float t_min) {
+  const float cap_b = cap_below_big(cap), t_floor = fmaxf(t_min, 0.f);
   unsigned mask = 0u;
 #pragma unroll
   for (int c = 0; c < kSuper; ++c) {
@@ -338,54 +342,74 @@ __device__ __forceinline__ bool cluster_hit(const dcrt::Ray& r,
   return hit;
 }
 
-// The balanced walk: the warp's (lane, entered cluster) tasks, lane-major
-// (lane l's start at excl, the exclusive prefix of the lanes' counts; the
-// last lane's inclusive prefix is the total), 32 a round, each lane
-// testing one task's 16 rows with the ray of the task's lane (by
-// shuffles) and recording a hit in the warp's word of `hits`; a task whose
-// lane has a hit already is skipped. Returns this lane's occlusion.
-template <class Tri>
-__device__ __forceinline__ bool balanced_walk(const RayInv& q, float t_max,
-                                              unsigned mask, const float* stab,
-                                              float t_min,
-                                              volatile unsigned* hits) {
+// The warp's (lane, entered cluster) tasks, lane-major: lane l's start
+// at the exclusive prefix of the lanes' counts of set bits of mask (the
+// return value); total is the count over the warp.
+__device__ __forceinline__ int task_starts(unsigned mask, int& total) {
   const int lane = threadIdx.x & 31;
   int incl = __popc(mask);
   for (int o = 1; o < 32; o <<= 1) {
     const int v = __shfl_up_sync(kFull, incl, o);
     if (lane >= o) incl += v;
   }
-  const int excl = incl - __popc(mask);
-  const int total = __shfl_sync(kFull, incl, 31);
+  total = __shfl_sync(kFull, incl, 31);
+  return incl - __popc(mask);
+}
+
+// Task t's lane o (the last whose tasks start at or before t) and its
+// rank k among that lane's tasks (all lanes, converged).
+__device__ __forceinline__ int task_lane(int t, int excl, int& k) {
+  int o = 0;
+  for (int step = 16; step; step >>= 1)
+    if (__shfl_sync(kFull, excl, o + step) <= t) o += step;
+  k = t - __shfl_sync(kFull, excl, o);
+  return o;
+}
+
+// The cluster of a lane's k-th task: its mask's k-th set bit.
+__device__ __forceinline__ int kth_cluster(unsigned m, int k) {
+  for (int i = 0; i < k; ++i) m &= m - 1;
+  return __ffs(m) - 1;
+}
+
+// Lane o's ray, by shuffles (all lanes, converged).
+__device__ __forceinline__ dcrt::Ray ray_of(const dcrt::Ray& r, int o) {
+  return dcrt::Ray{__shfl_sync(kFull, r.ox, o), __shfl_sync(kFull, r.oy, o),
+                   __shfl_sync(kFull, r.oz, o), __shfl_sync(kFull, r.dx, o),
+                   __shfl_sync(kFull, r.dy, o), __shfl_sync(kFull, r.dz, o)};
+}
+
+// The balanced walk: the warp's tasks (task_starts) 32 a round, each
+// lane testing one task's 16 rows with the ray of the task's lane and
+// recording a hit in the warp's word of `hits`; a task whose lane has a
+// hit already is skipped. Returns this lane's occlusion.
+template <class Tri>
+__device__ __forceinline__ bool balanced_walk(const RayInv& q, float t_max,
+                                              unsigned mask, const float* stab,
+                                              float t_min,
+                                              volatile unsigned* hits) {
+  const int lane = threadIdx.x & 31;
+  int total;
+  const int excl = task_starts(mask, total);
   if (lane == 0) *hits = 0u;
   __syncwarp();
   for (int t = lane; t - lane < total; t += 32) {
-    // the task's lane: the last whose tasks start at or before t
-    int o = 0;
-    for (int step = 16; step; step >>= 1)
-      if (__shfl_sync(kFull, excl, o + step) <= t) o += step;
-    const int k = t - __shfl_sync(kFull, excl, o);
-    unsigned m = __shfl_sync(kFull, mask, o);
-    const dcrt::Ray r{__shfl_sync(kFull, q.r.ox, o),
-                      __shfl_sync(kFull, q.r.oy, o),
-                      __shfl_sync(kFull, q.r.oz, o),
-                      __shfl_sync(kFull, q.r.dx, o),
-                      __shfl_sync(kFull, q.r.dy, o),
-                      __shfl_sync(kFull, q.r.dz, o)};
+    int k;
+    const int o = task_lane(t, excl, k);
+    const unsigned m = __shfl_sync(kFull, mask, o);
+    const dcrt::Ray r = ray_of(q.r, o);
     const float tmax_o = __shfl_sync(kFull, t_max, o);
-    if (t < total && !((*hits >> o) & 1u)) {
-      for (int i = 0; i < k; ++i) m &= m - 1;   // its k-th cluster
-      if (cluster_hit<Tri>(r, Tri::prepare(r), stab,
-                           (__ffs(m) - 1) * kCluster, t_min, tmax_o))
-        atomicOr(const_cast<unsigned*>(hits), 1u << o);
-    }
+    if (t < total && !((*hits >> o) & 1u) &&
+        cluster_hit<Tri>(r, Tri::prepare(r), stab,
+                         kth_cluster(m, k) * kCluster, t_min, tmax_o))
+      atomicOr(const_cast<unsigned*>(hits), 1u << o);
     __syncwarp();
   }
   return (*hits >> lane) & 1u;
 }
 
 template <class Tri>
-__global__ void __launch_bounds__(kAnyThreads)
+__global__ void __launch_bounds__(kSweepThreads)
 pair_any_kernel(const int* __restrict__ chunk_sup,
                 const int* __restrict__ chunk_first,
                 const int* __restrict__ chunk_count,
@@ -394,9 +418,9 @@ pair_any_kernel(const int* __restrict__ chunk_sup,
                 const float* __restrict__ od, const float* __restrict__ tm,
                 int rp, float t_min, unsigned char* __restrict__ out_occ) {
   __shared__ float4 boxes[2 * kSuper];
-  __shared__ unsigned hits[kAnyWarps];
+  __shared__ unsigned hits[kSweepWarps];
   const int n = chunk_count[blockIdx.x];
-  const int base = blockIdx.y * kAnyThreads;   // this block's half
+  const int base = blockIdx.y * kSweepThreads;   // this block's half
   if (base >= n) return;                       // whole block
   const int sup = chunk_sup[blockIdx.x];
   const float* stab = tab + static_cast<size_t>(sup) * kSuperRows * Tri::kCols;
@@ -412,10 +436,144 @@ pair_any_kernel(const int* __restrict__ chunk_sup,
   const float t_max = tm[ray];
   // an empty window holds no hit: such a lane is done from the start
   const bool open = live && t_max > t_min && lane_open(t_max, t_min);
-  const unsigned mask = open ? any_mask(q, boxes, t_max, t_min) : 0u;
+  const unsigned mask = open ? fine_mask(q, boxes, t_max, t_min) : 0u;
   const bool occluded =
       balanced_walk<Tri>(q, t_max, mask, stab, t_min, hits + warp);
   if (live) out_occ[p] = occluded;
+}
+
+// The least packed key of child c's 16 rows of tab that hit in [t_min,
+// t_max) (worklist.cuh test_cluster's candidate), INT_MAX if none: the
+// rows through the read-only cache four at a time.
+template <class Tri>
+__device__ __forceinline__ int cluster_key(const dcrt::Ray& r,
+                                           const typename Tri::Pre& pre,
+                                           const float* __restrict__ tab,
+                                           int c, float t_min, float t_max) {
+  int cand = INT_MAX;
+#pragma unroll 4
+  for (int k = 0; k < kCluster; ++k) {
+    dcrt::Hit h;
+    if (Tri::template test<true>(r, pre, tab, c * kCluster + k, t_min, t_max,
+                                 h))
+      cand = min(cand, (__float_as_int(h.t) & ~kLowM) | ((c << 4) | k));
+  }
+  return cand;
+}
+
+// The dealt tests: the warp's (lane, entered cluster) tasks 32 a round,
+// each lane testing one task's cluster with the ray and the initial
+// window w0 of the task's lane o and writing its key to keys[c][o].
+template <class Tri>
+__device__ __forceinline__ void dealt_keys(const dcrt::Ray& r, float w0,
+                                           unsigned mask, const float* stab,
+                                           float t_min, int (*keys)[32]) {
+  const int lane = threadIdx.x & 31;
+  int total;
+  const int excl = task_starts(mask, total);
+  for (int t = lane; t - lane < total; t += 32) {
+    int k;
+    const int o = task_lane(t, excl, k);
+    const unsigned m = __shfl_sync(kFull, mask, o);
+    const dcrt::Ray ro = ray_of(r, o);
+    const float w_o = __shfl_sync(kFull, w0, o);
+    if (t < total) {
+      const int c = kth_cluster(m, k);
+      keys[c][o] = cluster_key<Tri>(ro, Tri::prepare(ro), stab, c, t_min,
+                                    w_o);
+    }
+  }
+  __syncwarp();
+}
+
+// The clamped entry distance tl of child c (worklist.cuh fine_cull's,
+// but for the sign of a zero: see the header).
+__device__ __forceinline__ float entry(const RayInv& q, const float4* boxes,
+                                       int c) {
+  const float4 lo = boxes[2 * c], hi = boxes[2 * c + 1];
+  float x, y;
+  slab_fold(q, lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, x, y);
+  return fmaxf(x, 0.f);
+}
+
+// The nearest-first walk replayed from the keys (see the header): pops
+// this lane's entered clusters (mask) by tl, lowest child on a tie, until
+// one starts at or beyond the window of the best; counts the pops into
+// s.iters and takes a key strictly below s.best. Returns the winning row
+// of the super (child * 16 + row of the cluster) or -1.
+__device__ __forceinline__ int replay(unsigned mask, const RayInv& q,
+                                      const float4* boxes,
+                                      const int (*keys)[32], Best& s) {
+  const int lane = threadIdx.x & 31;
+  int row = -1;
+  while (mask) {
+    float m = INFINITY;
+    int cs = 0;
+    for (unsigned r = mask; r; r &= r - 1) {
+      const int c = __ffs(r) - 1;
+      const float x = entry(q, boxes, c);
+      if (x < m) {
+        m = x;
+        cs = c;
+      }
+    }
+    if (!(m < dcrt::window(s.best))) break;
+    mask &= ~(1u << cs);
+    ++s.iters;
+    const int key = keys[cs][lane];
+    if (key < s.best) {
+      s.best = key;
+      row = key & kLowM;
+    }
+  }
+  return row;
+}
+
+template <class Tri>
+__global__ void __launch_bounds__(kSweepThreads)
+pair_closest_kernel(const int* __restrict__ chunk_sup,
+                    const int* __restrict__ chunk_first,
+                    const int* __restrict__ chunk_count,
+                    const int* __restrict__ pair_ray,
+                    const float* __restrict__ cbox,
+                    const float* __restrict__ tab,
+                    const float* __restrict__ od,
+                    const float* __restrict__ texp, int rp, float t_min,
+                    dcrt::ClosestOut out) {
+  __shared__ float4 boxes[2 * kSuper];
+  __shared__ int keys[kSweepWarps][kSuper][32];
+  const int n = chunk_count[blockIdx.x];
+  const int base = blockIdx.y * kSweepThreads;   // this block's half
+  if (base >= n) return;                         // whole block
+  const int sup = chunk_sup[blockIdx.x];
+  const float* stab = tab + static_cast<size_t>(sup) * kSuperRows * Tri::kCols;
+  dcrt::stage_boxes(cbox, sup, boxes);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  if (base + warp * 32 >= n) return;             // whole warp
+  const int j = base + threadIdx.x;
+  const bool live = j < n;
+  const size_t p = static_cast<size_t>(chunk_first[blockIdx.x]) + j;
+  const int ray = live ? pair_ray[p] : 0;
+  const RayInv q = dcrt::load_od(od, rp, ray);
+  Best s = dcrt::start_best(texp[ray]);
+  const float w0 = dcrt::window(s.best);
+  const unsigned mask =
+      live && lane_open(w0, t_min) ? fine_mask(q, boxes, w0, t_min) : 0u;
+  dealt_keys<Tri>(q.r, w0, mask, stab, t_min, keys[warp]);
+  const int row = replay(mask, q, boxes, keys[warp], s);
+  if (!live) return;
+  if (row >= 0) {
+    dcrt::Hit h;
+    Tri::template test<true>(q.r, Tri::prepare(q.r), stab, row, t_min, w0,
+                             h);
+    s.t = h.t;
+    s.u = h.u;
+    s.v = h.v;
+    s.back = h.back;
+    s.row = row;
+  }
+  dcrt::store_soup<Tri>(out, p, stab, s, s.row);
 }
 
 }  // namespace
@@ -424,7 +582,7 @@ pair_any_kernel(const int* __restrict__ chunk_sup,
 // cudaStream_t. Each returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue, launching nothing, for shapes it does not take.
 
-// The largest chunk the sweeps take (the closest sweep's block size).
+// The largest chunk the sweeps take (kHalves blocks of each).
 extern "C" int dcrt_pair_chunk() { return kPairThreads; }
 
 // The emission's slice: items whose boxes a CUDA block stages at once.
@@ -450,7 +608,8 @@ extern "C" int dcrt_pair_emit(const int* seg, const int* item_sup,
 }
 
 // The launch list: chunk j sweeps pairs [first[j], first[j] + count[j])
-// of super sup[j] (count 0: nothing); count <= kPairThreads.
+// of super sup[j] (count 0: nothing); count <= kPairThreads; kHalves
+// blocks of kSweepThreads a chunk.
 extern "C" int dcrt_pair_closest(const int* chunk_sup, const int* chunk_first,
                                  const int* chunk_count, int n_chunks,
                                  const int* pair_ray, const float* cbox,
@@ -463,21 +622,20 @@ extern "C" int dcrt_pair_closest(const int* chunk_sup, const int* chunk_first,
   if (n_chunks > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const dcrt::ClosestOut out{best, t, u, v, tri, inst, back, iters};
+    const dim3 grid(n_chunks, kHalves);
     if (watertight)
-      pair_closest_kernel<dcrt::RawWatertight><<<n_chunks, kPairThreads, 0,
-                                                 s>>>(
+      pair_closest_kernel<dcrt::RawWatertight><<<grid, kSweepThreads, 0, s>>>(
           chunk_sup, chunk_first, chunk_count, pair_ray, cbox, tab, od, texp,
           rp, t_min, out);
     else
-      pair_closest_kernel<dcrt::BaldwinWeber><<<n_chunks, kPairThreads, 0,
-                                                s>>>(
+      pair_closest_kernel<dcrt::BaldwinWeber><<<grid, kSweepThreads, 0, s>>>(
           chunk_sup, chunk_first, chunk_count, pair_ray, cbox, tab, od, texp,
           rp, t_min, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same launch list; kAnyHalves blocks of kAnyThreads a chunk.
+// The same launch list and blocks.
 extern "C" int dcrt_pair_any(const int* chunk_sup, const int* chunk_first,
                              const int* chunk_count, int n_chunks,
                              const int* pair_ray, const float* cbox,
@@ -486,13 +644,13 @@ extern "C" int dcrt_pair_any(const int* chunk_sup, const int* chunk_first,
                              float t_min, unsigned char* occ, void* stream) {
   if (n_chunks > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid(n_chunks, kAnyHalves);
+    const dim3 grid(n_chunks, kHalves);
     if (watertight)
-      pair_any_kernel<dcrt::RawWatertight><<<grid, kAnyThreads, 0, s>>>(
+      pair_any_kernel<dcrt::RawWatertight><<<grid, kSweepThreads, 0, s>>>(
           chunk_sup, chunk_first, chunk_count, pair_ray, cbox, tab, od, tm,
           rp, t_min, occ);
     else
-      pair_any_kernel<dcrt::BaldwinWeber><<<grid, kAnyThreads, 0, s>>>(
+      pair_any_kernel<dcrt::BaldwinWeber><<<grid, kSweepThreads, 0, s>>>(
           chunk_sup, chunk_first, chunk_count, pair_ray, cbox, tab, od, tm,
           rp, t_min, occ);
   }
@@ -513,8 +671,8 @@ extern "C" int dcrt_pair_resources(int* out) {
       reinterpret_cast<const void*>(pair_closest_kernel<RawWatertight>),
       reinterpret_cast<const void*>(pair_any_kernel<BaldwinWeber>),
       reinterpret_cast<const void*>(pair_any_kernel<RawWatertight>)};
-  const int threads[kFns] = {kEmitThreads, kPairThreads, kPairThreads,
-                             kAnyThreads, kAnyThreads};
+  const int threads[kFns] = {kEmitThreads, kSweepThreads, kSweepThreads,
+                             kSweepThreads, kSweepThreads};
   for (int f = 0; f < kFns; ++f) {
     cudaFuncAttributes a;
     cudaError_t err;

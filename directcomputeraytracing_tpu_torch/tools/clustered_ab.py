@@ -1,13 +1,13 @@
-"""A/B of the clustered sweeps (kernel rows 4 and 5) on one GPU.
+"""A/B of the clustered cull and sweeps (kernel rows 3-5) on one GPU.
 
     python -m directcomputeraytracing_tpu_torch.tools.clustered_ab \
         [--parent DIR] [--reps N] [--sets SETS]
 
-Times, in turns, `closest_kernel` and `any_kernel` of `csrc/clustered.cu`,
-Moeller and watertight, on `sphere_grid(12, 12)` (211,972 triangles,
-16,384 clusters) and the four ray sets of `chip_smoke.py` phase 2f
-(`tools.common.grid_ray_sets`, seed 20261020): `camera` (1024^2 tiled
-camera rays), `shadow` (2^20 rays towards the lamp, per-ray t_max),
+Times, in turns, `cull_kernel`, `closest_kernel` and `any_kernel` of
+`csrc/clustered.cu` (the sweeps Moeller and watertight) on
+`sphere_grid(12, 12)` (211,972 triangles, 16,384 clusters) and the four
+ray sets of `chip_smoke.py` phase 2f (`tools.common.grid_ray_sets`, seed
+20261020): `camera` (1024^2 tiled camera rays), `shadow` (2^20 rays towards the lamp, per-ray t_max),
 `random_sorted` (2^20 random rays in `ray_sort_key` order) and
 `pool_sorted` (2^18 such rays); t_min 1e-4.
 
@@ -22,11 +22,13 @@ Variants:
 Each is timed in turns (parent, new, new, parent) with CUDA events (the
 mean of `reps` launches after a warm-up, default 5; 1 for a variant
 whose launch takes over 50 ms) and beside them by the profiler
-(`tools.common.kernel_ms`). A line per (set, test, kind) gives the turns,
-their means, the kernel ms, the bounds (`cast_bounds`: the warp walk's
-work, the block walk's beside it) and each variant's share of the warp
-walk's. Per set a `clustered-census` line gives the warp walk's census
-(`admission_census`): group boxes and clusters admitted per warp, votes
+(`tools.common.kernel_ms`). A `clustered-ab` line per set for the cull
+(`kind` "cull", `cull_bound`: the kernel's work, the reference's count
+beside it) and per (set, test, kind) for the sweeps
+gives the turns, their means, the kernel ms, the bounds (`cast_bounds`:
+the warp walk's work, the block walk's beside it) and each variant's
+share of the warp walk's. Per set a `clustered-census` line gives the
+warp walk's census (`admission_census`): group boxes and clusters admitted per warp, votes
 and triangle tests per ray, and the shares of the block's clusters that
 the ray's own slab test and its warp enter.
 
@@ -39,11 +41,12 @@ ray's own slab test misses); where the parent's cull masks differ from
 the package's or from the cull twin's in any bit; or where the census
 finds a cluster admitted in a group whose box its warp does not enter.
 Prints the card's name and power limit first, then per built variant its
-ptxas lines and (package) the sweeps' resources.
+ptxas lines and (package) the kernels' resources.
 Needs a CUDA device; with none it exits non-zero.
 
 `admission_census`, `cast_bounds` and `graze_diffs` serve
-`chip_smoke.py` phase 2f and the tests too.
+`chip_smoke.py` phase 2f and the tests too; `interval_enter_signed`
+models the cull's per-pair arithmetic for the tests.
 """
 
 import argparse
@@ -73,16 +76,71 @@ LISTED = 256                     # differing rays explained one by one
 # differences, 2 products, a min and a max of them and one more each into
 # the entry and the exit, then 2 comparisons
 FLOPS_VOTE = 3 * 8 + 2
-# the interval cull of one (ray block, cluster) pair: per axis 4 numerator
-# differences, 8 products, 14 min/max over them and 2 into the entry and
-# exit, then 3 for enter
+# the interval cull of one (ray block, cluster) pair as the reference
+# computes it: per axis 4 numerator differences, 8 products, 14 min/max
+# over them and 2 into the entry and exit, then 3 for enter
 FLOPS_INTERVAL = 3 * 28 + 3
+# the same pair as `cull_kernel` computes it: per axis whose direction
+# bounds do not span zero 2 numerator differences, 4 products, a min and
+# a max of them and 2 into the entry and exit (spanning axes: none), then
+# 3 for enter; blocks with no reaching ray test nothing
+FLOPS_SIGNED_AXIS = 10
+FLOPS_ENTER = 3
 CENSUS_RAYS = 1 << 18            # rays per step of the census (whole blocks)
 
 
 # ---------------------------------------------------------------------------
 # the census and the bounds
 # ---------------------------------------------------------------------------
+
+def interval_enter_signed(cbox, lo, hi):
+    """A plain model of `cull_kernel`'s per-pair arithmetic (row 3): per
+    axis whose direction bounds do not span zero, the two endpoint
+    numerators chosen by the sign of the direction (min(b0, b1) - o_hi
+    and max(b0, b1) - o_lo, swapped where it is negative), 2 products
+    each, a min and a max; enter = (t_hi >= t_lo) & (t_hi >= 0) on blocks
+    with a reaching ray (lo <= hi). (nb, C) bool for block bounds lo, hi
+    (nb, 6) and boxes cbox (C, 8): `cl._interval_enter(cbox, lo, hi) &
+    (lo[:, :1] <= hi[:, :1])` bit for bit (the proof is in
+    csrc/clustered.cu)."""
+    nb, c = lo.shape[0], cbox.shape[0]
+    t_lo = torch.full((nb, c), -cl.BIG, dtype=cbox.dtype, device=cbox.device)
+    t_hi = torch.full_like(t_lo, cl.BIG)
+    for ax in range(3):
+        o_lo, o_hi = lo[:, ax, None], hi[:, ax, None]
+        d_lo, d_hi = lo[:, 3 + ax, None], hi[:, 3 + ax, None]
+        i_a, i_b = cl._safe_inv(d_lo), cl._safe_inv(d_hi)
+        i_lo, i_hi = torch.minimum(i_a, i_b), torch.maximum(i_a, i_b)
+        spans = (d_lo <= 0.0) & (d_hi >= 0.0)
+        pos = d_lo > 0.0
+        b0, b1 = cbox[None, :, ax], cbox[None, :, 3 + ax]
+        b_min, b_max = torch.minimum(b0, b1), torch.maximum(b0, b1)
+        e_lo = torch.where(pos, b_min - o_hi, b_max - o_lo)
+        e_hi = torch.where(pos, b_max - o_lo, b_min - o_hi)
+        ax_lo = torch.minimum(e_lo * i_lo, e_lo * i_hi)
+        ax_hi = torch.maximum(e_hi * i_lo, e_hi * i_hi)
+        t_lo = torch.where(spans, t_lo, torch.maximum(t_lo, ax_lo))
+        t_hi = torch.where(spans, t_hi, torch.minimum(t_hi, ax_hi))
+    return (t_hi >= t_lo) & (t_hi >= 0.0) & (lo[:, 0:1] <= hi[:, 0:1])
+
+
+def cull_bound(tables, cmask, gmask, o, d):
+    """The cull's bounds (`tools.common.bound`) on rays o, d -> (kernel,
+    reference). Operations: `kernel` counts what `cull_kernel` computes
+    on this cast, per (ray block, cluster) of a block with a reaching ray
+    FLOPS_SIGNED_AXIS per axis whose direction bounds do not span zero and
+    FLOPS_ENTER; `reference` FLOPS_INTERVAL per (ray block, cluster), the
+    count of the reference's eight products. Bytes, both: each ray (24),
+    box (32) and mask byte moved once."""
+    nb, cg = cmask.shape
+    lo, hi = cl._block_bounds(tables, o, d)
+    spans = (lo[:, 3:] <= 0.0) & (hi[:, 3:] >= 0.0)
+    per_block = FLOPS_ENTER + FLOPS_SIGNED_AXIS * (~spans).sum(1)
+    ops = int((per_block * (lo[:, 0] <= hi[:, 0])).sum()) * cg
+    nbytes = 24 * o.shape[0] + 32 * cg + nb * (cg + gmask.shape[1])
+    return (common.bound(ops, nbytes),
+            common.bound(FLOPS_INTERVAL * nb * cg, nbytes))
+
 
 def admission_census(tables, cmask, gmask, o, d, occ=None):
     """What the warp walks of one cast do, counted by the sweeps' rule on
@@ -152,26 +210,27 @@ def admission_census(tables, cmask, gmask, o, d, occ=None):
     return out
 
 
-def cast_bounds(tables, cmask, gmask, r, occ, census):
-    """The bounds of one clustered cast of r rays (`tools.common.bound`):
-    `cull` (FLOPS_INTERVAL per (ray block, cluster)); `closest` / `any`,
+def cast_bounds(tables, cmask, gmask, o, d, occ, census):
+    """The bounds of one clustered cast of rays o, d
+    (`tools.common.bound`): `cull` / `cull_reference` (`cull_bound`: the
+    kernel's work, the reference's count); `closest` / `any`,
     the warp walks' work from the census: FLOPS_VOTE per vote and
     FLOPS_MOELLER per triangle test (any-hit: the census's lower bound);
     `closest_block_walk` / `any_block_walk`, the first design's: 16
     Moeller tests per ray and cluster its block entered (any-hit: the rays
     that end unoccluded, occ the any-hit result). Bytes: each ray, mask
     and output once, the tables whole."""
-    nb, cg = cmask.shape
-    masks = nb * (cg + gmask.shape[1])
+    r = o.shape[0]
+    masks = cmask.shape[0] * (cmask.shape[1] + gmask.shape[1])
     table = 4 * (tables.ctab.numel() + tables.cbox.numel()
                  + tables.gbox.numel())
     per_ray = cmask.sum(1, dtype=torch.int64) \
         .repeat_interleave(cl.RAY_BLOCK)[:r]
     rows = cl.CLUSTER_SIZE * common.FLOPS_MOELLER
     c = census
+    cull, cull_reference = cull_bound(tables, cmask, gmask, o, d)
     return dict(
-        cull=common.bound(FLOPS_INTERVAL * nb * cg,
-                          24 * r + 32 * cg + masks),
+        cull=cull, cull_reference=cull_reference,
         closest=common.bound(
             FLOPS_VOTE * (c["group_votes"] + c["cluster_votes"])
             + rows * c["admitted"], 45 * r + masks + table),
@@ -395,6 +454,23 @@ def grid_sets(device, names=SETS):
     return arrays, cl.pad_cluster_tables(arrays), sets
 
 
+def _time_cull(variants, o, d, reps, cull_diff, bnd, case):
+    """The cull of every variant timed in turns: one `clustered-ab`
+    line (bnd: `cull_bound`'s kernel and reference bounds)."""
+    runs = {name: (lambda v=v: v.cull(o, d))
+            for name, (v, _) in variants.items()}
+    order, turns = _in_turns(runs, {name: reps for name in runs})
+    dev_ms = {name: common.kernel_ms(run, reps, "cull_kernel")
+              for name, run in runs.items()}
+    print("clustered-ab", json.dumps(dict(
+        set=case, kind="cull", row=3, rays=o.shape[0], order=order,
+        reps=reps, ms=turns,
+        mean_ms={n: sum(v) / len(v) for n, v in turns.items()},
+        kernel_ms=dev_ms, bound=bnd[0], bound_reference=bnd[1],
+        share={n: t and bnd[0][0] / t for n, t in dev_ms.items()},
+        cull_diff=cull_diff)))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="directory of an earlier clustered.cu")
@@ -433,6 +509,8 @@ def main(argv=None):
                                    + common.bit_diff(gmask, gm_p))
         if any(cull_diff.values()):
             bad.append((case, "cull"))
+        _time_cull(variants, o, d, args.reps, cull_diff,
+                   cull_bound(tables, cmask, gmask, o, d), case)
         idx = common.spread_blocks(r, TWIN_BLOCKS, dev, cl.RAY_BLOCK)
         blocks = idx[::cl.RAY_BLOCK] // cl.RAY_BLOCK
         sub = (cmask[blocks].contiguous(), gmask[blocks].contiguous(),
@@ -445,7 +523,7 @@ def main(argv=None):
                 set=case, watertight=wt, cull_diff=cull_diff, **census)))
             if census["group_misses"]:
                 bad.append((case, "group_misses"))
-            bounds = cast_bounds(tables, cmask, gmask, r, ka, census)
+            bounds = cast_bounds(tables, cmask, gmask, o, d, ka, census)
             ks = new.closest(*sub[:4], wt)
             kas = new.any(*sub, wt)
             twin = dict(

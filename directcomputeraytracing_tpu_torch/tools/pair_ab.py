@@ -11,8 +11,7 @@ and the ray sets of `chip_smoke.py` phase 2g (`tools.common.
 grid_ray_sets`, seed 20261021): `shadow` (2^20 rays towards the lamp,
 per-ray t_max), `random_sorted` (2^20 random rays in `ray_sort_key`
 order), `pool_sorted` (2^18 such rays) and `camera` (1024^2 tiled camera
-rays); t_min 1e-4. Rows 15 and 17 are the subject; row 16 is timed
-beside them to show that it did not move.
+rays); t_min 1e-4.
 
 Variants:
 
@@ -34,7 +33,8 @@ line per (set, kind) gives `pair_census`.
 The tool exits non-zero where, in any bit: the new emission differs
 from its twin (`emit_pairs_torch`, whole set) or from the parent's; the
 new sweeps differ from their twins on the pairs of 64 ray blocks spread
-over the set, or from the parent's on every pair; or the pair casts
+over the set (the closest sweep also from `closest_replay`, the model
+of its schedule), or from the parent's on every pair; or the pair casts
 (`pair_closest` / `pair_any`) differ from `worklist_closest` /
 `worklist_any` on the whole set (every hit field, occlusion). Prints
 the card's name and power limit first, then per built variant its ptxas
@@ -42,7 +42,8 @@ lines and (package) the kernels' resources. Needs a CUDA device; with
 none it exits non-zero.
 
 `pair_census`, `pair_bounds` and `pair_subset` serve `chip_smoke.py`
-phase 2g and the tests too.
+phase 2g and the tests too; `closest_replay` models row 16 for the
+tests.
 """
 
 import argparse
@@ -97,8 +98,91 @@ def _union_per_warp(warp, n_warps, j, c):
         .index_add_(0, key // wl.SUPER, torch.ones_like(key))
 
 
+def _closest_keys(tables, ray, sup, od, texp, t_min, watertight):
+    """Row 16's dealt tests for pairs (ray, sup) (n,): the initial best b0
+    = bits(texp) | _LOWM, the fine cull under its window w0 (enter, tl:
+    the twin's `_fine_cull`), and per entered cluster the least packed key
+    of its 16 rows that hit in [t_min, w0) (keys (n, SUPER) i32, _I32_MAX
+    where none hits or the cluster is not entered)."""
+    dev = od.device
+    tab = tables.ctab if watertight else tables.bwtab
+    b0 = wl._float_bits(texp[ray]) | wl._LOWM
+    w0 = wl._window(b0)
+    enter, tl = wl._fine_cull(tables.cbox3[sup], od[:, ray], w0, t_min)
+    keys = torch.full(enter.shape, wl._I32_MAX, dtype=torch.int32, device=dev)
+    lane16 = torch.arange(wl.CLUSTER_SIZE, device=dev)
+    j, c = torch.nonzero(enter, as_tuple=True)
+    for s in range(0, j.shape[0], CENSUS_PAIRS):
+        jj, cc = j[s:s + CENSUS_PAIRS], c[s:s + CENSUS_PAIRS]
+        rows = ((sup[jj] * wl.SUPER + cc) * wl.CLUSTER_SIZE)[:, None] + lane16
+        t, _, _, _, ok = wl._tri_rows(
+            tab[rows], od[0:3, ray[jj]].T[:, None, :],
+            od[3:6, ray[jj]].T[:, None, :], t_min, w0[jj][:, None],
+            watertight)
+        key = (wl._float_bits(t) & ~wl._LOWM) \
+            | ((cc[:, None] << 4) + lane16).to(torch.int32)
+        keys[jj, cc] = torch.where(ok, key, wl._I32_MAX).amin(1)
+    return b0, enter, tl, keys
+
+
+def _replay(b0, enter, tl, keys):
+    """Row 16's replay of the nearest-first walk from the keys: pop the
+    entered clusters by tl (lowest child on a tie), stop at the first
+    that is not below the window of the best, count each pop, take a key
+    strictly below the best. -> (best, iters, winning row of the super or
+    -1), each (n,)."""
+    dev = b0.device
+    t_sorted, order = torch.sort(torch.where(enter, tl, float("inf")),
+                                 dim=1, stable=True)
+    n_enter = enter.sum(1)
+    best = b0.clone()
+    iters = torch.zeros_like(b0)
+    row = torch.full_like(b0, -1)
+    live = torch.ones(b0.shape, dtype=torch.bool, device=dev)
+    for k in range(int(n_enter.max()) if n_enter.numel() else 0):
+        live &= (k < n_enter) & (t_sorted[:, k] < wl._window(best))
+        key = keys.gather(1, order[:, k:k + 1])[:, 0]
+        take = live & (key < best)
+        iters += live.to(iters.dtype)
+        best = torch.where(take, key, best)
+        row = torch.where(take, key & wl._LOWM, row)
+    return best, iters, row
+
+
+def closest_replay(tables, pairs, od, texp, t_min, watertight):
+    """A plain model of `pair_closest_kernel` (row 16): the least key of
+    every entered cluster under the pair's initial window, then the
+    replay, then the winning row tested once more for its t, u, v and
+    side -> (packed best i32, t, u, v, tri i32, inst i32, back bool,
+    clusters swept i32), each (P,): `pair_sweep_closest_torch`'s outputs
+    bit for bit (the proof is in csrc/pairsweep.cu)."""
+    tab = tables.ctab if watertight else tables.bwtab
+    meta = wl._RAW_META if watertight else wl._BW_META
+    parts = []
+    for lo in range(0, pairs.ray.shape[0], CENSUS_PAIRS):
+        ray = pairs.ray[lo:lo + CENSUS_PAIRS].long()
+        sup = pairs.sup[lo:lo + CENSUS_PAIRS].long()
+        b0, enter, tl, keys = _closest_keys(tables, ray, sup, od, texp,
+                                            t_min, watertight)
+        best, iters, row = _replay(b0, enter, tl, keys)
+        found = row >= 0
+        g = torch.where(found, sup * wl.SUPER * wl.CLUSTER_SIZE + row, 0)
+        t, u, v, back, _ = wl._tri_rows(
+            tab[g][:, None, :], od[0:3, ray].T[:, None, :],
+            od[3:6, ray].T[:, None, :], t_min, wl._window(b0)[:, None],
+            watertight)
+        m = tab[g, meta:meta + 3]
+        parts.append((
+            best, torch.where(found, t[:, 0], texp[ray]),
+            torch.where(found, u[:, 0], 0.0), torch.where(found, v[:, 0], 0.0),
+            torch.where(found, m[:, 0], 0.0).to(torch.int32),
+            torch.where(found, m[:, 1], 0.0).to(torch.int32),
+            found & (back[:, 0] ^ (m[:, 2] > 0.5)), iters))
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
 def pair_census(tables, items, pairs, od, cap, t_min, rays, tm=None,
-                watertight=False):
+                watertight=False, texp=None):
     """What one pair cast does, counted on its items and pairs (any
     device; one host read per quantity): items per ray block (mean,
     max), emission cells and the share that is set, pairs per ray, chunks
@@ -111,7 +195,17 @@ def pair_census(tables, items, pairs, od, cap, t_min, rays, tm=None,
     balanced walk: its rounds per warp (32 (lane, cluster) tasks a round,
     lane-major), the clusters it tests per pair (a task is skipped once
     its lane has a hit from an earlier round) and the rows it reads per
-    pair (16 a cluster)."""
+    pair (16 a cluster). With texp (a closest cast; cap is then the
+    window of bits(texp) | _LOWM, so `clusters_per_pair` counts the
+    entered clusters under the initial window): the clusters a pair's
+    walk sweeps (`closest_swept_per_pair`, the twin's `iters`, by
+    `closest_replay`'s keys and replay) and per warp its longest walk
+    (`closest_warp_longest`). They give the two schedules of row 16: (a)
+    every entered cluster dealt out 32 a round tests `clusters_per_pair`
+    a pair in `closest_rounds_a` rounds a warp; (b) a pair's k-th nearest
+    cluster dealt once its (k-1)-th is folded and under the window, as
+    the walk prunes, tests `closest_swept_per_pair` a pair, a task a pair
+    a round, in `closest_warp_longest` rounds."""
     dev = od.device
     p = pairs.ray.shape[0]
     nb = items.seg.shape[0] - 1
@@ -138,6 +232,7 @@ def pair_census(tables, items, pairs, od, cap, t_min, rays, tm=None,
     tasks = torch.zeros(p, dtype=torch.int64, device=dev)   # open lanes'
     k_hit = torch.full((p,), -1, dtype=torch.int64, device=dev)
     walked = torch.zeros(p, dtype=torch.int64, device=dev)
+    swept = torch.zeros(p, dtype=torch.int64, device=dev)
     js, cs = [], []
     for lo in range(0, p, CENSUS_PAIRS):
         ray = pairs.ray[lo:lo + CENSUS_PAIRS].long()
@@ -148,6 +243,9 @@ def pair_census(tables, items, pairs, od, cap, t_min, rays, tm=None,
         j, c = torch.nonzero(enter, as_tuple=True)
         js.append(j + lo)
         cs.append(c)
+        if texp is not None:
+            swept[lo:lo + ray.shape[0]] = _replay(*_closest_keys(
+                tables, ray, sup, od, texp, t_min, watertight))[1]
         if tm is None:
             continue
         enter &= (tm[ray] > t_min)[:, None]
@@ -182,6 +280,13 @@ def pair_census(tables, items, pairs, od, cap, t_min, rays, tm=None,
                                       "amax").double().mean()),
         warp_union=float(_union_per_warp(warp, n_warps, j, c)
                          .double().mean()))
+    if texp is not None:
+        entered = _per_warp(warp, n_warps, n_enter, "sum")
+        longest = _per_warp(warp, n_warps, swept, "amax").double().mean()
+        out.update(
+            closest_swept_per_pair=float(swept.sum()) / p,
+            closest_warp_longest=float(longest),
+            closest_rounds_a=float((-(-entered // 32)).double().mean()))
     if tm is not None:
         # the balanced walk: lane l's tasks start at excl within its warp
         incl = torch.cumsum(tasks, 0)
@@ -439,22 +544,26 @@ def main(argv=None):
             runs = {name: (lambda v=v: v.emit(items, od, cap))
                     for name, (v, _) in variants.items()}
             for wt in (False, True):
-                # the closest cast's census does not depend on the test
+                # the closest cast's census once, with the Baldwin-Weber test
                 if kind == "any" or not wt:
-                    census = pair_census(tables, items, pairs, od, cap, T_MIN,
-                                         r, tm if kind == "any" else None, wt)
+                    census = pair_census(
+                        tables, items, pairs, od, cap, T_MIN, r,
+                        tm if kind == "any" else None, wt,
+                        texp if kind == "closest" else None)
                     print("pair-census", json.dumps(dict(
                         set=case, kind=kind, watertight=wt, **census)))
                 if kind == "closest":
                     out = new.closest(pairs, od, texp, wt)
-                    twin = _bits(new.closest(sub, od, texp, wt),
-                                 ps.pair_sweep_closest_torch(
-                                     tables, sub, od, texp, T_MIN, wt))
+                    ks = new.closest(sub, od, texp, wt)
+                    twin = _bits(ks, ps.pair_sweep_closest_torch(
+                        tables, sub, od, texp, T_MIN, wt))
                     cast = ps.pair_closest(arrays, o, d, T_MIN, wt)
                     ref = wl.worklist_closest(arrays, o, d, T_MIN, wt)
                     vs_wl = {f: common.bit_diff(a, b) for f, a, b in zip(
                         common.SWEEP_FIELDS[1:7], cast, ref)}
-                    diffs = dict(twin=twin, worklist=vs_wl)
+                    diffs = dict(twin=twin, worklist=vs_wl,
+                                 model=_bits(ks, closest_replay(
+                                     tables, sub, od, texp, T_MIN, wt)))
                     if "parent" in variants:
                         diffs["parent"] = _bits(out, variants["parent"][0]
                                                 .closest(pairs, od, texp, wt))

@@ -434,11 +434,42 @@ def test_census_matches_brute_count(grid, name, n):
             want["any_admitted"] += free[w:w + lanes].sum() * adm
     assert {k: c[k] for k in want} == want
     assert c["group_misses"] == 0 and c["admitted"] > 0
-    bnd = cab.cast_bounds(tables, cmask, gmask, n, occ, c)
+    bnd = cab.cast_bounds(tables, cmask, gmask, o, d, occ, c)
     ops = cab.FLOPS_VOTE * (want["group_votes"] + want["cluster_votes"]) \
         + 16 * 45 * want["admitted"]
     assert bnd["closest"][0] >= 1e3 * ops / 67e12
     assert bnd["closest"][0] < bnd["closest_block_walk"][0]
+
+
+@pytest.mark.parametrize("name", SETS)
+def test_cull_bound_counts_the_kernels_work(grid, name):
+    """`cull_bound`: the kernel's work by a plain count over ray blocks
+    (3 for enter and 10 per axis whose reaching rays' directions do not
+    span zero, per cluster; nothing for a block with no reaching ray) and
+    the reference's count (87 per block and cluster), each against the
+    bytes of every ray, box and mask byte once."""
+    from directcomputeraytracing_tpu_torch.tools import common
+
+    arrays, cam = grid
+    n = 3 * cl.RAY_BLOCK + 17
+    o, d, _ = _rays(name, arrays, cam, n)
+    o[cl.RAY_BLOCK:2 * cl.RAY_BLOCK] = 1e9     # a block that reaches nothing
+    d[cl.RAY_BLOCK:2 * cl.RAY_BLOCK] = torch.tensor([1.0, 0.0, 0.0])
+    tables = cl.pad_cluster_tables(arrays)
+    cmask, gmask = cl.cull_masks_torch(tables, o, d)
+    reach, dn = cl.reach_mask(tables, o, d).numpy(), d.numpy()
+    per_cluster = 0
+    for b in range(0, n, cl.RAY_BLOCK):
+        dr = dn[b:b + cl.RAY_BLOCK][reach[b:b + cl.RAY_BLOCK]]
+        if dr.shape[0]:
+            per_cluster += 3 + 10 * int(
+                ((dr.min(0) > 0) | (dr.max(0) < 0)).sum())
+    nb, cg = cmask.shape
+    nbytes = 24 * n + 32 * cg + nb * (cg + gmask.shape[1])
+    kernel, reference = cab.cull_bound(tables, cmask, gmask, o, d)
+    assert kernel == common.bound(per_cluster * cg, nbytes)
+    assert reference == common.bound(87 * nb * cg, nbytes)
+    assert 0 < per_cluster <= 33 * (nb - 1) and not cmask[1].any()
 
 
 # ---------------------------------------------------------------------------
@@ -506,6 +537,33 @@ def test_cuda_sweeps_match_twins_bitwise(case, watertight):
     else:
         tables, o, d, t_max = _cuda_case((2, 3), "random", 1 << 14)
         _bit_equal(tables, o, d, t_max, watertight)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 3), (2, 3)],
+                         ids=["16_groups", "13_groups"])
+def test_cuda_cull_matches_twin_on_ray_counts(shape):
+    """The cull kernel's masks equal `cull_masks_torch`'s byte for byte on
+    casts of 1, 1023, 1025, 7 * 1024 + 5 and 2^20 + 3 rays (clusters of 8
+    ray blocks cut short), on a grid of 16 groups and one of 13 (the
+    kernel's 8 slices of whole groups uneven, one empty), with NaN and
+    +-inf rays and a block whose rays all leave the scene (no reaching
+    ray: its rows are zero)."""
+    n_max = (1 << 20) + 3
+    tables, o, d, _ = _cuda_case(shape, "random", n_max)
+    o, d = _nan_rays(o, d)
+    o[2 * 1024:3 * 1024] = 1e9
+    d[2 * 1024:3 * 1024] = torch.tensor([1.0, 0.0, 0.0], device=o.device)
+    for n in (1, 1023, 1025, 7 * 1024 + 5, n_max):
+        cl.reset_counters()
+        got = cl.cull_masks(tables, o[:n].contiguous(), d[:n].contiguous())
+        torch.cuda.synchronize()
+        assert cl.counters()["cluster_cull"] == 1
+        want = cl.cull_masks_torch(tables, o[:n], d[:n])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert want[0].any() or n == 1   # ray 0 is NaN: no ray reaches
+        if n > 3 * 1024:
+            assert not want[0][2].any() and not want[1][2].any()
 
 
 @pytest.mark.cuda

@@ -201,6 +201,72 @@ def test_cull_matches_reference(grid, ref_grid, name):
         assert cmask.float().mean() < 0.5 and exact.sum() > 0
 
 
+def _adversarial_bounds(case, cbox, rs, n=96):
+    """(lo, hi) (n, 6) block bounds of o and d, min <= max per component,
+    built to hit one edge of the cull's arithmetic, and the boxes they
+    are tested against (cbox with inverted padding boxes appended)."""
+    boxes = cbox.numpy()
+    real = boxes[boxes[:, 0] <= boxes[:, 3]]
+    lo_s, hi_s = real[:, 0:3].min(0), real[:, 3:6].max(0)
+    o = rs.uniform(lo_s - 1.0, hi_s + 1.0, (n, 2, 3))
+    d = rs.normal(size=(n, 2, 3))
+    if case == "spans":          # one-signed axes beside axes that end at
+        d = np.abs(d) * rs.choice([1.0, -1.0], (n, 1, 3))   # +-0 or cross it
+        u = rs.random((n, 3))
+        d[:, 0] = np.where(u < 0.2, rs.choice([0.0, -0.0], (n, 3)), d[:, 0])
+        d[:, 0] = np.where((u > 0.8) & (u < 0.9), -d[:, 0], d[:, 0])
+    elif case == "tiny":         # +-1e-30, denormal and zero components
+        pick = rs.choice([0.0, -0.0, 1e-30, -1e-30, 1e-38, -1e-38, 3e-31],
+                         (n, 2, 3))
+        d = np.where(rs.random((n, 2, 3)) < 0.5, pick, d)
+        same = rs.random((n, 3)) < 0.5   # one sign: the reciprocals 1e30
+        d[:, 1] = np.where(same, d[:, 0] + np.abs(pick[:, 1]), d[:, 1])
+    elif case == "planes":       # origins on box planes
+        k = rs.integers(0, real.shape[0], (n, 2, 3))
+        plane = np.where(rs.random((n, 2, 3)) < 0.5,
+                         real[k, np.arange(3)], real[k, 3 + np.arange(3)])
+        o = np.where(rs.random((n, 2, 3)) < 0.7, plane, o)
+    elif case == "overflow":     # numerators and products beyond float32
+        o = rs.choice([-3e38, -1e38, 0.0, 1e38, 3e38], (n, 2, 3))
+        d[::2] = rs.choice([1e-31, -1e-31, 1e-20], (n // 2, 2, 3))
+    o, d = np.sort(o, 1), np.sort(d, 1)
+    if case == "empty":          # blocks with no reaching ray: min > max
+        o[::2] = d[::2] = [[np.inf] * 3, [-np.inf] * 3]
+    lo = np.concatenate([o[:, 0], d[:, 0]], 1).astype(np.float32)
+    hi = np.concatenate([o[:, 1], d[:, 1]], 1).astype(np.float32)
+    pad = np.tile(np.array([1, 1, 1, -1, -1, -1, 0, 0], np.float32), (16, 1))
+    return (torch.from_numpy(lo), torch.from_numpy(hi),
+            torch.cat([cbox, torch.from_numpy(pad)]))
+
+
+@pytest.mark.parametrize("case", ["random", "spans", "tiny", "planes",
+                                  "overflow", "empty"])
+def test_signed_interval_equals_reference_interval(grid, case):
+    """`tools/clustered_ab.py` `interval_enter_signed`, the cull kernel's
+    per-pair arithmetic (2 products an axis, the endpoint numerators
+    chosen by the direction's sign), equals the reference's interval test
+    with its eight products (`_interval_enter`) gated on blocks with a
+    reaching ray, as `cull_masks_torch` takes it, on every (block, box)
+    pair of seeded adversarial bounds: axes that span zero, direction
+    components at +-1e-30, denormal and 0, origins on box planes,
+    inverted padding boxes, products that overflow, and blocks with no
+    reaching ray (min > max)."""
+    from directcomputeraytracing_tpu_torch.tools.clustered_ab import (
+        interval_enter_signed,
+    )
+
+    arrays, _ = grid
+    tables = cl.pad_cluster_tables(arrays)
+    lo, hi, boxes = _adversarial_bounds(case, tables.cbox,
+                                        np.random.default_rng(len(case)))
+    want = cl._interval_enter(boxes, lo, hi) & (lo[:, 0:1] <= hi[:, 0:1])
+    got = interval_enter_signed(boxes, lo, hi)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < want.numel() or case == "empty"
+    if case == "empty":
+        assert not want[::2].any() and want[1::2].any()
+
+
 def _assert_casts_close(want, got, occ_want, occ_got, rtol):
     """The cast tolerances; returns the number of exact-t ties."""
     t_w, u_w, v_w, tri_w, inst_w, back_w = (np.asarray(x) for x in want)

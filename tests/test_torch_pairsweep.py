@@ -566,10 +566,10 @@ def test_emission_by_tiles_and_ranges_equals_reference_grid(grid, kind,
     assert 100 < int(want.sum()) < want.numel()
 
 
-def _plain_census(tables, pairs, od, cap, tm, watertight):
+def _plain_census(tables, pairs, od, cap, tm, watertight, texp=None):
     """pair_census's per-pair and per-warp numbers by a loop over the
-    launch list's chunks, warps and pairs, and the balanced walk played
-    out round by round."""
+    launch list's chunks, warps and pairs, the balanced walk played out
+    round by round, and (texp) each pair's nearest-first walk."""
     tab = tables.ctab if watertight else tables.bwtab
 
     def hits(ray, sup, k):
@@ -579,17 +579,41 @@ def _plain_census(tables, pairs, od, cap, tm, watertight):
             od[3:6, ray][None, None], T_MIN, tm[ray:ray + 1][:, None],
             watertight)[4].any())
 
+    def walk(ray, sup, mask, tl, best):
+        """The twin's nearest-first walk of one pair, each cluster tested
+        under the window of the current best: the clusters it sweeps."""
+        rows16 = torch.arange(16)
+        n = 0
+        for k in sorted(mask, key=lambda k: (float(tl[k]), k)):
+            window = wl._window(best)
+            if not bool(tl[k] < window):
+                break
+            n += 1
+            rows = (sup * wl.SUPER + k) * 16 + rows16
+            t, _, _, _, ok = wl._tri_rows(
+                tab[rows][None], od[0:3, ray][None, None],
+                od[3:6, ray][None, None], T_MIN, window[:, None], watertight)
+            key = (wl._float_bits(t[0]) & ~wl._LOWM) \
+                | ((k << 4) + rows16).to(torch.int32)
+            cand = torch.where(ok[0], key, wl._I32_MAX).min()
+            best = torch.minimum(best, cand[None])
+        return n
+
     enters, lanes, unions, walked, rounds, tested = [], [], [], 0, [], 0
+    swept, longest, rounds_a = [], [], []
     for f, c in zip(pairs.chunk_first.tolist(), pairs.chunk_count.tolist()):
         for w0 in range(f, f + c, 32):
-            masks, tasks = [], []
+            masks, tasks, walks = [], [], []
             for j in range(w0, min(w0 + 32, f + c)):
                 ray, sup = int(pairs.ray[j]), int(pairs.sup[j])
-                enter, _ = wl._fine_cull(tables.cbox3[sup:sup + 1],
-                                         od[:, ray:ray + 1],
-                                         cap[ray:ray + 1], T_MIN)
+                enter, tl = wl._fine_cull(tables.cbox3[sup:sup + 1],
+                                          od[:, ray:ray + 1],
+                                          cap[ray:ray + 1], T_MIN)
                 mask = [k for k in range(wl.SUPER) if bool(enter[0, k])]
                 masks.append(mask)
+                if texp is not None:
+                    walks.append(walk(ray, sup, mask, tl[0], wl._float_bits(
+                        texp[ray:ray + 1]) | wl._LOWM))
                 if tm is None or not float(tm[ray]) > T_MIN:
                     continue
                 for k in mask:
@@ -600,6 +624,10 @@ def _plain_census(tables, pairs, od, cap, tm, watertight):
             enters += [len(m) for m in masks]
             lanes.append(max(len(m) for m in masks))
             unions.append(len(set().union(*masks)))
+            if texp is not None:
+                swept += walks
+                longest.append(max(walks))
+                rounds_a.append(-(-sum(len(m) for m in masks) // 32))
             done = set()
             rounds.append(-(-len(tasks) // 32))
             for r0 in range(0, len(tasks), 32):
@@ -612,6 +640,10 @@ def _plain_census(tables, pairs, od, cap, tm, watertight):
                 done |= found
     out = dict(clusters_per_pair=np.mean(enters), warp_max_lane=np.mean(lanes),
                warp_union=np.mean(unions), warps=len(lanes))
+    if texp is not None:
+        out.update(closest_swept_per_pair=np.mean(swept),
+                   closest_warp_longest=np.mean(longest),
+                   closest_rounds_a=np.mean(rounds_a))
     if tm is not None:
         out.update(any_walked=walked,
                    any_clusters_per_pair=walked / len(enters),
@@ -620,11 +652,12 @@ def _plain_census(tables, pairs, od, cap, tm, watertight):
     return out
 
 
-@pytest.mark.parametrize("kind,watertight", [("closest", False),
-                                             ("any", False), ("any", True)])
+@pytest.mark.parametrize("kind,watertight", [
+    ("closest", False), ("closest", True), ("any", False), ("any", True)])
 def test_pair_census_matches_plain_loop(grid, kind, watertight):
     """`tools/pair_ab.py` `pair_census` against a loop over the launch
-    list's warps and their pairs (the fine cull of each pair, its walk up
+    list's warps and their pairs (the fine cull of each pair; closest:
+    its nearest-first walk, row 16's two schedules; any-hit: its walk up
     to its first hit, the balanced walk's rounds and tasks), on the small
     grid's test rays."""
     from directcomputeraytracing_tpu_torch.tools.pair_ab import pair_census
@@ -639,10 +672,11 @@ def test_pair_census_matches_plain_loop(grid, kind, watertight):
     items = wl.phases(tables, od, tm)
     cells = ps.emit_pairs(tables, items, od, cap, T_MIN)
     pairs = ps.pair_list(tables, items, *torch.nonzero(cells, as_tuple=True))
+    closest = texp if kind == "closest" else None
     got = pair_census(tables, items, pairs, od, cap, T_MIN, o.shape[0],
-                      tm if kind == "any" else None, watertight)
+                      tm if kind == "any" else None, watertight, closest)
     want = _plain_census(tables, pairs, od, cap,
-                         tm if kind == "any" else None, watertight)
+                         tm if kind == "any" else None, watertight, closest)
     for key, value in want.items():
         assert got[key] == pytest.approx(value, rel=1e-12), key
     seg = items.seg.long()
@@ -655,6 +689,67 @@ def test_pair_census_matches_plain_loop(grid, kind, watertight):
         assert 0 < got["any_walked"] <= got["any_tested_per_pair"] \
             * got["pairs"] <= got["clusters_per_pair"] * got["pairs"]
         assert got["any_rows_per_pair"] == 16 * got["any_tested_per_pair"]
+    else:
+        assert 0 < got["closest_swept_per_pair"] < got["clusters_per_pair"]
+        assert got["closest_warp_longest"] >= 1 <= got["closest_rounds_a"]
+
+
+def _closest_pairs(grid):
+    """The closest cast's pair list on the test rays: (tables, o, d, od,
+    texp, items, pairs)."""
+    o, d, _ = _torch_rays(seed=2)
+    tables = wl.scene_tables(grid)
+    od, tm, _ = wl.prep_rays(o, d)
+    texp = wl.scene_exit(tables, od)
+    items = wl.phases(tables, od, tm)
+    cells = ps.emit_pairs(tables, items, od, wl._window(
+        wl._float_bits(texp) | wl._LOWM), T_MIN)
+    pairs = ps.pair_list(tables, items, *torch.nonzero(cells, as_tuple=True))
+    return tables, o, d, od, texp, items, pairs
+
+
+@TESTS
+def test_closest_replay_matches_twin_and_worklist(grid, watertight):
+    """Row 16's schedule (`tools/pair_ab.py` `closest_replay`: least keys
+    per entered cluster under the initial window, then the replay) equals
+    `pair_sweep_closest_torch` in all 8 per-pair outputs bit for bit, on
+    the grid's closest pairs with some rays' texp at +inf or cut to a
+    third (their walks stop early), and through `reduce_closest` equals
+    `worklist_closest` in every hit field."""
+    from directcomputeraytracing_tpu_torch.tools import pair_ab
+
+    tables, o, d, od, texp, items, pairs = _closest_pairs(grid)
+    cut = texp.clone()
+    cut[::11] = float("inf")
+    cut[5::11] *= 1.0 / 3.0
+    want = ps.pair_sweep_closest_torch(tables, pairs, od, cut, T_MIN,
+                                       watertight)
+    got = pair_ab.closest_replay(tables, pairs, od, cut, T_MIN, watertight)
+    for name, a, b in zip(("best", "t", "u", "v", "tri", "inst", "back",
+                           "iters"), got, want):
+        assert a.dtype == b.dtype and torch.equal(
+            a.view(torch.int32) if a.dtype == torch.float32 else a,
+            b.view(torch.int32) if b.dtype == torch.float32 else b), name
+    # the cases: texp +inf, empty masks, walks that stop before their last
+    # entered cluster, and walks of several clusters
+    b0, enter, _, _ = pair_ab._closest_keys(tables, pairs.ray.long(),
+                                           pairs.sup.long(), od, cut, T_MIN,
+                                           watertight)
+    inf = torch.isinf(cut[pairs.ray.long()])
+    n_enter = enter.sum(1).to(torch.int32)
+    assert inf.any() and (n_enter[inf] == 0).all()
+    assert ((n_enter == 0) & ~inf).any()
+    assert (want[7] < n_enter).any() and (want[7] >= 2).any()
+    assert (want[7] > 0).any() and (want[0] < b0).any()
+    # through the reduction, with the cast's own texp
+    state = ps._initial_state(texp)
+    ps.reduce_closest(state, pair_ab.closest_replay(
+        tables, pairs, od, texp, T_MIN, watertight), pairs, texp)
+    cast = wl.decode_closest(state, texp, items.block_any, o.shape[0])
+    ref = wl.worklist_closest(grid, o, d, T_MIN, watertight)
+    for name, a, b in zip(("t", "u", "v", "tri", "inst", "back"), cast, ref):
+        assert torch.equal(a, b), name
+    assert torch.isfinite(ref[0]).sum() > 50
 
 
 @pytest.fixture(scope="module")
@@ -738,21 +833,13 @@ def test_cuda_emission_matches_twin_on_item_lists(cuda_tables, counts,
                       cap[:-wl.RB].contiguous(), T_MIN)
 
 
-@pytest.mark.cuda
-@TESTS
-def test_cuda_any_sweep_matches_twin_on_chunks(cuda_tables, watertight):
-    """The any-hit kernel against its twin, bit for bit, on pair lists
-    whose supers hold 1, 31, 32, 33, 256 and 300 pairs (chunks of 1-256
-    pairs, halves of a chunk empty or partial), rays with parked lanes,
-    origins on box planes and empty or NaN windows."""
-    tables = cuda_tables
-    sizes = [1, 31, 32, 33, 256, 300]
-    o, d, t_max = _edge_rays(tables, 4 * wl.RB - 100, 22)
-    od, tm, _ = wl.prep_rays(o, d, t_max)
-    # the cull's items whose super the most rays enter, one a size
-    rs = np.random.default_rng(6)
+def _chunk_pairs(tables, od, tm, cap, sizes, rs):
+    """A pair list whose supers hold `sizes` pairs: the cull's items whose
+    super the most rays enter, one a size, each taking the rays that enter
+    its super box first, then others; the last ray block's item also
+    takes parked lanes."""
     real = wl.phases(tables, od, tm)
-    enters = ps.emit_pairs_torch(tables, real, od, tm, T_MIN)
+    enters = ps.emit_pairs_torch(tables, real, od, cap, T_MIN)
     top, seen = [], set()
     for i in torch.argsort(enters.sum(1), descending=True).tolist():
         if int(real.sup[i]) not in seen and len(top) < len(sizes):
@@ -767,8 +854,6 @@ def test_cuda_any_sweep_matches_twin_on_chunks(cuda_tables, watertight):
     items = wl.Items(seg, real.sup[top].contiguous(), real.t_ent[top],
                      seg[1:] > seg[:-1])
     enters = enters[top].cpu().numpy()
-    # each item's lanes: the rays that enter its super box first, then
-    # others; the last ray block's item also takes parked lanes
     it, lane = [], []
     last = int(blk.max())
     for i, size in enumerate(rs.permutation(sizes)):
@@ -781,8 +866,22 @@ def test_cuda_any_sweep_matches_twin_on_chunks(cuda_tables, watertight):
         it.append(np.full(size, i))
         lane.append(pick)
     it, lane = np.concatenate(it), np.concatenate(lane)
-    pairs = ps.pair_list(tables, items, torch.tensor(it, device="cuda"),
-                         torch.tensor(lane, device="cuda"))
+    return ps.pair_list(tables, items, torch.tensor(it, device="cuda"),
+                        torch.tensor(lane, device="cuda"))
+
+
+@pytest.mark.cuda
+@TESTS
+def test_cuda_any_sweep_matches_twin_on_chunks(cuda_tables, watertight):
+    """The any-hit kernel against its twin, bit for bit, on pair lists
+    whose supers hold 1, 31, 32, 33, 256 and 300 pairs (chunks of 1-256
+    pairs, halves of a chunk empty or partial), rays with parked lanes,
+    origins on box planes and empty or NaN windows."""
+    tables = cuda_tables
+    o, d, t_max = _edge_rays(tables, 4 * wl.RB - 100, 22)
+    od, tm, _ = wl.prep_rays(o, d, t_max)
+    pairs = _chunk_pairs(tables, od, tm, tm, [1, 31, 32, 33, 256, 300],
+                         np.random.default_rng(6))
     got_counts = sorted(pairs.chunk_count[pairs.chunk_count > 0].tolist())
     assert got_counts == sorted([1, 31, 32, 33, 256, 256, 44])
     want = ps.pair_sweep_any_torch(tables, pairs, od, tm, T_MIN, watertight)
@@ -792,3 +891,40 @@ def test_cuda_any_sweep_matches_twin_on_chunks(cuda_tables, watertight):
     assert ps.counters()["pair_sweep_any"] == 1
     assert torch.equal(got, want)
     assert 0 < int(want.sum()) < want.numel()
+
+
+@pytest.mark.cuda
+@TESTS
+def test_cuda_closest_sweep_matches_twin_on_chunks(cuda_tables, watertight):
+    """The closest kernel against its twin, bit for bit in all 8 per-pair
+    outputs, on pair lists whose supers hold 1, 31, 32, 33, 128, 129 and
+    300 pairs (chunks of 1, 31, 32, 33, 44, 128, 129 and 256 pairs), rays
+    with parked lanes, origins on box planes and zero direction
+    components, some rays' texp at +inf (nothing entered) or cut (walks
+    that stop early), and pairs whose walk sweeps several clusters."""
+    tables = cuda_tables
+    o, d, _ = _edge_rays(tables, 4 * wl.RB - 100, 23)
+    od, tm, _ = wl.prep_rays(o, d)
+    texp = wl.scene_exit(tables, od)
+    cap = wl._window(wl._float_bits(texp) | wl._LOWM)
+    pairs = _chunk_pairs(tables, od, tm, cap, [1, 31, 32, 33, 128, 129, 300],
+                         np.random.default_rng(7))
+    got_counts = sorted(pairs.chunk_count[pairs.chunk_count > 0].tolist())
+    assert got_counts == sorted([1, 31, 32, 33, 44, 128, 129, 256])
+    texp[::13] = float("inf")
+    texp[6::13] *= 0.5
+    want = ps.pair_sweep_closest_torch(tables, pairs, od, texp, T_MIN,
+                                       watertight)
+    ps.reset_counters()
+    got = ps.pair_sweep_closest(tables, pairs, od, texp, T_MIN, watertight)
+    torch.cuda.synchronize()
+    assert ps.counters()["pair_sweep_closest"] == 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(
+            a.view(torch.int32) if a.dtype == torch.float32 else a,
+            b.view(torch.int32) if b.dtype == torch.float32 else b)
+    inf = torch.isinf(texp[pairs.ray.long()])
+    assert inf.any() and (want[7][inf] == 0).all()
+    assert (want[7] >= 2).any()
+    assert (want[0] < (wl._float_bits(texp) | wl._LOWM)[
+        pairs.ray.long()]).any()
