@@ -59,11 +59,13 @@ any failure exits non-zero:
    random set sorted by `ray_sort_key` (like a permuted pool) and a
    pool-sized (2^18) sorted set, Baldwin-Weber and watertight: mismatch
    counts of every field, `iters` equality against the twin; the twins
-   run on the first 2^18 rays of the incoherent sets, where a 1M-ray
-   twin cast would take minutes, and on the whole camera set; CUDA-event
+   run on 64 ray blocks spread over each 1M-ray set (the camera set's
+   are tiles), where a 1M-ray twin cast would take minutes, and on the
+   whole pool-sized set; CUDA-event
    times of grouped and per-ray kernels, clusters swept per ray; the
    census of the grouped walk on the twins' rays, counted by walking the
-   twins' steps (`tools/worklist_ab.py`): items per block, the shares
+   twins' steps (`tools/worklist_ab.py`; the walks are the twins: their
+   states are what the kernels are held to): items per block, the shares
    of (item, warp) pairs that pass the block vote, the warp vote and the
    super-box admission (any-hit: of the warps not
    yet occluded), fine-cull slab tests per ray of the grouped walk and
@@ -140,8 +142,12 @@ any failure exits non-zero:
 2i. the probes through the port's tools (`tools/probe_worklist.py`,
    `tools/prof_prep.py`), their launches counted from 0: the item-list
    kernel at the reference probe's four capacities (64 blocks, 4096
-   slabs, 1,024 to 262,144 items), equal to its twin, ms and ns per item
-   beside `sweep_closest`'s cost per item on 2b's camera rays; the
+   slabs, 1,024 to 262,144 items) and on `crafted_inputs` (lanes at
+   +-0, NaN and +-inf, a NaN slab entry, -0 and +0 sums in one block),
+   equal to its twin bit for bit (a NaN equal to any NaN), CUDA-event
+   and profiler ms and ns per item beside `sweep_closest`'s cost per
+   item on 2b's camera rays, its split (CUDA blocks a ray block) and
+   resident blocks per SM, its two bounds (`item-list bounds`); the
    (2^20, 16) transpose bit-equal to `.T.contiguous()` (the library
    call, timed) and to its twin, beside the layout routes (the twin's
    cat-and-transpose prep, the prep kernel, a 36 MB copy);
@@ -162,10 +168,11 @@ any failure exits non-zero:
    the pool casts `LAST_STATS` counted, one cull per cast; then the same
    pass without slab marching (slab_march=0.0) and with it again, in the
    order off, off, on (with the render: on, off, off, on), its image held
-   to the render's (RMSE <= 1e-3); then the pass through the three pool
-   backends in turns (the grouped default, "pallas_wl", "pallas_pair";
-   grouped, wl, pair, pair, wl, grouped, after a one-sample warm-up pass
-   of the last two); then one timed pass with a 2^20-path pool;
+   to the render's (RMSE <= 1e-3); then a pass of 4 samples through the
+   three pool backends in turns (the grouped default, "pallas_wl",
+   "pallas_pair"; grouped, wl, pair, pair, wl, grouped, after a
+   one-sample warm-up pass of the last two); then one timed pass with a
+   2^20-path pool;
 3d. the wavefront against the megakernel on the card (sphere_grid(12,
    12), 256x256, 4 spp, same seeds): RMSE <= 1e-3;
 3e. the main path on the instanced scene: sphere_grid(27, 27) 1024x1024,
@@ -292,8 +299,12 @@ read or written once. The pair kernels must equal their twins in every
 field. The ray prep counts 24 bytes read a ray and 40 written a padded
 ray (14 operations a ray bound nothing); the item-list probe 23
 operations a (row, lane) of each item against the items, the slab table
-and the rays read once; the transpose 64 bytes read and 64 written a
-row. Prep and probes must equal their twins bit for bit.
+and the rays read once, and beside it `bound_ms_issue`: 24 FP32
+instructions a (row, lane) (12 FMUL, 11 FADD, 1 FMNMX; 67 TFLOP/s counts
+an FMA as two operations, which no kernel built with -fmad=false can
+reach) at 132 SMs x 128 lanes x the card's highest SM clock
+(`nvidia-smi clocks.max.sm`); the transpose 64 bytes read and 64 written
+a row. Prep and probes must equal their twins bit for bit.
 """
 
 import json
@@ -321,8 +332,9 @@ SMALL_GRID = ((3, 3), dict(stacks=12, slices=16))
 GATE_RMSE = 0.02
 GATE_DIVERGED_FRACTION = 0.01
 WAVEFRONT = dict(width=1920, height=1080, spp=8, max_bounce=4)
+AB_SPP = 4                              # samples of 3c's pool-backend turns
 POOL_BIG = 1 << 20
-TWIN_SUBSET = 1 << 18                   # rays of a twin cast on big sets
+GROUPED_TWIN_BLOCKS = 64                # ray blocks of 2c's twins on 1M sets
 MK_VS_WF = dict(width=256, height=256, spp=4, max_bounce=4)
 GATE_WF_RMSE = 1e-3
 INST_GRID = (27, 27)                    # 1,073,092 world triangles, instanced
@@ -333,6 +345,8 @@ INST_VS_SOUP = dict(width=256, height=256, spp=4, max_bounce=4)
 T_RTOL_INST = 3e-5
 EDGE_TOL = 1e-4                         # barycentric margin of an edge hit
 FLOPS_MOELLER, FLOPS_BW, FLOPS_SLAB = 45, 31, 20
+ISSUE_ITEM_LIST = 24                    # FP32 instructions a (row, lane)
+SMS, FP32_LANES = 132, 128              # H100 SXM: SMs, FP32 lanes an SM
 FLOPS_LOCAL_RAY = 33        # [o, 1] @ M, d @ M: 18 products, 15 sums
 CLUSTER_TWIN_BLOCKS = 64                # ray blocks of a clustered twin cast
 CLUSTER_RENDER = dict(width=1024, height=1024, spp=4, max_bounce=4)
@@ -756,9 +770,12 @@ def phase_grouped_kernels(device):
 
     for name, (o, d, t_max) in sets.items():
         full = prepared(o, d, t_max)
-        n_twin = o.shape[0] if name in ("camera", "pool_sorted") \
-            else TWIN_SUBSET
-        sub = prepared(o[:n_twin], d[:n_twin], t_max[:n_twin])
+        # the twins on ray blocks spread over the 1M-ray sets, on the
+        # whole pool-sized set (its census sets the pool's bounds)
+        idx = slice(None) if name == "pool_sorted" else common.spread_blocks(
+            o.shape[0], GROUPED_TWIN_BLOCKS, device, wl.RB)
+        sub = prepared(o[idx], d[idx], t_max[idx])
+        n_twin = o[idx].shape[0]
         for wt in (False, True):
             od, tm_c, tm_a, texp, it_c, it_a = full
             g = wl.sweep_closest_grouped(tables, it_c, od, texp, t_min, wt)
@@ -769,10 +786,10 @@ def phase_grouped_kernels(device):
             t0 = time.perf_counter()
             gs = wl.sweep_closest_grouped(tables, it_cs, od_s, texp_s, t_min,
                                           wt)
-            gw = wl.sweep_closest_grouped_torch(tables, it_cs, od_s, texp_s,
-                                                t_min, wt)
             gas = wl.sweep_any_grouped(tables, it_as, od_s, tm_as, t_min, wt)
-            # the any-hit twin's sweep, walked by the census (its own steps)
+            # the twins' sweeps, walked by the census (their own steps)
+            gw, closest_counts = worklist_ab.grouped_census(
+                tables, it_cs, od_s, texp_s, t_min, wt)
             gaw, any_counts = worklist_ab.any_census(tables, it_as, od_s,
                                                      tm_as, t_min, wt)
             torch.cuda.synchronize()
@@ -798,9 +815,7 @@ def phase_grouped_kernels(device):
             errs["any"] = max(errs["any"], float((gas != gaw).float().max()))
             reports.append(rep)
             print("grouped-kernel", json.dumps(rep))
-            counts[name, wt] = (
-                worklist_ab.closest_census(tables, it_cs, od_s, texp_s,
-                                           t_min, wt), any_counts)
+            counts[name, wt] = closest_counts, any_counts
             census = dict(
                 case=name, watertight=wt, twin_rays=n_twin,
                 items_per_block=float(it_cs.seg[-1])
@@ -1529,9 +1544,10 @@ def phase_probes(device, wl_times, wl_census):
     """Rows 18 and 19 through the port's probe tools: each tool's
     measurement (its launches counted from 0), then each kernel against
     its twin: the item-list probe at the reference's four capacities (64
-    blocks, 4096 slabs), equal, beside `sweep_closest`'s cost per item on
-    2b's camera rays; the (2^20, 16) transpose, bit-equal to
-    `.T.contiguous()` and to the twin."""
+    blocks, 4096 slabs) and on `crafted_inputs`, bit for bit (a NaN equal
+    to any NaN), beside `sweep_closest`'s cost per item on 2b's camera
+    rays, with its split and resident blocks; the (2^20, 16) transpose,
+    bit-equal to `.T.contiguous()` and to the twin."""
     import torch
 
     from directcomputeraytracing_tpu_torch.tools.common import timed
@@ -1550,13 +1566,22 @@ def phase_probes(device, wl_times, wl_census):
         got, want = pw.item_list(items, tab, o), pw.item_list_torch(items,
                                                                     tab, o)
         torch.cuda.synchronize()
-        row["diff"] = _bit_diff(got, want)
+        row["diff"] = pw.diff(got, want)
         err = max(err, float((got - want).abs().max()))
         diffs.append(row["diff"])
+    c_items, c_tab, c_o = (torch.from_numpy(x).to(device)
+                           for x in pw.crafted_inputs())
+    c_want = pw.item_list_torch(c_items, c_tab, c_o)
+    crafted = dict(diff=pw.diff(pw.item_list(c_items, c_tab, c_o), c_want),
+                   nan_lanes=int(torch.isnan(c_want).sum()),
+                   negative_zero_lanes=int(
+                       ((c_want == 0) & torch.signbit(c_want)).sum()))
+    diffs.append(crafted["diff"])
     sweep_items = wl_census["camera"]["closest"]["items"]
     sweep_ns = 1e6 * wl_times["closest_ms"] / max(sweep_items, 1)
     print("item-list probe", json.dumps(dict(
-        rows=rows, sweep_closest_items=sweep_items,
+        rows=rows, crafted=crafted, resources=pw.resources(),
+        sweep_closest_items=sweep_items,
         sweep_closest_ns_per_item=sweep_ns)))
     x = pp.build_table(*(torch.from_numpy(a).to(device)
                          for a in pp.make_rays()))
@@ -1566,18 +1591,37 @@ def phase_probes(device, wl_times, wl_census):
                   diff_vs_twin=_bit_diff(t, twin))
     print("layout probe", json.dumps(layout), json.dumps(launches))
     if any(diffs) or layout["diff_vs_library"] or layout["diff_vs_twin"]:
-        raise SystemExit(f"probe kernel/twin mismatch: {rows} {layout}")
+        raise SystemExit(f"probe kernel/twin mismatch: {rows} {crafted} "
+                         f"{layout}")
     if not (launches["item_list"] and launches["transpose16"]):
         raise SystemExit(f"a probe tool launched no kernel: {launches}")
     cap = rows[-1]["capacity"]
     r = 64 * pw.RB
+    row_lanes = pw.CS * pw.RB * cap     # (row, lane) pairs of the items
+    clock = _max_sm_clock()
     item = dict(row=rows[-1], max_abs_err=err, launches=launches["item_list"],
                 twin_ms=timed(lambda: pw.item_list_torch(items, tab, o), 1),
-                bound=bound(23 * pw.CS * pw.RB * cap,
-                             4 * cap + 4 * tab.numel() + 8 * r))
+                bound=bound(23 * row_lanes,
+                             4 * cap + 4 * tab.numel() + 8 * r),
+                # 12 FMUL, 11 FADD and 1 FMNMX a (row, lane) at 128 FP32
+                # lanes a clock on each of 132 SMs
+                bound_issue=1e3 * ISSUE_ITEM_LIST * row_lanes
+                / (SMS * FP32_LANES * clock), sm_clock_hz=clock)
+    print("item-list bounds", json.dumps(dict(
+        capacity=cap, bound_ms=item["bound"][0], bound_by=item["bound"][1],
+        bound_ms_issue=item["bound_issue"], sm_clock_hz=clock)))
     tr = dict(layout=layout, launches=launches["transpose16"],
               bound=bound(0, 2 * 64 * pp.R))
     return item, tr
+
+
+def _max_sm_clock():
+    """The card's highest SM clock in Hz (nvidia-smi clocks.max.sm)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    return 1e6 * float(smi.stdout.strip().splitlines()[0])
 
 
 def _image_diff(a, b):
@@ -1884,11 +1928,11 @@ def _slab_ab(r, img, on_s):
 
 
 def _pool_backends_ab(r):
-    """The render's pool pass (seed 0, 8 samples, default slabs) through
-    the three pool backends in turns, "" (the default: the grouped sweep,
-    "pallas_wlg"), "pallas_wl" and "pallas_pair", after a one-sample
-    warm-up pass of the last two: ms/spp in the order grouped, wl, pair,
-    pair, wl, grouped."""
+    """A pool pass of the render's (seed 0, default slabs) of AB_SPP
+    samples through the three pool backends in turns, "" (the default:
+    the grouped sweep, "pallas_wlg"), "pallas_wl" and "pallas_pair",
+    after a one-sample warm-up pass of the last two: ms/spp in the order
+    grouped, wl, pair, pair, wl, grouped."""
     from dataclasses import replace
 
     import torch
@@ -1901,14 +1945,14 @@ def _pool_backends_ab(r):
     out = dict(order=[names[b] for b in order],
                ms_per_spp={n: [] for n in names.values()})
     for spp, b in [(1, "pallas_wl"), (1, "pallas_pair")] + [
-            (WAVEFRONT["spp"], b) for b in order]:
+            (AB_SPP, b) for b in order]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         wf.render_samples_wavefront(
             r.arrays, r.luts, r.camera, replace(r.cfg, pool_backend=b),
             r._px, r._py, 0, spp_batch=spp)
         torch.cuda.synchronize()
-        if spp == WAVEFRONT["spp"]:
+        if spp == AB_SPP:
             out["ms_per_spp"][names[b]].append(
                 1000.0 * (time.perf_counter() - t0) / spp)
     return out
@@ -2314,7 +2358,8 @@ def main():
         row("item_list", probes_src, "experiments/probe_worklist.py:23",
             probe_item["launches"], probe_item["max_abs_err"],
             probe_item["row"]["ms"], probe_item["twin_ms"],
-            probe_item["bound"]),
+            probe_item["bound"], kernel_ms=probe_item["row"]["kernel_ms"],
+            bound_ms_issue=probe_item["bound_issue"]),
         row("transpose16", probes_src, "experiments/prof_prep.py:56",
             probe_tr["launches"], 0.0, probe_tr["layout"]["kernel_ms"],
             probe_tr["layout"]["twin_ms"], probe_tr["bound"],

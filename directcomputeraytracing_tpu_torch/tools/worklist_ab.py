@@ -176,11 +176,21 @@ def _vote_gap(tables, items, od, t_min, st, warp, block, b_item, gap):
     gap[1].index_add_(0, rays, (enter & ~pad).sum(1, dtype=torch.int32))
 
 
+def grouped_census(tables, items, od, texp, t_min, watertight):
+    """The grouped closest walk of one cast by the twin's own steps
+    (`wl.grouped_closest_step`): (its sweep state, which is
+    `wl.sweep_closest_grouped_torch`'s, and the counts of
+    `_walk_census`)."""
+    st, n = _walk_census(wl.grouped_closest_step, tables, items, od, texp,
+                         t_min, watertight)
+    return st.state(tables.ctab if watertight else tables.bwtab,
+                    watertight), n
+
+
 def closest_census(tables, items, od, texp, t_min, watertight):
     """The counts of `_walk_census` of the grouped closest walk of one
     cast."""
-    return _walk_census(wl.grouped_closest_step, tables, items, od, texp,
-                        t_min, watertight)[1]
+    return grouped_census(tables, items, od, texp, t_min, watertight)[1]
 
 
 def ray_census(tables, items, od, texp, t_min, watertight):

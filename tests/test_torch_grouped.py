@@ -249,6 +249,33 @@ def test_admission_changes_no_field(scenes, monkeypatch, name, cap):
                                             r)[0]).sum() > 100
 
 
+@pytest.mark.parametrize("watertight", [False, True],
+                         ids=["baldwin_weber", "watertight"])
+@pytest.mark.parametrize("name", ["grid", "soup"])
+def test_grouped_census_walks_the_twin(scenes, name, watertight):
+    """`worklist_ab.grouped_census` walks the grouped closest twin's own
+    steps: its state equals `sweep_closest_grouped_torch` in every field
+    and its counts are `closest_census`'s."""
+    scene = scenes[name]
+    tables = wl.scene_tables(scene)
+    o, d, _ = _rays(2 * wl.RB + 45, 61)
+    if name == "soup":
+        o = o * 0.5 + 0.5
+    od, tm, _ = wl.prep_rays(torch.from_numpy(o), torch.from_numpy(d))
+    texp = wl.scene_exit(tables, od)
+    items = wl.phases(tables, od, tm, plain=True)
+    state, counts = worklist_ab.grouped_census(tables, items, od, texp, 1e-4,
+                                               watertight)
+    want = wl.sweep_closest_grouped_torch(tables, items, od, texp, 1e-4,
+                                          watertight)
+    assert len(state) == len(want)
+    for a, b in zip(state, want):
+        assert torch.equal(a, b)
+    assert counts == worklist_ab.closest_census(tables, items, od, texp,
+                                                1e-4, watertight)
+    assert counts["admitted"] > 0
+
+
 @pytest.mark.parametrize("name", ["grid", "soup", "instanced"])
 def test_any_census_counts_the_walk(scenes, name):
     """The any-hit census walks the twin's own steps: its walk gives the

@@ -21,6 +21,13 @@ of them), so the twin is held within 12 ulps of the largest sum of
 running min are order-free. Row 19: none, a transpose moves bits. The
 kernels, built without FMA contraction, must equal the twins bit for
 bit: `python -m pytest --noconftest -m cuda tests/test_torch_probes.py`.
+
+The min's edges: on `probe_worklist.crafted_inputs` (lanes at +-0, NaN,
++-inf; a NaN slab entry; -0 and +0 sums meeting in one block) the twin
+equals the reference's kernel exactly in NaN positions, infinities and
+the sign of every zero, and within the 12 ulps above elsewhere; the
+kernel equals the twin bit for bit there too (a NaN equal to any NaN),
+and on ragged item lists of 1 to 200 ray blocks.
 """
 
 import importlib.util
@@ -87,6 +94,104 @@ def test_item_list_twin_matches_reference_kernel():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=12 * 2.0 ** -24 * terms)
     assert (got < pw.INIT).all()
+
+
+def _reference(items, tab, o):
+    """The reference's `kernel` over `items` in interpret mode, as its
+    `run` launches it."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    ref = _ref_probe()
+    grid_spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=1, grid=(items.size,),
+        in_specs=[pl.BlockSpec((ref.CS, 12),
+                               lambda i, it: ((it[i] >> 2) & 0xFFFF, 0),
+                               memory_space=pltpu.VMEM),
+                  pl.BlockSpec((3, ref.RB), lambda i, it: (0, it[i] >> 18),
+                               memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec((1, ref.RB), lambda i, it: (0, it[i] >> 18),
+                               memory_space=pltpu.VMEM))
+    return np.asarray(pl.pallas_call(
+        ref.kernel, grid_spec=grid_spec, interpret=True,
+        out_shape=jax.ShapeDtypeStruct((1, o.shape[1]), jnp.float32),
+    )(jnp.asarray(items), jnp.asarray(tab), jnp.asarray(o)))
+
+
+def test_item_list_twin_matches_reference_on_crafted_set():
+    """NaN positions, infinities and zero signs exactly; finite non-zero
+    lanes within 12 ulps of the largest sum of |terms|."""
+    items, tab, o = pw.crafted_inputs()
+    want = _reference(items, tab, o)
+    got = pw.item_list(torch.from_numpy(items), torch.from_numpy(tab),
+                       torch.from_numpy(o)).numpy()
+    assert got.shape == want.shape == (1, 4 * pw.RB)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    # the set reaches every edge it was made for
+    blocks = want.reshape(4, pw.RB)
+    zeros = blocks[:2, 1::16]
+    x = o[0].reshape(4, pw.RB)
+    assert np.isnan(blocks[3]).all()
+    assert not np.isnan(blocks[2][np.isfinite(x[2])]).any()
+    assert (zeros == 0).all() and np.signbit(zeros).all()
+    assert (blocks[:2, 0::16] == 0).all() and np.signbit(
+        blocks[:2, 0::16]).all()
+    edge = ~nan & (~np.isfinite(want) | (want == 0))
+    assert edge.sum() > 0
+    np.testing.assert_array_equal(got[edge].view(np.int32),
+                                  want[edge].view(np.int32))
+    fin = np.isfinite(o[0])
+    terms = np.abs(tab[np.isfinite(tab).all(1)]).sum(1).max() \
+        * np.abs(o[0, fin]).max()
+    rest = ~nan & ~edge
+    np.testing.assert_allclose(got[rest], want[rest], rtol=0,
+                               atol=12 * 2.0 ** -24 * terms)
+
+
+EDGES = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1.0, -1.0, 3e38],
+                 np.float32)
+
+
+def _pair_inputs(within):
+    """Every ordered pair (u, v) of EDGES, pair i in ray block i, x = 1:
+    as rows 0 and 1 of one slab, the other rows 3e38 (within), or as two
+    items whose slabs hold u and v in every row. A row's sum is its first
+    entry: the other 11 columns are -0, which add nothing."""
+    u, v = (e.ravel() for e in np.meshgrid(EDGES, EDGES, indexing="ij"))
+    n = u.size
+    o = np.ones((3, n * pw.RB), np.float32)
+    if within:
+        tab = np.full((n, pw.CS, pw.COLS), -0.0, np.float32)
+        tab[:, :, 0] = np.float32(pw.INIT)
+        tab[:, 0, 0], tab[:, 1, 0] = u, v
+        items = (np.arange(n) << 18) | (np.arange(n) << 2) | 3
+    else:
+        tab = np.full((2 * n, pw.CS, pw.COLS), -0.0, np.float32)
+        tab[0::2, :, 0], tab[1::2, :, 0] = u[:, None], v[:, None]
+        k = np.arange(2 * n)
+        items = ((k // 2) << 18) | (k << 2) | ((k % 2 == 0) << 1) | 1
+    return items.astype(np.int32), tab.reshape(-1, pw.COLS), o
+
+
+def test_item_list_twin_min_is_the_references():
+    """The twin's min, on every ordered pair of edge values, in a slab's
+    rows and across items, equals jnp.minimum's bits (NaN as NaN)."""
+    import jax.numpy as jnp
+
+    u, v = (e.ravel() for e in np.meshgrid(EDGES, EDGES, indexing="ij"))
+    want = np.asarray(jnp.minimum(jnp.asarray(u), jnp.asarray(v)))
+    want = np.where(np.isnan(want), want,
+                    np.minimum(np.float32(pw.INIT), want))
+    for within in (False, True):
+        items, tab, o = _pair_inputs(within)
+        got = pw.item_list_torch(*(torch.from_numpy(x)
+                                   for x in (items, tab, o)))
+        got = got.view(u.size, pw.RB)[:, 0]
+        assert pw.diff(got, torch.from_numpy(want)) == 0, (
+            within, u, v, got.numpy(), want)
 
 
 def test_item_list_twin_restart_and_empty_block():
@@ -185,3 +290,67 @@ def test_cuda_kernels_match_twins():
     torch.cuda.synchronize()
     assert torch.equal(got, pw.item_list_torch(items, tab, o))
     assert torch.equal(t, x.T.contiguous())
+
+
+def _ragged_items(rng, counts, n_slabs):
+    """Items of len(counts) ray blocks, counts[b] in block b: random
+    slabs, a tenth invalid, each block's first item first-flagged, a
+    restart in the middle of every block of 8 items or more, and a first
+    bit on an invalid item (no restart) in every block of 4 or more."""
+    out = []
+    for b, n in enumerate(counts):
+        slab = rng.integers(0, n_slabs, n)
+        valid = rng.random(n) > 0.1
+        first = np.zeros(n, bool)
+        first[:1] = True
+        if n >= 8:
+            first[n // 2] = valid[n // 2] = True
+        if n >= 4:
+            first[n // 4 + 1], valid[n // 4 + 1] = True, False
+        out.append((b << 18) | (slab << 2) | (first << 1) | valid)
+    return np.concatenate(out).astype(np.int32) if out else np.zeros(
+        0, np.int32)
+
+
+def _cuda_case(case):
+    """(items, tab, o) of a `cuda` test case."""
+    if case == "crafted":
+        return pw.crafted_inputs()
+    if case.startswith("pairs"):
+        return _pair_inputs(case == "pairs_within")
+    if case.startswith("capacity"):
+        return (pw.make_items(int(case[8:])), *pw.make_inputs(5))
+    rng = np.random.default_rng(int(case[6:]))
+    n_blocks = int(case[6:])
+    counts = rng.integers(0, 24, n_blocks)
+    # blocks of 0, 1 and 4096 items where there is room for them
+    for b, n in ((0, 1), (1, 0), (2, 4096), (n_blocks - 1, 4096)):
+        if b < n_blocks:
+            counts[b] = n
+    tab, o = pw.make_inputs(n_blocks, n_blocks, 300)
+    return _ragged_items(rng, counts, 300), tab, o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [*(f"capacity{c}" for c in pw.CAPACITIES),
+                                  "crafted", "pairs_across", "pairs_within",
+                                  "blocks1", "blocks3", "blocks64",
+                                  "blocks200"])
+def test_cuda_item_list_matches_twin_bitwise(case):
+    """The redesigned kernel against the twin, bit for bit (a NaN equal
+    to any NaN): the reference's four capacities, the crafted set, every
+    ordered pair of edge values within a slab and across items, and
+    ragged lists of 1, 3, 64 and 200 ray blocks (not multiples of the
+    split or of the SMs) with blocks of 0, 1 and 4096 items, invalid
+    items and mid-segment restarts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    dev = torch.device("cuda")
+    items, tab, o = (torch.from_numpy(x).to(dev) for x in _cuda_case(case))
+    before = pw.item_list.launches
+    got = pw.item_list(items, tab, o)
+    torch.cuda.synchronize()
+    assert pw.item_list.launches == before + 1
+    want = pw.item_list_torch(items, tab, o)
+    assert got.shape == want.shape
+    assert pw.diff(got, want) == 0
