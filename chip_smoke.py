@@ -214,6 +214,24 @@ any failure exits non-zero:
    after a warm-up: `LAST_STATS` and the rule of 3k over the pool casts;
 3m. the textured variant (opacity 1, the dot-grid mask over the
    spheres' UVs), megakernel 1024x1024, 2 spp: the rule of 3k;
+3n. the headline stand-in through the wavefront: `write_standin_scene`
+   (144 OBJ spheres of 1472 triangles, 211,972 world triangles with the
+   two rectangles, the whole BSDF mix, a `mask` BSDF with a bitmap
+   opacity) into a temporary directory, `load_mitsuba_xml`, then
+   `Renderer(..., 1920, 1080, max_bounce=4, integrator="wavefront",
+   filter_params=FilterParams("gaussian", radius=2.0))`; one untimed
+   `render(8)`, then one timed `render(8)`: each one fused pool pass with
+   per-sample slots and 8 Gaussian convolutions. Prints the host seconds
+   to write, load and flatten, ms/spp, the film's seconds (the slots'
+   gather to raster order and the convolutions, host clock between
+   synchronisations) and share, `LAST_STATS`, the alpha recast counts,
+   the slot buffers' bytes, peak memory and launches per sample; the rule
+   of 3l over the pool casts; the image must be finite and non-zero;
+3o. the same scene, film, seeds and 8 spp through the megakernel (one
+   sample a pass, 2 pixel chunks), after a one-sample warm-up: ms/spp,
+   the rule of 3k, and the image against 3n's first within rtol 1e-5,
+   atol 1e-6 (the two integrators trace the same paths; the film
+   convolves each sample alike);
 4. the card's render against the port's CPU render, Cornell (64x64,
    4 spp), 4b. sphere_grid(3, 3, stacks=12, slices=16) (64x64, 4 spp),
    4c. the same small grid through the wavefront, 4d. the same small
@@ -223,7 +241,9 @@ any failure exits non-zero:
    same small grid through the megakernel with slab_march=0.03, 4h. the
    alpha-tested panel (the dense sweep, megakernel), 4i. the small grid
    with alpha through the wavefront and 4j. its textured variant
-   (megakernel);
+   (megakernel), 4k. the small stand-in (`write_standin_scene(d, nx=2,
+   nz=2, stacks=8, slices=12)`, 676 triangles, the dense sweep) through
+   the wavefront with the Gaussian film of 3n, 64x36, 2 spp;
 5. one JSON line listing the nineteen kernels, then the contract line,
    last. `ms` is CUDA events around runs of wrapper calls; rows 1-3 and
    15-17 also give `kernel_ms`, the kernels' own time by the profiler
@@ -357,6 +377,10 @@ PAIR_WAVEFRONT = dict(width=1920, height=1080, spp=4, max_bounce=4)
 ALPHA_RENDER = dict(width=1024, height=1024, spp=4, max_bounce=4)
 ALPHA_WAVEFRONT = dict(width=1920, height=1080, spp=2, max_bounce=4)
 ALPHA_TEX_RENDER = dict(width=1024, height=1024, spp=2, max_bounce=4)
+STANDIN = dict(width=1920, height=1080, spp=8, max_bounce=4)
+STANDIN_FILTER = ("gaussian", 2.0)      # the CLI's radius for a Gaussian
+SMALL_STANDIN = dict(nx=2, nz=2, stacks=8, slices=12)
+SMALL_STANDIN_RENDER = dict(width=64, height=36, spp=2, max_bounce=4)
 
 
 def _timed_call(fn):
@@ -1727,15 +1751,33 @@ def _expected_launches(arrays, n_closest, n_any, got, sweeps="",
     (`alpha_passes`) is one more closest cast."""
     passes = got["alpha_passes"] if alpha else 0
     expect = _expected_cast_launches(arrays, n_closest + passes, n_any, got,
-                                     sweeps, backend)
+                                     sweeps, backend, passes)
     expect.update(alpha_calls=n_closest + n_any if alpha else 0,
                   alpha_passes=passes)
     return expect
 
 
-def _expected_cast_launches(arrays, n_closest, n_any, got, sweeps, backend):
+def _refine_casts(arrays, n_casts, passes):
+    """How many of n_casts work-list casts run the refine: those whose
+    tables have the hyper level (above `worklist.HIER_MIN` supers). On the
+    opaque/masked split the `passes` recast passes cast the masked side's
+    tables and the other casts the opaque side's."""
+    from directcomputeraytracing_tpu_torch.accel import traverse as tv
+    from directcomputeraytracing_tpu_torch.accel import worklist as wl
+
+    def hyper(scene):
+        return wl.scene_tables(scene).hbox is not None
+
+    if not (passes and tv._has_alpha_split(arrays, "worklist")):
+        return n_casts if hyper(arrays) else 0
+    return ((n_casts - passes) * hyper(tv._split_view(arrays, False))
+            + passes * hyper(tv._split_view(arrays, True)))
+
+
+def _expected_cast_launches(arrays, n_closest, n_any, got, sweeps, backend,
+                            passes=0):
     """`_expected_launches` for n_closest closest and n_any any-hit casts
-    of one backend."""
+    of one backend, `passes` of the closest ones alpha recast passes."""
     zero = dict.fromkeys(got, 0)
     if backend == "pallas_cluster":
         return dict(zero, cluster_cull=n_closest + n_any,
@@ -1746,7 +1788,8 @@ def _expected_cast_launches(arrays, n_closest, n_any, got, sweeps, backend):
         c_empty, a_empty = got["pair_closest_empty"], got["pair_any_empty"]
         return dict(zero, prep_rays=n_closest + n_any,
                     cull_boxes=n_closest + n_any,
-                    refine=n_closest + n_any - got["refine_skipped"],
+                    refine=(_refine_casts(arrays, n_closest + n_any, passes)
+                            - got["refine_skipped"]),
                     refine_skipped=got["refine_skipped"],
                     pair_emit=(n_closest - c_empty + got["pair_closest_no_pair"]
                                + n_any - a_empty + got["pair_any_no_pair"]),
@@ -1760,11 +1803,13 @@ def _expected_cast_launches(arrays, n_closest, n_any, got, sweeps, backend):
     if arrays.isup_inst.shape[0] > 1:
         sweeps = "_inst"
     # work list: a cast with an empty item list launches no sweep (counted
-    # apart); each cast culls once; a cast whose hyper cull admitted
-    # nothing runs no refine (counted apart)
+    # apart); each cast culls once; a cast on tables without the hyper
+    # level runs no refine, nor does one whose hyper cull admitted nothing
+    # (counted apart)
     return dict(zero, prep_rays=n_closest + n_any,
                 cull_boxes=n_closest + n_any,
-                refine=n_closest + n_any - got["refine_skipped"],
+                refine=(_refine_casts(arrays, n_closest + n_any, passes)
+                        - got["refine_skipped"]),
                 refine_skipped=got["refine_skipped"],
                 closest_empty=got["closest_empty"], any_empty=got["any_empty"],
                 **{"sweep_closest" + sweeps: n_closest - got["closest_empty"],
@@ -2113,6 +2158,186 @@ def phase_cpu_vs_card(device, name, integrator="megakernel", backend="auto",
     return rep
 
 
+def _load_standin(**kw):
+    """(scene, camera, host seconds to write, host seconds to load) of a
+    stand-in written into a temporary directory and loaded from its XML."""
+    import tempfile
+
+    from directcomputeraytracing_tpu_torch.scene.standin import (
+        write_standin_scene,
+    )
+    from directcomputeraytracing_tpu_torch.scene.xml_loader import (
+        load_mitsuba_xml,
+    )
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        xml = write_standin_scene(d, **kw)
+        t1 = time.perf_counter()
+        scene, settings = load_mitsuba_xml(xml)
+        t2 = time.perf_counter()
+    return scene, settings.camera, t1 - t0, t2 - t1
+
+
+def _standin_renderer(scene, camera, p, device, integrator):
+    from directcomputeraytracing_tpu_torch.film.filters import FilterParams
+    from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
+
+    return Renderer(scene, camera, p["width"], p["height"],
+                    max_bounce=p["max_bounce"], integrator=integrator,
+                    filter_params=FilterParams(*STANDIN_FILTER),
+                    device=device)
+
+
+def _time_film(r):
+    """Time the Renderer's filtered film (`_filter_planes`: the slots'
+    gather to raster order and the convolutions), host clock between
+    synchronisations; returns the list its seconds accumulate in."""
+    import torch
+
+    inner, spent = r._filter_planes, [0.0]
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(*args)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+
+    r._filter_planes = timed
+    return spent
+
+
+def phase_standin_wavefront(device):
+    """The headline stand-in at 1920x1080 through the wavefront and the
+    Gaussian film (3n). Returns (report, scene, camera, first image)."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.integrator import wavefront as wf
+
+    p = STANDIN
+    scene, cam, write_s, load_s = _load_standin()
+    t0 = time.perf_counter()
+    r = _standin_renderer(scene, cam, p, device, "wavefront")
+    flatten_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    first = r.render(spp=p["spp"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    r.reset()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    film_s = _time_film(r)
+    t0 = time.perf_counter()
+    img = r.render(spp=p["spp"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    stats = dict(wf.LAST_STATS)
+    expect = _expected_wavefront_launches(r.arrays, stats, launches, "auto",
+                                          r.cfg.any_hit)
+    rep = dict(scene="standin", integrator="wavefront",
+               filter=list(STANDIN_FILTER), world_tris=_world_tris(scene),
+               instanced=r.arrays.isup_inst.shape[0] > 1,
+               tiled_and_sorted=r._inv is not None,
+               host_s=dict(write=write_s, load=load_s, flatten=flatten_s),
+               shape=list(img.shape), finite=bool(np.isfinite(img).all()),
+               mean=float(img.mean()), max=float(img.max()),
+               ms_per_spp=1000.0 * seconds / p["spp"], total_s=seconds,
+               warmup_s=warm_s, film_s=film_s[0],
+               film_share=film_s[0] / seconds,
+               slot_buffer_bytes=(stats["slots"] + 1) * (2 + 3) * 4,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               repeat_equal=bool(np.array_equal(first, img)),
+               launches_per_spp={k: v / p["spp"] for k, v in launches.items()},
+               last_stats=stats, launches=launches, expected_launches=expect,
+               **_alpha_stats(r, launches))
+    print("standin-wavefront", json.dumps(rep))
+    if not (rep["finite"] and rep["mean"] > 0.0
+            and img.shape == (p["height"], p["width"], 3)):
+        raise SystemExit("stand-in wavefront render is not a finite, "
+                         "non-black image")
+    if rep["world_tris"] < 200_000 or not rep["tiled_and_sorted"]:
+        raise SystemExit(f"the stand-in is not the headline scene: {rep}")
+    if stats["slots"] != p["width"] * p["height"] * p["spp"]:
+        raise SystemExit(f"stand-in pool pass kept {stats['slots']} slots")
+    if launches != expect:
+        raise SystemExit(f"stand-in wavefront launch counts {launches} != "
+                         f"{expect}")
+    return rep, scene, cam, first
+
+
+def phase_standin_megakernel(device, scene, cam, wf_img):
+    """The stand-in of 3n through the megakernel (3o), against 3n's
+    image."""
+    import torch
+
+    p = STANDIN
+    r = _standin_renderer(scene, cam, p, device, "megakernel")
+    r.render(spp=1)
+    r.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    img = r.render(spp=p["spp"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    expect = _expected_launches(
+        r.arrays, p["spp"] * (p["max_bounce"] + 2) * r.n_chunks,
+        p["spp"] * (p["max_bounce"] + 1) * r.n_chunks, launches,
+        alpha=r.cfg.any_hit)
+    diff = np.abs(img - wf_img)
+    close = diff <= 1e-6 + 1e-5 * np.abs(wf_img)
+    rep = dict(scene="standin", integrator="megakernel",
+               filter=list(STANDIN_FILTER), shape=list(img.shape),
+               finite=bool(np.isfinite(img).all()), mean=float(img.mean()),
+               ms_per_spp=1000.0 * seconds / p["spp"], total_s=seconds,
+               chunks=r.n_chunks,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               vs_wavefront=dict(max_abs=float(diff.max()),
+                                 beyond_tol=int((~close).sum()),
+                                 rtol=1e-5, atol=1e-6),
+               launches_per_spp={k: v / p["spp"] for k, v in launches.items()},
+               launches=launches, expected_launches=expect,
+               **_alpha_stats(r, launches))
+    print("standin-megakernel", json.dumps(rep))
+    if not (rep["finite"] and rep["mean"] > 0.0):
+        raise SystemExit("stand-in megakernel render is not a finite, "
+                         "non-black image")
+    if launches != expect:
+        raise SystemExit(f"stand-in megakernel launch counts {launches} != "
+                         f"{expect}")
+    if not close.all():
+        raise SystemExit("stand-in: the megakernel's image differs from the "
+                         "wavefront's")
+    return rep
+
+
+def phase_standin_cpu_vs_card(device):
+    """The small stand-in through the wavefront and the Gaussian film, the
+    card against the port's CPU (4k)."""
+    import torch
+
+    p = SMALL_STANDIN_RENDER
+    scene, cam, _, _ = _load_standin(**SMALL_STANDIN)
+    imgs = {}
+    for dev in (torch.device("cpu"), device):
+        r = _standin_renderer(scene, cam, p, dev, "wavefront")
+        imgs[dev.type] = r.render(spp=p["spp"])
+    a, b = imgs["cpu"], imgs[device.type]
+    rep = dict(scene="small_standin", integrator="wavefront",
+               filter=list(STANDIN_FILTER), world_tris=_world_tris(scene),
+               **_image_diff(a, b), mean_cpu=float(a.mean()),
+               mean_card=float(b.mean()))
+    print("cpu-vs-card", json.dumps(rep))
+    if not (_image_ok(rep) and b.mean() > 0.0):
+        raise SystemExit("small stand-in: card render differs from the CPU "
+                         "render")
+    return rep
+
+
 def _build_all():
     """Build the six kernel libraries, the nvcc runs in parallel."""
     from directcomputeraytracing_tpu_torch.accel import brute
@@ -2223,6 +2448,10 @@ def main():
           "alpha_grid_textured", ALPHA_TEX_RENDER, "auto", 1)
     if not (alpha["split"] and alpha["recast_passes"]):
         raise SystemExit(f"the alpha render cast no split: {alpha}")
+    _, standin, standin_cam, standin_img = phase(
+        "3n stand-in wavefront render", phase_standin_wavefront, device)
+    phase("3o stand-in megakernel render", phase_standin_megakernel, device,
+          standin, standin_cam, standin_img)
     phase("4 Cornell card vs CPU", phase_cpu_vs_card, device, "cornell")
     phase("4b small grid card vs CPU", phase_cpu_vs_card, device,
           "small_grid")
@@ -2244,6 +2473,8 @@ def main():
           device, "small_alpha_grid", "wavefront")
     phase("4j small textured alpha grid card vs CPU", phase_cpu_vs_card,
           device, "small_alpha_grid_textured")
+    phase("4k small stand-in wavefront card vs CPU",
+          phase_standin_cpu_vs_card, device)
     if "jax" in sys.modules:
         raise SystemExit("the port imported jax")
     print(f"chip_smoke: all phases passed in "

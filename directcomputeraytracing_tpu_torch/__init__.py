@@ -15,6 +15,15 @@ Quick start::
                  device=torch.device("cuda"))
     image = r.render(spp=16)          # (H, W, 3) linear radiance
     display = r.postprocessed()       # exposure + tonemap + sRGB
+
+A Mitsuba XML scene (or `load_obj` for an OBJ) with a splatting film::
+
+    from directcomputeraytracing_tpu_torch import (FilterParams,
+                                                   load_mitsuba_xml)
+    scene, settings = load_mitsuba_xml("scene.xml")
+    r = Renderer(scene, settings.camera, settings.width, settings.height,
+                 integrator="wavefront",
+                 filter_params=FilterParams("gaussian", radius=2.0))
 """
 
 __version__ = "0.1.0"
@@ -36,9 +45,18 @@ def __getattr__(name):
                 "flatten_scene"):
         from .scene import scene as _m
         return getattr(_m, name)
+    if name == "load_obj":
+        from .scene.obj_loader import load_obj
+        return load_obj
+    if name == "load_mitsuba_xml":
+        from .scene.xml_loader import load_mitsuba_xml
+        return load_mitsuba_xml
     if name == "CameraParams":
         from .core.types import CameraParams
         return CameraParams
+    if name == "FilterParams":
+        from .film.filters import FilterParams
+        return FilterParams
     if name == "PostParams":
         from .post.pipeline import PostParams
         return PostParams
@@ -48,4 +66,5 @@ def __getattr__(name):
 __all__ = ["Renderer", "RenderConfig", "SEED_FIXED", "SEED_SAMPLE_COUNT",
            "SEED_FRAME_INDEX", "cornell_box", "sphere_grid", "Scene", "Mesh",
            "Material", "Instance", "PunctualLight", "flatten_scene",
-           "CameraParams", "PostParams"]
+           "load_obj", "load_mitsuba_xml", "CameraParams", "FilterParams",
+           "PostParams"]

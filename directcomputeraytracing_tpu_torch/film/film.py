@@ -1,8 +1,9 @@
-"""Box-filter film: per-pixel sums of weighted radiance and weights.
+"""Splatting film: per-pixel sums of weighted radiance and weights.
 
-Counterpart of `directcomputeraytracing_tpu.film.film`. Only the box
-filter of radius 0.5 (each sample lands in its own pixel with weight 1)
-is ported; the splatting filters of `film/filters.py` are not.
+Counterpart of `directcomputeraytracing_tpu.film.film`. The box filter
+of radius 0.5 (each sample lands in its own pixel with weight 1) adds
+straight into the film (`accumulate_box`); the other reconstruction
+filters convolve a sample plane first (`film.filters`).
 """
 
 from typing import NamedTuple

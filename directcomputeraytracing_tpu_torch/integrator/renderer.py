@@ -1,7 +1,7 @@
 """Progressive renderer: scene + camera + config -> image, on one device.
 
 Counterpart of `directcomputeraytracing_tpu.integrator.renderer` for the
-megakernel and wavefront integrators and the box film. For the
+megakernel and wavefront integrators and the splatting film. For the
 megakernel a pixel chunk (`CHUNK_PIXELS`, 2^20) bounds the memory of one
 pass: a 1024x1024 frame runs as one chunk, a larger frame as several.
 The wavefront runs the whole frame through one path pool, whose size
@@ -18,9 +18,18 @@ independent of the order. The reference's tunnel pacing and its
 
 `traversal_backend`, `pool_backend` and `slab_march` pass through to the
 integrators in the `RenderConfig`; alpha-tested scenes set `any_hit` and
-`any_hit_texture` from the scene's meta. Splatting filters raise
-NotImplementedError (ROADMAP queue 1). `device` defaults to "cuda"; pass
-"cpu" for the twins.
+`any_hit_texture` from the scene's meta. `device` defaults to "cuda";
+pass "cpu" for the twins.
+
+The film: a box filter of radius <= 0.5 adds each pass's values straight
+into their pixels (`_box_fast_path`), and progressive samples fuse in
+groups as above. Any other filter (`filter_params`, else the config's
+`filter_type` / `filter_radius`) convolves one sample plane at a time
+(`film.filters.convolve_sample_pass`), with each sample's jitter: the
+megakernel then traces one sample per pass, and the wavefront fuses a
+group of samples into one pool pass with per-sample output slots
+(`sample_slots`), whose planes it convolves in sample order, as the
+reference does.
 """
 
 import torch
@@ -30,7 +39,8 @@ from ..core.constants import (
     MATERIAL_TYPE_DIFFUSE,
 )
 from ..core.types import to_device
-from ..film.film import accumulate_box, create_film, resolve
+from ..film.film import Film, accumulate_box, create_film, resolve
+from ..film.filters import FilterParams, convolve_sample_pass
 from ..lut.textures import load_luts, placeholder_luts
 from ..post.pipeline import PostParams, post_process
 from ..scene.scene import flatten_scene
@@ -52,6 +62,14 @@ SEED_FRAME_INDEX = "frame_index"     # seed = frame counter that survives
                                      # film resets
 
 
+def _accumulate_filtered(film, pos, values, fp: FilterParams, height, width):
+    """Convolve one raster-ordered sample plane ((H*W, 2) jitter, (H*W, 3)
+    values) under fp and add it to the film."""
+    v, w = convolve_sample_pass(pos.reshape(height, width, 2),
+                                values.reshape(height, width, 3), fp)
+    return Film(value=film.value + v, weight=film.weight + w)
+
+
 class Renderer:
     def __init__(self, scene, camera, width, height, max_bounce=4,
                  luts=None, integrator="megakernel", filter_params=None,
@@ -61,10 +79,6 @@ class Renderer:
             raise ValueError(f"integrator {integrator!r}: 'megakernel' or "
                              "'wavefront'")
         self.integrator = integrator
-        if filter_params is not None and (filter_params.kind != "box"
-                                          or filter_params.radius > 0.5):
-            raise NotImplementedError(
-                "splatting reconstruction filters: ROADMAP queue 1, item 6")
         self.arrays, self.meta = flatten_scene(scene, self.device)
         self.camera = to_device(camera, self.device)
         if luts is None:
@@ -86,9 +100,8 @@ class Renderer:
                           any_hit_texture=self.meta.any_opacity_texture)
         cfg_kwargs.update(cfg_overrides)
         self.cfg = RenderConfig(**cfg_kwargs)
-        if self.cfg.filter_type != "box" or self.cfg.filter_radius > 0.5:
-            raise NotImplementedError(
-                "splatting reconstruction filters: ROADMAP queue 1, item 6")
+        self.filter_params = filter_params or FilterParams(
+            kind=self.cfg.filter_type, radius=self.cfg.filter_radius)
         self.post_params = post_params or PostParams()
         self.film = create_film(height, width, self.device)
         self.spp = 0
@@ -99,6 +112,11 @@ class Renderer:
         else:
             self._px, self._py = full_frame_pixels(self.cfg, self.device)
             self._inv = None
+
+    @property
+    def _box_fast_path(self):
+        return (self.filter_params.kind == "box"
+                and self.filter_params.radius <= 0.5)
 
     @property
     def n_chunks(self):
@@ -119,24 +137,46 @@ class Renderer:
         """Per-pixel values in the trace order -> raster order."""
         return values if self._inv is None else values[self._inv]
 
-    def _wavefront(self, frame_seed, spp_batch=1):
-        """The whole frame through one path pool: (R, 3) summed values in
-        the trace order."""
+    def _wavefront(self, frame_seed, spp_batch=1, sample_slots=False):
+        """The whole frame through one path pool: (positions, values) in
+        the trace order, (R, .) summed per pixel or, with sample_slots,
+        (R * spp_batch, .) one slot per (pixel, sample)."""
         return render_samples_wavefront(
             self.arrays, self.luts, self.camera, self.cfg, self._px,
-            self._py, frame_seed, spp_batch=spp_batch)[1]
+            self._py, frame_seed, spp_batch=spp_batch,
+            sample_slots=sample_slots)
+
+    def _filter_planes(self, pos, values, fuse):
+        """Convolve the fused pass's sample planes (slots in the trace
+        order, pixel-major) into the film, sample by sample."""
+        if self._inv is not None:
+            # slots are pixel-major in trace order; expand the raster
+            # inverse permutation to slot granularity
+            inv = (self._inv[:, None] * fuse
+                   + torch.arange(fuse, device=self.device)).reshape(-1)
+            pos, values = pos[inv], values[inv]
+        for s in range(fuse):
+            self.film = _accumulate_filtered(
+                self.film, pos[s::fuse], values[s::fuse],
+                self.filter_params, self.cfg.height, self.cfg.width)
 
     def render_sample(self, frame_seed):
         """Trace one sample per pixel and accumulate it into the film."""
         if self.integrator == "wavefront":
-            values = self._raster(self._wavefront(frame_seed))
+            pos, values = self._wavefront(frame_seed)
         else:
-            values = self._raster(torch.cat([
-                render_samples(self.arrays, self.luts, self.camera, self.cfg,
-                               px, py, frame_seed)[1]
-                for px, py in self._chunks()]))
-        self.film = accumulate_box(self.film, values, self.cfg.height,
-                                   self.cfg.width)
+            parts = [render_samples(self.arrays, self.luts, self.camera,
+                                    self.cfg, px, py, frame_seed)
+                     for px, py in self._chunks()]
+            pos = torch.cat([p for p, _ in parts])
+            values = torch.cat([v for _, v in parts])
+        if self._box_fast_path:
+            self.film = accumulate_box(self.film, self._raster(values),
+                                       self.cfg.height, self.cfg.width)
+        else:
+            self.film = _accumulate_filtered(
+                self.film, self._raster(pos), self._raster(values),
+                self.filter_params, self.cfg.height, self.cfg.width)
         self.spp += 1
         self.frame_index += 1
 
@@ -146,23 +186,32 @@ class Renderer:
         seeds, passes are summed in groups of samples_per_dispatch
         (default min(spp, 8)) before they reach the film, as the
         reference's fused dispatches do; the wavefront traces such a
-        group in one pool pass (spp_batch)."""
+        group in one pool pass (spp_batch). A splatting filter fuses
+        only the wavefront's passes (per-sample slots); the megakernel
+        then traces one sample per pass."""
         fuse = (samples_per_dispatch if samples_per_dispatch is not None
                 else min(spp, 8))
-        can_fuse = seed_mode == SEED_SAMPLE_COUNT and fuse > 1
+        can_fuse = (seed_mode == SEED_SAMPLE_COUNT and fuse > 1
+                    and (self._box_fast_path
+                         or self.integrator == "wavefront"))
         remaining = spp
         while remaining > 0:
             if can_fuse and remaining >= fuse:
-                if self.integrator == "wavefront":
-                    total = self._raster(self._wavefront(self.spp, fuse))
+                if not self._box_fast_path:
+                    self._filter_planes(
+                        *self._wavefront(self.spp, fuse, True), fuse)
                 else:
-                    total = self._raster(torch.cat([
-                        render_samples_accumulated(
-                            self.arrays, self.luts, self.camera, self.cfg,
-                            px, py, self.spp, fuse)
-                        for px, py in self._chunks()]))
-                self.film = accumulate_box(self.film, total, self.cfg.height,
-                                           self.cfg.width, float(fuse))
+                    if self.integrator == "wavefront":
+                        total = self._wavefront(self.spp, fuse)[1]
+                    else:
+                        total = torch.cat([
+                            render_samples_accumulated(
+                                self.arrays, self.luts, self.camera,
+                                self.cfg, px, py, self.spp, fuse)
+                            for px, py in self._chunks()])
+                    self.film = accumulate_box(
+                        self.film, self._raster(total), self.cfg.height,
+                        self.cfg.width, float(fuse))
                 self.spp += fuse
                 self.frame_index += fuse
                 remaining -= fuse

@@ -30,8 +30,9 @@ the shadow cast in two windows (`_pool_any`).
 iterations, pool size, `spp_batch`, the pool backend and slab depth,
 casts per slab phase and rays re-cast in later phases, for the closest
 and the shadow casts, and host reads. The reference's tunnel pacing
-(bounded dispatches, pauses) is gone. Per-sample output slots, which
-serve the splatting filters, raise NotImplementedError.
+(bounded dispatches, pauses) is gone. `sample_slots=True` gives every
+(pixel, sample) item its own output slot, as the splatting filters
+need.
 
 Alpha-tested scenes carry the reference's pre-drawn opacity sample per
 lane (`PoolState.opacity_u`): drawn at refill right after the aperture
@@ -214,21 +215,25 @@ def _m3(rng, active):
 
 class _Frame:
     """What every iteration reads: the scene, the pixel batch, the seed
-    and the film (out_pos, out_val with one dump row at index R)."""
+    and the film (out_pos, out_val: OUT slots, one per pixel or, with
+    sample_slots, one per (pixel, sample) item, and one dump row at
+    index OUT)."""
 
     def __init__(self, scene, luts, cam, cfg, pixel_x, pixel_y, frame_seed,
-                 spp_batch):
+                 spp_batch, sample_slots):
         self.scene, self.luts, self.cam, self.cfg = scene, luts, cam, cfg
         self.pixel_x, self.pixel_y = pixel_x, pixel_y
         self.frame_seed, self.spp_batch = int(frame_seed), spp_batch
         self.R = pixel_x.shape[0]
         self.RT = self.R * spp_batch
+        self.slots = sample_slots
+        self.OUT = self.RT if sample_slots else self.R
         dev = pixel_x.device
         self.res = torch.tensor([cfg.width, cfg.height], dtype=torch.float32,
                                 device=dev)
-        self.out_pos = torch.zeros((self.R + 1, 2), dtype=torch.float32,
+        self.out_pos = torch.zeros((self.OUT + 1, 2), dtype=torch.float32,
                                    device=dev)
-        self.out_val = torch.zeros((self.R + 1, 3), dtype=torch.float32,
+        self.out_val = torch.zeros((self.OUT + 1, 3), dtype=torch.float32,
                                    device=dev)
         self.env_idx = (cfg.env_light_index if cfg.has_env_light
                         else LIGHT_INDEX_INVALID)
@@ -267,7 +272,8 @@ def _step(f: _Frame, casts: _Casts, s: PoolState, cursor, n_busy):
     bounce = torch.where(take, 0, s.bounce)
     busy = s.busy | take
     is_primary = take
-    f.out_pos[torch.where(take, pidx, f.R)] = pixel_sample
+    f.out_pos[torch.where(take, vidx if f.slots else pidx, f.OUT)] = \
+        pixel_sample
     bsdf_pdf_prev, is_delta_prev = s.bsdf_pdf, s.is_delta
 
     # ---- one sort of the pool per iteration; both casts run in its order
@@ -351,9 +357,10 @@ def _step(f: _Frame, casts: _Casts, s: PoolState, cursor, n_busy):
     ray_o = _sel(still, ext_o, ray_o)
     ray_d = _sel(still, wi_new, ray_d)
 
-    # ---- CONTROL: finished paths to the film (one dump row at R)
+    # ---- CONTROL: finished paths to the film (one dump row at OUT)
     finish = busy & ~still
-    f.out_val.index_add_(0, torch.where(finish, pidx, f.R),
+    slot = torch.clamp(pixel_new, 0, f.RT - 1) if f.slots else pidx
+    f.out_val.index_add_(0, torch.where(finish, slot, f.OUT),
                          torch.where(finish[:, None], li, 0.0))
     return PoolState(
         rng=rng, pixel=pixel_new, ray_o=ray_o, ray_d=ray_d,
@@ -376,13 +383,14 @@ def render_samples_wavefront(scene, luts, cam, cfg: RenderConfig, pixel_x,
     seed frame_seed + s), so every path is the one S sequential passes
     would trace; the per-pixel sums differ from theirs by the order of
     float additions only. sample_position then holds one sample's
-    jitter per pixel (the box film ignores it)."""
-    if sample_slots:
-        raise NotImplementedError(
-            "per-sample output slots serve the splatting filters: ROADMAP "
-            "queue 1, item 6")
+    jitter per pixel (the box film ignores it).
+
+    sample_slots=True keeps every item's jitter and value in its own
+    slot (slot = item = p * S + s, pixel-major): both outputs are then
+    (R * S, 2) and (R * S, 3), for the splatting filters, which convolve
+    each sample plane `[s::S]` on its own."""
     f = _Frame(scene, luts, cam, cfg, pixel_x, pixel_y, frame_seed,
-               spp_batch)
+               spp_batch, sample_slots)
     casts = _Casts(scene, cfg)
     s = _make_state(f.R, pool_size, spp_batch, pixel_x.device)
     cursor, n_busy, iters = 0, 0, 0
@@ -393,11 +401,12 @@ def render_samples_wavefront(scene, luts, cam, cfg: RenderConfig, pixel_x,
     LAST_STATS.clear()
     LAST_STATS.update(
         iterations=iters, pool_size=int(s.busy.shape[0]),
-        spp_batch=int(spp_batch), items=f.RT, pool_backend=casts.backend,
+        spp_batch=int(spp_batch), items=f.RT, slots=f.OUT,
+        pool_backend=casts.backend,
         slab_depth=casts.depth,
         closest_casts_per_phase=list(casts.closest.casts),
         closest_recast=list(casts.closest.recast),
         any_casts_per_phase=list(casts.any.casts),
         any_recast=list(casts.any.recast),
         host_reads=iters + casts.closest.host_reads + casts.any.host_reads)
-    return f.out_pos[:f.R], f.out_val[:f.R]
+    return f.out_pos[:f.OUT], f.out_val[:f.OUT]

@@ -102,10 +102,8 @@ def test_build_bvh_equals_the_reference(preset):
 
 # the reference's exports whose module the port does not have yet, each
 # with the ROADMAP queue 1 item that ports it
-_NOT_YET = {"load_obj": "item 5", "load_mitsuba_xml": "item 5",
-            "FilterParams": "item 6", "bake_luts": "item 10",
-            "bake_luts_cached": "item 10", "DistributedRenderer": "item 11",
-            "make_mesh": "item 11"}
+_NOT_YET = {"bake_luts": "item 10", "bake_luts_cached": "item 10",
+            "DistributedRenderer": "item 11", "make_mesh": "item 11"}
 
 
 def _ref_exports():

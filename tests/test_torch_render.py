@@ -26,7 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-from directcomputeraytracing_tpu.film.filters import FilterParams
 from directcomputeraytracing_tpu.integrator.common import (
     RenderConfig as RefConfig,
 )
@@ -44,6 +43,7 @@ from directcomputeraytracing_tpu.scene.presets import cornell_box as ref_cornell
 from directcomputeraytracing_tpu.scene.presets import sphere_grid as ref_grid
 from directcomputeraytracing_tpu.scene.scene import flatten_scene as ref_flatten
 from directcomputeraytracing_tpu_torch.core.types import from_reference
+from directcomputeraytracing_tpu_torch.film.filters import FilterParams
 from directcomputeraytracing_tpu_torch.integrator.common import RenderConfig
 from directcomputeraytracing_tpu_torch.integrator.megakernel import (
     full_frame_pixels,
@@ -209,12 +209,16 @@ def test_zero_spp_image_is_black():
 def test_unported_options_raise(case):
     scene, cam = cornell_box("area", "diffuse")
     kw = {}
-    if case == "wavefront":
-        # the wavefront runs; its splatting film does not yet
-        kw = dict(integrator="wavefront",
-                  filter_params=FilterParams(kind="gaussian", radius=1.5))
-    elif case == "filter":
-        kw = dict(filter_params=FilterParams(kind="gaussian", radius=1.5))
+    if case in ("wavefront", "filter"):
+        # the splatting film renders through both integrators (queue 1,
+        # item 6); tests/test_torch_splat.py holds it to the reference
+        integrator = "wavefront" if case == "wavefront" else "megakernel"
+        img = Renderer(scene, cam, 8, 8, device=CPU, integrator=integrator,
+                       filter_params=FilterParams(kind="gaussian",
+                                                  radius=1.5)).render(2)
+        assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+        assert img.mean() > 0
+        return
     elif case == "slab_march":
         # slab marching runs (or is ignored on a dense scene); the stack
         # walker it would march through does not

@@ -334,10 +334,14 @@ def test_wavefront_renderer_matches_megakernel_renderer():
 
 
 def test_unported_wavefront_options_raise():
+    """Per-sample slots run (queue 1, item 6): R * spp_batch of them; an
+    unknown integrator still raises."""
     arrays, luts, cam, cfg, px, py = _setup("area-diffuse", 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wf.render_samples_wavefront(arrays, luts, cam, cfg, px, py, 0,
-                                    sample_slots=True)
+    pos, val = wf.render_samples_wavefront(arrays, luts, cam, cfg, px, py, 0,
+                                           spp_batch=2, sample_slots=True)
+    assert pos.shape == (8 * 8 * 2, 2) and val.shape == (8 * 8 * 2, 3)
+    assert wf.LAST_STATS["slots"] == 8 * 8 * 2
+    assert torch.isfinite(val).all() and val.sum() > 0
     with pytest.raises(ValueError, match="integrator"):
         Renderer(*cornell_box("area", "diffuse"), 8, 8, integrator="bdpt",
                  device=CPU)
