@@ -232,6 +232,36 @@ any failure exits non-zero:
    the rule of 3k, and the image against 3n's first within rtol 1e-5,
    atol 1e-6 (the two integrators trace the same paths; the film
    convolves each sample alike);
+3p. the stack walker at real size: `walker_grid(129, 128)` (a 64-triangle
+   sphere on a 129 x 128 grid, 1,056,768 world triangles: the node table
+   alone, no soup, no work-list tables) through `Renderer` (megakernel,
+   512x512, max_bounce 4, 2 spp after a one-sample warm-up): host
+   seconds of the flatten and of its two-level build (the numpy TLAS
+   over 16,512 instances; and `sphere_grid(27, 27)`'s flatten beside its
+   deferred node-table build, which 3n prints for the stand-in), node
+   count, stack size, bytes of the tables
+   on the card, ms/spp, peak memory, the walks made (spp * (2 max_bounce
+   + 3), no kernel launched) and their steps; then a 262,144-ray camera
+   cast with the done check every `WALK_CHECK_EVERY` steps and every
+   step, in turns (ms, steps, host reads; the results equal), its
+   iterations a ray (mean, max); 4,096 of its rays against the port's
+   CPU walker on the same tables (integer fields bit for bit, t within
+   1e-5 (1 + t)) and 256 against `trace_ray` (hit and triangle equal);
+3q. the CLI on the card, in subprocesses (`python -X importtime -m
+   directcomputeraytracing_tpu_torch.cli.render`: rc 0, its JSON line,
+   no jax module imported): the stand-in XML at its own 1920x1080
+   Gaussian film, 2 spp, megakernel, with its checkpoint's film finite
+   and non-zero (the wall seconds); then, run at once,
+   `preset:cornell-glossy` 512x512 at 4 spp with --checkpoint and again
+   at 8 spp (it resumes at 4), `--aov iteration_count` and `--aov normal`
+   on Cornell (the walker) and `preset:spheres-12` (the work list), and
+   `--output-bvh` on Cornell (the dump parses and equals the port's CPU
+   dump); the resumed film against an in-process 8-sample
+   `render_sample` loop on the card within rtol 1e-6, weights equal;
+3r. `bake_luts(seed=0, quality=1.0)` on the card: seconds, and each table
+   against the committed bake within the noise gate of
+   `tests/test_torch_lut_bake.py` (twice the reference's seed-to-seed
+   spread at quality 0.25);
 4. the card's render against the port's CPU render, Cornell (64x64,
    4 spp), 4b. sphere_grid(3, 3, stacks=12, slices=16) (64x64, 4 spp),
    4c. the same small grid through the wavefront, 4d. the same small
@@ -243,7 +273,10 @@ any failure exits non-zero:
    with alpha through the wavefront and 4j. its textured variant
    (megakernel), 4k. the small stand-in (`write_standin_scene(d, nx=2,
    nz=2, stacks=8, slices=12)`, 676 triangles, the dense sweep) through
-   the wavefront with the Gaussian film of 3n, 64x36, 2 spp;
+   the wavefront with the Gaussian film of 3n, 64x36, 2 spp, 4l.
+   `walker_grid(6, 6)` (2,304 world triangles from 64) with
+   SOUP_MAX_TRIS lowered to FORCED_SOUP_MAX: the node table alone, the
+   walker, 32x32, 1 spp;
 5. one JSON line listing the nineteen kernels, then the contract line,
    last. `ms` is CUDA events around runs of wrapper calls; rows 1-3 and
    15-17 also give `kernel_ms`, the kernels' own time by the profiler
@@ -381,6 +414,20 @@ STANDIN = dict(width=1920, height=1080, spp=8, max_bounce=4)
 STANDIN_FILTER = ("gaussian", 2.0)      # the CLI's radius for a Gaussian
 SMALL_STANDIN = dict(nx=2, nz=2, stacks=8, slices=12)
 SMALL_STANDIN_RENDER = dict(width=64, height=36, spp=2, max_bounce=4)
+WALKER_GRID = (129, 128)                # 1,056,768 world triangles from 64
+WALKER_RENDER = dict(width=512, height=512, spp=2, max_bounce=4)
+WALKER_CPU_RAYS, WALKER_TRACE_RAYS = 4096, 256
+SMALL_WALKER_GRID = (6, 6)              # 2,304 world triangles, forced
+SMALL_WALKER_RENDER = dict(width=32, height=32, spp=1, max_bounce=4)
+CLI_CORNELL = ["--resx", "512", "--resy", "512"]
+CLI_STANDIN_SPP = 2
+# the reference bake's own spread at quality 0.25 over the pairs of seeds
+# 1-5 (tests/test_torch_lut_bake.py SPREAD): table -> (largest mean,
+# largest max absolute difference); the noise gate is twice these
+BAKE_SPREAD = {"brdf": (0.00942, 0.01591), "brdf_avg": (0.00937, 0.01483),
+               "brdf_dielectric": (0.00235, 0.02126),
+               "brdf_dielectric_avg": (0.00206, 0.01078),
+               "bsdf": (0.00163, 0.01003), "bsdf_avg": (0.00155, 0.00450)}
 
 
 def _timed_call(fn):
@@ -1678,6 +1725,12 @@ def _scene(name):
     )
 
     name = name.removesuffix("_forced")
+    if name == "small_walker_grid":
+        from directcomputeraytracing_tpu_torch.scene.presets import (
+            walker_grid,
+        )
+
+        return walker_grid(*SMALL_WALKER_GRID)
     if name == "cornell":
         return cornell_box("area", "glossy")
     if name == "alpha_panel":
@@ -2138,10 +2191,13 @@ def phase_pair_wavefront(device):
 
 
 def phase_cpu_vs_card(device, name, integrator="megakernel", backend="auto",
-                      **cfg):
+                      p=SMALL, **cfg):
     import torch
 
-    p = SMALL
+    from directcomputeraytracing_tpu_torch.accel.traverse import (
+        _resolve_backend,
+    )
+
     imgs = {}
     for dev in (torch.device("cpu"), device):
         r, world_tris = _renderer(name, p, dev, integrator, backend, **cfg)
@@ -2150,6 +2206,7 @@ def phase_cpu_vs_card(device, name, integrator="megakernel", backend="auto",
     rep = dict(scene=name, integrator=integrator, backend=backend, cfg=cfg,
                world_tris=world_tris,
                instanced=r.arrays.isup_inst.shape[0] > 1,
+               walker=_resolve_backend(r.arrays, backend) == "walk",
                **_image_diff(a, b), mean_cpu=float(a.mean()),
                mean_card=float(b.mean()))
     print("cpu-vs-card", json.dumps(rep))
@@ -2220,6 +2277,7 @@ def phase_standin_wavefront(device):
     t0 = time.perf_counter()
     r = _standin_renderer(scene, cam, p, device, "wavefront")
     flatten_s = time.perf_counter() - t0
+    node_s = _node_tables_s(r.arrays)
     t0 = time.perf_counter()
     first = r.render(spp=p["spp"])
     torch.cuda.synchronize()
@@ -2240,7 +2298,8 @@ def phase_standin_wavefront(device):
                filter=list(STANDIN_FILTER), world_tris=_world_tris(scene),
                instanced=r.arrays.isup_inst.shape[0] > 1,
                tiled_and_sorted=r._inv is not None,
-               host_s=dict(write=write_s, load=load_s, flatten=flatten_s),
+               host_s=dict(write=write_s, load=load_s, flatten=flatten_s,
+                           node_tables=node_s),
                shape=list(img.shape), finite=bool(np.isfinite(img).all()),
                mean=float(img.mean()), max=float(img.max()),
                ms_per_spp=1000.0 * seconds / p["spp"], total_s=seconds,
@@ -2335,6 +2394,328 @@ def phase_standin_cpu_vs_card(device):
     if not (_image_ok(rep) and b.mean() > 0.0):
         raise SystemExit("small stand-in: card render differs from the CPU "
                          "render")
+    return rep
+
+
+def _node_tables_s(arrays):
+    """Host seconds of a scene's deferred node-table build (its first
+    use), synchronised."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import traverse as tv
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tv.node_tables(arrays)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _walker_counts():
+    from directcomputeraytracing_tpu_torch.accel import traverse as tv
+
+    return dict(calls=tv.walk.calls, steps=tv.walk.total_steps)
+
+
+def _timed_walk(arrays, o, d, every):
+    """One closest walk of rays (o, d) with a done check every `every`
+    steps: (ms by host clock between synchronisations, steps, host
+    reads, the `WalkState`)."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import traverse as tv
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = tv.walk(arrays, o, d, 0.0, float("inf"), False,
+                    check_every=every)
+    torch.cuda.synchronize()
+    ms = 1000.0 * (time.perf_counter() - t0)
+    return ms, tv.walk.steps, tv.walk.host_reads, state
+
+
+def phase_walker(device):
+    """The stack walker at real size (3p): walker_grid(129, 128), the node
+    table alone, rendered through the megakernel, and its casts against
+    the port's CPU walker and `trace_ray`."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import traverse as tv
+    from directcomputeraytracing_tpu_torch.camera.camera import generate_ray
+    from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
+    from directcomputeraytracing_tpu_torch.scene import scene as scene_mod
+    from directcomputeraytracing_tpu_torch.scene.presets import walker_grid
+    from directcomputeraytracing_tpu_torch.utils.debug_trace import trace_ray
+
+    from directcomputeraytracing_tpu_torch.scene.presets import sphere_grid
+
+    p = WALKER_RENDER
+    # what the node tables would add to the instanced grid's flatten
+    t0 = time.perf_counter()
+    inst_arrays, _ = scene_mod.flatten_scene(sphere_grid(*INST_GRID)[0],
+                                             device)
+    torch.cuda.synchronize()
+    inst_host = dict(flatten=time.perf_counter() - t0,
+                     node_tables=_node_tables_s(inst_arrays))
+    del inst_arrays
+    scene, cam = walker_grid(*WALKER_GRID)
+    build_s = [0.0]
+    inner = scene_mod.build_two_level
+
+    def timed_two_level(*args):
+        t0 = time.perf_counter()
+        out = inner(*args)
+        build_s[0] += time.perf_counter() - t0
+        return out
+
+    scene_mod.build_two_level = timed_two_level
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        r = Renderer(scene, cam, p["width"], p["height"],
+                     max_bounce=p["max_bounce"], device=device)
+        flatten_s = time.perf_counter() - t0
+    finally:
+        scene_mod.build_two_level = inner
+    a = r.arrays
+    tables = tv.node_tables(a)
+    table_bytes = sum(x.numel() * x.element_size() for x in (
+        tables.node_table, tables.tri_verts, a.inst_rows))
+    if not (tv._resolve_backend(a, "auto") == "walk"
+            and a.world_tris.shape[0] == 1 and a.isup_inst.shape[0] == 1):
+        raise SystemExit("the walker grid did not flatten to node tables")
+    r.render(spp=1)
+    r.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    img = r.render(spp=p["spp"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, walks = _launches(), _walker_counts()
+    expect_walks = p["spp"] * (2 * p["max_bounce"] + 3)
+    peak_render = torch.cuda.max_memory_allocated() / 2**30
+
+    # the camera cast: iterations a ray, and the done check every step
+    # against every WALK_CHECK_EVERY steps (the same result)
+    film = torch.rand((p["width"] * p["height"], 2), device=device,
+                      generator=torch.Generator(device).manual_seed(5))
+    o, d = generate_ray(r.camera, film, torch.zeros((film.shape[0], 3),
+                                                    device=device))
+    torch.cuda.reset_peak_memory_stats()
+    timings, states = {}, {}
+    for every in (tv.WALK_CHECK_EVERY, 1, tv.WALK_CHECK_EVERY, 1):
+        ms, steps, reads, states[every] = _timed_walk(a, o, d, every)
+        timings.setdefault(str(every), []).append(
+            dict(ms=ms, steps=steps, host_reads=reads))
+    peak_cast = torch.cuda.max_memory_allocated() / 2**30
+    k8 = states[tv.WALK_CHECK_EVERY]
+    same_k = all(torch.equal(x, y) for x, y in zip(k8, states[1]))
+    iters = k8.iters.float()
+
+    # oracles without a soup: the port's CPU walker on the same tables,
+    # and trace_ray
+    cpu = type(a)(*(x.cpu() for x in a))
+    tv.register_node_tables(cpu, tv.NodeTables(
+        tables.node_table.cpu(), tables.tri_verts.cpu(), tables.stack_size))
+    n = WALKER_CPU_RAYS
+    want = tv.walk(cpu, o[:n].cpu(), d[:n].cpu(), 0.0, float("inf"), False)
+    got = type(k8)(*(x[:n].cpu() for x in k8))
+    int_fields = ("triangle", "instance", "backface", "iters")
+    int_diff = {f: int((getattr(want, f) != getattr(got, f)).sum())
+                for f in int_fields}
+    h = torch.isfinite(want.t)
+    int_diff["hit"] = int((h != torch.isfinite(got.t)).sum())
+    t_err = float((torch.abs(got.t[h] - want.t[h])
+                   / (1.0 + want.t[h].abs())).max()) if h.any() else 0.0
+    trace_diff = 0
+    for i in range(WALKER_TRACE_RAYS):
+        tr = trace_ray(cpu, o[i].cpu().numpy(), d[i].cpu().numpy())
+        if tr.hit != bool(torch.isfinite(got.t[i])) or (
+                tr.hit and tr.triangle != int(got.triangle[i])):
+            trace_diff += 1
+    rep = dict(scene="walker_grid", grid=list(WALKER_GRID),
+               world_tris=_world_tris(scene),
+               local_tris=sum(m.indices.shape[0] for m in scene.meshes),
+               instances=len(scene.instances),
+               host_s=dict(flatten=flatten_s, two_level_build=build_s[0]),
+               inst_grid_host_s=inst_host,
+               nodes=tables.node_table.shape[0],
+               stack_size=tables.stack_size,
+               table_bytes=table_bytes, shape=list(img.shape),
+               finite=bool(np.isfinite(img).all()), mean=float(img.mean()),
+               ms_per_spp=1000.0 * seconds / p["spp"], total_s=seconds,
+               walks=walks, expected_walks=expect_walks,
+               steps_per_walk=walks["steps"] / max(walks["calls"], 1),
+               launches=launches, peak_mem_gib_render=peak_render,
+               camera_cast=dict(
+                   rays=int(o.shape[0]),
+                   hit_share=float(torch.isfinite(k8.t).float().mean()),
+                   iterations_mean=float(iters.mean()),
+                   iterations_max=int(iters.max()),
+                   check_every=timings,
+                   same_result=same_k, peak_mem_gib=peak_cast),
+               cpu_oracle=dict(rays=n, int_diff=int_diff, t_rel_err=t_err,
+                               t_tol=TOL),
+               trace_oracle=dict(rays=WALKER_TRACE_RAYS, diff=trace_diff))
+    print("walker", json.dumps(rep))
+    if not (rep["finite"] and rep["mean"] > 0.0
+            and img.shape == (p["height"], p["width"], 3)):
+        raise SystemExit("walker grid render is not a finite, non-black "
+                         "image")
+    if any(launches.values()) or walks["calls"] != expect_walks:
+        raise SystemExit(f"walker render: kernels {launches}, walks {walks} "
+                         f"!= {expect_walks}")
+    if not same_k:
+        raise SystemExit("the walker's done check changed its result")
+    if any(int_diff.values()) or t_err > TOL or trace_diff:
+        raise SystemExit(f"walker casts differ from the CPU walker or "
+                         f"trace_ray: {rep['cpu_oracle']}, {trace_diff}")
+    return rep
+
+
+def _cli(args, timeout=600):
+    """Run the port's CLI in a subprocess under -X importtime: (rc, its
+    JSON line or None, stderr, wall seconds, the jax modules it
+    imported)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m",
+         "directcomputeraytracing_tpu_torch.cli.render", *args],
+        capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.strip().splitlines()
+             if ln.startswith("{")]
+    jax_mods = [ln.rsplit("|", 1)[-1].strip() for ln in
+                proc.stderr.splitlines() if ln.startswith("import time:")
+                and ln.rsplit("|", 1)[-1].strip().split(".")[0] == "jax"]
+    return (proc.returncode, json.loads(lines[-1]) if lines else None,
+            proc.stderr, wall, jax_mods)
+
+
+def _cli_ok(what, out, **want):
+    rc, line, err, wall, jax_mods = out
+    rep = dict(run=what, rc=rc, wall_s=wall, line=line, jax=jax_mods)
+    print("cli", json.dumps(rep))
+    if rc != 0 or line is None or jax_mods or any(
+            line.get(k) != v for k, v in want.items()):
+        tail = "\n".join(ln for ln in err.splitlines()[-20:]
+                         if not ln.startswith("import time:"))
+        raise SystemExit(f"cli {what} failed: {rep}\n{tail}")
+    return rep
+
+
+def phase_cli(device):
+    """The port's CLI on the card in subprocesses (3q)."""
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    from directcomputeraytracing_tpu_torch.accel.build import (
+        serialize_bvh_to_xml,
+    )
+    from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
+    from directcomputeraytracing_tpu_torch.lut.bake import bake_luts_cached
+    from directcomputeraytracing_tpu_torch.scene.presets import cornell_box
+    from directcomputeraytracing_tpu_torch.scene.standin import (
+        write_standin_scene,
+    )
+
+    reps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return f"{tmp}/{name}"
+
+        xml = write_standin_scene(path("standin"))
+        reps["standin"] = _cli_ok("standin", _cli(
+            [xml, "--spp", str(CLI_STANDIN_SPP), "--checkpoint",
+             path("standin.npz"), "-o", path("standin.png")]),
+            spp=CLI_STANDIN_SPP, resolution=[1920, 1080])
+        with np.load(path("standin.npz")) as f:
+            film = f["value"] / np.maximum(f["weight"][..., None], 1e-10)
+        reps["standin"].update(finite=bool(np.isfinite(film).all()),
+                               mean=float(film.mean()))
+        if not (reps["standin"]["finite"] and reps["standin"]["mean"] > 0):
+            raise SystemExit("the CLI's stand-in film is not finite and "
+                             "non-zero")
+
+        def resume():
+            base = ["preset:cornell-glossy", *CLI_CORNELL, "--checkpoint",
+                    path("ck.npz")]
+            first = _cli(base + ["--spp", "4", "-o", path("ck4.png")])
+            return first, _cli(base + ["--spp", "8", "-o", path("ck8.png")])
+
+        runs = {f"aov_{k}_{s}": ["preset:" + s, "--aov", k, *CLI_CORNELL,
+                                 "-o", path(f"aov_{k}_{s}.png")]
+                for k in ("iteration_count", "normal")
+                for s in ("cornell", "spheres-12")}
+        runs["bvh"] = ["preset:cornell", *CLI_CORNELL, "--spp", "1",
+                       "--output-bvh", path("bvh.xml"), "-o",
+                       path("bvh.png")]
+        with ThreadPoolExecutor(len(runs) + 1) as pool:
+            resumed = pool.submit(resume)
+            futures = {k: pool.submit(_cli, v) for k, v in runs.items()}
+        first, second = resumed.result()
+        reps["ck4"] = _cli_ok("checkpoint 4", first, spp=4)
+        reps["ck8"] = _cli_ok("checkpoint resume 8", second, spp=8)
+        if "resumed at 4 spp" not in second[2]:
+            raise SystemExit("the second CLI run did not resume at 4 spp")
+        for k, fut in futures.items():
+            reps[k] = _cli_ok(k, fut.result())
+        dump = open(path("bvh.xml")).read()
+        ET.fromstring(dump)
+        reps["bvh"]["equal_to_cpu_dump"] = dump == serialize_bvh_to_xml(
+            cornell_box("area", "glossy")[0])
+        if not reps["bvh"]["equal_to_cpu_dump"]:
+            raise SystemExit("the CLI's BVH dump differs from the CPU dump")
+        # the resumed film against 8 samples in this process
+        r = Renderer(*cornell_box("area", "glossy"), 512, 512, max_bounce=4,
+                     luts=bake_luts_cached(device=device), device=device)
+        for _ in range(8):
+            r.render_sample(r.spp)
+        with np.load(path("ck.npz")) as f:
+            value, weight, spp = f["value"], f["weight"], int(f["spp"])
+        want_v = r.film.value.cpu().numpy()
+        rel = float((np.abs(value - want_v)
+                     / np.maximum(np.abs(want_v), 1e-30)).max())
+        reps["resume_vs_in_process"] = dict(
+            spp=spp, max_rel=rel, rtol=1e-6,
+            weight_equal=bool(np.array_equal(weight,
+                                             r.film.weight.cpu().numpy())))
+        print("cli-resume", json.dumps(reps["resume_vs_in_process"]))
+        if spp != 8 or not np.allclose(value, want_v, rtol=1e-6, atol=0) \
+                or not reps["resume_vs_in_process"]["weight_equal"]:
+            raise SystemExit("the resumed CLI film differs from the "
+                             "in-process film")
+    return reps
+
+
+def phase_bake(device):
+    """The LUT bake on the card (3r) against the committed bake, under
+    the noise gate."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.lut.bake import bake_luts
+    from directcomputeraytracing_tpu_torch.lut.textures import load_luts
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = bake_luts(seed=0, quality=1.0, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = load_luts(device)
+    diffs = {}
+    ok = True
+    for k, (mean_s, max_s) in BAKE_SPREAD.items():
+        diff = (getattr(got, k) - getattr(want, k)).abs()
+        diffs[k] = dict(mean=float(diff.mean()), max=float(diff.max()),
+                        bound_mean=2 * mean_s, bound_max=2 * max_s)
+        ok &= diffs[k]["mean"] <= 2 * mean_s and diffs[k]["max"] <= 2 * max_s
+        ok &= bool(torch.isfinite(getattr(got, k)).all())
+    rep = dict(seconds=seconds, quality=1.0, seed=0, vs_committed=diffs)
+    print("bake", json.dumps(rep))
+    if not ok:
+        raise SystemExit("the card's bake is outside the noise gate")
     return rep
 
 
@@ -2452,6 +2833,9 @@ def main():
         "3n stand-in wavefront render", phase_standin_wavefront, device)
     phase("3o stand-in megakernel render", phase_standin_megakernel, device,
           standin, standin_cam, standin_img)
+    phase("3p walker render", phase_walker, device)
+    phase("3q CLI", phase_cli, device)
+    phase("3r LUT bake", phase_bake, device)
     phase("4 Cornell card vs CPU", phase_cpu_vs_card, device, "cornell")
     phase("4b small grid card vs CPU", phase_cpu_vs_card, device,
           "small_grid")
@@ -2475,6 +2859,12 @@ def main():
           device, "small_alpha_grid_textured")
     phase("4k small stand-in wavefront card vs CPU",
           phase_standin_cpu_vs_card, device)
+    small_walker = phase("4l small walker grid card vs CPU",
+                         phase_cpu_vs_card, device,
+                         "small_walker_grid_forced", p=SMALL_WALKER_RENDER)
+    if small_walker["instanced"] or not small_walker["walker"]:
+        raise SystemExit("the small walker grid did not flatten to node "
+                         "tables")
     if "jax" in sys.modules:
         raise SystemExit("the port imported jax")
     print(f"chip_smoke: all phases passed in "

@@ -24,6 +24,11 @@ A Mitsuba XML scene (or `load_obj` for an OBJ) with a splatting film::
     r = Renderer(scene, settings.camera, settings.width, settings.height,
                  integrator="wavefront",
                  filter_params=FilterParams("gaussian", radius=2.0))
+
+From the shell (`--device cpu` runs the twins)::
+
+    python -m directcomputeraytracing_tpu_torch.cli.render scene.xml \
+        --resx 1280 --resy 720 --spp 64 -o out.png
 """
 
 __version__ = "0.1.0"
@@ -54,6 +59,9 @@ def __getattr__(name):
     if name == "CameraParams":
         from .core.types import CameraParams
         return CameraParams
+    if name in ("bake_luts", "bake_luts_cached"):
+        from .lut import bake as _m
+        return getattr(_m, name)
     if name == "FilterParams":
         from .film.filters import FilterParams
         return FilterParams
@@ -66,5 +74,5 @@ def __getattr__(name):
 __all__ = ["Renderer", "RenderConfig", "SEED_FIXED", "SEED_SAMPLE_COUNT",
            "SEED_FRAME_INDEX", "cornell_box", "sphere_grid", "Scene", "Mesh",
            "Material", "Instance", "PunctualLight", "flatten_scene",
-           "load_obj", "load_mitsuba_xml", "CameraParams", "FilterParams",
-           "PostParams"]
+           "load_obj", "load_mitsuba_xml", "CameraParams", "bake_luts",
+           "bake_luts_cached", "FilterParams", "PostParams"]

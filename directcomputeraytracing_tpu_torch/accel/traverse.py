@@ -1,17 +1,24 @@
 """Ray-triangle tests and the intersection entry points.
 
-PyTorch counterpart of the part of `directcomputeraytracing_tpu.accel.
-traverse` that the port's traversals use: the Moeller and watertight
-tests, `HitInfo`, and `intersect_closest` / `intersect_any` with a
-port-side backend resolution. The port has no stack traversal, so the
-reference's `stack_size` argument is gone.
+PyTorch counterpart of `directcomputeraytracing_tpu.accel.traverse`: the
+Moeller and watertight tests, `HitInfo`, the two-level stack walker
+(`walk`), and `intersect_closest` / `intersect_any` with a port-side
+backend resolution. The walker's tables (`NodeTables`: the packed node
+table, the leaf-ordered triangles and the stack bound) are kept beside
+the scene by `flatten_scene`, which builds them on first use where the
+scene has another traversal (`node_tables`), so the reference's
+`stack_size` argument is gone.
 
 Backends (`_resolve_backend`), as the reference resolves them on its
 accelerator:
 - "auto": scenes with work-list tables (world-soup clusters above 2048
   world triangles, or the instanced tables above 2^20) go to the
-  work-list traversal (`accel.worklist`), the others to the dense sweep
-  (`accel.brute`).
+  work-list traversal (`accel.worklist`), scenes with a world soup to
+  the dense sweep (`accel.brute`), and the others (above 2^20 world
+  triangles from at most 64 local ones: node table only) to the walker.
+- "jax": the stack walker on any scene, in plain PyTorch on the CPU and
+  on the card alike (the reference's is an XLA loop, not a Pallas
+  kernel).
 - "brute" and "pallas": the dense sweep over the world soup, on any scene
   that has one (dense or clustered); instanced tables have none (the
   reference's soup is a placeholder there) and raise ValueError.
@@ -30,20 +37,25 @@ casts; the dense and clustered sweeps ignore it and report `iterations`
 `intersect_closest_slab` marches a closest cast in distance windows.
 Alpha-tested casts (`opacity_u`) run the reference's recast loop
 (`alpha_recast`) around the opaque casts of every backend, over the
-opaque/masked cluster split where the scene has one. The stack walker
-("jax") and the reference's interpret-mode names raise
-NotImplementedError naming the ROADMAP item that brings the walker (the
-twins stand in for interpret mode).
+opaque/masked cluster split where the scene has one; the walker tests
+alpha inline, per candidate hit, as the reference's does. The reference's
+interpret-mode names raise NotImplementedError (the twins stand in for
+interpret mode).
 """
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..core.constants import (
+    BVHNODE_MISC_COUNT_SHIFT,
+    BVHNODE_MISC_HAS_BLAS,
+    BVHNODE_MISC_SPLIT_AXIS_MASK,
     INSTANCE_FLAG_OPAQUE,
     INSTANCE_MATERIAL_OVERRIDE_NONE,
 )
+from ..core.types import transform_point, transform_vector
 
 
 class HitInfo(NamedTuple):
@@ -54,7 +66,8 @@ class HitInfo(NamedTuple):
     instance: torch.Tensor   # (R,) i32
     backface: torch.Tensor   # (R,) bool
     hit: torch.Tensor        # (R,) bool
-    iterations: torch.Tensor  # (R,) i32 clusters swept (0: dense sweep)
+    iterations: torch.Tensor  # (R,) i32 walker loop steps or clusters
+                              #   swept (0: dense and clustered sweeps)
 
 
 def _xyz(x):
@@ -138,6 +151,215 @@ def ray_triangle_watertight(o, d, t_min, t_max, v0, v1, v2):
     return t, u, v, backface, hit
 
 
+def ray_aabb(o, inv_d, t_min, t_max, bmin, bmax):
+    """Slab test of (R, 3) rays against (R, 3) boxes: (R,) bool."""
+    ta = (bmin - o) * inv_d
+    tb = (bmax - o) * inv_d
+    t0 = torch.amax(torch.minimum(ta, tb), dim=-1)
+    t1 = torch.amin(torch.maximum(ta, tb), dim=-1)
+    return (t1 >= t0) & (t0 < t_max) & (t1 >= t_min)
+
+
+# the walker reads done.all() on the host once every this many steps; a
+# finished ray's state does not change in a step, so the result is the
+# same as with a read every step
+WALK_CHECK_EVERY = 8
+_STACK_BLAS_BIT = -(1 << 31)         # bit 31 of an int32 stack entry
+_STACK_INDEX_MASK = 0x7FFFFFFF
+
+
+class NodeTables(NamedTuple):
+    """The stack walker's tables of a scene."""
+    node_table: torch.Tensor   # (N, 8) f32 TLAS + BLAS nodes: bbox_min |
+                               #   bbox_max | right_or_prim | misc
+    tri_verts: torch.Tensor    # (T, 9) f32 leaf-ordered local v0|v1|v2
+    stack_size: int            # the two-level build's max_stack
+
+
+# scene.inst_rows -> NodeTables, or a function that builds them
+_NODE_TABLES = WeakIdKeyDictionary()
+
+
+def register_node_tables(scene, tables):
+    """Keep a scene's `NodeTables`, or a function of no arguments that
+    builds them on first use (`node_tables`). A scene is known by its
+    `inst_rows` tensor, which views of it (`_replace`) share."""
+    _NODE_TABLES[scene.inst_rows] = tables
+
+
+def node_tables(scene):
+    """The scene's `NodeTables`, built now where `flatten_scene` left a
+    builder."""
+    tables = _NODE_TABLES.get(scene.inst_rows)
+    if tables is None:
+        raise ValueError("the scene has no node tables: make it with "
+                         "flatten_scene or from_reference")
+    if not isinstance(tables, NodeTables):
+        tables = tables()
+        _NODE_TABLES[scene.inst_rows] = tables
+    return tables
+
+
+class WalkState(NamedTuple):
+    """The walker's result: the hit fields, the any-hit flag and each
+    ray's count of steps in which it was active."""
+    t: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    triangle: torch.Tensor
+    instance: torch.Tensor
+    backface: torch.Tensor
+    occluded: torch.Tensor
+    iters: torch.Tensor
+
+
+def walk(scene, origin, direction, t_min, t_max, any_hit, watertight=False,
+         opacity_u=None, alpha_textures=False,
+         check_every=WALK_CHECK_EVERY):
+    """The two-level stack walk of the reference's `_traverse`: every ray
+    steps through the scene's node table (`node_tables`) in lock step,
+    one node a step, with its own stack of S = `stack_size` entries.
+    A step fetches the node's row, tests its box, and then enters a TLAS
+    leaf's BLAS (the ray moves to the instance's space), descends an
+    interior node to its near child (the far one is pushed; near is the
+    left child unless the ray's direction along the split axis is
+    negative), tests a leaf's (at most 2) triangles, or pops (a missed
+    box or a tested leaf; popping a TLAS entry from a BLAS restores the
+    world ray). The stack top is read and the push written by gather and
+    scatter at the stack count, where the reference selects one-hot over
+    all S lanes. With opacity_u a candidate hit counts only where
+    `effective_opacity` accepts the ray's sample. Any-hit rays end once
+    occluded. The host reads `done.all()` every `check_every` steps.
+    Returns `WalkState`; `iters` counts the steps
+    in which a ray was active, as the reference's does. Counters: the
+    last walk's `walk.steps` and `walk.host_reads`; `walk.calls` and
+    `walk.total_steps` since `reset_counters`."""
+    tri_test = (ray_triangle_watertight if watertight
+                else ray_triangle_moeller)
+    r, dev = origin.shape[0], origin.device
+    table, tri_verts, depth = node_tables(scene)
+    n_nodes, n_tris = table.shape[0], tri_verts.shape[0]
+    n_inst = scene.inst_rows.shape[0]
+    inv_rows = scene.inst_rows
+    inv_tf = torch.cat([inv_rows[:, 0:9], inv_rows[:, 9:12]],
+                       dim=1).reshape(n_inst, 4, 3)
+    i32 = torch.int32
+
+    node = torch.zeros(r, dtype=i32, device=dev)
+    is_blas = torch.zeros(r, dtype=torch.bool, device=dev)
+    instance = torch.zeros(r, dtype=i32, device=dev)
+    stack = torch.zeros((r, depth), dtype=i32, device=dev)
+    stack_n = torch.zeros(r, dtype=i32, device=dev)
+    lo, ld = origin, direction
+    t_cur = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=dev), (r,)).clone()
+    hit_t = torch.full((r,), float("inf"), device=dev)
+    hit_u = torch.zeros(r, device=dev)
+    hit_v = torch.zeros(r, device=dev)
+    hit_tri = torch.zeros(r, dtype=i32, device=dev)
+    hit_inst = torch.zeros(r, dtype=i32, device=dev)
+    hit_back = torch.zeros(r, dtype=torch.bool, device=dev)
+    occluded = torch.zeros(r, dtype=torch.bool, device=dev)
+    done = torch.zeros(r, dtype=torch.bool, device=dev)
+    iters = torch.zeros(r, dtype=i32, device=dev)
+    step = 0
+    walk.steps = walk.host_reads = 0
+    walk.calls += 1
+    while True:
+        if step % check_every == 0:
+            walk.host_reads += 1
+            if bool(done.all()):
+                break
+        step += 1
+        walk.steps += 1
+        walk.total_steps += 1
+        active = ~done
+        row = table[node.clamp(0, n_nodes - 1).long()]
+        rop = row[:, 6].to(i32)
+        misc = row[:, 7].to(i32)
+        box_hit = ray_aabb(lo, _safe_inv(ld), t_min, t_cur, row[:, 0:3],
+                           row[:, 3:6]) & active
+        has_blas = (misc & BVHNODE_MISC_HAS_BLAS) != 0
+        cnt = misc >> BVHNODE_MISC_COUNT_SHIFT
+        axis = misc & BVHNODE_MISC_SPLIT_AXIS_MASK
+        is_enter = box_hit & has_blas
+        is_interior = box_hit & ~has_blas & (cnt == 0)
+        is_leaf = box_hit & ~has_blas & (cnt > 0)
+        do_pop = active & ~is_enter & ~is_interior
+
+        # TLAS -> BLAS: the ray moves to the instance's space
+        inst_new = torch.where(is_enter, cnt, instance)
+        m = inv_tf[inst_new.clamp(0, n_inst - 1).long()]
+        enter = is_enter[:, None]
+        lo_new = torch.where(enter, transform_point(origin, m), lo)
+        ld_new = torch.where(enter, transform_vector(direction, m), ld)
+        node_next = torch.where(is_enter, rop, node)
+        is_blas_new = is_blas | is_enter
+
+        # interior: push the far child, descend to the near one
+        d_axis = torch.where(axis == 0, ld_new[:, 0],
+                             torch.where(axis == 1, ld_new[:, 1],
+                                         ld_new[:, 2]))
+        dir_neg = d_axis < 0.0
+        left = node + 1
+        push_idx = torch.where(dir_neg, left, rop)
+        node_next = torch.where(is_interior,
+                                torch.where(dir_neg, rop, left), node_next)
+        packed = (push_idx & _STACK_INDEX_MASK) | torch.where(
+            is_blas_new, _STACK_BLAS_BIT, 0).to(i32)
+        col = stack_n.clamp(0, depth - 1).long()[:, None]
+        write = (is_interior & (stack_n < depth))[:, None]
+        stack.scatter_(1, col, torch.where(write, packed[:, None],
+                                           stack.gather(1, col)))
+        stack_n_new = stack_n + is_interior.to(i32)
+
+        # leaf: up to two triangle tests (BLAS leaves hold at most 2)
+        for k in range(2):
+            prim = (rop + k).clamp(0, n_tris - 1)
+            tv = tri_verts[prim.long()]
+            t, u, v, back, ok = tri_test(lo_new, ld_new, t_min, t_cur,
+                                         tv[:, 0:3], tv[:, 3:6], tv[:, 6:9])
+            accept = is_leaf & (k < cnt) & ok
+            if opacity_u is not None:
+                opac, opaque = effective_opacity(scene, prim, inst_new, u, v,
+                                                 alpha_textures)
+                accept = accept & (opaque | (opacity_u < opac))
+            if any_hit:
+                occluded = occluded | accept
+                continue
+            t_cur = torch.where(accept, t, t_cur)
+            hit_t = torch.where(accept, t, hit_t)
+            hit_u = torch.where(accept, u, hit_u)
+            hit_v = torch.where(accept, v, hit_v)
+            hit_tri = torch.where(accept, prim, hit_tri)
+            hit_inst = torch.where(accept, inst_new, hit_inst)
+            hit_back = torch.where(accept, back, hit_back)
+
+        # pop (missed boxes and tested leaves)
+        empty = stack_n == 0
+        pop_ok = do_pop & ~empty
+        stack_n_after = torch.where(pop_ok, stack_n_new - 1, stack_n_new)
+        top_col = stack_n_after.clamp(0, depth - 1).long()[:, None]
+        top = torch.where(stack_n_after < depth,
+                          stack.gather(1, top_col)[:, 0], 0)
+        pop_is_blas = top < 0
+        node = torch.where(pop_ok, top & _STACK_INDEX_MASK, node_next)
+        restore = (pop_ok & is_blas_new & ~pop_is_blas)[:, None]
+        is_blas = torch.where(pop_ok, pop_is_blas, is_blas_new)
+        lo = torch.where(restore, origin, lo_new)
+        ld = torch.where(restore, direction, ld_new)
+        instance, stack_n = inst_new, stack_n_after
+        done = done | (do_pop & empty)
+        if any_hit:
+            done = done | occluded
+        iters = iters + active.to(i32)
+    return WalkState(hit_t, hit_u, hit_v, hit_tri, hit_inst, hit_back,
+                     occluded, iters)
+
+
+walk.steps = walk.host_reads = 0
+
+
 # backend name -> cast kind on world-soup cluster tables ("wl" on
 # instanced tables)
 _WORKLIST_BACKENDS = {"pallas_wl": "wl", "pallas_wlg": "wlg",
@@ -147,12 +369,17 @@ _WORKLIST_BACKENDS = {"pallas_wl": "wl", "pallas_wlg": "wlg",
 def _resolve_backend(scene, backend):
     """"dense" (the dense sweep), "wl" (the work list's bundle sweep, the
     instanced sweep on instanced scenes), "wlg" (its grouped sweep),
-    "pair" (the pair sweep) or "cluster" (the clustered cull-and-sweep);
-    raise for what the port cannot cast yet (see the module docstring)."""
+    "pair" (the pair sweep), "cluster" (the clustered cull-and-sweep) or
+    "walk" (the stack walker); raise for what the port cannot cast (see
+    the module docstring)."""
     instanced = scene.isup_inst.shape[0] > 1
     clustered = scene.cluster_bbox.shape[0] > 1
+    if backend == "jax":
+        return "walk"
     if backend == "auto":
-        return "wl" if clustered or instanced else "dense"
+        if clustered or instanced:
+            return "wl"
+        return "dense" if scene.world_tris.shape[0] > 1 else "walk"
     if backend in ("brute", "pallas"):
         if instanced:
             raise ValueError(f"traversal backend {backend!r} sweeps the world "
@@ -167,9 +394,9 @@ def _resolve_backend(scene, backend):
     if backend not in _WORKLIST_BACKENDS:
         raise NotImplementedError(
             f"traversal backend {backend!r}: the port resolves 'auto', "
-            "'brute', 'pallas', 'pallas_wl', 'pallas_wlg', 'pallas_pair' and "
-            "'pallas_cluster'; the stack traversal ('jax') is ROADMAP queue "
-            "1, item 8, and the interpret-mode names have the twins instead")
+            "'jax', 'brute', 'pallas', 'pallas_wl', 'pallas_wlg', "
+            "'pallas_pair' and 'pallas_cluster'; the interpret-mode names "
+            "have the twins instead")
     if instanced:
         return "wl"
     if not clustered:
@@ -365,7 +592,11 @@ def intersect_closest(scene, origin, direction, t_min=0.0, backend="auto",
     opaque hit (and t_cap); without it `alpha_recast` runs over the whole
     scene, capped at t_cap, and reports `iterations` 0."""
     kind = _resolve_backend(scene, backend)
-    if opacity_u is None:
+    if kind == "walk":
+        w = walk(scene, origin, direction, t_min, float("inf"), False,
+                 watertight, opacity_u, alpha_textures)
+        out = (w.t, w.u, w.v, w.triangle, w.instance, w.backface, w.iters)
+    elif opacity_u is None:
         out = _cast_closest(scene, kind, origin, direction, t_min, watertight,
                             t_cap)
     elif _has_alpha_split(scene, kind):
@@ -432,7 +663,8 @@ def intersect_closest_slab(scene, origin, direction, t_cap, backend="auto",
     final regardless. Each later phase reads two device values on the
     host (counted in `stats.host_reads`): the unresolved count and the
     floor, which the kernels take as a float. The scene box is the work
-    list's table bounds (the reference uses its TLAS root box). With
+    list's table bounds; the walker's is the TLAS root box, the
+    reference's on every backend. With
     opacity_u every phase is an alpha-tested cast of its rays; the floor
     then holds on the recast loop's first pass only (see
     `alpha_recast`)."""
@@ -441,7 +673,11 @@ def intersect_closest_slab(scene, origin, direction, t_cap, backend="auto",
     from .worklist import scene_tables
 
     stats = stats if stats is not None else SlabStats(int(phases))
-    lo, hi = scene_tables(scene).bounds
+    if _resolve_backend(scene, backend) == "walk":
+        root = node_tables(scene).node_table[0]
+        lo, hi = root[0:3], root[3:6]
+    else:
+        lo, hi = scene_tables(scene).bounds
     t_en = torch.full(origin.shape[:1], -float("inf"), device=origin.device)
     t_ex = torch.full(origin.shape[:1], float("inf"), device=origin.device)
     for ax in range(3):
@@ -499,6 +735,9 @@ def intersect_any(scene, origin, direction, t_max, t_min=0.0, backend="auto",
     `alpha_recast` over the masked side for the rays it left unoccluded;
     without the split `alpha_recast` over the whole scene."""
     kind = _resolve_backend(scene, backend)
+    if kind == "walk":
+        return walk(scene, origin, direction, t_min, t_max, True, watertight,
+                    opacity_u, alpha_textures).occluded
     if opacity_u is None:
         return _cast_any(scene, kind, origin, direction, t_max, t_min,
                          watertight)
@@ -517,6 +756,7 @@ def intersect_any(scene, origin, direction, t_max, t_min=0.0, backend="auto",
 
 def reset_counters():
     alpha_recast.calls = alpha_recast.passes = 0
+    walk.calls = walk.total_steps = 0
 
 
 reset_counters()

@@ -122,7 +122,10 @@ def _half_vector(wi, wo, eta_o, eta_i):
     return m, reflect
 
 
-def eval_ct_bsdf(wi, wo, alpha, eta_o, eta_i):
+def eval_ct_bsdf(wi, wo, alpha, eta_o, eta_i, scale_factor=True):
+    """scale_factor=False drops the (eta_o / eta_i)^2 radiance compression
+    of refraction (the reference's REFRACTION_NO_SCALE_FACTOR, set only
+    for the energy-LUT bake)."""
     active = (wo[..., 2] != 0.0) & (wi[..., 2] != 0.0)
     m, reflect = _half_vector(wi, wo, eta_o, eta_i)
     wi_dot_m = dot(wi, m)
@@ -134,7 +137,8 @@ def eval_ct_bsdf(wi, wo, alpha, eta_o, eta_i):
         4.0 * torch.abs(wi[..., 2]) * torch.abs(wo[..., 2]), min=1e-20)
     sqrt_denom = eta_o * wo_dot_m + eta_i * wi_dot_m
     refr_v = (1.0 - f) * torch.abs(
-        d * g * torch.abs(wi_dot_m) * torch.abs(wo_dot_m) * (eta_o * eta_o)
+        d * g * torch.abs(wi_dot_m) * torch.abs(wo_dot_m)
+        * (eta_o * eta_o if scale_factor else eta_i * eta_i)
         / torch.clamp(torch.abs(wi[..., 2] * wo[..., 2] * sqrt_denom
                                 * sqrt_denom), min=1e-20))
     v = torch.where(reflect, refl_v, refr_v)

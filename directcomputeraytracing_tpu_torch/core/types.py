@@ -4,7 +4,9 @@ PyTorch counterparts of `directcomputeraytracing_tpu.core.types`, with the
 reference's field names. `SceneTensors` holds only the scene fields the
 integrators read, over the dense sweep or the work-list traversal of the
 world soup or of the instanced tables, and the alpha test's: opacities,
-instance flags and the opaque/masked cluster split. Integer fields are
+instance flags and the opaque/masked cluster split. The stack walker's
+node tables are kept beside a scene (`accel.traverse.node_tables`), built
+on first use. Integer fields are
 int64:
 the reference's uint32 fields use bit 31 (`LIGHT_INDEX_INVALID`,
 `INSTANCE_MATERIAL_OVERRIDE_NONE`), which int32 cannot hold. Float
@@ -181,12 +183,20 @@ def _tensor(x, device):
 
 def from_reference(scene_arrays, luts, camera, device):
     """The reference's `SceneArrays`, `BxDFLuts` and `CameraParams` as the
-    port's (SceneTensors, BxDFLuts, CameraParams) on `device`. Fields are
+    port's (SceneTensors, BxDFLuts, CameraParams) on `device`, with the
+    reference's node table and leaf-ordered triangles kept as the scene's
+    walker tables (the stack bound read back from the table). Fields are
     read as numpy arrays, so any array type with `__array__` works."""
+    from ..accel.build import stack_bound
+    from ..accel.traverse import NodeTables, register_node_tables
     from ..lut.textures import BxDFLuts
 
     scene = SceneTensors(*(_tensor(getattr(scene_arrays, f), device)
                            for f in SceneTensors._fields))
+    nodes = np.asarray(scene_arrays.node_table)
+    register_node_tables(scene, NodeTables(
+        _tensor(nodes, device), _tensor(scene_arrays.tri_verts, device),
+        stack_bound(nodes)))
     luts = BxDFLuts(*(_tensor(getattr(luts, f), device)
                       for f in BxDFLuts._fields))
     camera = CameraParams(*(_tensor(getattr(camera, f), device)

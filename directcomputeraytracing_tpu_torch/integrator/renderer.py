@@ -16,6 +16,10 @@ order before the film; the per-pixel random streams make the image
 independent of the order. The reference's tunnel pacing and its
 2^18-pixel dispatch budget are gone.
 
+Checkpoints (`save_checkpoint` / `load_checkpoint`) keep the film and
+the sample count in the reference's npz format (`value`, `weight`,
+`spp`), so either package resumes the other's.
+
 `traversal_backend`, `pool_backend` and `slab_march` pass through to the
 integrators in the `RenderConfig`; alpha-tested scenes set `any_hit` and
 `any_hit_texture` from the scene's meta. `device` defaults to "cuda";
@@ -32,6 +36,7 @@ group of samples into one pool pass with per-sample output slots
 reference does.
 """
 
+import numpy as np
 import torch
 
 from ..core.constants import (
@@ -246,3 +251,25 @@ class Renderer:
         return post_process(self.film.value, self.film.weight, params,
                             aperture_is_pinhole=pinhole).cpu().numpy()
 
+    def save_checkpoint(self, path):
+        """The film and the sample count into an npz (the reference's
+        format)."""
+        np.savez_compressed(path, value=self.film.value.cpu().numpy(),
+                            weight=self.film.weight.cpu().numpy(),
+                            spp=self.spp)
+
+    def load_checkpoint(self, path):
+        """Resume from a checkpoint of this frame size: its film goes to
+        the renderer's device, its count to `spp`."""
+        with np.load(path) as data:
+            value, weight = data["value"], data["weight"]
+            if value.shape != (self.cfg.height, self.cfg.width, 3):
+                raise ValueError(f"checkpoint film {value.shape} does not "
+                                 f"fit a {self.cfg.width}x{self.cfg.height} "
+                                 "frame")
+            self.film = Film(
+                value=torch.from_numpy(np.asarray(value, np.float32))
+                .to(self.device),
+                weight=torch.from_numpy(np.asarray(weight, np.float32))
+                .to(self.device))
+            self.spp = int(data["spp"])

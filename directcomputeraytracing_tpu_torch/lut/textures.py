@@ -39,13 +39,20 @@ _SHAPES = {"brdf": (32, 32), "brdf_avg": (32,),
 
 def committed_lut_path():
     """The port's copy of the reference's committed bake (seed 0, quality
-    1), which its `bake_luts_cached()` loads by default."""
+    1), which `lut.bake.bake_luts_cached()` loads by default."""
     return os.path.join(os.path.dirname(__file__), "_bxdf_luts_s0_q1.npz")
 
 
-def load_luts(device) -> BxDFLuts:
-    """Read the committed bake with numpy."""
-    with np.load(committed_lut_path()) as data:
+def save_luts(path, luts: BxDFLuts):
+    """The six tables into a compressed npz, the reference's format."""
+    np.savez_compressed(path, **{k: v.detach().cpu().numpy()
+                                 for k, v in luts._asdict().items()})
+
+
+def load_luts(device, path=None) -> BxDFLuts:
+    """Read a bake (an npz of `save_luts`' format, either package's) with
+    numpy onto device; path None reads the committed bake."""
+    with np.load(committed_lut_path() if path is None else path) as data:
         return BxDFLuts(**{k: torch.from_numpy(np.asarray(data[k], np.float32))
                            .to(device) for k in BxDFLuts._fields})
 

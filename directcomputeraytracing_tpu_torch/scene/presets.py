@@ -199,6 +199,45 @@ def sphere_grid(nx=5, nz=5, stacks=24, slices=32, light="area"):
     return scene, cam
 
 
+def walker_grid(nx=129, nz=128, stacks=5, slices=8):
+    """nx * nz instances of one 64-triangle sphere (stacks=5, slices=8),
+    radii seeded, two diffuse albedos alternating, under a directional
+    light and a constant environment, with no other geometry: at most 64
+    local triangles, so above `SOUP_MAX_TRIS` world triangles the scene
+    flattens to the node table alone and casts through the stack walker.
+    walker_grid(129, 128) has 1,056,768 world triangles.
+    Returns (Scene, CameraParams on the CPU)."""
+    sv, si = uv_sphere(stacks, slices)
+    sphere = Mesh(positions=sv, indices=si,
+                  material_ids=np.zeros(len(si), np.int64), name="sphere")
+    mats = [Material(albedo=(0.7, 0.7, 0.7), name="grey"),
+            Material(albedo=(0.75, 0.35, 0.2), name="ochre")]
+    rng = np.random.default_rng(12)
+    instances = []
+    for ix in range(nx):
+        for iz in range(nz):
+            r = 0.35 + 0.2 * rng.random()
+            t = np.zeros((4, 3), np.float32)
+            t[0, 0] = t[1, 1] = t[2, 2] = r
+            t[3] = ((ix - (nx - 1) / 2) * 1.5, r,
+                    (iz - (nz - 1) / 2) * 1.5)
+            instances.append(Instance(
+                mesh=0, transform=t,
+                material_override=1 if (ix + iz) % 2 else 0,
+                name=f"sphere_{ix}_{iz}"))
+    lights = [PunctualLight(kind="directional", radiance=(2.5, 2.4, 2.2),
+                            position=(0.35, -0.8, 0.45)),
+              PunctualLight(kind="env", radiance=(0.25, 0.28, 0.35))]
+    scene = Scene(meshes=[sphere], instances=instances, materials=mats,
+                  lights=lights)
+    ext = max(nx, nz) * 0.75
+    cam = CameraParams.create(
+        transform=look_at_transform((0.0, 0.3 * ext + 3.0, -1.1 * ext),
+                                    (0.0, 0.0, -0.3 * ext)),
+        fov_x=np.deg2rad(50.0), focal_distance=ext)
+    return scene, cam
+
+
 def dot_mask(size=64, cell=16, r2_min=18):
     """(size, size, 4) f32 RGBA opacity mask: R (the opacity) 0 in round
     holes on a grid of cell-pixel cells, 1 elsewhere (the reference

@@ -2,16 +2,20 @@
 
 Numpy counterpart of `directcomputeraytracing_tpu.scene.scene`: one SAH
 BLAS per mesh orders each mesh's triangles into leaf order (the
-reference's numpy SAH build, `directcomputeraytracing_tpu.accel.build`),
-and materials, lights and textures pack into the tables `SceneTensors`
-names. Scenes of at most `SOUP_MAX_TRIS` world triangles expand their
-instances into a world-space triangle soup, clustered above
+port's copy of the reference's numpy SAH build, `accel.build`), a TLAS
+over the instances joins them into the stack walker's packed (N, 8)
+node table, and materials, lights and textures pack into the tables
+`SceneTensors` names. Scenes of at most `SOUP_MAX_TRIS` world triangles
+expand their instances into a world-space triangle soup, clustered above
 `DENSE_MAX_TRIS` for the work-list traversal (`accel.cluster`). Larger
 scenes keep their triangles mesh-local and get the instanced work-list
 tables instead (the reference's BLAS sharing; a test forces them on a
-small scene by lowering `SOUP_MAX_TRIS`). The port has no stack
-traversal, so no TLAS is built: a larger scene of at most 64 local
-triangles, which the reference sends to its stack walker, raises.
+small scene by lowering `SOUP_MAX_TRIS`), unless they have at most
+`INSTANCED_MIN_LOCAL_TRIS` local triangles: those get the node table
+only, and cast through the stack walker, as in the reference. The node
+table of a scene with another traversal is built on first use
+(`accel.traverse.node_tables`): the numpy TLAS build over the instances
+is a large share of an instanced grid's host flatten (PERF.md §5).
 
 Alpha-tested scenes (a material with opacity < 1 or an opacity texture)
 get the reference's alpha tables: per-triangle and per-world-triangle
@@ -29,7 +33,8 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..accel.build import build_bvh
+from ..accel.build import build_bvh, build_two_level
+from ..accel.traverse import NodeTables, register_node_tables
 from ..core.constants import (
     INSTANCE_FLAG_OPAQUE,
     INSTANCE_MATERIAL_OVERRIDE_NONE,
@@ -56,6 +61,7 @@ from ..accel.cluster import (
     build_local_clusters,
 )
 from ..core.types import SceneTensors, invert_rigid_affine43
+from ..utils.log import logger
 
 # Largest world-triangle soup the dense sweep takes; the reference builds
 # cluster tables above this (scene/scene.py:398).
@@ -64,8 +70,11 @@ DENSE_MAX_TRIS = 2048
 # work-list tables instead (scene/scene.py:338, :451).
 SOUP_MAX_TRIS = 1 << 20
 # Local triangles (all meshes) up to which a scene above SOUP_MAX_TRIS gets
-# no instanced tables: the reference casts it with its stack walker (:453).
+# no instanced tables: it casts through the stack walker, as in the
+# reference (:453).
 INSTANCED_MIN_LOCAL_TRIS = 64
+# The node table keeps its u32 fields in f32, exact below 2^24.
+NODE_FIELD_LIMIT = 1 << 24
 
 
 @dataclass
@@ -190,6 +199,28 @@ def compute_vertex_normals(positions, indices):
         np.add.at(normals, indices[:, k], fn)
     lens = np.linalg.norm(normals, axis=1, keepdims=True)
     return (normals / np.maximum(lens, 1e-20)).astype(np.float32)
+
+
+def triangle_bounds(positions, indices):
+    v = positions[indices]          # (T, 3, 3)
+    return v.min(axis=1), v.max(axis=1)
+
+
+def node_table(two_level):
+    """(N, 8) f32 rows bbox_min | bbox_max | right_or_prim | misc, the
+    walker's one fetch a step. ValueError where a field reaches 2^24,
+    which f32 cannot hold exactly, as in the reference."""
+    if (two_level.right_or_prim.max(initial=0) >= NODE_FIELD_LIMIT
+            or two_level.misc.max(initial=0) >= NODE_FIELD_LIMIT):
+        raise ValueError(
+            "scene too large for the packed f32 node table: a node index "
+            "field exceeds 2^24 (>=2^21 instances or >=16.7M leaf-ordered "
+            "triangles); split the scene or file an issue for the "
+            "split-array traversal fallback")
+    return np.concatenate(
+        [two_level.bbox_min, two_level.bbox_max,
+         two_level.right_or_prim.astype(np.float32)[:, None],
+         two_level.misc.astype(np.float32)[:, None]], axis=1)
 
 
 def _lights(scene, mesh_tri_offsets):
@@ -361,23 +392,22 @@ def flatten_scene(scene: Scene, device):
         scene.materials = [Material()]
     total_world_tris = sum(scene.meshes[i.mesh].indices.shape[0]
                            for i in scene.instances)
-    instanced = total_world_tris > SOUP_MAX_TRIS
+    soup = total_world_tris <= SOUP_MAX_TRIS
     local_tris = sum(m.indices.shape[0] for m in scene.meshes)
-    if instanced and local_tris <= INSTANCED_MIN_LOCAL_TRIS:
-        raise NotImplementedError(
-            f"{total_world_tris} world triangles from {local_tris} local "
-            "ones: the reference casts such scenes with its stack walker "
-            "(ROADMAP queue 1, item 8)")
+    # above the soup's budget: the instanced tables, or the node table
+    # alone (the walker) for at most INSTANCED_MIN_LOCAL_TRIS local ones
+    instanced = not soup and local_tris > INSTANCED_MIN_LOCAL_TRIS
     any_non_opaque = any(m.non_opaque for m in scene.materials)
 
-    # per-mesh BLAS leaf order; triangle ids are global, mesh by mesh
-    mesh_tris, mesh_matids = [], []
+    # per-mesh BLAS, leaf order; triangle ids are global, mesh by mesh
+    blas_list, mesh_tris, mesh_matids = [], [], []
     mesh_tri_offsets = np.zeros(len(scene.meshes), np.int64)
     vtx_offset = tri_cursor = 0
     for m, mesh in enumerate(scene.meshes):
-        v = mesh.positions[mesh.indices]
-        order = build_bvh(v.min(axis=1), v.max(axis=1),
-                          max_prims_in_node=2).prim_order
+        blas = build_bvh(*triangle_bounds(mesh.positions, mesh.indices),
+                         max_prims_in_node=2)
+        blas_list.append(blas)
+        order = blas.prim_order
         mesh_tris.append(mesh.indices[order] + vtx_offset)
         mesh_matids.append(mesh.material_ids[order])
         mesh_tri_offsets[m] = tri_cursor
@@ -393,12 +423,13 @@ def flatten_scene(scene: Scene, device):
     n_mat = len(scene.materials)
 
     tri_verts = all_pos[triangles].reshape(-1, 9)
-    if instanced:
-        world_tris = np.zeros((1, 9), np.float32)
-        world_meta = np.zeros((1, 3), np.float32)
-    else:
+    inst_tf = np.stack([i.transform for i in scene.instances])
+    if soup:
         world_tris, world_meta = _world_soup(scene, tri_verts,
                                              mesh_tri_offsets)
+    else:
+        world_tris = np.zeros((1, 9), np.float32)
+        world_meta = np.zeros((1, 3), np.float32)
     if world_tris.shape[0] > DENSE_MAX_TRIS:
         cluster_tris, cluster_bbox = build_clusters(world_tris, world_meta)
         cluster_bw = baldwin_table(cluster_tris)
@@ -416,7 +447,6 @@ def flatten_scene(scene: Scene, device):
         split = _alpha_split(scene, world_tris, world_meta, world_opacity,
                              inst_flags, material_ids, mat_table) or split
 
-    inst_tf = np.stack([i.transform for i in scene.instances])
     inst_inv = np.stack([invert_rigid_affine43(t) for t in inst_tf])
     inst_det = np.asarray([np.linalg.det(t[:3].astype(np.float64))
                            for t in inst_tf])
@@ -491,6 +521,26 @@ def flatten_scene(scene: Scene, device):
         env_texture=t(env, np.float32),
         **{f: t(a) for f, a in zip(_SPLIT_FIELDS, split)},
     )
+    inst_mesh = [i.mesh for i in scene.instances]
+
+    def walker_tables():
+        two_level, _ = build_two_level(blas_list, mesh_tri_offsets,
+                                       inst_mesh, inst_tf)
+        logger.info("node table built: %d BVH nodes (stack bound %d)",
+                    two_level.bbox_min.shape[0], two_level.max_stack)
+        return NodeTables(t(node_table(two_level)), t(tri_verts, np.float32),
+                          int(two_level.max_stack))
+
+    # the walker is the only path of a scene with neither a soup nor
+    # instanced tables: its first cast is the tables' first use
+    walker_only = not soup and not instanced
+    register_node_tables(arrays, walker_tables() if walker_only
+                         else walker_tables)
+    logger.info(
+        "scene flattened: %d meshes, %d instances, %d triangles, "
+        "%d materials, %d lights, %d world tris, %d clusters",
+        len(scene.meshes), len(scene.instances), triangles.shape[0],
+        n_mat, n_lights, world_tris.shape[0], cluster_bbox.shape[0])
     meta = SceneMeta(
         light_count=n_lights,
         env_light_index=int(env_light_index),

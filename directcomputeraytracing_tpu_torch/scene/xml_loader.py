@@ -28,7 +28,6 @@ Returns (Scene, XmlRenderSettings) — the settings carry the camera,
 film, filter and integrator parameters the XML specifies.
 """
 
-import logging
 import os
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field
@@ -44,6 +43,7 @@ from ..core.constants import (
     MATERIAL_TYPE_THIN_DIELECTRIC,
 )
 from ..core.types import CameraParams
+from ..utils.log import logger
 from .obj_loader import load_obj
 from .scene import Instance, Material, Mesh, PunctualLight, Scene
 
@@ -249,7 +249,7 @@ def _translate_bsdf(node, defaults, ctx=None, two_sided=False,
             # (reference: SceneXMLLoading.cpp:766); a texture that
             # failed to load degrades to fully opaque, loudly
             if op_tex < 0:
-                logging.getLogger("dcrt").warning(
+                logger.warning(
                     "mask bsdf %s: opacity bitmap failed to load, "
                     "falling back to opaque", name or "<anon>")
             op = 1.0

@@ -639,8 +639,9 @@ def test_slab_matches_reference_and_single_cast(port_scene, ref_scene,
 
 def test_backend_names(port_scene):
     """'pallas_wl' is the bundle sweep, 'pallas_wlg' the grouped one; the
-    intersector counts their launches on a card only. The stack walker
-    ('jax') is not ported."""
+    intersector counts their launches on a card only. 'jax' is the stack
+    walker, whose hits are the work list's (t within 1e-5 (1 + t), ids
+    but at near-ties); the interpret-mode names are not ported."""
     o, d, t_max = (torch.from_numpy(x) for x in _rays(600, seed=36))
     a = intersect_closest(port_scene, o, d, backend="pallas_wl")
     b = intersect_closest(port_scene, o, d, backend="auto")
@@ -650,8 +651,16 @@ def test_backend_names(port_scene):
     assert torch.equal(intersect_any(port_scene, o, d, t_max,
                                      backend="pallas_wlg"),
                        intersect_any(port_scene, o, d, t_max))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        intersect_closest(port_scene, o, d, backend="jax")
+    w = intersect_closest(port_scene, o, d, backend="jax")
+    assert torch.equal(w.hit, b.hit) and w.hit.any()
+    h = w.hit
+    assert torch.all((w.t[h] - b.t[h]).abs() <= 1e-5 * (1 + b.t[h].abs()))
+    tie = (w.t - b.t).abs() <= 2.0 ** -12 * b.t.abs()
+    assert torch.all((w.triangle == b.triangle)[h] | tie[h])
+    assert torch.equal(intersect_any(port_scene, o, d, t_max, backend="jax"),
+                       intersect_any(port_scene, o, d, t_max))
+    with pytest.raises(NotImplementedError, match="interpret"):
+        intersect_closest(port_scene, o, d, backend="pallas_wl_interpret")
 
 
 def _aimed_shadow_rays(world_tris, n_warps, seed):

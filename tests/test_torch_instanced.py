@@ -282,15 +282,34 @@ def test_flatten_matches_the_reference_forced_flatten(scenes, name):
 
 def test_flatten_refuses_few_local_triangles(monkeypatch):
     """Above SOUP_MAX_TRIS world triangles from at most 64 local ones the
-    reference uses its stack walker, which the port does not have."""
+    scene gets the stack walker's node table only, as in the reference:
+    no soup, no cluster or instanced tables; its node table, leaf-ordered
+    triangles and stack bound equal the reference's."""
+    from directcomputeraytracing_tpu.scene import scene as ref_scene
+    from directcomputeraytracing_tpu_torch.accel.build import stack_bound
+    from directcomputeraytracing_tpu_torch.accel.traverse import node_tables
+
     monkeypatch.setattr(scene_mod, "SOUP_MAX_TRIS", 100)
     rs = np.random.default_rng(1)
-    mesh = scene_mod.Mesh(positions=rs.random((192, 3), dtype=np.float32),
-                          indices=np.arange(192).reshape(64, 3))
-    scene = scene_mod.Scene(meshes=[mesh], instances=[
-        scene_mod.Instance(mesh=0), scene_mod.Instance(mesh=0)])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        scene_mod.flatten_scene(scene, "cpu")
+    pos = rs.random((192, 3), dtype=np.float32)
+    tf = np.concatenate([np.eye(3), [[1.5, 0.0, 0.0]]]).astype(np.float32)
+    scene = scene_mod.Scene(meshes=[scene_mod.Mesh(
+        positions=pos, indices=np.arange(192).reshape(64, 3))], instances=[
+        scene_mod.Instance(mesh=0), scene_mod.Instance(mesh=0, transform=tf)])
+    port, _ = scene_mod.flatten_scene(scene, "cpu")
+    assert port.world_tris.shape[0] == port.cluster_bbox.shape[0] == 1
+    assert port.isup_inst.shape[0] == 1
+    ref, ref_meta = ref_scene.flatten_scene(ref_scene.Scene(
+        meshes=[ref_scene.Mesh(positions=pos,
+                               indices=np.arange(192).reshape(64, 3))],
+        instances=[ref_scene.Instance(mesh=0),
+                   ref_scene.Instance(mesh=0, transform=tf)]))
+    tables = node_tables(port)
+    for f in ("node_table", "tri_verts"):
+        np.testing.assert_array_equal(getattr(tables, f).numpy(),
+                                      np.asarray(getattr(ref, f)), err_msg=f)
+    assert tables.stack_size == ref_meta.stack_size \
+        == stack_bound(np.asarray(ref.node_table))
 
 
 def _both_preps(o, d, t_max=None):

@@ -26,6 +26,7 @@ from directcomputeraytracing_tpu_torch.accel import brute
 from directcomputeraytracing_tpu_torch.accel.traverse import (
     intersect_any,
     intersect_closest,
+    node_tables,
 )
 from directcomputeraytracing_tpu_torch.scene.presets import cornell_box
 from directcomputeraytracing_tpu_torch.scene.scene import flatten_scene
@@ -145,24 +146,69 @@ def scene_with_tables(soup, clusters=1, supers=1):
                                                          dtype=torch.int64))
 
 
+def _walker_scene(case, monkeypatch):
+    """The flattened scene of a walker case: Cornell (the dense sweep's),
+    the small sphere grid (world-soup cluster tables: the work list's) or
+    the same grid forced onto the instanced tables."""
+    from directcomputeraytracing_tpu_torch.scene import scene as scene_mod
+    from directcomputeraytracing_tpu_torch.scene.presets import sphere_grid
+
+    if case == "backend":
+        return flatten_scene(cornell_box("area", "glossy")[0], "cpu")[0]
+    if case == "instanced":
+        monkeypatch.setattr(scene_mod, "SOUP_MAX_TRIS", 2048)
+    return flatten_scene(sphere_grid(3, 3, stacks=12, slices=16)[0],
+                         "cpu")[0]
+
+
+def _box_rays(arrays, n, seed):
+    """Rays from inside the scene's root box in random directions."""
+    rs = np.random.default_rng(seed)
+    root = node_tables(arrays).node_table[0].numpy()
+    o = rs.uniform(root[0:3], root[3:6], (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o), torch.from_numpy(d)
+
+
 @pytest.mark.parametrize("case", ["clustered", "instanced", "backend",
                                   "alpha", "dtype"])
-def test_unported_paths_raise(case):
+def test_unported_paths_raise(case, monkeypatch):
+    """backend="jax" casts through the stack walker on every flattened
+    scene: on Cornell (case "backend") against the dense sweep, on the
+    clustered grid against the work list, on the instanced grid against
+    the instanced sweep, all watertight: hit masks and t (1e-5 (1 + t))
+    agree, ids but at near-ties (two hits within 2^-12 relative), and
+    occlusion agrees. Alpha-tested casts run; a float64 ray raises."""
+    if case in ("clustered", "instanced", "backend"):
+        arrays = _walker_scene(case, monkeypatch)
+        kinds = {"clustered": (False, True), "instanced": (True, False),
+                 "backend": (False, False)}[case]
+        assert (arrays.isup_inst.shape[0] > 1,
+                arrays.cluster_bbox.shape[0] > 1) == kinds
+        o, d = _box_rays(arrays, 512, 3)
+        t_max = torch.full((512,), 0.5)
+        walk = intersect_closest(arrays, o, d, T_MIN, backend="jax",
+                                 watertight=True)
+        other = intersect_closest(arrays, o, d, T_MIN, watertight=True)
+        assert torch.equal(walk.hit, other.hit) and walk.hit.any()
+        h = walk.hit
+        assert torch.all(torch.abs(walk.t[h] - other.t[h])
+                         <= TOL * (1 + other.t[h].abs()))
+        same = (walk.triangle == other.triangle) & (
+            walk.instance == other.instance)
+        tie = torch.abs(walk.t - other.t) <= 2.0 ** -12 * other.t.abs()
+        assert torch.all(same[h] | tie[h]), torch.nonzero(h & ~same & ~tie)
+        assert (walk.iterations[h] > 0).all()
+        occ_w = intersect_any(arrays, o, d, t_max, T_MIN, backend="jax",
+                              watertight=True)
+        occ_o = intersect_any(arrays, o, d, t_max, T_MIN, watertight=True)
+        assert torch.equal(occ_w, occ_o) and occ_w.any() and not occ_w.all()
+        return
     tris, meta = _cornell_soup()
     soup = Soup(torch.from_numpy(tris), torch.from_numpy(meta))
     o, d, _ = (torch.from_numpy(x) for x in _rays(8))
-    scene, kw, err = scene_with_tables(soup), {}, NotImplementedError
-    if case == "clustered":
-        # clustered scenes have no stack walker either (queue 1, item 8)
-        scene, kw = scene_with_tables(soup, clusters=4), dict(
-            backend="jax", watertight=True)
-    elif case == "instanced":
-        # instanced tables cast through the work list only: the stack
-        # walker (queue 1, item 8) is not ported
-        scene, kw = scene_with_tables(soup, supers=4), dict(backend="jax")
-    elif case == "backend":
-        kw = dict(backend="jax")
-    elif case == "alpha":
+    if case == "alpha":
         # alpha-tested casts run (queue 1, item 4): samples of 0 accept
         # every hit of a half-transparent scene, so the opaque hit returns
         cornell = cornell_box("area", "glossy")[0]
@@ -174,10 +220,8 @@ def test_unported_paths_raise(case):
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         return
-    else:
-        o, err = o.double(), ValueError
-    with pytest.raises(err):
-        intersect_closest(scene, o, d, **kw)
+    with pytest.raises(ValueError):
+        intersect_closest(scene_with_tables(soup), o.double(), d)
 
 
 @pytest.mark.cuda

@@ -102,8 +102,7 @@ def test_build_bvh_equals_the_reference(preset):
 
 # the reference's exports whose module the port does not have yet, each
 # with the ROADMAP queue 1 item that ports it
-_NOT_YET = {"bake_luts": "item 10", "bake_luts_cached": "item 10",
-            "DistributedRenderer": "item 11", "make_mesh": "item 11"}
+_NOT_YET = {"DistributedRenderer": "item 11", "make_mesh": "item 11"}
 
 
 def _ref_exports():
