@@ -35,7 +35,8 @@ any failure exits non-zero:
    and watertight: 1,048,576 tiled camera rays, 1,048,576 random rays
    from inside the scene box, 1,048,576 shadow rays towards the lamp with
    per-ray t_max; mismatch counts of the casts against the plain casts
-   (every step in PyTorch), `iters` equality, the kernels' item lists
+   (every step in PyTorch; on the whole camera set and on 64 ray blocks
+   spread over the random and shadow sets), `iters` equality, the kernels' item lists
    equal to the plain phases', the closest sweep against its twin (on
    the plain prep and phases) in every field of the sweep state and the
    any-hit cast's occlusion equal to the plain cast's on every ray,
@@ -59,7 +60,7 @@ any failure exits non-zero:
    random set sorted by `ray_sort_key` (like a permuted pool) and a
    pool-sized (2^18) sorted set, Baldwin-Weber and watertight: mismatch
    counts of every field, `iters` equality against the twin; the twins
-   run on 64 ray blocks spread over each 1M-ray set (the camera set's
+   run on 16 ray blocks spread over each 1M-ray set (the camera set's
    are tiles), where a 1M-ray twin cast would take minutes, and on the
    whole pool-sized set; CUDA-event
    times of grouped and per-ray kernels, clusters swept per ray; the
@@ -76,8 +77,8 @@ any failure exits non-zero:
    local ones, in the instanced tables), Baldwin-Weber and watertight:
    1,048,576 tiled camera rays, 1,048,576 shadow rays towards the lamp,
    1,048,576 random rays from inside the box sorted by `ray_sort_key`,
-   and a pool-sized (2^18) sorted set. The twins run on 64 blocks spread
-   over each set (65,536 rays; a 1M-ray twin cast takes minutes), where
+   and a pool-sized (2^18) sorted set. The twins run on 16 blocks spread
+   over each set (16,384 rays; a 1M-ray twin cast takes minutes), where
    kernel and twin must agree in every field of the sweep state and the
    kernels' item lists must equal the twins'; the censuses of the
    closest and any-hit sweeps' warp walks on those rays (as in 2b; the
@@ -102,9 +103,9 @@ any failure exits non-zero:
    rays, 1,048,576 shadow rays towards the lamp, 1,048,576 random rays
    from inside the box sorted by `ray_sort_key`, and a pool-sized (2^18)
    sorted set. The cull kernel's masks must equal its twin's on every
-   set, and contain the exact per-ray masks on 64 blocks spread over it;
+   set, and contain the exact per-ray masks on 16 blocks spread over it;
    the sweeps must equal their twins in every bit of every field on those
-   64 blocks, and the dense sweep over the world soup on the whole set
+   16 blocks, and the dense sweep over the world soup on the whole set
    (`tools/clustered_ab.py` `graze_diffs`): hits, t, and u, v and side of
    the same triangle equal, ids equal but at exact-t ties (counted),
    except edge grazes: a ray whose dense hit lies in a cluster whose box
@@ -163,12 +164,12 @@ any failure exits non-zero:
    dense-sweep launch;
 3c. the wavefront path: sphere_grid(12, 12) at 1920x1080, max_bounce 4,
    `Renderer(..., integrator="wavefront").render(8)` (one fused pool pass
-   of 8 samples) after a warm-up; ms/spp, peak memory, `LAST_STATS`; the
+   of 8 samples) after a two-sample warm-up; ms/spp, peak memory, `LAST_STATS`; the
    bundle sweeps launch 0 times, grouped sweeps plus empty casts equal
    the pool casts `LAST_STATS` counted, one cull per cast; then the same
    pass without slab marching (slab_march=0.0) and with it again, in the
-   order off, off, on (with the render: on, off, off, on), its image held
-   to the render's (RMSE <= 1e-3); then a pass of 4 samples through the
+   order off, on (with the render: on, off, on), its image held to the
+   render's (RMSE <= 1e-3); then a pass of 2 samples through the
    three pool backends in turns (the grouped default, "pallas_wl",
    "pallas_pair"; grouped, wl, pair, pair, wl, grouped, after a
    one-sample warm-up pass of the last two); then one timed pass with a
@@ -220,7 +221,7 @@ any failure exits non-zero:
    opacity) into a temporary directory, `load_mitsuba_xml`, then
    `Renderer(..., 1920, 1080, max_bounce=4, integrator="wavefront",
    filter_params=FilterParams("gaussian", radius=2.0))`; one untimed
-   `render(8)`, then one timed `render(8)`: each one fused pool pass with
+   `render(2)`, then one timed `render(8)`: one fused pool pass with
    per-sample slots and 8 Gaussian convolutions. Prints the host seconds
    to write, load and flatten, ms/spp, the film's seconds (the slots'
    gather to raster order and the convolutions, host clock between
@@ -229,13 +230,13 @@ any failure exits non-zero:
    of 3l over the pool casts; the image must be finite and non-zero;
 3o. the same scene, film, seeds and 8 spp through the megakernel (one
    sample a pass, 2 pixel chunks), after a one-sample warm-up: ms/spp,
-   the rule of 3k, and the image against 3n's first within rtol 1e-5,
+   the rule of 3k, and the image against 3n's within rtol 1e-5,
    atol 1e-6 (the two integrators trace the same paths; the film
    convolves each sample alike);
 3p. the stack walker at real size: `walker_grid(129, 128)` (a 64-triangle
    sphere on a 129 x 128 grid, 1,056,768 world triangles: the node table
    alone, no soup, no work-list tables) through `Renderer` (megakernel,
-   512x512, max_bounce 4, 2 spp after a one-sample warm-up): host
+   512x512, max_bounce 4, 1 spp after a one-sample warm-up): host
    seconds of the flatten and of its two-level build (the numpy TLAS
    over 16,512 instances; and `sphere_grid(27, 27)`'s flatten beside its
    deferred node-table build, which 3n prints for the stand-in), node
@@ -262,6 +263,30 @@ any failure exits non-zero:
    against the committed bake within the noise gate of
    `tests/test_torch_lut_bake.py` (twice the reference's seed-to-seed
    spread at quality 0.25);
+3s. scene edits and the preview on 3n's stand-in at 1920x1080 through
+   the megakernel (max_bounce 4, 3n's film): the median host ms
+   (synchronised) of EDIT_REPEATS edits of each kind through the
+   renderer's `set_*`: an albedo and then an opacity of EDIT_MATERIAL
+   (an untextured opaque material turned masked, which drops the
+   opaque/masked split over the 211,972 triangles) and the emitter's
+   radiance, each printed with the card's name and power limit; one
+   fixed-seed sample after the albedo edits against a fresh Renderer of
+   the edited scene (rtol 1e-5, atol 1e-6, as 3o), and one after the
+   opacity edits, through the full recast path, against a fresh Renderer
+   that has the split (phase 4's gate; both timed after an untimed
+   sample); the launch rule of 3k (without
+   the split: one recast loop a cast, every pass one closest cast);
+   `cluster_bbox`, `inst_rows`, `world_tris` and `cluster_tris` the
+   renderer's own tensors after the edits (no traversal table rebuilt);
+   then `preview(spp=1, scale=PREVIEW_SCALE)` at 480x270, three timed
+   calls, its launches, the film left as it was;
+3t. the editor: `tools/editor.py` `EditorSession` on Cornell glossy at
+   960x540 served on 127.0.0.1 (port 0): GET /state, a material POST
+   /edit, GET /preview?spp=1 twice (host ms; the PNG's shape, the dense
+   sweep's launches), a POST /camera move, /state and /preview again;
+3u. the single-sample entry: `entry("cuda")`, one call of its fn timed
+   after an untimed one, its launches, its values against
+   `entry("cpu")` under phase 4's gate (jitter positions equal);
 4. the card's render against the port's CPU render, Cornell (64x64,
    4 spp), 4b. sphere_grid(3, 3, stacks=12, slices=16) (64x64, 4 spp),
    4c. the same small grid through the wavefront, 4d. the same small
@@ -276,7 +301,9 @@ any failure exits non-zero:
    the wavefront with the Gaussian film of 3n, 64x36, 2 spp, 4l.
    `walker_grid(6, 6)` (2,304 world triangles from 64) with
    SOUP_MAX_TRIS lowered to FORCED_SOUP_MAX: the node table alone, the
-   walker, 32x32, 1 spp;
+   walker, 32x32, 1 spp, 4m. 3s's albedo and opacity edits on 4k's
+   small stand-in (megakernel, 64x36, 2 spp): the edited tables bit for
+   bit, the images under the gate;
 5. one JSON line listing the nineteen kernels, then the contract line,
    last. `ms` is CUDA events around runs of wrapper calls; rows 1-3 and
    15-17 also give `kernel_ms`, the kernels' own time by the profiler
@@ -285,6 +312,12 @@ any failure exits non-zero:
 
 The seeded ray sets of the sphere grids (2b-2h) come from
 `tools/common.py` `grid_ray_sets`, each phase with its own seed.
+Phases 2b-2d and 2f hold the casts of the camera set to their twins
+under both triangle tests, the default and the watertight one, and those
+of the other sets under the default test (`_tests`): the sets differ in
+how the walks go, and the walks are the same code under either test.
+A render's warm-up is one fused pass of WARM_SPP samples, the timed
+call's code path (3g, 3i, 3k, 3m, 3o and 3p warm up with one sample).
 
 Tolerances (kernel vs twin): the kernels are built without FMA
 contraction, so they round like the twins; the dense sweep must equal its
@@ -385,13 +418,15 @@ SMALL_GRID = ((3, 3), dict(stacks=12, slices=16))
 GATE_RMSE = 0.02
 GATE_DIVERGED_FRACTION = 0.01
 WAVEFRONT = dict(width=1920, height=1080, spp=8, max_bounce=4)
-AB_SPP = 4                              # samples of 3c's pool-backend turns
+AB_SPP = 2                              # samples of 3c's pool-backend turns
+WL_TWIN_BLOCKS = 64                     # ray blocks of 2b's random, shadow
+WARM_SPP = 2            # a warm-up's samples: one fused pass, as timed
 POOL_BIG = 1 << 20
-GROUPED_TWIN_BLOCKS = 64                # ray blocks of 2c's twins on 1M sets
+GROUPED_TWIN_BLOCKS = 16                # ray blocks of 2c's twins on 1M sets
 MK_VS_WF = dict(width=256, height=256, spp=4, max_bounce=4)
 GATE_WF_RMSE = 1e-3
 INST_GRID = (27, 27)                    # 1,073,092 world triangles, instanced
-INST_TWIN_BLOCKS = 64                   # ray blocks of an instanced twin cast
+INST_TWIN_BLOCKS = 16                   # ray blocks of an instanced twin cast
 INST_WAVEFRONT = dict(width=1920, height=1080, spp=4, max_bounce=4)
 FORCED_SOUP_MAX = 2048                  # SOUP_MAX_TRIS that forces instancing
 INST_VS_SOUP = dict(width=256, height=256, spp=4, max_bounce=4)
@@ -401,7 +436,7 @@ FLOPS_MOELLER, FLOPS_BW, FLOPS_SLAB = 45, 31, 20
 ISSUE_ITEM_LIST = 24                    # FP32 instructions a (row, lane)
 SMS, FP32_LANES = 132, 128              # H100 SXM: SMs, FP32 lanes an SM
 FLOPS_LOCAL_RAY = 33        # [o, 1] @ M, d @ M: 18 products, 15 sums
-CLUSTER_TWIN_BLOCKS = 64                # ray blocks of a clustered twin cast
+CLUSTER_TWIN_BLOCKS = 16                # ray blocks of a clustered twin cast
 CLUSTER_RENDER = dict(width=1024, height=1024, spp=4, max_bounce=4)
 CLUSTER_WAVEFRONT = dict(width=1920, height=1080, spp=2, max_bounce=4)
 PAIR_TWIN_BLOCKS = 64                   # ray blocks of a pair twin sweep
@@ -415,12 +450,17 @@ STANDIN_FILTER = ("gaussian", 2.0)      # the CLI's radius for a Gaussian
 SMALL_STANDIN = dict(nx=2, nz=2, stacks=8, slices=12)
 SMALL_STANDIN_RENDER = dict(width=64, height=36, spp=2, max_bounce=4)
 WALKER_GRID = (129, 128)                # 1,056,768 world triangles from 64
-WALKER_RENDER = dict(width=512, height=512, spp=2, max_bounce=4)
+WALKER_RENDER = dict(width=512, height=512, spp=1, max_bounce=4)
 WALKER_CPU_RAYS, WALKER_TRACE_RAYS = 4096, 256
 SMALL_WALKER_GRID = (6, 6)              # 2,304 world triangles, forced
 SMALL_WALKER_RENDER = dict(width=32, height=32, spp=1, max_bounce=4)
 CLI_CORNELL = ["--resx", "512", "--resy", "512"]
 CLI_STANDIN_SPP = 2
+EDIT_REPEATS = 5                        # timed edits of each kind (3s)
+EDIT_MATERIAL = "mat-diffuse"           # the stand-in's untextured opaque
+                                        # material the edits of 3s, 4m take
+PREVIEW_SCALE = 4                       # 3s: 480x270 of the 1080p frame
+EDITOR = dict(width=960, height=540, preview_scale=3)
 # the reference bake's own spread at quality 0.25 over the pairs of seeds
 # 1-5 (tests/test_torch_lut_bake.py SPREAD): table -> (largest mean,
 # largest max absolute difference); the noise gate is twice these
@@ -428,6 +468,15 @@ BAKE_SPREAD = {"brdf": (0.00942, 0.01591), "brdf_avg": (0.00937, 0.01483),
                "brdf_dielectric": (0.00235, 0.02126),
                "brdf_dielectric_avg": (0.00206, 0.01078),
                "bsdf": (0.00163, 0.01003), "bsdf_avg": (0.00155, 0.00450)}
+
+
+def _tests(name):
+    """The triangle tests that a ray set's work-list and clustered casts
+    are held to their twins with (2b-2d, 2f): both, the default and the
+    watertight one, on the camera set; the default on the others, which
+    differ from it in how the walks go, and the walks are the same code
+    under either test."""
+    return (False, True) if name == "camera" else (False,)
 
 
 def _timed_call(fn):
@@ -645,6 +694,15 @@ def phase_worklist_kernels(device):
     reports, census, walk, any_walk = [], {}, {}, {}
     cull = dict(diff=0, err=0.0, refine_diff=0, refine_err=0.0)
     for name, (o, d, t_max) in sets.items():
+        if name != "camera":
+            # the random and shadow casts against their twins on ray
+            # blocks spread over the set (the camera set's census sets the
+            # sweeps' bounds, so it stays whole; the cull and the refine
+            # are held to their twins on the whole shadow and sorted
+            # random sets below)
+            idx = common.spread_blocks(o.shape[0], WL_TWIN_BLOCKS, device,
+                                       wl.RB)
+            o, d, t_max = o[idx], d[idx], t_max[idx]
         od, tm_closest, _ = wl.prep_rays(o, d)
         _, tm_any, _ = wl.prep_rays(o, d, t_max)
         texp = wl.scene_exit(tables, od)
@@ -668,7 +726,7 @@ def phase_worklist_kernels(device):
             cull["refine_diff"] += _bit_diff(ref, ref_w)
             cull["refine_err"] = max(cull["refine_err"],
                                      float((ref - ref_w).abs().max()))
-        for wt in (False, True):
+        for wt in _tests(name):
             t0 = time.perf_counter()
             k = wl.worklist_closest(arrays, o, d, t_min, wt)
             occ_k = wl.worklist_any(arrays, o, d, t_max, t_min, wt)
@@ -847,7 +905,7 @@ def phase_grouped_kernels(device):
             o.shape[0], GROUPED_TWIN_BLOCKS, device, wl.RB)
         sub = prepared(o[idx], d[idx], t_max[idx])
         n_twin = o[idx].shape[0]
-        for wt in (False, True):
+        for wt in _tests(name):
             od, tm_c, tm_a, texp, it_c, it_a = full
             g = wl.sweep_closest_grouped(tables, it_c, od, texp, t_min, wt)
             p = wl.sweep_closest(tables, it_c, od, texp, t_min, wt)
@@ -927,9 +985,9 @@ def phase_grouped_kernels(device):
     box_bytes = table_bytes + 4 * tables.abox.numel()
     pool = dict(
         closest_twin_ms=timed(lambda: wl.sweep_closest_grouped_torch(
-            tables, it_c, od, texp, t_min, False), 1),
+            tables, it_c, od, texp, t_min, False), 1, warm=False),
         any_twin_ms=timed(lambda: wl.sweep_any_torch(
-            tables, it_a, od, tm_a, t_min, False), 1),
+            tables, it_a, od, tm_a, t_min, False), 1, warm=False),
         closest_bound=bound(closest_ops + tri_ops,
                              69 * rp + 12 * n_c + box_bytes),
         any_bound=bound(any_ops, 41 * rp + 8 * n_a + box_bytes),
@@ -1037,7 +1095,7 @@ def phase_instanced_kernels(device, soup_census):
         census[name] = dict(items_per_block=float(counts.mean()),
                             items_per_block_max=int(counts.max()),
                             any_items_per_block=int(it_a.seg[-1]) / nb)
-        for wt in (False, True):
+        for wt in _tests(name):
             k = wl.sweep_closest_inst(tables, it_c, od, texp, t_min, wt)
             ks = wl.sweep_closest_inst(tables, it_cs, od_s, texp_s, t_min, wt)
             kas = wl.sweep_any_inst(tables, it_as, od_s, tm_as, t_min, wt)
@@ -1272,7 +1330,7 @@ def phase_clustered_kernels(device):
         cull_ms = timed(lambda: cl.cull_masks(tables, o, d), 5)
         cull_kernel_ms = common.kernel_ms(lambda: cl.cull_masks(
             tables, o, d), 5, "cull_kernel")
-        for wt in (False, True):
+        for wt in _tests(name):
             k = cl.sweep_closest(tables, cmask, gmask, o, d, t_min, wt)
             ka = cl.sweep_any(tables, cmask, gmask, o, d, t_max, t_min, wt)
             ks = cl.sweep_closest(tables, cm_s, gm_s, o_s, d_s, t_min, wt)
@@ -1873,9 +1931,9 @@ def phase_render(device, name, p=RENDER, backend="auto", warm_spp=None):
     import torch
 
     r, world_tris = _renderer(name, p, device, backend=backend)
-    # warm-up: by default the timed call itself, so that the allocator's
-    # growth for the fused pass falls outside the timed window
-    r.render(spp=warm_spp or p["spp"])
+    # warm-up: by default a fused pass of WARM_SPP samples, the timed
+    # call's code path
+    r.render(spp=warm_spp or WARM_SPP)
     r.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1948,7 +2006,7 @@ def phase_wavefront(device):
                  max_bounce=p["max_bounce"], integrator="wavefront",
                  device=device)
     t0 = time.perf_counter()
-    r.render(spp=p["spp"])
+    r.render(spp=WARM_SPP)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     r.reset()
@@ -1997,9 +2055,8 @@ def phase_wavefront(device):
 
 def _slab_ab(r, img, on_s):
     """The render's pool pass (seed 0, 8 samples) without slab marching,
-    twice, then with it once more: ms/spp in the order on (the render),
-    off, off, on, the no-slab pass's stats and its image's RMSE against
-    the render's."""
+    then with it once more: ms/spp in the order on (the render), off, on,
+    the no-slab pass's stats and its image's RMSE against the render's."""
     from dataclasses import replace
 
     import torch
@@ -2007,9 +2064,9 @@ def _slab_ab(r, img, on_s):
     from directcomputeraytracing_tpu_torch.integrator import wavefront as wf
 
     p = WAVEFRONT
-    out = dict(order=["on", "off", "off", "on"],
+    out = dict(order=["on", "off", "on"],
                ms_per_spp=[1000.0 * on_s / p["spp"]])
-    for march in (0.0, 0.0, None):
+    for march in (0.0, None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, val = wf.render_samples_wavefront(
@@ -2087,7 +2144,7 @@ def phase_wavefront_pass(device, name, p, backend="auto"):
 
     r, world_tris = _renderer(name, p, device, "wavefront", backend)
     t0 = time.perf_counter()
-    r.render(spp=p["spp"])
+    r.render(spp=min(WARM_SPP, p["spp"]))
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     r.reset()
@@ -2144,7 +2201,7 @@ def phase_pair_wavefront(device):
     r, world_tris = _renderer("grid", p, device, "wavefront",
                               pool_backend="pallas_pair")
     t0 = time.perf_counter()
-    r.render(spp=p["spp"])
+    r.render(spp=min(WARM_SPP, p["spp"]))
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     r.reset()
@@ -2267,7 +2324,7 @@ def _time_film(r):
 
 def phase_standin_wavefront(device):
     """The headline stand-in at 1920x1080 through the wavefront and the
-    Gaussian film (3n). Returns (report, scene, camera, first image)."""
+    Gaussian film (3n). Returns (report, scene, camera, image)."""
     import torch
 
     from directcomputeraytracing_tpu_torch.integrator import wavefront as wf
@@ -2279,7 +2336,7 @@ def phase_standin_wavefront(device):
     flatten_s = time.perf_counter() - t0
     node_s = _node_tables_s(r.arrays)
     t0 = time.perf_counter()
-    first = r.render(spp=p["spp"])
+    r.render(spp=WARM_SPP)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     r.reset()
@@ -2307,7 +2364,6 @@ def phase_standin_wavefront(device):
                film_share=film_s[0] / seconds,
                slot_buffer_bytes=(stats["slots"] + 1) * (2 + 3) * 4,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-               repeat_equal=bool(np.array_equal(first, img)),
                launches_per_spp={k: v / p["spp"] for k, v in launches.items()},
                last_stats=stats, launches=launches, expected_launches=expect,
                **_alpha_stats(r, launches))
@@ -2323,7 +2379,7 @@ def phase_standin_wavefront(device):
     if launches != expect:
         raise SystemExit(f"stand-in wavefront launch counts {launches} != "
                          f"{expect}")
-    return rep, scene, cam, first
+    return rep, scene, cam, img
 
 
 def phase_standin_megakernel(device, scene, cam, wf_img):
@@ -2394,6 +2450,344 @@ def phase_standin_cpu_vs_card(device):
     if not (_image_ok(rep) and b.mean() > 0.0):
         raise SystemExit("small stand-in: card render differs from the CPU "
                          "render")
+    return rep
+
+
+def _card_line():
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=120, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _synced_ms(fn):
+    """(fn(), host ms between synchronisations)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1000.0 * (time.perf_counter() - t0)
+
+
+def _expected_recast_launches(arrays, n_closest, n_any, got):
+    """The counts of an alpha-tested pass without the opaque/masked split
+    (dropped by an opacity edit): each of the n_closest + n_any casts is
+    one recast loop over the whole scene, and every pass of it one closest
+    cast of the path's kernels; no any-hit cast."""
+    passes = got["alpha_passes"]
+    expect = _expected_cast_launches(arrays, passes, 0, got, "", "auto")
+    expect.update(alpha_calls=n_closest + n_any, alpha_passes=passes)
+    return expect
+
+
+def _edited_standin(scene, albedo=None, radiance=None, opacity=None):
+    """A copy of the stand-in scene with the edits of 3s applied to the
+    host scene (for a fresh Renderer to hold the edited one to)."""
+    import copy
+
+    scene = copy.deepcopy(scene)
+    m = _material_index(scene)
+    if albedo is not None:
+        scene.materials[m].albedo = albedo
+    if opacity is not None:
+        scene.materials[m].opacity = opacity
+    if radiance is not None:
+        scene.instances[_emitter_index(scene)].radiance = radiance
+    return scene
+
+
+def _material_index(scene):
+    return next(i for i, m in enumerate(scene.materials)
+                if m.name == EDIT_MATERIAL)
+
+
+def _emitter_index(scene):
+    return next(i for i, inst in enumerate(scene.instances)
+                if inst.is_emitter)
+
+
+def _one_fixed_sample(r):
+    """One fixed-seed sample of r from a clean film, its launch counts."""
+    r.reset()
+    _reset_launches()
+    img = r.render(spp=1, seed_mode="fixed")
+    return img, _launches()
+
+
+def phase_standin_edits(device, scene, cam):
+    """Edits and preview on the headline stand-in at 1920x1080 (3s): the
+    megakernel, max_bounce 4, 3n's Gaussian film. Times EDIT_REPEATS
+    edits of each kind (an albedo, the emitter's radiance, an opacity that
+    turns EDIT_MATERIAL masked and drops the opaque/masked split), holds
+    one fixed-seed sample after the albedo and after the opacity edits to
+    a fresh Renderer of the edited scene, checks that the geometry tensors
+    (and so the traversal tables) are the ones the renderer started with,
+    and times `preview(spp=1, scale=PREVIEW_SCALE)`."""
+    import torch
+
+    p = dict(STANDIN, spp=1)
+    mb = p["max_bounce"]
+    card = _card_line()
+    r = _standin_renderer(scene, cam, p, device, "megakernel")
+    geometry = {f: getattr(r.arrays, f) for f in
+                ("cluster_bbox", "inst_rows", "world_tris", "cluster_tris")}
+    if not (r.cfg.any_hit and r.arrays.mclu_bbox.shape[0] > 1):
+        raise SystemExit("the stand-in has no opaque/masked split to drop")
+    m, em = _material_index(scene), _emitter_index(scene)
+    albedos = [(0.2 + 0.1 * k, 0.5, 0.3) for k in range(EDIT_REPEATS)]
+    radiances = [(14.0 + k, 13.0, 12.0) for k in range(EDIT_REPEATS)]
+    opacities = [0.5] * EDIT_REPEATS
+
+    edit_ms = {}
+    edit_ms["albedo"] = [_synced_ms(lambda a=a: r.set_material(
+        m, albedo=a))[1] for a in albedos]
+    img, launches = _one_fixed_sample(r)
+    n_closest, n_any = (mb + 2) * r.n_chunks, (mb + 1) * r.n_chunks
+    expect = _expected_launches(r.arrays, n_closest, n_any, launches,
+                                alpha=True)
+    fresh = _standin_renderer(_edited_standin(scene, albedo=albedos[-1]),
+                              cam, p, device, "megakernel")
+    want = fresh.render(spp=1, seed_mode="fixed")
+    del fresh
+    diff = np.abs(img - want)
+    albedo_check = dict(max_abs=float(diff.max()),
+                        beyond_tol=int((diff > 1e-6 + 1e-5 * np.abs(want))
+                                       .sum()),
+                        rtol=1e-5, atol=1e-6, mean=float(img.mean()),
+                        launches=launches, expected_launches=expect)
+
+    edit_ms["emitter_radiance"] = [_synced_ms(
+        lambda x=x: r.set_emitter_radiance(em, x))[1] for x in radiances]
+    edit_ms["opacity"] = [_synced_ms(lambda o=o: r.set_material(
+        m, opacity=o))[1] for o in opacities]
+    dropped = r.arrays.mclu_bbox.shape[0] == 1
+    # untimed: the first cast of the whole table builds its work-list
+    # tables (the split's sides had their own)
+    _one_fixed_sample(r)
+    (img, launches), sample_ms = _synced_ms(lambda: _one_fixed_sample(r))
+    expect_recast = _expected_recast_launches(r.arrays, n_closest, n_any,
+                                              launches)
+    fresh = _standin_renderer(
+        _edited_standin(scene, albedo=albedos[-1], radiance=radiances[-1],
+                        opacity=opacities[-1]), cam, p, device, "megakernel")
+    fresh_split = fresh.arrays.mclu_bbox.shape[0] > 1
+    _one_fixed_sample(fresh)
+    (want, fresh_launches), fresh_ms = _synced_ms(
+        lambda: _one_fixed_sample(fresh))
+    del fresh
+    opacity_check = dict(**_image_diff(img, want), mean=float(img.mean()),
+                         dropped_split=dropped, fresh_has_split=fresh_split,
+                         sample_ms_dropped_split=sample_ms,
+                         sample_ms_fresh_split=fresh_ms,
+                         launches=launches, expected_launches=expect_recast,
+                         recast_passes_per_cast=(
+                             launches["alpha_passes"]
+                             / max(launches["alpha_calls"], 1)),
+                         fresh_recast_passes_per_cast=(
+                             fresh_launches["alpha_passes"]
+                             / max(fresh_launches["alpha_calls"], 1)))
+    same_tables = {f: getattr(r.arrays, f) is t for f, t in geometry.items()}
+
+    film = (r.film.value.clone(), r.film.weight.clone(), r.spp)
+    preview_ms = []
+    for _ in range(3):
+        _reset_launches()
+        small, ms = _synced_ms(lambda: r.preview(spp=1, scale=PREVIEW_SCALE))
+        preview_ms.append(ms)
+    preview_launches = _launches()
+    pw, ph = p["width"] // PREVIEW_SCALE, p["height"] // PREVIEW_SCALE
+    preview_expect = _expected_recast_launches(
+        r.arrays, mb + 2, mb + 1, preview_launches)
+    film_kept = (torch.equal(film[0], r.film.value)
+                 and torch.equal(film[1], r.film.weight)
+                 and film[2] == r.spp)
+    rep = dict(scene="standin", card=card, width=p["width"],
+               height=p["height"], max_bounce=mb, material=EDIT_MATERIAL,
+               edit_ms=edit_ms,
+               edit_ms_median={k: float(np.median(v))
+                               for k, v in edit_ms.items()},
+               albedo_vs_fresh=albedo_check, opacity_vs_fresh=opacity_check,
+               same_tables=same_tables,
+               preview=dict(width=pw, height=ph, ms=preview_ms,
+                            ms_median=float(np.median(preview_ms)),
+                            shape=list(small.shape),
+                            finite=bool(np.isfinite(small).all()),
+                            mean=float(small.mean()), film_kept=film_kept,
+                            launches=preview_launches,
+                            expected_launches=preview_expect))
+    print("standin-edits", json.dumps(rep))
+    for kind, med in rep["edit_ms_median"].items():
+        print(f"standin-edit {kind}: median {med:.3f} ms of "
+              f"{EDIT_REPEATS} ({card})")
+    print(f"standin-preview {pw}x{ph}: median "
+          f"{rep['preview']['ms_median']:.1f} ms ({card})")
+    if albedo_check["beyond_tol"] or albedo_check["mean"] <= 0.0:
+        raise SystemExit("stand-in: the albedo-edited renderer differs from "
+                         "a fresh renderer of the edited scene")
+    if launches != expect_recast or albedo_check["launches"] != expect:
+        raise SystemExit("stand-in edits: launch counts off the path")
+    if not (dropped and fresh_split and _image_ok(opacity_check)
+            and opacity_check["mean"] > 0.0):
+        raise SystemExit(f"stand-in: the opacity edit's render "
+                         f"{opacity_check}")
+    if not all(same_tables.values()):
+        raise SystemExit(f"stand-in edits replaced tables: {same_tables}")
+    if not (small.shape == (ph, pw, 3) and rep["preview"]["finite"]
+            and small.mean() > 0.0 and film_kept
+            and preview_launches == preview_expect):
+        raise SystemExit(f"stand-in preview: {rep['preview']}")
+    return rep
+
+
+def phase_editor(device):
+    """The editor on the card (3t): an EditorSession on Cornell glossy at
+    EDITOR's size, served on 127.0.0.1 (port 0); GET /state, a material
+    POST /edit, GET /preview?spp=1 (timed), a camera move, /state and
+    /preview again."""
+    import io
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from directcomputeraytracing_tpu_torch.scene.presets import cornell_box
+    from directcomputeraytracing_tpu_torch.tools.editor import (
+        EditorSession,
+        serve,
+    )
+
+    card = _card_line()
+    session = EditorSession(*cornell_box("area", "glossy"), device=device,
+                            **EDITOR)
+    mb = session.renderer.cfg.max_bounce
+    started = threading.Event()
+    th = threading.Thread(target=serve, args=(session, 0), daemon=True,
+                          kwargs={"started": started})
+    th.start()
+    if not started.wait(30):
+        raise SystemExit("editor: the server did not start")
+    base = f"http://127.0.0.1:{started.server.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=120) as f:
+            return f.read()
+
+    def post(path, body):
+        req = urllib.request.Request(base + path, method="POST",
+                                     data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=120) as f:
+            return json.loads(f.read())
+
+    try:
+        st0 = json.loads(get("/state"))
+        edited = post("/edit", {"kind": "material", "index": 0,
+                                "fields": {"albedo": [0.9, 0.2, 0.1]}})
+        st1 = json.loads(get("/state"))
+        previews = []
+        for _ in range(2):
+            _reset_launches()
+            png, ms = _synced_ms(lambda: get("/preview?spp=1"))
+            previews.append(ms)
+        launches = _launches()
+        img = np.asarray(Image.open(io.BytesIO(png)))
+        moved = post("/camera", {"forward": 0.5, "yaw_deg": 10.0})
+        st2 = json.loads(get("/state"))
+        png2, ms2 = _synced_ms(lambda: get("/preview?spp=1"))
+        img2 = np.asarray(Image.open(io.BytesIO(png2)))
+    finally:
+        started.server.shutdown()
+        th.join(30)
+    s = EDITOR["preview_scale"]
+    shape = (EDITOR["height"] // s, EDITOR["width"] // s, 3)
+    expect = _expected_launches(session.renderer.arrays, mb + 2, mb + 1,
+                                launches)
+    rep = dict(scene="cornell-glossy", card=card, size=[EDITOR["width"],
+                                                         EDITOR["height"]],
+               preview_shape=list(img.shape), preview_ms=previews,
+               preview_ms_after_move=ms2, edit_ok=edited.get("ok"),
+               move_ok=moved.get("ok"),
+               albedo_after=st1["materials"][0]["albedo"],
+               eye_before=st0["camera"]["position"],
+               eye_after=st2["camera"]["position"], launches=launches,
+               expected_launches=expect, server_stopped=not th.is_alive())
+    print("editor", json.dumps(rep))
+    print(f"editor preview {shape[1]}x{shape[0]}: {previews[-1]:.1f} ms "
+          f"({card})")
+    if not (edited.get("ok") and moved.get("ok")
+            and st1["materials"][0]["albedo"] == [0.9, 0.2, 0.1]
+            and img.shape == img2.shape == shape and img.mean() > 0
+            and st2["camera"]["position"] != st0["camera"]["position"]
+            and st2["spp"] == 0 and launches == expect
+            and rep["server_stopped"]):
+        raise SystemExit(f"editor: {rep}")
+    return rep
+
+
+def phase_entry(device):
+    """The single-sample entry on the card (3u): `entry("cuda")`, one call
+    of fn timed after one untimed, against `entry("cpu")` under phase 4's
+    gate (jitter positions equal)."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.entry import entry
+
+    card = _card_line()
+    fn, args = entry("cuda")
+    fn(*args)
+    _reset_launches()
+    (pos, val), ms = _synced_ms(lambda: fn(*args))
+    launches = _launches()
+    mb = 3                                  # the entry's max_bounce
+    expect = _expected_launches(args[0], mb + 2, mb + 1, launches)
+    fn_c, args_c = entry("cpu")
+    pos_c, val_c = fn_c(*args_c)
+    a, b = val_c.numpy().reshape(64, 64, 3), val.cpu().numpy().reshape(
+        64, 64, 3)
+    rep = dict(card=card, shapes=[list(pos.shape), list(val.shape)],
+               device=str(val.device), ms=ms,
+               positions_equal=bool(torch.equal(pos.cpu(), pos_c)),
+               **_image_diff(a, b), mean_cpu=float(a.mean()),
+               mean_card=float(b.mean()), launches=launches,
+               expected_launches=expect)
+    print("entry", json.dumps(rep))
+    if not (rep["shapes"] == [[4096, 2], [4096, 3]] and _image_ok(rep)
+            and rep["positions_equal"] and b.mean() > 0.0
+            and launches == expect):
+        raise SystemExit(f"entry: {rep}")
+    return rep
+
+
+def phase_standin_edits_cpu_vs_card(device):
+    """3s's albedo and opacity edits on the small stand-in, the card
+    against the port's CPU (4m): the edited tables bit for bit, then the
+    images (megakernel, 3n's Gaussian film) under phase 4's gate."""
+    import torch
+
+    p = SMALL_STANDIN_RENDER
+    scene, cam, _, _ = _load_standin(**SMALL_STANDIN)
+    m = _material_index(scene)
+    imgs, tables = {}, {}
+    for dev in (torch.device("cpu"), device):
+        r = _standin_renderer(scene, cam, p, dev, "megakernel")
+        r.set_material(m, albedo=(0.3, 0.6, 0.2))
+        r.set_material(m, opacity=0.5)
+        tables[dev.type] = r.arrays
+        imgs[dev.type] = r.render(spp=p["spp"])
+    a, b = imgs["cpu"], imgs[device.type]
+    differ = [f for f in tables["cpu"]._fields
+              if not torch.equal(getattr(tables["cpu"], f),
+                                 getattr(tables[device.type], f).cpu())]
+    rep = dict(scene="small_standin", integrator="megakernel",
+               edits=["albedo", "opacity"], world_tris=_world_tris(scene),
+               tables_differ=differ, **_image_diff(a, b),
+               mean_cpu=float(a.mean()), mean_card=float(b.mean()))
+    print("cpu-vs-card", json.dumps(rep))
+    if differ or not (_image_ok(rep) and b.mean() > 0.0):
+        raise SystemExit("small stand-in edits: the card differs from the "
+                         "CPU")
     return rep
 
 
@@ -2770,11 +3164,7 @@ def main():
         print("chip_smoke: no CUDA device; this test runs only on a GPU",
               file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=120, check=True)
-    for line in smi.stdout.strip().splitlines():
-        print(line)
+    print(_card_line())
     print("torch", torch.__version__, "cuda", torch.version.cuda,
           "python", sys.version.split()[0])
     device = torch.device("cuda")
@@ -2836,6 +3226,10 @@ def main():
     phase("3p walker render", phase_walker, device)
     phase("3q CLI", phase_cli, device)
     phase("3r LUT bake", phase_bake, device)
+    phase("3s stand-in edits and preview", phase_standin_edits, device,
+          standin, standin_cam)
+    phase("3t editor", phase_editor, device)
+    phase("3u single-sample entry", phase_entry, device)
     phase("4 Cornell card vs CPU", phase_cpu_vs_card, device, "cornell")
     phase("4b small grid card vs CPU", phase_cpu_vs_card, device,
           "small_grid")
@@ -2865,6 +3259,8 @@ def main():
     if small_walker["instanced"] or not small_walker["walker"]:
         raise SystemExit("the small walker grid did not flatten to node "
                          "tables")
+    phase("4m small stand-in edits card vs CPU",
+          phase_standin_edits_cpu_vs_card, device)
     if "jax" in sys.modules:
         raise SystemExit("the port imported jax")
     print(f"chip_smoke: all phases passed in "

@@ -20,6 +20,12 @@ Checkpoints (`save_checkpoint` / `load_checkpoint`) keep the film and
 the sample count in the reference's npz format (`value`, `weight`,
 `spp`), so either package resumes the other's.
 
+Scene edits (`set_material`, `set_light`, `set_instance_override`,
+`set_emitter_radiance`) update the flattened scene in place of a
+re-flatten (`scene.edit`) and restart the film, as the reference's dirty
+flag does; `frame_index` survives. `preview` traces a reduced-size frame
+through the megakernel without touching the film.
+
 `traversal_backend`, `pool_backend` and `slab_march` pass through to the
 integrators in the `RenderConfig`; alpha-tested scenes set `any_hit` and
 `any_hit_texture` from the scene's meta. `device` defaults to "cuda";
@@ -35,6 +41,8 @@ group of samples into one pool pass with per-sample output slots
 (`sample_slots`), whose planes it convolves in sample order, as the
 reference does.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -65,6 +73,21 @@ SEED_SAMPLE_COUNT = "sample_count"   # seed = accumulated sample index
 SEED_FIXED = "fixed"                 # pinned seed (deterministic retrace)
 SEED_FRAME_INDEX = "frame_index"     # seed = frame counter that survives
                                      # film resets
+
+
+def _frame_pixels(scene, cfg, device):
+    """The frame's (x, y) pixels in the trace order and the permutation
+    back to raster order: 32x32 tiles on work-list scenes, else raster
+    order and None."""
+    if has_worklist_tables(scene):
+        return tiled_frame_pixels(cfg, device)
+    return (*full_frame_pixels(cfg, device), None)
+
+
+def _pixel_chunks(px, py):
+    """(px, py) in slices of at most CHUNK_PIXELS pixels."""
+    for i in range(0, px.shape[0], CHUNK_PIXELS):
+        yield px[i:i + CHUNK_PIXELS], py[i:i + CHUNK_PIXELS]
 
 
 def _accumulate_filtered(film, pos, values, fp: FilterParams, height, width):
@@ -111,12 +134,8 @@ class Renderer:
         self.film = create_film(height, width, self.device)
         self.spp = 0
         self.frame_index = 0    # advances per sample pass, survives reset()
-        if has_worklist_tables(self.arrays):
-            self._px, self._py, self._inv = tiled_frame_pixels(self.cfg,
-                                                               self.device)
-        else:
-            self._px, self._py = full_frame_pixels(self.cfg, self.device)
-            self._inv = None
+        self._px, self._py, self._inv = _frame_pixels(self.arrays, self.cfg,
+                                                      self.device)
 
     @property
     def _box_fast_path(self):
@@ -127,10 +146,6 @@ class Renderer:
     def n_chunks(self):
         """Pixel chunks per sample pass."""
         return -(-self._px.shape[0] // CHUNK_PIXELS)
-
-    def _chunks(self):
-        for i in range(0, self._px.shape[0], CHUNK_PIXELS):
-            yield (self._px[i:i + CHUNK_PIXELS], self._py[i:i + CHUNK_PIXELS])
 
     def reset(self):
         """Restart progressive accumulation; frame_index survives (the
@@ -172,7 +187,7 @@ class Renderer:
         else:
             parts = [render_samples(self.arrays, self.luts, self.camera,
                                     self.cfg, px, py, frame_seed)
-                     for px, py in self._chunks()]
+                     for px, py in _pixel_chunks(self._px, self._py)]
             pos = torch.cat([p for p, _ in parts])
             values = torch.cat([v for _, v in parts])
         if self._box_fast_path:
@@ -213,7 +228,7 @@ class Renderer:
                             render_samples_accumulated(
                                 self.arrays, self.luts, self.camera,
                                 self.cfg, px, py, self.spp, fuse)
-                            for px, py in self._chunks()])
+                            for px, py in _pixel_chunks(self._px, self._py)])
                     self.film = accumulate_box(
                         self.film, self._raster(total), self.cfg.height,
                         self.cfg.width, float(fuse))
@@ -235,6 +250,31 @@ class Renderer:
         """Resolved linear radiance, (H, W, 3) numpy array."""
         return resolve(self.film).cpu().numpy()
 
+    def preview(self, spp=1, scale=4):
+        """A reduced-size render (the reference's quarter-size interactive
+        preview, LaunchRendererLoop.cpp:206-237): seeds 0..spp-1 through
+        the megakernel, whatever the integrator, at (H//scale, W//scale),
+        in tiles on work-list scenes as the main path traces. Returns the
+        mean radiance, a (H//scale, W//scale, 3) numpy array; the film and
+        `spp` stay as they are. With spp=1 it equals a fresh Renderer's
+        `render(1, seed_mode="fixed")` at that size with the box film."""
+        if spp < 1:
+            raise ValueError(f"preview spp {spp}: at least 1")
+        cfg = dataclasses.replace(self.cfg,
+                                  width=max(self.cfg.width // scale, 1),
+                                  height=max(self.cfg.height // scale, 1))
+        px, py, inv = _frame_pixels(self.arrays, cfg, self.device)
+        acc = torch.zeros((px.shape[0], 3), dtype=torch.float32,
+                          device=self.device)
+        for seed in range(spp):
+            acc = acc + torch.cat([
+                render_samples(self.arrays, self.luts, self.camera, cfg,
+                               cx, cy, seed)[1]
+                for cx, cy in _pixel_chunks(px, py)])
+        if inv is not None:
+            acc = acc[inv]
+        return (acc / spp).reshape(cfg.height, cfg.width, 3).cpu().numpy()
+
     def postprocessed(self):
         """Display-ready sRGB image through exposure and tone mapping. A
         thin-lens camera's f-number follows from the camera itself:
@@ -250,6 +290,41 @@ class Renderer:
                 params = params._replace(relative_aperture=f / (2.0 * radius))
         return post_process(self.film.value, self.film.weight, params,
                             aperture_is_pinhole=pinhole).cpu().numpy()
+
+    # scene edits (reference: the editor's buffer-region writes,
+    # Source/Scene.cpp:672-807): tensor updates, no re-flatten; each
+    # restarts the film
+
+    def set_material(self, index, **fields):
+        """Edit a material (albedo, ior, roughness, tiling, opacity)."""
+        from ..scene.edit import update_material
+
+        self.arrays = update_material(self.arrays, index, **fields)
+        self.reset()
+
+    def set_light(self, index, radiance=None, position=None):
+        """Edit a light's radiance or position (direction)."""
+        from ..scene.edit import update_light
+
+        self.arrays = update_light(self.arrays, index, radiance=radiance,
+                                   position=position)
+        self.reset()
+
+    def set_instance_override(self, index, material_override):
+        """Set, or clear with -1, an instance's material override."""
+        from ..scene.edit import update_instance_override
+
+        self.arrays = update_instance_override(self.arrays, index,
+                                               material_override)
+        self.reset()
+
+    def set_emitter_radiance(self, instance_index, radiance):
+        """Edit an emissive instance's radiance."""
+        from ..scene.edit import update_emitter_radiance
+
+        self.arrays = update_emitter_radiance(self.arrays, instance_index,
+                                              radiance)
+        self.reset()
 
     def save_checkpoint(self, path):
         """The film and the sample count into an npz (the reference's
