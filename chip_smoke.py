@@ -287,6 +287,22 @@ any failure exits non-zero:
 3u. the single-sample entry: `entry("cuda")`, one call of its fn timed
    after an untimed one, its launches, its values against
    `entry("cpu")` under phase 4's gate (jitter positions equal);
+3v. the distributed renderer (`parallel/dist.py`): a world of one on NCCL
+   (a file store in a temporary directory) renders 3n's stand-in at
+   1920x1080 through the megakernel and 3n's film, one band with both
+   halos at the frame's edges, two steps: the second step's host ms
+   (synchronised) beside the one-process `render(2)`'s ms/spp, 3o's
+   ms/spp and the card's name and power limit,
+   its launches (2 pixel chunks, the rule of 3k), and the image after
+   both steps against that Renderer's `render(2)` (rtol 1e-5, atol 1e-6,
+   as 3o); then two gloo ranks spawned on the card (`entry.
+   run_gloo_world`) render Cornell glossy at 256x256, max_bounce 4:
+   spp_parallel 2 (one band, box film, one step) and spp_parallel 1 (two
+   bands, the Gaussian film of radius 2 across the seam, two steps),
+   each against a one-process Renderer at the same seeds under the same
+   gate, each rank's dense-sweep launches by the rule; then
+   `entry.dryrun_multichip(2)` on the card (both integrators, 32x32).
+   One card: NCCL runs a world of one, and the two gloo ranks share it;
 4. the card's render against the port's CPU render, Cornell (64x64,
    4 spp), 4b. sphere_grid(3, 3, stacks=12, slices=16) (64x64, 4 spp),
    4c. the same small grid through the wavefront, 4d. the same small
@@ -394,6 +410,7 @@ a row. Prep and probes must equal their twins bit for bit.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -461,6 +478,11 @@ EDIT_MATERIAL = "mat-diffuse"           # the stand-in's untextured opaque
                                         # material the edits of 3s, 4m take
 PREVIEW_SCALE = 4                       # 3s: 480x270 of the 1080p frame
 EDITOR = dict(width=960, height=540, preview_scale=3)
+DIST_CORNELL = dict(width=256, height=256, max_bounce=4)
+# 3v's gloo cases: (name, spp_parallel, steps, film); spp_parallel 1 is
+# two bands of 128 rows, the Gaussian film across their seam
+DIST_CORNELL_CASES = (("box_spp2", 2, 1, ("box", 0.5)),
+                      ("gaussian_tile2", 1, 2, ("gaussian", 2.0)))
 # the reference bake's own spread at quality 0.25 over the pairs of seeds
 # 1-5 (tests/test_torch_lut_bake.py SPREAD): table -> (largest mean,
 # largest max absolute difference); the noise gate is twice these
@@ -1763,6 +1785,21 @@ def _image_diff(a, b):
                 gate_rmse=GATE_RMSE, gate_diverged=GATE_DIVERGED_FRACTION)
 
 
+def _tight_diff(img, want):
+    """The largest difference of two images and the pixels beyond rtol
+    1e-5, atol 1e-6 (3o's gate: the same paths, rounded alike)."""
+    diff = np.abs(img - want)
+    return dict(max_abs=float(diff.max()),
+                beyond_tol=int((diff > 1e-6 + 1e-5 * np.abs(want)).sum()),
+                rtol=1e-5, atol=1e-6)
+
+
+def _dist_close(img, want):
+    """3v's gate against the one-process image, with the image's mean."""
+    return dict(_tight_diff(img, want), finite=bool(np.isfinite(img).all()),
+                mean=float(img.mean()))
+
+
 def _image_ok(diff):
     return (diff["rmse"] <= GATE_RMSE
             and diff["diverged_pixels"] <= GATE_DIVERGED_FRACTION)
@@ -2403,17 +2440,13 @@ def phase_standin_megakernel(device, scene, cam, wf_img):
         r.arrays, p["spp"] * (p["max_bounce"] + 2) * r.n_chunks,
         p["spp"] * (p["max_bounce"] + 1) * r.n_chunks, launches,
         alpha=r.cfg.any_hit)
-    diff = np.abs(img - wf_img)
-    close = diff <= 1e-6 + 1e-5 * np.abs(wf_img)
     rep = dict(scene="standin", integrator="megakernel",
                filter=list(STANDIN_FILTER), shape=list(img.shape),
                finite=bool(np.isfinite(img).all()), mean=float(img.mean()),
                ms_per_spp=1000.0 * seconds / p["spp"], total_s=seconds,
                chunks=r.n_chunks,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-               vs_wavefront=dict(max_abs=float(diff.max()),
-                                 beyond_tol=int((~close).sum()),
-                                 rtol=1e-5, atol=1e-6),
+               vs_wavefront=_tight_diff(img, wf_img),
                launches_per_spp={k: v / p["spp"] for k, v in launches.items()},
                launches=launches, expected_launches=expect,
                **_alpha_stats(r, launches))
@@ -2424,7 +2457,7 @@ def phase_standin_megakernel(device, scene, cam, wf_img):
     if launches != expect:
         raise SystemExit(f"stand-in megakernel launch counts {launches} != "
                          f"{expect}")
-    if not close.all():
+    if rep["vs_wavefront"]["beyond_tol"]:
         raise SystemExit("stand-in: the megakernel's image differs from the "
                          "wavefront's")
     return rep
@@ -2552,11 +2585,7 @@ def phase_standin_edits(device, scene, cam):
                               cam, p, device, "megakernel")
     want = fresh.render(spp=1, seed_mode="fixed")
     del fresh
-    diff = np.abs(img - want)
-    albedo_check = dict(max_abs=float(diff.max()),
-                        beyond_tol=int((diff > 1e-6 + 1e-5 * np.abs(want))
-                                       .sum()),
-                        rtol=1e-5, atol=1e-6, mean=float(img.mean()),
+    albedo_check = dict(_tight_diff(img, want), mean=float(img.mean()),
                         launches=launches, expected_launches=expect)
 
     edit_ms["emitter_radiance"] = [_synced_ms(
@@ -2758,6 +2787,141 @@ def phase_entry(device):
             and launches == expect):
         raise SystemExit(f"entry: {rep}")
     return rep
+
+
+def _dist_cornell_rank(out):
+    """One of 3v's two gloo ranks on the card: DIST_CORNELL's cases, each
+    on a new mesh over the two ranks; every rank writes its launches per
+    case (`rank<r>.json`), rank 0 the images (`<case>.npy`)."""
+    import torch
+    import torch.distributed as dist
+
+    from directcomputeraytracing_tpu_torch.film.filters import FilterParams
+    from directcomputeraytracing_tpu_torch.parallel.dist import (
+        DistributedRenderer,
+        band_rows,
+        make_mesh,
+    )
+
+    rank, p = dist.get_rank(), DIST_CORNELL
+    rep = {}
+    for name, spp_parallel, steps, filt in DIST_CORNELL_CASES:
+        mesh = make_mesh(spp_parallel=spp_parallel)
+        r, _ = _renderer("cornell", p, mesh.device)
+        dr = DistributedRenderer(mesh, r.arrays, r.luts, r.camera, r.cfg,
+                                 filter_params=FilterParams(*filt))
+        _reset_launches()
+        for _ in range(steps):
+            dr.render_step()
+        torch.cuda.synchronize()
+        rep[name] = dict(launches=_launches(), spp=dr.spp,
+                         band_rows=band_rows(r.cfg, mesh),
+                         coords=[mesh.spp_index, mesh.tile_index],
+                         device=str(mesh.device))
+        img = dr.image()
+        if rank == 0:
+            np.save(os.path.join(out, f"{name}.npy"), img)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+
+
+def phase_distributed(device, scene, cam, mk_ms_per_spp):
+    """The distributed renderer on the card (3v): 3n's stand-in through a
+    world of one on NCCL, then Cornell on two gloo ranks sharing the
+    card, then `dryrun_multichip(2)`."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from directcomputeraytracing_tpu_torch.entry import (
+        dryrun_multichip,
+        run_gloo_world,
+    )
+    from directcomputeraytracing_tpu_torch.film.filters import FilterParams
+    from directcomputeraytracing_tpu_torch.integrator.renderer import (
+        CHUNK_PIXELS,
+    )
+    from directcomputeraytracing_tpu_torch.parallel.dist import (
+        DistributedRenderer,
+        band_rows,
+        make_mesh,
+    )
+
+    card = _card_line()
+    p = STANDIN
+    r = _standin_renderer(scene, cam, p, device, "megakernel")
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(spp_parallel=1)
+            dr = DistributedRenderer(mesh, r.arrays, r.luts, r.camera, r.cfg,
+                                     filter_params=FilterParams(
+                                         *STANDIN_FILTER))
+            _, first_ms = _synced_ms(dr.render_step)
+            _reset_launches()
+            _, step_ms = _synced_ms(dr.render_step)
+            launches = _launches()
+            img = dr.image()
+        finally:
+            dist.destroy_process_group()
+    hb = band_rows(r.cfg, mesh)
+    chunks = -(-hb * r.cfg.width // CHUNK_PIXELS)
+    mb = p["max_bounce"]
+    expect = _expected_launches(r.arrays, (mb + 2) * chunks, (mb + 1) * chunks,
+                                launches, alpha=r.cfg.any_hit)
+    want, single_ms = _synced_ms(lambda: r.render(dr.spp))
+    standin = dict(card=card, backend="nccl", world=1, mesh=mesh.shape,
+                   band_rows=hb, chunks=chunks, steps=dr.spp,
+                   first_step_ms=first_ms, step_ms=step_ms,
+                   single_ms_per_spp=single_ms / dr.spp,
+                   standin_megakernel_ms_per_spp=mk_ms_per_spp,
+                   vs_single=_dist_close(img, want),
+                   launches=launches, expected_launches=expect)
+    print("distributed-standin", json.dumps(standin))
+    if not (img.shape == (p["height"], p["width"], 3)
+            and standin["vs_single"]["beyond_tol"] == 0
+            and standin["vs_single"]["finite"] and chunks == 2
+            and launches == expect):
+        raise SystemExit(f"distributed stand-in: {standin}")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        run_gloo_world(2, _dist_cornell_rank, out)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for rank in range(2):
+            with open(os.path.join(out, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+        imgs = {name: np.load(os.path.join(out, f"{name}.npy"))
+                for name, *_ in DIST_CORNELL_CASES}
+    cases, ok = {}, True
+    for name, spp_parallel, steps, filt in DIST_CORNELL_CASES:
+        single, _ = _renderer("cornell", DIST_CORNELL, device,
+                              filter_params=FilterParams(*filt))
+        n, mb = steps * spp_parallel, DIST_CORNELL["max_bounce"]
+        want = single.render(n, samples_per_dispatch=1)
+        per_rank = [rep[name] for rep in ranks]
+        expect = [_expected_launches(single.arrays, steps * (mb + 2),
+                                     steps * (mb + 1), rep["launches"])
+                  for rep in per_rank]
+        cases[name] = dict(spp_parallel=spp_parallel, filter=list(filt),
+                           steps=steps, ranks=per_rank,
+                           expected_launches=expect,
+                           vs_single=_dist_close(imgs[name], want))
+        ok &= (cases[name]["vs_single"]["beyond_tol"] == 0
+               and cases[name]["vs_single"]["finite"]
+               and all(rep["spp"] == n and rep["launches"] == e
+                       for rep, e in zip(per_rank, expect)))
+    t0 = time.perf_counter()
+    dryrun_multichip(2)
+    gloo = dict(card=card, backend="gloo", world=2, spawn_s=spawn_s,
+                dryrun_s=time.perf_counter() - t0, cases=cases)
+    print("distributed-cornell", json.dumps(gloo))
+    if not ok:
+        raise SystemExit(f"distributed Cornell on two gloo ranks: {gloo}")
+    return standin, gloo
 
 
 def phase_standin_edits_cpu_vs_card(device):
@@ -3221,8 +3385,9 @@ def main():
         raise SystemExit(f"the alpha render cast no split: {alpha}")
     _, standin, standin_cam, standin_img = phase(
         "3n stand-in wavefront render", phase_standin_wavefront, device)
-    phase("3o stand-in megakernel render", phase_standin_megakernel, device,
-          standin, standin_cam, standin_img)
+    standin_mk = phase("3o stand-in megakernel render",
+                       phase_standin_megakernel, device, standin,
+                       standin_cam, standin_img)
     phase("3p walker render", phase_walker, device)
     phase("3q CLI", phase_cli, device)
     phase("3r LUT bake", phase_bake, device)
@@ -3230,6 +3395,8 @@ def main():
           standin, standin_cam)
     phase("3t editor", phase_editor, device)
     phase("3u single-sample entry", phase_entry, device)
+    phase("3v distributed render", phase_distributed, device, standin,
+          standin_cam, standin_mk["ms_per_spp"])
     phase("4 Cornell card vs CPU", phase_cpu_vs_card, device, "cornell")
     phase("4b small grid card vs CPU", phase_cpu_vs_card, device,
           "small_grid")

@@ -25,6 +25,19 @@ A Mitsuba XML scene (or `load_obj` for an OBJ) with a splatting film::
                  integrator="wavefront",
                  filter_params=FilterParams("gaussian", radius=2.0))
 
+Across the ranks of a process group (one process a rank; each builds
+the same scene; `image()` is a collective)::
+
+    from directcomputeraytracing_tpu_torch import (DistributedRenderer,
+                                                   make_mesh)
+    from directcomputeraytracing_tpu_torch.parallel.dist import (
+        initialize_distributed)
+    initialize_distributed()     # DCRT_COORDINATOR, DCRT_NUM_PROCESSES,
+                                 # DCRT_PROCESS_ID
+    mesh = make_mesh(spp_parallel=2)
+    dr = DistributedRenderer(mesh, r.arrays, r.luts, r.camera, r.cfg)
+    dr.render_step(); image = dr.image()
+
 From the shell (`--device cpu` runs the twins)::
 
     python -m directcomputeraytracing_tpu_torch.cli.render scene.xml \
@@ -68,6 +81,9 @@ def __getattr__(name):
     if name == "PostParams":
         from .post.pipeline import PostParams
         return PostParams
+    if name in ("DistributedRenderer", "make_mesh"):
+        from .parallel import dist as _m
+        return getattr(_m, name)
     raise AttributeError(name)
 
 
@@ -75,4 +91,5 @@ __all__ = ["Renderer", "RenderConfig", "SEED_FIXED", "SEED_SAMPLE_COUNT",
            "SEED_FRAME_INDEX", "cornell_box", "sphere_grid", "Scene", "Mesh",
            "Material", "Instance", "PunctualLight", "flatten_scene",
            "load_obj", "load_mitsuba_xml", "CameraParams", "bake_luts",
-           "bake_luts_cached", "FilterParams", "PostParams"]
+           "bake_luts_cached", "FilterParams", "PostParams",
+           "DistributedRenderer", "make_mesh"]

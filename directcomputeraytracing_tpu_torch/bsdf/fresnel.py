@@ -1,4 +1,4 @@
-"""Fresnel terms (exact dielectric, exact conductor).
+"""Fresnel terms (exact dielectric, exact conductor, Schlick).
 
 PyTorch counterpart of `directcomputeraytracing_tpu.bsdf.fresnel`;
 elementwise, `fresnel_conductor` over a trailing RGB axis.
@@ -50,3 +50,14 @@ def fresnel_conductor(cos_theta_i, eta_o, eta_i, k):
     t4 = t2 * sin2
     rp = rs * (t3 - t4) / torch.clamp(t3 + t4, min=1e-20)
     return 0.5 * (rp + rs)
+
+
+def fresnel_schlick(cos_theta_i, f0):
+    """Schlick's approximation; an f0 with more dimensions than the cosine
+    (an RGB f0) takes the cosine's term over its trailing axis."""
+    cos_i = torch.clamp(cos_theta_i, -1.0, 1.0)
+    a = 1.0 - cos_i
+    a5 = (a * a) * (a * a) * a
+    if f0.ndim > cos_i.ndim:
+        a5 = a5[..., None]
+    return f0 + (1.0 - f0) * a5

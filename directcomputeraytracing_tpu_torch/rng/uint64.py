@@ -24,12 +24,24 @@ def u64_add(a, b):
     return lo & M32, hi
 
 
+def u64_xor(a, b):
+    return a[0] ^ b[0], a[1] ^ b[1]
+
+
 def u64_shift_right(a, n):
     """Logical right shift by a static 0 < n < 32 (operands are
     non-negative, so the arithmetic int64 shift is logical here)."""
     lo, hi = a
     assert 0 < n < 32
     return ((lo >> n) | (hi << (32 - n))) & M32, hi >> n
+
+
+def u64_shift_left(a, n):
+    """Left shift by a static 0 < n < 32, both words masked back to 32
+    bits."""
+    lo, hi = a
+    assert 0 < n < 32
+    return (lo << n) & M32, ((hi << n) | (lo >> (32 - n))) & M32
 
 
 def _mul_lo32(a, b):

@@ -85,6 +85,11 @@ def sample_sphere(u):
 UNIFORM_SPHERE_PDF = 1.0 / (4.0 * PI)
 
 
+def uniform_sphere_pdf():
+    """1 / (4 pi) as a float32 scalar tensor."""
+    return torch.tensor(UNIFORM_SPHERE_PDF, dtype=torch.float32)
+
+
 def power_heuristic(nf, f_pdf, ng, g_pdf):
     """MIS power heuristic (beta = 2)."""
     f = nf * f_pdf

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from directcomputeraytracing_tpu.bsdf import dispatch as ref_bsdf
+from directcomputeraytracing_tpu.bsdf import fresnel as ref_fresnel
 from directcomputeraytracing_tpu.core import constants as C
 from directcomputeraytracing_tpu.core.types import Intersection as RefItx
 from directcomputeraytracing_tpu.lights import lights as ref_lights
@@ -29,6 +30,7 @@ from directcomputeraytracing_tpu.lut.bake import bake_luts_cached
 from directcomputeraytracing_tpu.scene import presets as ref_presets
 from directcomputeraytracing_tpu.scene import scene as ref_scene
 from directcomputeraytracing_tpu_torch.bsdf import dispatch as port_bsdf
+from directcomputeraytracing_tpu_torch.bsdf import fresnel as port_fresnel
 from directcomputeraytracing_tpu_torch.core.types import (
     Intersection as PortItx,
 )
@@ -133,6 +135,23 @@ def test_bsdf(material, luts):
                                     use_vndf)
         for w, g, scale in zip(want, got, (1.0, 10.0, 10.0, 1.0)):
             _close(w, g, scale)
+
+
+@pytest.mark.parametrize("f0", ["scalar", "rgb"])
+def test_fresnel_schlick(f0):
+    """Cosines past [-1, 1] (the clamp) and a per-ray f0, or an RGB f0
+    over a trailing axis, within 1e-6: a fifth power and two products."""
+    rs = np.random.default_rng(31)
+    cos = rs.uniform(-1.2, 1.2, N).astype(np.float32)
+    cos[:4] = [-1.0, 0.0, 1.0, 1.5]
+    shape = (N,) if f0 == "scalar" else (N, 3)
+    f = rs.uniform(0.0, 1.0, shape).astype(np.float32)
+    want = ref_fresnel.fresnel_schlick(jnp.asarray(cos), jnp.asarray(f))
+    got = port_fresnel.fresnel_schlick(torch.from_numpy(cos),
+                                       torch.from_numpy(f))
+    assert got.shape == shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
 
 
 def _light_scene(env):

@@ -95,3 +95,10 @@ def test_power_heuristic():
     _close(ref_mc.power_heuristic(1, jnp.asarray(a), 1, jnp.asarray(b)),
            port_mc.power_heuristic(1, torch.from_numpy(a), 1,
                                    torch.from_numpy(b)))
+
+
+def test_uniform_sphere_pdf():
+    want = np.asarray(ref_mc.uniform_sphere_pdf())
+    got = port_mc.uniform_sphere_pdf()
+    assert got.dtype == torch.float32 and got.shape == want.shape == ()
+    assert got.numpy().tobytes() == want.astype(np.float32).tobytes()

@@ -102,7 +102,7 @@ def test_build_bvh_equals_the_reference(preset):
 
 # the reference's exports whose module the port does not have yet, each
 # with the ROADMAP queue 1 item that ports it
-_NOT_YET = {"DistributedRenderer": "item 11", "make_mesh": "item 11"}
+_NOT_YET = {}
 
 
 def _ref_exports():

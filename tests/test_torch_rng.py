@@ -52,14 +52,18 @@ def test_far_pixels_and_large_seed():
 
 
 @pytest.mark.parametrize("op", ["u64_add", "u64_mul", "u32_mul_to_u64",
-                                "u64_shift_right"])
+                                "u64_shift_right", "u64_xor",
+                                "u64_shift_left"])
 def test_uint64_ops_bit_equal(op):
     """Full-range words, where int64 products would overflow without the
-    16-bit limbs."""
+    16-bit limbs, and words at 0 and 2^32 - 1 in both halves (a left
+    shift must drop the bits past 32 that an int64 word keeps)."""
     rs = np.random.default_rng(11)
     words = [rs.integers(0, 1 << 32, 512, dtype=np.uint64).astype(np.uint32)
              for _ in range(4)]
     words[0][:4] = [0xFFFFFFFF, 0, 0x80000000, 1]
+    words[1][:4] = [0xFFFFFFFF, 0xFFFFFFFF, 0, 0]
+    words[2][:2] = [0, 0xFFFFFFFF]
     ja = (jnp.asarray(words[0]), jnp.asarray(words[1]))
     jb = (jnp.asarray(words[2]), jnp.asarray(words[3]))
     ta = tuple(torch.from_numpy(w.astype(np.int64)) for w in words[:2])
@@ -67,9 +71,12 @@ def test_uint64_ops_bit_equal(op):
     if op == "u32_mul_to_u64":
         got_r = ref_u64.u32_mul_to_u64(ja[0], jb[0])
         got_p = port_u64.u32_mul_to_u64(ta[0], tb[0])
-    elif op == "u64_shift_right":
-        got_r = ref_u64.u64_shift_right(ja, 13)
-        got_p = port_u64.u64_shift_right(ta, 13)
+    elif op.startswith("u64_shift"):
+        for n in (1, 13, 31):
+            for r, p in zip(getattr(ref_u64, op)(ja, n),
+                            getattr(port_u64, op)(ta, n)):
+                _same_state(r, p)
+        return
     else:
         got_r = getattr(ref_u64, op)(ja, jb)
         got_p = getattr(port_u64, op)(ta, tb)
