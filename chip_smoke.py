@@ -10,7 +10,9 @@ any failure exits non-zero:
    work-list, clustered, pair, ray-prep and probe kernels
    (csrc/brute_sweep.cu, csrc/worklist.cu, csrc/clustered.cu,
    csrc/pairsweep.cu, csrc/prep.cu, csrc/probes.cu; the six nvcc runs in
-   parallel) and print the build times and ptxas reports, then the
+   parallel, and beside them g++ on the host's BVH builder,
+   ops/native/bvh_builder.cpp) and print the build times and ptxas
+   reports, then the
    warp-walk sweeps' (grouped, per-ray and instanced, closest and
    any-hit) registers, shared memory and spills (ptxas, `warp-ptxas`)
    and their resident blocks per SM (`warp-resources`), and the same of
@@ -237,7 +239,7 @@ any failure exits non-zero:
    sphere on a 129 x 128 grid, 1,056,768 world triangles: the node table
    alone, no soup, no work-list tables) through `Renderer` (megakernel,
    512x512, max_bounce 4, 1 spp after a one-sample warm-up): host
-   seconds of the flatten and of its two-level build (the numpy TLAS
+   seconds of the flatten and of its two-level build (the C++ TLAS
    over 16,512 instances; and `sphere_grid(27, 27)`'s flatten beside its
    deferred node-table build, which 3n prints for the stand-in), node
    count, stack size, bytes of the tables
@@ -303,6 +305,16 @@ any failure exits non-zero:
    gate, each rank's dense-sweep launches by the rule; then
    `entry.dryrun_multichip(2)` on the card (both integrators, 32x32).
    One card: NCCL runs a world of one, and the two gloo ranks share it;
+3w. the BVH builders (`ops/native`, C++ built with g++ in phase 1, the
+   default of every other phase's flatten; and the numpy builder of
+   `accel/build.py`): `walker_grid(129, 128)` flattened through
+   `Renderer` with DCRT_NATIVE_BVH=0 and =1, the host seconds of each
+   flatten, of its BLAS builds, of its two-level build and of the TLAS
+   build inside that (16,512 instance boxes), and the node tables and
+   leaf-ordered triangles bit for bit; then the BLAS of one
+   `uv_sphere(*BUILDER_MESH)` (97,792 triangles) by each builder: host
+   seconds, every array of the `BVH` bit for bit. Printed with the
+   card's name and power limit; any difference fails the phase;
 4. the card's render against the port's CPU render, Cornell (64x64,
    4 spp), 4b. sphere_grid(3, 3, stacks=12, slices=16) (64x64, 4 spp),
    4c. the same small grid through the wavefront, 4d. the same small
@@ -469,6 +481,7 @@ SMALL_STANDIN_RENDER = dict(width=64, height=36, spp=2, max_bounce=4)
 WALKER_GRID = (129, 128)                # 1,056,768 world triangles from 64
 WALKER_RENDER = dict(width=512, height=512, spp=1, max_bounce=4)
 WALKER_CPU_RAYS, WALKER_TRACE_RAYS = 4096, 256
+BUILDER_MESH = (192, 256)               # uv_sphere: 97,792 triangles (3w)
 SMALL_WALKER_GRID = (6, 6)              # 2,304 world triangles, forced
 SMALL_WALKER_RENDER = dict(width=32, height=32, spp=1, max_bounce=4)
 CLI_CORNELL = ["--resx", "512", "--resy", "512"]
@@ -3277,12 +3290,117 @@ def phase_bake(device):
     return rep
 
 
+def _bvh_diffs(want, got):
+    """The fields of two `BVH`s that differ in any bit (shape and dtype
+    included), and whether max_depth does."""
+    out = [f for f in ("bbox_min", "bbox_max", "right_or_prim", "misc",
+                       "prim_order", "leaf_depths")
+           if not _same_bits(getattr(want, f), getattr(got, f))]
+    return out + (["max_depth"] if want.max_depth != got.max_depth else [])
+
+
+def _same_bits(a, b):
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def _flatten_walker(native, p, device):
+    """`walker_grid(*WALKER_GRID)` through `Renderer` with
+    DCRT_NATIVE_BVH=native: host seconds of the flatten, of its BLAS
+    builds, of its two-level build and of the TLAS build inside that, and
+    the node tables on the host."""
+    from unittest import mock
+
+    import torch
+
+    from directcomputeraytracing_tpu_torch.accel import build as build_mod
+    from directcomputeraytracing_tpu_torch.accel import traverse as tv
+    from directcomputeraytracing_tpu_torch.integrator.renderer import Renderer
+    from directcomputeraytracing_tpu_torch.scene import scene as scene_mod
+    from directcomputeraytracing_tpu_torch.scene.presets import walker_grid
+
+    scene, cam = walker_grid(*WALKER_GRID)
+    s = dict(blas=0.0, two_level=0.0, tlas=0.0)
+
+    def timed(mod, attr, key):
+        inner = getattr(mod, attr)
+
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kw)
+            finally:
+                s[key] += time.perf_counter() - t0
+        return mock.patch.object(mod, attr, call)
+
+    with mock.patch.dict(os.environ, DCRT_NATIVE_BVH=native), \
+            timed(scene_mod, "build_bvh", "blas"), \
+            timed(scene_mod, "build_two_level", "two_level"), \
+            timed(build_mod, "build_bvh", "tlas"):
+        t0 = time.perf_counter()
+        r = Renderer(scene, cam, p["width"], p["height"],
+                     max_bounce=p["max_bounce"], device=device)
+        torch.cuda.synchronize()
+        s["flatten"] = time.perf_counter() - t0
+    tables = tv.node_tables(r.arrays)
+    host = dict(node_table=tables.node_table.cpu().numpy(),
+                tri_verts=tables.tri_verts.cpu().numpy(),
+                stack_size=tables.stack_size)
+    return s, host
+
+
+def phase_builders(device):
+    """The BVH builders on the card's host (3w): the walker grid's flatten
+    and one ~100k-triangle BLAS, numpy then C++, bit for bit."""
+    from directcomputeraytracing_tpu_torch.accel.build import build_bvh
+    from directcomputeraytracing_tpu_torch.scene.presets import uv_sphere
+    from directcomputeraytracing_tpu_torch.scene.scene import triangle_bounds
+
+    seconds, tables = {}, {}
+    for native in ("0", "1"):
+        seconds[native], tables[native] = _flatten_walker(
+            native, WALKER_RENDER, device)
+    if not all(seconds[n]["tlas"] > 0.0 for n in seconds):
+        raise SystemExit("the walker grid's flatten built no TLAS")
+    a, b = tables["0"], tables["1"]
+    table_diffs = [k for k in ("node_table", "tri_verts")
+                   if not _same_bits(a[k], b[k])]
+    if a["stack_size"] != b["stack_size"]:
+        table_diffs.append("stack_size")
+    pos, idx = uv_sphere(*BUILDER_MESH)
+    bmin, bmax = triangle_bounds(pos, idx)
+    bvh, mesh_s = {}, {}
+    for native in (False, True):
+        t0 = time.perf_counter()
+        bvh[native] = build_bvh(bmin, bmax, 2, use_native=native)
+        mesh_s["native" if native else "numpy"] = time.perf_counter() - t0
+    mesh_diffs = _bvh_diffs(bvh[False], bvh[True])
+    rep = dict(card=_card_line(),
+               walker=dict(grid=list(WALKER_GRID),
+                           numpy_s=seconds["0"], native_s=seconds["1"],
+                           nodes=int(a["node_table"].shape[0]),
+                           stack_size=a["stack_size"], diffs=table_diffs),
+               mesh=dict(uv_sphere=list(BUILDER_MESH),
+                         triangles=int(idx.shape[0]),
+                         nodes=int(bvh[True].num_nodes),
+                         max_depth=bvh[True].max_depth,
+                         numpy_s=mesh_s["numpy"],
+                         native_s=mesh_s["native"], diffs=mesh_diffs))
+    print("builders", json.dumps(rep))
+    if table_diffs or mesh_diffs:
+        raise SystemExit(f"the C++ and numpy BVH builders differ: walker "
+                         f"{table_diffs}, mesh {mesh_diffs}")
+    return rep
+
+
 def _build_all():
-    """Build the six kernel libraries, the nvcc runs in parallel."""
+    """Build the six kernel libraries, the nvcc runs in parallel, and
+    beside them the host's BVH builder with g++."""
     from directcomputeraytracing_tpu_torch.accel import brute
     from directcomputeraytracing_tpu_torch.accel import clustered as cl
     from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
+    from directcomputeraytracing_tpu_torch.ops import native
     from directcomputeraytracing_tpu_torch.tools import brute_ab, pair_ab
     from directcomputeraytracing_tpu_torch.tools import probe_worklist as pw
     from directcomputeraytracing_tpu_torch.tools import worklist_ab
@@ -3291,8 +3409,16 @@ def _build_all():
                ("worklist.cu", wl.kernels), ("clustered.cu", cl.kernels),
                ("pairsweep.cu", ps.kernels), ("prep.cu", wl.prep_kernels),
                ("probes.cu", pw.kernels))
-    with ThreadPoolExecutor(len(sources)) as pool:
+
+    def gxx():
+        t0 = time.perf_counter()
+        return native.load_native(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
         futures = {src: pool.submit(fn) for src, fn in sources}
+        host = pool.submit(gxx)
+    lib, gxx_s = host.result()
+    print(f"build: bvh_builder.cpp -> {lib._name} in {gxx_s:.1f} s (g++)")
     for src, fut in futures.items():
         built = fut.result()
         print(f"build: {src} -> {built.path} in {built.seconds:.1f} s")
@@ -3397,6 +3523,7 @@ def main():
     phase("3u single-sample entry", phase_entry, device)
     phase("3v distributed render", phase_distributed, device, standin,
           standin_cam, standin_mk["ms_per_spp"])
+    phase("3w BVH builders", phase_builders, device)
     phase("4 Cornell card vs CPU", phase_cpu_vs_card, device, "cornell")
     phase("4b small grid card vs CPU", phase_cpu_vs_card, device,
           "small_grid")

@@ -1,10 +1,14 @@
-"""CPU BVH construction (SAH bucket builder), numpy only.
+"""CPU BVH construction (SAH bucket builder): the C++ builder of
+`ops/native` by default, this module's numpy builder as its plain twin.
 
 The port's own copy of the single-level builder of
 `directcomputeraytracing_tpu.accel.build` (the reference's
 Source/BVHAccel.cpp:76-447: 12-bucket SAH with cost 0.125 +
 SA-weighted counts, median split for <= 4 primitives, equal split for
-degenerate extents, primitives reordered into leaf order), and of its
+degenerate extents, primitives reordered into leaf order). `build_bvh`
+runs `ops.native.build_bvh_native` (C++, built with g++ on first use)
+unless `use_native=False` or DCRT_NATIVE_BVH=0 selects the numpy one;
+the two give bit-equal node arrays. Also the reference's
 two-level assembly (`build_two_level`: a TLAS over the instances' world
 boxes, each mesh's BLAS after it in one node buffer, the reference's
 Source/Scene.cpp:174-215, 337-391) and BVH dump
@@ -19,6 +23,7 @@ Node packing:
   TLAS leaf: misc = instance << 3 | 0x4,     right_or_prim = BLAS root
 """
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,10 +55,23 @@ def _surface_area(bmin, bmax):
                   + d[..., 2] * d[..., 0])
 
 
-def build_bvh(prim_bbox_min, prim_bbox_max, max_prims_in_node=2):
+def build_bvh(prim_bbox_min, prim_bbox_max, max_prims_in_node=2,
+              use_native=None):
     """Build a single-level BVH over primitive AABBs. Every leaf holds at
     most max_prims_in_node primitives.
+
+    use_native: True runs the C++ builder (`ops.native`), False this
+    numpy one; None (the default) reads DCRT_NATIVE_BVH, "1" when unset,
+    where "0" selects numpy. Both give bit-equal node arrays. The C++
+    builder raises where it cannot be built; it never falls back.
     """
+    if use_native is None:
+        use_native = os.environ.get("DCRT_NATIVE_BVH", "1") != "0"
+    if use_native:
+        from ..ops.native import build_bvh_native
+
+        return build_bvh_native(prim_bbox_min, prim_bbox_max,
+                                max_prims_in_node)
     prim_bbox_min = np.asarray(prim_bbox_min, np.float32)
     prim_bbox_max = np.asarray(prim_bbox_max, np.float32)
     n = prim_bbox_min.shape[0]

@@ -1,13 +1,14 @@
-"""Build a CUDA source of this package into a shared library and load it.
+"""Build a source of this package into a shared library and load it.
 
-Route: `nvcc` compiles one `.cu` file with a plain C interface into a
-`.so` under the package's `_build/` directory (git-ignored), and `ctypes`
-loads it. Nothing here runs at import time; a kernel module calls
-`load_library` on its first launch. The library's file name carries a
-hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so
-an edited source or header rebuilds, and the
-build writes to a temporary name and renames it, so concurrent first
-uses never load a half-written file.
+Route: `nvcc` compiles one `.cu` file with a plain C interface (or
+another compiler, such as g++ for the native BVH builder, one `.cpp`
+file) into a `.so` under the package's `_build/` directory
+(git-ignored), and `ctypes` loads it. Nothing here runs at import time;
+a module calls `load_library` on its first use. The library's file name
+carries a hash of the source, the shared headers (`*.cuh` beside it)
+and the flags, so an edited source or header rebuilds, and the build
+writes to a temporary name and renames it, so concurrent first uses
+never load a half-written file.
 """
 
 import ctypes
@@ -44,12 +45,15 @@ class Built:
         self.lib, self.path, self.seconds, self.log = lib, path, seconds, log
 
 
-def load_library(source_name, extra_flags=(), csrc=CSRC, name=None):
+def load_library(source_name, extra_flags=(), csrc=CSRC, name=None,
+                 compiler=find_nvcc, flags=NVCC_FLAGS):
     """Compile `<csrc>/<source_name>` (the package's `csrc/` by default)
-    for sm_90a, once per source and flag set, into `lib<name>-<hash>.so`
-    (name: the source's stem by default) and load it with ctypes."""
+    with `compiler()`'s executable and `flags` (nvcc for sm_90a by
+    default) plus `extra_flags`, once per source and flag set, into
+    `lib<name>-<hash>.so` (name: the source's stem by default) and load
+    it with ctypes. A failed build raises with the compiler's output."""
     src = os.path.join(csrc, source_name)
-    flags = NVCC_FLAGS + tuple(extra_flags)
+    flags = tuple(flags) + tuple(extra_flags)
     digest = hashlib.sha256(" ".join(flags).encode())
     for path in [src] + sorted(glob.glob(os.path.join(csrc, "*.cuh"))):
         with open(path, "rb") as f:
@@ -61,12 +65,14 @@ def load_library(source_name, extra_flags=(), csrc=CSRC, name=None):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run([find_nvcc(), *flags, "-o", tmp, src],
+        tool = compiler()
+        proc = subprocess.run([tool, *flags, "-o", tmp, src],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+            raise RuntimeError(
+                f"{os.path.basename(tool)} failed on {src}:\n{log}")
         with open(f"{tmp}.log", "w") as f:
             f.write(log)
         os.replace(f"{tmp}.log", f"{out}.log")

@@ -8,7 +8,8 @@ Gates:
 - `trace_ray` on `tests/test_tools.py`'s 64 rays against the reference's
   (the same float64 numpy walk over equal tables): hit, t, triangle and
   all four counters equal.
-- `serialize_bvh_to_xml` string-equal to the reference's (with its numpy
+- `serialize_bvh_to_xml`, through the port's numpy builder and through
+  its C++ builder, string-equal to the reference's (with its numpy
   builder, `DCRT_NATIVE_BVH=0`) on Cornell and on the small stand-in
   (`write_standin_scene(d, nx=2, nz=2, stacks=8, slices=12)`, loaded by
   each package's XML loader).
@@ -196,14 +197,16 @@ def _standin_scenes(tmp_path):
     return load_mitsuba_xml(xml)[0], ref_load(xml)[0]
 
 
+@pytest.mark.parametrize("native", ["0", "1"])
 @pytest.mark.parametrize("name", ["cornell", "standin"])
-def test_bvh_dump_equals_the_reference(tmp_path, monkeypatch, name):
-    """Against the reference's numpy builder, the port's: the reference's
-    C++ builder (its default where it compiles) may write +0 where numpy's
-    min and max keep -0 in a box, which the dump prints as "-0"."""
+def test_bvh_dump_equals_the_reference(tmp_path, monkeypatch, name, native):
+    """The port's dump through its numpy builder (DCRT_NATIVE_BVH=0) or
+    its C++ builder (=1) against the reference's numpy builder's: the
+    reference's C++ builder (its default where it compiles) may write +0
+    where numpy's min and max keep -0 in a box, which the dump prints as
+    "-0", and its double SAH area may split near-ties otherwise."""
     import xml.etree.ElementTree as ET
 
-    monkeypatch.setenv("DCRT_NATIVE_BVH", "0")
     from directcomputeraytracing_tpu.accel.build import (
         serialize_bvh_to_xml as ref_dump,
     )
@@ -212,7 +215,9 @@ def test_bvh_dump_equals_the_reference(tmp_path, monkeypatch, name):
         (scene, _), (ref_scene, _) = _scenes("cornell")
     else:
         scene, ref_scene = _standin_scenes(tmp_path)
+    monkeypatch.setenv("DCRT_NATIVE_BVH", native)
     got = serialize_bvh_to_xml(scene)
+    monkeypatch.setenv("DCRT_NATIVE_BVH", "0")
     assert got == ref_dump(ref_scene)
     assert got.count("<Node") > 10 and "CombinedTLASPlusBLAS" in got
     ET.fromstring(got)

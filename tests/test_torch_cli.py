@@ -12,7 +12,8 @@ cli.render`) against the reference's `cli.render.main` on the CPU.
   with --spp 3 resumes at 2.
 - --aov, every kind: the image the CLI writes is the port's `render_aov`
   of the scene, and the JSON line has the reference's keys.
-- --output-bvh: the dump equals the reference's (with its numpy builder,
+- --output-bvh: the dump, through the port's numpy builder and through
+  its C++ builder, equals the reference's (with its numpy builder,
   `DCRT_NATIVE_BVH=0`) string for string.
 - --device cuda raises where CUDA is absent.
 """
@@ -144,7 +145,10 @@ def test_cli_aov(tmp_path, capsys, kind):
         assert img.max() > 0
 
 
-def test_cli_output_bvh(tmp_path, capsys, monkeypatch):
+@pytest.mark.parametrize("native", ["0", "1"])
+def test_cli_output_bvh(tmp_path, capsys, monkeypatch, native):
+    """The port's dump through its numpy builder (DCRT_NATIVE_BVH=0) or
+    its C++ builder (=1) against the reference's numpy dump."""
     from directcomputeraytracing_tpu.accel.build import (
         serialize_bvh_to_xml as ref_dump,
     )
@@ -152,11 +156,12 @@ def test_cli_output_bvh(tmp_path, capsys, monkeypatch):
         cornell_box as ref_cornell,
     )
 
-    monkeypatch.setenv("DCRT_NATIVE_BVH", "0")
+    monkeypatch.setenv("DCRT_NATIVE_BVH", native)
     path = tmp_path / "bvh.xml"
     _run(cli.main, ["preset:cornell", *SIZE, "--spp", "1", "--device", "cpu",
                     "--output-bvh", str(path), "-o",
                     str(tmp_path / "o.png")], capsys)
+    monkeypatch.setenv("DCRT_NATIVE_BVH", "0")
     assert path.read_text() == ref_dump(ref_cornell("area")[0])
 
 
