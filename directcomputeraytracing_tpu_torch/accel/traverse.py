@@ -41,6 +41,12 @@ opaque/masked cluster split where the scene has one; the walker tests
 alpha inline, per candidate hit, as the reference's does. The reference's
 interpret-mode names raise NotImplementedError (the twins stand in for
 interpret mode).
+
+Spans (`utils.trace`, while a profiler runs), at the entry points every
+integrator goes through: `dcrt.traversal.closest`, `dcrt.traversal.any`
+and `dcrt.traversal.slab` (counts: the resolved `backend`, `rays`; the
+work list adds the cast's `items`), and `dcrt.traversal.alpha_recast`
+(`rays`, recast `passes`).
 """
 
 from typing import NamedTuple
@@ -56,6 +62,7 @@ from ..core.constants import (
     INSTANCE_MATERIAL_OVERRIDE_NONE,
 )
 from ..core.types import transform_point, transform_vector
+from ..utils.trace import span
 
 
 class HitInfo(NamedTuple):
@@ -509,44 +516,48 @@ def alpha_recast(scene, cast, origin, direction, first_floor, opacity_u,
     out_tri = torch.zeros(r, dtype=torch.int32, device=dev)
     out_inst = torch.zeros_like(out_tri)
     out_back = torch.zeros(r, dtype=torch.bool, device=dev)
-    alpha_recast.calls += 1
-    bounded = t_max is not None
-    live = torch.arange(r, device=dev)
-    if bounded:
-        t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
-                                                   device=dev), (r,))
-        live = torch.nonzero(t_max > 0.0)[:, 0]
-    cur_o, t_base = origin, torch.zeros(r, device=dev)
-    for k in range(ALPHA_MAX_PASSES):
-        if not live.numel():
-            break
-        o, d, t_b = cur_o[live], direction[live], t_base[live]
-        cap = torch.clamp_min(t_max[live] - t_b, 0.0) if bounded else None
-        alpha_recast.passes += 1
-        t, u, v, tri, inst, back = cast(o, d, first_floor if k == 0 else 0.0,
-                                        cap)[:6]
-        hit = torch.isfinite(t)
-        opac, opaque = effective_opacity(scene, tri, inst, u, v,
-                                         alpha_textures)
-        accept = opaque | (opacity_u[live] < opac)
-        t_tot = t_b + t
-        take = hit & accept
-        ends = ~hit | accept
+    with span("dcrt.traversal.alpha_recast", rays=r) as sp:
+        alpha_recast.calls += 1
+        passes0 = alpha_recast.passes
+        bounded = t_max is not None
+        live = torch.arange(r, device=dev)
         if bounded:
-            beyond = t_tot >= t_max[live]
-            take, ends = take & ~beyond, ends | beyond
-        for out, new in ((out_t, t_tot), (out_u, u), (out_v, v),
-                         (out_tri, tri), (out_inst, inst), (out_back, back)):
-            out[live] = torch.where(take, new, out[live])
-        reject = hit & ~accept
-        adv = t * (1.0 + ALPHA_ADVANCE) + 1e-5
-        cur_o = cur_o.index_put((live,), torch.where(
-            reject[:, None], o + adv[:, None] * d, o))
-        t_base = t_base.index_put((live,), torch.where(reject, t_b + adv,
-                                                       t_b))
-        live = live[torch.nonzero(~ends)[:, 0]]
-    return (out_t, out_u, out_v, out_tri, out_inst, out_back,
-            torch.isfinite(out_t))
+            t_max = torch.broadcast_to(
+                torch.as_tensor(t_max, dtype=torch.float32, device=dev), (r,))
+            live = torch.nonzero(t_max > 0.0)[:, 0]
+        cur_o, t_base = origin, torch.zeros(r, device=dev)
+        for k in range(ALPHA_MAX_PASSES):
+            if not live.numel():
+                break
+            o, d, t_b = cur_o[live], direction[live], t_base[live]
+            cap = torch.clamp_min(t_max[live] - t_b, 0.0) if bounded else None
+            alpha_recast.passes += 1
+            t, u, v, tri, inst, back = cast(
+                o, d, first_floor if k == 0 else 0.0, cap)[:6]
+            hit = torch.isfinite(t)
+            opac, opaque = effective_opacity(scene, tri, inst, u, v,
+                                             alpha_textures)
+            accept = opaque | (opacity_u[live] < opac)
+            t_tot = t_b + t
+            take = hit & accept
+            ends = ~hit | accept
+            if bounded:
+                beyond = t_tot >= t_max[live]
+                take, ends = take & ~beyond, ends | beyond
+            for out, new in ((out_t, t_tot), (out_u, u), (out_v, v),
+                             (out_tri, tri), (out_inst, inst),
+                             (out_back, back)):
+                out[live] = torch.where(take, new, out[live])
+            reject = hit & ~accept
+            adv = t * (1.0 + ALPHA_ADVANCE) + 1e-5
+            cur_o = cur_o.index_put((live,), torch.where(
+                reject[:, None], o + adv[:, None] * d, o))
+            t_base = t_base.index_put((live,), torch.where(reject, t_b + adv,
+                                                           t_b))
+            live = live[torch.nonzero(~ends)[:, 0]]
+        sp.add(passes=alpha_recast.passes - passes0)
+        return (out_t, out_u, out_v, out_tri, out_inst, out_back,
+                torch.isfinite(out_t))
 
 
 def _has_alpha_split(scene, kind):
@@ -592,34 +603,36 @@ def intersect_closest(scene, origin, direction, t_min=0.0, backend="auto",
     opaque hit (and t_cap); without it `alpha_recast` runs over the whole
     scene, capped at t_cap, and reports `iterations` 0."""
     kind = _resolve_backend(scene, backend)
-    if kind == "walk":
-        w = walk(scene, origin, direction, t_min, float("inf"), False,
-                 watertight, opacity_u, alpha_textures)
-        out = (w.t, w.u, w.v, w.triangle, w.instance, w.backface, w.iters)
-    elif opacity_u is None:
-        out = _cast_closest(scene, kind, origin, direction, t_min, watertight,
-                            t_cap)
-    elif _has_alpha_split(scene, kind):
-        out = _cast_closest(_split_view(scene, False), kind, origin,
-                            direction, t_min, watertight, t_cap)
-        ceil = out[0] if t_cap is None else torch.minimum(
-            out[0], torch.as_tensor(t_cap, dtype=torch.float32,
-                                    device=origin.device))
-        masked = alpha_recast(
-            scene, _recast_closest(_split_view(scene, True), kind,
-                                   watertight),
-            origin, direction, t_min, opacity_u, alpha_textures, ceil)
-        m = torch.isfinite(masked[0]) & (masked[0] < out[0])
-        out = tuple(torch.where(m, a, b) for a, b in zip(masked[:6], out)) \
-            + (out[6],)
-    else:
-        out = alpha_recast(scene, _recast_closest(scene, kind, watertight),
-                           origin, direction, t_min, opacity_u,
-                           alpha_textures, t_cap)
-        out = out[:6] + (torch.zeros_like(out[3]),)
-    t, u, v, tri, inst, back, iters = out
-    return HitInfo(t=t, u=u, v=v, triangle=tri, instance=inst, backface=back,
-                   hit=torch.isfinite(t), iterations=iters)
+    with span("dcrt.traversal.closest", backend=kind, rays=origin.shape[0]):
+        if kind == "walk":
+            w = walk(scene, origin, direction, t_min, float("inf"), False,
+                     watertight, opacity_u, alpha_textures)
+            out = (w.t, w.u, w.v, w.triangle, w.instance, w.backface, w.iters)
+        elif opacity_u is None:
+            out = _cast_closest(scene, kind, origin, direction, t_min,
+                                watertight, t_cap)
+        elif _has_alpha_split(scene, kind):
+            out = _cast_closest(_split_view(scene, False), kind, origin,
+                                direction, t_min, watertight, t_cap)
+            ceil = out[0] if t_cap is None else torch.minimum(
+                out[0], torch.as_tensor(t_cap, dtype=torch.float32,
+                                        device=origin.device))
+            masked = alpha_recast(
+                scene, _recast_closest(_split_view(scene, True), kind,
+                                       watertight),
+                origin, direction, t_min, opacity_u, alpha_textures, ceil)
+            m = torch.isfinite(masked[0]) & (masked[0] < out[0])
+            out = tuple(torch.where(m, a, b)
+                        for a, b in zip(masked[:6], out)) + (out[6],)
+        else:
+            out = alpha_recast(scene, _recast_closest(scene, kind, watertight),
+                               origin, direction, t_min, opacity_u,
+                               alpha_textures, t_cap)
+            out = out[:6] + (torch.zeros_like(out[3]),)
+        t, u, v, tri, inst, back, iters = out
+        return HitInfo(t=t, u=u, v=v, triangle=tri, instance=inst,
+                       backface=back, hit=torch.isfinite(t),
+                       iterations=iters)
 
 
 def _safe_inv(d):
@@ -673,59 +686,62 @@ def intersect_closest_slab(scene, origin, direction, t_cap, backend="auto",
     from .worklist import scene_tables
 
     stats = stats if stats is not None else SlabStats(int(phases))
-    if _resolve_backend(scene, backend) == "walk":
+    kind = _resolve_backend(scene, backend)
+    if kind == "walk":
         root = node_tables(scene).node_table[0]
         lo, hi = root[0:3], root[3:6]
     else:
         lo, hi = scene_tables(scene).bounds
-    t_en = torch.full(origin.shape[:1], -float("inf"), device=origin.device)
-    t_ex = torch.full(origin.shape[:1], float("inf"), device=origin.device)
-    for ax in range(3):
-        inv = _safe_inv(direction[:, ax])
-        a = (lo[ax] - origin[:, ax]) * inv
-        b = (hi[ax] - origin[:, ax]) * inv
-        t_en = torch.maximum(t_en, torch.minimum(a, b))
-        t_ex = torch.minimum(t_ex, torch.maximum(a, b))
-    entry = torch.where((t_ex >= t_en) & (t_ex >= 0.0),
-                        torch.clamp_min(t_en, 0.0), 0.0)
-    caps = entry + t_cap
-    hit = intersect_closest(scene, origin, direction, backend=backend,
-                            watertight=watertight, opacity_u=opacity_u,
-                            alpha_textures=alpha_textures, t_cap=caps)
-    stats.casts[0] += 1
-    # a capped miss is final when the ray leaves the scene box before the
-    # cap: the cast's window was the whole ray
-    need = torch.where(hit.hit, hit.t >= caps, t_ex > caps)
-    if live is not None:
-        need = need & live
-    hit = list(hit)
-    floor_prev = caps
-    for k in range(1, int(phases)):
-        last = k == int(phases) - 1
-        cap_k = None if last else entry + t_cap * (SLAB_GROW ** k)
-        idx = torch.nonzero(need)[:, 0]
-        stats.host_reads += 1
-        if not idx.numel():
-            break
-        floor_k = float(floor_prev[idx].min())
-        stats.host_reads += 1
-        stats.casts[k] += 1
-        stats.recast[k - 1] += idx.numel()
-        hit_k = intersect_closest(
-            scene, origin[idx], direction[idx], t_min=floor_k,
-            backend=backend, watertight=watertight,
-            opacity_u=None if opacity_u is None else opacity_u[idx],
-            alpha_textures=alpha_textures,
-            t_cap=None if cap_k is None else cap_k[idx])
-        iters = hit[7]
-        for j, x in enumerate(hit_k):
-            hit[j] = hit[j].index_put((idx,), x)
-        hit[7] = iters.index_put((idx,), iters[idx] + hit_k.iterations)
-        if not last:
-            need = need.index_put((idx,), torch.where(
-                hit_k.hit, hit_k.t >= cap_k[idx], t_ex[idx] > cap_k[idx]))
-            floor_prev = cap_k
-    return HitInfo(*hit)
+    with span("dcrt.traversal.slab", backend=kind, rays=origin.shape[0]):
+        t_en = torch.full(origin.shape[:1], -float("inf"),
+                          device=origin.device)
+        t_ex = torch.full(origin.shape[:1], float("inf"), device=origin.device)
+        for ax in range(3):
+            inv = _safe_inv(direction[:, ax])
+            a = (lo[ax] - origin[:, ax]) * inv
+            b = (hi[ax] - origin[:, ax]) * inv
+            t_en = torch.maximum(t_en, torch.minimum(a, b))
+            t_ex = torch.minimum(t_ex, torch.maximum(a, b))
+        entry = torch.where((t_ex >= t_en) & (t_ex >= 0.0),
+                            torch.clamp_min(t_en, 0.0), 0.0)
+        caps = entry + t_cap
+        hit = intersect_closest(scene, origin, direction, backend=backend,
+                                watertight=watertight, opacity_u=opacity_u,
+                                alpha_textures=alpha_textures, t_cap=caps)
+        stats.casts[0] += 1
+        # a capped miss is final when the ray leaves the scene box before the
+        # cap: the cast's window was the whole ray
+        need = torch.where(hit.hit, hit.t >= caps, t_ex > caps)
+        if live is not None:
+            need = need & live
+        hit = list(hit)
+        floor_prev = caps
+        for k in range(1, int(phases)):
+            last = k == int(phases) - 1
+            cap_k = None if last else entry + t_cap * (SLAB_GROW ** k)
+            idx = torch.nonzero(need)[:, 0]
+            stats.host_reads += 1
+            if not idx.numel():
+                break
+            floor_k = float(floor_prev[idx].min())
+            stats.host_reads += 1
+            stats.casts[k] += 1
+            stats.recast[k - 1] += idx.numel()
+            hit_k = intersect_closest(
+                scene, origin[idx], direction[idx], t_min=floor_k,
+                backend=backend, watertight=watertight,
+                opacity_u=None if opacity_u is None else opacity_u[idx],
+                alpha_textures=alpha_textures,
+                t_cap=None if cap_k is None else cap_k[idx])
+            iters = hit[7]
+            for j, x in enumerate(hit_k):
+                hit[j] = hit[j].index_put((idx,), x)
+            hit[7] = iters.index_put((idx,), iters[idx] + hit_k.iterations)
+            if not last:
+                need = need.index_put((idx,), torch.where(
+                    hit_k.hit, hit_k.t >= cap_k[idx], t_ex[idx] > cap_k[idx]))
+                floor_prev = cap_k
+        return HitInfo(*hit)
 
 
 def intersect_any(scene, origin, direction, t_max, t_min=0.0, backend="auto",
@@ -735,23 +751,24 @@ def intersect_any(scene, origin, direction, t_max, t_min=0.0, backend="auto",
     `alpha_recast` over the masked side for the rays it left unoccluded;
     without the split `alpha_recast` over the whole scene."""
     kind = _resolve_backend(scene, backend)
-    if kind == "walk":
-        return walk(scene, origin, direction, t_min, t_max, True, watertight,
-                    opacity_u, alpha_textures).occluded
-    if opacity_u is None:
-        return _cast_any(scene, kind, origin, direction, t_max, t_min,
-                         watertight)
-    if not _has_alpha_split(scene, kind):
-        return alpha_recast(scene, _recast_closest(scene, kind, watertight),
-                            origin, direction, t_min, opacity_u,
-                            alpha_textures, t_max)[6]
-    occ = _cast_any(_split_view(scene, False), kind, origin, direction,
-                    t_max, t_min, watertight)
-    t_rest = torch.where(occ, 0.0, torch.as_tensor(
-        t_max, dtype=torch.float32, device=origin.device))
-    return occ | alpha_recast(
-        scene, _recast_closest(_split_view(scene, True), kind, watertight),
-        origin, direction, t_min, opacity_u, alpha_textures, t_rest)[6]
+    with span("dcrt.traversal.any", backend=kind, rays=origin.shape[0]):
+        if kind == "walk":
+            return walk(scene, origin, direction, t_min, t_max, True,
+                        watertight, opacity_u, alpha_textures).occluded
+        if opacity_u is None:
+            return _cast_any(scene, kind, origin, direction, t_max, t_min,
+                             watertight)
+        if not _has_alpha_split(scene, kind):
+            return alpha_recast(
+                scene, _recast_closest(scene, kind, watertight), origin,
+                direction, t_min, opacity_u, alpha_textures, t_max)[6]
+        occ = _cast_any(_split_view(scene, False), kind, origin, direction,
+                        t_max, t_min, watertight)
+        t_rest = torch.where(occ, 0.0, torch.as_tensor(
+            t_max, dtype=torch.float32, device=origin.device))
+        return occ | alpha_recast(
+            scene, _recast_closest(_split_view(scene, True), kind, watertight),
+            origin, direction, t_min, opacity_u, alpha_textures, t_rest)[6]
 
 
 def reset_counters():

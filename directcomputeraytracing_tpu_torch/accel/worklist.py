@@ -129,6 +129,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..utils import trace
 from .cluster import CLUSTER_SIZE
 from .traverse import ray_triangle_watertight
 
@@ -622,7 +623,8 @@ def finish_items(blk, sup, t_ent, nb, cs):
 
 def phases(tables, od, tm, plain=False):
     """The cull: per-block front-to-back super items (Items), or None when
-    no block enters anything. plain=True runs the twins on any device."""
+    no block enters anything. plain=True runs the twins on any device.
+    The item count goes to the open cast span's `items` (`utils.trace`)."""
     nb = od.shape[1] // RB
     cull = cull_boxes_torch if plain else cull_boxes
     cs = tables.sbox.shape[0]
@@ -638,6 +640,8 @@ def phases(tables, od, tm, plain=False):
                                                     od, tm)
         blk, sup, t = expand_level(tlo_s, blk_h, hyp, tables.hsup.shape[1],
                                    cs)
+    # the item count is already a host number (`torch.nonzero` sized it)
+    trace.add(items=blk.numel())
     if blk.numel() == 0:
         return None
     return finish_items(blk, sup, t, nb, cs)

@@ -27,6 +27,16 @@ aperture sample, the shadow ray's after the light sample (masked on the
 active lanes), the extension ray's after the BSDF sample (masked on the
 lanes whose path goes on), and pass it into every cast, the sorted and
 slab-marched ones included.
+
+Spans (`utils.trace`, while a profiler runs): `dcrt.integrator.camera`
+(streams and camera rays), the camera cast, `dcrt.integrator.shade`
+(`shade_hit`) and `dcrt.integrator.emission` (a light the camera sees),
+then per bounce `dcrt.integrator.bounce` holding `dcrt.integrator.nee`
+(light sample, shadow cast, BSDF evaluation, MIS weight),
+`dcrt.integrator.bsdf_sample`, the extension cast (in
+`dcrt.traversal.sort` where it is sorted), `dcrt.integrator.shade` and
+`dcrt.integrator.emission` (the implicit light hit and the carry
+update). The casts' own spans are `accel.traverse`'s.
 """
 
 from typing import NamedTuple
@@ -54,6 +64,7 @@ from ..rng.xoshiro import (
     next_sample_3d,
 )
 from ..sampling.montecarlo import dot, power_heuristic
+from ..utils.trace import span
 from .common import (
     RenderConfig,
     has_worklist_tables,
@@ -115,14 +126,46 @@ def _closest(scene, cfg, depth, origin, direction, opacity_u, live=None):
 def _sorted_closest(scene, cfg, depth, origin, direction, opacity_u, alive):
     """Extension cast in `ray_sort_key` order, hits returned in lane order.
     Dead lanes sort last and are parked, so they enter nothing."""
-    order = sort_order(scene, origin, direction, alive)
-    o, d = park_rays(alive, origin, direction)
-    hit = _closest(scene, cfg, depth, o[order], d[order],
-                   None if opacity_u is None else opacity_u[order],
-                   alive[order])
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.shape[0], device=order.device)
-    return HitInfo(*(x[inv] for x in hit))
+    with span("dcrt.traversal.sort", rays=origin.shape[0]):
+        order = sort_order(scene, origin, direction, alive)
+        o, d = park_rays(alive, origin, direction)
+        hit = _closest(scene, cfg, depth, o[order], d[order],
+                       None if opacity_u is None else opacity_u[order],
+                       alive[order])
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=order.device)
+        return HitInfo(*(x[inv] for x in hit))
+
+
+def _nee(scene, luts, cfg, c, wo, rng):
+    """Next-event estimation with MIS: a light sample, its shadow cast and
+    the BSDF's value and pdf. Returns (rng, radiance with it added)."""
+    active, itx = c.active, c.itx
+    rng, u_sel = _masked_1d(rng, active)
+    rng, u_tri = _masked_1d(rng, active)
+    rng, u2 = _masked_2d(rng, active)
+    ls = sample_light_direct(scene, cfg.light_count, cfg.has_env_texture,
+                             itx.position, u_sel, u_tri, u2)
+    shadow_o = offset_ray_origin(itx.position, itx.geometry_normal, ls.wi)
+    ou_s = None
+    if cfg.any_hit:
+        rng, ou_s = _masked_1d(rng, active)
+    # inactive lanes cast a zero-length parked ray
+    occluded = intersect_any(
+        scene, *park_rays(active, shadow_o, ls.wi),
+        torch.where(active, ls.distance, 0.0),
+        backend=cfg.traversal_backend, watertight=cfg.watertight,
+        opacity_u=ou_s, alpha_textures=cfg.any_hit_texture)
+    f = evaluate_bsdf(luts, ls.wi, wo, itx, cfg.use_vndf)
+    f_pdf = evaluate_bsdf_pdf(luts, ls.wi, wo, itx, cfg.use_vndf)
+    n_dot_wi = torch.abs(dot(itx.normal, ls.wi))
+    w = torch.where(ls.is_delta, 1.0,
+                    power_heuristic(1, ls.pdf, 1, f_pdf))
+    contrib = (c.throughput * ls.radiance * f
+               * (n_dot_wi * w / torch.clamp(ls.pdf, min=1e-20))[..., None])
+    ok = (active & ~occluded & (ls.pdf > 0.0)
+          & (ls.radiance > 0.0).any(-1))
+    return rng, c.l + _sel(ok, contrib, torch.zeros_like(contrib))
 
 
 def _bounce(scene, luts, cfg, depth, c):
@@ -132,73 +175,53 @@ def _bounce(scene, luts, cfg, depth, c):
     wo = -c.wi
     l_acc = c.l
     if cfg.light_count > 0:
-        rng, u_sel = _masked_1d(rng, active)
-        rng, u_tri = _masked_1d(rng, active)
-        rng, u2 = _masked_2d(rng, active)
-        ls = sample_light_direct(scene, cfg.light_count, cfg.has_env_texture,
-                                 itx.position, u_sel, u_tri, u2)
-        shadow_o = offset_ray_origin(itx.position, itx.geometry_normal, ls.wi)
-        ou_s = None
+        with span("dcrt.integrator.nee"):
+            rng, l_acc = _nee(scene, luts, cfg, c, wo, rng)
+
+    with span("dcrt.integrator.bsdf_sample"):
+        rng, u_sel_b = _masked_1d(rng, active)
+        rng, u2_b = _masked_2d(rng, active)
+        wi_new, f, f_pdf, is_delta = sample_bsdf(luts, wo, u2_b, u_sel_b,
+                                                 itx, cfg.use_vndf)
+        dead = (f == 0.0).all(-1) | (f_pdf == 0.0)
+        n_dot_wi = torch.abs(dot(itx.normal, wi_new))
+        throughput = c.throughput * f * (
+            n_dot_wi / torch.clamp(f_pdf, min=1e-20))[..., None]
+        alive = active & ~dead
+        throughput = _sel(alive, throughput, c.throughput)
+
+        ext_o = offset_ray_origin(itx.position, itx.geometry_normal, wi_new)
+        ou_e = None
         if cfg.any_hit:
-            rng, ou_s = _masked_1d(rng, active)
-        # inactive lanes cast a zero-length parked ray
-        occluded = intersect_any(
-            scene, *park_rays(active, shadow_o, ls.wi),
-            torch.where(active, ls.distance, 0.0),
-            backend=cfg.traversal_backend, watertight=cfg.watertight,
-            opacity_u=ou_s, alpha_textures=cfg.any_hit_texture)
-        f = evaluate_bsdf(luts, ls.wi, wo, itx, cfg.use_vndf)
-        f_pdf = evaluate_bsdf_pdf(luts, ls.wi, wo, itx, cfg.use_vndf)
-        n_dot_wi = torch.abs(dot(itx.normal, ls.wi))
-        w = torch.where(ls.is_delta, 1.0,
-                        power_heuristic(1, ls.pdf, 1, f_pdf))
-        contrib = (c.throughput * ls.radiance * f
-                   * (n_dot_wi * w / torch.clamp(ls.pdf, min=1e-20))[..., None])
-        ok = (active & ~occluded & (ls.pdf > 0.0)
-              & (ls.radiance > 0.0).any(-1))
-        l_acc = l_acc + _sel(ok, contrib, torch.zeros_like(contrib))
-
-    rng, u_sel_b = _masked_1d(rng, active)
-    rng, u2_b = _masked_2d(rng, active)
-    wi_new, f, f_pdf, is_delta = sample_bsdf(luts, wo, u2_b, u_sel_b, itx,
-                                             cfg.use_vndf)
-    dead = (f == 0.0).all(-1) | (f_pdf == 0.0)
-    n_dot_wi = torch.abs(dot(itx.normal, wi_new))
-    throughput = c.throughput * f * (
-        n_dot_wi / torch.clamp(f_pdf, min=1e-20))[..., None]
-    alive = active & ~dead
-    throughput = _sel(alive, throughput, c.throughput)
-
-    ext_o = offset_ray_origin(itx.position, itx.geometry_normal, wi_new)
-    ou_e = None
-    if cfg.any_hit:
-        # masked on alive: a path whose BSDF sample died casts no
-        # extension ray and draws no sample (the wavefront's stream)
-        rng, ou_e = _masked_1d(rng, alive)
+            # masked on alive: a path whose BSDF sample died casts no
+            # extension ray and draws no sample (the wavefront's stream)
+            rng, ou_e = _masked_1d(rng, alive)
     if has_worklist_tables(scene):
         hit2 = _sorted_closest(scene, cfg, depth, ext_o, wi_new, ou_e, alive)
     else:
         hit2 = _closest(scene, cfg, None, ext_o, wi_new, ou_e)
-    itx2 = shade_hit(scene, ext_o, wi_new, hit2)
+    with span("dcrt.integrator.shade"):
+        itx2 = shade_hit(scene, ext_o, wi_new, hit2)
 
-    env_idx = cfg.env_light_index if cfg.has_env_light \
-        else LIGHT_INDEX_INVALID
-    light_idx = torch.where(hit2.hit, itx2.light_index, env_idx)
-    rad, l_pdf = evaluate_light_direct(
-        scene, max(cfg.light_count, 1), cfg.has_env_texture, light_idx,
-        itx2.triangle_index, itx2.geometry_normal, wi_new, hit2.t)
-    w = torch.where(is_delta, 1.0, power_heuristic(1, f_pdf, 1, l_pdf))
-    ok = alive & (l_pdf > 0.0)
-    l_acc = l_acc + _sel(ok, throughput * rad * w[..., None],
-                         torch.zeros_like(rad))
+    with span("dcrt.integrator.emission"):
+        env_idx = cfg.env_light_index if cfg.has_env_light \
+            else LIGHT_INDEX_INVALID
+        light_idx = torch.where(hit2.hit, itx2.light_index, env_idx)
+        rad, l_pdf = evaluate_light_direct(
+            scene, max(cfg.light_count, 1), cfg.has_env_texture, light_idx,
+            itx2.triangle_index, itx2.geometry_normal, wi_new, hit2.t)
+        w = torch.where(is_delta, 1.0, power_heuristic(1, f_pdf, 1, l_pdf))
+        ok = alive & (l_pdf > 0.0)
+        l_acc = l_acc + _sel(ok, throughput * rad * w[..., None],
+                             torch.zeros_like(rad))
 
-    itx_next = type(itx)(*(_sel(alive, new, old)
-                           for new, old in zip(itx2, itx)))
-    itx_next = itx_next._replace(
-        position=_sel(alive & hit2.hit, itx2.position, itx.position))
-    return _Carry(rng=rng, l=l_acc, throughput=throughput,
-                  wi=_sel(alive, wi_new, c.wi), itx=itx_next,
-                  active=alive & hit2.hit)
+        itx_next = type(itx)(*(_sel(alive, new, old)
+                               for new, old in zip(itx2, itx)))
+        itx_next = itx_next._replace(
+            position=_sel(alive & hit2.hit, itx2.position, itx.position))
+        return _Carry(rng=rng, l=l_acc, throughput=throughput,
+                      wi=_sel(alive, wi_new, c.wi), itx=itx_next,
+                      active=alive & hit2.hit)
 
 
 def render_samples(scene, luts, cam, cfg: RenderConfig, pixel_x, pixel_y,
@@ -208,38 +231,43 @@ def render_samples(scene, luts, cam, cfg: RenderConfig, pixel_x, pixel_y,
     pixel_x / pixel_y: (R,) int64. Returns (sample_position (R, 2) in-pixel
     jitter, sample_value (R, 3) radiance).
     """
-    rng = init_rng(pixel_x, pixel_y, frame_seed)
-    rng, pixel_sample = next_sample_2d(rng)
-    res = torch.tensor([cfg.width, cfg.height], dtype=torch.float32,
-                       device=pixel_x.device)
-    pix = torch.stack([pixel_x, pixel_y], dim=-1).to(torch.float32)
-    rng, aperture_sample = next_sample_3d(rng)
-    origin, wi = generate_ray(cam, (pixel_sample + pix) / res,
-                              aperture_sample)
-    ou = None
-    if cfg.any_hit:
-        rng, ou = next_sample_1d(rng)
+    with span("dcrt.integrator.camera", rays=pixel_x.shape[0]):
+        rng = init_rng(pixel_x, pixel_y, frame_seed)
+        rng, pixel_sample = next_sample_2d(rng)
+        res = torch.tensor([cfg.width, cfg.height], dtype=torch.float32,
+                           device=pixel_x.device)
+        pix = torch.stack([pixel_x, pixel_y], dim=-1).to(torch.float32)
+        rng, aperture_sample = next_sample_3d(rng)
+        origin, wi = generate_ray(cam, (pixel_sample + pix) / res,
+                                  aperture_sample)
+        ou = None
+        if cfg.any_hit:
+            rng, ou = next_sample_1d(rng)
 
     depth = megakernel_slab_depth(scene, cfg)
     hit = _closest(scene, cfg, depth, origin, wi, ou)
-    itx = shade_hit(scene, origin, wi, hit)
-    itx = itx._replace(position=_sel(hit.hit, itx.position, origin))
+    with span("dcrt.integrator.shade"):
+        itx = shade_hit(scene, origin, wi, hit)
+        itx = itx._replace(position=_sel(hit.hit, itx.position, origin))
 
-    l = torch.zeros_like(origin)
-    if cfg.light_visible:
-        cam_light = hit.hit & (itx.light_index != LIGHT_INDEX_INVALID)
-        l = l + _sel(cam_light,
-                     _mesh_light_camera_eval(scene, itx.light_index, -wi,
-                                             itx.geometry_normal),
-                     torch.zeros_like(l))
-        if cfg.has_env_light:
-            l = _sel(~hit.hit, evaluate_env(scene, wi, cfg.env_light_index,
-                                            cfg.has_env_texture), l)
+    with span("dcrt.integrator.emission"):
+        l = torch.zeros_like(origin)
+        if cfg.light_visible:
+            cam_light = hit.hit & (itx.light_index != LIGHT_INDEX_INVALID)
+            l = l + _sel(cam_light,
+                         _mesh_light_camera_eval(scene, itx.light_index, -wi,
+                                                 itx.geometry_normal),
+                         torch.zeros_like(l))
+            if cfg.has_env_light:
+                l = _sel(~hit.hit, evaluate_env(scene, wi,
+                                                cfg.env_light_index,
+                                                cfg.has_env_texture), l)
 
     c = _Carry(rng=rng, l=l, throughput=torch.ones_like(origin), wi=wi,
                itx=itx, active=hit.hit)
-    for _ in range(cfg.max_bounce + 1):
-        c = _bounce(scene, luts, cfg, depth, c)
+    for b in range(cfg.max_bounce + 1):
+        with span("dcrt.integrator.bounce", bounce=b):
+            c = _bounce(scene, luts, cfg, depth, c)
     return pixel_sample, c.l
 
 

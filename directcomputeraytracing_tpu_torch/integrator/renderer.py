@@ -26,6 +26,16 @@ re-flatten (`scene.edit`) and restart the film, as the reference's dirty
 flag does; `frame_index` survives. `preview` traces a reduced-size frame
 through the megakernel without touching the film.
 
+Spans (`utils.trace`, recorded only while a profiler runs):
+`dcrt.renderer.render` (counts `spp`, `first_sample`), one
+`dcrt.renderer.pass` per sample pass or fused group, the megakernel's
+`dcrt.integrator.chunk` per pixel chunk, `dcrt.renderer.film` (the
+pass's values into the film), `dcrt.renderer.image` (resolve and the
+copy to the host) and `dcrt.renderer.preview`. Set-up records, always
+kept: `dcrt.setup.flatten` and `dcrt.setup.luts` in the constructor,
+`dcrt.setup.first_pass` around each renderer's first `render` call,
+which ends in the image's copy to the host.
+
 `traversal_backend`, `pool_backend` and `slab_march` pass through to the
 integrators in the `RenderConfig`; alpha-tested scenes set `any_hit` and
 `any_hit_texture` from the scene's meta. `device` defaults to "cuda";
@@ -57,6 +67,7 @@ from ..film.filters import FilterParams, convolve_sample_pass
 from ..lut.textures import load_luts, placeholder_luts
 from ..post.pipeline import PostParams, post_process
 from ..scene.scene import flatten_scene
+from ..utils.trace import setup, span
 from .common import RenderConfig, has_worklist_tables
 from .megakernel import (
     full_frame_pixels,
@@ -90,6 +101,16 @@ def _pixel_chunks(px, py):
         yield px[i:i + CHUNK_PIXELS], py[i:i + CHUNK_PIXELS]
 
 
+def _each_chunk(px, py, fn):
+    """[fn(cx, cy)] over the chunks of (px, py), each in a
+    `dcrt.integrator.chunk` span."""
+    out = []
+    for k, (cx, cy) in enumerate(_pixel_chunks(px, py)):
+        with span("dcrt.integrator.chunk", chunk=k, pixels=cx.shape[0]):
+            out.append(fn(cx, cy))
+    return out
+
+
 def _accumulate_filtered(film, pos, values, fp: FilterParams, height, width):
     """Convolve one raster-ordered sample plane ((H*W, 2) jitter, (H*W, 3)
     values) under fp and add it to the film."""
@@ -107,16 +128,18 @@ class Renderer:
             raise ValueError(f"integrator {integrator!r}: 'megakernel' or "
                              "'wavefront'")
         self.integrator = integrator
-        self.arrays, self.meta = flatten_scene(scene, self.device)
+        with setup("dcrt.setup.flatten"):
+            self.arrays, self.meta = flatten_scene(scene, self.device)
         self.camera = to_device(camera, self.device)
-        if luts is None:
-            # placeholder (unit-energy) LUTs zero the plastic diffuse lobe,
-            # so any non-diffuse material loads the committed bake
-            luts = (load_luts(self.device)
-                    if any(m.mtype != MATERIAL_TYPE_DIFFUSE
-                           for m in scene.materials)
-                    else placeholder_luts(self.device))
-        self.luts = to_device(luts, self.device)
+        with setup("dcrt.setup.luts"):
+            if luts is None:
+                # placeholder (unit-energy) LUTs zero the plastic diffuse
+                # lobe, so any non-diffuse material loads the committed bake
+                luts = (load_luts(self.device)
+                        if any(m.mtype != MATERIAL_TYPE_DIFFUSE
+                               for m in scene.materials)
+                        else placeholder_luts(self.device))
+            self.luts = to_device(luts, self.device)
         env_idx = (self.meta.env_light_index
                    if self.meta.env_light_index != LIGHT_INDEX_INVALID
                    else -1)
@@ -134,6 +157,7 @@ class Renderer:
         self.film = create_film(height, width, self.device)
         self.spp = 0
         self.frame_index = 0    # advances per sample pass, survives reset()
+        self._first_render = True
         self._px, self._py, self._inv = _frame_pixels(self.arrays, self.cfg,
                                                       self.device)
 
@@ -175,28 +199,34 @@ class Renderer:
             inv = (self._inv[:, None] * fuse
                    + torch.arange(fuse, device=self.device)).reshape(-1)
             pos, values = pos[inv], values[inv]
-        for s in range(fuse):
-            self.film = _accumulate_filtered(
-                self.film, pos[s::fuse], values[s::fuse],
-                self.filter_params, self.cfg.height, self.cfg.width)
+        with span("dcrt.renderer.film"):
+            for s in range(fuse):
+                self.film = _accumulate_filtered(
+                    self.film, pos[s::fuse], values[s::fuse],
+                    self.filter_params, self.cfg.height, self.cfg.width)
 
     def render_sample(self, frame_seed):
         """Trace one sample per pixel and accumulate it into the film."""
-        if self.integrator == "wavefront":
-            pos, values = self._wavefront(frame_seed)
-        else:
-            parts = [render_samples(self.arrays, self.luts, self.camera,
-                                    self.cfg, px, py, frame_seed)
-                     for px, py in _pixel_chunks(self._px, self._py)]
-            pos = torch.cat([p for p, _ in parts])
-            values = torch.cat([v for _, v in parts])
-        if self._box_fast_path:
-            self.film = accumulate_box(self.film, self._raster(values),
-                                       self.cfg.height, self.cfg.width)
-        else:
-            self.film = _accumulate_filtered(
-                self.film, self._raster(pos), self._raster(values),
-                self.filter_params, self.cfg.height, self.cfg.width)
+        with span("dcrt.renderer.pass", samples=1):
+            if self.integrator == "wavefront":
+                pos, values = self._wavefront(frame_seed)
+            else:
+                parts = _each_chunk(
+                    self._px, self._py,
+                    lambda px, py: render_samples(
+                        self.arrays, self.luts, self.camera, self.cfg, px,
+                        py, frame_seed))
+                pos = torch.cat([p for p, _ in parts])
+                values = torch.cat([v for _, v in parts])
+            with span("dcrt.renderer.film"):
+                if self._box_fast_path:
+                    self.film = accumulate_box(
+                        self.film, self._raster(values), self.cfg.height,
+                        self.cfg.width)
+                else:
+                    self.film = _accumulate_filtered(
+                        self.film, self._raster(pos), self._raster(values),
+                        self.filter_params, self.cfg.height, self.cfg.width)
         self.spp += 1
         self.frame_index += 1
 
@@ -208,7 +238,18 @@ class Renderer:
         reference's fused dispatches do; the wavefront traces such a
         group in one pool pass (spp_batch). A splatting filter fuses
         only the wavefront's passes (per-sample slots); the megakernel
-        then traces one sample per pass."""
+        then traces one sample per pass. A renderer's first call leaves
+        the `dcrt.setup.first_pass` set-up record."""
+        if self._first_render:
+            self._first_render = False
+            with setup("dcrt.setup.first_pass", spp=spp):
+                return self.render(spp, seed_mode, fixed_seed,
+                                   samples_per_dispatch)
+        with span("dcrt.renderer.render", spp=spp, first_sample=self.spp):
+            self._render(spp, seed_mode, fixed_seed, samples_per_dispatch)
+            return self.image()
+
+    def _render(self, spp, seed_mode, fixed_seed, samples_per_dispatch):
         fuse = (samples_per_dispatch if samples_per_dispatch is not None
                 else min(spp, 8))
         can_fuse = (seed_mode == SEED_SAMPLE_COUNT and fuse > 1
@@ -217,21 +258,8 @@ class Renderer:
         remaining = spp
         while remaining > 0:
             if can_fuse and remaining >= fuse:
-                if not self._box_fast_path:
-                    self._filter_planes(
-                        *self._wavefront(self.spp, fuse, True), fuse)
-                else:
-                    if self.integrator == "wavefront":
-                        total = self._wavefront(self.spp, fuse)[1]
-                    else:
-                        total = torch.cat([
-                            render_samples_accumulated(
-                                self.arrays, self.luts, self.camera,
-                                self.cfg, px, py, self.spp, fuse)
-                            for px, py in _pixel_chunks(self._px, self._py)])
-                    self.film = accumulate_box(
-                        self.film, self._raster(total), self.cfg.height,
-                        self.cfg.width, float(fuse))
+                with span("dcrt.renderer.pass", samples=fuse):
+                    self._fused_pass(fuse)
                 self.spp += fuse
                 self.frame_index += fuse
                 remaining -= fuse
@@ -244,11 +272,29 @@ class Renderer:
                 seed = self.spp
             self.render_sample(seed)
             remaining -= 1
-        return self.image()
+
+    def _fused_pass(self, fuse):
+        """fuse progressive samples from `spp` in one pass into the film."""
+        if not self._box_fast_path:
+            self._filter_planes(*self._wavefront(self.spp, fuse, True), fuse)
+            return
+        if self.integrator == "wavefront":
+            total = self._wavefront(self.spp, fuse)[1]
+        else:
+            total = torch.cat(_each_chunk(
+                self._px, self._py,
+                lambda px, py: render_samples_accumulated(
+                    self.arrays, self.luts, self.camera, self.cfg, px, py,
+                    self.spp, fuse)))
+        with span("dcrt.renderer.film"):
+            self.film = accumulate_box(self.film, self._raster(total),
+                                       self.cfg.height, self.cfg.width,
+                                       float(fuse))
 
     def image(self):
         """Resolved linear radiance, (H, W, 3) numpy array."""
-        return resolve(self.film).cpu().numpy()
+        with span("dcrt.renderer.image"):
+            return resolve(self.film).cpu().numpy()
 
     def preview(self, spp=1, scale=4):
         """A reduced-size render (the reference's quarter-size interactive
@@ -263,17 +309,19 @@ class Renderer:
         cfg = dataclasses.replace(self.cfg,
                                   width=max(self.cfg.width // scale, 1),
                                   height=max(self.cfg.height // scale, 1))
-        px, py, inv = _frame_pixels(self.arrays, cfg, self.device)
-        acc = torch.zeros((px.shape[0], 3), dtype=torch.float32,
-                          device=self.device)
-        for seed in range(spp):
-            acc = acc + torch.cat([
-                render_samples(self.arrays, self.luts, self.camera, cfg,
-                               cx, cy, seed)[1]
-                for cx, cy in _pixel_chunks(px, py)])
-        if inv is not None:
-            acc = acc[inv]
-        return (acc / spp).reshape(cfg.height, cfg.width, 3).cpu().numpy()
+        with span("dcrt.renderer.preview", spp=spp, scale=scale):
+            px, py, inv = _frame_pixels(self.arrays, cfg, self.device)
+            acc = torch.zeros((px.shape[0], 3), dtype=torch.float32,
+                              device=self.device)
+            for seed in range(spp):
+                acc = acc + torch.cat(_each_chunk(
+                    px, py, lambda cx, cy: render_samples(
+                        self.arrays, self.luts, self.camera, cfg, cx, cy,
+                        seed)[1]))
+            if inv is not None:
+                acc = acc[inv]
+            return (acc / spp).reshape(cfg.height, cfg.width,
+                                       3).cpu().numpy()
 
     def postprocessed(self):
         """Display-ready sRGB image through exposure and tone mapping. A

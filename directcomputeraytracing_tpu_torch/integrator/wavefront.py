@@ -40,6 +40,11 @@ sample, for the shadow cast after the light sample and for the next
 extension cast after the BSDF sample, at the megakernel's draw sites and
 masks, so both integrators trace the same paths; every pool cast and its
 slab phases take it.
+
+Spans (`utils.trace`, while a profiler runs): `dcrt.integrator.wavefront`
+around a pool pass (counts `pixels`, `spp_batch`, `iterations`), the
+casts' own (`accel.traverse`) and `dcrt.traversal.sort` around the
+pool's sort.
 """
 
 from typing import NamedTuple
@@ -67,6 +72,7 @@ from ..rng.xoshiro import (
     next_sample_3d,
 )
 from ..sampling.montecarlo import dot, power_heuristic
+from ..utils.trace import span
 from .common import (
     RenderConfig,
     has_worklist_tables,
@@ -194,8 +200,9 @@ def _permute_pool(scene, lanes):
     lanes last: lanes = (busy, ray_o, ray_d, ...). Lane identity is
     invisible to the film, whose indices and seeds are pixel based."""
     busy, ray_o, ray_d = lanes[:3]
-    order = sort_order(scene, ray_o, ray_d, busy)
-    return tuple(x[order] for x in lanes)
+    with span("dcrt.traversal.sort", rays=busy.shape[0]):
+        order = sort_order(scene, ray_o, ray_d, busy)
+        return tuple(x[order] for x in lanes)
 
 
 def _m1(rng, active):
@@ -389,15 +396,18 @@ def render_samples_wavefront(scene, luts, cam, cfg: RenderConfig, pixel_x,
     slot (slot = item = p * S + s, pixel-major): both outputs are then
     (R * S, 2) and (R * S, 3), for the splatting filters, which convolve
     each sample plane `[s::S]` on its own."""
-    f = _Frame(scene, luts, cam, cfg, pixel_x, pixel_y, frame_seed,
-               spp_batch, sample_slots)
-    casts = _Casts(scene, cfg)
-    s = _make_state(f.R, pool_size, spp_batch, pixel_x.device)
-    cursor, n_busy, iters = 0, 0, 0
-    while cursor < f.RT or n_busy > 0:
-        s, cursor = _step(f, casts, s, cursor, n_busy)
-        n_busy = int(s.busy.sum())     # the iteration's one host read
-        iters += 1
+    with span("dcrt.integrator.wavefront", pixels=pixel_x.shape[0],
+              spp_batch=int(spp_batch)) as sp:
+        f = _Frame(scene, luts, cam, cfg, pixel_x, pixel_y, frame_seed,
+                   spp_batch, sample_slots)
+        casts = _Casts(scene, cfg)
+        s = _make_state(f.R, pool_size, spp_batch, pixel_x.device)
+        cursor, n_busy, iters = 0, 0, 0
+        while cursor < f.RT or n_busy > 0:
+            s, cursor = _step(f, casts, s, cursor, n_busy)
+            n_busy = int(s.busy.sum())     # the iteration's one host read
+            iters += 1
+        sp.add(iterations=iters)
     LAST_STATS.clear()
     LAST_STATS.update(
         iterations=iters, pool_size=int(s.busy.shape[0]),

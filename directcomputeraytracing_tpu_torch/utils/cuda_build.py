@@ -8,7 +8,10 @@ a module calls `load_library` on its first use. The library's file name
 carries a hash of the source, the shared headers (`*.cuh` beside it)
 and the flags, so an edited source or header rebuilds, and the build
 writes to a temporary name and renames it, so concurrent first uses
-never load a half-written file.
+never load a half-written file. Each call leaves a `dcrt.setup.library`
+set-up record (`utils.trace`): the seconds from the library's name to
+its handle, with the build's (`build_s`, 0 when reused) and the `ctypes`
+load's (`load_s`).
 """
 
 import ctypes
@@ -18,6 +21,8 @@ import os
 import shutil
 import subprocess
 import time
+
+from .trace import setup
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -60,25 +65,29 @@ def load_library(source_name, extra_flags=(), csrc=CSRC, name=None,
             digest.update(f.read())
     stem = name or os.path.splitext(source_name)[0]
     out = os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
-    seconds = 0.0
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
+    with setup("dcrt.setup.library", library=os.path.basename(out)) as rec:
+        seconds = 0.0
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            t0 = time.perf_counter()
+            tool = compiler()
+            proc = subprocess.run([tool, *flags, "-o", tmp, src],
+                                  capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"{os.path.basename(tool)} failed on {src}:\n{log}")
+            with open(f"{tmp}.log", "w") as f:
+                f.write(log)
+            os.replace(f"{tmp}.log", f"{out}.log")
+            os.replace(tmp, out)
+        log = ""
+        if os.path.exists(f"{out}.log"):
+            with open(f"{out}.log") as f:
+                log = f.read()
         t0 = time.perf_counter()
-        tool = compiler()
-        proc = subprocess.run([tool, *flags, "-o", tmp, src],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"{os.path.basename(tool)} failed on {src}:\n{log}")
-        with open(f"{tmp}.log", "w") as f:
-            f.write(log)
-        os.replace(f"{tmp}.log", f"{out}.log")
-        os.replace(tmp, out)
-    log = ""
-    if os.path.exists(f"{out}.log"):
-        with open(f"{out}.log") as f:
-            log = f.read()
-    return Built(ctypes.CDLL(out), out, seconds, log)
+        lib = ctypes.CDLL(out)
+        rec.add(build_s=seconds, load_s=time.perf_counter() - t0)
+    return Built(lib, out, seconds, log)
