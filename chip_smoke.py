@@ -7,9 +7,10 @@ Run from the repository root on a machine with one CUDA card and nvcc
 any failure exits non-zero:
 
 1. setup: print the card's name and power limit, build the dense-sweep,
-   work-list, clustered, pair, ray-prep and probe kernels
+   work-list, clustered, pair, ray-prep, probe and BSDF kernels
    (csrc/brute_sweep.cu, csrc/worklist.cu, csrc/clustered.cu,
-   csrc/pairsweep.cu, csrc/prep.cu, csrc/probes.cu; the six nvcc runs in
+   csrc/pairsweep.cu, csrc/prep.cu, csrc/probes.cu, csrc/bsdf.cu; the
+   seven nvcc runs in
    parallel, and beside them g++ on the host's BVH builder,
    ops/native/bvh_builder.cpp) and print the build times and ptxas
    reports, then the
@@ -154,10 +155,16 @@ any failure exits non-zero:
    (2^20, 16) transpose bit-equal to `.T.contiguous()` (the library
    call, timed) and to its twin, beside the layout routes (the twin's
    cat-and-transpose prep, the prep kernel, a 36 MB copy);
+2j. the BSDF kernels (evaluation: NEE's value and pdf; sampling) against
+   their twin (`bsdf/dispatch.py`) on 2^20 lanes of a shaded Cornell
+   bounce: the lanes beyond the tests' tolerances (none, or the phase
+   fails), the largest differences and the bit-equal share; CUDA-event
+   and profiler ms beside the twin's (the PyTorch route they replace),
+   the bytes bound, registers and spills (`bsdf-kernel` lines);
 3. the main path: Cornell glossy 1024x1024, 16 spp, max_bounce 4 through
    `Renderer.render`, with the kernels' launch counts checked against
    spp * (max_bounce + 2) * chunks (closest) and spp * (max_bounce + 1) *
-   chunks (any-hit);
+   chunks (any-hit, each BSDF kernel; the sphere grids' renders too);
 3b. the main path on a clustered scene: sphere_grid(12, 12) 1024x1024,
    16 spp, max_bounce 4. Closest sweeps plus closest casts with an empty
    item list must equal spp * (max_bounce + 2) * chunks, any-hit sweeps
@@ -1779,6 +1786,139 @@ def phase_probes(device, wl_times, wl_census):
     return item, tr
 
 
+# upper estimates of a category-A lane's float operations (Lambert, the
+# Cook-Torrance lobe with Fresnel, the multiscatter lobe and their LUT
+# lerps): the bound of both BSDF kernels is their bytes either way
+BSDF_EVAL_OPS = 400
+BSDF_SAMPLE_OPS = 500
+
+
+def _bsdf_lanes(device):
+    """2^20 lanes of a shaded Cornell bounce: the glossy box at 1024^2,
+    its camera rays' hits shaded, with NEE's light directions and the
+    BSDF sample's (u_sel, u2) drawn as the megakernel draws them. Returns
+    (luts, wo, wi, u2, u_sel, itx)."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch import Renderer, cornell_box
+    from directcomputeraytracing_tpu_torch.camera.camera import generate_ray
+    from directcomputeraytracing_tpu_torch.integrator import megakernel as mk
+    from directcomputeraytracing_tpu_torch.integrator.common import shade_hit
+    from directcomputeraytracing_tpu_torch.lights.lights import (
+        sample_light_direct,
+    )
+    from directcomputeraytracing_tpu_torch.rng.xoshiro import (
+        init_rng,
+        next_sample_1d,
+        next_sample_2d,
+        next_sample_3d,
+    )
+
+    r = Renderer(*cornell_box("area", "glossy"), 1024, 1024, device=device)
+    scene, cfg = r.arrays, r.cfg
+    px, py = mk.full_frame_pixels(cfg, device)
+    rng = init_rng(px, py, 20261018)
+    rng, pixel_sample = next_sample_2d(rng)
+    rng, aperture = next_sample_3d(rng)
+    res = torch.tensor([cfg.width, cfg.height], dtype=torch.float32,
+                       device=device)
+    pix = torch.stack([px, py], dim=-1).to(torch.float32)
+    origin, d = generate_ray(r.camera, (pixel_sample + pix) / res, aperture)
+    itx = shade_hit(scene, origin, d, mk._closest(scene, cfg, None, origin,
+                                                  d, None))
+    rng, u_sel = next_sample_1d(rng)
+    rng, u_tri = next_sample_1d(rng)
+    rng, u2 = next_sample_2d(rng)
+    ls = sample_light_direct(scene, cfg.light_count, cfg.has_env_texture,
+                             itx.position, u_sel, u_tri, u2)
+    rng, u_sel_b = next_sample_1d(rng)
+    rng, u2_b = next_sample_2d(rng)
+    return r.luts, -d, ls.wi, u2_b, u_sel_b, itx
+
+
+def _lane_bytes(tensors):
+    """Bytes a lane reads or writes of (R, ...) tensors, each element
+    once."""
+    return sum(x[0].numel() * x.element_size() for x in tensors)
+
+
+def phase_bsdf_kernels(device):
+    """Rows 20-21: the BSDF kernels (`bsdf_eval_kernel`,
+    `bsdf_sample_kernel`) against their twin (`bsdf/dispatch.py`, also
+    the library time: the PyTorch route they replace) on 2^20 lanes of a
+    shaded Cornell bounce (`_bsdf_lanes`): the largest absolute and
+    relative differences, the lanes beyond the tests' tolerances (1e-5
+    relative plus 1e-7; wi 2e-6), the bit-equal share; CUDA-event and
+    profiler times, the bound (each input byte read once, each output
+    byte written once, at 3.35 TB/s), registers and spills."""
+    import torch
+
+    from directcomputeraytracing_tpu_torch.bsdf import dispatch, fused
+    from directcomputeraytracing_tpu_torch.tools import worklist_ab
+    from directcomputeraytracing_tpu_torch.tools.common import (
+        kernel_ms,
+        timed,
+    )
+
+    luts, wo, wi, u2, u_sel, itx = _bsdf_lanes(device)
+    n = wo.shape[0]
+    fields = [getattr(itx, k) for k in fused._ITX_FIELDS]
+    got_e = fused.evaluate_bsdf_value_pdf(luts, wi, wo, itx)
+    want_e = (dispatch.evaluate_bsdf(luts, wi, wo, itx),
+              dispatch.evaluate_bsdf_pdf(luts, wi, wo, itx))
+    got_s = fused.sample_bsdf(luts, wo, u2, u_sel, itx)
+    want_s = dispatch.sample_bsdf(luts, wo, u2, u_sel, itx)
+    torch.cuda.synchronize()
+
+    def diffs(got, want, rtols):
+        out = dict(max_abs_err=0.0, max_rel_err=0.0, lanes_beyond=0)
+        equal = torch.ones(n, dtype=torch.bool, device=device)
+        beyond = torch.zeros(n, dtype=torch.bool, device=device)
+        for g, w, (rtol, atol) in zip(got, want, rtols):
+            eq = (g == w).reshape(n, -1).all(1)
+            equal &= eq
+            if g.dtype == torch.bool:
+                beyond |= ~eq
+                continue
+            g, w = g.double(), w.double()
+            err = (g - w).abs()
+            out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
+            out["max_rel_err"] = max(out["max_rel_err"], float(
+                (err / (w.abs() + 1e-2)).max()))
+            beyond |= (err > atol + rtol * w.abs()).reshape(n, -1).any(1)
+        out["lanes_beyond"] = int(beyond.sum())
+        out["bit_equal_share"] = float(equal.double().mean())
+        return out
+
+    tol = (1e-5, 1e-7)
+    rows = {}
+    log = fused.kernels().log
+    ptx = worklist_ab.ptxas_report(
+        log, lambda e: "eval" if "bsdf_eval_kernel" in e
+        else "sample" if "bsdf_sample_kernel" in e else None)
+    for name, entry, got, want, rtols, run, twin, inputs, ops in (
+            ("eval", "bsdf_eval_kernel", got_e, want_e, (tol, tol),
+             lambda: fused.evaluate_bsdf_value_pdf(luts, wi, wo, itx),
+             lambda: (dispatch.evaluate_bsdf(luts, wi, wo, itx),
+                      dispatch.evaluate_bsdf_pdf(luts, wi, wo, itx)),
+             [wo, wi] + fields, BSDF_EVAL_OPS),
+            ("sample", "bsdf_sample_kernel", got_s, want_s,
+             ((0.0, 2e-6), tol, tol, tol),
+             lambda: fused.sample_bsdf(luts, wo, u2, u_sel, itx),
+             lambda: dispatch.sample_bsdf(luts, wo, u2, u_sel, itx),
+             [wo, u2, u_sel] + fields, BSDF_SAMPLE_OPS)):
+        lane_bytes = _lane_bytes(inputs) + _lane_bytes(got)
+        row = dict(lanes=n, lane_bytes=lane_bytes, **diffs(got, want, rtols),
+                   ms=timed(run, 50), kernel_ms=kernel_ms(run, 20, entry),
+                   library_ms=timed(twin, 5),
+                   bound=bound(ops * n, lane_bytes * n), ptxas=ptx.get(name))
+        print(f"bsdf-kernel {name}", json.dumps(row))
+        rows[name] = row
+    if any(r["lanes_beyond"] for r in rows.values()):
+        raise SystemExit(f"BSDF kernels beyond the twin's tolerance: {rows}")
+    return rows
+
+
 def _max_sm_clock():
     """The card's highest SM clock in Hz (nvidia-smi clocks.max.sm)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -1881,6 +2021,14 @@ def _launches():
                 **cl.counters(), **ps.counters(),
                 alpha_calls=tv.alpha_recast.calls,
                 alpha_passes=tv.alpha_recast.passes)
+
+
+def _bsdf_launches():
+    """The BSDF kernels' launch counters (`bsdf/fused.py`)."""
+    from directcomputeraytracing_tpu_torch.bsdf import fused
+
+    return dict(bsdf_eval=fused.evaluate_bsdf_value_pdf.launches,
+                bsdf_sample=fused.sample_bsdf.launches)
 
 
 def _reset_launches():
@@ -1988,6 +2136,7 @@ def phase_render(device, name, p=RENDER, backend="auto", warm_spp=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
+    bsdf0 = _bsdf_launches()
     t0 = time.perf_counter()
     img = r.render(spp=p["spp"])
     torch.cuda.synchronize()
@@ -1997,6 +2146,12 @@ def phase_render(device, name, p=RENDER, backend="auto", warm_spp=None):
         r.arrays, p["spp"] * (p["max_bounce"] + 2) * r.n_chunks,
         p["spp"] * (p["max_bounce"] + 1) * r.n_chunks, launches,
         backend=backend, alpha=r.cfg.any_hit)
+    # one BSDF evaluation (NEE, where the scene has lights) and one BSDF
+    # sample a bounce, each a kernel launch
+    bsdf = {k: v - bsdf0[k] for k, v in _bsdf_launches().items()}
+    bounces = p["spp"] * (p["max_bounce"] + 1) * r.n_chunks
+    bsdf_expect = dict(bsdf_eval=bounces if r.cfg.light_count else 0,
+                       bsdf_sample=bounces)
     post = r.postprocessed()
     stats = dict(scene=name, backend=backend, world_tris=world_tris,
                  instanced=r.arrays.isup_inst.shape[0] > 1,
@@ -2010,13 +2165,15 @@ def phase_render(device, name, p=RENDER, backend="auto", warm_spp=None):
                  post_max=float(post.max()),
                  post_finite=bool(np.isfinite(post).all()),
                  launches=launches, expected_launches=expect,
-                 **_alpha_stats(r, launches))
+                 bsdf_launches=bsdf, **_alpha_stats(r, launches))
     print("render", json.dumps(stats))
     if not (stats["finite"] and stats["post_finite"] and stats["mean"] > 0.0
             and img.shape == (p["height"], p["width"], 3)):
         raise SystemExit(f"{name} render is not a finite, non-black image")
     if launches != expect:
         raise SystemExit(f"{name} launch counts {launches} != {expect}")
+    if bsdf != bsdf_expect:
+        raise SystemExit(f"{name} BSDF launches {bsdf} != {bsdf_expect}")
     return stats
 
 
@@ -3394,12 +3551,13 @@ def phase_builders(device):
 
 
 def _build_all():
-    """Build the six kernel libraries, the nvcc runs in parallel, and
+    """Build the seven kernel libraries, the nvcc runs in parallel, and
     beside them the host's BVH builder with g++."""
     from directcomputeraytracing_tpu_torch.accel import brute
     from directcomputeraytracing_tpu_torch.accel import clustered as cl
     from directcomputeraytracing_tpu_torch.accel import pairsweep as ps
     from directcomputeraytracing_tpu_torch.accel import worklist as wl
+    from directcomputeraytracing_tpu_torch.bsdf import fused
     from directcomputeraytracing_tpu_torch.ops import native
     from directcomputeraytracing_tpu_torch.tools import brute_ab, pair_ab
     from directcomputeraytracing_tpu_torch.tools import probe_worklist as pw
@@ -3408,7 +3566,7 @@ def _build_all():
     sources = (("brute_sweep.cu", brute.kernels),
                ("worklist.cu", wl.kernels), ("clustered.cu", cl.kernels),
                ("pairsweep.cu", ps.kernels), ("prep.cu", wl.prep_kernels),
-               ("probes.cu", pw.kernels))
+               ("probes.cu", pw.kernels), ("bsdf.cu", fused.kernels))
 
     def gxx():
         t0 = time.perf_counter()
@@ -3483,6 +3641,7 @@ def main():
     prep = phase("2h prep kernel", phase_prep_kernel, device)
     probe_item, probe_tr = phase("2i probe kernels", phase_probes, device,
                                  wl_times, wl_census)
+    bsdf = phase("2j BSDF kernels", phase_bsdf_kernels, device)
     cornell = phase("3 Cornell render", phase_render, device, "cornell")
     grid = phase("3b sphere-grid render", phase_render, device, "grid")
     wave = phase("3c wavefront render", phase_wavefront, device)
@@ -3675,6 +3834,24 @@ def main():
             probe_tr["launches"], 0.0, probe_tr["layout"]["kernel_ms"],
             probe_tr["layout"]["twin_ms"], probe_tr["bound"],
             probe_tr["layout"]["library_ms"]),
+        row("bsdf_eval", "directcomputeraytracing_tpu_torch/csrc/bsdf.cu",
+            "none (bsdf/dispatch.py evaluate_bsdf, evaluate_bsdf_pdf)",
+            cornell["bsdf_launches"]["bsdf_eval"],
+            bsdf["eval"]["max_abs_err"],
+            bsdf["eval"]["ms"], bsdf["eval"]["library_ms"],
+            bsdf["eval"]["bound"], bsdf["eval"]["library_ms"],
+            kernel_ms=bsdf["eval"]["kernel_ms"],
+            bit_equal_share=bsdf["eval"]["bit_equal_share"],
+            ptxas=bsdf["eval"]["ptxas"]),
+        row("bsdf_sample", "directcomputeraytracing_tpu_torch/csrc/bsdf.cu",
+            "none (bsdf/dispatch.py sample_bsdf)",
+            cornell["bsdf_launches"]["bsdf_sample"],
+            bsdf["sample"]["max_abs_err"], bsdf["sample"]["ms"],
+            bsdf["sample"]["library_ms"], bsdf["sample"]["bound"],
+            bsdf["sample"]["library_ms"],
+            kernel_ms=bsdf["sample"]["kernel_ms"],
+            bit_equal_share=bsdf["sample"]["bit_equal_share"],
+            ptxas=bsdf["sample"]["ptxas"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,7 +49,7 @@ from ..accel.traverse import (
     intersect_closest,
     intersect_closest_slab,
 )
-from ..bsdf.dispatch import evaluate_bsdf, evaluate_bsdf_pdf, sample_bsdf
+from ..bsdf.fused import evaluate_bsdf_value_pdf, sample_bsdf
 from ..camera.camera import generate_ray
 from ..core.constants import LIGHT_INDEX_INVALID
 from ..lights.lights import (
@@ -156,8 +156,7 @@ def _nee(scene, luts, cfg, c, wo, rng):
         torch.where(active, ls.distance, 0.0),
         backend=cfg.traversal_backend, watertight=cfg.watertight,
         opacity_u=ou_s, alpha_textures=cfg.any_hit_texture)
-    f = evaluate_bsdf(luts, ls.wi, wo, itx, cfg.use_vndf)
-    f_pdf = evaluate_bsdf_pdf(luts, ls.wi, wo, itx, cfg.use_vndf)
+    f, f_pdf = evaluate_bsdf_value_pdf(luts, ls.wi, wo, itx, cfg.use_vndf)
     n_dot_wi = torch.abs(dot(itx.normal, ls.wi))
     w = torch.where(ls.is_delta, 1.0,
                     power_heuristic(1, ls.pdf, 1, f_pdf))

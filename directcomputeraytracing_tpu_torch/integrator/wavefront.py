@@ -57,7 +57,7 @@ from ..accel.traverse import (
     intersect_closest,
     intersect_closest_slab,
 )
-from ..bsdf.dispatch import evaluate_bsdf, evaluate_bsdf_pdf, sample_bsdf
+from ..bsdf.fused import evaluate_bsdf_value_pdf, sample_bsdf
 from ..camera.camera import generate_ray
 from ..core.constants import LIGHT_INDEX_INVALID
 from ..lights.lights import (
@@ -335,8 +335,8 @@ def _step(f: _Frame, casts: _Casts, s: PoolState, cursor, n_busy):
             rng, ou_s = _m1(rng, alive)
         occluded = _pool_any(scene, casts, alive, shadow_o, ls.wi,
                              ls.distance, ou_s)
-        fb = evaluate_bsdf(f.luts, ls.wi, wo, itx, cfg.use_vndf)
-        f_pdf = evaluate_bsdf_pdf(f.luts, ls.wi, wo, itx, cfg.use_vndf)
+        fb, f_pdf = evaluate_bsdf_value_pdf(f.luts, ls.wi, wo, itx,
+                                            cfg.use_vndf)
         n_dot_wi = torch.abs(dot(itx.normal, ls.wi))
         w_nee = torch.where(ls.is_delta, 1.0,
                             power_heuristic(1, ls.pdf, 1, f_pdf))
