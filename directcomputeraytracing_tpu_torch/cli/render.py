@@ -4,7 +4,9 @@ The port's copy of `directcomputeraytracing_tpu.cli.render`, with the
 reference's flags, defaults and JSON result line, plus `--device`
 (default "cuda"; it fails where CUDA is absent and never falls back to
 the CPU). Scene specs: `preset:cornell[-glossy|-dielectric|-point]`,
-`preset:spheres[-N]`, an .obj (+ .mtl) framed from -z, or a Mitsuba .xml.
+`preset:spheres[-N]`, `preset:weekend` (the final scene of Ray Tracing in
+One Weekend, by default at the book's 1200x800 and depth), an .obj (+ .mtl)
+framed from -z, or a Mitsuba .xml.
 
     python -m directcomputeraytracing_tpu_torch.cli.render scene.xml \\
         --resx 1280 --resy 720 --spp 64 -o out.png
@@ -23,7 +25,8 @@ def build_parser():
         description="Monte-Carlo path tracer (PyTorch + CUDA port of "
                     "the DirectComputeRayTracing capability rebuild)")
     p.add_argument("scene", help=".obj or Mitsuba .xml scene file, or "
-                   "preset:cornell[-glossy|-dielectric|-point]")
+                   "preset:cornell[-glossy|-dielectric|-point], "
+                   "preset:spheres[-N] or preset:weekend")
     p.add_argument("--resx", type=int, default=None,
                    help="default 1280, unless the scene XML sets a film "
                         "size (reference default, CommandLineArgs.cpp)")
@@ -85,6 +88,15 @@ def load_scene(spec):
 
     if spec.startswith("preset:"):
         name = spec.split(":", 1)[1]
+        if name == "weekend":
+            from ..scene import presets
+            from ..scene.xml_loader import XmlRenderSettings
+
+            scene, cam = presets.one_weekend_final()
+            width, height = presets.WEEKEND_FRAME
+            return scene, cam, XmlRenderSettings(
+                width=width, height=height,
+                max_depth=presets.WEEKEND_MAX_BOUNCE + 1, camera=cam)
         if name.startswith("spheres"):
             from ..scene.presets import sphere_grid
 

@@ -32,7 +32,9 @@ Spans (`utils.trace`, recorded only while a profiler runs):
 `dcrt.integrator.chunk` per pixel chunk, `dcrt.renderer.film` (the
 pass's values into the film), `dcrt.renderer.image` (resolve and the
 copy to the host) and `dcrt.renderer.preview`. Set-up records, always
-kept: `dcrt.setup.flatten` and `dcrt.setup.luts` in the constructor,
+kept: `dcrt.setup.flatten` (fields `local_tris`, the scene's
+mesh-local triangles, and `instances`) and `dcrt.setup.luts` in the
+constructor,
 `dcrt.setup.first_pass` around each renderer's first `render` call,
 which ends in the image's copy to the host.
 
@@ -128,8 +130,10 @@ class Renderer:
             raise ValueError(f"integrator {integrator!r}: 'megakernel' or "
                              "'wavefront'")
         self.integrator = integrator
-        with setup("dcrt.setup.flatten"):
+        with setup("dcrt.setup.flatten") as rec:
             self.arrays, self.meta = flatten_scene(scene, self.device)
+            rec.add(local_tris=int(self.arrays.triangles.shape[0]),
+                    instances=int(self.arrays.instance_transforms.shape[0]))
         self.camera = to_device(camera, self.device)
         with setup("dcrt.setup.luts"):
             if luts is None:

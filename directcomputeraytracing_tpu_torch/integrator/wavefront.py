@@ -1,4 +1,4 @@
-"""Wavefront integrator: a fixed path pool, masked stages, cursor refill.
+"""Wavefront integrator: a path pool, masked stages, cursor refill.
 
 Counterpart of `directcomputeraytracing_tpu.integrator.wavefront` (the
 reference renderer's WavefrontPathTracer: a path pool driven by control,
@@ -10,6 +10,14 @@ estimation with one shadow cast, samples the BSDF and writes finished
 paths to the film. The loop ends when the cursor has passed the last
 item and no lane is busy: one host read per iteration (the busy count,
 which also moves the cursor).
+
+Once the cursor has passed the last item the pool drains: an iteration
+that refills no lane skips the new-path stage, and the pool sheds its
+idle lanes (a gather of the busy ones, in lane order) whenever they are
+half of it or more, so that the drain's casts and shading run on live
+paths only. On a CUDA card the pool takes the whole pass up to
+2^POOL_LOG2_CAP_CUDA lanes (`_pool_capacity`), so that few iterations
+refill and the drain sheds; elsewhere it keeps the reference's size.
 
 The per-path arithmetic (random-number draw order, NEE with MIS, BSDF
 sampling, light hits) is the megakernel's op for op, and lane seeds are
@@ -27,7 +35,13 @@ or `slab_march`, 0.0 for none): the closest cast through
 the shadow cast in two windows (`_pool_any`).
 
 `LAST_STATS` describes the last `render_samples_wavefront` call:
-iterations, pool size, `spp_batch`, the pool backend and slab depth,
+iterations, pool size, the lanes that cast summed over the iterations
+(`busy_lane_iterations`: each iteration's paths carried in plus the
+lanes it refilled), the iterations that began with the cursor past the
+last item (`tail_iterations`: the pool's drain), the lanes the pool
+held at each closest cast, summed (`cast_lane_iterations`, idle lanes
+included), `spp_batch`, the pool
+backend and slab depth,
 casts per slab phase and rays re-cast in later phases, for the closest
 and the shadow casts, and host reads. The reference's tunnel pacing
 (bounded dispatches, pauses) is gone. `sample_slots=True` gives every
@@ -42,7 +56,12 @@ masks, so both integrators trace the same paths; every pool cast and its
 slab phases take it.
 
 Spans (`utils.trace`, while a profiler runs): `dcrt.integrator.wavefront`
-around a pool pass (counts `pixels`, `spp_batch`, `iterations`), the
+around a pool pass (counts `pixels`, `spp_batch`, `iterations`,
+`pool_lanes`, `busy_lane_iterations`, `tail_iterations`,
+`cast_lane_iterations`: host numbers
+the loop has, as in `LAST_STATS`; `closest_live_rays`, the live rays of
+its closest casts, parked lanes left out: `busy_lane_iterations` plus
+the rays later slab phases re-cast), the
 casts' own (`accel.traverse`) and `dcrt.traversal.sort` around the
 pool's sort.
 """
@@ -89,6 +108,9 @@ from .megakernel import _mesh_light_camera_eval, _sel
 
 # largest default pool, 2^18 paths (the reference's DCRT_POOL_LOG2 default)
 POOL_LOG2_CAP = 18
+# largest default pool on a CUDA card, 2^21 paths: ~0.9 KB a lane at an
+# iteration's peak, 1.9 GB, where the reference's cap was its TPU's
+POOL_LOG2_CAP_CUDA = 21
 
 LAST_STATS = {}
 
@@ -109,19 +131,26 @@ class PoolState(NamedTuple):
     busy: torch.Tensor        # (P,) bool: the lane holds a live path
 
 
-def _pool_capacity(R, pool_size):
-    """Pool lanes for R (pixel, sample) items: pool_size, or a quarter of
-    R rounded down to a power of two, clamped to [2^13, 2^POOL_LOG2_CAP]
+def _pool_capacity(R, pool_size, cuda=False):
+    """Pool lanes for R (pixel, sample) items: pool_size; on a CUDA card
+    R rounded up to a power of two, at most 2^POOL_LOG2_CAP_CUDA (the
+    whole pass where it fits: the drain sheds idle lanes, so a larger
+    pool costs memory only); else, as the reference, a quarter of R
+    rounded down to a power of two, clamped to [2^13, 2^POOL_LOG2_CAP]
     and to R rounded up to a power of two."""
     if pool_size is not None:
         return pool_size
+    whole = 1 << (R - 1).bit_length()
+    if cuda:
+        return min(whole, 1 << POOL_LOG2_CAP_CUDA)
     quarter = max(R // 4, 1)
     P = 1 << max(13, min(POOL_LOG2_CAP, quarter.bit_length() - 1))
-    return min(P, 1 << (R - 1).bit_length())
+    return min(P, whole)
 
 
 def _make_state(R, pool_size, spp_batch, device):
-    P = _pool_capacity(R * spp_batch, pool_size)
+    P = _pool_capacity(R * spp_batch, pool_size,
+                       cuda=torch.device(device).type == "cuda")
     zi = torch.zeros(P, dtype=torch.int64, device=device)
     zf3 = torch.zeros((P, 3), dtype=torch.float32, device=device)
     return PoolState(
@@ -250,37 +279,44 @@ class _Frame:
 def _step(f: _Frame, casts: _Casts, s: PoolState, cursor, n_busy):
     """One pool iteration; returns the new state and cursor."""
     cfg, scene = f.cfg, f.scene
-    # ---- NEW_PATH: refill idle lanes from the cursor
-    idle = ~s.busy
-    rank = torch.cumsum(idle.long(), 0) - 1
+    # ---- NEW_PATH: refill idle lanes from the cursor (none in the drain,
+    # which keeps every lane as it is)
     navail = max(f.RT - cursor, 0)
-    take = idle & (rank < navail)
-    pixel_new = torch.where(take, cursor + rank, s.pixel)
-    cursor = cursor + min(s.busy.shape[0] - n_busy, navail)
+    refill = navail > 0 and n_busy < s.busy.shape[0]
+    if refill:
+        idle = ~s.busy
+        rank = torch.cumsum(idle.long(), 0) - 1
+        take = idle & (rank < navail)
+        pixel_new = torch.where(take, cursor + rank, s.pixel)
+        cursor = cursor + min(s.busy.shape[0] - n_busy, navail)
+    else:
+        take, pixel_new = torch.zeros_like(s.busy), s.pixel
     vidx = torch.clamp(pixel_new, 0, f.RT - 1)
     pidx = vidx // f.spp_batch
-    px, py = f.pixel_x[pidx], f.pixel_y[pidx]
-    seed = (f.frame_seed + vidx % f.spp_batch if f.spp_batch > 1
-            else f.frame_seed)
-    rng = _sel(take, init_rng(px, py, seed), s.rng)
-    rng, pixel_sample = _m2(rng, take)
-    pix = torch.stack([px, py], dim=-1).to(torch.float32)
-    rng, aperture_sample = _m3(rng, take)
-    cam_o, cam_d = generate_ray(f.cam, (pixel_sample + pix) / f.res,
-                                aperture_sample)
-    opacity_u = s.opacity_u
-    if cfg.any_hit:
-        rng, ou_new = _m1(rng, take)
-        opacity_u = torch.where(take, ou_new, opacity_u)
-    ray_o = _sel(take, cam_o, s.ray_o)
-    ray_d = _sel(take, cam_d, s.ray_d)
-    throughput = _sel(take, torch.ones_like(s.throughput), s.throughput)
-    li = _sel(take, torch.zeros_like(s.li), s.li)
-    bounce = torch.where(take, 0, s.bounce)
-    busy = s.busy | take
+    rng, opacity_u, ray_o, ray_d = s.rng, s.opacity_u, s.ray_o, s.ray_d
+    throughput, li, bounce, busy = s.throughput, s.li, s.bounce, s.busy
+    if refill:
+        px, py = f.pixel_x[pidx], f.pixel_y[pidx]
+        seed = (f.frame_seed + vidx % f.spp_batch if f.spp_batch > 1
+                else f.frame_seed)
+        rng = _sel(take, init_rng(px, py, seed), rng)
+        rng, pixel_sample = _m2(rng, take)
+        pix = torch.stack([px, py], dim=-1).to(torch.float32)
+        rng, aperture_sample = _m3(rng, take)
+        cam_o, cam_d = generate_ray(f.cam, (pixel_sample + pix) / f.res,
+                                    aperture_sample)
+        if cfg.any_hit:
+            rng, ou_new = _m1(rng, take)
+            opacity_u = torch.where(take, ou_new, opacity_u)
+        ray_o = _sel(take, cam_o, ray_o)
+        ray_d = _sel(take, cam_d, ray_d)
+        throughput = _sel(take, torch.ones_like(throughput), throughput)
+        li = _sel(take, torch.zeros_like(li), li)
+        bounce = torch.where(take, 0, bounce)
+        busy = busy | take
+        f.out_pos[torch.where(take, vidx if f.slots else pidx, f.OUT)] = \
+            pixel_sample
     is_primary = take
-    f.out_pos[torch.where(take, vidx if f.slots else pidx, f.OUT)] = \
-        pixel_sample
     bsdf_pdf_prev, is_delta_prev = s.bsdf_pdf, s.is_delta
 
     # ---- one sort of the pool per iteration; both casts run in its order
@@ -299,7 +335,7 @@ def _step(f: _Frame, casts: _Casts, s: PoolState, cursor, n_busy):
 
     # ---- light hits: camera view of lights, MIS-weighted for bounces
     light_idx = torch.where(hit.hit, itx.light_index, f.env_idx)
-    if cfg.light_visible:
+    if cfg.light_visible and refill:
         cam_light = is_primary & hit.hit & (itx.light_index
                                             != LIGHT_INDEX_INVALID)
         li = li + _sel(cam_light, _mesh_light_camera_eval(
@@ -378,6 +414,13 @@ def _step(f: _Frame, casts: _Casts, s: PoolState, cursor, n_busy):
         busy=still), cursor
 
 
+def _shed(s: PoolState):
+    """The pool cut to its busy lanes, in lane order: in the drain no lane
+    is refilled, so an idle lane would only cast a parked ray."""
+    keep = torch.nonzero(s.busy)[:, 0]
+    return PoolState(*(x[keep] for x in s))
+
+
 def render_samples_wavefront(scene, luts, cam, cfg: RenderConfig, pixel_x,
                              pixel_y, frame_seed, pool_size=None,
                              spp_batch=1, sample_slots=False):
@@ -402,15 +445,30 @@ def render_samples_wavefront(scene, luts, cam, cfg: RenderConfig, pixel_x,
                    spp_batch, sample_slots)
         casts = _Casts(scene, cfg)
         s = _make_state(f.R, pool_size, spp_batch, pixel_x.device)
-        cursor, n_busy, iters = 0, 0, 0
+        pool_lanes = int(s.busy.shape[0])
+        cursor, n_busy, iters, lane_iters, tail = 0, 0, 0, 0, 0
+        cast_lanes = 0
         while cursor < f.RT or n_busy > 0:
+            tail += cursor >= f.RT
+            cast_lanes += s.busy.shape[0]
+            start = cursor
             s, cursor = _step(f, casts, s, cursor, n_busy)
+            # the lanes that cast this iteration: the paths carried in
+            # and the lanes the cursor refilled
+            lane_iters += n_busy + cursor - start
             n_busy = int(s.busy.sum())     # the iteration's one host read
             iters += 1
-        sp.add(iterations=iters)
+            if cursor >= f.RT and 0 < n_busy <= s.busy.shape[0] // 2:
+                s = _shed(s)
+        sp.add(iterations=iters, pool_lanes=pool_lanes,
+               busy_lane_iterations=lane_iters, tail_iterations=tail,
+               cast_lane_iterations=cast_lanes,
+               closest_live_rays=lane_iters + sum(casts.closest.recast))
     LAST_STATS.clear()
     LAST_STATS.update(
-        iterations=iters, pool_size=int(s.busy.shape[0]),
+        iterations=iters, pool_size=pool_lanes,
+        busy_lane_iterations=lane_iters, tail_iterations=tail,
+        cast_lane_iterations=cast_lanes,
         spp_batch=int(spp_batch), items=f.RT, slots=f.OUT,
         pool_backend=casts.backend,
         slab_depth=casts.depth,

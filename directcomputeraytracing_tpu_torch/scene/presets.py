@@ -11,7 +11,17 @@ Alpha-tested scenes: `alpha_sphere_grid` is the reference's split scene
 at opacity 0.4), or with textured=True opaque but for the holes of an
 opacity mask (`dot_mask`, the reference stand-in's dot grid, made here
 with numpy); `alpha_panel` is the reference tests' panel over a floor.
+
+`one_weekend_final` is the final scene of P. Shirley, T. D. Black and
+S. Hollasch, *Ray Tracing in One Weekend* (v3.2.3, "A Final Render";
+`random_scene()` and `main()` of `src/InOneWeekend/main.cc`): the
+book's layout drawn from the book's generator (`BookRandom`,
+`one_weekend_layout`), its spheres instances of one `uv_sphere` mesh,
+its camera a thin lens, its sky a lat-long texture. Its departures from
+the book are listed on the function.
 """
+
+import math
 
 import numpy as np
 
@@ -303,4 +313,171 @@ def alpha_panel(opacity=0.5, textured=False):
     cam = CameraParams.create(
         transform=look_at_transform((0, 2.5, -4.0), (0, 0, 0)),
         fov_x=np.deg2rad(45.0))
+    return scene, cam
+
+
+# The book's generator state: a default-constructed std::mt19937
+# (rtweekend.h), whose seed is 5489.
+WEEKEND_SEED = 5489
+# The book's frame and path depth (`main()`: 1200 wide at 3:2, max_depth
+# 50). The book's `ray_color` traces at most 50 ray segments; the port
+# traces max_bounce + 2 (the camera ray, then one extension ray for each
+# of the max_bounce + 1 vertices that sample the BSDF), so 48 gives the
+# book's longest path.
+WEEKEND_FRAME = (1200, 800)
+WEEKEND_MAX_BOUNCE = 48
+# (stacks, slices) of the `uv_sphere` every sphere instances: a facet's
+# sagitta stays under a quarter pixel on the spheres of radius 1
+WEEKEND_SPHERE_MESH = (32, 64)
+# (height, width) of the sky's lat-long texture
+WEEKEND_SKY_SHAPE = (256, 512)
+
+
+class BookRandom:
+    """`random_double()` of the book's rtweekend.h: a static
+    std::uniform_real_distribution<double>(0, 1) over a std::mt19937,
+    whose libstdc++ `generate_canonical` forms one double from two 32-bit
+    outputs x0, x1 as (x0 + x1 * 2^32) / 2^64 in double arithmetic (below
+    1). `rnd(lo, hi)` is the book's `random_double(lo, hi)`, lo + (hi -
+    lo) * random_double(). numpy's MT19937 under the legacy seeding is
+    std::mt19937 output for output, seeded here with `WEEKEND_SEED`."""
+
+    def __init__(self):
+        self._bits = np.random.MT19937()
+        self._bits.state = np.random.RandomState(WEEKEND_SEED).get_state(
+            legacy=False)
+
+    def __call__(self, lo=0.0, hi=1.0):
+        x0, x1 = (float(x) for x in self._bits.random_raw(2))
+        r = (x0 + x1 * 4294967296.0) / 18446744073709551616.0
+        if r >= 1.0:
+            r = float(np.nextafter(1.0, 0.0))
+        return lo + (hi - lo) * r
+
+
+def one_weekend_layout():
+    """The spheres of the book's `random_scene()`, ground left out, in its
+    call order and its right-handed frame: [(centre, radius, material)],
+    material one of {"kind": "lambertian", "albedo"}, {"kind": "metal",
+    "albedo", "fuzz"} and {"kind": "dielectric", "ior"}. For a, b in
+    -11..10 a sphere of radius 0.2 at (a + 0.9 u, 0.2, b + 0.9 u), drawn
+    after `choose_mat` and kept unless within 0.9 of (4, 0.2, 0); then
+    the three spheres of radius 1. C++ leaves the order in which a call's
+    arguments are evaluated unspecified; they are drawn left to right
+    here, so a build of the book's code may place the spheres otherwise."""
+    rnd = BookRandom()
+    out = []
+    for a in range(-11, 11):
+        for b in range(-11, 11):
+            choose_mat = rnd()
+            centre = (a + 0.9 * rnd(), 0.2, b + 0.9 * rnd())
+            dx, dy, dz = centre[0] - 4.0, centre[1] - 0.2, centre[2] - 0.0
+            if not math.sqrt(dx * dx + dy * dy + dz * dz) > 0.9:
+                continue
+            if choose_mat < 0.8:
+                c1 = [rnd() for _ in range(3)]
+                c2 = [rnd() for _ in range(3)]
+                mat = {"kind": "lambertian",
+                       "albedo": [x * y for x, y in zip(c1, c2)]}
+            elif choose_mat < 0.95:
+                albedo = [rnd(0.5, 1.0) for _ in range(3)]
+                mat = {"kind": "metal", "albedo": albedo,
+                       "fuzz": rnd(0.0, 0.5)}
+            else:
+                mat = {"kind": "dielectric", "ior": 1.5}
+            out.append((centre, 0.2, mat))
+    out.append(((0.0, 1.0, 0.0), 1.0, {"kind": "dielectric", "ior": 1.5}))
+    out.append(((-4.0, 1.0, 0.0), 1.0,
+                {"kind": "lambertian", "albedo": [0.4, 0.2, 0.1]}))
+    out.append(((4.0, 1.0, 0.0), 1.0,
+                {"kind": "metal", "albedo": [0.7, 0.6, 0.5], "fuzz": 0.0}))
+    return out
+
+
+def book_metal_k(albedo):
+    """The absorption k of a conductor of eta 1 whose exact Fresnel
+    reflectance at normal incidence, k^2 / (4 + k^2), is the book's metal
+    albedo A (per channel, A < 1): k = 2 sqrt(A / (1 - A))."""
+    return tuple(2.0 * math.sqrt(a / (1.0 - a)) for a in albedo)
+
+
+def book_material(mat):
+    """The port's Material of one `one_weekend_layout` material: a
+    Lambertian is diffuse; glass a smooth dielectric; a metal a conductor
+    of eta 1 and `book_metal_k`, roughness = fuzz (smooth at fuzz 0)."""
+    if mat["kind"] == "lambertian":
+        return Material(albedo=tuple(mat["albedo"]), name="lambertian")
+    if mat["kind"] == "dielectric":
+        return Material(albedo=(1.0, 1.0, 1.0), ior=(mat["ior"],) * 3,
+                        mtype=MATERIAL_TYPE_DIELECTRIC, roughness=0.0,
+                        name="glass")
+    return Material(albedo=tuple(mat["albedo"]), ior=(1.0, 1.0, 1.0),
+                    k=book_metal_k(mat["albedo"]),
+                    mtype=MATERIAL_TYPE_CONDUCTOR, roughness=mat["fuzz"],
+                    name="metal")
+
+
+def book_sky():
+    """(height, width, 3) f32 lat-long radiance of the book's sky at
+    `WEEKEND_SKY_SHAPE`: white lerped to (0.5, 0.7, 1.0) by t = 0.5 (y +
+    1), y the direction's height at each texel centre (row i at polar
+    angle pi (i + 0.5) / height, `lights.sample_env_radiance`'s
+    mapping)."""
+    height, width = WEEKEND_SKY_SHAPE
+    y = np.cos(np.pi * (np.arange(height) + 0.5) / height)
+    t = (0.5 * (y + 1.0))[:, None]
+    rgb = (1.0 - t) + t * np.asarray([0.5, 0.7, 1.0])
+    return np.ascontiguousarray(np.broadcast_to(
+        rgb[:, None, :], (height, width, 3)), dtype=np.float32)
+
+
+def one_weekend_final():
+    """The final scene of *Ray Tracing in One Weekend* (v3.2.3): the
+    book's spheres (`one_weekend_layout`) as instances of one
+    `uv_sphere(*WEEKEND_SPHERE_MESH)` mesh, scaled by the radius and moved
+    to the centre, each with its own material (`book_material`) by
+    override; a sky of radiance 1 through `book_sky`; the book's camera,
+    a thin lens. Render it at `WEEKEND_FRAME` with `WEEKEND_MAX_BOUNCE`.
+
+    The port's frame is left-handed and the book's right-handed, so every
+    z (centres, camera) is negated: the image is the book's, not its
+    mirror. Departures from the book: the ground is a two-triangle plane
+    at y = 0 of half-width 1000, Lambertian 0.5 (the book's sphere of
+    radius 1000 under y = 0, which a mesh of this size would miss by
+    tenths of a unit under the small spheres, bends its horizon lower);
+    glass takes the exact dielectric Fresnel (the book: Schlick) and a
+    fuzzed metal GGX at roughness = fuzz with the conductor Fresnel's rise
+    at grazing angles (the book: a mirror direction plus fuzz times a
+    point in the unit ball, reflectance the albedo at every angle); the
+    sky is a bilinear texture lookup; next-event estimation samples the
+    sky with MIS, where the book samples the BSDF alone (the same
+    expectation). Returns (Scene, CameraParams on the CPU)."""
+    sv, si = uv_sphere(*WEEKEND_SPHERE_MESH)
+    sphere = Mesh(positions=sv, indices=si,
+                  material_ids=np.zeros(len(si), np.int64), name="sphere")
+    gp, gi = _quad([-1000.0, 0, -1000.0], [1000.0, 0, -1000.0],
+                   [1000.0, 0, 1000.0], [-1000.0, 0, 1000.0])
+    ground = Mesh(positions=gp, indices=gi,
+                  material_ids=np.zeros(len(gi), np.int64), name="ground")
+    mats = [Material(albedo=(0.5, 0.5, 0.5), name="ground")]
+    instances = [Instance(mesh=1, name="ground")]
+    for k, (c, r, mat) in enumerate(one_weekend_layout()):
+        t = np.zeros((4, 3), np.float32)
+        t[0, 0] = t[1, 1] = t[2, 2] = r
+        t[3] = (c[0], c[1], -c[2])
+        mats.append(book_material(mat))
+        instances.append(Instance(mesh=0, transform=t,
+                                  material_override=len(mats) - 1,
+                                  name=f"sphere_{k}"))
+    scene = Scene(meshes=[sphere, ground], instances=instances,
+                  materials=mats,
+                  lights=[PunctualLight(kind="env", radiance=(1.0, 1.0,
+                                                              1.0))],
+                  env_texture=book_sky())
+    aspect = WEEKEND_FRAME[0] / WEEKEND_FRAME[1]
+    cam = CameraParams.create(
+        transform=look_at_transform((13.0, 2.0, -3.0), (0.0, 0.0, 0.0)),
+        film_size=(0.036, 0.036 / aspect),
+        fov_x=2.0 * math.atan(aspect * math.tan(math.radians(20.0) / 2)),
+        aperture_radius=0.05, focal_distance=10.0, blade_count=0)
     return scene, cam

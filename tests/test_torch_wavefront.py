@@ -304,6 +304,44 @@ def test_pool_capacity_equals_the_reference():
     assert wf._pool_capacity(1920 * 1080 * 8, None) == 1 << wf.POOL_LOG2_CAP
 
 
+def test_pool_capacity_on_a_cuda_card():
+    """On a CUDA card the pool takes the whole pass, rounded up to a
+    power of two, up to 2^POOL_LOG2_CAP_CUDA lanes; pool_size still
+    rules."""
+    cap = 1 << wf.POOL_LOG2_CAP_CUDA
+    for r, want in ((1, 1), (2, 2), (100, 128), (8192, 8192),
+                    (40_000, 65_536), (1 << 20, 1 << 20),
+                    (1200 * 800 * 8, cap), (1920 * 1080 * 8, cap)):
+        assert wf._pool_capacity(r, None, cuda=True) == want
+        assert wf._pool_capacity(r, 300, cuda=True) == 300
+
+
+@pytest.mark.parametrize("name,spp", [("point-dielectric", 1), ("grid", 3)])
+def test_drain_sheds_idle_lanes_bit_for_bit(name, spp, monkeypatch):
+    """In the drain the pool sheds its idle lanes (`_shed`) and skips
+    the refill: the same positions and values, bit for bit, as a pool
+    that keeps all its lanes, and fewer lanes cast."""
+    arrays, luts, cam, cfg, px, py = _setup(name, 16, max_bounce=6)
+    kw = dict(pool_size=96, spp_batch=spp, sample_slots=spp > 1)
+    pos, val = wf.render_samples_wavefront(arrays, luts, cam, cfg, px, py,
+                                           5, **kw)
+    shed = dict(wf.LAST_STATS)
+    monkeypatch.setattr(wf, "_shed", lambda s: s)
+    pos_k, val_k = wf.render_samples_wavefront(arrays, luts, cam, cfg, px,
+                                               py, 5, **kw)
+    kept = dict(wf.LAST_STATS)
+    np.testing.assert_array_equal(pos.numpy(), pos_k.numpy())
+    np.testing.assert_array_equal(val.numpy(), val_k.numpy())
+    assert val.numpy().mean() > 0
+    assert shed["iterations"] == kept["iterations"]
+    assert shed["tail_iterations"] == kept["tail_iterations"] > 0
+    assert shed["busy_lane_iterations"] == kept["busy_lane_iterations"]
+    assert kept["cast_lane_iterations"] == kept["iterations"] * 96
+    assert (shed["busy_lane_iterations"] <= shed["cast_lane_iterations"]
+            < kept["cast_lane_iterations"])
+    assert shed["pool_size"] == kept["pool_size"] == 96
+
+
 @pytest.mark.parametrize("spp", [1, 4])
 def test_renderer_matches_reference(spp):
     """Renderer(integrator="wavefront") against the reference's, Cornell
