@@ -162,9 +162,24 @@ any failure exits non-zero:
    and profiler ms beside the twin's (the PyTorch route they replace),
    the bytes bound, registers and spills (`bsdf-kernel` lines);
 3. the main path: Cornell glossy 1024x1024, 16 spp, max_bounce 4 through
-   `Renderer.render`, with the kernels' launch counts checked against
+   `Renderer.render`, with the casts' launch counts checked against
    spp * (max_bounce + 2) * chunks (closest) and spp * (max_bounce + 1) *
-   chunks (any-hit, each BSDF kernel; the sphere grids' renders too);
+   chunks (any-hit; the sphere grids' renders too), and the BSDF
+   kernels' device events in one more pass, under the profiler, against
+   (max_bounce + 1) * chunks each: the pass replays CUDA graphs, whose
+   kernels no wrapper counts;
+3x. the megakernel's passes as CUDA graphs (`megakernel.PassGraphs`)
+   against eager passes, Cornell glossy 1024x1024, max_bounce 4, one
+   sample a pass: the graphed renderer's images equal the eager
+   renderer's bit for bit over passes with progressive seeds, before and
+   after a `set_material` edit (after which the second pass captures
+   again), and each pass launches the same dense sweeps both ways (the
+   BSDF wrappers' counts printed: eager launches alone); under the
+   profiler one pass each way shows the same hand-written kernels, as
+   many of each, with the device ops, busy ms and kernel counts each way
+   printed; host ms of each of those passes both ways (an edit's first
+   pass, the capture) and then a pass, graphed and eager in turns
+   (`mk-graphs` line);
 3b. the main path on a clustered scene: sphere_grid(12, 12) 1024x1024,
    16 spp, max_bounce 4. Closest sweeps plus closest casts with an empty
    item list must equal spp * (max_bounce + 2) * chunks, any-hit sweeps
@@ -343,7 +358,8 @@ any failure exits non-zero:
    last. `ms` is CUDA events around runs of wrapper calls; rows 1-3 and
    15-17 also give `kernel_ms`, the kernels' own time by the profiler
    (a short cast is timed by events with the host's gaps between its
-   launches).
+   launches); the BSDF rows' `launches` are their kernels' device events
+   in one profiled Cornell pass.
 
 The seeded ray sets of the sphere grids (2b-2h) come from
 `tools/common.py` `grid_ray_sets`, each phase with its own seed.
@@ -457,6 +473,8 @@ WAVEFRONT = dict(width=1920, height=1080, spp=8, max_bounce=4)
 AB_SPP = 2                              # samples of 3c's pool-backend turns
 WL_TWIN_BLOCKS = 64                     # ray blocks of 2b's random, shadow
 WARM_SPP = 2            # a warm-up's samples: one fused pass, as timed
+MK_GRAPH = dict(width=1024, height=1024, spp=1, max_bounce=4)
+MK_GRAPH_PASSES = 10                    # timed passes each way (3x)
 POOL_BIG = 1 << 20
 GROUPED_TWIN_BLOCKS = 16                # ray blocks of 2c's twins on 1M sets
 MK_VS_WF = dict(width=256, height=256, spp=4, max_bounce=4)
@@ -1824,8 +1842,8 @@ def _bsdf_lanes(device):
                        device=device)
     pix = torch.stack([px, py], dim=-1).to(torch.float32)
     origin, d = generate_ray(r.camera, (pixel_sample + pix) / res, aperture)
-    itx = shade_hit(scene, origin, d, mk._closest(scene, cfg, None, origin,
-                                                  d, None))
+    itx = shade_hit(scene, origin, d,
+                    mk._cast(scene, cfg, mk._Closest(origin, d, None)))
     rng, u_sel = next_sample_1d(rng)
     rng, u_tri = next_sample_1d(rng)
     rng, u2 = next_sample_2d(rng)
@@ -2136,7 +2154,6 @@ def phase_render(device, name, p=RENDER, backend="auto", warm_spp=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    bsdf0 = _bsdf_launches()
     t0 = time.perf_counter()
     img = r.render(spp=p["spp"])
     torch.cuda.synchronize()
@@ -2146,13 +2163,16 @@ def phase_render(device, name, p=RENDER, backend="auto", warm_spp=None):
         r.arrays, p["spp"] * (p["max_bounce"] + 2) * r.n_chunks,
         p["spp"] * (p["max_bounce"] + 1) * r.n_chunks, launches,
         backend=backend, alpha=r.cfg.any_hit)
+    post = r.postprocessed()
     # one BSDF evaluation (NEE, where the scene has lights) and one BSDF
-    # sample a bounce, each a kernel launch
-    bsdf = {k: v - bsdf0[k] for k, v in _bsdf_launches().items()}
-    bounces = p["spp"] * (p["max_bounce"] + 1) * r.n_chunks
+    # sample a bounce, each a kernel: counted as the device ran them in
+    # one more pass (it replays graphs, which no wrapper counts)
+    kinds, _ = _profiled_pass(r)
+    bsdf = {k: sum(c for n, c in kinds.items() if f"{k}_kernel" in n)
+            for k in ("bsdf_eval", "bsdf_sample")}
+    bounces = (p["max_bounce"] + 1) * r.n_chunks
     bsdf_expect = dict(bsdf_eval=bounces if r.cfg.light_count else 0,
                        bsdf_sample=bounces)
-    post = r.postprocessed()
     stats = dict(scene=name, backend=backend, world_tris=world_tris,
                  instanced=r.arrays.isup_inst.shape[0] > 1,
                  tiled_and_sorted=r._inv is not None,
@@ -2165,7 +2185,7 @@ def phase_render(device, name, p=RENDER, backend="auto", warm_spp=None):
                  post_max=float(post.max()),
                  post_finite=bool(np.isfinite(post).all()),
                  launches=launches, expected_launches=expect,
-                 bsdf_launches=bsdf, **_alpha_stats(r, launches))
+                 bsdf_kernels=bsdf, **_alpha_stats(r, launches))
     print("render", json.dumps(stats))
     if not (stats["finite"] and stats["post_finite"] and stats["mean"] > 0.0
             and img.shape == (p["height"], p["width"], 3)):
@@ -2173,7 +2193,108 @@ def phase_render(device, name, p=RENDER, backend="auto", warm_spp=None):
     if launches != expect:
         raise SystemExit(f"{name} launch counts {launches} != {expect}")
     if bsdf != bsdf_expect:
-        raise SystemExit(f"{name} BSDF launches {bsdf} != {bsdf_expect}")
+        raise SystemExit(f"{name} BSDF kernels a pass {bsdf} != "
+                         f"{bsdf_expect}")
+    return stats
+
+
+def _port_kernel(name):
+    """True for the name of a hand-written kernel the megakernel's pass
+    launches on Cornell: the dense sweeps and the BSDF kernels."""
+    return any(k in name for k in ("bsdf_eval_kernel", "bsdf_sample_kernel",
+                                   "closest_kernel", "any_kernel"))
+
+
+def _profiled_pass(r):
+    """One `render(1)` of r under the profiler: (Counter of its device
+    ops by name, device busy ms)."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r.render(1)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for s, t in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    return collections.Counter(e.name for e in dev), busy / 1000.0
+
+
+def phase_mk_graphs(device):
+    from directcomputeraytracing_tpu_torch.integrator import megakernel
+
+    g, _ = _renderer("cornell", MK_GRAPH, device)
+    e, _ = _renderer("cornell", MK_GRAPH, device)
+    if g._graphs is None:
+        raise SystemExit("the CUDA renderer keeps no pass graphs")
+    e._graphs = None
+    counts0 = megakernel.graph_counters()
+    # a key's first pass is eager, its second captures, later ones replay;
+    # pass 3 is the first after an edit
+    step_ms = {"graphed": [], "eager": []}
+    equal, launches, bsdf = [], [], {"graphed": [], "eager": []}
+    for step in range(6):
+        if step == 3:
+            for r in (g, e):
+                r.set_material(1, albedo=(0.1, 0.7, 0.2), roughness=0.4)
+        pair = []
+        for name, r in (("graphed", g), ("eager", e)):
+            _reset_launches()
+            bsdf0 = _bsdf_launches()
+            img, ms = _synced_ms(lambda: r.render(1))
+            pair.append((img, _launches()))
+            bsdf[name].append({k: v - bsdf0[k]
+                               for k, v in _bsdf_launches().items()})
+            step_ms[name].append(ms)
+        equal.append(bool(np.array_equal(pair[0][0], pair[1][0])))
+        launches.append(pair[0][1] == pair[1][1])
+    counts = {k: v - counts0[k]
+              for k, v in megakernel.graph_counters().items()}
+    # the BSDF wrappers count eager launches alone: none on a replay
+    replayed = (2, 5)
+    bsdf_counted = all(
+        got == (dict.fromkeys(got, 0) if step in replayed else want)
+        for step, (got, want) in enumerate(zip(bsdf["graphed"],
+                                               bsdf["eager"])))
+    kinds_g, busy_g = _profiled_pass(g)
+    kinds_e, busy_e = _profiled_pass(e)
+    mine = sorted(n for n in kinds_e if _port_kernel(n))
+    same_kernels = (bool(mine)
+                    and mine == sorted(n for n in kinds_g if _port_kernel(n))
+                    and all(kinds_g[n] == kinds_e[n] for n in mine))
+    ms = {"graphed": [], "eager": []}
+    for _ in range(MK_GRAPH_PASSES):
+        for name, r in (("graphed", g), ("eager", e)):
+            ms[name].append(_synced_ms(lambda: r.render(1))[1])
+    stats = dict(
+        card=_card_line(), equal=equal, same_launches=launches,
+        launches=pair[0][1], bsdf_wrapper_launches=bsdf,
+        bsdf_counted_eager_alone=bsdf_counted,
+        graph_counters=counts, step_ms=step_ms,
+        edit_first_pass_ms={k: v[3] for k, v in step_ms.items()},
+        edit_capture_pass_ms={k: v[4] for k, v in step_ms.items()},
+        same_kernels=same_kernels,
+        port_kernels={n[:60]: kinds_g[n] for n in mine},
+        device_ops=dict(graphed=sum(kinds_g.values()),
+                        eager=sum(kinds_e.values())),
+        busy_ms=dict(graphed=busy_g, eager=busy_e),
+        ops_only_graphed={n[:60]: c for n, c in (kinds_g - kinds_e).items()},
+        ops_only_eager={n[:60]: c for n, c in (kinds_e - kinds_g).items()},
+        ms_per_pass={k: float(np.median(v)) for k, v in ms.items()},
+        ms_all=ms)
+    print("mk-graphs", json.dumps(stats))
+    if not (all(equal) and all(launches) and same_kernels
+            and bsdf_counted):
+        raise SystemExit(f"graphed and eager passes differ: {stats}")
+    if counts["replays"] == 0 or counts["captures"] == 0:
+        raise SystemExit(f"the passes were not graphed: {counts}")
     return stats
 
 
@@ -3643,6 +3764,7 @@ def main():
                                  wl_times, wl_census)
     bsdf = phase("2j BSDF kernels", phase_bsdf_kernels, device)
     cornell = phase("3 Cornell render", phase_render, device, "cornell")
+    phase("3x megakernel CUDA graphs", phase_mk_graphs, device)
     grid = phase("3b sphere-grid render", phase_render, device, "grid")
     wave = phase("3c wavefront render", phase_wavefront, device)
     phase("3d wavefront vs megakernel", phase_wavefront_vs_megakernel,
@@ -3836,7 +3958,7 @@ def main():
             probe_tr["layout"]["library_ms"]),
         row("bsdf_eval", "directcomputeraytracing_tpu_torch/csrc/bsdf.cu",
             "none (bsdf/dispatch.py evaluate_bsdf, evaluate_bsdf_pdf)",
-            cornell["bsdf_launches"]["bsdf_eval"],
+            cornell["bsdf_kernels"]["bsdf_eval"],
             bsdf["eval"]["max_abs_err"],
             bsdf["eval"]["ms"], bsdf["eval"]["library_ms"],
             bsdf["eval"]["bound"], bsdf["eval"]["library_ms"],
@@ -3845,7 +3967,7 @@ def main():
             ptxas=bsdf["eval"]["ptxas"]),
         row("bsdf_sample", "directcomputeraytracing_tpu_torch/csrc/bsdf.cu",
             "none (bsdf/dispatch.py sample_bsdf)",
-            cornell["bsdf_launches"]["bsdf_sample"],
+            cornell["bsdf_kernels"]["bsdf_sample"],
             bsdf["sample"]["max_abs_err"], bsdf["sample"]["ms"],
             bsdf["sample"]["library_ms"], bsdf["sample"]["bound"],
             bsdf["sample"]["library_ms"],

@@ -2,7 +2,9 @@
 
 The integrators call these two functions. On CUDA tensors each launches
 one kernel of `csrc/bsdf.cu` (built with nvcc on first use, loaded with
-ctypes, launched on PyTorch's current stream) and counts the launch:
+ctypes, launched on PyTorch's current stream) and counts the launch (a
+call recorded into a CUDA graph under capture launches nothing then and
+is not counted; its replays are not counted either):
 `evaluate_bsdf_value_pdf` runs `bsdf_eval_kernel`, which returns NEE's
 value and pdf together, and `sample_bsdf` runs `bsdf_sample_kernel`. On
 any other device they call `dispatch`'s functions unchanged, which are
@@ -154,6 +156,12 @@ def launch_sample(lib, luts, wo, u2, u_sel, itx, use_vndf, stream=None):
     return err, (wi, value, pdf, is_delta)
 
 
+def _launched():
+    """1 where a call on the current stream launched its kernel, 0 where
+    a CUDA graph capture recorded it."""
+    return 0 if torch.cuda.is_current_stream_capturing() else 1
+
+
 def evaluate_bsdf_value_pdf(luts, wi, wo, itx, use_vndf=True):
     """NEE's f(wi, wo) (R, 3) and the pdf of sampling wi (R,), as
     `dispatch.evaluate_bsdf` and `dispatch.evaluate_bsdf_pdf` give them:
@@ -165,7 +173,7 @@ def evaluate_bsdf_value_pdf(luts, wi, wo, itx, use_vndf=True):
         err, out = launch_eval(kernels().lib, luts, wi, wo, itx, use_vndf,
                                torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "bsdf_eval")
-    evaluate_bsdf_value_pdf.launches += 1
+    evaluate_bsdf_value_pdf.launches += _launched()
     return out
 
 
@@ -180,7 +188,7 @@ def sample_bsdf(luts, wo, u2, u_sel, itx, use_vndf=True):
                                  use_vndf,
                                  torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "bsdf_sample")
-    sample_bsdf.launches += 1
+    sample_bsdf.launches += _launched()
     return out
 
 

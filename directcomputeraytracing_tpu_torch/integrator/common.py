@@ -1,5 +1,5 @@
 """Shared integrator pieces: render config, ray-origin offset, hit shading,
-the bounce-ray sort key and order, parked rays.
+the bounce-ray sort key and order, parked rays, small device constants.
 
 Counterpart of `directcomputeraytracing_tpu.integrator.common`, with the
 casts' slab and backend settings: `marches_slabs`, `pool_cast_backend`,
@@ -81,6 +81,22 @@ class RenderConfig:
     @property
     def has_env_light(self):
         return self.env_light_index >= 0
+
+
+_CONSTANTS = {}
+
+
+def constant(values, dtype, device):
+    """A small constant tensor, built once per (values, dtype, device) and
+    shared: callers only read it. A `torch.tensor(..., device=...)` on a
+    CUDA device copies from pageable host memory, which a CUDA graph
+    capture forbids, so the shading a capture records takes its constants
+    from here (built by an eager pass before the capture)."""
+    key = (values, dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
 
 
 def has_worklist_tables(scene):
@@ -234,12 +250,10 @@ def _tangent(t0, t1, t2, u, v, normal):
     ortho = tangent - dot(tangent, normal)[..., None] * normal
     tangent = torch.where((tlen >= eps)[..., None], ortho, tangent)
     tlen = norm(tangent)
-    fallback = cross(normal, torch.tensor([0.0, 1.0, 0.0], dtype=normal.dtype,
-                                          device=normal.device)
-                     .expand(normal.shape))
+    fallback = cross(normal, constant((0.0, 1.0, 0.0), normal.dtype,
+                                      normal.device).expand(normal.shape))
     flen = norm(fallback)
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=normal.dtype,
-                          device=normal.device)
+    x_axis = constant((1.0, 0.0, 0.0), normal.dtype, normal.device)
     fallback = torch.where((flen >= eps)[..., None], fallback, x_axis)
     return normalize(torch.where((tlen < eps)[..., None], fallback, tangent))
 
@@ -333,7 +347,6 @@ def sort_order(scene, origin, direction, alive):
 def park_rays(mask, origin, direction):
     """Lanes outside mask cast a far ray along +x that enters nothing
     (stale rays would widen their blocks' work-list items)."""
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=direction.dtype,
-                          device=direction.device)
+    x_axis = constant((1.0, 0.0, 0.0), direction.dtype, direction.device)
     return (torch.where(mask[:, None], origin, 2e9),
             torch.where(mask[:, None], direction, x_axis))

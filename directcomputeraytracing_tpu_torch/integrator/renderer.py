@@ -20,6 +20,14 @@ Checkpoints (`save_checkpoint` / `load_checkpoint`) keep the film and
 the sample count in the reference's npz format (`value`, `weight`,
 `spp`), so either package resumes the other's.
 
+On a CUDA device the megakernel's passes (`render_sample` and the fused
+passes) run as CUDA graphs (`megakernel.PassGraphs`): the first pass for
+a chunk length, config, scene, LUTs and camera runs eagerly, the second
+captures them, later passes replay them, with the same bits as the
+eager pass. A scene edit or a new camera makes a new key, whose first
+pass is eager again; `reset()` keeps the graphs. `preview` runs its
+passes eagerly.
+
 Scene edits (`set_material`, `set_light`, `set_instance_override`,
 `set_emitter_radiance`) update the flattened scene in place of a
 re-flatten (`scene.edit`) and restart the film, as the reference's dirty
@@ -72,6 +80,7 @@ from ..scene.scene import flatten_scene
 from ..utils.trace import setup, span
 from .common import RenderConfig, has_worklist_tables
 from .megakernel import (
+    PassGraphs,
     full_frame_pixels,
     render_samples,
     render_samples_accumulated,
@@ -164,6 +173,9 @@ class Renderer:
         self._first_render = True
         self._px, self._py, self._inv = _frame_pixels(self.arrays, self.cfg,
                                                       self.device)
+        # the megakernel's passes as CUDA graphs, on a CUDA device
+        self._graphs = (PassGraphs() if self.device.type == "cuda"
+                        and integrator == "megakernel" else None)
 
     @property
     def _box_fast_path(self):
@@ -184,6 +196,13 @@ class Renderer:
     def _raster(self, values):
         """Per-pixel values in the trace order -> raster order."""
         return values if self._inv is None else values[self._inv]
+
+    @property
+    def _trace(self):
+        """The megakernel's pass over a pixel chunk (`render_samples`'s
+        arguments and result): the renderer's CUDA graphs where it keeps
+        them, else `render_samples`."""
+        return render_samples if self._graphs is None else self._graphs.run
 
     def _wavefront(self, frame_seed, spp_batch=1, sample_slots=False):
         """The whole frame through one path pool: (positions, values) in
@@ -217,7 +236,7 @@ class Renderer:
             else:
                 parts = _each_chunk(
                     self._px, self._py,
-                    lambda px, py: render_samples(
+                    lambda px, py: self._trace(
                         self.arrays, self.luts, self.camera, self.cfg, px,
                         py, frame_seed))
                 pos = torch.cat([p for p, _ in parts])
@@ -289,7 +308,7 @@ class Renderer:
                 self._px, self._py,
                 lambda px, py: render_samples_accumulated(
                     self.arrays, self.luts, self.camera, self.cfg, px, py,
-                    self.spp, fuse)))
+                    self.spp, fuse, self._trace)))
         with span("dcrt.renderer.film"):
             self.film = accumulate_box(self.film, self._raster(total),
                                        self.cfg.height, self.cfg.width,

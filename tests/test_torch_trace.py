@@ -3,9 +3,10 @@
 A 16x16 Cornell box (glossy, area light, max_bounce 4) renders under
 `torch.profiler.profile`: one `render(1)` gives one
 `dcrt.renderer.render` holding one `pass` holding one `chunk`, and the
-chunk holds the camera, max_bounce + 1 bounces, max_bounce + 2 closest
-and max_bounce + 1 any-hit casts of the chunk's pixels each, as
-`integrator/megakernel.py`'s docstring counts. Every record lies inside
+chunk holds 2 * (max_bounce + 2) eager segments and, between them,
+max_bounce + 2 closest and max_bounce + 1 any-hit casts of the chunk's
+pixels each, as `integrator/megakernel.py`'s docstring counts. Every
+record lies inside
 its profiler event (2 µs of slack) and its parent, and carries its
 pass's id. With no profiler a render records nothing and opens no
 profiler range; images are bit-equal either way.
@@ -118,23 +119,36 @@ def test_one_render_tree(warm):
     inner = _descendants(recs, chunk)
     names = [r.name for r in inner]
     assert names.count("dcrt.integrator.camera") == 1
-    bounces = _children(recs, chunk, "dcrt.integrator.bounce")
-    assert [b.counts["bounce"] for b in bounces] == list(
-        range(MAX_BOUNCE + 1))
     closest = [r for r in inner if r.name == "dcrt.traversal.closest"]
     anyhit = [r for r in inner if r.name == "dcrt.traversal.any"]
     assert len(closest) == MAX_BOUNCE + 2
     assert len(anyhit) == MAX_BOUNCE + 1
     for cast in closest + anyhit:
         assert cast.counts == {"backend": "dense", "rays": W * H}
-    for b in bounces:
-        kids = [r.name for r in _children(recs, b)]
-        assert kids == ["dcrt.integrator.nee", "dcrt.integrator.bsdf_sample",
-                        "dcrt.traversal.closest", "dcrt.integrator.shade",
-                        "dcrt.integrator.emission"]
-        (nee,) = _children(recs, b, "dcrt.integrator.nee")
-        assert [r.name for r in _children(recs, nee)] == [
-            "dcrt.traversal.any"]
+    # the segments alternate with the casts: the camera, then per bounce
+    # shading, emission and NEE's light sample before the shadow cast,
+    # NEE's BSDF and MIS and the BSDF sample before the extension cast;
+    # last the shading and emission of the last cast
+    cam = ["dcrt.integrator.camera"]
+    pre = ["dcrt.integrator.shade", "dcrt.integrator.emission",
+           "dcrt.integrator.nee"]
+    post = ["dcrt.integrator.nee", "dcrt.integrator.bsdf_sample"]
+    want = ([cam, "dcrt.traversal.closest"]
+            + [pre, "dcrt.traversal.any", post, "dcrt.traversal.closest"]
+            * (MAX_BOUNCE + 1)
+            + [["dcrt.integrator.shade", "dcrt.integrator.emission"]])
+    kids = _children(recs, chunk)
+    assert len(kids) == len(want)
+    segments = [k for k in kids if k.name == "dcrt.integrator.segment"]
+    assert [s.counts for s in segments] == [
+        {"segment": k, "replayed": 0} for k in range(2 * (MAX_BOUNCE + 2))]
+    for kid, w in zip(kids, want):
+        if isinstance(w, str):
+            assert kid.name == w
+        else:
+            assert kid.name == "dcrt.integrator.segment"
+            assert [r.name for r in _children(recs, kid)] == w
+            assert _descendants(recs, kid) == _children(recs, kid)
 
     by_id = {r.id: r for r in recs}
     for r in recs:
